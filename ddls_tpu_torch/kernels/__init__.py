@@ -1,0 +1,212 @@
+"""The port's hand-written CUDA kernels: built with ``nvcc`` at first use,
+bound with ``ctypes``.
+
+Each source under ``csrc/`` is one kernel with a plain C entry point. At
+first use every library that is missing is compiled, one ``nvcc`` per
+source, all started together, for ``sm_90a`` into ``_build/`` beside this
+file (listed in ``.gitignore``; no binary is committed). A library's file
+name carries a digest of its sources and flags, so a changed source builds
+anew and a fresh process reuses what an earlier one built.
+
+Nothing here runs at import, so the module imports on a machine without
+``nvcc`` or a card; only ``build()`` and ``launch()`` need them.
+
+The wrappers that launch these kernels live beside their plain PyTorch
+versions, in the modules that call them (``ln_linear_act`` in
+``models/gnn.py``, ``csr_segment_mean`` and ``masked_mean_pool_concat`` in
+``ops/segment.py``, ``mask_logits_argmax`` in ``models/policy.py``); each
+wrapper checks its tensors with ``check_cuda`` and launches with
+``launch``, which raises if the C entry reports a CUDA error and
+otherwise counts the launch (``launch_counts``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "_build")
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEADERS = ("common.cuh",)
+
+
+@dataclass(frozen=True)
+class KernelSpec:
+    """One kernel: its source, C symbol and ctypes signature (``p`` a
+    pointer or stream, ``i`` a C int) and the JAX routine it replaces."""
+    name: str
+    symbol: str
+    signature: str
+    replaces: str
+
+    @property
+    def source(self) -> str:
+        return os.path.join(CSRC, f"{self.name}.cu")
+
+
+KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
+    KernelSpec("ln_linear_act", "ddls_ln_linear_act", "ppppppppiiiiiip",
+               "ddls_tpu/models/gnn.py:45"),
+    KernelSpec("csr_segment_mean", "ddls_csr_segment_mean", "ppppppiip",
+               "ddls_tpu/ops/segment.py:37"),
+    KernelSpec("masked_mean_pool_concat", "ddls_masked_mean_pool_concat",
+               "ppppiiiip",
+               "ddls_tpu/ops/segment.py:61"),
+    KernelSpec("mask_logits_argmax", "ddls_mask_logits_argmax", "ppppiip",
+               "ddls_tpu/models/policy.py:87"),
+)}
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_LOCK = threading.Lock()
+_LOADED: Dict[str, ctypes._CFuncPtr] = {}
+# launches per kernel since the last reset: how a run shows that it went
+# through the kernels (chip_smoke.py resets, serves, then reads them)
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> str:
+    """``_build/lib<name>-<digest>.so``: the digest covers the kernel's
+    source, the shared headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (KERNELS[name].source,
+                 *(os.path.join(CSRC, h) for h in HEADERS)):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR,
+                        f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile every library in ``names`` (default: all) that is not built
+    yet: one ``nvcc`` per source, all started together, each into a
+    temporary file renamed into place when it succeeds. Returns the
+    ``-Xptxas -v`` report per source compiled now (registers, shared
+    memory, spills); raises with the compiler's output if any failed,
+    after every started compile has ended."""
+    names = list(KERNELS) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = None
+    procs = {}
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, KERNELS[name].source]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True), tmp, path)
+    reports, failed = {}, []
+    for name, (proc, tmp, path) in procs.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, path)
+        reports[name] = output
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return reports
+
+
+def _symbol(name: str) -> ctypes._CFuncPtr:
+    with _LOCK:
+        fn = _LOADED.get(name)
+        if fn is None:
+            path = library_path(name)
+            if not os.path.exists(path):
+                build([name])
+            spec = KERNELS[name]
+            fn = getattr(ctypes.CDLL(path), spec.symbol)
+            fn.argtypes = [_CTYPES[c] for c in spec.signature]
+            fn.restype = ctypes.c_int
+            _LOADED[name] = fn
+        return fn
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry with ``args`` followed by PyTorch's
+    current stream; raise if it reports a CUDA error (a refused launch
+    never runs, and a later synchronise would not say so), else count the
+    launch."""
+    fn = _symbol(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    with _LOCK:
+        _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last ``reset_launch_counts``."""
+    with _LOCK:
+        return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    with _LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               shape: Optional[Sequence[int]] = None) -> None:
+    """What a kernel takes: a contiguous tensor of ``dtype`` (and
+    ``shape``) on the current CUDA device. Raises on anything else."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device.type != "cuda" or t.device.index != \
+            torch.cuda.current_device():
+        raise ValueError(f"{name} must lie on the current CUDA device "
+                         f"(cuda:{torch.cuda.current_device()}), got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when every given tensor lies on the CPU (the wrapper then takes
+    the plain version), False when all lie on CUDA devices (it launches the
+    kernel); raises for a mix or any other device."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"kernel inputs must all lie on the CPU or all on "
+                     f"CUDA, got devices {sorted(kinds)}")

@@ -1,0 +1,219 @@
+"""GNN actor-critic in PyTorch: per-node embeddings -> pooled graph
+embedding -> masked action logits + value.
+
+Counterpart of ``ddls_tpu/models/policy.py``. A batch runs as one
+flattened mega-graph of B*N nodes and B*E edges, as ``flat_batched`` does
+there; the host assembles it (``flat_graph_inputs``: per-sample offsets,
+the node mask and the destination-sorted CSR) so the device runs only the
+forward. The readout is kernel K3 (pooling + concat), the two MLP heads
+are ``F.linear`` (tiny, as the JAX package left them to XLA), and kernel
+K4 (``mask_logits_argmax``) masks the logits and picks the greedy action
+in one launch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ddls_tpu_torch import kernels
+from ddls_tpu_torch.envs.obs import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
+from ddls_tpu_torch.models.gnn import GNN, FeatureModule, get_activation
+from ddls_tpu_torch.ops.segment import build_csr, masked_mean_pool_concat
+
+FLOAT32_MIN = float(np.finfo(np.float32).min)
+
+
+# ------------------------------------------- K4: mask logits + greedy pick
+def mask_logits_argmax_plain(logits: torch.Tensor, mask: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``logits + max(log(mask), finfo(float32).min)`` and its argmax per
+    row (the first maximum, as ``np.argmax``)."""
+    floor = torch.clamp(torch.log(mask.to(torch.float32)), min=FLOAT32_MIN)
+    masked = logits + floor
+    return masked, torch.argmax(masked, dim=1)
+
+
+def mask_logits_argmax(logits: torch.Tensor, mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4: masked logits [B, A] (float32) and greedy actions [B] (int64)
+    from ``logits`` [B, A] float32 and the action ``mask`` [B, A] int32.
+    A masked logit is finite (``finfo.min + logit``), as the reference's
+    ``_mask_logits`` makes it; ties go to the lowest index."""
+    if kernels.on_cpu(logits, mask):
+        return mask_logits_argmax_plain(logits, mask)
+    kernels.check_cuda("logits", logits, torch.float32)
+    if logits.dim() != 2:
+        raise ValueError(f"logits must be [B, A], got "
+                         f"{tuple(logits.shape)}")
+    rows, a = logits.shape
+    kernels.check_cuda("mask", mask, torch.int32, (rows, a))
+    masked = torch.empty_like(logits)
+    actions = torch.empty(rows, dtype=torch.int64, device=logits.device)
+    if rows and a:
+        kernels.launch("mask_logits_argmax", logits.data_ptr(),
+                       mask.data_ptr(), masked.data_ptr(),
+                       actions.data_ptr(), rows, a)
+    return masked, actions
+
+
+# ---------------------------------------------------- host batch assembly
+def flat_graph_inputs(edges_src: np.ndarray, edges_dst: np.ndarray,
+                      node_split: np.ndarray, edge_split: np.ndarray,
+                      max_nodes: int
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray]:
+    """The flattened mega-graph of a [B, E] edge batch, on the host:
+    ``(src [B*E] int32, node_mask [B*N] float32, row_ptr [B*N+1] int32,
+    col [B*E] int32)``. Sample b's node n becomes node ``b*N + n``;
+    padded edges (past ``edge_split``) read node ``b*N`` and leave the
+    CSR, so their contents never matter. Raises if a real edge's endpoint
+    lies outside its graph's real nodes."""
+    edges_src = np.asarray(edges_src)
+    edges_dst = np.asarray(edges_dst)
+    batch, n_edges_pad = edges_src.shape
+    n_nodes = np.asarray(node_split).reshape(batch, -1)[:, 0]
+    n_edges = np.asarray(edge_split).reshape(batch, -1)[:, 0]
+    node_mask = np.arange(max_nodes) < n_nodes[:, None]
+    edge_mask = np.arange(n_edges_pad) < n_edges[:, None]
+    for key, ends in (("edges_src", edges_src), ("edges_dst", edges_dst)):
+        bad = edge_mask & ((ends < 0) | (ends >= n_nodes[:, None]))
+        if bad.any():
+            b = int(np.flatnonzero(bad.any(axis=1))[0])
+            raise ValueError(f"{key} of sample {b} points outside its "
+                             f"{int(n_nodes[b])} real nodes")
+    offsets = (np.arange(batch, dtype=np.int64) * max_nodes)[:, None]
+    src = (np.where(edge_mask, edges_src, 0) + offsets).astype(np.int32)
+    dst = np.where(edge_mask, edges_dst, 0) + offsets
+    row_ptr, col = build_csr(dst.reshape(-1), edge_mask.reshape(-1),
+                             batch * max_nodes)
+    return (src.reshape(-1), node_mask.astype(np.float32).reshape(-1),
+            row_ptr, col)
+
+
+def prepare_flat_batch(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A stacked observation batch (the ``envs/obs.py`` keys, each [B, ...])
+    -> the host arrays ``GNNPolicy.flat_batched`` takes."""
+    nf = np.asarray(obs["node_features"], np.float32)
+    src, node_mask, row_ptr, col = flat_graph_inputs(
+        obs["edges_src"], obs["edges_dst"], obs["node_split"],
+        obs["edge_split"], nf.shape[1])
+    return {
+        "node_features": nf,
+        "edge_features": np.asarray(obs["edge_features"], np.float32),
+        "graph_features": np.asarray(obs["graph_features"], np.float32),
+        "action_mask": np.asarray(obs["action_mask"], np.int32),
+        "src": src, "node_mask": node_mask,
+        "csr_row_ptr": row_ptr, "csr_col": col,
+    }
+
+
+# ----------------------------------------------------------------- modules
+class MLPHead(nn.Module):
+    """Plain Dense stack for the logit and value readouts; ``Dense_k``
+    names follow flax's."""
+
+    def __init__(self, in_features: int, hiddens: Sequence[int],
+                 out_features: int, activation: str = "relu", device=None):
+        super().__init__()
+        self.activation = activation
+        get_activation(activation)
+        widths = [in_features, *hiddens, out_features]
+        self.n_layers = len(widths) - 1
+        for i in range(self.n_layers):
+            setattr(self, f"Dense_{i}",
+                    nn.Linear(widths[i], widths[i + 1], device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = get_activation(self.activation)
+        for i in range(self.n_layers):
+            x = getattr(self, f"Dense_{i}")(x)
+            if i < self.n_layers - 1:
+                x = act(x)
+        return x
+
+
+class GNNPolicy(nn.Module):
+    """Actor-critic over padded-graph observations
+    (``ddls_tpu/models/policy.py:GNNPolicy``, same defaults and parameter
+    names). Unlike flax, the input widths are given, not inferred:
+    ``graph_feature_dim`` is the encoder's graph-vector width."""
+
+    def __init__(self, n_actions: int, graph_feature_dim: int,
+                 out_features_msg: int = 32, out_features_hidden: int = 64,
+                 out_features_node: int = 16, out_features_graph: int = 8,
+                 num_rounds: int = 2, module_depth: int = 1,
+                 activation: str = "relu",
+                 fcnet_hiddens: Sequence[int] = (256, 256),
+                 fcnet_activation: str = "relu",
+                 apply_action_mask: bool = True,
+                 node_feature_dim: int = NODE_FEATURE_DIM,
+                 edge_feature_dim: int = EDGE_FEATURE_DIM,
+                 device=None):
+        super().__init__()
+        self.n_actions = int(n_actions)
+        self.graph_feature_dim = int(graph_feature_dim)
+        self.apply_action_mask = bool(apply_action_mask)
+        self.gnn = GNN(node_feature_dim, edge_feature_dim, out_features_msg,
+                       out_features_hidden, out_features_node, num_rounds,
+                       module_depth, activation, device)
+        self.graph_module = FeatureModule(graph_feature_dim,
+                                          out_features_graph, module_depth,
+                                          activation, device)
+        readout = out_features_node + out_features_graph
+        self.logit_head = MLPHead(readout, fcnet_hiddens, n_actions,
+                                  fcnet_activation, device)
+        self.value_head = MLPHead(readout, fcnet_hiddens, 1,
+                                  fcnet_activation, device)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _mask_logits(self, logits: torch.Tensor, action_mask: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(masked logits, greedy actions) through K4; without action
+        masking every action counts as valid (``logits + 0``)."""
+        if not self.apply_action_mask:
+            action_mask = torch.ones_like(action_mask)
+        return mask_logits_argmax(logits, action_mask)
+
+    def flat_batched(self, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """B observations as ONE flattened graph (``prepare_flat_batch``
+        arrays as tensors on this model's device) -> (masked logits [B, A],
+        values [B], greedy actions [B] int64)."""
+        nf = batch["node_features"]
+        ef = batch["edge_features"]
+        b, n, fn = nf.shape
+        e = ef.shape[1]
+        node_mask = batch["node_mask"]
+        node_emb = self.gnn(nf.reshape(b * n, fn),
+                            ef.reshape(b * e, ef.shape[2]), batch["src"],
+                            node_mask, batch["csr_row_ptr"],
+                            batch["csr_col"])
+        graph_emb = self.graph_module(batch["graph_features"])
+        final_emb = masked_mean_pool_concat(
+            node_emb.reshape(b, n, node_emb.shape[1]),
+            node_mask.reshape(b, n), graph_emb)
+        logits = self.logit_head(final_emb)
+        values = self.value_head(final_emb)[:, 0]
+        masked, actions = self._mask_logits(logits, batch["action_mask"])
+        return masked, values, actions
+
+    def forward(self, obs: Dict[str, np.ndarray]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One observation (the ``envs/obs.py`` dict) -> (masked logits
+        [A], value []), as a batch of one through ``flat_batched``."""
+        logits, values, _ = self.flat_batched(batch_to_device(
+            prepare_flat_batch({k: np.asarray(v)[None]
+                                for k, v in obs.items()}), self.device))
+        return logits[0], values[0]
+
+
+def batch_to_device(batch: Dict[str, np.ndarray],
+                    device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}

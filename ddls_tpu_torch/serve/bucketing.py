@@ -1,0 +1,164 @@
+"""Observation bucketing for online serving.
+
+Counterpart of ``ddls_tpu/serve/bucketing.py``. The forward runs one
+program shape per bucket, so the server snaps every request onto a small
+fixed ladder of (max_nodes, max_edges) **buckets**: each observation is
+re-padded (``envs.obs.pad_obs_to`` — the masked-pad policy, real rows
+untouched) into the smallest bucket that fits, instead of one pad bound
+that drags many dead masked rows through every forward.
+
+Bucket choice is deterministic in the request's true (n_ops, n_deps), so a
+given request always runs the same program shape — reproducible decisions.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ddls_tpu_torch.envs.obs import pad_obs_to
+
+BucketSpec = Tuple[int, int]  # (max_nodes, max_edges)
+
+
+def default_buckets(max_nodes: int, max_edges: Optional[int] = None,
+                    n_buckets: int = 3) -> List[BucketSpec]:
+    """A halving ladder ending at the dataset bound: e.g. 32 nodes ->
+    [(8, e/4), (16, e/2), (32, e)]. ``max_edges`` defaults to the
+    fully-connected bound (the reference's own pad policy; pass the
+    dataset's true dep bound for tight buckets, as bench.py does)."""
+    if max_nodes < 1:
+        raise ValueError(f"max_nodes must be >= 1, got {max_nodes}")
+    if max_edges is None:
+        max_edges = (max_nodes * (max_nodes - 1)) // 2
+    buckets: List[BucketSpec] = []
+    n, e = int(max_nodes), int(max_edges)
+    for _ in range(max(1, n_buckets)):
+        buckets.append((n, max(e, 1)))
+        if n <= 2:
+            break
+        n = (n + 1) // 2
+        e = (e + 1) // 2
+    return sorted(set(buckets))
+
+
+class ObsBucketer:
+    """Maps encoded observations onto a fixed bucket ladder.
+
+    ``buckets`` is a sequence of (max_nodes, max_edges) pairs; selection is
+    smallest-first by (nodes, edges) with both dimensions required to fit.
+    Requests larger than every bucket raise ``BucketOverflowError`` — the
+    server answers those from the heuristic fallback rather than running
+    an unbounded program shape on demand.
+
+    ``reuse_arenas``: recycle per-bucket destination arrays (the
+    ``pad_obs_to(out=...)`` encode-into-destination API) instead of
+    allocating a fresh padded obs per request — bit-identical output
+    (pinned in tests/test_torch_serve.py).
+    The caller then OWNS the lease discipline: each ``bucket_obs`` result
+    aliases one arena until ``release(idx, obs)`` returns it to the pool,
+    so release only after the request leaves the microbatch queue and its
+    batch is resolved (PolicyServer does this at the end of each flush).
+    """
+
+    def __init__(self, buckets: Sequence[BucketSpec],
+                 reuse_arenas: bool = False,
+                 max_pool_per_bucket: int = 64):
+        if not buckets:
+            raise ValueError("need at least one bucket")
+        self.buckets: List[BucketSpec] = sorted(
+            (int(n), int(e)) for n, e in buckets)
+        for n, e in self.buckets:
+            if n < 1 or e < 1:
+                raise ValueError(f"bucket ({n}, {e}) must be positive")
+        self.reuse_arenas = bool(reuse_arenas)
+        self.max_pool_per_bucket = int(max_pool_per_bucket)
+        self._pools: List[List[Dict[str, np.ndarray]]] = [
+            [] for _ in self.buckets]
+
+    def bucket_index(self, n_nodes: int, n_edges: int) -> int:
+        for i, (bn, be) in enumerate(self.buckets):
+            if n_nodes <= bn and n_edges <= be:
+                return i
+        raise BucketOverflowError(
+            f"graph with {n_nodes} ops / {n_edges} deps exceeds every "
+            f"bucket {self.buckets}")
+
+    def _new_arena(self, idx: int,
+                   obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Destination arrays for one request in bucket ``idx``: padded
+        fields at the bucket bounds, passthrough fields (graph_features,
+        action_mask, action_set, ...) shaped/typed from this obs."""
+        bn, be = self.buckets[idx]
+        arena: Dict[str, np.ndarray] = {
+            "node_features": np.zeros((bn, np.asarray(
+                obs["node_features"]).shape[1]), np.float32),
+            "edge_features": np.zeros((be, np.asarray(
+                obs["edge_features"]).shape[1]), np.float32),
+            "edges_src": np.zeros(be, np.int32),
+            "edges_dst": np.zeros(be, np.int32),
+            "node_split": np.zeros(1, np.int32),
+            "edge_split": np.zeros(1, np.int32),
+        }
+        for key, val in obs.items():
+            if key not in arena:
+                val = np.asarray(val)
+                arena[key] = np.empty(val.shape, val.dtype)
+        return arena
+
+    def _arena_fits(self, arena: Dict[str, np.ndarray],
+                    obs: Dict[str, np.ndarray]) -> bool:
+        """Passthrough fields must match this obs exactly — BOTH ways:
+        every obs extra must have a matching arena array, and the arena
+        must carry no key this obs lacks (``pad_obs_to(out=)`` copies
+        every ``out`` entry from the obs, so a stale extra key from a
+        previous occupant would KeyError mid-request). A mismatched
+        client simply gets a fresh arena rather than a crash or a
+        silent cast; widths are config-constant in practice."""
+        if set(arena) != set(obs):
+            return False
+        for key in ("node_features", "edge_features"):
+            # feature WIDTH rides the client obs (the server pins it at
+            # submit; standalone callers may vary) — row counts are the
+            # bucket's own and always match within a pool
+            if arena[key].shape[1] != np.asarray(obs[key]).shape[1]:
+                return False
+        for key, val in obs.items():
+            if key in ("node_features", "edge_features", "edges_src",
+                       "edges_dst", "node_split", "edge_split"):
+                continue
+            dst = arena[key]
+            val = np.asarray(val)
+            if dst.shape != val.shape or dst.dtype != val.dtype:
+                return False
+        return True
+
+    def bucket_obs(self, obs: Dict[str, np.ndarray]
+                   ) -> Tuple[int, Dict[str, np.ndarray]]:
+        """Pick the smallest fitting bucket and re-pad the obs into it."""
+        n = int(np.asarray(obs["node_split"]).reshape(-1)[0])
+        m = int(np.asarray(obs["edge_split"]).reshape(-1)[0])
+        idx = self.bucket_index(n, m)
+        bn, be = self.buckets[idx]
+        if not self.reuse_arenas:
+            return idx, pad_obs_to(obs, bn, be)
+        pool = self._pools[idx]
+        arena = pool.pop() if pool else self._new_arena(idx, obs)
+        if not self._arena_fits(arena, obs):
+            arena = self._new_arena(idx, obs)
+        return idx, pad_obs_to(obs, bn, be, out=arena)
+
+    def release(self, idx: int, obs: Dict[str, np.ndarray]) -> None:
+        """Return a ``bucket_obs`` result's arena to bucket ``idx``'s
+        pool once nothing references its arrays any more. No-op unless
+        ``reuse_arenas``; the pool is bounded so a queue burst can never
+        pin unbounded memory."""
+        if not self.reuse_arenas or obs is None:
+            return
+        pool = self._pools[idx]
+        if len(pool) < self.max_pool_per_bucket:
+            pool.append(obs)
+
+
+class BucketOverflowError(ValueError):
+    """Raised when a request graph fits no configured bucket."""

@@ -1,0 +1,617 @@
+"""Serving fleet: N PolicyServer replicas behind an admission/routing
+front end.
+
+Counterpart of ``ddls_tpu/serve/fleet.py``. Capacity scales by adding
+independent replicas — each :class:`PolicyServer` keeps its own private
+``ServeStats`` registry and its own copy of the model — behind a thin
+:class:`Router` that owns only admission and placement. Three design
+rules:
+
+* **Shed before degrade.** With shedding enabled the Router refuses a
+  request EXPLICITLY (``source="shed"``, no action) *before* the replica's
+  saturation fallback can fire — overload becomes visible back-pressure.
+  Data-error (``overflow``/``invalid``) and failed-forward (``degraded``)
+  fallbacks are untouched.
+* **Routing never changes an answer.** Every replica runs the same
+  fixed-shape programs over the same params, and at a fixed program shape
+  a request's outputs depend only on its own data, so fleet answers are
+  bit-equal to a single server whatever the routing or batch composition.
+* **Live reconfiguration is drain-then-swap.** Checkpoint hot-swap and
+  bucket-ladder re-fit drain each replica (old params/ladder answer
+  everything already admitted) before installing the new state.
+
+Everything is single-threaded and clock-parameterised like the rest of
+the serve stack, so a seeded request stream replays to identical
+decisions.
+"""
+from __future__ import annotations
+
+import bisect
+import hashlib
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple)
+
+import numpy as np
+
+from ddls_tpu_torch import telemetry
+from ddls_tpu_torch.serve.bucketing import BucketSpec
+from ddls_tpu_torch.serve.server import PolicyServer, ServeResponse
+
+# virtual nodes per replica on the consistent-hash ring: enough that
+# adding/retiring one replica moves ~1/N of tenant keys, small enough
+# that ring rebuilds are free at fleet sizes
+HASH_RING_VNODES = 32
+
+# observed request-size window for bucket-ladder re-fit: bounded so a
+# long-lived router holds a recent-distribution sample, not every
+# request ever routed
+SIZE_WINDOW = 4096
+
+
+@dataclass
+class FleetResponse:
+    """One routed decision (or an explicit shed). ``action is None``
+    exactly when ``source == "shed"`` — a shed is a refusal, not a
+    heuristic answer (shed-before-degrade: the client sees back-pressure
+    instead of a silently degraded decision)."""
+    request_id: int
+    action: Optional[int]
+    source: str            # "policy" | "fallback" | "shed"
+    reason: str            # ServeResponse reasons | "quota" | "overload"
+    replica: Optional[int]
+    bucket_idx: Optional[int]
+    latency_s: float
+    tenant: Optional[str] = None
+    batch_fill: Optional[int] = None
+
+
+class TokenBucket:
+    """Per-tenant admission quota: ``rate`` tokens/s refill up to
+    ``burst``; one token per admitted request. Deterministic in the
+    submitted ``now`` timestamps (out-of-order timestamps clamp to a
+    zero refill rather than minting tokens from the past)."""
+
+    __slots__ = ("rate", "burst", "tokens", "last")
+
+    def __init__(self, rate: float, burst: float, now: float):
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.tokens = float(burst)
+        self.last = float(now)
+
+    def admit(self, now: float) -> bool:
+        dt = max(now - self.last, 0.0)
+        self.tokens = min(self.burst, self.tokens + dt * self.rate)
+        self.last = max(self.last, now)
+        if self.tokens >= 1.0:
+            self.tokens -= 1.0
+            return True
+        return False
+
+
+def _stable_hash(key: str) -> int:
+    """Process-stable 32-bit hash (python's ``hash`` is salted per
+    process — routing must be reproducible across runs)."""
+    return int.from_bytes(hashlib.md5(key.encode()).digest()[:4], "big")
+
+
+def fit_buckets(sizes: Sequence[Tuple[int, int]],
+                n_buckets: int = 3) -> List[BucketSpec]:
+    """A bucket ladder fitted to an observed (n_ops, n_deps) population:
+    rung ``k`` of ``n`` sits at the ceil of the ``(k+1)/n`` quantile of
+    each dimension independently, so the top rung covers the observed
+    max and the lower rungs track where the mass actually is (vs the
+    blind halving ladder of ``default_buckets``). Deterministic in the
+    sample; duplicate rungs collapse."""
+    if not sizes:
+        raise ValueError("need at least one observed size to fit buckets")
+    ns = np.sort(np.asarray([s[0] for s in sizes], dtype=np.int64))
+    ms = np.sort(np.asarray([s[1] for s in sizes], dtype=np.int64))
+    specs = []
+    for k in range(max(1, int(n_buckets))):
+        q = (k + 1) / max(1, int(n_buckets))
+        i = min(len(ns) - 1, int(np.ceil(q * len(ns))) - 1)
+        specs.append((max(1, int(ns[i])), max(1, int(ms[i]))))
+    # monotone + unique: a lower rung may not exceed a higher one in
+    # either dimension (selection requires BOTH dims to fit)
+    out: List[BucketSpec] = []
+    for n, m in sorted(set(specs)):
+        while out and (out[-1][0] >= n or out[-1][1] >= m):
+            n, m = max(n, out[-1][0]), max(m, out[-1][1])
+            out.pop()
+        out.append((n, m))
+    return out
+
+
+@dataclass
+class _Replica:
+    rid: int
+    server: PolicyServer
+
+    @property
+    def routable(self) -> bool:
+        return not (self.server.draining or self.server.closed)
+
+
+class ReplicaSet:
+    """The fleet's replica fragments: owns creation (``replica_factory``
+    — each call builds a fresh PolicyServer with its OWN ServeStats and
+    model copy), retirement (drain-then-close), rolling hot-swap
+    and ladder re-fit. Replica ids are monotonic — a retired id is
+    never reused, so per-replica stats keys stay unambiguous across
+    scale events."""
+
+    def __init__(self, replica_factory: Callable[[], PolicyServer],
+                 n_replicas: int = 1):
+        if n_replicas < 1:
+            raise ValueError(f"need >= 1 replica, got {n_replicas}")
+        self.replica_factory = replica_factory
+        self._next_rid = 0
+        self.replicas: List[_Replica] = []
+        for _ in range(int(n_replicas)):
+            self.add_replica()
+
+    def add_replica(self) -> _Replica:
+        rep = _Replica(rid=self._next_rid, server=self.replica_factory())
+        self._next_rid += 1
+        self.replicas.append(rep)
+        return rep
+
+    def retire_replica(self, now: Optional[float] = None
+                       ) -> Tuple[_Replica, List[ServeResponse]]:
+        """Drain and close the newest replica (LIFO keeps the hash ring
+        maximally stable for the survivors); every admitted request is
+        answered before the replica leaves. Returns the retired replica
+        so the caller can keep its final stats snapshot — the private
+        registry leaves the fleet with it."""
+        if len(self.replicas) <= 1:
+            raise RuntimeError("cannot retire the last replica")
+        rep = self.replicas.pop()
+        return rep, rep.server.close(now=now)
+
+    def routable(self) -> List[_Replica]:
+        return [r for r in self.replicas if r.routable]
+
+    def swap_all(self, params, now: Optional[float] = None) -> None:
+        """Rolling drain-then-swap across the fleet: one replica at a
+        time leaves the routing set, answers everything it already
+        admitted with the OLD params, gets the new params, and rejoins —
+        the fleet never serves a mid-swap degraded answer and never has
+        zero routable replicas (single-threaded, so "rolling" here
+        bounds *drain batching*: each replica's queue flushes as one
+        forced drain under old params)."""
+        for rep in list(self.replicas):
+            rep.server.begin_drain()
+            rep.server.swap_params(params, now=now)
+            rep.server.end_drain()
+
+    def refit_all(self, buckets: Sequence[BucketSpec],
+                  now: Optional[float] = None) -> None:
+        for rep in list(self.replicas):
+            rep.server.begin_drain()
+            rep.server.reconfigure_buckets(buckets, now=now)
+            rep.server.end_drain()
+
+
+class Router:
+    """Admission + placement front end over a :class:`ReplicaSet`.
+
+    Parameters
+    ----------
+    replica_factory : builds one PolicyServer (own stats, own model
+        copy); also used by ``scale_to``'s scale-up path.
+    n_replicas : initial fleet size.
+    routing : ``"affinity"`` (default — consistent-hash by tenant,
+        least-loaded for untenanted requests), ``"least_loaded"``,
+        ``"round_robin"``, or ``"hash"`` (consistent-hash by tenant,
+        falling back to the request id — fully deterministic spread).
+    shed_enabled : refuse (``source="shed"``) instead of letting a
+        saturated replica answer from the heuristic; ``max_fleet_queue``
+        optionally sheds on TOTAL queued depth before any single replica
+        saturates.
+    quota_rps / quota_burst : per-tenant token-bucket admission
+        (requests without a tenant are exempt); quota shedding implies
+        nothing about untenanted traffic.
+    clock : shared time source (tests inject a fake; replicas built by
+        the default factories share it).
+    warm_replica : optional hook run on every replica the Router builds
+        (initial fleet AND scale-ups) BEFORE it joins the routing set,
+        e.g. one forward per bucket so a new replica never serves its
+        first batches cold (the first launch of each kernel in a process
+        loads its library).
+    """
+
+    def __init__(self, replica_factory: Callable[[], PolicyServer],
+                 n_replicas: int = 1, routing: str = "affinity",
+                 shed_enabled: bool = False,
+                 max_fleet_queue: Optional[int] = None,
+                 quota_rps: Optional[float] = None,
+                 quota_burst: Optional[float] = None,
+                 clock: Callable[[], float] = time.perf_counter,
+                 warm_replica: Optional[
+                     Callable[[PolicyServer], None]] = None):
+        if routing not in ("affinity", "least_loaded", "round_robin",
+                           "hash"):
+            raise ValueError(f"unknown routing policy {routing!r}")
+        self.replica_set = ReplicaSet(replica_factory, n_replicas)
+        self.routing = routing
+        self.shed_enabled = bool(shed_enabled)
+        self.max_fleet_queue = (int(max_fleet_queue)
+                                if max_fleet_queue is not None else None)
+        self.quota_rps = quota_rps
+        self.quota_burst = (quota_burst if quota_burst is not None
+                            else (quota_rps if quota_rps else None))
+        self.clock = clock
+        self.warm_replica = warm_replica
+        if warm_replica is not None:
+            for rep in self.replica_set.replicas:
+                warm_replica(rep.server)
+        # router accounting on a PRIVATE always-on registry, same
+        # contract as ServeStats: fleets never share counters and the
+        # global telemetry switch does not gate them (guard-tested in
+        # tests/test_telemetry.py's fleet burst)
+        self.registry = telemetry.Registry(enabled=True)
+        self._next_id = 0
+        self._rr = 0  # round-robin cursor
+        self.closed = False
+        self._ready: List[FleetResponse] = []
+        # (replica_rid, server_request_id) -> (router_rid, tenant)
+        self._pending: Dict[Tuple[int, int], Tuple[int, Optional[str]]] = {}
+        self._quotas: Dict[str, TokenBucket] = {}
+        # final registry snapshots of scaled-down replicas: the fleet
+        # aggregate must keep counting traffic a replica served
+        # before a scale-down event (rids never reuse, keys are stable)
+        self._retired_snapshots: Dict[str, Dict[str, Any]] = {}
+        self._sizes: deque = deque(maxlen=SIZE_WINDOW)
+        self._ring: List[Tuple[int, int]] = []
+        self._rebuild_ring()
+        self.registry.gauge("fleet.replicas").set(
+            len(self.replica_set.replicas))
+
+    # ------------------------------------------------------------- routing
+    def _rebuild_ring(self) -> None:
+        ring = []
+        for rep in self.replica_set.replicas:
+            for v in range(HASH_RING_VNODES):
+                ring.append((_stable_hash(f"replica-{rep.rid}#{v}"),
+                             rep.rid))
+        self._ring = sorted(ring)
+        # rid->replica cache for the per-request ring lookup; the
+        # replica SET only changes where the ring is rebuilt (routable
+        # flags stay dynamic — checked per lookup)
+        self._by_rid = {r.rid: r for r in self.replica_set.replicas}
+
+    def _ring_lookup(self, key: str) -> Optional[_Replica]:
+        if not self._ring:
+            return None
+        by_rid = self._by_rid
+        h = _stable_hash(key)
+        i = bisect.bisect_left(self._ring, (h, -1))
+        for k in range(len(self._ring)):
+            _, rid = self._ring[(i + k) % len(self._ring)]
+            rep = by_rid.get(rid)
+            if rep is not None and rep.routable:
+                return rep
+        return None
+
+    def _least_loaded(self) -> Optional[_Replica]:
+        live = self.replica_set.routable()
+        if not live:
+            return None
+        # deterministic tie-break: lowest replica id wins
+        return min(live, key=lambda r: (r.server.queued(), r.rid))
+
+    def _route(self, tenant: Optional[str], rid: int) -> Optional[_Replica]:
+        if self.routing == "round_robin":
+            live = self.replica_set.routable()
+            if not live:
+                return None
+            rep = live[self._rr % len(live)]
+            self._rr += 1
+            return rep
+        if self.routing == "least_loaded":
+            return self._least_loaded()
+        if self.routing == "hash":
+            return self._ring_lookup(tenant if tenant is not None
+                                     else f"req-{rid}")
+        # affinity: tenant requests stick to their hash-ring replica,
+        # untenanted traffic fills the least-loaded one
+        if tenant is not None:
+            return self._ring_lookup(tenant)
+        return self._least_loaded()
+
+    # -------------------------------------------------------------- intake
+    def submit(self, obs: Dict[str, Any], now: Optional[float] = None,
+               tenant: Optional[str] = None) -> int:
+        """Admit/route one request; returns the fleet request id.
+        Quota and overload sheds resolve immediately (the refusal is
+        part of the response stream, fetched via ``poll``); admitted
+        requests ride the chosen replica's microbatcher. Obs validation
+        stays with the replica — a data error raises to THIS caller
+        before any admission state changes."""
+        if self.closed:
+            # same contract as PolicyServer.submit — a lifecycle bug in
+            # the caller must error, not pollute shed stats
+            raise RuntimeError("Router is closed")
+        now = self.clock() if now is None else now
+        fid = self._next_id
+        bucket = None
+        if tenant is not None and self.quota_rps:
+            bucket = self._quotas.get(tenant)
+            if bucket is None:
+                bucket = self._quotas[tenant] = TokenBucket(
+                    self.quota_rps, self.quota_burst, now)
+            if not bucket.admit(now):
+                self._next_id += 1
+                self._shed(fid, tenant, reason="quota")
+                return fid
+        def refund() -> None:
+            # a request the fleet refused (overload shed) or rejected
+            # (data error) must not burn the tenant's admission budget —
+            # only SERVED requests spend quota
+            if bucket is not None:
+                bucket.tokens = min(bucket.burst, bucket.tokens + 1.0)
+
+        if self.shed_enabled and self.max_fleet_queue is not None \
+                and self.queued() >= self.max_fleet_queue:
+            self._next_id += 1
+            refund()
+            self._shed(fid, tenant, reason="overload")
+            return fid
+        rep = self._route(tenant, fid)
+        if rep is None:
+            self._next_id += 1
+            refund()
+            self._shed(fid, tenant, reason="overload")
+            return fid
+        if self.shed_enabled and rep.server.engine.would_saturate():
+            # shed-before-degrade (THE ordering this module exists for):
+            # the replica would answer this from the heuristic
+            # ("saturated" fallback); the fleet refuses explicitly first
+            self._next_id += 1
+            refund()
+            self._shed(fid, tenant, reason="overload")
+            return fid
+        try:
+            sid = rep.server.submit(obs, now=now)
+        except Exception:
+            # data error raised to ITS caller before any replica state
+            # changed
+            refund()
+            raise
+        self._next_id += 1
+        self._pending[(rep.rid, sid)] = (fid, tenant)
+        n = int(np.asarray(obs["node_split"]).reshape(-1)[0])
+        m = int(np.asarray(obs["edge_split"]).reshape(-1)[0])
+        self._sizes.append((n, m))
+        self.registry.counter("fleet.requests").inc()
+        self.registry.counter(f"fleet.routed.r{rep.rid}").inc()
+        return fid
+
+    def _shed(self, fid: int, tenant: Optional[str], reason: str) -> None:
+        self.registry.counter("fleet.requests").inc()
+        self.registry.counter("fleet.shed").inc()
+        self.registry.counter(f"fleet.shed_reason.{reason}").inc()
+        self._ready.append(FleetResponse(
+            request_id=fid, action=None, source="shed", reason=reason,
+            replica=None, bucket_idx=None, latency_s=0.0, tenant=tenant))
+
+    # ------------------------------------------------------------- serving
+    def _wrap(self, rid: int, resp: ServeResponse) -> FleetResponse:
+        fid, tenant = self._pending.pop((rid, resp.request_id),
+                                        (resp.request_id, None))
+        return FleetResponse(
+            request_id=fid, action=resp.action, source=resp.source,
+            reason=resp.reason, replica=rid, bucket_idx=resp.bucket_idx,
+            latency_s=resp.latency_s, tenant=tenant,
+            batch_fill=resp.batch_fill)
+
+    def poll(self, now: Optional[float] = None,
+             force: bool = False) -> List[FleetResponse]:
+        now = self.clock() if now is None else now
+        for rep in self.replica_set.replicas:
+            for resp in rep.server.poll(now=now, force=force):
+                self._ready.append(self._wrap(rep.rid, resp))
+        out, self._ready = self._ready, []
+        return out
+
+    def drain(self, now: Optional[float] = None) -> List[FleetResponse]:
+        return self.poll(now=now, force=True)
+
+    def next_deadline(self) -> Optional[float]:
+        deadlines = [r.server.next_deadline()
+                     for r in self.replica_set.replicas]
+        deadlines = [d for d in deadlines if d is not None]
+        return min(deadlines) if deadlines else None
+
+    def queued(self) -> int:
+        return sum(r.server.queued() for r in self.replica_set.replicas)
+
+    def close(self, now: Optional[float] = None) -> List[FleetResponse]:
+        """Drain-and-close every replica (idempotent — closed replicas
+        answer ``[]``); all still-admitted requests come back answered.
+        Later ``submit`` calls raise, matching ``PolicyServer``."""
+        self.closed = True
+        for rep in self.replica_set.replicas:
+            for resp in rep.server.close(now=now):
+                self._ready.append(self._wrap(rep.rid, resp))
+        out, self._ready = self._ready, []
+        return out
+
+    # -------------------------------------------------- live reconfiguration
+    def hot_swap(self, params, now: Optional[float] = None) -> int:
+        """Rolling checkpoint hot-swap (drain-then-swap, see
+        ``ReplicaSet.swap_all``); drained answers surface on the next
+        ``poll``. Returns the number of replicas swapped."""
+        now = self.clock() if now is None else now
+        self.replica_set.swap_all(params, now=now)
+        # swap_params parks drained answers on each server's ready list;
+        # pull them through the fleet wrapper so ids/tenants resolve
+        for rep in self.replica_set.replicas:
+            for resp in rep.server.poll(now=now):
+                self._ready.append(self._wrap(rep.rid, resp))
+        self.registry.counter("fleet.swaps").inc()
+        return len(self.replica_set.replicas)
+
+    def observed_sizes(self) -> List[Tuple[int, int]]:
+        return list(self._sizes)
+
+    def refit_buckets(self, n_buckets: int = 3,
+                      now: Optional[float] = None) -> List[BucketSpec]:
+        """Re-fit every replica's bucket ladder to the observed request
+        size distribution (``fit_buckets`` over the trailing size
+        window). Drain-then-swap per replica like ``hot_swap``."""
+        specs = fit_buckets(self.observed_sizes(), n_buckets=n_buckets)
+        now = self.clock() if now is None else now
+        self.replica_set.refit_all(specs, now=now)
+        for rep in self.replica_set.replicas:
+            for resp in rep.server.poll(now=now):
+                self._ready.append(self._wrap(rep.rid, resp))
+        self.registry.counter("fleet.refits").inc()
+        return specs
+
+    # ------------------------------------------------------------- scaling
+    def scale_to(self, target: int, now: Optional[float] = None) -> int:
+        """Add or retire replicas toward ``target`` (>= 1). Scale-down
+        drains each retiring replica; its last answers surface on the
+        next ``poll``. Returns the resolved replica count."""
+        target = max(1, int(target))
+        while len(self.replica_set.replicas) < target:
+            rep = self.replica_set.add_replica()
+            if self.warm_replica is not None:
+                # warm the new replica BEFORE it becomes a routing
+                # target
+                self.warm_replica(rep.server)
+            self.registry.counter("fleet.autoscale.up").inc()
+        while len(self.replica_set.replicas) > target:
+            rep, responses = self.replica_set.retire_replica(now=now)
+            for resp in responses:
+                self._ready.append(self._wrap(rep.rid, resp))
+            # the drained replica leaves with its private registry; keep
+            # its final snapshot so the fleet aggregate stays exact
+            self._retired_snapshots[f"r{rep.rid}"] = \
+                rep.server.stats.registry.snapshot()
+            self.registry.counter("fleet.autoscale.down").inc()
+        self._rebuild_ring()
+        n = len(self.replica_set.replicas)
+        self.registry.gauge("fleet.replicas").set(n)
+        return n
+
+    # ------------------------------------------------------------ readbacks
+    def autoscale_snapshot(self) -> Dict[str, Any]:
+        """The autoscaler's input, built from the SAME per-replica
+        registries the fleet reports (the counters close the
+        loop): live queue depths, rolling windowed p99 over the fleet's
+        latency samples, mean batch occupancy. JSON-round-trippable so
+        decisions are reproducible from a stored snapshot."""
+        reps = self.replica_set.replicas
+        lat: List[float] = []
+        occ: List[float] = []
+        queued = []
+        for rep in reps:
+            stats = rep.server.stats
+            lat.extend(stats.latencies_s or [])
+            occ.extend(stats.occupancies or [])
+            q = rep.server.queued()
+            queued.append(q)
+            stats.registry.gauge("serve.queue_depth").set(q)
+        return {
+            "replicas": len(reps),
+            "queued_total": int(sum(queued)),
+            "queued_max": int(max(queued)) if queued else 0,
+            "p99_latency_ms": (float(np.percentile(
+                np.asarray(lat, dtype=np.float64), 99)) * 1e3
+                if lat else None),
+            "batch_occupancy": (float(np.mean(
+                np.asarray(occ, dtype=np.float64))) if occ else None),
+        }
+
+    def per_replica_summary(self) -> Dict[str, Dict[str, Any]]:
+        out = {}
+        for rep in self.replica_set.replicas:
+            s = rep.server.stats.summary()
+            out[f"r{rep.rid}"] = {
+                "n_requests": s["n_requests"],
+                "queued": rep.server.queued(),
+                "p99_latency_ms": s["p99_latency_ms"],
+                "batch_occupancy": s["batch_occupancy"],
+                "fallback_rate": s["fallback_rate"],
+                "degraded": rep.server.degraded,
+                "draining": rep.server.draining,
+            }
+        return out
+
+    def summary(self) -> Dict[str, Any]:
+        counters = dict(self.registry.counter_items())
+        n_requests = counters.get("fleet.requests", 0)
+        n_shed = counters.get("fleet.shed", 0)
+        return {
+            "n_requests": n_requests,
+            "n_shed": n_shed,
+            "shed_rate": (n_shed / n_requests) if n_requests else 0.0,
+            "shed_reasons": {
+                name[len("fleet.shed_reason."):]: v
+                for name, v in counters.items()
+                if name.startswith("fleet.shed_reason.")},
+            "replicas": len(self.replica_set.replicas),
+            "routing": self.routing,
+            "per_replica": self.per_replica_summary(),
+        }
+
+    def registry_snapshots(self) -> Dict[str, Any]:
+        """Per-registry snapshots keyed for the report surface:
+        ``fleet`` (router admission counters), one ``r<id>`` per replica
+        (its private ServeStats registry — retired replicas contribute
+        their final pre-retirement snapshot, so a scale-down never
+        loses served traffic), and ``aggregate`` (the exact
+        multi-registry merge — ``telemetry.aggregate_snapshots``)."""
+        per = dict(self._retired_snapshots)
+        per.update({f"r{rep.rid}": rep.server.stats.registry.snapshot()
+                    for rep in self.replica_set.replicas})
+        return {
+            "fleet": self.registry.snapshot(),
+            "aggregate": telemetry.aggregate_snapshots(list(per.values())),
+            **per,
+        }
+
+    def reset_stats(self) -> None:
+        """Fresh measurement window (after a warm-up): new
+        ServeStats per replica, retired-replica snapshots dropped,
+        fresh router registry counters."""
+        for rep in self.replica_set.replicas:
+            rep.server.stats = type(rep.server.stats)()
+        self._retired_snapshots = {}
+        self.registry = telemetry.Registry(enabled=True)
+        self.registry.gauge("fleet.replicas").set(
+            len(self.replica_set.replicas))
+
+
+def build_fleet(model, params, n_replicas: int = 1,
+                routing: str = "affinity",
+                shed_enabled: bool = False,
+                max_fleet_queue: Optional[int] = None,
+                quota_rps: Optional[float] = None,
+                quota_burst: Optional[float] = None,
+                clock: Callable[[], float] = time.perf_counter,
+                warm_replica: Optional[
+                    Callable[[PolicyServer], None]] = None,
+                device="cuda",
+                **server_kwargs) -> Router:
+    """A Router over ``n_replicas`` PolicyServers sharing (model, params),
+    the device and the server config but nothing else — each replica holds
+    its own copy of the model and keeps its own stats. ``server_kwargs``
+    pass through to :class:`PolicyServer` (buckets, max_batch, deadline_s,
+    max_queue, fallback, apply_fn...). ``device`` defaults to the card and
+    raises where CUDA is absent; tests pass ``"cpu"``."""
+
+    def factory() -> PolicyServer:
+        return PolicyServer(model, params, clock=clock, device=device,
+                            **server_kwargs)
+
+    return Router(factory, n_replicas=n_replicas, routing=routing,
+                  shed_enabled=shed_enabled,
+                  max_fleet_queue=max_fleet_queue,
+                  quota_rps=quota_rps, quota_burst=quota_burst,
+                  clock=clock, warm_replica=warm_replica)

@@ -1,0 +1,91 @@
+"""Deadline microbatching: queue per bucket, flush on fill or deadline.
+
+Counterpart of ``ddls_tpu/serve/microbatch.py``. Individual requests must
+not each pay a device round trip: requests wait in a per-bucket queue
+until the batch fills (``max_batch``) or the *oldest* request's latency
+budget (``deadline_s``) expires; the flush hands one same-bucket batch to
+the forward. The engine is clock-parameterised (callers pass ``now``) so
+tests drive it deterministically without sleeping.
+
+The engine never drops a request: saturation is signalled to the caller at
+``submit`` time (``would_saturate``), and the caller answers those from the
+heuristic fallback instead of enqueueing.
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+
+@dataclass
+class PendingRequest:
+    """One queued decision request, already bucket-padded."""
+    request_id: int
+    bucket_idx: int
+    obs: Dict[str, Any]
+    enqueue_time: float
+    meta: Optional[dict] = field(default=None)
+
+
+class MicrobatchEngine:
+    def __init__(self, n_buckets: int, max_batch: int = 8,
+                 deadline_s: float = 0.01, max_queue: int = 64):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.n_buckets = int(n_buckets)
+        self.max_batch = int(max_batch)
+        self.deadline_s = float(deadline_s)
+        self.max_queue = int(max_queue)
+        self._queues: List[Deque[PendingRequest]] = [
+            deque() for _ in range(self.n_buckets)]
+
+    # ------------------------------------------------------------------ state
+    def queued(self) -> int:
+        return sum(len(q) for q in self._queues)
+
+    def would_saturate(self) -> bool:
+        """True when one more enqueue would exceed the queue budget; the
+        caller should answer that request from the fallback instead."""
+        return self.queued() >= self.max_queue
+
+    def next_deadline(self) -> Optional[float]:
+        """Earliest wall-clock time any queued batch becomes due (None when
+        idle) — lets a serving loop sleep exactly until work exists. A
+        queue already holding a full batch is due NOW (its head's enqueue
+        time, always in the past), never deadline_s out — a caller that
+        sleeps to this value must not delay a flush-on-fill."""
+        full = [q[0].enqueue_time for q in self._queues
+                if len(q) >= self.max_batch]
+        if full:
+            return min(full)
+        heads = [q[0].enqueue_time for q in self._queues if q]
+        if not heads:
+            return None
+        return min(heads) + self.deadline_s
+
+    # ------------------------------------------------------------------ queue
+    def submit(self, req: PendingRequest) -> None:
+        if not 0 <= req.bucket_idx < self.n_buckets:
+            raise IndexError(f"bucket_idx {req.bucket_idx} out of range "
+                             f"[0, {self.n_buckets})")
+        self._queues[req.bucket_idx].append(req)
+
+    def due_batches(self, now: float,
+                    force: bool = False
+                    ) -> List[Tuple[int, List[PendingRequest]]]:
+        """Pop every batch that is due at ``now``: full batches always, and
+        partial batches whose head has waited ``deadline_s``. ``force``
+        drains everything regardless of deadline (shutdown / EOF flush).
+        Batches never mix buckets and never exceed ``max_batch``."""
+        out: List[Tuple[int, List[PendingRequest]]] = []
+        for idx, q in enumerate(self._queues):
+            while len(q) >= self.max_batch:
+                out.append((idx, [q.popleft()
+                                  for _ in range(self.max_batch)]))
+            if q and (force
+                      or now - q[0].enqueue_time >= self.deadline_s):
+                out.append((idx, [q.popleft() for _ in range(len(q))]))
+        return out

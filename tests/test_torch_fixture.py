@@ -1,0 +1,130 @@
+"""The shipped serving fixture (ddls_tpu_torch/data) against the JAX
+package: the exported ppo_price_mixed policy is the restored checkpoint,
+the port's forward of it makes the JAX policy's decisions on the 64
+recorded requests, and both archives regenerate bit for bit from
+scripts/export_torch_serve_fixture.py."""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+
+import export_torch_serve_fixture as export  # noqa: E402
+from ddls_tpu.models.policy import batched_policy_apply  # noqa: E402
+from ddls_tpu.serve import ObsBucketer, default_buckets  # noqa: E402
+from ddls_tpu_torch.models.convert import (flatten_tree,  # noqa: E402
+                                           params_from_flax)
+from ddls_tpu_torch.models.policy import (batch_to_device,  # noqa: E402
+                                          prepare_flat_batch)
+from ddls_tpu_torch.serve import PolicyServer, load_export  # noqa: E402
+from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
+                                          REQUESTS_PATH, load_requests)
+
+F32_MIN = np.finfo(np.float32).min
+
+
+@pytest.fixture(scope="module")
+def jax_policy():
+    """(config, flax model, restored params, graph width) of the shipped
+    checkpoint under its training config."""
+    return export.load_policy()
+
+
+def test_export_is_the_restored_checkpoint(jax_policy):
+    cfg, jmodel, jparams, graph_dim = jax_policy
+    model, params, export_dim = load_export(EXPORT_PATH)
+    assert export_dim == graph_dim == 51
+    assert model.n_actions == jmodel.n_actions == 17
+    restored = params_from_flax(
+        flatten_tree({"params": jparams["params"]}), model)
+    assert set(restored) == set(params)
+    for key, value in restored.items():
+        assert torch.equal(value, params[key]), key
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, params[key]), key
+
+
+def _bucketed_batches(requests):
+    """The requests re-padded onto the default ladder of the env's pad
+    bounds and grouped per bucket in batches of 8, as the server runs
+    them: [(request indices, stacked obs)]."""
+    bucketer = ObsBucketer(default_buckets(150, 512))
+    groups = {}
+    for i, obs in enumerate(requests):
+        idx, padded = bucketer.bucket_obs(obs)
+        groups.setdefault(idx, []).append((i, padded))
+    out = []
+    for members in groups.values():
+        for start in range(0, len(members), 8):
+            chunk = members[start:start + 8]
+            stacked = {k: np.stack([p[k] for _, p in chunk])
+                       for k in chunk[0][1]}
+            out.append(([i for i, _ in chunk], stacked))
+    return out
+
+
+def test_shipped_policy_matches_jax_on_fixture_requests(jax_policy):
+    """The converted shipped checkpoint on the 64 recorded requests: the
+    same greedy actions as the JAX batched_policy_apply, logits within
+    1e-5 (masked ones exactly equal), values within 1e-6 relative — and
+    the JAX side reproduces the recorded answers."""
+    import jax
+
+    _, jmodel, jparams, _ = jax_policy
+    model, _, _ = load_export(EXPORT_PATH)
+    requests, recorded = load_requests()
+    assert len(requests) == 64
+    apply = jax.jit(lambda p, o: batched_policy_apply(jmodel, p, o))
+    for members, stacked in _bucketed_batches(requests):
+        lo_ref, va_ref = map(np.asarray, apply(jparams, stacked))
+        # the recording came from the JAX server's own program, which XLA
+        # may fuse differently from this one: equal to f32 rounding
+        np.testing.assert_allclose(lo_ref, recorded["jax_logits"][members],
+                                   atol=1e-6, rtol=0)
+        with torch.no_grad():
+            lo, va, actions = model.flat_batched(batch_to_device(
+                prepare_flat_batch(stacked), torch.device("cpu")))
+        lo, va = lo.numpy(), va.numpy()
+        masked = lo_ref == F32_MIN
+        np.testing.assert_array_equal(lo == F32_MIN, masked)
+        np.testing.assert_allclose(lo[~masked], lo_ref[~masked], atol=1e-5)
+        # the values sit near 50, where one f32 ulp is ~4e-6: held
+        # relative to their size
+        np.testing.assert_allclose(va, va_ref, rtol=1e-6, atol=1e-5)
+        np.testing.assert_array_equal(actions.numpy(),
+                                      np.argmax(lo_ref, axis=1))
+        np.testing.assert_array_equal(actions.numpy(),
+                                      recorded["jax_actions"][members])
+
+
+def test_port_server_serves_the_recorded_actions():
+    model, params, _ = load_export(EXPORT_PATH)
+    requests, recorded = load_requests()
+    server = PolicyServer(model, params, buckets=default_buckets(150, 512),
+                          max_batch=8, max_queue=64, device="cpu")
+    ids = [server.submit(o, now=0.0) for o in requests]
+    by_id = {r.request_id: r for r in server.drain(now=0.0)}
+    assert all(by_id[i].source == "policy" for i in ids)
+    np.testing.assert_array_equal([by_id[i].action for i in ids],
+                                  recorded["jax_actions"])
+
+
+def test_fixtures_regenerate_bit_for_bit(jax_policy):
+    """Every array of both committed archives, rebuilt by the export
+    script's own functions, equal in dtype, shape and bits (the zip
+    containers differ only in their timestamps)."""
+    fresh = {EXPORT_PATH: export.export_params(*jax_policy),
+             REQUESTS_PATH: export.export_requests(*jax_policy)}
+    for path, arrays in fresh.items():
+        with np.load(path, allow_pickle=False) as committed:
+            assert sorted(committed.files) == sorted(arrays), path
+            for key, value in arrays.items():
+                got = committed[key]
+                assert got.dtype == value.dtype, (path, key)
+                np.testing.assert_array_equal(got, value, err_msg=key)
+    total = sum(os.path.getsize(p) for p in fresh)
+    assert total < 1_000_000

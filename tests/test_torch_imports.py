@@ -1,0 +1,71 @@
+"""Import hygiene of the port: ddls_tpu_torch and chip_smoke.py import
+nothing of JAX, flax, orbax or the JAX package.
+
+A child interpreter installs a ``sys.meta_path`` finder that refuses those
+names, then imports every module of ddls_tpu_torch and chip_smoke.py; the
+script's own import statements are also parsed for the names.
+"""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "ddls_tpu")
+
+_CHILD = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = {blocked!r}
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked import of {{name}}")
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    sys.path.insert(0, {repo!r})
+    import ddls_tpu_torch
+
+    names = ["ddls_tpu_torch"]
+    for info in pkgutil.walk_packages(ddls_tpu_torch.__path__,
+                                      "ddls_tpu_torch."):
+        names.append(info.name)
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD.format(blocked=BLOCKED, repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    # every subpackage and module was walked, __main__ included
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_port_sources_name_no_jax_import():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "ddls_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, (path, name)
