@@ -16,6 +16,15 @@ exits non-zero (nothing is caught):
    masked action row; holds each kernel against its plain PyTorch version
    (abs and rel 1e-5; K2 and K4 also bitwise across two runs) and times
    the kernel, the plain version and a one-call PyTorch yardstick.
+   Then K5–K8, the PPO update's kernels: every backward-kernel call of one
+   minibatch step of the training fixture (128 real graphs at the (38,
+   128) bucket), of one forward + backward of the edge-case batch at (150,
+   512) (plus a node row whose LayerNorm variance clamps at exactly 0),
+   the GAE of the fixture trajectory and the loss of the minibatch; each
+   held against its plain version (abs 1e-5 of each output's own largest
+   magnitude: float32 sums over up to 16,384 rows in another order; K5's
+   plain version takes relu's kink decisions from K1's output on the same
+   inputs), bitwise across two runs, and timed as above.
 4. serve   — the main path: the shipped ppo_price_mixed export through
    ``build_fleet(device="cuda")`` at max_batch 8 on the default ladder,
    the 64 fixture requests, launch counters reset just before and read
@@ -25,6 +34,20 @@ exits non-zero (nothing is caught):
    max_queue=2 pass must answer its overflow from FixedDegreePacking
    without dropping a request.
 5. cli     — 8 fixture requests through ``python -m ddls_tpu_torch.serve``.
+6. train   — the training main path: the fixture trajectory (8 envs x 64
+   steps of env_load32_price_mixed under the shipped policy) staged on the
+   card; the loss gradient of the first minibatch at the shipped params,
+   before any optimiser arithmetic (each leaf within 1e-5 of its largest
+   JAX gradient) and its metrics; ``PPOLearner.train_step`` with the
+   recorded JAX permutations at 1 SGD iteration (params within 1e-5 of
+   the recorded JAX params, metrics within 1e-6 + 1e-5 |JAX|) and at
+   50 (reported against JAX; within 1e-2, a gross-failure guard), the
+   launch counters reset just before the 50-iteration update and read
+   just after (every kernel K1–K8 must have run), a second 50-iteration
+   update bit-equal to the first, the time of each stage of a minibatch
+   step (synchronised after each), the device busy share of 8 minibatch
+   steps under torch.profiler, and one update at the canonical batch
+   ([500, 8], tiled from the fixture, the learner's own generator).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -49,7 +72,10 @@ from ddls_tpu_torch.envs.baselines import FixedDegreePacking  # noqa: E402
 from ddls_tpu_torch.envs.obs import pad_obs_to  # noqa: E402
 from ddls_tpu_torch.models import gnn as gnn_mod  # noqa: E402
 from ddls_tpu_torch.models import policy as policy_mod  # noqa: E402
+from ddls_tpu_torch.models.convert import params_to_flax  # noqa: E402
 from ddls_tpu_torch.ops import segment as segment_mod  # noqa: E402
+from ddls_tpu_torch.rl import ppo as ppo_mod  # noqa: E402
+from ddls_tpu_torch.rl.fixture import load_train_fixture  # noqa: E402
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
                                   build_fleet, default_buckets, load_export)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
@@ -151,8 +177,8 @@ def k1_parts(args, kwargs):
     shape = (f"rows={rows} in={a.shape[1]}"
              f"+{b.shape[1] if b is not None else b_width}"
              f"{' gather' if idx is not None else ''} out={fo}")
-    return (lambda: gnn_mod.ln_linear_act_plain(*args, **kwargs), library,
-            work, shape)
+    return (lambda: gnn_mod.ln_linear_act_plain(
+        *args, idx=idx, b=b, b_width=b_width), library, work, shape)
 
 
 def k2_parts(args, kwargs):
@@ -243,10 +269,18 @@ def record_calls(model, batch):
     return calls
 
 
-def max_err(out, ref) -> float:
+def _rel(diff: float, ref: torch.Tensor) -> float:
+    """``diff`` over the largest magnitude of ``ref`` (0 when both are 0)."""
+    scale = float(ref.double().abs().max())
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+def max_err(out, ref):
+    """(max abs error, max of each output's error over its largest
+    magnitude) of the kernel's outputs against the plain version's."""
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    err = 0.0
+    err = rel = 0.0
     for o, r in zip(outs, refs):
         require(o.shape == r.shape and o.dtype == r.dtype,
                 f"kernel output {o.shape}/{o.dtype} vs plain "
@@ -254,11 +288,12 @@ def max_err(out, ref) -> float:
         if o.dtype.is_floating_point:
             require(torch.allclose(o, r, rtol=TOL, atol=TOL),
                     "kernel disagrees with its plain version beyond 1e-5")
-            err = max(err, float((o.double() - r.double()).abs().max()))
+            diff = float((o.double() - r.double()).abs().max())
+            err, rel = max(err, diff), max(rel, _rel(diff, r))
         else:
             require(torch.equal(o, r), "kernel's integer output differs "
                                        "from its plain version's")
-    return err
+    return err, rel
 
 
 def edge_case_batch(requests, n_pad, e_pad, device="cuda"):
@@ -282,8 +317,8 @@ def edge_case_batch(requests, n_pad, e_pad, device="cuda"):
 def check_kernels(model_gpu, requests):
     """Phase 3: per kernel, max error over both buckets and its times at
     the largest bucket (summed over the calls of one forward)."""
-    results = {name: {"max_abs_err": 0.0, "ms": 0.0, "eager_ms": 0.0,
-                      "plain_ms": 0.0, "library_ms": 0.0,
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+                      "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                       "library_device_ms": 0.0, "bound_ms": 0.0,
                       "bound_by": None, "calls_per_forward": 0,
                       "shapes": []}
@@ -303,8 +338,9 @@ def check_kernels(model_gpu, requests):
                 out = fn(*args, **kwargs)
                 ref = plain()
                 torch.cuda.synchronize()
-                res["max_abs_err"] = max(res["max_abs_err"],
-                                         max_err(out, ref))
+                err, rel = max_err(out, ref)
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["max_rel_err"] = max(res["max_rel_err"], rel)
                 if name in ("csr_segment_mean", "mask_logits_argmax"):
                     again = fn(*args, **kwargs)
                     outs = out if isinstance(out, tuple) else (out,)
@@ -326,6 +362,601 @@ def check_kernels(model_gpu, requests):
             if timed:
                 res["bound_by"] = max(bound_total, key=bound_total.get)
     return results
+
+
+# ------------------------------------------------ K5–K8: the PPO update
+def profiled_device_ms(fn, iters: int = 20) -> float:
+    """Per-call device time of ``fn`` from torch.profiler: the CUDA kernel
+    time of ``iters`` calls over ``iters``. Used for the autograd
+    yardsticks, whose backward runs on autograd's own thread and cannot be
+    captured in a CUDA graph."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters
+
+
+def _flat(out):
+    return [o for o in (out if isinstance(out, tuple) else (out,))
+            if o is not None]
+
+
+def max_err_scaled(out, ref):
+    """(max abs error, max relative error) of the kernel's outputs against
+    the plain version's: each floating output is required within 1e-5 of
+    its own largest magnitude (exactly equal where that is 0); integer
+    outputs must be equal."""
+    outs, refs = _flat(out), _flat(ref)
+    require(len(outs) == len(refs), "kernel and plain differ in outputs")
+    err = rel = 0.0
+    for o, r in zip(outs, refs):
+        require(o.shape == r.shape and o.dtype == r.dtype,
+                f"kernel output {o.shape}/{o.dtype} vs plain "
+                f"{r.shape}/{r.dtype}")
+        if not o.numel():
+            continue
+        if o.dtype.is_floating_point:
+            diff = float((o.double() - r.double()).abs().max())
+            ratio = _rel(diff, r)
+            require(ratio <= TOL, f"kernel disagrees with its plain version: "
+                                  f"{diff} is {ratio} of the output's "
+                                  f"largest magnitude, over {TOL}")
+            err, rel = max(err, diff), max(rel, ratio)
+        else:
+            require(torch.equal(o, r), "integer outputs differ")
+    return err, rel
+
+
+def _grad_leaves(*tensors):
+    return [t.detach().clone().requires_grad_(True) if t is not None
+            else None for t in tensors]
+
+
+def k5_parts(args, kwargs):
+    a, ln_w, ln_b, w, bias, activation, dout = args
+    idx, b = kwargs.get("idx"), kwargs.get("b")
+    b_width = kwargs.get("b_width", 0)
+    want_dx = kwargs.get("want_dx", True)
+    want_db = kwargs.get("want_db", True) and b is not None
+    rows, fo = dout.shape
+    k_in = w.shape[1]
+    fa = a.shape[1]
+    act = gnn_mod.get_activation(activation)
+    # K1's output on the same inputs: the plain version takes relu's kink
+    # decisions from it, as K5 (which recomputes K1's pre-activations) does
+    k1_out = gnn_mod._ln_linear_act_cuda(a, ln_w, ln_b, w, bias, activation,
+                                         idx, b, b_width)
+    la, lb, lw, lbn, lwt, lbias = _grad_leaves(a, b, ln_w, ln_b, w, bias)
+    x = la if idx is None else la[idx.long()]
+    x = torch.cat([x, lb if lb is not None
+                   else x.new_zeros((rows, b_width))], dim=1)
+    y = act(torch.nn.functional.linear(torch.nn.functional.layer_norm(
+        x, (k_in,), lw, lbn, eps=1e-6), lwt, lbias))
+    leaves = [t for t in (la, lb, lw, lbn, lwt, lbias) if t is not None]
+
+    def library():
+        return torch.autograd.grad(y, leaves, dout, retain_graph=True)
+
+    # the function's bytes: its inputs, the per-row gradients this call
+    # asks for (dx of the left half unless want_dx is False, db only when
+    # b is given) and the parameter gradients; K5's per-block partials are
+    # its own intermediate (the reduce's row counts them)
+    n_params = fo * k_in + fo + 2 * k_in
+    nbytes = (_nbytes(a, idx, b, ln_w, ln_b, w, bias, dout)
+              + (rows * fa * 4 if want_dx else 0)
+              + (rows * (k_in - fa) * 4 if want_db else 0) + n_params * 4)
+    work = bound_ms(nbytes, rows * (6 * k_in * fo + 20 * k_in))
+    shape = (f"rows={rows} in={fa}+{b.shape[1] if b is not None else b_width}"
+             f"{' gather' if idx is not None else ''} out={fo}")
+    return (lambda: gnn_mod.ln_linear_act_bwd_plain(
+        a, ln_w, ln_b, w, bias, activation, dout, idx=idx, b=b,
+        b_width=b_width, out=k1_out), library, work, shape)
+
+
+def k5_compare(out, ref):
+    """K5's wrapper skips the outputs autograd does not need."""
+    return tuple(None if o is None else r for o, r in zip(out, ref))
+
+
+def k5r_parts(args, kwargs):
+    (partial,) = args
+    return (lambda: gnn_mod.ln_linear_act_bwd_reduce_plain(partial),
+            lambda: partial.sum(dim=0),
+            bound_ms(_nbytes(partial) + partial.shape[1] * 4,
+                     partial.numel()),
+            f"blocks={partial.shape[0]} params={partial.shape[1]}")
+
+
+def k6m_parts(args, kwargs):
+    dout, row_ptr, edge_dst, node_mask = args
+    n_nodes, f = dout.shape
+    n_edges = edge_dst.shape[0]
+    deg = (row_ptr[1:] - row_ptr[:-1]).to(dout.dtype)
+    safe = torch.clamp(edge_dst.long(), min=0)
+    real = (edge_dst >= 0).to(dout.dtype)[:, None]
+
+    def library():
+        d_tot = dout * node_mask[:, None] / (deg + 1)[:, None]
+        return d_tot.index_select(0, safe) * real, d_tot
+
+    nbytes = (_nbytes(dout, row_ptr, edge_dst, node_mask)
+              + (n_edges + n_nodes) * f * 4)
+    return (lambda: segment_mod.csr_segment_mean_bwd_plain(*args), library,
+            bound_ms(nbytes, 2 * (n_edges + n_nodes) * f),
+            f"nodes={n_nodes} edges={n_edges} f={f}")
+
+
+def k6s_parts(args, kwargs):
+    g, row_ptr, col = args
+    n_nodes, f = row_ptr.shape[0] - 1, g.shape[1]
+    nnz = int(row_ptr[-1])
+    dst = torch.repeat_interleave(torch.arange(n_nodes, device=g.device),
+                                  (row_ptr[1:] - row_ptr[:-1]).long())
+    edges = col[:nnz].long()
+
+    def library():
+        return g.new_zeros((n_nodes, f)).index_add_(0, dst, g[edges])
+
+    nbytes = nnz * f * 4 + nnz * 4 + _nbytes(row_ptr) + n_nodes * f * 4
+    return (lambda: segment_mod.csr_segment_sum_plain(*args), library,
+            bound_ms(nbytes, nnz * f), f"nodes={n_nodes} edges={nnz} f={f}")
+
+
+def k6p_parts(args, kwargs):
+    dout, node_mask, f = args
+    b, n = node_mask.shape
+
+    def library():
+        count = node_mask.sum(1).clamp(min=1.0)
+        return ((dout[:, :f] / count[:, None])[:, None, :]
+                * node_mask[..., None]), dout[:, f:]
+
+    nbytes = _nbytes(dout, node_mask) + b * n * f * 4 + dout[:, f:].numel() * 4
+    return (lambda: segment_mod.masked_mean_pool_concat_bwd_plain(*args),
+            library, bound_ms(nbytes, 2 * b * n * f),
+            f"graphs={b} nodes={n} f={f}")
+
+
+def k7_parts(args, kwargs):
+    rewards, values, dones, last_values, gamma, lam, normalize = args
+    t_len, lanes = rewards.shape
+
+    def library():
+        adv, tgt = ppo_mod.compute_gae(rewards, values, dones, last_values,
+                                       gamma, lam)
+        std, mean = torch.std_mean(adv, correction=0)
+        return (adv - mean) / (std + 1e-8), tgt
+
+    nbytes = _nbytes(rewards, values, dones, last_values) + 2 * t_len * \
+        lanes * 4
+    return (lambda: ppo_mod.gae_normalize_plain(*args), library,
+            bound_ms(nbytes, 16 * t_len * lanes), f"T={t_len} B={lanes}")
+
+
+def k8_parts(args, kwargs):
+    logits, values, actions, old_logp, old_values, advs, targets, kl, cfg = \
+        args
+    m, a = logits.shape
+
+    @torch.enable_grad()
+    def library():
+        lo = logits.detach().requires_grad_(True)
+        va = values.detach().requires_grad_(True)
+        logp = torch.log_softmax(lo, -1).gather(1, actions.long()[:, None])
+        ratio = torch.exp(logp[:, 0] - old_logp)
+        surr = torch.min(ratio * advs, torch.clamp(
+            ratio, 1 - cfg.clip_param, 1 + cfg.clip_param) * advs)
+        vf = torch.max((va - targets) ** 2, (old_values + torch.clamp(
+            va - old_values, -cfg.vf_clip_param, cfg.vf_clip_param)
+            - targets) ** 2)
+        total = (-surr.mean() + kl * (old_logp - logp[:, 0]).mean()
+                 + cfg.vf_loss_coeff * 0.5 * vf.mean()
+                 - cfg.entropy_coeff * ppo_mod.categorical_entropy(lo).mean())
+        return torch.autograd.grad(total, (lo, va))
+
+    nbytes = _nbytes(logits, values, actions, old_logp, old_values, advs,
+                     targets, kl) + m * a * 4 + m * 4 + 7 * 4
+    return (lambda: ppo_mod.ppo_loss_grad_plain(*args)[1:], library,
+            bound_ms(nbytes, 40 * m * a), f"rows={m} actions={a}")
+
+
+def k8_compare(out, ref):
+    return out[1:], ref
+
+
+# (module whose global the update calls, attribute, parts function)
+TRAIN_SITES = {
+    "ln_linear_act_bwd": (gnn_mod, "ln_linear_act_bwd", k5_parts),
+    "ln_linear_act_bwd_reduce": (gnn_mod, "ln_linear_act_bwd_reduce",
+                                 k5r_parts),
+    "csr_segment_mean_bwd": (segment_mod, "csr_segment_mean_bwd",
+                             k6m_parts),
+    "csr_segment_sum": (gnn_mod, "csr_segment_sum", k6s_parts),
+    "masked_mean_pool_concat_bwd": (segment_mod,
+                                    "masked_mean_pool_concat_bwd",
+                                    k6p_parts),
+    "gae_normalize": (ppo_mod, "gae_normalize", k7_parts),
+    "ppo_loss": (ppo_mod, "_ppo_loss_cuda", k8_parts),
+}
+
+
+def _snapshot(x):
+    return x.detach().clone() if torch.is_tensor(x) else x
+
+
+def record_sites(sites, run):
+    """``run()`` with every wrapper in ``sites`` recorded: {kernel:
+    [(wrapper, args, kwargs), ...]} in call order, each tensor argument
+    copied as the wrapper got it (a later in-place update of a parameter
+    does not reach the recorded inputs)."""
+    calls = {name: [] for name in sites}
+    originals = {}
+
+    def recorder(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name].append((fn, tuple(_snapshot(x) for x in args),
+                                {k: _snapshot(v) for k, v in kwargs.items()}))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, (mod, attr, _) in sites.items():
+        originals[name] = getattr(mod, attr)
+        setattr(mod, attr, recorder(name, originals[name]))
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for name, (mod, attr, _) in sites.items():
+            setattr(mod, attr, originals[name])
+    return calls
+
+
+def _edge_case_train_batch(requests, model_gpu, cfg):
+    """The edge-case batch at the largest bucket, with node 0 of graph 0
+    holding five equal features (its LayerNorm variance is exactly 0, the
+    clamp's tie), and loss inputs made from seed 0: one forward + backward
+    through the kernels."""
+    n_pad, e_pad = PAD_NODES, PAD_EDGES
+    batch = edge_case_batch(requests, n_pad, e_pad)
+    batch["node_features"][0, 0] = 2.0
+    rng = np.random.default_rng(0)
+    m = batch["node_features"].shape[0]
+    mask = batch["action_mask"].cpu().numpy()
+    actions = np.array([rng.choice(np.flatnonzero(r)) if r.any() else 0
+                        for r in mask], np.int32)
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+
+    loss_in = (torch.as_tensor(actions, device="cuda"),
+               dev(rng.normal(-1.5, 0.3, m)), dev(rng.normal(50, 1, m)),
+               dev(rng.normal(0, 1, m)), dev(rng.normal(50, 2, m)))
+    kl = torch.tensor(0.2, device="cuda")
+
+    def run():
+        logits, values, _ = model_gpu.flat_batched(batch)
+        total, _ = ppo_mod.ppo_loss(logits, values, *loss_in, kl, cfg)
+        torch.autograd.grad(total, list(model_gpu.parameters()))
+    return run
+
+
+def check_train_kernels(params, requests, fx):
+    """Phase 3, K5–K8: per kernel, the max error over the fixture
+    minibatch step and the edge-case batch, and its times at the fixture
+    minibatch step (summed over that kernel's calls in one step; K7 once
+    per update)."""
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+                      "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "library_device_ms": 0.0, "bound_ms": 0.0,
+                      "bound_by": None, "calls_per_step": 0, "shapes": []}
+               for name in TRAIN_SITES}
+    model, _, _ = load_export(EXPORT_PATH)
+    cfg = fx["cfg"]
+    learner = ppo_mod.PPOLearner(model, cfg, device="cuda")
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    state = learner.init_state({k: v.cuda() for k, v in params.items()})
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+
+    def fixture_step():  # the loss and gradients, no optimiser step
+        advs, targets = learner.flat_advantages(staged)
+        learner.loss_and_grads(state, staged, idx, advs, targets)
+
+    with torch.enable_grad():
+        edge_run = _edge_case_train_batch(requests, learner.model, cfg)
+        recorded_runs = [(True, record_sites(TRAIN_SITES, fixture_step)),
+                         (False, record_sites(TRAIN_SITES, edge_run))]
+    for timed, calls in recorded_runs:
+        for name, recorded in calls.items():
+            if name == "gae_normalize" and not timed:
+                continue
+            require(len(recorded) > 0, f"the update made no {name} call")
+            res = results[name]
+            parts = TRAIN_SITES[name][2]
+            bound_total = {"bytes": 0.0, "operations": 0.0}
+            for fn, args, kwargs in recorded:
+                with torch.enable_grad():  # K5's yardstick's graph
+                    plain, library, (bound, bound_by), shape = parts(
+                        args, kwargs)
+                out = fn(*args, **kwargs)
+                again = fn(*args, **kwargs)
+                ref = plain()
+                torch.cuda.synchronize()
+                if name == "ln_linear_act_bwd":
+                    ref = k5_compare(out, ref)
+                elif name == "ppo_loss":
+                    out, ref = k8_compare(out, ref)
+                    again = again[1:]
+                err, rel = max_err_scaled(out, ref)
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+                res["max_rel_err"] = max(res["max_rel_err"], rel)
+                require(all(torch.equal(x, y) for x, y in
+                            zip(_flat(out), _flat(again))),
+                        f"{name} is not bitwise repeatable")
+                if not timed:
+                    continue
+                res["calls_per_step"] += 1
+                res["shapes"].append(shape)
+                res["ms"] += device_ms(lambda: fn(*args, **kwargs))
+                res["eager_ms"] += eager_ms(lambda: fn(*args, **kwargs))
+                res["plain_ms"] += eager_ms(plain, iters=20)
+                res["library_ms"] += eager_ms(library, iters=50)
+                res["library_device_ms"] += profiled_device_ms(library)
+                res["bound_ms"] += bound
+                bound_total[bound_by] += bound
+            if timed:
+                res["bound_by"] = max(bound_total, key=bound_total.get)
+    return results
+
+
+def _jax_errors(state, run):
+    tree = params_to_flax(state.state_dict())
+    require(sorted(tree) == sorted(run["params"]),
+            "trained params do not map onto the JAX tree")
+    return max(float(np.abs(tree[k] - run["params"][k]).max())
+               for k in tree)
+
+
+def _metric_errors(metrics, want):
+    """Each metric's abs error against the JAX one; fails unless within
+    1e-6 + 1e-5 |JAX value| (kl sits near 0: its rounding is that of
+    log-probabilities of size ~1, hence the absolute term)."""
+    errs = {k: abs(float(metrics[k]) - want[k]) for k in want}
+    for k, e in errs.items():
+        require(e <= 1e-6 + 1e-5 * abs(want[k]),
+                f"metric {k} off the JAX one by {e}")
+    return errs
+
+
+def check_first_gradient(learner, staged, params, fx):
+    """The loss gradient at the shipped params on the first minibatch of
+    the 1-iteration update, before any optimiser arithmetic (adam and the
+    global-norm clip would hide a gradient off by a constant factor),
+    against the recorded ``jax.value_and_grad``: each leaf within 1e-5 of
+    its largest JAX gradient (float32 sums in another order), and the
+    minibatch's metrics."""
+    state = learner.init_state(params)
+    advs, targets = learner.flat_advantages(staged)
+    idx = torch.as_tensor(
+        fx["runs"][1]["perms"][0][:learner.cfg.sgd_minibatch_size],
+        device="cuda")
+    metrics, grads = learner.loss_and_grads(state, staged, idx, advs,
+                                            targets)
+    got = params_to_flax(dict(zip(state.names, grads)))
+    ref = fx["mb0"]["grads"]
+    require(sorted(got) == sorted(ref), "gradients do not map onto the "
+                                        "JAX tree")
+    rel = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+           for k in ref}
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= 1e-5, f"first-minibatch gradient of {worst} off "
+                                f"JAX's by {rel[worst]} of its largest")
+    errs = _metric_errors(dict(zip(ppo_mod.METRIC_KEYS, metrics)),
+                          fx["mb0"]["metrics"])
+    return {"grads_max_rel_err": rel[worst], "grads_worst_leaf": worst,
+            "metrics_abs_err": errs}
+
+
+def profile_steps(learner, staged, state, perm, n_steps: int = 8):
+    """``n_steps`` minibatch steps of a warmed learner under
+    torch.profiler: device time over wall time (a lower bound: the
+    profiler's own host cost is inside the wall) and the largest device
+    totals by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = learner.cfg
+    mb = cfg.sgd_minibatch_size
+    advs, targets = learner.flat_advantages(staged)
+    n_mb = perm.shape[0] // mb
+
+    def steps():
+        for k in range(n_steps):
+            j = k % n_mb
+            learner._minibatch_step(state, staged, perm[j * mb:(j + 1) * mb],
+                                    advs, targets)
+
+    steps()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        steps()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_name = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.device_time_total / 1e3)
+    device_ms_total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"steps": n_steps, "wall_ms": wall_ms,
+            "device_ms": device_ms_total,
+            "device_busy_share": device_ms_total / wall_ms,
+            "top_device_ms": {k[:80]: v for k, v in top}}
+
+
+def step_breakdown(learner, staged, state, perm, n_steps: int = 20):
+    """Where one minibatch step's time goes: each stage of
+    ``PPOLearner._minibatch_step`` run with a synchronise after it, over
+    ``n_steps`` steps (ms per step, host and device together; the
+    synchronises serialise what the unsynchronised step overlaps)."""
+    cfg = learner.cfg
+    mb = cfg.sgd_minibatch_size
+    advs, targets = learner.flat_advantages(staged)
+    n_mb = perm.shape[0] // mb
+    stages = ("assembly", "forward", "loss", "backward", "optimizer")
+    totals = dict.fromkeys(stages, 0.0)
+    for k in range(n_steps + 2):  # the first two steps warm up
+        idx = perm[(k % n_mb) * mb:(k % n_mb + 1) * mb]
+        marks = [time.monotonic()]
+        batch = learner.minibatch(staged, idx)
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        logits, values, _ = learner.model.flat_batched(batch)
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        total, _ = ppo_mod.ppo_loss(
+            logits, values, staged["actions"].index_select(0, idx),
+            staged["old_logp"].index_select(0, idx),
+            staged["old_values"].index_select(0, idx),
+            advs.index_select(0, idx), targets.index_select(0, idx),
+            state.kl_coeff, cfg)
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        grads = list(torch.autograd.grad(total, state.params))
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        with torch.no_grad():
+            learner._apply_optimizer(state, grads)
+        state.step += 1
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        if k >= 2:
+            for i, name in enumerate(stages):
+                totals[name] += (marks[i + 1] - marks[i]) * 1e3
+    return {name: v / n_steps for name, v in totals.items()}
+
+
+def tiled_traj(fx, t_len: int):
+    """The fixture trajectory tiled along T to ``t_len`` steps (the
+    canonical 500 x 8 = 4,000-sample batch); no episode ends."""
+    reps = -(-t_len // fx["traj"]["rewards"].shape[0])
+
+    def tile(x):
+        return np.concatenate([x] * reps, axis=0)[:t_len]
+
+    traj = {"obs": {k: tile(v) for k, v in fx["traj"]["obs"].items()}}
+    for key in ("actions", "logp", "values", "rewards", "dones"):
+        traj[key] = tile(fx["traj"][key])
+    return traj
+
+
+def phase_train(params, fx, card):
+    """Phase 6: the PPO update on the card against the recorded JAX one."""
+    import dataclasses
+
+    model, _, _ = load_export(EXPORT_PATH)
+    cfg50 = fx["cfg"]
+    out = {"card": card}
+    with torch.enable_grad():
+        learner1 = ppo_mod.PPOLearner(
+            copy.deepcopy(model), dataclasses.replace(cfg50, num_sgd_iter=1),
+            device="cuda")
+        t0 = time.monotonic()
+        staged = learner1.stage_traj(fx["traj"], fx["last_values"])
+        torch.cuda.synchronize()
+        out["stage_s"] = time.monotonic() - t0
+        out["bucket"] = [staged.n_nodes, staged.n_edges]
+        gpu_params = {k: v.cuda() for k, v in params.items()}
+        out["first_minibatch"] = check_first_gradient(learner1, staged,
+                                                      gpu_params, fx)
+        run1 = fx["runs"][1]
+        state, metrics = learner1.train_step(learner1.init_state(gpu_params),
+                                             staged, perms=run1["perms"])
+        err1 = _jax_errors(state, run1)
+        out["iter1_params_max_abs_err"] = err1
+        require(err1 <= 1e-5, f"1-iteration update off the recorded JAX "
+                              f"params by {err1}")
+        out["iter1_metrics_abs_err"] = _metric_errors(metrics,
+                                                      run1["metrics"])
+        require(float(state.kl_coeff) == run1["kl_coeff"],
+                "1-iteration kl_coeff differs from JAX's")
+
+        learner = ppo_mod.PPOLearner(copy.deepcopy(model), cfg50,
+                                     device="cuda")
+        run50 = fx["runs"][50]
+        snapshots = []
+        for attempt in range(2):
+            state = learner.init_state(gpu_params)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            state, metrics = learner.train_step(state, staged,
+                                                perms=run50["perms"])
+            torch.cuda.synchronize()
+            seconds = time.monotonic() - t0
+            if attempt == 0:
+                launches = kernels.launch_counts()
+                out["train_step_s"] = seconds
+                out["minibatch_steps"] = state.step
+                out["ms_per_minibatch_step"] = seconds / state.step * 1e3
+                out["iter50_params_max_abs_err"] = _jax_errors(state, run50)
+                out["iter50_metrics"] = {k: float(v)
+                                         for k, v in metrics.items()}
+                out["iter50_jax_metrics"] = run50["metrics"]
+            else:
+                out["train_step_s_again"] = seconds
+            snapshots.append({k: v.clone() for k, v in
+                              state.state_dict().items()})
+        for name, n in launches.items():
+            require(n > 0, f"kernel {name} was not launched by train_step")
+        require(out["iter50_params_max_abs_err"] <= 1e-2,
+                "50-iteration update far off the recorded JAX params")
+        require(all(torch.equal(v, snapshots[1][k])
+                    for k, v in snapshots[0].items()),
+                "two 50-iteration updates differ in their params")
+        out["launches"] = launches
+        perm0 = torch.as_tensor(run50["perms"][0], device="cuda")
+        out["step_breakdown_ms"] = step_breakdown(
+            learner, staged, learner.init_state(gpu_params), perm0)
+        out["profiled"] = profile_steps(
+            learner, staged, learner.init_state(gpu_params), perm0)
+
+        # the canonical batch: 4,000 samples, 31 minibatches per epoch
+        canon = ppo_mod.PPOLearner(copy.deepcopy(model), cfg50,
+                                   device="cuda")
+        t0 = time.monotonic()
+        staged_c = canon.stage_traj(tiled_traj(fx, 500), fx["last_values"])
+        torch.cuda.synchronize()
+        stage_c = time.monotonic() - t0
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state = canon.init_state(gpu_params)
+        t0 = time.monotonic()
+        state, metrics = canon.train_step(state, staged_c, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        require(all(bool(torch.isfinite(v)) for v in metrics.values()),
+                "non-finite metrics at the canonical batch")
+        out["canonical"] = {"samples": staged_c.t_len * staged_c.lanes,
+                            "stage_s": stage_c,
+                            "train_step_s": seconds,
+                            "minibatch_steps": state.step,
+                            "ms_per_minibatch_step":
+                                seconds / state.step * 1e3}
+    emit("train", **out)
+    return launches
 
 
 # ------------------------------------------------------------------ phases
@@ -392,8 +1023,11 @@ def phase_serve(model, params, requests, recorded, card):
     actions = np.array([by_id[i].action for i in ids])
     require(np.array_equal(actions, recorded["jax_actions"]),
             "served actions differ from the recorded JAX actions")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in KERNEL_SITES:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the main path")
+    require(not any(launches[name] for name in TRAIN_SITES),
+            "serving launched a training kernel")
     summary = server.stats.summary()
 
     # logits on the same program shapes: batched forward vs the recorded
@@ -545,22 +1179,38 @@ def main() -> int:
          **{name: {k: v for k, v in r.items() if k != "shapes"}
             for name, r in results.items()})
 
+    fx = load_train_fixture()
+    train_results = check_train_kernels(params, requests, fx)
+    emit("train_kernels_checked", card=card,
+         **{name: {k: v for k, v in r.items() if k != "shapes"}
+            for name, r in train_results.items()})
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
+    train_launches = phase_train(params, fx, card)
 
     rows = []
-    for name, r in results.items():
+    for name, r in {**results, **train_results}.items():
         spec = kernels.KERNELS[name]
+        forward = name in KERNEL_SITES
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
-            "replaces": spec.replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "replaces": spec.replaces,
+            # the main path of each kernel: serving for the forward ones,
+            # one 50-iteration train_step for the update's
+            "launches": launches[name] if forward else train_launches[name],
+            "main_path": "serve" if forward else "train_step",
+            "train_step_launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
+            "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_device_ms": r["library_device_ms"],
-            "calls_per_forward": r["calls_per_forward"],
+            "calls": r.get("calls_per_forward", r.get("calls_per_step")),
+            "calls_per": ("forward" if forward else "update"
+                          if name == "gae_normalize" else "minibatch step"),
             "shapes": r["shapes"], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

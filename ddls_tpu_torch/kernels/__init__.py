@@ -1,23 +1,26 @@
 """The port's hand-written CUDA kernels: built with ``nvcc`` at first use,
 bound with ``ctypes``.
 
-Each source under ``csrc/`` is one kernel with a plain C entry point. At
-first use every library that is missing is compiled, one ``nvcc`` per
-source, all started together, for ``sm_90a`` into ``_build/`` beside this
-file (listed in ``.gitignore``; no binary is committed). A library's file
-name carries a digest of its sources and flags, so a changed source builds
-anew and a fresh process reuses what an earlier one built.
+Each source under ``csrc/`` is one library of plain C entry points (most
+hold one kernel; a backward source may hold a few). At first use every
+library that is missing is compiled, one ``nvcc`` per source, all started
+together, for ``sm_90a`` into ``_build/`` beside this file (listed in
+``.gitignore``; no binary is committed). A library's file name carries a
+digest of its sources and flags, so a changed source builds anew and a
+fresh process reuses what an earlier one built.
 
 Nothing here runs at import, so the module imports on a machine without
 ``nvcc`` or a card; only ``build()`` and ``launch()`` need them.
 
 The wrappers that launch these kernels live beside their plain PyTorch
-versions, in the modules that call them (``ln_linear_act`` in
-``models/gnn.py``, ``csr_segment_mean`` and ``masked_mean_pool_concat`` in
-``ops/segment.py``, ``mask_logits_argmax`` in ``models/policy.py``); each
-wrapper checks its tensors with ``check_cuda`` and launches with
-``launch``, which raises if the C entry reports a CUDA error and
-otherwise counts the launch (``launch_counts``).
+versions, in the modules that call them (``ln_linear_act`` and its
+backward in ``models/gnn.py``; ``csr_segment_mean``,
+``masked_mean_pool_concat`` and their backwards in ``ops/segment.py``;
+``mask_logits_argmax`` in ``models/policy.py``; ``gae_normalize`` and
+``ppo_loss`` in ``rl/ppo.py``); each wrapper checks its tensors with
+``check_cuda`` and launches with ``launch``, which raises if the C entry
+reports a CUDA error and otherwise counts the launch (``launch_counts``,
+one count per entry point).
 """
 from __future__ import annotations
 
@@ -38,21 +41,27 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "ln_row.cuh")
 
 
 @dataclass(frozen=True)
 class KernelSpec:
-    """One kernel: its source, C symbol and ctypes signature (``p`` a
-    pointer or stream, ``i`` a C int) and the JAX routine it replaces."""
+    """One kernel entry point: its C symbol and ctypes signature (``p`` a
+    pointer or stream, ``i`` a C int, ``f`` a C float), the JAX routine it
+    replaces, and the source stem it lives in (default: its name)."""
     name: str
     symbol: str
     signature: str
     replaces: str
+    file: str = ""
+
+    @property
+    def stem(self) -> str:
+        return self.file or self.name
 
     @property
     def source(self) -> str:
-        return os.path.join(CSRC, f"{self.name}.cu")
+        return os.path.join(CSRC, f"{self.stem}.cu")
 
 
 KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
@@ -65,9 +74,30 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/ops/segment.py:61"),
     KernelSpec("mask_logits_argmax", "ddls_mask_logits_argmax", "ppppiip",
                "ddls_tpu/models/policy.py:87"),
+    # the PPO update's backward (K5, K6) and loss (K7, K8)
+    KernelSpec("ln_linear_act_bwd", "ddls_ln_linear_act_bwd",
+               "pppppppppppiiiiiiip", "ddls_tpu/models/gnn.py:45"),
+    KernelSpec("ln_linear_act_bwd_reduce", "ddls_ln_linear_act_bwd_reduce",
+               "ppiip", "ddls_tpu/models/gnn.py:45",
+               file="ln_linear_act_bwd"),
+    KernelSpec("csr_segment_mean_bwd", "ddls_csr_segment_mean_bwd",
+               "ppppppiiip", "ddls_tpu/ops/segment.py:37",
+               file="segment_bwd"),
+    KernelSpec("csr_segment_sum", "ddls_csr_segment_sum", "ppppiip",
+               "ddls_tpu/models/gnn.py:89", file="segment_bwd"),
+    KernelSpec("masked_mean_pool_concat_bwd",
+               "ddls_masked_mean_pool_concat_bwd", "ppppiiiip",
+               "ddls_tpu/ops/segment.py:61", file="segment_bwd"),
+    KernelSpec("gae_normalize", "ddls_gae_normalize", "ppppppiiffip",
+               "ddls_tpu/rl/ppo.py:101"),
+    KernelSpec("ppo_loss", "ddls_ppo_loss", "pppppppppppppiiffffffp",
+               "ddls_tpu/rl/ppo.py:124"),
 )}
+# one library per source stem
+SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem
+                                               for k in KERNELS.values()))
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 # launches per kernel since the last reset: how a run shows that it went
@@ -87,37 +117,38 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> str:
-    """``_build/lib<name>-<digest>.so``: the digest covers the kernel's
-    source, the shared headers and the flags."""
+def library_path(stem: str) -> str:
+    """``_build/lib<stem>-<digest>.so``: the digest covers the source, the
+    shared headers and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in (KERNELS[name].source,
+    for path in (os.path.join(CSRC, f"{stem}.cu"),
                  *(os.path.join(CSRC, h) for h in HEADERS)):
         with open(path, "rb") as fh:
             digest.update(fh.read())
     return os.path.join(BUILD_DIR,
-                        f"lib{name}-{digest.hexdigest()[:16]}.so")
+                        f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
-    """Compile every library in ``names`` (default: all) that is not built
-    yet: one ``nvcc`` per source, all started together, each into a
-    temporary file renamed into place when it succeeds. Returns the
+def build(stems: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile every source stem in ``stems`` (default: all) whose library
+    is not built yet: one ``nvcc`` per source, all started together, each
+    into a temporary file renamed into place when it succeeds. Returns the
     ``-Xptxas -v`` report per source compiled now (registers, shared
     memory, spills); raises with the compiler's output if any failed,
     after every started compile has ended."""
-    names = list(KERNELS) if names is None else list(names)
+    stems = list(SOURCES) if stems is None else list(stems)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = None
     procs = {}
-    for name in names:
-        path = library_path(name)
+    for stem in stems:
+        path = library_path(stem)
         if os.path.exists(path):
             continue
         nvcc = nvcc or nvcc_path()
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, KERNELS[name].source]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{stem}.cu")]
+        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
                                         text=True), tmp, path)
     reports, failed = {}, []
@@ -137,10 +168,10 @@ def _symbol(name: str) -> ctypes._CFuncPtr:
     with _LOCK:
         fn = _LOADED.get(name)
         if fn is None:
-            path = library_path(name)
-            if not os.path.exists(path):
-                build([name])
             spec = KERNELS[name]
+            path = library_path(spec.stem)
+            if not os.path.exists(path):
+                build([spec.stem])
             fn = getattr(ctypes.CDLL(path), spec.symbol)
             fn.argtypes = [_CTYPES[c] for c in spec.signature]
             fn.restype = ctypes.c_int
@@ -210,3 +241,11 @@ def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
         return False
     raise ValueError(f"kernel inputs must all lie on the CPU or all on "
                      f"CUDA, got devices {sorted(kinds)}")
+
+
+def needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """True when autograd is recording and a given tensor requires grad: a
+    wrapper then launches through its ``torch.autograd.Function`` (whose
+    backward is a kernel too); otherwise it launches the forward alone."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

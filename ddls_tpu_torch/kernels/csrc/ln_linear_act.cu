@@ -22,31 +22,13 @@
 // row lives in a per-warp shared buffer between the statistics and the
 // product. One warp per row; the row statistics come from warp shuffles.
 #include "common.cuh"
+#include "ln_row.cuh"
 
 namespace {
 
-constexpr int kMaxIn = 64;
-constexpr int kMaxOut = 64;
+constexpr int kMaxIn = ddls::kLnMaxIn;
+constexpr int kMaxOut = ddls::kLnMaxOut;
 constexpr int kWarps = 8;
-
-// Activation codes, in the order of ddls_tpu_torch/models/gnn.py:ACTIVATIONS.
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case 0:  // relu: jnp.maximum(x, 0)
-      return fmaxf(x, 0.0f);
-    case 1:  // leaky_relu: jnp.where(x >= 0, x, 0.01 * x)
-      return x >= 0.0f ? x : 0.01f * x;
-    case 2:  // tanh
-      return tanhf(x);
-    case 3:  // swish: x * sigmoid(x)
-      return x * (1.0f / (1.0f + expf(-x)));
-    default: {  // gelu, tanh approximation (flax's default)
-      const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-      const float inner = k * (x + 0.044715f * (x * x * x));
-      return x * (0.5f * (1.0f + tanhf(inner)));
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kWarps * ddls::kWarpSize)
 ln_linear_act_kernel(const float* __restrict__ a, const int* __restrict__ idx,
@@ -99,29 +81,16 @@ ln_linear_act_kernel(const float* __restrict__ a, const int* __restrict__ idx,
       }
       x[h] = v;
     }
-    // separate roundings (no contraction), as the reference's ops round
-    const float s = ddls::warp_sum(__fadd_rn(x[0], x[1]));
-    const float s2 = ddls::warp_sum(
-        __fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])));
-    const float mean = __fmul_rn(s, inv_k);
-    const float var =
-        fmaxf(__fsub_rn(__fmul_rn(s2, inv_k), __fmul_rn(mean, mean)), 0.0f);
-    const float inv_std = 1.0f / sqrtf(__fadd_rn(var, 1e-6f));
+    const ddls::RowStats st = ddls::row_stats(x[0], x[1], inv_k);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = lane + h * ddls::kWarpSize;
-      if (k < k_in) {
-        y[k] = __fadd_rn(__fmul_rn(__fsub_rn(x[h], mean),
-                                   __fmul_rn(inv_std, lnw_s[k])),
-                         lnb_s[k]);
-      }
+      if (k < k_in) y[k] = ddls::ln_apply(x[h], st, lnw_s[k], lnb_s[k]);
     }
     __syncwarp();
     for (int o = lane; o < fo; o += ddls::kWarpSize) {
-      float acc = 0.0f;
-      for (int k = 0; k < k_in; ++k) acc = fmaf(y[k], w_s[k * fo + o], acc);
-      out[static_cast<size_t>(row) * fo + o] =
-          activate(__fadd_rn(acc, bias_s[o]), act);
+      out[static_cast<size_t>(row) * fo + o] = ddls::activate(
+          ddls::dense_pre(y, w_s, k_in, fo, o, bias_s[o]), act);
     }
     __syncwarp();  // y is rewritten by the warp's next row
   }

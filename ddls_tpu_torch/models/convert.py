@@ -1,4 +1,4 @@
-"""The weight bridge: a flax ``GNNPolicy`` parameter tree -> a state dict
+"""The weight bridge: a flax ``GNNPolicy`` parameter tree <-> a state dict
 of the port's ``GNNPolicy``.
 
 The flax tree's paths are frozen by the shipped checkpoints:
@@ -68,6 +68,29 @@ def params_from_flax(tree: Mapping[str, np.ndarray], model: nn.Module
         raise ValueError(f"model parameters missing from the flax tree: "
                          f"{missing}")
     return state
+
+
+def params_to_flax(state: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, np.ndarray]:
+    """The inverse of ``params_from_flax``: a state dict -> the flattened
+    flax tree (``{"params/.../kernel": array}``), kernels transposed back
+    to flax's [in, out], so a trained state dict compares leaf for leaf
+    with the JAX params tree. A ``weight`` is a Dense ``kernel`` when its
+    module is a ``Dense_k``, a LayerNorm ``scale`` otherwise."""
+    tree: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        parts = key.split(".")
+        module, leaf = parts[:-1], parts[-1]
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight":
+            if module[-1].startswith("Dense_"):
+                leaf, arr = "kernel", arr.T
+            else:
+                leaf = "scale"
+        elif leaf != "bias":
+            raise ValueError(f"state-dict key {key!r} has no flax leaf")
+        tree["/".join(["params", *module, leaf])] = np.ascontiguousarray(arr)
+    return tree
 
 
 def checkpoint_graph_feature_dim(tree: Mapping[str, np.ndarray]

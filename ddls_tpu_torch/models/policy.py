@@ -8,7 +8,9 @@ the node mask and the destination-sorted CSR) so the device runs only the
 forward. The readout is kernel K3 (pooling + concat), the two MLP heads
 are ``F.linear`` (tiny, as the JAX package left them to XLA), and kernel
 K4 (``mask_logits_argmax``) masks the logits and picks the greedy action
-in one launch.
+in one launch. Training differentiates through the mask: ``logits +
+max(log mask, finfo.min)`` has derivative 1 with respect to the logits, so
+on the card K4's autograd wrapper passes the gradient through unchanged.
 """
 from __future__ import annotations
 
@@ -44,6 +46,27 @@ def mask_logits_argmax(logits: torch.Tensor, mask: torch.Tensor
     ``_mask_logits`` makes it; ties go to the lowest index."""
     if kernels.on_cpu(logits, mask):
         return mask_logits_argmax_plain(logits, mask)
+    if kernels.needs_grad(logits):
+        return _MaskLogitsArgmax.apply(logits, mask)
+    return _mask_logits_argmax_cuda(logits, mask)
+
+
+class _MaskLogitsArgmax(torch.autograd.Function):
+    """K4 forward; the masked logits' gradient is the logits' (the mask
+    term does not depend on them), the actions have none."""
+
+    @staticmethod
+    def forward(ctx, logits, mask):
+        masked, actions = _mask_logits_argmax_cuda(logits, mask)
+        ctx.mark_non_differentiable(actions)
+        return masked, actions
+
+    @staticmethod
+    def backward(ctx, d_masked, d_actions):
+        return d_masked, None
+
+
+def _mask_logits_argmax_cuda(logits, mask):
     kernels.check_cuda("logits", logits, torch.float32)
     if logits.dim() != 2:
         raise ValueError(f"logits must be [B, A], got "
@@ -95,19 +118,41 @@ def flat_graph_inputs(edges_src: np.ndarray, edges_dst: np.ndarray,
 
 def prepare_flat_batch(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """A stacked observation batch (the ``envs/obs.py`` keys, each [B, ...])
-    -> the host arrays ``GNNPolicy.flat_batched`` takes."""
-    nf = np.asarray(obs["node_features"], np.float32)
+    -> the host arrays ``GNNPolicy.flat_batched`` takes. The float arrays
+    keep the node features' float type (float32 from the env; float64 for
+    the x64 parity runs on the CPU). Besides the forward's arrays it holds
+    what a backward on the card reads: ``edge_dst`` [B*E] int32 (each
+    edge's flattened destination, -1 for a padded edge) and the SOURCE
+    CSR ``src_csr_row_ptr`` / ``src_csr_col`` (``build_csr`` of the
+    flattened sources)."""
+    nf = np.asarray(obs["node_features"])
+    if not np.issubdtype(nf.dtype, np.floating):
+        nf = nf.astype(np.float32)
+    batch, n_nodes = nf.shape[:2]
     src, node_mask, row_ptr, col = flat_graph_inputs(
         obs["edges_src"], obs["edges_dst"], obs["node_split"],
-        obs["edge_split"], nf.shape[1])
+        obs["edge_split"], n_nodes)
+    edges_dst = np.asarray(obs["edges_dst"])
+    n_edges = np.asarray(obs["edge_split"]).reshape(batch, -1)[:, 0]
+    edge_mask = (np.arange(edges_dst.shape[1]) < n_edges[:, None]).reshape(
+        -1)
+    offsets = (np.arange(batch, dtype=np.int64) * n_nodes)[:, None]
+    edge_dst = np.where(edge_mask, (edges_dst + offsets).reshape(-1),
+                        -1).astype(np.int32)
+    src_row_ptr, src_col = build_csr(src, edge_mask, batch * n_nodes)
     return {
         "node_features": nf,
-        "edge_features": np.asarray(obs["edge_features"], np.float32),
-        "graph_features": np.asarray(obs["graph_features"], np.float32),
+        "edge_features": np.asarray(obs["edge_features"], nf.dtype),
+        "graph_features": np.asarray(obs["graph_features"], nf.dtype),
         "action_mask": np.asarray(obs["action_mask"], np.int32),
-        "src": src, "node_mask": node_mask,
-        "csr_row_ptr": row_ptr, "csr_col": col,
+        "src": src, "node_mask": node_mask.astype(nf.dtype),
+        "csr_row_ptr": row_ptr, "csr_col": col, "edge_dst": edge_dst,
+        "src_csr_row_ptr": src_row_ptr, "src_csr_col": src_col,
     }
+
+
+# the batch keys the card's backward reads (GNN.forward's grad_inputs)
+GRAD_INPUT_KEYS = ("edge_dst", "src_csr_row_ptr", "src_csr_col")
 
 
 # ----------------------------------------------------------------- modules
@@ -184,16 +229,19 @@ class GNNPolicy(nn.Module):
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """B observations as ONE flattened graph (``prepare_flat_batch``
         arrays as tensors on this model's device) -> (masked logits [B, A],
-        values [B], greedy actions [B] int64)."""
+        values [B], greedy actions [B] int64). Differentiable: on the card
+        the backward runs through K5, K6 and K4's pass-through, and reads
+        the batch's ``edge_dst`` and source CSR."""
         nf = batch["node_features"]
         ef = batch["edge_features"]
         b, n, fn = nf.shape
         e = ef.shape[1]
         node_mask = batch["node_mask"]
+        grad_inputs = {k: batch[k] for k in GRAD_INPUT_KEYS if k in batch}
         node_emb = self.gnn(nf.reshape(b * n, fn),
                             ef.reshape(b * e, ef.shape[2]), batch["src"],
                             node_mask, batch["csr_row_ptr"],
-                            batch["csr_col"])
+                            batch["csr_col"], grad_inputs)
         graph_emb = self.graph_module(batch["graph_features"])
         final_emb = masked_mean_pool_concat(
             node_emb.reshape(b, n, node_emb.shape[1]),

@@ -1,0 +1,61 @@
+"""The shipped training fixture: a real trajectory of the shipped
+``ppo_price_mixed`` policy and the JAX learner's update of it.
+
+Made from the JAX package by ``scripts/export_torch_train_fixture.py``; it
+travels with the port as a numpy archive, so a machine with neither JAX
+nor orbax can hold the port's ``train_step`` against the reference's.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict
+
+import numpy as np
+
+from ddls_tpu_torch.rl.ppo import PPOConfig
+from ddls_tpu_torch.serve.fixture import DATA_DIR
+
+TRAIN_PATH = os.path.join(DATA_DIR, "ppo_train_price_mixed.npz")
+TRAJ_KEYS = ("actions", "logp", "values", "rewards", "dones")
+
+
+def load_train_fixture(path: str = TRAIN_PATH) -> Dict[str, Any]:
+    """``{"traj": {"obs": {...}, "actions", ...} [T, B, ...],
+    "last_values" [B], "cfg": PPOConfig, "advantages", "value_targets"
+    [T, B], "runs": {num_sgd_iter: {"perms" [I, T*B], "params"
+    {flax path: array}, "metrics" {key: float}, "kl_coeff": float}},
+    "mb0": {"grads" {flax path: array}, "metrics" {key: float}}}``: ``mb0``
+    is the JAX loss's gradient and metrics at the initial params on the
+    first minibatch of the 1-iteration update (``runs[1]["perms"][0]``'s
+    first ``sgd_minibatch_size`` rows)."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    traj = {"obs": {k[len("obs/"):]: v for k, v in arrays.items()
+                    if k.startswith("obs/")}}
+    traj.update({k: arrays[k] for k in TRAJ_KEYS})
+    runs: Dict[int, Dict[str, Any]] = {}
+    mb0: Dict[str, Dict[str, Any]] = {"grads": {}, "metrics": {}}
+    for key, value in arrays.items():
+        if key.startswith("mb0/grads/"):
+            mb0["grads"][key[len("mb0/grads/"):]] = value
+        elif key.startswith("mb0/metrics/"):
+            mb0["metrics"][key[len("mb0/metrics/"):]] = float(value)
+        head, _, rest = key.partition("/")
+        if not head.startswith("iter"):
+            continue
+        run = runs.setdefault(int(head[len("iter"):]),
+                              {"params": {}, "metrics": {}})
+        if rest.startswith("params/"):
+            run["params"][rest] = value
+        elif rest.startswith("metrics/"):
+            run["metrics"][rest[len("metrics/"):]] = float(value)
+        elif rest == "kl_coeff":
+            run["kl_coeff"] = float(value)
+        else:
+            run[rest] = value
+    return {"traj": traj, "last_values": arrays["last_values"],
+            "cfg": PPOConfig(**json.loads(str(arrays["ppo_config"]))),
+            "advantages": arrays["advantages"],
+            "value_targets": arrays["value_targets"], "runs": runs,
+            "mb0": mb0}

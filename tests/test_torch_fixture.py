@@ -1,8 +1,10 @@
-"""The shipped serving fixture (ddls_tpu_torch/data) against the JAX
-package: the exported ppo_price_mixed policy is the restored checkpoint,
-the port's forward of it makes the JAX policy's decisions on the 64
-recorded requests, and both archives regenerate bit for bit from
-scripts/export_torch_serve_fixture.py."""
+"""The shipped fixtures (ddls_tpu_torch/data) against the JAX package: the
+exported ppo_price_mixed policy is the restored checkpoint, the port's
+forward of it makes the JAX policy's decisions on the 64 recorded
+requests, both serving archives regenerate bit for bit from
+scripts/export_torch_serve_fixture.py, and the training archive (a real
+trajectory and the JAX learner's update of it) from
+scripts/export_torch_train_fixture.py."""
 import os
 import sys
 
@@ -14,6 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_serve_fixture as export  # noqa: E402
+import export_torch_train_fixture as train_export  # noqa: E402
 from ddls_tpu.models.policy import batched_policy_apply  # noqa: E402
 from ddls_tpu.serve import ObsBucketer, default_buckets  # noqa: E402
 from ddls_tpu_torch.models.convert import (flatten_tree,  # noqa: E402
@@ -21,6 +24,7 @@ from ddls_tpu_torch.models.convert import (flatten_tree,  # noqa: E402
 from ddls_tpu_torch.models.policy import (batch_to_device,  # noqa: E402
                                           prepare_flat_batch)
 from ddls_tpu_torch.serve import PolicyServer, load_export  # noqa: E402
+from ddls_tpu_torch.rl.fixture import TRAIN_PATH  # noqa: E402
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           REQUESTS_PATH, load_requests)
 
@@ -128,3 +132,20 @@ def test_fixtures_regenerate_bit_for_bit(jax_policy):
                 np.testing.assert_array_equal(got, value, err_msg=key)
     total = sum(os.path.getsize(p) for p in fresh)
     assert total < 1_000_000
+
+
+def test_train_fixture_regenerates_bit_for_bit(jax_policy):
+    """The training archive rebuilt by the export script: the collected
+    trajectory, the JAX GAE, the permutations and the JAX learner's
+    params, metrics and kl_coeff after 1 and 50 SGD iterations, equal in
+    dtype, shape and bits."""
+    fresh = train_export.export_train(*jax_policy)
+    with np.load(TRAIN_PATH, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh)
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, key
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert fresh["rewards"].shape == (train_export.ROLLOUT_LENGTH,
+                                      train_export.N_ENVS)
+    assert os.path.getsize(TRAIN_PATH) < 400_000

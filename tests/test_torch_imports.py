@@ -35,6 +35,8 @@ _CHILD = textwrap.dedent("""
         names.append(info.name)
     for name in names:
         importlib.import_module(name)
+    assert {{"ddls_tpu_torch.rl", "ddls_tpu_torch.rl.ppo",
+             "ddls_tpu_torch.rl.fixture"}} <= set(names), names
     import chip_smoke
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
@@ -50,7 +52,7 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # every subpackage and module was walked, __main__ included
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 23
 
 
 def test_port_sources_name_no_jax_import():
@@ -69,3 +71,28 @@ def test_port_sources_name_no_jax_import():
                 continue
             for name in names:
                 assert name.split(".")[0] not in BLOCKED, (path, name)
+
+
+def test_kernel_signatures_match_their_c_entry_points():
+    """Each KernelSpec's ctypes signature is its C entry's parameter list
+    (``p`` a pointer, ``i`` an int, ``f`` a float): a wrong one would pass
+    arguments the card then misreads, which nothing on the CPU would
+    catch."""
+    import re
+
+    sys.path.insert(0, REPO)
+    from ddls_tpu_torch import kernels
+
+    for spec in kernels.KERNELS.values():
+        with open(spec.source) as fh:
+            text = fh.read()
+        found = re.search(r"DDLS_EXPORT int " + spec.symbol
+                          + r"\((.*?)\)\s*\{", text, re.S)
+        assert found, spec.symbol
+        params = [p.strip() for p in found.group(1).split(",")]
+        sig = "".join("p" if "void*" in p else
+                      "f" if p.startswith("float") else "i" for p in params)
+        assert sig == spec.signature, (spec.name, sig)
+    assert set(kernels.SOURCES) == {os.path.splitext(f)[0] for f in
+                                    os.listdir(kernels.CSRC)
+                                    if f.endswith(".cu")}

@@ -8,10 +8,15 @@ package, so the repo's JAX conftest is skipped):
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernels.py
 
-Tolerance: abs and rel 1e-5 (float32; the kernels sum in another order
-than the plain versions: warp-shuffle trees for the LayerNorm statistics,
-fused multiply-adds in the Dense sums). K2 and K4 are also held bitwise
-across two runs.
+Tolerance: abs and rel 1e-5 for the forward kernels (float32; the
+plain versions repeat the kernels' roundings except in the activations'
+transcendental functions). The backward kernels K5–K8 are held at abs
+1e-5 of each output's own largest magnitude (exactly where that is 0):
+their parameter gradients are float32 sums over up to 16,384 rows in
+another order than the plain versions' matrix products. K5's plain
+version takes relu's kink decisions from K1's output on the same inputs,
+as K5, which recomputes K1's pre-activations, does. K2, K4 and K5–K8 are
+also held bitwise across two runs.
 """
 import numpy as np
 import pytest
@@ -20,10 +25,13 @@ import torch
 from ddls_tpu_torch import kernels
 from ddls_tpu_torch.models import gnn, policy
 from ddls_tpu_torch.ops import segment
+from ddls_tpu_torch.rl import ppo
 
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
+FORWARD_KERNELS = ("ln_linear_act", "csr_segment_mean",
+                   "masked_mean_pool_concat", "mask_logits_argmax")
 
 
 @pytest.fixture
@@ -162,7 +170,9 @@ def test_served_fixture_on_the_card_equals_the_recorded_jax_actions(cuda):
     assert all(by_id[i].source == "policy" for i in ids)
     np.testing.assert_array_equal([by_id[i].action for i in ids],
                                   recorded["jax_actions"])
-    assert all(n > 0 for n in kernels.launch_counts().values())
+    launched = kernels.launch_counts()
+    assert all(launched[n] > 0 for n in FORWARD_KERNELS)
+    assert not any(launched[n] for n in launched if n not in FORWARD_KERNELS)
     forward = BucketForward(model, params, 8, device="cuda")
     padded = [server.bucketer.bucket_obs(o)[1] for o in requests[:8]]
     lo, va, ac = forward.forward(padded)
@@ -170,3 +180,285 @@ def test_served_fixture_on_the_card_equals_the_recorded_jax_actions(cuda):
         lo1, va1, ac1 = forward.forward([obs])
         assert np.array_equal(lo1[0], lo[k]) and va1[0] == va[k]
         assert ac1[0] == ac[k]
+
+
+# ----------------------------------------------- K5–K8: the PPO update
+def _close_scaled(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    torch.testing.assert_close(out, ref, rtol=0, atol=TOL * scale)
+
+
+def _equal_all(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("activation", sorted(gnn.ACTIVATIONS))
+@pytest.mark.parametrize("form", ["rows", "gather_concat", "zero_half"])
+def test_ln_linear_act_bwd_matches_plain(cuda, activation, form):
+    """K5 (with its block-order reduce) against its plain version given
+    K1's output, at the reduce-on-messages shape, with a tie row (all
+    features equal: the variance clamps at exactly 0), bitwise across two
+    runs."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rows, fa, fb, fo = 16384, 16, 16, 64
+    a = torch.rand(4864, fa, generator=g)
+    kwargs = {}
+    if form == "gather_concat":
+        kwargs = dict(idx=torch.randint(0, 4864, (rows,), generator=g,
+                                        dtype=torch.int32).to(cuda),
+                      b=torch.rand(rows, fb, generator=g).to(cuda))
+    elif form == "zero_half":
+        kwargs = dict(b_width=fb)
+        rows = 4864
+        a[7] = 0.0
+    else:
+        a = torch.rand(rows, fa + fb, generator=g) + 3.0
+        a[5] = 2.0
+    a = a.to(cuda)
+    k_in = fa + fb
+    ln_w = torch.randn(k_in, generator=g).to(cuda)
+    ln_b = torch.randn(k_in, generator=g).to(cuda)
+    w = (torch.randn(fo, k_in, generator=g) / 4).to(cuda)
+    bias = torch.randn(fo, generator=g).to(cuda)
+    dout = torch.randn(rows, fo, generator=g).to(cuda)
+    before = kernels.launch_counts()
+    out = gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout,
+                                **kwargs)
+    after = kernels.launch_counts()
+    assert after["ln_linear_act_bwd"] == before["ln_linear_act_bwd"] + 1
+    assert (after["ln_linear_act_bwd_reduce"]
+            == before["ln_linear_act_bwd_reduce"] + 1)
+    again = gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout,
+                                  **kwargs)
+    k1_out = gnn.ln_linear_act(a, ln_w, ln_b, w, bias, activation, **kwargs)
+    ref = gnn.ln_linear_act_bwd_plain(a, ln_w, ln_b, w, bias, activation,
+                                      dout, out=k1_out, **kwargs)
+    for o, r in zip(out, ref):
+        assert (o is None) == (r is None)
+        if o is not None:
+            _close_scaled(o, r)
+    assert _equal_all(out, again)
+
+
+def test_ln_linear_act_bwd_reduce_sums_blocks_in_order(cuda):
+    partial = torch.randn(132, 4288, generator=torch.Generator(
+        device="cpu").manual_seed(2)).to(cuda)
+    out = gnn.ln_linear_act_bwd_reduce(partial)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gnn.ln_linear_act_bwd_reduce_plain(partial))
+
+
+@pytest.mark.parametrize("f", [64, 16])
+def test_segment_backwards_match_plain_and_repeat_bitwise(cuda, f):
+    """K6's three entries at the batch shapes, on the edge cases: nodes
+    with no in-edges, padded edges, a graph with zero real nodes."""
+    row_ptr, col, node_mask, v, e = _csr_case(cuda)
+    g = torch.Generator(device="cpu").manual_seed(f)
+    dout = torch.randn(v, f, generator=g).to(cuda)
+    deg = (row_ptr[1:] - row_ptr[:-1]).long()
+    edge_dst = torch.full((e,), -1, dtype=torch.int32, device=cuda)
+    edge_dst[col[:int(row_ptr[-1])].long()] = torch.repeat_interleave(
+        torch.arange(v, device=cuda), deg).to(torch.int32)
+    out = segment.csr_segment_mean_bwd(dout, row_ptr, edge_dst, node_mask)
+    again = segment.csr_segment_mean_bwd(dout, row_ptr, edge_dst, node_mask)
+    ref = segment.csr_segment_mean_bwd_plain(dout, row_ptr, edge_dst,
+                                             node_mask)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
+    msg = torch.randn(e, f, generator=g).to(cuda)
+    summed = segment.csr_segment_sum(msg, row_ptr, col)
+    torch.cuda.synchronize()
+    assert torch.equal(summed, segment.csr_segment_sum_plain(msg, row_ptr,
+                                                             col))
+    n_graphs = 8
+    pool_dout = torch.randn(n_graphs, f + 8, generator=g).to(cuda)
+    mask = node_mask.view(n_graphs, -1)
+    d_emb, d_graph = segment.masked_mean_pool_concat_bwd(pool_dout, mask, f)
+    r_emb, r_graph = segment.masked_mean_pool_concat_bwd_plain(pool_dout,
+                                                               mask, f)
+    _close_scaled(d_emb, r_emb)
+    assert torch.equal(d_graph, r_graph)
+    assert torch.equal(d_emb[-1], torch.zeros_like(d_emb[-1]))
+
+
+@pytest.mark.parametrize("t_len", [64, 500])
+def test_gae_normalize_matches_plain_and_repeats_bitwise(cuda, t_len):
+    g = torch.Generator(device="cpu").manual_seed(t_len)
+    rewards = torch.randn(t_len, 8, generator=g).to(cuda)
+    values = (torch.randn(t_len, 8, generator=g) * 3 + 50).to(cuda)
+    dones = (torch.rand(t_len, 8, generator=g) < 0.05).float().to(cuda)
+    last = (torch.randn(8, generator=g) + 50).to(cuda)
+    for normalize in (True, False):
+        out = ppo.gae_normalize(rewards, values, dones, last, 0.997, 0.95,
+                                normalize)
+        again = ppo.gae_normalize(rewards, values, dones, last, 0.997, 0.95,
+                                  normalize)
+        ref = ppo.gae_normalize_plain(rewards, values, dones, last, 0.997,
+                                      0.95, normalize)
+        for o, r in zip(out, ref):
+            _close_scaled(o, r)
+        assert _equal_all(out, again)
+
+
+def test_ppo_loss_matches_plain_autograd_at_the_ties(cuda):
+    """K8 (loss, metrics, d loss / d logits and values in one launch)
+    against autograd of the plain loss, on a minibatch with masked
+    actions, a fully masked row, and rows exactly on the clip and vf-clip
+    ties; through autograd the gradient is K8's, scaled."""
+    rng = np.random.default_rng(9)
+    m, a = 128, 17
+    logits = rng.normal(0, 2, (m, a)).astype(np.float32)
+    mask = rng.uniform(0, 1, (m, a)) < 0.6
+    mask[:, 0] = True
+    mask[5] = False
+    actions = np.array([rng.choice(np.flatnonzero(r)) if r.any() else 0
+                        for r in mask], np.int32)
+    mask[0] = False
+    mask[0, actions[0]] = True
+    masked = np.where(mask, logits, logits + np.finfo(np.float32).min)
+    old_logp = rng.normal(-1.5, 0.3, m).astype(np.float32)
+    old_logp[0] = -np.float32(np.log(1.25))
+    while float(torch.exp(torch.tensor(-old_logp[0], device=cuda))) != 1.25:
+        old_logp[0] = np.nextafter(old_logp[0], np.float32(-np.inf))
+    values = rng.normal(50, 2, m).astype(np.float32)
+    old_values = (values + rng.normal(0, 0.6, m)).astype(np.float32)
+    old_values[2], values[2] = 2.0, 2.5
+    cfg = ppo.PPOConfig(clip_param=0.25, vf_clip_param=0.5,
+                        vf_loss_coeff=0.5, entropy_coeff=0.01)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    args = (t(masked.astype(np.float32)), t(values), t(actions),
+            t(old_logp), t(old_values),
+            t(rng.normal(0, 1, m).astype(np.float32)),
+            t(rng.normal(50, 2, m).astype(np.float32)),
+            torch.tensor(0.2, device=cuda), cfg)
+    out = ppo._ppo_loss_cuda(*args)
+    again = ppo._ppo_loss_cuda(*args)
+    ref = ppo.ppo_loss_grad_plain(*args)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
+    lo = args[0].clone().requires_grad_(True)
+    with torch.enable_grad():
+        total, _ = ppo.ppo_loss(lo, *args[1:])
+        (grad,) = torch.autograd.grad(total * 2.0, lo)
+    assert torch.equal(grad, out[2] * 2.0)
+
+
+def test_policy_backward_on_the_card_matches_the_plain_autograd(cuda):
+    """The whole policy's parameter gradients through K1–K6 (and K4's
+    pass-through) on the edge-case batch against the plain autograd path
+    on the same inputs, on the card."""
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH, load_requests
+    from ddls_tpu_torch.envs.obs import pad_obs_to
+
+    model, _, _ = load_export(EXPORT_PATH)
+    model = model.to(cuda)
+    requests, _ = load_requests()
+    obs = [pad_obs_to(r, 150, 512) for r in requests[:8]]
+    obs[6] = dict(obs[6], action_mask=np.zeros_like(obs[6]["action_mask"]))
+    stacked = {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+    batch = policy.batch_to_device(policy.prepare_flat_batch(stacked), cuda)
+    w = torch.randn(8, 17, generator=torch.Generator(
+        device="cpu").manual_seed(1)).to(cuda)
+    params = list(model.parameters())
+    with torch.enable_grad():
+        kernels.reset_launch_counts()
+        lo, va, _ = model.flat_batched(batch)
+        valid = batch["action_mask"] > 0
+        scalar = (torch.where(valid, lo, 0.0) * w).sum() + va.sum()
+        grads = torch.autograd.grad(scalar, params)
+        launched = kernels.launch_counts()
+        assert all(launched[n] > 0 for n in (
+            "ln_linear_act_bwd", "csr_segment_mean_bwd", "csr_segment_sum",
+            "masked_mean_pool_concat_bwd"))
+        cpu_model = model.to("cpu")
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        lo_c, va_c, _ = cpu_model.flat_batched(cpu_batch)
+        scalar_c = (torch.where(valid.cpu(), lo_c, 0.0) * w.cpu()).sum() \
+            + va_c.sum()
+        ref = torch.autograd.grad(scalar_c, list(cpu_model.parameters()))
+    for g_, r in zip(grads, ref):
+        _close_scaled(g_.cpu(), r)
+
+
+def test_fixture_update_on_the_card_matches_the_recorded_jax(cuda):
+    """One train_step of the fixture at 1 SGD iteration on the card, the
+    recorded JAX permutation handed over: params within 1e-5 of the JAX
+    update (observed 1.2e-7), every kernel K1–K8 launched."""
+    import dataclasses
+
+    from ddls_tpu_torch.models.convert import params_to_flax
+    from ddls_tpu_torch.rl.fixture import load_train_fixture
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_train_fixture()
+    model, params, _ = load_export(EXPORT_PATH)
+    run = fx["runs"][1]
+    learner = ppo.PPOLearner(model, dataclasses.replace(fx["cfg"],
+                                                        num_sgd_iter=1))
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    state = learner.init_state({k: v.to(cuda) for k, v in params.items()})
+    kernels.reset_launch_counts()
+    state, metrics = learner.train_step(state, staged, perms=run["perms"])
+    torch.cuda.synchronize()
+    assert all(n > 0 for n in kernels.launch_counts().values())
+    tree = params_to_flax(state.state_dict())
+    for key, value in tree.items():
+        np.testing.assert_allclose(value, run["params"][key], rtol=0,
+                                   atol=1e-5, err_msg=key)
+    assert float(state.kl_coeff) == run["kl_coeff"]
+
+
+def test_first_minibatch_gradients_on_the_card_match_recorded_jax(cuda):
+    """The loss gradient through K1–K8 at the shipped params on the first
+    minibatch of the fixture's update, before any optimiser arithmetic:
+    each leaf within 1e-5 of its largest recorded JAX gradient."""
+    from ddls_tpu_torch.models.convert import params_to_flax
+    from ddls_tpu_torch.rl.fixture import load_train_fixture
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_train_fixture()
+    model, params, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, fx["cfg"])
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    state = learner.init_state({k: v.to(cuda) for k, v in params.items()})
+    advs, targets = learner.flat_advantages(staged)
+    idx = torch.as_tensor(
+        fx["runs"][1]["perms"][0][:fx["cfg"].sgd_minibatch_size],
+        device=cuda)
+    _, grads = learner.loss_and_grads(state, staged, idx, advs, targets)
+    got = params_to_flax(dict(zip(state.names, grads)))
+    for key, ref in fx["mb0"]["grads"].items():
+        np.testing.assert_allclose(got[key], ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()),
+                                   err_msg=key)
+
+
+def test_backward_wrappers_reject_what_they_cannot_take(cuda):
+    dout = torch.rand(4, 3, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        segment.csr_segment_mean_bwd(
+            dout.double(), torch.zeros(5, dtype=torch.int32, device=cuda),
+            torch.zeros(2, dtype=torch.int32, device=cuda),
+            torch.ones(4, device=cuda))
+    with pytest.raises(ValueError, match="A <= 64"):
+        ppo._ppo_loss_cuda(torch.rand(4, 65, device=cuda),
+                           torch.rand(4, device=cuda),
+                           torch.zeros(4, dtype=torch.int32, device=cuda),
+                           *(torch.rand(4, device=cuda),) * 4,
+                           torch.tensor(0.2, device=cuda), ppo.PPOConfig())
+    with pytest.raises(ValueError, match="src_csr"):
+        with torch.enable_grad():
+            gnn.ln_linear_act(
+                torch.rand(4, 2, device=cuda, requires_grad=True),
+                torch.ones(4, device=cuda), torch.zeros(4, device=cuda),
+                torch.rand(5, 4, device=cuda), torch.zeros(5, device=cuda),
+                "relu", idx=torch.zeros(3, dtype=torch.int32, device=cuda),
+                b=torch.rand(3, 2, device=cuda))

@@ -17,6 +17,7 @@ import flax.linen as nn
 from ddls_tpu.models import gnn as jgnn
 from ddls_tpu.models import policy as jpolicy
 from ddls_tpu_torch.models import convert, gnn as tgnn, policy as tpolicy
+from ddls_tpu_torch.ops import segment as tseg
 from ddls_tpu_torch.ops.segment import build_csr
 
 ATOL = 1e-5
@@ -276,3 +277,191 @@ def test_params_from_flax_rejects_missing_extra_and_misshapen_leaves():
 def test_unknown_activation_raises():
     with pytest.raises(ValueError, match="unrecognised activation"):
         tgnn.FeatureModule(4, 4, activation="softsign")
+
+
+# ------------------------------------------------------------- gradients
+@pytest.mark.parametrize("activation", sorted(tgnn.ACTIVATIONS))
+@pytest.mark.parametrize("form", ["rows", "gather_concat", "zero_half"])
+def test_ln_linear_act_bwd_plain_is_the_autograd_of_the_forward(activation,
+                                                                form):
+    """K5's plain version (the kernel's explicit backward formulas) equals
+    torch autograd of K1's plain forward, in float64 (atol 1e-10: the same
+    derivative, sums reordered), including a row whose variance clamps
+    at exactly 0 (all features equal), where both pass half the gradient."""
+    rng = np.random.default_rng(len(activation) + len(form))
+    t = torch.from_numpy
+    rows, fa, fb, fo = 23, 5, 3, 7  # K = 8: the tie rows' sums are exact
+    kwargs = {}
+    if form == "gather_concat":
+        a = t(rng.normal(0, 1, (9, fa)))
+        a[3] = 0.75  # gathered and concatenated with b below: see b[4]
+        idx = rng.integers(0, 9, rows).astype(np.int32)
+        idx[4] = 3
+        b = rng.normal(0, 1, (rows, fb))
+        b[4] = 0.75
+        kwargs = dict(idx=t(idx), b=t(b).requires_grad_(True))
+        tie = 4
+    elif form == "zero_half":
+        a = t(rng.normal(0, 1, (rows, fa)))
+        a[2] = 0.0  # concat(0, zeros): variance exactly 0
+        kwargs = dict(b_width=fb)
+        tie = 2
+    else:
+        a = t(rng.normal(0, 1, (rows, fa + fb)))
+        a[5] = 1.5
+        tie = 5
+    a.requires_grad_(True)
+    k_in = fa + fb
+    params = [t(rng.normal(1, 0.3, k_in)), t(rng.normal(0, 0.3, k_in)),
+              t(rng.normal(0, 0.5, (fo, k_in))), t(rng.normal(0, 0.5, fo))]
+    for p in params:
+        p.requires_grad_(True)
+    dout = t(rng.normal(0, 1, (rows, fo)))
+    x = tgnn._row_input(a.detach(), kwargs.get("idx"),
+                        kwargs["b"].detach() if "b" in kwargs else None,
+                        kwargs.get("b_width", 0))
+    raw = tgnn._ln_dense(x, *(p.detach() for p in params))[3]
+    assert float(raw[tie]) == 0.0 and bool((raw != 0).sum() == rows - 1)
+    out = tgnn.ln_linear_act(a, *params, activation, **kwargs)
+    wrt = [a, *params] + ([kwargs["b"]] if "b" in kwargs else [])
+    ref = torch.autograd.grad(out, wrt, dout)
+    dx, db, dw, dbias, dlnw, dlnb = tgnn.ln_linear_act_bwd(
+        a.detach(), *(p.detach() for p in params), activation, dout,
+        **{k: (v.detach() if torch.is_tensor(v) else v)
+           for k, v in kwargs.items()})
+    if "idx" in kwargs:
+        row_ptr, col = build_csr(kwargs["idx"].numpy(), np.ones(rows, bool),
+                                 a.shape[0])
+        dx = tseg.csr_segment_sum(dx, t(row_ptr), t(col))
+    got = [dx, dlnw, dlnb, dw, dbias] + ([db] if "b" in kwargs else [])
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-10)
+
+
+@pytest.mark.parametrize("activation", ["relu", "leaky_relu"])
+def test_ln_linear_act_bwd_plain_takes_the_kink_side_from_the_output(
+        activation):
+    """Given the forward's output, the plain backward reads each relu /
+    leaky_relu derivative decision from it: with its own forward's output
+    it gives the same bits as without, and a pre-activation put on the
+    other side of the kink (as another summation order can put one that
+    sits a rounding away from 0) moves only that entry's gradient, by
+    d out x (the derivative's jump) (float64, exact and 1e-12)."""
+    rng = np.random.default_rng(7)
+    t = torch.from_numpy
+    rows, k_in, fo = 17, 6, 5
+    a = t(rng.normal(0, 1, (rows, k_in)))
+    params = [t(rng.normal(1, 0.3, k_in)), t(rng.normal(0, 0.3, k_in)),
+              t(rng.normal(0, 0.5, (fo, k_in))), t(rng.normal(0, 0.5, fo))]
+    dout = t(rng.normal(0, 1, (rows, fo)))
+    out = tgnn.ln_linear_act_plain(a, *params, activation)
+    ref = tgnn.ln_linear_act_bwd_plain(a, *params, activation, dout)
+    same = tgnn.ln_linear_act_bwd_plain(a, *params, activation, dout,
+                                        out=out)
+    for g, r in zip(same, ref):
+        assert (g is None and r is None) or torch.equal(g, r)
+    r, o = 3, 2
+    slope = 0.0 if activation == "relu" else 0.01
+    positive = bool(out[r, o] > 0)
+    flipped = out.clone()
+    flipped[r, o] = -0.5 if positive else 0.5
+    moved = tgnn.ln_linear_act_bwd_plain(a, *params, activation, dout,
+                                         out=flipped)
+    jump = (slope - 1.0) if positive else (1.0 - slope)
+    dbias, dbias_ref = moved[3], ref[3]
+    np.testing.assert_allclose(float(dbias[o] - dbias_ref[o]),
+                               float(dout[r, o]) * jump, atol=1e-12)
+    keep = [i for i in range(fo) if i != o]
+    assert torch.equal(dbias[keep], dbias_ref[keep])
+
+
+def _grad_obs(rng, n_pad=12, e_pad=20):
+    """A batch with real padding, one sample's node features at an integer
+    1e3 offset (the LayerNorm's fast variance is exact there and far off
+    the two-pass one), and rows whose variance clamps at exactly 0: equal
+    node features, equal edge features, an all-zero graph vector."""
+    obs = [_obs(rng, n_pad, e_pad, int(rng.integers(3, n_pad + 1)),
+                int(rng.integers(1, e_pad + 1))) for _ in range(4)]
+    for o in obs:
+        n = int(o["node_split"][0])
+        m = int(o["edge_split"][0])
+        o["edges_src"][:m] %= n
+        o["edges_dst"][:m] %= n
+    obs[1]["node_features"][:] = (1e3 + rng.integers(
+        0, 4, obs[1]["node_features"].shape)).astype(np.float32)
+    obs[0]["node_features"][1] = 0.5
+    obs[2]["edge_features"][0] = 0.25
+    obs[3]["graph_features"][:] = 0.0
+    return {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+
+
+def test_policy_param_grads_match_jax_grad():
+    """d (a fixed linear function of logits and values) / d params through
+    the port's plain path equals jax.grad through batched_policy_apply,
+    leaf for leaf. float32: atol 1e-4 of each leaf's largest gradient
+    (XLA sums the Dense and segment reductions in another order, and the
+    1e3-offset rows magnify one rounding step by their 1/std)."""
+    jm, params, port = _policy_pair()
+    stacked = _grad_obs(np.random.default_rng(51))
+    rng = np.random.default_rng(52)
+    w_logits = rng.normal(0, 1, (4, N_ACTIONS)).astype(np.float32)
+    w_values = rng.normal(0, 1, 4).astype(np.float32)
+    valid = stacked["action_mask"] > 0
+
+    def jax_scalar(p):
+        lo, va = jpolicy.batched_policy_apply(jm, p, stacked)
+        return (jnp.sum(jnp.where(valid, lo, 0.0) * w_logits)
+                + jnp.sum(va * w_values))
+
+    ref = convert.flatten_tree({"params": jax.grad(jax_scalar)(params)[
+        "params"]})
+    batch = tpolicy.batch_to_device(tpolicy.prepare_flat_batch(stacked),
+                                    torch.device("cpu"))
+    lo, va, _ = port.flat_batched(batch)
+    scalar = (torch.sum(torch.where(torch.from_numpy(valid), lo,
+                                    torch.zeros(())) * torch.from_numpy(
+                                        w_logits))
+              + torch.sum(va * torch.from_numpy(w_values)))
+    names = [n for n, _ in port.named_parameters()]
+    grads = torch.autograd.grad(scalar, [p for _, p in
+                                         port.named_parameters()])
+    got = convert.params_to_flax(dict(zip(names, grads)))
+    assert sorted(got) == sorted(ref)
+    for key, value in got.items():
+        r = np.asarray(ref[key])
+        scale = max(float(np.abs(r).max()), 1e-3)
+        np.testing.assert_allclose(value, r, rtol=0, atol=1e-4 * scale,
+                                   err_msg=key)
+
+
+def test_params_to_flax_inverts_params_from_flax():
+    _, params, port = _policy_pair()
+    flat = convert.flatten_tree({"params": params["params"]})
+    back = convert.params_to_flax(convert.params_from_flax(flat, port))
+    assert sorted(back) == sorted(flat)
+    for key, value in back.items():
+        np.testing.assert_array_equal(value, np.asarray(flat[key]))
+        assert value.dtype == np.float32
+
+
+def test_prepare_flat_batch_keeps_the_float_type_and_gives_grad_inputs():
+    rng = np.random.default_rng(61)
+    stacked = _grad_obs(rng)
+    host = tpolicy.prepare_flat_batch(stacked)
+    assert host["node_features"].dtype == np.float32
+    wide = dict(stacked, node_features=stacked["node_features"].astype(
+        np.float64))
+    host64 = tpolicy.prepare_flat_batch(wide)
+    for key in ("node_features", "edge_features", "graph_features",
+                "node_mask"):
+        assert host64[key].dtype == np.float64, key
+    n = stacked["node_features"].shape[1]
+    e = stacked["edges_src"].shape[1]
+    mask = (np.arange(e) < stacked["edge_split"][:, :1]).reshape(-1)
+    offsets = np.repeat(np.arange(4) * n, e)
+    np.testing.assert_array_equal(
+        host["edge_dst"], np.where(mask, stacked["edges_dst"].reshape(-1)
+                                   + offsets, -1))
+    row_ptr, col = build_csr(host["src"], mask, 4 * n)
+    np.testing.assert_array_equal(host["src_csr_row_ptr"], row_ptr)
+    np.testing.assert_array_equal(host["src_csr_col"], col)

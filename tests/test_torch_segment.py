@@ -10,6 +10,12 @@ with ``masked_segment_mean(..., extra) * node_mask``, K3
 (``masked_mean_pool_concat``) with the vmapped ``masked_mean`` plus the
 concat. The cases include nodes with no in-edges, padded edges pointing at
 node 0, and a graph with zero real nodes.
+
+The backward kernels' plain versions (K6: ``csr_segment_mean_bwd``,
+``csr_segment_sum``, ``masked_mean_pool_concat_bwd``) are held against
+torch autograd of the plain forward in float64 (atol 1e-12: the same
+arithmetic, sums possibly reordered) and against ``jax.vjp`` of the JAX
+composition in float32 (atol 1e-6, as above).
 """
 import numpy as np
 import pytest
@@ -166,3 +172,118 @@ def test_wrappers_refuse_mixed_devices():
         tseg.masked_mean_pool_concat(torch.zeros(1, 2, 2, device="meta"),
                                      torch.zeros(1, 2), torch.zeros(1, 1))
     assert kernels.on_cpu(x, None, x)
+
+
+def _csr_mean_inputs(case, seed):
+    rng = np.random.default_rng(seed + sum(case))
+    src, dst, edge_mask, node_mask, data, extra = _graph(rng, *case)
+    n = case[0]
+    row_ptr, col = tseg.build_csr(dst, edge_mask, n)
+    edge_dst = np.where(edge_mask, dst, -1).astype(np.int32)
+    dout = rng.normal(0, 1, (n, case[4])).astype(np.float32)
+    return (src, dst, edge_mask, node_mask, data, extra, row_ptr, col,
+            edge_dst, dout)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_csr_segment_mean_bwd_matches_autograd_and_jax(case):
+    """K6 ``csr_segment_mean_bwd``: d_msg is the destination's
+    (dOut * mask) / (deg + 1) on a real edge and 0 on a padded one, d_self
+    the same per node; equal to autograd of K2's plain version and to the
+    VJP of the reference's masked_segment_mean(extra) * node_mask."""
+    (_, dst, edge_mask, node_mask, data, extra, row_ptr, col, edge_dst,
+     dout) = _csr_mean_inputs(case, 200)
+    n = case[0]
+    t = torch.from_numpy
+    mask_f = node_mask.astype(np.float32)
+    d_msg, d_self = tseg.csr_segment_mean_bwd(t(dout), t(row_ptr),
+                                              t(edge_dst), t(mask_f))
+    assert np.all(d_msg.numpy()[~edge_mask] == 0.0)
+
+    msg = t(data).double().requires_grad_(True)
+    self_msg = t(extra).double().requires_grad_(True)
+    out = tseg.csr_segment_mean_plain(msg, self_msg, t(row_ptr), t(col),
+                                      t(mask_f).double())
+    ref_msg, ref_self = torch.autograd.grad(out, (msg, self_msg),
+                                            t(dout).double(),
+                                            allow_unused=True,
+                                            materialize_grads=True)
+    d64 = tseg.csr_segment_mean_bwd(t(dout).double(), t(row_ptr),
+                                    t(edge_dst), t(mask_f).double())
+    np.testing.assert_allclose(d64[0].numpy(), ref_msg.numpy(), atol=1e-12)
+    np.testing.assert_allclose(d64[1].numpy(), ref_self.numpy(),
+                               atol=1e-12)
+
+    def jax_fn(m, x):
+        return jseg.masked_segment_mean(
+            m, jnp.asarray(dst), jnp.asarray(edge_mask), n,
+            extra=x) * jnp.asarray(node_mask)[:, None]
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(data), jnp.asarray(extra))
+    j_msg, j_self = vjp(jnp.asarray(dout))
+    np.testing.assert_allclose(d_msg.numpy(), np.asarray(j_msg), atol=ATOL)
+    np.testing.assert_allclose(d_self.numpy(), np.asarray(j_self),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_csr_segment_sum_is_the_transpose_of_the_gather(case):
+    """K6 ``csr_segment_sum`` along the SOURCE CSR folds per-edge rows into
+    their source nodes in ascending edge id, dropping padded edges: the
+    gradient of the masked gather ``a[src]`` (the reference's message
+    gather), against autograd and jax.vjp."""
+    (src, _, edge_mask, _, data, _, _, _, _, _) = _csr_mean_inputs(case,
+                                                                   300)
+    n, f = case[0], case[4]
+    row_ptr, col = tseg.build_csr(src, edge_mask, n)
+    t = torch.from_numpy
+    got = tseg.csr_segment_sum(t(data), t(row_ptr), t(col))
+    assert got.shape == (n, f)
+
+    a = torch.zeros(n, f, dtype=torch.float64, requires_grad=True)
+    keep = t(edge_mask.astype(np.float64))[:, None]
+    (ref,) = torch.autograd.grad(a[t(src).long()] * keep, a,
+                                 t(data).double())
+    got64 = tseg.csr_segment_sum(t(data).double(), t(row_ptr), t(col))
+    np.testing.assert_allclose(got64.numpy(), ref.numpy(), atol=1e-12)
+
+    _, vjp = jax.vjp(lambda x: jnp.where(jnp.asarray(edge_mask)[:, None],
+                                         x[jnp.asarray(src)], 0.0),
+                     jnp.zeros((n, f), jnp.float32))
+    (j_ref,) = vjp(jnp.asarray(data))
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("n_real", [[5, 0, 9, 1], [9, 9, 9, 9]])
+def test_masked_mean_pool_concat_bwd_matches_autograd_and_jax(n_real):
+    """K6 ``masked_mean_pool_concat_bwd``: (dPool / count) * mask per node,
+    a graph with no real node getting zeros, and the graph-embedding
+    columns passed through."""
+    rng = np.random.default_rng(400 + sum(n_real))
+    b, n, f, g = len(n_real), 9, 6, 3
+    emb = rng.uniform(-1, 1, (b, n, f)).astype(np.float32)
+    mask = (np.arange(n) < np.asarray(n_real)[:, None]).astype(np.float32)
+    graph_emb = rng.uniform(-1, 1, (b, g)).astype(np.float32)
+    dout = rng.normal(0, 1, (b, f + g)).astype(np.float32)
+    t = torch.from_numpy
+    d_emb, d_graph = tseg.masked_mean_pool_concat_bwd(t(dout), t(mask), f)
+    assert np.all(d_emb.numpy()[mask == 0] == 0.0)
+
+    e64 = t(emb).double().requires_grad_(True)
+    g64 = t(graph_emb).double().requires_grad_(True)
+    out = tseg.masked_mean_pool_concat_plain(e64, t(mask).double(), g64)
+    ref_emb, ref_graph = torch.autograd.grad(out, (e64, g64),
+                                             t(dout).double())
+    d64 = tseg.masked_mean_pool_concat_bwd(t(dout).double(),
+                                           t(mask).double(), f)
+    np.testing.assert_allclose(d64[0].numpy(), ref_emb.numpy(), atol=1e-12)
+    np.testing.assert_array_equal(d64[1].numpy(), ref_graph.numpy())
+
+    def jax_fn(x, y):
+        pooled = jax.vmap(jseg.masked_mean)(x, jnp.asarray(mask > 0))
+        return jnp.concatenate([pooled, y], axis=-1)
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(emb), jnp.asarray(graph_emb))
+    j_emb, j_graph = vjp(jnp.asarray(dout))
+    np.testing.assert_allclose(d_emb.numpy(), np.asarray(j_emb), atol=ATOL)
+    np.testing.assert_array_equal(d_graph.numpy(), np.asarray(j_graph))
