@@ -7,7 +7,7 @@ exits non-zero (nothing is caught):
 
 1. device  — requires CUDA; prints the card, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``; turns TF32 off.
-2. build   — compiles the four kernels from ddls_tpu_torch/kernels/csrc
+2. build   — compiles the kernels from ddls_tpu_torch/kernels/csrc
    (one nvcc per source, all at once) and prints the -Xptxas -v summary.
 3. kernels — records every kernel call of one forward of the shipped
    policy at the largest bucket (150 nodes, 512 edges) x max_batch 8 and
@@ -25,6 +25,11 @@ exits non-zero (nothing is caught):
    magnitude: float32 sums over up to 16,384 rows in another order; K5's
    plain version takes relu's kink decisions from K1's output on the same
    inputs), bitwise across two runs, and timed as above.
+   Then K9, the rollout's sampling: its call in the rollout forward of
+   recorded step 0 (8 envs) and of that batch with a fully masked row, a
+   one-valid-action row, an exact tie and a near tie of ``m + g``; actions
+   equal and logp within 1e-5 of its largest magnitude, bitwise across two
+   runs, timed at the rollout shape.
 4. serve   — the main path: the shipped ppo_price_mixed export through
    ``build_fleet(device="cuda")`` at max_batch 8 on the default ladder,
    the 64 fixture requests, launch counters reset just before and read
@@ -48,6 +53,23 @@ exits non-zero (nothing is caught):
    step (synchronised after each), the device busy share of 8 minibatch
    steps under torch.profiler, and one update at the canonical batch
    ([500, 8], tiled from the fixture, the learner's own generator).
+7. rollout — the recorded collect (8 env_load32_price_mixed envs of the
+   port's own simulator, 64 steps, the shipped policy, the recorded JAX
+   uniforms) through K1–K3 and K9: observations, rewards and dones
+   bit-equal to the recorded trajectory, actions equal, logp within 1e-5
+   and values within 1e-5 of the largest recorded value; env steps/s, the
+   wall split into env stepping and sampling, and candidate pricing's
+   share of env stepping (its own timer); K9 launched once per
+   step (the bootstrap values need no sample, so no K9 there).
+8. eval    — ``RLEvalLoop`` with the shipped policy at a fixed
+   interarrival time of 80 from seed 7005, greedy through K4: the episode
+   record equal to the recorded JAX one, per-decision return > 0.2.
+9. loop    — the slice's main path: ``python -m ddls_tpu_torch.train``
+   (in this process) from the shipped export, 2 epochs at 8 envs x 64
+   steps with the ppo.yaml update, one greedy evaluation episode and a
+   checkpoint, with the launch counters reset just before and read just
+   after (K1–K9 must all have run); run twice from one seed, bit-equal;
+   then one warmed epoch under torch.profiler for the device busy share.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -75,17 +97,26 @@ from ddls_tpu_torch.models import policy as policy_mod  # noqa: E402
 from ddls_tpu_torch.models.convert import params_to_flax  # noqa: E402
 from ddls_tpu_torch.ops import segment as segment_mod  # noqa: E402
 from ddls_tpu_torch.rl import ppo as ppo_mod  # noqa: E402
-from ddls_tpu_torch.rl.fixture import load_train_fixture  # noqa: E402
+from ddls_tpu_torch.envs import RampJobPartitioningEnvironment  # noqa: E402
+from ddls_tpu_torch.rl.fixture import (load_rollout_fixture,  # noqa: E402
+                                       load_train_config, load_train_fixture)
+from ddls_tpu_torch.rl.rollout import RolloutCollector, VectorEnv  # noqa: E402
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
                                   build_fleet, default_buckets, load_export)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           load_requests)
+from ddls_tpu_torch.train import RLEvalLoop  # noqa: E402
+from ddls_tpu_torch.train.__main__ import build_loop  # noqa: E402
+from ddls_tpu_torch.train.__main__ import main as train_main  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and fp32
 # outside the tensor cores; every kernel here is fp32 CUDA-core work
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 TOL = 1e-5
+# the rollout's values against the recorded JAX ones: about 3x the largest
+# difference seen (1.53e-5, 4 float32 steps of a value near 54)
+VALUES_TOL = 5e-5
 MAX_BATCH = 8
 PAD_NODES, PAD_EDGES = 150, 512
 TIMED_ITERS = 200
@@ -921,7 +952,8 @@ def phase_train(params, fx, card):
             snapshots.append({k: v.clone() for k, v in
                               state.state_dict().items()})
         for name, n in launches.items():
-            require(n > 0, f"kernel {name} was not launched by train_step")
+            require(n > 0 or name in SAMPLE_SITES,
+                    f"kernel {name} was not launched by train_step")
         require(out["iter50_params_max_abs_err"] <= 1e-2,
                 "50-iteration update far off the recorded JAX params")
         require(all(torch.equal(v, snapshots[1][k])
@@ -956,6 +988,330 @@ def phase_train(params, fx, card):
                             "ms_per_minibatch_step":
                                 seconds / state.step * 1e3}
     emit("train", **out)
+    return launches
+
+
+# ------------------------------------------------- K9: rollout sampling
+def k9_parts(args, kwargs):
+    logits, mask, u = args
+    rows, a = logits.shape
+
+    def library():
+        m = logits.masked_fill(mask == 0, policy_mod.FLOAT32_MIN)
+        actions = (m - torch.log(-torch.log(u))).argmax(1)
+        logp = torch.log_softmax(m, 1).gather(1, actions[:, None])[:, 0]
+        return actions, logp
+
+    # three [B, A] float32/int32 inputs read once, two [B] outputs
+    # written once; ~8 operations per entry (mask, two logs, add, max,
+    # sub, exp, sum)
+    work = bound_ms(_nbytes(logits, mask, u) + rows * 8, 8 * rows * a)
+    return (lambda: policy_mod.mask_sample_logp_plain(*args), library,
+            work, f"rows={rows} actions={a}")
+
+
+SAMPLE_SITES = {
+    "mask_sample_logp": (policy_mod, "mask_sample_logp", k9_parts),
+}
+
+
+def sample_edge_cases(logits, mask, u):
+    """Rows that probe K9's edges, appended to a real rollout step: a fully
+    masked row, a one-valid-action row, an exact tie of ``m + g`` (the
+    lower index must win) and a near tie one float32 step apart."""
+    a = logits.shape[1]
+    ext_l = logits[:4].clone()
+    ext_m = torch.ones_like(mask[:4])
+    ext_u = u[:4].clone()
+    ext_m[0] = 0
+    ext_m[1] = 0
+    ext_m[1, a // 2] = 1
+    # tie rows: every other entry 24 below, beyond what any float32 uniform
+    # can close (its Gumbel draw lies in [-4.5, 16.7])
+    ext_l[2] = -20.0
+    ext_l[2, 3] = ext_l[2, 5] = 4.0
+    ext_u[2, 3] = ext_u[2, 5] = 0.75
+    ext_l[3] = -20.0
+    ext_l[3, 2] = 4.0
+    ext_l[3, 6] = float(np.nextafter(np.float32(4.0), np.float32(5.0)))
+    ext_u[3, 2] = ext_u[3, 6] = 0.75
+    return (torch.cat([logits, ext_l]), torch.cat([mask, ext_m]),
+            torch.cat([u, ext_u]))
+
+
+def check_sample_kernel(params, fx, uniforms):
+    """Phase 3, K9: its calls in the rollout forward of recorded step 0 (8
+    envs) and of that batch with the edge-case rows; held against its
+    plain version (actions equal, logp within 1e-5 of its largest
+    magnitude), bitwise across two runs, timed at the rollout shape."""
+    model, _, _ = load_export(EXPORT_PATH)
+    learner = ppo_mod.PPOLearner(model, fx["cfg"], device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    obs = {k: v[0] for k, v in fx["traj"]["obs"].items()}
+    u = torch.as_tensor(uniforms[0], device="cuda")
+    calls = record_sites(SAMPLE_SITES,
+                         lambda: learner.sample_actions(obs, u))
+    fn, args, kwargs = calls["mask_sample_logp"][0]
+    res = {"max_abs_err": 0.0, "max_rel_err": 0.0, "calls_per_step":
+           len(calls["mask_sample_logp"])}
+    for timed, call_args in ((True, args), (False,
+                                            sample_edge_cases(*args))):
+        plain, library, (bound, bound_by), shape = k9_parts(call_args, {})
+        out = fn(*call_args)
+        again = fn(*call_args)
+        ref = plain()
+        lib_out = library()
+        torch.cuda.synchronize()
+        err, rel = max_err_scaled(out, ref)
+        require(torch.equal(out[0].long(), lib_out[0]),
+                "K9's actions differ from the library composition's")
+        require(all(torch.equal(x, y) for x, y in zip(out, again)),
+                "mask_sample_logp is not bitwise repeatable")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_rel_err"] = max(res["max_rel_err"], rel)
+        if not timed:
+            n = args[0].shape[0]
+            require(int(out[0][n]) == 0 and abs(
+                float(out[1][n]) + float(np.log(args[0].shape[1]))) < TOL,
+                    "a fully masked row must give action 0, logp -log(A)")
+            require(int(out[0][n + 1]) == args[0].shape[1] // 2
+                    and float(out[1][n + 1]) == 0.0,
+                    "a one-valid-action row must give it with logp 0")
+            require(int(out[0][n + 2]) == 3, "an exact tie must go to the "
+                                             "lower index")
+            require(int(out[0][n + 3]) == 6, "a near tie must go to the "
+                                             "larger value")
+            continue
+        res.update(shape=shape, bound_ms=bound, bound_by=bound_by,
+                   ms=device_ms(lambda: fn(*call_args)),
+                   eager_ms=eager_ms(lambda: fn(*call_args)),
+                   plain_ms=eager_ms(plain, iters=50),
+                   library_ms=eager_ms(library),
+                   library_device_ms=device_ms(library))
+    return res
+
+
+# ------------------------------------------- rollout, eval, loop phases
+def phase_rollout(params, fx, uniforms, card):
+    """Phase 7: the recorded collect (8 env_load32_price_mixed envs seeded
+    0-7, 64 steps, the shipped policy, the recorded JAX uniforms) through
+    the port's simulator, K1-K3 and K9: observations, rewards and dones
+    bit-equal to the recorded trajectory, actions equal, logp within 1e-5
+    and values within VALUES_TOL absolute (float32 sums in another order;
+    values reach ~54, where one float32 step is 3.8e-6)."""
+    cfg = load_train_config()
+    model, _, _ = load_export(EXPORT_PATH)
+    learner = ppo_mod.PPOLearner(model, fx["cfg"], device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    ref = fx["traj"]
+    t_len, n_envs = ref["rewards"].shape
+    vec = VectorEnv([lambda: RampJobPartitioningEnvironment(
+        **copy.deepcopy(cfg["env_config"])) for _ in range(n_envs)],
+        seeds=list(range(n_envs)))
+    vec.reset()
+    collector = RolloutCollector(vec, learner, t_len)
+    # candidate pricing's share of env stepping: the env's pricing call
+    # (all valid degrees on the C++ engine), timed where it runs
+    pricing = {"s": 0.0, "calls": 0}
+    price = RampJobPartitioningEnvironment._price_candidates
+
+    def timed_price(env):
+        t_start = time.perf_counter()
+        price(env)
+        pricing["s"] += time.perf_counter() - t_start
+        pricing["calls"] += 1
+
+    RampJobPartitioningEnvironment._price_candidates = timed_price
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = collector.collect(noise=uniforms)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+    finally:
+        RampJobPartitioningEnvironment._price_candidates = price
+    traj = out["traj"]
+    for key, value in traj["obs"].items():
+        require(np.array_equal(value, ref["obs"][key]),
+                f"rollout obs {key} differs from the recorded trajectory")
+    for key in ("rewards", "dones", "actions"):
+        require(np.array_equal(traj[key], ref[key]),
+                f"rollout {key} differ from the recorded trajectory")
+    logp_err = float(np.abs(traj["logp"] - ref["logp"]).max())
+    val_err = float(np.abs(traj["values"] - ref["values"]).max())
+    last_err = float(np.abs(out["last_values"] - fx["last_values"]).max())
+    require(logp_err <= TOL, f"rollout logp off JAX's by {logp_err}")
+    require(max(val_err, last_err) <= VALUES_TOL,
+            f"rollout values off JAX's by {max(val_err, last_err)}")
+    require(launches["mask_sample_logp"] == t_len,
+            f"K9 launched {launches['mask_sample_logp']} times in "
+            f"{t_len} rollout steps")
+    for name in ("ln_linear_act", "csr_segment_mean",
+                 "masked_mean_pool_concat"):
+        require(launches[name] > 0, f"the rollout did not launch {name}")
+    steps = t_len * n_envs
+    emit("rollout", card=card, env_steps=steps, wall_s=wall,
+         env_steps_per_s=steps / wall, env_s=out["timing"]["env_s"],
+         sample_s=out["timing"]["sample_s"],
+         env_ms_per_step=out["timing"]["env_s"] / t_len * 1e3,
+         pricing_s=pricing["s"], pricing_calls=pricing["calls"],
+         pricing_ms_per_decision=pricing["s"] / pricing["calls"] * 1e3,
+         sample_ms_per_step=out["timing"]["sample_s"] / t_len * 1e3,
+         logp_max_abs_err=logp_err, values_max_abs_err=val_err,
+         last_values_max_abs_err=last_err, values_tol=VALUES_TOL,
+         launches={k: v for k, v in launches.items() if v})
+
+
+def phase_eval(recorded, card):
+    """Phase 8: the port's RLEvalLoop with the shipped policy at a fixed
+    interarrival time of 80, seed 7005, greedy through K4: the episode
+    record equal to the recorded JAX one (length exact, return within
+    1e-6, every other field within 1e-9 relative) and per-decision return
+    above 0.2 (``tests/test_shipped_checkpoint.py``'s floor)."""
+    want, seed, interarrival = (recorded["record"], recorded["seed"],
+                                recorded["interarrival"])
+    cfg = load_train_config()
+    cfg["env_config"]["jobs_config"]["job_interarrival_time_dist"].update(
+        {"_target_": "ddls_tpu.demands.distributions.Fixed",
+         "val": interarrival})
+    cfg["epoch_loop"].update(num_envs=1, rollout_length=1)
+    loop = build_loop(cfg, "cuda", EXPORT_PATH)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        got = RLEvalLoop(loop).run(seed=seed)["episode"]
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+    finally:
+        loop.close()
+    require(got["episode_length"] == want["episode_length"],
+            f"eval episode length {got['episode_length']} != JAX's "
+            f"{want['episode_length']}")
+    require(abs(got["episode_return"] - want["episode_return"]) <= 1e-6,
+            f"eval return {got['episode_return']} != JAX's "
+            f"{want['episode_return']}")
+    require(sorted(got) == sorted(want), "eval record keys differ")
+    for key, value in want.items():
+        require(abs(got[key] - value) <= 1e-9 * max(1.0, abs(value)),
+                f"eval {key} {got[key]} != JAX's {value}")
+    per_decision = got["episode_return"] / max(got["episode_length"], 1)
+    require(per_decision > 0.2, f"eval per-decision return {per_decision}")
+    require(launches["mask_logits_argmax"] == got["episode_length"],
+            "the greedy eval did not take one K4 launch per decision")
+    emit("eval", card=card, seed=seed, interarrival=interarrival,
+         record=got, per_decision=per_decision, wall_s=wall,
+         ms_per_decision=wall / got["episode_length"] * 1e3,
+         launches={k: v for k, v in launches.items() if v})
+
+
+def _run_train_cli(argv):
+    """``python -m ddls_tpu_torch.train`` in this process (so its kernel
+    launches count): its JSON lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main(argv)
+    require(rc == 0, f"ddls_tpu_torch.train exited {rc}")
+    return [json.loads(ln) for ln in buf.getvalue().splitlines() if ln]
+
+
+def _deterministic(line):
+    """An output line without its wall-clock fields and its checkpoint's
+    directory."""
+    drop = ("timing", "epoch_time", "run_time", "checkpoint")
+    return {k: v for k, v in line.items() if k not in drop}
+
+
+def profile_epoch(cfg_path: str):
+    """One warmed epoch of the loop under torch.profiler: device time over
+    wall time (the profiler's host cost is inside the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with open(cfg_path) as fh:
+        cfg = json.load(fh)
+    loop = build_loop(cfg, "cuda", EXPORT_PATH)
+    try:
+        loop.run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            results = loop.run()
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        loop.close()
+    device_ms_total = sum(e.device_time_total for e in prof.events()
+                          if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": device_ms_total,
+            "device_busy_share": device_ms_total / wall_ms,
+            "timing": results["timing"]}
+
+
+def phase_loop(card):
+    """Phase 9, the slice's main path: ``python -m ddls_tpu_torch.train``
+    from the shipped export for 2 epochs at 8 envs x 64 steps under the
+    ppo.yaml update (minibatch 128, 50 SGD iterations), then one greedy
+    evaluation episode and a checkpoint; the launch counters reset just
+    before and read just after (every kernel K1-K9 must have run). Run
+    twice from one seed: the output lines and the checkpoints bit-equal.
+    Then one more warmed epoch under torch.profiler."""
+    import tempfile
+
+    cfg = load_train_config()
+    cfg["epoch_loop"].update(num_envs=8, rollout_length=64)
+    runs, launches = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "train_config.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        for attempt in range(2):
+            ckpt_dir = os.path.join(tmp, f"run{attempt}")
+            argv = ["--config", cfg_path, "--epochs", "2", "--device",
+                    "cuda", "--init-export", EXPORT_PATH,
+                    "--checkpoint-dir", ckpt_dir, "--eval-episodes", "1",
+                    "--eval-seed", "1799"]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            lines = _run_train_cli(argv)
+            wall = time.monotonic() - t0
+            if attempt == 0:
+                launches = kernels.launch_counts()
+            state = torch.load(os.path.join(lines[-1]["checkpoint"],
+                                            "train_state.pt"),
+                               weights_only=True)
+            runs.append((lines, state, wall))
+        profiled = profile_epoch(cfg_path)
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched by the loop")
+    (lines0, state0, wall0), (lines1, state1, _) = runs
+    require([_deterministic(x) for x in lines0]
+            == [_deterministic(x) for x in lines1],
+            "two runs of the loop from one seed printed different results")
+    require(all(torch.equal(a, b) for key in ("params", "mu", "nu")
+                for a, b in zip(state0[key], state1[key]))
+            and torch.equal(state0["kl_coeff"], state1["kl_coeff"])
+            and state0["step"] == state1["step"],
+            "two runs of the loop from one seed saved different states")
+    epochs = lines0[:-1]
+    for line in epochs:
+        require(all(np.isfinite(v) for v in line["learner"].values()),
+                "non-finite learner metrics")
+    emit("loop", card=card, wall_s=wall0, epochs=len(epochs),
+         env_steps_per_epoch=epochs[0]["env_steps_this_iter"],
+         epoch_s=[x["epoch_time"] for x in epochs],
+         timing=[x["timing"] for x in epochs],
+         learner=[x["learner"] for x in epochs],
+         evaluation=lines0[-1]["evaluation"],
+         profiled_epoch=profiled,
+         launches={k: v for k, v in launches.items() if v})
     return launches
 
 
@@ -1185,23 +1541,40 @@ def main() -> int:
          **{name: {k: v for k, v in r.items() if k != "shapes"}
             for name, r in train_results.items()})
 
+    rollout_fx = load_rollout_fixture()
+    sample_result = check_sample_kernel(params, fx, rollout_fx["uniforms"])
+    emit("sample_kernel_checked", card=card, mask_sample_logp={
+        k: v for k, v in sample_result.items() if k != "shape"})
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
     train_launches = phase_train(params, fx, card)
+    phase_rollout(params, fx, rollout_fx["uniforms"], card)
+    phase_eval(rollout_fx["eval"], card)
+    loop_launches = phase_loop(card)
 
+    sample_result["shapes"] = [sample_result.pop("shape")]
     rows = []
-    for name, r in {**results, **train_results}.items():
+    for name, r in {**results, **train_results,
+                    "mask_sample_logp": sample_result}.items():
         spec = kernels.KERNELS[name]
         forward = name in KERNEL_SITES
+        sampling = name in SAMPLE_SITES
+        main_path = ("serve" if forward else
+                     "rollout loop" if sampling else "train_step")
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
             "replaces": spec.replaces,
             # the main path of each kernel: serving for the forward ones,
-            # one 50-iteration train_step for the update's
-            "launches": launches[name] if forward else train_launches[name],
-            "main_path": "serve" if forward else "train_step",
+            # one 50-iteration train_step for the update's, the training
+            # loop (2 epochs + 1 eval episode) for K9
+            "launches": (launches[name] if forward else
+                         loop_launches[name] if sampling else
+                         train_launches[name]),
+            "main_path": main_path,
             "train_step_launches": train_launches[name],
+            "loop_launches": loop_launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
@@ -1209,7 +1582,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_device_ms": r["library_device_ms"],
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
-            "calls_per": ("forward" if forward else "update"
+            "calls_per": ("forward" if forward else "rollout step"
+                          if sampling else "update"
                           if name == "gae_normalize" else "minibatch step"),
             "shapes": r["shapes"], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,251 @@
+"""Workload generator: loads/synthesises job graphs and samples arrivals.
+
+Counterpart of the reference's ``ddls/demands/jobs/jobs_generator.py:64``:
+loads graph profile files (PipeDream ``.txt`` / CostGraphDef ``.pbtxt``) from a
+directory, replicates them ``replication_factor`` times, wraps each in a
+:class:`~ddls_tpu_torch.demands.job.Job` with a sampled max-acceptable-JCT fraction,
+then serves jobs (``replace`` / ``remove`` / ``remove_and_repeat``) and
+interarrival times. Per-model immutable details are computed once and shared
+across replicas (reference memo: jobs_generator.py:140-183).
+
+Additions over the reference:
+
+* ``synthetic`` config generates PipeDream-format profiles on the fly (the
+  reference's datasets are not distributed with it);
+* dataset-wide min/max stats for observation normalisation are identical in
+  structure (reference: jobs_generator.py:276-333), including the
+  fully-connected worst-case bound on partitioned dep totals.
+
+Port: a copy of ``ddls_tpu/demands/jobs_generator.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+import glob
+import hashlib
+import os
+import random
+import tempfile
+from typing import List, Optional, Union
+
+import numpy as np
+
+from ddls_tpu_torch.demands.distributions import Distribution, make_distribution
+from ddls_tpu_torch.demands.job import Job, compute_immutable_details
+from ddls_tpu_torch.graphs.readers import read_graph_file
+from ddls_tpu_torch.graphs.synthetic import generate_pipedream_txt_files
+
+
+class JobSampler:
+    """Sample jobs from a pool (reference Sampler: ddls/utils.py:50).
+
+    On pool exhaustion under ``remove_and_repeat``, the pool is rebuilt with
+    fresh job ids so ids stay unique across refills.
+    """
+
+    def __init__(self, prototypes: List[Job], mode: str, shuffle: bool):
+        if mode not in ("replace", "remove", "remove_and_repeat"):
+            raise ValueError(f"unknown job_sampling_mode {mode}")
+        self.prototypes = prototypes
+        self.mode = mode
+        self.shuffle = shuffle
+        self.refill_counter = 0
+        self._next_id = 0
+        self._pool: List[Job] = []
+        self._refill()
+
+    def _refill(self) -> None:
+        self._pool = []
+        for proto in self.prototypes:
+            self._pool.append(proto.clone_fresh(job_id=self._next_id))
+            self._next_id += 1
+        if self.shuffle:
+            random.shuffle(self._pool)
+        self.refill_counter += 1
+
+    def __len__(self) -> int:
+        return len(self._pool)
+
+    def sample(self) -> Job:
+        if not self._pool:
+            raise RuntimeError(
+                "job pool exhausted (job_sampling_mode='remove'); no more "
+                "jobs to sample")
+        idx = np.random.randint(len(self._pool))
+        job = self._pool[idx]
+        if self.mode == "replace":
+            # hand out a fresh clone so exec state never aliases
+            clone = job.clone_fresh(job_id=self._next_id)
+            self._next_id += 1
+            return clone
+        self._pool.pop(idx)
+        if self.mode == "remove_and_repeat" and not self._pool:
+            self._refill()
+        return job
+
+
+def discover_profile_files(path_to_files: str) -> list:
+    """Sorted graph-profile files under a directory — the single discovery
+    rule shared by the generator and by the cluster's workload signature
+    (cache validity must see exactly the files the generator loads)."""
+    return sorted(
+        p for p in glob.glob(path_to_files.rstrip("/") + "/*")
+        if p.endswith(".txt") or p.endswith(".pbtxt"))
+
+
+class JobsGenerator:
+    def __init__(self,
+                 path_to_files: Optional[str] = None,
+                 job_interarrival_time_dist: Union[Distribution, dict] = None,
+                 max_acceptable_job_completion_time_frac_dist:
+                     Union[Distribution, dict, None] = None,
+                 max_files: Optional[int] = None,
+                 replication_factor: int = 1,
+                 job_sampling_mode: str = "remove_and_repeat",
+                 shuffle_files: bool = False,
+                 num_training_steps: int = 1,
+                 max_partitions_per_op_in_observation: int = 1,
+                 synthetic: Optional[dict] = None,
+                 device_type: str = "A100",
+                 **kwargs):
+        if path_to_files is None and synthetic is None:
+            raise ValueError("need path_to_files or a synthetic config")
+        if job_interarrival_time_dist is None:
+            raise ValueError(
+                "job_interarrival_time_dist is required (pass a Distribution "
+                "or a {'_target_': ..., **kwargs} dict)")
+        self.num_training_steps = num_training_steps
+        self.device_type = device_type
+        self.max_files = max_files
+        generated_paths = None
+        if synthetic is not None:
+            out_dir = synthetic.get("out_dir") or tempfile.mkdtemp(
+                prefix="ddls_tpu_jobs_")
+            kw = {k: v for k, v in synthetic.items() if k != "out_dir"}
+            # use exactly the files generated this run (a reused out_dir may
+            # hold stale profiles from a previous, differently-sized config)
+            generated_paths = generate_pipedream_txt_files(out_dir, **kw)
+            path_to_files = out_dir
+        self.path_to_files = path_to_files
+
+        file_paths = (sorted(generated_paths) if generated_paths is not None
+                      else discover_profile_files(path_to_files))
+        if not file_paths:
+            raise FileNotFoundError(
+                f"no .txt/.pbtxt graph profiles under {path_to_files}")
+        if max_files is not None:
+            file_paths = file_paths[:max_files]
+        # workload fingerprint for the cluster's memo-cache validity check:
+        # synthetic datasets are deterministic per config (seeded), so the
+        # config content identifies them regardless of the tmpdir they were
+        # written to; on-disk datasets fingerprint exactly the files loaded
+        # (post-max_files truncation), statted+digested at load time (not at
+        # reset time — the files could change on disk after this generator
+        # read them)
+        if synthetic is not None:
+            dataset_id = ("synthetic", repr(sorted(synthetic.items())))
+        else:
+            stats = []
+            for f in file_paths:
+                st = os.stat(f)
+                # content digest of head+tail bytes makes the check
+                # content-true: an in-place edit that preserves mtime and
+                # size (some sync tools, archive extraction) still changes
+                # the fingerprint and invalidates stale memo caches
+                with open(f, "rb") as fh:
+                    head = fh.read(4096)
+                    if st.st_size > 8192:
+                        fh.seek(-4096, os.SEEK_END)
+                    tail = fh.read(4096)
+                digest = hashlib.sha1(head + tail).hexdigest()
+                stats.append((os.path.basename(f), st.st_mtime_ns,
+                              st.st_size, digest))
+            dataset_id = ("files", path_to_files, tuple(stats))
+        self.workload_fingerprint = (dataset_id, num_training_steps,
+                                     device_type, max_files)
+
+        self.interarrival_dist = make_distribution(job_interarrival_time_dist)
+        frac_dist = make_distribution(
+            max_acceptable_job_completion_time_frac_dist
+            if max_acceptable_job_completion_time_frac_dist is not None
+            else {"_target_": "ddls_tpu_torch.demands.distributions.Fixed", "val": 1.0})
+        sampled = frac_dist.sample()
+        if isinstance(sampled, Distribution):
+            # ListOfDistributions: one dist chosen per generator instance
+            frac_dist = sampled
+        self.frac_dist = frac_dist
+
+        graphs = [read_graph_file(p, device_type=device_type) for p in file_paths]
+        model_to_immutable = {}
+        prototypes: List[Job] = []
+        for _ in range(replication_factor):
+            for g in graphs:
+                model = g.meta["model"]
+                if model not in model_to_immutable:
+                    model_to_immutable[model] = compute_immutable_details(
+                        g, num_training_steps)
+                prototypes.append(Job(
+                    graph=g,
+                    num_training_steps=num_training_steps,
+                    max_acceptable_jct_frac=float(self.frac_dist.sample()),
+                    job_id=0,  # assigned by the sampler
+                    details={"model": model},
+                    immutable_details=model_to_immutable[model]))
+
+        self.sampler = JobSampler(prototypes, job_sampling_mode, shuffle_files)
+        self.max_partitions_per_op_in_observation = (
+            max_partitions_per_op_in_observation)
+        self.jobs_params = self._init_jobs_params(
+            prototypes, max_partitions_per_op_in_observation)
+
+    def __len__(self) -> int:
+        return len(self.sampler)
+
+    def sample_job(self) -> Job:
+        return self.sampler.sample()
+
+    def sample_interarrival_time(self) -> float:
+        if len(self.sampler) == 0:
+            return float("inf")
+        return float(self.interarrival_dist.sample())
+
+    def _init_jobs_params(self, jobs: List[Job], max_parts: int) -> dict:
+        """Dataset-wide normalisation stats (reference:
+        jobs_generator.py:276-333). The ``max_job_total_num_*`` bounds account
+        for partitioning blowing up the graph: each op can split up to
+        ``max_parts`` ways; the dep-size bound assumes a fully connected
+        worst case (reference: jobs_generator.py:320-324)."""
+        raw = {
+            "job_sequential_completion_times":
+                [j.seq_completion_time for j in jobs],
+            "max_acceptable_job_completion_times":
+                [j.max_acceptable_jct for j in jobs],
+            "max_acceptable_job_completion_time_fracs":
+                [j.max_acceptable_jct_frac for j in jobs],
+            "job_total_op_memory_costs":
+                [j.immutable["job_total_op_memory_cost"] for j in jobs],
+            "job_total_dep_sizes":
+                [j.immutable["job_total_dep_size"] for j in jobs],
+            "job_total_num_ops": [j.graph.n_ops for j in jobs],
+            "job_total_num_deps": [j.graph.n_deps for j in jobs],
+            "job_num_training_steps": [j.num_training_steps for j in jobs],
+            "job_max_dep_size": [j.immutable["max_dep_size"] for j in jobs],
+            "job_max_op_compute_throughputs": [
+                j.immutable["max_op_compute_throughput"] for j in jobs],
+        }
+        params = {}
+        for key, vals in raw.items():
+            vals = np.asarray(vals, dtype=np.float64)
+            params[f"min_{key}"] = float(vals.min())
+            if key == "job_total_num_ops":
+                params[f"max_{key}"] = float(vals.max() * max_parts)
+            elif key == "job_total_num_deps":
+                max_fwd = int((vals.max() / 2) * max_parts * 2)
+                params[f"max_{key}"] = float(max_fwd + 2 * max_fwd)
+            elif key == "job_total_dep_sizes":
+                max_nodes = max(raw["job_total_num_ops"]) * max_parts
+                fully_connected = int(max_nodes * (max_nodes - 1) / 2)
+                params[f"max_{key}"] = float(vals.max() * fully_connected)
+            else:
+                params[f"max_{key}"] = float(vals.max())
+        return params

@@ -1,0 +1,324 @@
+"""Array-native computation graph for DNN training jobs.
+
+The reference models jobs as mutable ``networkx.MultiDiGraph`` objects with
+per-node/edge attribute dicts (reference: ddls/demands/jobs/job.py:42,
+ddls/utils.py:400-461). Here the graph is a compact, finalisable structure:
+ops and deps live in insertion-ordered tables, and ``finalize()`` caches flat
+numpy index arrays (costs, adjacency, parent counts, depths) so that the
+simulator's tick engine and the RL observation encoder can work on vectors
+rather than attribute dicts. This is what later lets rollout state live in
+fixed-size device arrays.
+
+Terminology follows the reference: *ops* are nodes (operations of a fwd+bwd
+pass), *deps* are directed edges (tensor/control dependencies).
+
+Port: a copy of ``ddls_tpu/graphs/op_graph.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+
+EdgeId = Tuple[str, str]
+
+
+class OpGraph:
+    """A directed (possibly cyclic via mutual sync-edge pairs) op graph.
+
+    Node attributes: ``compute`` (profiled run time on ``device_type``),
+    ``memory`` (bytes resident), ``is_forward`` (pass type), and an optional
+    fwd<->bwd ``counterpart`` mapping. Edge attribute: ``size`` (bytes moved).
+    """
+
+    def __init__(self, device_type: str = "A100"):
+        self.device_type = device_type
+        self._compute: Dict[str, float] = {}
+        self._memory: Dict[str, float] = {}
+        self._is_forward: Dict[str, bool] = {}
+        self._counterpart: Dict[str, Optional[str]] = {}
+        self._edge_size: Dict[EdgeId, float] = {}
+        self._succ: Dict[str, Dict[str, None]] = {}
+        self._pred: Dict[str, Dict[str, None]] = {}
+        self.meta: Dict[str, object] = {}
+        self._cache: Optional[dict] = None
+
+    # ------------------------------------------------------------------ build
+    def add_op(self,
+               op_id: str,
+               compute: float,
+               memory: float,
+               is_forward: bool = True,
+               counterpart: Optional[str] = None) -> None:
+        op_id = str(op_id)
+        if op_id in self._compute:
+            raise ValueError(f"op {op_id!r} already exists in graph")
+        self._compute[op_id] = float(compute)
+        self._memory[op_id] = float(memory)
+        self._is_forward[op_id] = bool(is_forward)
+        self._counterpart[op_id] = counterpart
+        self._succ.setdefault(op_id, {})
+        self._pred.setdefault(op_id, {})
+        self._cache = None
+
+    def add_edge(self, u: str, v: str, size: float = 0.0) -> None:
+        u, v = str(u), str(v)
+        if u not in self._compute or v not in self._compute:
+            raise KeyError(f"edge ({u}, {v}) references an unknown op")
+        self._edge_size[(u, v)] = float(size)
+        self._succ[u][v] = None
+        self._pred[v][u] = None
+        self._cache = None
+
+    def remove_op(self, op_id: str) -> None:
+        op_id = str(op_id)
+        for v in list(self._succ[op_id]):
+            del self._edge_size[(op_id, v)]
+            del self._pred[v][op_id]
+        for u in list(self._pred[op_id]):
+            del self._edge_size[(u, op_id)]
+            del self._succ[u][op_id]
+        for table in (self._compute, self._memory, self._is_forward,
+                      self._counterpart, self._succ, self._pred):
+            del table[op_id]
+        self._cache = None
+
+    def set_edge_size(self, u: str, v: str, size: float) -> None:
+        if (u, v) not in self._edge_size:
+            raise KeyError(f"edge ({u}, {v}) does not exist")
+        self._edge_size[(u, v)] = float(size)
+        self._cache = None
+
+    def copy(self) -> "OpGraph":
+        out = OpGraph(self.device_type)
+        out._compute = dict(self._compute)
+        out._memory = dict(self._memory)
+        out._is_forward = dict(self._is_forward)
+        out._counterpart = dict(self._counterpart)
+        out._edge_size = dict(self._edge_size)
+        out._succ = {k: dict(v) for k, v in self._succ.items()}
+        out._pred = {k: dict(v) for k, v in self._pred.items()}
+        out.meta = dict(self.meta)
+        return out
+
+    # ------------------------------------------------------------------ views
+    @property
+    def n_ops(self) -> int:
+        return len(self._compute)
+
+    @property
+    def n_deps(self) -> int:
+        return len(self._edge_size)
+
+    @property
+    def op_ids(self) -> List[str]:
+        return list(self._compute)
+
+    @property
+    def edge_ids(self) -> List[EdgeId]:
+        return list(self._edge_size)
+
+    def has_op(self, op_id: str) -> bool:
+        return str(op_id) in self._compute
+
+    def has_edge(self, u: str, v: str) -> bool:
+        return (str(u), str(v)) in self._edge_size
+
+    def compute_cost(self, op_id: str) -> float:
+        return self._compute[str(op_id)]
+
+    def memory_cost(self, op_id: str) -> float:
+        return self._memory[str(op_id)]
+
+    def is_forward(self, op_id: str) -> bool:
+        return self._is_forward[str(op_id)]
+
+    def counterpart(self, op_id: str) -> Optional[str]:
+        return self._counterpart[str(op_id)]
+
+    def edge_size(self, u: str, v: str) -> float:
+        return self._edge_size[(str(u), str(v))]
+
+    def successors(self, op_id: str) -> List[str]:
+        return list(self._succ[str(op_id)])
+
+    def predecessors(self, op_id: str) -> List[str]:
+        return list(self._pred[str(op_id)])
+
+    def in_edges(self, op_id: str) -> List[EdgeId]:
+        op_id = str(op_id)
+        return [(u, op_id) for u in self._pred[op_id]]
+
+    def out_edges(self, op_id: str) -> List[EdgeId]:
+        op_id = str(op_id)
+        return [(op_id, v) for v in self._succ[op_id]]
+
+    def parents(self, op_id: str) -> List[str]:
+        """Non-mutual predecessors.
+
+        Op A is a parent of op B only if A->B exists and B->A does not: mutual
+        (sync) edge pairs are treated as *children* of both endpoints so the
+        backward-pass weight-sync collective cannot deadlock op readiness
+        (reference: ddls/demands/jobs/job.py:508-523).
+        """
+        op_id = str(op_id)
+        succ = self._succ[op_id]
+        return [u for u in self._pred[op_id] if u not in succ]
+
+    def forward_op_ids(self) -> List[str]:
+        return [op for op, fwd in self._is_forward.items() if fwd]
+
+    def forward_view(self) -> "OpGraph":
+        """The graph restricted to forward-pass ops
+        (reference: ddls/utils.py:477 get_forward_graph)."""
+        out = OpGraph(self.device_type)
+        for op in self.forward_op_ids():
+            out.add_op(op, self._compute[op], self._memory[op],
+                       is_forward=True, counterpart=self._counterpart[op])
+        for (u, v), size in self._edge_size.items():
+            if out.has_op(u) and out.has_op(v):
+                out.add_edge(u, v, size)
+        out.meta = dict(self.meta)
+        return out
+
+    # ------------------------------------------------------------ finalised arrays
+    def finalize(self) -> dict:
+        """Cache flat arrays keyed by stable op/edge insertion order."""
+        if self._cache is not None:
+            return self._cache
+        op_ids = self.op_ids
+        edge_ids = self.edge_ids
+        op_index = {op: i for i, op in enumerate(op_ids)}
+        edge_index = {e: i for i, e in enumerate(edge_ids)}
+
+        n, m = len(op_ids), len(edge_ids)
+        compute = np.array([self._compute[o] for o in op_ids], dtype=np.float64)
+        memory = np.array([self._memory[o] for o in op_ids], dtype=np.float64)
+        is_forward = np.array([self._is_forward[o] for o in op_ids], dtype=bool)
+        edge_size = np.array([self._edge_size[e] for e in edge_ids], dtype=np.float64)
+        edge_src = np.array([op_index[u] for u, _ in edge_ids], dtype=np.int64)
+        edge_dst = np.array([op_index[v] for _, v in edge_ids], dtype=np.int64)
+
+        in_edges: List[List[int]] = [[] for _ in range(n)]
+        out_edges: List[List[int]] = [[] for _ in range(n)]
+        for ei, (u, v) in enumerate(edge_ids):
+            out_edges[op_index[u]].append(ei)
+            in_edges[op_index[v]].append(ei)
+
+        num_parents = np.array([len(self.parents(o)) for o in op_ids], dtype=np.int64)
+        # an edge is "mutual" if its reverse also exists (sync-edge pair);
+        # mutual edges never gate op readiness (see parents())
+        edge_mutual = np.array([(v, u) in self._edge_size for u, v in edge_ids],
+                               dtype=bool)
+        sources = [op for op in op_ids if len(self._pred[op]) == 0]
+        depth = self._bfs_depths(sources[0] if sources else None, op_index, n)
+
+        # sorted-id ranks: the engines break priority ties to the smallest
+        # op/edge id; precomputing them here (cached per graph, and graphs
+        # are memoised across same-model jobs) keeps lookahead packing off
+        # the per-call hot path
+        op_sorted_rank = np.empty(n, dtype=np.int64)
+        for r, op in enumerate(sorted(op_ids)):
+            op_sorted_rank[op_index[op]] = r
+        edge_sorted_rank = np.empty(m, dtype=np.int64)
+        for r, e in enumerate(sorted(edge_ids)):
+            edge_sorted_rank[edge_index[e]] = r
+
+        self._cache = {
+            "op_ids": op_ids,
+            "edge_ids": edge_ids,
+            "op_index": op_index,
+            "edge_index": edge_index,
+            "compute": compute,
+            "memory": memory,
+            "is_forward": is_forward,
+            "edge_size": edge_size,
+            "edge_src": edge_src,
+            "edge_dst": edge_dst,
+            "in_edges": in_edges,
+            "out_edges": out_edges,
+            "num_parents": num_parents,
+            "edge_mutual": edge_mutual,
+            "sources": sources,
+            "depth": depth,
+            "op_sorted_rank": op_sorted_rank,
+            "edge_sorted_rank": edge_sorted_rank,
+        }
+        return self._cache
+
+    def flow_mask(self, server_of_op) -> Tuple[np.ndarray, np.ndarray]:
+        """Dense per-op server codes + per-dep flow mask.
+
+        ``server_of_op`` is a sequence of server ids aligned with
+        ``finalize()['op_ids']``. A dep is a *flow* iff its size is nonzero
+        and its endpoints sit on different servers — the single definition
+        shared by the dep placer, the lookahead packers, and the
+        register-time run-time zeroing (which must all agree for the
+        engines to stay in lockstep). Returns (scode[n_ops],
+        is_flow[n_deps])."""
+        arrays = self.finalize()
+        server_dense: Dict[str, int] = {}
+        scode = np.empty(self.n_ops, np.int64)
+        for i, s in enumerate(server_of_op):
+            si = server_dense.get(s)
+            if si is None:
+                si = server_dense.setdefault(s, len(server_dense))
+            scode[i] = si
+        return scode, self.flow_mask_from_codes(scode)
+
+    def flow_mask_from_codes(self, scode) -> np.ndarray:
+        """Per-dep flow mask from an already-dense per-op server-code array
+        (any consistent labelling): THE flow predicate — nonzero size AND
+        endpoints on different servers. Every array-path caller (dep
+        placer, candidate pricing, packers, register-time zeroing) must go
+        through here so the engines can never disagree on flow-ness."""
+        arrays = self.finalize()
+        return ((arrays["edge_size"] > 0)
+                & (scode[arrays["edge_src"]] != scode[arrays["edge_dst"]]))
+
+    def _bfs_depths(self, root: Optional[str], op_index: Dict[str, int], n: int) -> np.ndarray:
+        """Shortest-path node counts from the first source op; 0 if unreachable
+        (matches the reference's ``len(nx.shortest_path(...))`` with
+        NetworkXNoPath -> 0, ddls/demands/jobs/job.py:23-29)."""
+        depth = np.zeros(n, dtype=np.int64)
+        if root is None:
+            return depth
+        depth[op_index[root]] = 1
+        seen = {root}
+        frontier = deque([(root, 1)])
+        while frontier:
+            node, d = frontier.popleft()
+            for child in self._succ[node]:
+                if child not in seen:
+                    seen.add(child)
+                    depth[op_index[child]] = d + 1
+                    frontier.append((child, d + 1))
+        return depth
+
+    def topo_order(self) -> List[str]:
+        """Kahn topological order, FIFO over insertion order (matches the
+        placer's deterministic sequence, reference:
+        ddls/environments/ramp_cluster/agents/placers/utils.py:100).
+
+        In-degrees count only non-mutual parents so graphs containing
+        sync-edge pairs (cycles of length 2) still order fully.
+        """
+        indegree = {op: len(self.parents(op)) for op in self._compute}
+        queue = deque([op for op, d in indegree.items() if d == 0])
+        order = list(queue)
+        while queue:
+            op = queue.popleft()
+            for child in self._succ[op]:
+                if op in self._succ.get(child, {}):
+                    continue  # mutual pair: not a parent->child relation
+                indegree[child] -= 1
+                if indegree[child] == 0:
+                    queue.append(child)
+                    order.append(child)
+        return order
+
+    def __repr__(self) -> str:
+        return (f"OpGraph(n_ops={self.n_ops}, n_deps={self.n_deps}, "
+                f"device_type={self.device_type!r})")

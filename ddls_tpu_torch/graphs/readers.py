@@ -1,0 +1,255 @@
+"""Workload profile readers: PipeDream ``.txt`` and REGAL CostGraphDef ``.pbtxt``.
+
+Produces :class:`~ddls_tpu_torch.graphs.op_graph.OpGraph` objects holding one
+forward+backward training-step graph, with the same construction semantics as
+the reference (ddls/utils.py:110-476):
+
+* the profile describes the *forward* pass; the backward pass is built by
+  reflecting the forward DAG, with backward op id ``2n - (fwd - 1)`` for a
+  forward op ``fwd`` in a graph of ``n`` forward ops (ddls/utils.py:342-370);
+* forward and backward graphs are joined by an edge from the last forward op
+  to the first backward op (ddls/utils.py:389-392);
+* every edge's tensor size is the *activation* size of its producer op
+  (ddls/utils.py:394-397);
+* an op's ``memory_cost`` is ``activation + parameter`` size and its
+  ``compute_cost`` is the profiled forward (resp. backward) time
+  (ddls/utils.py:426-431).
+
+Port: a copy of ``ddls_tpu/graphs/readers.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+import json
+import random
+import re
+from collections import defaultdict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ddls_tpu_torch.graphs.op_graph import OpGraph
+
+
+# --------------------------------------------------------------------- pipedream
+def _parse_pipedream_txt(path: str) -> Tuple[Dict[str, dict], List[Tuple[str, str]]]:
+    """Parse node/edge lines of a PipeDream profile.
+
+    Node line:  ``node<i> -- <OpType>(...) -- forward_compute_time=..,
+    backward_compute_time=.., activation_size=.., parameter_size=..``
+    Edge line:  ``node<u> -- node<v>``
+    (reference parser: ddls/utils.py:278-340).
+    """
+    nodes: Dict[str, dict] = {}
+    edges: List[Tuple[str, str]] = []
+    with open(path) as f:
+        for raw in f:
+            raw = raw.rstrip("\n")
+            if not raw.strip():
+                continue
+            parts = [p.split("\t")[-1] for p in raw.split(" -- ")]
+            if len(parts) > 2:
+                node_id = str(int(parts[0][4:]))
+                stats = parts[2].split(", ")
+                if len(stats) < 4:
+                    raise ValueError(
+                        f"{path}: malformed node line (expected 4 "
+                        f"'key=value' stats): {raw!r}")
+                vals = {}
+                for name, field in zip(
+                        ("forward", "backward", "activation", "parameter"), stats):
+                    if "=" not in field:
+                        raise ValueError(
+                            f"{path}: malformed stat field {field!r} in "
+                            f"line {raw!r}")
+                    val = json.loads(field.split("=")[1].replace(";", ","))
+                    if isinstance(val, list):
+                        # some pipedream translation profiles list per-output
+                        # activations; total = sum (reference: ddls/utils.py:322-324)
+                        val = float(np.sum(val))
+                    vals[name] = float(val)
+                vals["op_type"] = parts[1].split("(")[0]
+                nodes[node_id] = vals
+            else:
+                u = str(int(parts[0][4:]))
+                v = str(int(parts[1][4:]))
+                edges.append((u, v))
+    return nodes, edges
+
+
+def backward_op_id(forward_op_id, n_forward_ops: int) -> str:
+    """Backward counterpart id: ``2n - (fwd - 1)``
+    (reference: ddls/environments/ramp_cluster/agents/placers/utils.py:316)."""
+    return str(2 * n_forward_ops - (int(forward_op_id) - 1))
+
+
+def graph_from_pipedream_txt(path: str,
+                             device_type: str = "A100",
+                             verbose: bool = False) -> OpGraph:
+    nodes, fwd_edges = _parse_pipedream_txt(path)
+    n = len(nodes)
+
+    g = OpGraph(device_type)
+    # forward ops
+    for op_id, vals in nodes.items():
+        g.add_op(op_id,
+                 compute=vals["forward"],
+                 memory=vals["activation"] + vals["parameter"],
+                 is_forward=True,
+                 counterpart=backward_op_id(op_id, n))
+    # mirrored backward ops
+    for op_id, vals in nodes.items():
+        g.add_op(backward_op_id(op_id, n),
+                 compute=vals["backward"],
+                 memory=vals["activation"] + vals["parameter"],
+                 is_forward=False,
+                 counterpart=op_id)
+
+    activation = {op: vals["activation"] for op, vals in nodes.items()}
+    for bop, fop in ((backward_op_id(op, n), op) for op in nodes):
+        activation[bop] = nodes[fop]["activation"]
+
+    def _add(u: str, v: str) -> None:
+        g.add_edge(u, v, size=activation[u])
+
+    for u, v in fwd_edges:
+        _add(u, v)
+    # reflected backward edges
+    for u, v in fwd_edges:
+        _add(backward_op_id(v, n), backward_op_id(u, n))
+    # join last forward op to first backward op
+    join_src = str(max(int(i) for i in nodes))
+    join_dst = str(min(int(backward_op_id(i, n)) for i in nodes))
+    _add(join_src, join_dst)
+
+    g.meta["file_path"] = path
+    g.meta["model"] = _model_name_from_path(path)
+    if verbose:
+        print(f"loaded {path}: {g}")
+    return g
+
+
+def _model_name_from_path(path: str) -> str:
+    """Model tag used for memoisation keys: the file's stem, or the parent
+    directory when the file is a generic ``graph.txt``
+    (reference: ddls/demands/jobs/jobs_generator.py:150-155)."""
+    parts = path.split("/")
+    if parts[-1] == "graph.txt":
+        return parts[-2]
+    return re.sub(r"\.(txt|pbtxt)$", "", parts[-1])
+
+
+# ----------------------------------------------------------------------- pbtxt
+def _parse_pbtxt_nodes(path: str) -> List[dict]:
+    """Parse CostGraphDef-style node blocks (DeepMind REGAL release format;
+    reference: ddls/utils.py:110-167)."""
+    out: List[dict] = []
+    node: Optional[dict] = None
+    with open(path) as f:
+        for raw in f:
+            line = raw.replace(" ", "").replace("\n", "")
+            if line == "node{":
+                if node is not None:
+                    out.append(node)
+                node = defaultdict(list)
+            elif node is None or line == "}":
+                continue
+            elif line.startswith("id"):
+                node["id"] = int(line.split(":", 1)[1])
+            elif "name" in line:
+                if "_SOURCE" in line:
+                    node["id"] = 0
+            elif "preceding_node" in line:
+                node["input_info"].append(int(line.split(":", 1)[1]))
+            elif "size" in line:
+                node["output_info"].append(int(line.split(":", 1)[1]))
+            elif "control_input" in line:
+                node["control_input"].append(int(line.split(":", 1)[1]))
+            elif "compute_cost" in line:
+                node["compute_cost"] = int(line.split(":", 1)[1])
+    if node is not None:
+        out.append(node)
+    return out
+
+
+def graph_from_pbtxt(path: str,
+                     device_type: str = "A100",
+                     mirror: bool = True,
+                     verbose: bool = False) -> OpGraph:
+    """Build an OpGraph from a REGAL CostGraphDef profile.
+
+    The released pbtxt files do not say which child consumes which output
+    tensor, so a dependency's size is sampled among the producer's output
+    sizes, preserving the released size distribution (reference hack:
+    ddls/utils.py:170-198). With ``mirror=True`` the cost graph is treated as
+    a forward pass and reflected into a fwd+bwd graph (the reference's pbtxt
+    path never mirrors and is in fact unreachable from its JobsGenerator --
+    SURVEY.md §7.5 -- so mirroring here makes pbtxt workloads actually usable
+    for the partitioning MDP).
+    """
+    blocks = _parse_pbtxt_nodes(path)
+    blocks = [b for b in blocks if isinstance(b.get("id"), int)]
+    # remap ids to contiguous 1..n (the backward-mirroring arithmetic needs
+    # 1-based contiguous ids; released pbtxt files may have sparse ids)
+    remap = {b["id"]: str(i + 1) for i, b in enumerate(
+        sorted(blocks, key=lambda b: b["id"]))}
+    compute = {}
+    out_sizes = {}
+    data_edges: List[Tuple[str, str]] = []
+    ctrl_edges: List[Tuple[str, str]] = []
+    for block in blocks:
+        node_id = remap[block["id"]]
+        compute[node_id] = float(block.get("compute_cost", 0))
+        out_sizes[node_id] = list(block.get("output_info", [])) or [0]
+        for parent in block.get("input_info", []):
+            if parent in remap:
+                data_edges.append((remap[parent], node_id))
+        for parent in block.get("control_input", []):
+            if parent in remap:
+                ctrl_edges.append((remap[parent], node_id))
+
+    n = len(compute)
+    g = OpGraph(device_type)
+    for node_id in compute:
+        mem = float(np.sum(out_sizes[node_id]))
+        g.add_op(node_id, compute=compute[node_id], memory=mem,
+                 is_forward=True,
+                 counterpart=backward_op_id(node_id, n) if mirror else None)
+    if mirror:
+        for node_id in compute:
+            mem = float(np.sum(out_sizes[node_id]))
+            g.add_op(backward_op_id(node_id, n), compute=compute[node_id],
+                     memory=mem, is_forward=False, counterpart=node_id)
+
+    def _size_of(u: str, is_data: bool) -> float:
+        return float(random.choice(out_sizes[u])) if is_data else 0.0
+
+    seen = set()
+    for edge_list, is_data in ((data_edges, True), (ctrl_edges, False)):
+        for u, v in edge_list:
+            if (u, v) in seen or u == v:
+                continue
+            seen.add((u, v))
+            size = _size_of(u, is_data)
+            g.add_edge(u, v, size=size)
+            if mirror:
+                g.add_edge(backward_op_id(v, n), backward_op_id(u, n), size=size)
+    if mirror:
+        join_src = str(max(int(i) for i in compute))
+        join_dst = str(min(int(backward_op_id(i, n)) for i in compute))
+        if not g.has_edge(join_src, join_dst):
+            g.add_edge(join_src, join_dst, size=_size_of(join_src, True))
+
+    g.meta["file_path"] = path
+    g.meta["model"] = _model_name_from_path(path)
+    if verbose:
+        print(f"loaded {path}: {g}")
+    return g
+
+
+def read_graph_file(path: str, device_type: str = "A100") -> OpGraph:
+    if path.endswith(".pbtxt"):
+        return graph_from_pbtxt(path, device_type=device_type)
+    if path.endswith(".txt"):
+        return graph_from_pipedream_txt(path, device_type=device_type)
+    raise ValueError(f"unsupported graph profile type: {path}")

@@ -1,0 +1,177 @@
+"""Simulated cluster devices: worker processors and link channels.
+
+Counterpart of the reference's ``ddls/devices/`` (A100.py:7, channel.py:7).
+Workers track which job's ops are mounted (RAMP rule: at most one job per
+worker) plus occupied memory; channels track mounted flow deps per job. Both
+also carry the scheduling-priority maps written by the op/dep schedulers.
+
+The device catalogue includes the reference's profiled A100 plus TPU worker
+types so topologies can model pod slices; ``device_type`` keys the profiled
+compute costs in job graphs.
+
+Port: a copy of ``ddls_tpu/hardware/devices.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Set
+
+
+class Processor:
+    """A worker device mounted in a server node."""
+
+    device_type = "generic"
+    memory_capacity = 0
+
+    def __init__(self, processor_id: Optional[str] = None):
+        self.processor_id = processor_id if processor_id is not None else str(id(self))
+        self.reset()
+
+    def reset(self) -> None:
+        self.memory_occupied = 0.0
+        self.mounted_job_idx_to_ops: Dict[int, Set[str]] = {}
+        self.mounted_job_id: Dict[int, int] = {}
+        # job_idx -> {op_id -> priority}: nested so a whole job's
+        # priorities drop in O(1) at unmount and bulk-assign at schedule
+        self.op_priority: Dict[int, Dict[str, int]] = {}
+
+    def mount(self, job, op_id: str) -> None:
+        mem = job.graph.memory_cost(op_id)
+        job_idx = job.details["job_idx"]
+        if op_id in self.mounted_job_idx_to_ops.get(job_idx, ()):
+            raise RuntimeError(
+                f"worker {self.processor_id}: op {op_id} of job "
+                f"{job.job_id} is already mounted")
+        if self.memory_occupied + mem > self.memory_capacity:
+            raise MemoryError(
+                f"worker {self.processor_id}: op {op_id} of job "
+                f"{job.job_id} needs {mem} B but only "
+                f"{self.memory_capacity - self.memory_occupied} B free")
+        self.mounted_job_idx_to_ops.setdefault(job_idx, set()).add(op_id)
+        self.mounted_job_id[job_idx] = job.job_id
+        self.memory_occupied += mem
+
+    def mount_ops(self, job, op_ids) -> None:
+        """Mount many ops of one job at once: a single memory check over
+        the summed costs (equivalent to per-op sequential checks, since
+        costs are non-negative) and one set update."""
+        job_idx = job.details["job_idx"]
+        mem = sum(job.graph.memory_cost(op_id) for op_id in op_ids)
+        mounted = self.mounted_job_idx_to_ops.get(job_idx)
+        if mounted is not None and not mounted.isdisjoint(op_ids):
+            raise RuntimeError(
+                f"worker {self.processor_id}: op(s) of job {job.job_id} "
+                "already mounted")
+        if self.memory_occupied + mem > self.memory_capacity:
+            raise MemoryError(
+                f"worker {self.processor_id}: ops of job {job.job_id} need "
+                f"{mem} B but only "
+                f"{self.memory_capacity - self.memory_occupied} B free")
+        self.mounted_job_idx_to_ops.setdefault(job_idx, set()).update(op_ids)
+        self.mounted_job_id[job_idx] = job.job_id
+        self.memory_occupied += mem
+
+    def unmount(self, job, op_id: str) -> None:
+        job_idx = job.details["job_idx"]
+        if op_id not in self.mounted_job_idx_to_ops.get(job_idx, ()):
+            raise RuntimeError(
+                f"worker {self.processor_id}: op {op_id} of job "
+                f"{job.job_id} is not mounted")
+        self.memory_occupied -= job.graph.memory_cost(op_id)
+        self.mounted_job_idx_to_ops[job_idx].discard(op_id)
+        pri = self.op_priority.get(job_idx)
+        if pri is not None:
+            pri.pop(op_id, None)
+        if not self.mounted_job_idx_to_ops[job_idx]:
+            del self.mounted_job_idx_to_ops[job_idx]
+            del self.mounted_job_id[job_idx]
+            self.op_priority.pop(job_idx, None)
+
+    def unmount_job(self, job) -> None:
+        """Drop every op of one job in one pop per structure (bulk
+        equivalent of per-op :meth:`unmount`)."""
+        job_idx = job.details["job_idx"]
+        ops = self.mounted_job_idx_to_ops.pop(job_idx, None)
+        if ops:
+            memory_cost = job.graph.memory_cost
+            self.memory_occupied -= sum(memory_cost(op) for op in ops)
+        self.op_priority.pop(job_idx, None)
+        self.mounted_job_id.pop(job_idx, None)
+
+    @property
+    def memory_free(self) -> float:
+        return self.memory_capacity - self.memory_occupied
+
+    def __repr__(self) -> str:
+        return f"{self.device_type}({self.processor_id})"
+
+
+class GPU(Processor):
+    """Generic GPU worker with configurable memory (reference's legacy
+    ddls/devices/processors/gpus/gpu.py:6; unused by the RAMP path but kept
+    for the legacy cluster and custom node configs)."""
+
+    device_type = "GPU"
+    memory_capacity = int(32e9)
+
+    def __init__(self, processor_id: Optional[str] = None,
+                 memory_capacity: Optional[float] = None):
+        if memory_capacity is not None:
+            self.memory_capacity = int(memory_capacity)
+        super().__init__(processor_id)
+
+
+class A100(Processor):
+    """80 GB HBM GPU worker (reference: ddls/devices/processors/gpus/A100.py)."""
+
+    device_type = "A100"
+    memory_capacity = int(80e9)
+
+
+class TPUv4(Processor):
+    """TPU v4 chip: 32 GB HBM."""
+
+    device_type = "TPUv4"
+    memory_capacity = int(32e9)
+
+
+class TPUv5e(Processor):
+    """TPU v5e chip: 16 GB HBM."""
+
+    device_type = "TPUv5e"
+    memory_capacity = int(16e9)
+
+
+DEVICE_TYPES = {cls.device_type: cls for cls in (GPU, A100, TPUv4, TPUv5e)}
+
+
+def channel_id(src: str, dst: str, channel_number: int) -> str:
+    """(reference: ddls/utils.py:550 gen_channel_id)"""
+    return f"src_{src}_dst_{dst}_channel_{channel_number}"
+
+
+class Channel:
+    """One directed wavelength channel on a link
+    (reference: ddls/devices/channels/channel.py:7)."""
+
+    def __init__(self, src: str, dst: str, channel_number: int,
+                 channel_bandwidth: float):
+        self.src = src
+        self.dst = dst
+        self.channel_number = channel_number
+        self.channel_id = channel_id(src, dst, channel_number)
+        self.channel_bandwidth = channel_bandwidth
+        self.reset()
+
+    def reset(self) -> None:
+        self.mounted_job_idx_to_deps: Dict[int, Set[tuple]] = {}
+        self.dep_priority: Dict[int, Dict[tuple, int]] = {}  # job_idx -> {dep -> pri}
+
+    def unmount_job(self, job_idx: int) -> None:
+        """Drop every dep of one job (the only unmount granularity the
+        cluster needs: deps leave a channel when their job does)."""
+        self.mounted_job_idx_to_deps.pop(job_idx, None)
+        self.dep_priority.pop(job_idx, None)
+
+    def __repr__(self) -> str:
+        return f"Channel({self.channel_id})"

@@ -16,7 +16,8 @@ The wrappers that launch these kernels live beside their plain PyTorch
 versions, in the modules that call them (``ln_linear_act`` and its
 backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``masked_mean_pool_concat`` and their backwards in ``ops/segment.py``;
-``mask_logits_argmax`` in ``models/policy.py``; ``gae_normalize`` and
+``mask_logits_argmax`` and ``mask_sample_logp`` in ``models/policy.py``;
+``gae_normalize`` and
 ``ppo_loss`` in ``rl/ppo.py``); each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -74,6 +75,9 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/ops/segment.py:61"),
     KernelSpec("mask_logits_argmax", "ddls_mask_logits_argmax", "ppppiip",
                "ddls_tpu/models/policy.py:87"),
+    # rollout sampling (K9)
+    KernelSpec("mask_sample_logp", "ddls_mask_sample_logp", "pppppiip",
+               "ddls_tpu/rl/ppo.py:262"),
     # the PPO update's backward (K5, K6) and loss (K7, K8)
     KernelSpec("ln_linear_act_bwd", "ddls_ln_linear_act_bwd",
                "pppppppppppiiiiiiip", "ddls_tpu/models/gnn.py:45"),

@@ -8,7 +8,9 @@ the node mask and the destination-sorted CSR) so the device runs only the
 forward. The readout is kernel K3 (pooling + concat), the two MLP heads
 are ``F.linear`` (tiny, as the JAX package left them to XLA), and kernel
 K4 (``mask_logits_argmax``) masks the logits and picks the greedy action
-in one launch. Training differentiates through the mask: ``logits +
+in one launch; rollouts take kernel K9 (``mask_sample_logp``) in its place,
+which masks, samples by Gumbel-max from handed-in uniforms and gives the
+log-probability. Training differentiates through the mask: ``logits +
 max(log mask, finfo.min)`` has derivative 1 with respect to the logits, so
 on the card K4's autograd wrapper passes the gradient through unchanged.
 """
@@ -80,6 +82,65 @@ def _mask_logits_argmax_cuda(logits, mask):
                        mask.data_ptr(), masked.data_ptr(),
                        actions.data_ptr(), rows, a)
     return masked, actions
+
+
+# ------------------------------- K9: mask + Gumbel-max sample + log-prob
+FLOAT32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel_uniforms(shape, generator: torch.Generator,
+                    device=None) -> torch.Tensor:
+    """Uniforms in ``[finfo(float32).tiny, 1)`` for K9, drawn from
+    ``generator`` and moved into that range the way
+    ``jax.random.uniform(minval=tiny, maxval=1)`` moves its [0, 1) draw
+    (``u * (1 - tiny) + tiny``, floored at ``tiny``)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device if device is not None
+                   else generator.device)
+    return torch.clamp_min(u * (1.0 - FLOAT32_TINY) + FLOAT32_TINY,
+                           FLOAT32_TINY)
+
+
+def mask_sample_logp_plain(logits: torch.Tensor, mask: torch.Tensor,
+                           u: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``m = logits + max(log(mask), finfo(float32).min)`` (float32's
+    floor in every float type, as the reference's ``_mask_logits``); ``a =
+    argmax(m - log(-log(u)))`` (the first maximum); ``logp =
+    log_softmax(m)[a]`` as ``jax.nn.log_softmax`` computes it. Returns
+    (actions [B] int32, logp [B]) in the logits' float type."""
+    floor = torch.clamp(torch.log(mask.to(logits.dtype)), min=FLOAT32_MIN)
+    m = logits + floor
+    gumbel = -torch.log(-torch.log(u.to(logits.dtype)))
+    actions = torch.argmax(m + gumbel, dim=1)
+    shifted = m - m.max(dim=1, keepdim=True).values
+    lse = torch.log(torch.exp(shifted).sum(dim=1))
+    logp = shifted.gather(1, actions[:, None])[:, 0] - lse
+    return actions.to(torch.int32), logp
+
+
+def mask_sample_logp(logits: torch.Tensor, mask: torch.Tensor,
+                     u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9: sampled actions [B] (int32) and their log-probabilities [B]
+    (float32) from raw ``logits`` [B, A] float32, the action ``mask``
+    [B, A] int32 and uniforms ``u`` [B, A] float32 in [tiny, 1) (see
+    ``mask_sample_logp_plain`` for the arithmetic). A <= 32."""
+    if kernels.on_cpu(logits, mask, u):
+        return mask_sample_logp_plain(logits, mask, u)
+    kernels.check_cuda("logits", logits, torch.float32)
+    if logits.dim() != 2 or not 0 < logits.shape[1] <= 32:
+        raise ValueError(f"logits must be [B, A] with 0 < A <= 32, got "
+                         f"{tuple(logits.shape)}")
+    rows, a = logits.shape
+    kernels.check_cuda("mask", mask, torch.int32, (rows, a))
+    kernels.check_cuda("u", u, torch.float32, (rows, a))
+    actions = torch.empty(rows, dtype=torch.int32, device=logits.device)
+    logp = torch.empty(rows, dtype=torch.float32, device=logits.device)
+    if rows:
+        kernels.launch("mask_sample_logp", logits.data_ptr(),
+                       mask.data_ptr(), u.data_ptr(), actions.data_ptr(),
+                       logp.data_ptr(), rows, a)
+    return actions, logp
 
 
 # ---------------------------------------------------- host batch assembly
@@ -232,6 +293,26 @@ class GNNPolicy(nn.Module):
         values [B], greedy actions [B] int64). Differentiable: on the card
         the backward runs through K5, K6 and K4's pass-through, and reads
         the batch's ``edge_dst`` and source CSR."""
+        logits, values = self.trunk(batch)
+        masked, actions = self._mask_logits(logits, batch["action_mask"])
+        return masked, values, actions
+
+    def sample_batched(self, batch: Dict[str, torch.Tensor],
+                       u: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The rollout forward: ``flat_batched`` with K4 replaced by K9,
+        which masks the logits and samples from them with the uniforms
+        ``u`` [B, A] -> (actions [B] int32, logp [B], values [B])."""
+        logits, values = self.trunk(batch)
+        mask = batch["action_mask"]
+        if not self.apply_action_mask:
+            mask = torch.ones_like(mask)
+        actions, logp = mask_sample_logp(logits, mask, u)
+        return actions, logp, values
+
+    def trunk(self, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """GNN, pooling and both heads: (raw logits [B, A], values [B])."""
         nf = batch["node_features"]
         ef = batch["edge_features"]
         b, n, fn = nf.shape
@@ -246,10 +327,7 @@ class GNNPolicy(nn.Module):
         final_emb = masked_mean_pool_concat(
             node_emb.reshape(b, n, node_emb.shape[1]),
             node_mask.reshape(b, n), graph_emb)
-        logits = self.logit_head(final_emb)
-        values = self.value_head(final_emb)[:, 0]
-        masked, actions = self._mask_logits(logits, batch["action_mask"])
-        return masked, values, actions
+        return self.logit_head(final_emb), self.value_head(final_emb)[:, 0]
 
     def forward(self, obs: Dict[str, np.ndarray]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,328 @@
+// Native hot-path kernels for the RAMP cluster simulator.
+//
+// The Python host engine (ddls_tpu/sim/cluster.py:_run_lookahead) and the
+// jitted array engine (ddls_tpu/sim/jax_lookahead.py) pin the lookahead
+// semantics; this C++ engine reproduces them bit-for-bit in f64 so it can
+// substitute for the host engine without perturbing golden stats tests
+// (tests/test_stats_parity.py). Reference provenance: the tick loop models
+// ddls ramp_cluster_environment.py:686-800 (see SURVEY.md §3.5).
+//
+// Semantics (must match cluster.py:_run_lookahead exactly):
+//  * per worker, the highest-score ready op is selected (score encodes
+//    priority then smallest-op-id tie-break); op bound = min remaining
+//    among selected ops;
+//  * ready non-flow deps (zero size or same server) force a zero tick and
+//    only they advance that tick;
+//  * otherwise each channel nominates its highest-score ready flow dep;
+//    comm bound = min remaining among nominated deps; ALL ready flow deps
+//    advance (the reference's parallel-flow-tick hack);
+//  * deps readied by op completions within a tick do not advance until the
+//    next tick (readiness is snapshotted before ticking);
+//  * mutual (backward-sync) deps never gate their destination op;
+//  * tick_x(rem, tick) = rem - min(tick, rem); completion at exactly 0.0
+//    (ddls_tpu/demands/job.py:113-128);
+//  * comp overhead += tick when >=1 op advanced; comm overhead += tick when
+//    flow deps advanced; busy += (#selected ops) * tick.
+//
+// Build: g++ -O2 -shared -fPIC (no -ffast-math: accumulation order and
+// IEEE semantics are part of the contract).
+
+#include <cstdint>
+#include <cstring>
+#include <queue>
+#include <utility>
+#include <vector>
+
+namespace {
+
+using ScoreIdx = std::pair<double, int64_t>;
+// max-heap on (score, -index); scores are distinct per valid slot by
+// construction, the index term only makes ordering fully deterministic
+struct HeapLess {
+  bool operator()(const ScoreIdx& a, const ScoreIdx& b) const {
+    if (a.first != b.first) return a.first < b.first;
+    return a.second < b.second;
+  }
+};
+using MaxHeap = std::priority_queue<ScoreIdx, std::vector<ScoreIdx>, HeapLess>;
+
+inline double tick_down(double rem, double tick) {
+  // job.py:116 — rem - min(tick, rem); exact 0.0 on completion
+  return rem - (tick < rem ? tick : rem);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One-training-step lookahead of a mounted job.
+//
+// Inputs are the exact (unpadded) arrays of
+// ddls_tpu_torch.sim.jax_lookahead.build_lookahead_arrays in f64.
+// dep_channel is [n_deps, n_links] with -1 padding.
+// out = {t, comm_overhead, comp_overhead, busy, ok}; ok=0 means the engine
+// could not finish (no progress possible or guard exceeded) and the caller
+// must fall back to the host engine (which raises with diagnostics).
+void ddls_lookahead(
+    int64_t n_ops, const double* op_remaining, const int32_t* op_worker,
+    const double* op_score, const int32_t* num_parents, int64_t n_deps,
+    const double* dep_remaining, const int32_t* dep_src,
+    const int32_t* dep_dst, const uint8_t* dep_mutual,
+    const uint8_t* dep_is_flow, const double* dep_score, int64_t n_links,
+    const int32_t* dep_channel, int64_t num_workers, int64_t num_channels,
+    double* out) {
+  const double BIG = 1.7e308;
+
+  std::vector<double> rem_op(op_remaining, op_remaining + n_ops);
+  std::vector<double> rem_dep(dep_remaining, dep_remaining + n_deps);
+  std::vector<uint8_t> op_done(n_ops, 0), dep_done(n_deps, 0);
+  std::vector<int32_t> parent_done(n_ops, 0);
+
+  // CSR adjacency: op -> out deps (by dep_src)
+  std::vector<int64_t> out_start(n_ops + 1, 0);
+  for (int64_t e = 0; e < n_deps; ++e) out_start[dep_src[e] + 1]++;
+  for (int64_t i = 0; i < n_ops; ++i) out_start[i + 1] += out_start[i];
+  std::vector<int64_t> out_deps(n_deps);
+  {
+    std::vector<int64_t> cursor(out_start.begin(), out_start.end() - 1);
+    for (int64_t e = 0; e < n_deps; ++e) out_deps[cursor[dep_src[e]]++] = e;
+  }
+
+  std::vector<MaxHeap> worker_ready(num_workers);     // ready ops per worker
+  std::vector<MaxHeap> channel_ready(num_channels);   // ready flow deps
+  std::vector<int64_t> nonflow_ready;   // ready non-flow deps (compacted)
+  std::vector<int64_t> flow_active;     // ready, not-done flow deps
+
+  for (int64_t i = 0; i < n_ops; ++i)
+    if (num_parents[i] == 0 && op_worker[i] >= 0)
+      worker_ready[op_worker[i]].push({op_score[i], -i});
+
+  // staging area: deps readied by op completions this tick join the ready
+  // structures only after dep advancement (host snapshots readiness)
+  std::vector<int64_t> staged_deps;
+
+  auto dep_completed = [&](int64_t e) {
+    dep_done[e] = 1;
+    if (!dep_mutual[e]) {
+      int64_t child = dep_dst[e];
+      if (++parent_done[child] == num_parents[child] && !op_done[child])
+        worker_ready[op_worker[child]].push({op_score[child], -child});
+    }
+  };
+
+  int64_t n_ops_done = 0, n_deps_done = 0;
+  double t = 0.0, comm_oh = 0.0, comp_oh = 0.0, busy = 0.0;
+  const int64_t guard = 2 * (n_ops + n_deps) + 16;
+  int64_t it = 0;
+  bool ok = false;
+
+  std::vector<int64_t> selected;
+  selected.reserve(num_workers);
+
+  while (true) {
+    if (n_ops_done == n_ops && n_deps_done == n_deps) { ok = true; break; }
+    if (++it > guard) break;  // livelock (host raises); fall back
+
+    // 1. per-worker best ready op
+    selected.clear();
+    double shortest_op = BIG;
+    for (int64_t w = 0; w < num_workers; ++w) {
+      MaxHeap& h = worker_ready[w];
+      while (!h.empty() && op_done[-h.top().second]) h.pop();
+      if (!h.empty()) {
+        int64_t oi = -h.top().second;
+        selected.push_back(oi);
+        if (rem_op[oi] < shortest_op) shortest_op = rem_op[oi];
+      }
+    }
+
+    // compact nonflow_ready (entries complete only at exactly-0 remaining)
+    size_t keep = 0;
+    for (size_t k = 0; k < nonflow_ready.size(); ++k)
+      if (!dep_done[nonflow_ready[k]]) nonflow_ready[keep++] = nonflow_ready[k];
+    nonflow_ready.resize(keep);
+    const bool any_nonflow = !nonflow_ready.empty();
+
+    // 2. comm bound: zero if any ready non-flow dep, else min remaining
+    // over per-channel nominated flow deps
+    double shortest_comm;
+    if (any_nonflow) {
+      shortest_comm = 0.0;
+    } else {
+      shortest_comm = BIG;
+      for (int64_t c = 0; c < num_channels; ++c) {
+        MaxHeap& h = channel_ready[c];
+        while (!h.empty() && dep_done[-h.top().second]) h.pop();
+        if (!h.empty()) {
+          int64_t e = -h.top().second;
+          if (rem_dep[e] < shortest_comm) shortest_comm = rem_dep[e];
+        }
+      }
+    }
+
+    double tick = shortest_op < shortest_comm ? shortest_op : shortest_comm;
+    if (tick >= BIG) break;  // nothing can progress (host raises)
+
+    // 3. advance selected ops; completions stage their out-deps
+    staged_deps.clear();
+    for (int64_t oi : selected) {
+      rem_op[oi] = tick_down(rem_op[oi], tick);
+      if (rem_op[oi] == 0.0 && !op_done[oi]) {
+        op_done[oi] = 1;
+        ++n_ops_done;
+        for (int64_t k = out_start[oi]; k < out_start[oi + 1]; ++k)
+          if (!dep_done[out_deps[k]]) staged_deps.push_back(out_deps[k]);
+      }
+    }
+
+    // 4. advance deps from the pre-tick snapshot
+    bool ticked_flows = false;
+    if (any_nonflow) {
+      for (int64_t e : nonflow_ready) {
+        rem_dep[e] = tick_down(rem_dep[e], tick);
+        if (rem_dep[e] == 0.0 && !dep_done[e]) {
+          dep_completed(e);
+          ++n_deps_done;
+        }
+      }
+    } else {
+      ticked_flows = !flow_active.empty();
+      size_t fkeep = 0;
+      for (size_t k = 0; k < flow_active.size(); ++k) {
+        int64_t e = flow_active[k];
+        rem_dep[e] = tick_down(rem_dep[e], tick);
+        if (rem_dep[e] == 0.0 && !dep_done[e]) {
+          dep_completed(e);
+          ++n_deps_done;
+        } else {
+          flow_active[fkeep++] = e;
+        }
+      }
+      flow_active.resize(fkeep);
+    }
+
+    // 5. newly readied deps join the ready structures for the next tick
+    for (int64_t e : staged_deps) {
+      if (dep_is_flow[e]) {
+        flow_active.push_back(e);
+        for (int64_t l = 0; l < n_links; ++l) {
+          int32_t c = dep_channel[e * n_links + l];
+          if (c >= 0) channel_ready[c].push({dep_score[e], -e});
+        }
+      } else {
+        nonflow_ready.push_back(e);
+      }
+    }
+
+    // 6. overheads (accumulation order matches the host loop)
+    if (!selected.empty() && ticked_flows) {
+      comm_oh += tick;
+      comp_oh += tick;
+    } else if (ticked_flows) {
+      comm_oh += tick;
+    } else if (!selected.empty()) {
+      comp_oh += tick;
+    }
+    busy += static_cast<double>(selected.size()) * tick;
+    t += tick;
+  }
+
+  out[0] = t;
+  out[1] = comm_oh;
+  out[2] = comp_oh;
+  out[3] = busy;
+  out[4] = ok ? 1.0 : 0.0;
+}
+
+// First-fit block search over the RAMP server grid.
+//
+// Exact-order mirror of ddls_tpu/agents/block_search.py
+// (first_fit_block + enumerate_block + block_ok; reference:
+// placers/utils.py:394-443 ff_block): shapes in order, origins in
+// (i, j, k) C-order, cells in enumeration order. shape[2] == -1 selects
+// the diagonal layout whose coordinates wrap modulo (dim + 1) — the
+// reference's quirk — so out-of-range cells invalidate the block.
+// meta_scan == 1 reproduces find_meta_block's whole-extent origin scan
+// (used with a single shape and no memory check).
+//
+// Returns the number of servers written to out ([n][3] coords, in
+// enumeration order), or 0 when no block fits. out_origin receives the
+// winning origin.
+extern "C" int64_t ddls_first_fit_block(
+    const int64_t* shapes, int64_t n_shapes, int64_t mC, int64_t mR,
+    int64_t mS, int64_t rC, int64_t rR, int64_t rS, const double* mem,
+    const uint8_t* blocked, double op_size, int32_t check_mem,
+    int32_t meta_scan, int64_t* out_origin, int32_t* out) {
+  auto cell_ok = [&](int64_t c, int64_t r, int64_t s) -> bool {
+    if (c < 0 || c >= rC || r < 0 || r >= rR || s < 0 || s >= rS)
+      return false;  // host: "server not in ramp"
+    const int64_t idx = (c * rR + r) * rS + s;
+    if (blocked[idx]) return false;
+    if (check_mem && mem[idx] < op_size) return false;
+    return true;
+  };
+
+  for (int64_t si = 0; si < n_shapes; ++si) {
+    const int64_t C = shapes[si * 3], R = shapes[si * 3 + 1],
+                  S = shapes[si * 3 + 2];
+    int64_t i1, j1, k1;
+    if (meta_scan) {
+      i1 = rC;
+      j1 = rR;
+      k1 = rS;
+    } else {
+      i1 = mC - C + 1;
+      j1 = mR - R + 1;
+      k1 = mS - S + 1;
+      if (i1 <= 0 || j1 <= 0 || k1 <= 0) continue;
+    }
+    for (int64_t i = 0; i < i1; ++i)
+      for (int64_t j = 0; j < j1; ++j)
+        for (int64_t k = 0; k < k1; ++k) {
+          int64_t n_out = 0;
+          bool ok = true;
+          if (S == -1) {
+            ok = C > 0;
+            for (int64_t n = 0; ok && n < C; ++n) {
+              const int64_t c = (i + n) % (rC + 1);
+              const int64_t r = (j + n) % (rR + 1);
+              const int64_t s = ((k % rS) + rS) % rS;
+              if (!cell_ok(c, r, s)) {
+                ok = false;
+                break;
+              }
+              out[n_out * 3] = static_cast<int32_t>(c);
+              out[n_out * 3 + 1] = static_cast<int32_t>(r);
+              out[n_out * 3 + 2] = static_cast<int32_t>(s);
+              ++n_out;
+            }
+          } else {
+            ok = C > 0 && R > 0 && S > 0;
+            for (int64_t c = 0; ok && c < C; ++c)
+              for (int64_t r = 0; ok && r < R; ++r)
+                for (int64_t s = 0; s < S; ++s) {
+                  const int64_t cc = (i + c) % rC;
+                  const int64_t rr = (j + r) % rR;
+                  const int64_t ss = (k + s) % rS;
+                  if (!cell_ok(cc, rr, ss)) {
+                    ok = false;
+                    break;
+                  }
+                  out[n_out * 3] = static_cast<int32_t>(cc);
+                  out[n_out * 3 + 1] = static_cast<int32_t>(rr);
+                  out[n_out * 3 + 2] = static_cast<int32_t>(ss);
+                  ++n_out;
+                }
+          }
+          if (ok && n_out > 0) {
+            out_origin[0] = i;
+            out_origin[1] = j;
+            out_origin[2] = k;
+            return n_out;
+          }
+        }
+  }
+  return 0;
+}
+
+}  // extern "C"

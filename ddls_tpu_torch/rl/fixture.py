@@ -1,9 +1,13 @@
-"""The shipped training fixture: a real trajectory of the shipped
-``ppo_price_mixed`` policy and the JAX learner's update of it.
+"""The shipped training fixtures: a real trajectory of the shipped
+``ppo_price_mixed`` policy and the JAX learner's update of it
+(``scripts/export_torch_train_fixture.py``); the uniforms the JAX sampler
+drew for that trajectory and a recorded greedy evaluation episode
+(``scripts/export_torch_rollout_fixture.py``); and the composed training
+config of that run as JSON (``scripts/export_torch_train_config.py``).
 
-Made from the JAX package by ``scripts/export_torch_train_fixture.py``; it
-travels with the port as a numpy archive, so a machine with neither JAX
-nor orbax can hold the port's ``train_step`` against the reference's.
+They travel with the port as numpy archives and JSON, so a machine with
+neither JAX, orbax nor PyYAML can hold the port's rollout, update and
+evaluation against the reference's.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from ddls_tpu_torch.rl.ppo import PPOConfig
 from ddls_tpu_torch.serve.fixture import DATA_DIR
 
 TRAIN_PATH = os.path.join(DATA_DIR, "ppo_train_price_mixed.npz")
+ROLLOUT_PATH = os.path.join(DATA_DIR, "ppo_rollout_price_mixed.npz")
+TRAIN_CONFIG_PATH = os.path.join(DATA_DIR, "train_config_price_mixed.json")
 TRAJ_KEYS = ("actions", "logp", "values", "rewards", "dones")
 
 
@@ -59,3 +65,21 @@ def load_train_fixture(path: str = TRAIN_PATH) -> Dict[str, Any]:
             "advantages": arrays["advantages"],
             "value_targets": arrays["value_targets"], "runs": runs,
             "mb0": mb0}
+
+
+def load_rollout_fixture(path: str = ROLLOUT_PATH) -> Dict[str, Any]:
+    """``{"uniforms" [T, B, A] float32, "eval": {"record": {...}, "seed":
+    int, "interarrival": float}}``: the uniforms behind the training
+    fixture's sampled actions, and the JAX greedy episode of the shipped
+    policy at a fixed interarrival time from ``seed``."""
+    with np.load(path, allow_pickle=False) as data:
+        return {"uniforms": data["uniforms"],
+                "eval": {"record": json.loads(str(data["eval/record"])),
+                         "seed": int(data["eval/seed"]),
+                         "interarrival": float(data["eval/interarrival"])}}
+
+
+def load_train_config(path: str = TRAIN_CONFIG_PATH) -> Dict[str, Any]:
+    """The composed training config (a fresh dict each call)."""
+    with open(path) as fh:
+        return json.load(fh)

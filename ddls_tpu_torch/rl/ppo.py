@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ddls_tpu_torch import kernels
-from ddls_tpu_torch.models.policy import GNNPolicy, prepare_flat_batch
+from ddls_tpu_torch.models.policy import (GRAD_INPUT_KEYS, GNNPolicy,
+                                          prepare_flat_batch)
 from ddls_tpu_torch.serve.bucketing import default_buckets
 from ddls_tpu_torch.serve.server import resolve_device
 
@@ -442,6 +443,53 @@ class PPOLearner:
             nu=[torch.zeros_like(p) for p in plist],
             kl_coeff=torch.tensor(self.cfg.kl_coeff, dtype=torch.float32,
                                   device=self.device))
+
+    # ------------------------------------------------------------- acting
+    def device_batch(self, obs: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+        """A stacked host observation batch (the ``envs/obs.py`` keys, [B,
+        ...] at the env's pad) as the forward's flattened-graph batch on
+        the learner's device, trimmed to the smallest bucket of the serving
+        ladder that holds it (as ``stage_traj`` trims) and copied in one
+        host-to-device copy."""
+        obs = {k: np.asarray(obs[k]) for k in _TRAJ_OBS_KEYS}
+        n_b, e_b = trim_bucket(obs["node_split"], obs["edge_split"],
+                               obs["node_features"].shape[1],
+                               obs["edge_features"].shape[1])
+        obs["node_features"] = obs["node_features"][:, :n_b]
+        for key in ("edge_features", "edges_src", "edges_dst"):
+            obs[key] = obs[key][:, :e_b]
+        fdt = np.dtype(str(self.dtype).replace("torch.", ""))
+        host = prepare_flat_batch(obs)
+        arrays = {k: (v.astype(fdt) if v.dtype.kind == "f" else v)
+                  for k, v in host.items() if k not in GRAD_INPUT_KEYS}
+        return _pack_to_device(arrays, self.device)
+
+    def sample_actions(self, obs: Mapping[str, Any], u: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Batched action sampling (``_sample_actions`` of the reference):
+        the forward and K9 with the uniforms ``u`` [B, A] on the learner's
+        device -> host (actions [B] int32, logp [B], values [B]) in one
+        read-back."""
+        with torch.no_grad():
+            actions, logp, values = self.model.sample_batched(
+                self.device_batch(obs), u)
+            packed = torch.stack([actions.to(logp.dtype), logp,
+                                  values]).cpu().numpy()
+        return packed[0].astype(np.int32), packed[1], packed[2]
+
+    def values(self, obs: Mapping[str, Any]) -> np.ndarray:
+        """The value head alone on a stacked batch (the rollout's bootstrap
+        values: no action is sampled, so K9 is not launched)."""
+        with torch.no_grad():
+            _, values = self.model.trunk(self.device_batch(obs))
+            return values.cpu().numpy()
+
+    def greedy_actions(self, obs: Mapping[str, Any]) -> np.ndarray:
+        """Greedy actions of a stacked batch: the forward and K4."""
+        with torch.no_grad():
+            _, _, actions = self.model.flat_batched(self.device_batch(obs))
+            return actions.cpu().numpy()
 
     # ------------------------------------------------------------ staging
     def stage_traj(self, traj: Mapping[str, Any], last_values: Any

@@ -1,0 +1,554 @@
+"""Composite cluster actions: partition, placement, scheduling decisions.
+
+A cluster step consumes an :class:`Action` bundling five sub-decisions
+(reference: ddls/environments/ramp_cluster/actions/):
+
+* :class:`OpPartition`   -- job -> op -> num_partitions; builds partitioned Jobs
+* :class:`OpPlacement`   -- job -> op -> worker; prices dependency run times
+* :class:`OpSchedule`    -- worker -> job -> op -> priority
+* :class:`DepPlacement`  -- job -> dep -> channel ids
+* :class:`DepSchedule`   -- channel -> job -> dep -> priority
+
+``Action`` keeps only jobs handled by *all* sub-actions and records which
+sub-action dropped a job (the blocking cause)
+(reference: actions/action.py:36-78).
+
+Port: a copy of ``ddls_tpu/sim/actions.py``; the flight-recorder emit
+is left out (off by default; it changes no output).
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
+
+from ddls_tpu_torch import telemetry as _telemetry
+from ddls_tpu_torch.demands.job import Job
+from ddls_tpu_torch.graphs.readers import backward_op_id
+from ddls_tpu_torch.sim.comm_model import one_to_one_time, ramp_all_reduce_time
+from ddls_tpu_torch.sim.partition import partition_graph, partitioned_op_id
+
+EdgeId = Tuple[str, str]
+
+
+class OpPartition:
+    """(reference: actions/op_partition.py:8)"""
+
+    def __init__(self, action: Dict[int, Dict[str, int]], cluster):
+        self.action = {job_id: dict(ops) for job_id, ops in action.items()}
+        self.job_ids: Set[int] = set(self.action)
+        self.original_jobs: Dict[int, Job] = {}
+        self.partitioned_jobs: Dict[int, Job] = {}
+        self.job_id_to_max_partition_degree: Dict[int, int] = defaultdict(lambda: 1)
+        self.job_id_to_split_forward_ops: Dict[int, Dict[str, int]] = {}
+        # partition-cache entries, so dep pricing can reuse/memoise the
+        # per-graph collective grouping arrays
+        self.job_id_to_cache_entry: Dict[int, dict] = {}
+
+        for job_id, op_to_n in self.action.items():
+            for op_id, n in op_to_n.items():
+                if n != 1 and n % 2 != 0:
+                    raise ValueError(
+                        f"job {job_id} op {op_id}: num_partitions must be 1 "
+                        f"or even, got {n}")
+
+        for job_id in self.action:
+            job = cluster.job_queue.jobs[job_id]
+            self.original_jobs[job_id] = job
+
+            # forward split map in graph order
+            split_fwd: Dict[str, int] = {}
+            max_degree = 1
+            for op in job.graph.forward_op_ids():
+                n = int(self.action[job_id].get(str(int(op)), 1))
+                if n > 1:
+                    split_fwd[str(int(op))] = n
+                    max_degree = max(max_degree, n)
+            self.job_id_to_split_forward_ops[job_id] = split_fwd
+            self.job_id_to_max_partition_degree[job_id] = max_degree
+
+            # memoised partitioned graph + immutable details. The reference
+            # keys by (model, max partition degree)
+            # (op_partition.py:44-66 + cluster memo tables) which is unsound
+            # for partitioners that vary the per-op split map at a fixed max
+            # degree (e.g. random); key on the full split map instead -- the
+            # SiP-ML/PAC-ML path still hits because its map is a pure
+            # function of (model, degree, quantum).
+            model = job.details["model"]
+            cache_key = (model, tuple(sorted(split_fwd.items())))
+            cached = cluster.partition_cache.get(cache_key)
+            if _telemetry.enabled():
+                _telemetry.inc("sim.partition_cache.hit" if cached is not None
+                               else "sim.partition_cache.miss")
+            if cached is None:
+                pgraph = partition_graph(job.graph, self.action[job_id])
+                cached = {"graph": pgraph, "immutable": None}
+                cluster.partition_cache[cache_key] = cached
+            pgraph = cached["graph"]
+            self.job_id_to_cache_entry[job_id] = cached
+
+            details = {"model": model,
+                       "job_idx": job.details.get("job_idx"),
+                       "time_arrived": job.details.get("time_arrived"),
+                       "max_partitions_per_op": max_degree}
+            partitioned = Job(graph=pgraph,
+                              num_training_steps=job.num_training_steps,
+                              max_acceptable_jct_frac=job.max_acceptable_jct_frac,
+                              job_id=job_id,
+                              details=details,
+                              immutable_details=cached["immutable"],
+                              original_job=job)
+            if cached["immutable"] is None:
+                cached["immutable"] = partitioned.immutable
+            self.partitioned_jobs[job_id] = partitioned
+
+    def __len__(self) -> int:
+        return len(self.action)
+
+
+class JobPlacementShape:
+    """job -> (c, r, s) meta-block shape chosen for the job (reference:
+    actions/job_placement_shape.py:1). Consumed by the placement-shaping
+    env/placer; carried on the composite Action for parity."""
+
+    def __init__(self, action: Dict[int, Tuple[int, int, int]]):
+        self.action = {job_id: tuple(shape)
+                       for job_id, shape in action.items()}
+        self.job_ids: Set[int] = set(self.action)
+
+    def __len__(self) -> int:
+        return len(self.action)
+
+
+class OpPlacement:
+    """job -> op -> worker map; prices all dependency run times on
+    construction (reference: actions/op_placement.py:7 + actions/utils.py:13
+    update_dep_run_times)."""
+
+    def __init__(self, action: Dict[int, Dict[str, str]],
+                 op_partition: OpPartition, cluster):
+        self.action = {job_id: dict(ops) for job_id, ops in action.items()}
+        self.job_ids: Set[int] = set(self.action)
+        self.worker_to_ops: Dict[str, List[dict]] = defaultdict(list)
+        self.job_id_to_worker_ids: Dict[int, Set[str]] = defaultdict(set)
+        # job_id -> per-op dense server codes (cluster server-table order),
+        # stashed by the pricing pass for the array dep pipeline
+        self.job_server_codes: Dict[int, Any] = {}
+        for job_id, op_to_worker in self.action.items():
+            for op_id, worker_id in op_to_worker.items():
+                self.worker_to_ops[worker_id].append(
+                    {"op_id": op_id, "job_id": job_id})
+                self.job_id_to_worker_ids[job_id].add(worker_id)
+
+        assign_dep_run_times(cluster, op_partition, self)
+
+
+class OpSchedule:
+    """(reference: actions/op_schedule.py:3)"""
+
+    def __init__(self, action: Dict[str, Dict[int, Dict[str, int]]]):
+        self.action = action
+        self.job_ids: Set[int] = set()
+        for worker_id in self.action:
+            self.job_ids.update(self.action[worker_id].keys())
+
+
+class DepArrays:
+    """Array-native dep placement/schedule for one job (the fast path on
+    dense single-channel complete topologies — the canonical RAMP shape).
+
+    ``chan[i]`` is the dense channel index carrying dep i (-1 = non-flow),
+    aligned with ``graph.finalize()['edge_ids']``; ``channels`` the unique
+    dense channels the job rides; ``pri`` the SRPT priorities (filled by
+    the scheduler). One payload replaces the per-dep dict chain
+    placer -> DepPlacement views -> schedule dicts -> channel mounts
+    (docs/round3_notes.md item 2: "dep placement -> schedule -> mount over
+    int arrays, Python dict mirrors as lazy views")."""
+
+    __slots__ = ("edge_ids", "chan", "channels", "pri")
+
+    def __init__(self, edge_ids, chan, channels, pri=None):
+        self.edge_ids = edge_ids
+        self.chan = chan
+        self.channels = channels
+        self.pri = pri
+
+    def to_dep_dict(self, channel_ids) -> Dict[EdgeId, tuple]:
+        """Materialise the dict view (dep -> channel-id tuple) for legacy
+        readers; ``channel_ids`` maps dense index -> string channel id."""
+        out: Dict[EdgeId, tuple] = {}
+        cache: Dict[int, tuple] = {}
+        for dep_id, c in zip(self.edge_ids, self.chan.tolist()):
+            if c < 0:
+                out[dep_id] = _NONFLOW_VIEW
+            else:
+                view = cache.get(c)
+                if view is None:
+                    view = cache.setdefault(c, (channel_ids[c],))
+                out[dep_id] = view
+        return out
+
+
+_NONFLOW_VIEW = (None,)
+
+
+class DepPlacement:
+    """job -> dep -> channel-id tuple (or any iterable); a None entry means
+    not a flow (reference: actions/dep_placement.py:6).
+
+    The placer hands many deps the *same* channel tuple (all deps of one
+    server pair ride the same channels), so the real-channel views are
+    deduplicated per distinct tuple and shared — they are read-only
+    downstream. On the array fast path the per-job value is a
+    ``DepArrays`` payload instead of a dict, and the dict views are
+    materialised lazily (``jobdep_to_channels`` property) only if a legacy
+    reader asks."""
+
+    def __init__(self, action: Dict[int, Dict[EdgeId, tuple]],
+                 channel_ids: Optional[List[str]] = None):
+        self.action = action
+        self.job_ids: Set[int] = set(self.action)
+        self._channel_ids = channel_ids  # dense -> string id (arrays path)
+        self._jobdep_to_channels: Optional[Dict] = None
+        if not any(isinstance(v, DepArrays) for v in action.values()):
+            self._build_views()
+
+    def _build_views(self) -> None:
+        self._jobdep_to_channels = {}
+        views: Dict[int, frozenset] = {}
+        for job_id, dep_to_channels in self.action.items():
+            if isinstance(dep_to_channels, DepArrays):
+                dep_to_channels = dep_to_channels.to_dep_dict(
+                    self._channel_ids)
+            for dep_id, channels in dep_to_channels.items():
+                key = id(channels)
+                real = views.get(key)
+                if real is None:
+                    real = frozenset(
+                        c for c in channels if c is not None)
+                    views[key] = real
+                self._jobdep_to_channels[(job_id, dep_id)] = real
+
+    @property
+    def jobdep_to_channels(self) -> Dict[Tuple[int, EdgeId], frozenset]:
+        if self._jobdep_to_channels is None:
+            self._build_views()
+        return self._jobdep_to_channels
+
+
+class DepSchedule:
+    """(reference: actions/dep_schedule.py:3)"""
+
+    def __init__(self, action: Dict[str, Dict[int, Dict[EdgeId, int]]]):
+        self.action = action
+        self.job_ids: Set[int] = set()
+        for channel_id in self.action:
+            self.job_ids.update(self.action[channel_id].keys())
+
+
+class Action:
+    """Bundle of the five sub-actions; a job survives only if every
+    sub-action handled it (reference: actions/action.py:3)."""
+
+    SUB_ACTIONS = ("op_partition", "op_placement", "op_schedule",
+                   "dep_placement", "dep_schedule")
+
+    def __init__(self,
+                 op_partition: Optional[OpPartition] = None,
+                 op_placement: Optional[OpPlacement] = None,
+                 op_schedule: Optional[OpSchedule] = None,
+                 dep_placement: Optional[DepPlacement] = None,
+                 dep_schedule: Optional[DepSchedule] = None,
+                 job_placement_shape: Optional[JobPlacementShape] = None):
+        self.job_placement_shape = job_placement_shape
+        self.actions = {
+            "op_partition": op_partition,
+            "op_placement": op_placement,
+            "op_schedule": op_schedule,
+            "dep_placement": dep_placement,
+            "dep_schedule": dep_schedule,
+        }
+        present = {k: a for k, a in self.actions.items() if a is not None}
+        self.cause_of_unsuccessful_handling: Optional[str] = None
+        # per-job blocking cause: first sub-action (in pipeline order) that
+        # failed to handle the job (reference: actions/action.py:36-48)
+        self.job_id_to_cause_of_unsuccessful_handling: Dict[int, str] = {}
+        if present:
+            self.job_ids = set.intersection(
+                *[set(a.job_ids) for a in present.values()])
+            union = set.union(*[set(a.job_ids) for a in present.values()])
+            for job_id in union - self.job_ids:
+                for key in self.SUB_ACTIONS:
+                    act = self.actions[key]
+                    if act is not None and job_id not in act.job_ids:
+                        self.job_id_to_cause_of_unsuccessful_handling[
+                            job_id] = key
+                        break
+            for key, act in present.items():
+                if not act.job_ids:
+                    self.cause_of_unsuccessful_handling = key
+                    break
+            self.job_idxs = {
+                op_partition.partitioned_jobs[j].details["job_idx"]
+                for j in self.job_ids} if op_partition is not None else set()
+        else:
+            self.job_ids = set()
+            self.job_idxs = set()
+
+        # filter unhandled jobs out of every sub-action
+        for key, act in present.items():
+            if key in ("op_partition", "op_placement", "dep_placement"):
+                for job_id in list(act.action):
+                    if job_id not in self.job_ids:
+                        del act.action[job_id]
+            else:  # schedules keyed by device
+                for device_id in act.action:
+                    for job_id in list(act.action[device_id]):
+                        if job_id not in self.job_ids:
+                            del act.action[device_id][job_id]
+
+
+# --------------------------------------------------------------- dep run times
+def group_collectives(original_job: Job,
+                      partitioned_job: Job,
+                      split_fwd_ops: Dict[str, int]):
+    """Group the partitioned job's deps into collectives and one-to-one
+    communications (reference: actions/utils.py:247-393).
+
+    For each original forward op f (and its backward counterpart b):
+
+    * f split n ways: out-edges of the f sub-ops form a *candidate* forward
+      collective; non-sync in-edges of the b sub-ops a candidate backward
+      collective; the bidirectional sync pairs between b sub-ops are each a
+      2-edge collective.
+    * f unsplit: out-edges of f and in-edges of b are one-to-one.
+
+    Whether a candidate group is a real collective depends on placement
+    symmetry, checked later. Each dep is claimed exactly once, first claim
+    wins (the reference double-visits the fwd->bwd join edge when the last
+    forward op is split and would trip its own conservation check;
+    deterministic first-claim avoids that while preserving grouping for all
+    other edges).
+
+    Returns (candidate_groups, sync_groups, one_to_one) where candidate
+    groups still need the placement symmetry test.
+    """
+    graph = partitioned_job.graph
+    n_fwd = len(original_job.graph.forward_op_ids())
+    claimed: Set[EdgeId] = set()
+    candidate_groups: List[List[EdgeId]] = []
+    sync_groups: List[List[EdgeId]] = []
+    one_to_one: List[EdgeId] = []
+
+    def claim(edges: List[EdgeId]) -> List[EdgeId]:
+        fresh = [e for e in edges if e not in claimed]
+        claimed.update(fresh)
+        return fresh
+
+    for f_op in original_job.graph.forward_op_ids():
+        f_op = str(int(f_op))
+        b_op = backward_op_id(f_op, n_fwd)
+        if f_op in split_fwd_ops:
+            n = split_fwd_ops[f_op]
+            fwd_deps: List[EdgeId] = []
+            bwd_deps: List[EdgeId] = []
+            sync_pairs: List[List[EdgeId]] = []
+            seen_sync: Set[frozenset] = set()
+            for i in range(n):
+                f_sub = partitioned_op_id(f_op, i)
+                fwd_deps.extend(graph.out_edges(f_sub))
+                b_sub = partitioned_op_id(b_op, i)
+                for (u, v) in graph.in_edges(b_sub):
+                    if u in graph.successors(v):
+                        key = frozenset((u, v))
+                        if key not in seen_sync:
+                            seen_sync.add(key)
+                            sync_pairs.append([(u, v), (v, u)])
+                    else:
+                        bwd_deps.append((u, v))
+            fwd_deps = claim(fwd_deps)
+            if fwd_deps:
+                candidate_groups.append(fwd_deps)
+            bwd_deps = claim(bwd_deps)
+            if bwd_deps:
+                candidate_groups.append(bwd_deps)
+            for pair in sync_pairs:
+                pair = claim(pair)
+                if pair:
+                    sync_groups.append(pair)
+        else:
+            one_to_one.extend(claim(graph.out_edges(f_op)))
+            one_to_one.extend(claim(graph.in_edges(b_op)))
+
+    total = (sum(len(g) for g in candidate_groups)
+             + sum(len(g) for g in sync_groups) + len(one_to_one))
+    if total != graph.n_deps:
+        raise RuntimeError(
+            f"collective grouping covered {total} of {graph.n_deps} deps of "
+            f"job {partitioned_job.job_id}; grouping bug")
+    return candidate_groups, sync_groups, one_to_one
+
+
+def build_grouping_arrays(original: Job, partitioned: Job,
+                          split_fwd: Dict[str, int]) -> dict:
+    """Index-array form of the collective grouping, static per partitioned
+    graph and therefore memoised alongside it in the cluster's partition
+    cache (pricing then touches numpy arrays, not per-edge dicts)."""
+    import numpy as np
+
+    cand, sync, o2o = group_collectives(original, partitioned, split_fwd)
+    arrays = partitioned.graph.finalize()
+    eidx, oidx = arrays["edge_index"], arrays["op_index"]
+    sizes = arrays["edge_size"]
+
+    def pack(group, is_sync):
+        e = np.fromiter((eidx[d] for d in group), np.int64, len(group))
+        u = np.fromiter((oidx[d[0]] for d in group), np.int64, len(group))
+        v = np.fromiter((oidx[d[1]] for d in group), np.int64, len(group))
+        # plain-list mirrors: groups are mostly tiny (2-edge sync pairs),
+        # where Python set/sort constants beat numpy's per-call overhead
+        return {"edges": e, "u": u, "v": v,
+                "u_list": u.tolist(), "v_list": v.tolist(),
+                "msg": float(sizes[e].sum()), "sync": is_sync}
+
+    return {
+        "groups": ([pack(g, False) for g in cand]
+                   + [pack(g, True) for g in sync]),
+        "o2o_edges": np.fromiter((eidx[d] for d in o2o), np.int64,
+                                 len(o2o)),
+        "o2o_u": np.fromiter((oidx[d[0]] for d in o2o), np.int64, len(o2o)),
+        "o2o_v": np.fromiter((oidx[d[1]] for d in o2o), np.int64, len(o2o)),
+    }
+
+
+def _server_code_tables(cluster):
+    """server_id -> dense code, plus (comm group, rack, server) component
+    lists indexed by code; built once per cluster (the topology is fixed
+    for its lifetime) and stored with the cluster's other memo caches."""
+    tables = cluster._server_code_tables
+    if tables is None:
+        ids = cluster.topology.server_ids
+        code = {sid: i for i, sid in enumerate(ids)}
+        parts = [[0, 0, 0] for _ in ids]
+        for i, sid in enumerate(ids):
+            for axis, val in enumerate(sid.split("-")[:3]):
+                parts[i][axis] = int(val)
+        tables = (code,
+                  [p[0] for p in parts],
+                  [p[1] for p in parts],
+                  [p[2] for p in parts])
+        cluster._server_code_tables = tables
+    return tables
+
+
+def assign_dep_run_times(cluster, op_partition: OpPartition,
+                         op_placement: "OpPlacement") -> None:
+    """Price every dep of every placed job given op placements and topology
+    (reference: actions/utils.py:13-167).
+
+    Array formulation of the reference's per-edge walk: the grouping is a
+    cached index-array structure, placements become a dense op->server-code
+    vector, symmetry tests are sorted-array comparisons, and all one-to-one
+    deps are priced in one vectorised expression.
+    """
+    import numpy as np
+
+    if not op_placement.job_ids:
+        return
+    topo = cluster.topology
+    code, c_list, r_list, s_list = _server_code_tables(cluster)
+    span_cache = cluster._span_cache
+    worker_to_server = topo.worker_to_server
+    rate = topo.channel_bandwidth
+    prop = topo.intra_gpu_propagation_latency
+    io = topo.worker_io_latency
+    allreduce_cache = cluster.comm_time_cache
+
+    for job_id in op_partition.action:
+        if job_id not in op_placement.action:
+            continue
+        original = op_partition.original_jobs[job_id]
+        partitioned = op_partition.partitioned_jobs[job_id]
+        placement = op_placement.action[job_id]
+        split_fwd = op_partition.job_id_to_split_forward_ops[job_id]
+
+        cache_entry = op_partition.job_id_to_cache_entry.get(job_id)
+        grouping = (cache_entry or {}).get("grouping")
+        if grouping is None:
+            grouping = build_grouping_arrays(original, partitioned,
+                                             split_fwd)
+            if cache_entry is not None:
+                cache_entry["grouping"] = grouping
+
+        arrays = partitioned.graph.finalize()
+        sc_list = [code[worker_to_server[placement[op]]]
+                   for op in arrays["op_ids"]]
+        sc = np.asarray(sc_list, np.int64)
+        # dense per-op server codes double as the array dep-pipeline's
+        # src/dst lookup (cluster server-table order == topology dense
+        # order); stashing here saves the placer a per-op dict walk
+        op_placement.job_server_codes[job_id] = sc
+
+        # whole-result memo: the priced array depends only on (partitioned
+        # graph, per-op server codes) — topology and comm params are fixed
+        # per cluster — so repeated placements of a repeated workload skip
+        # the group walk entirely. Scoped inside the partition-cache entry,
+        # it inherits that cache's exact (model, split map) key and its
+        # workload-signature invalidation.
+        pricing_memo = (cache_entry.setdefault("pricing", {})
+                        if cache_entry is not None else None)
+        sc_key = sc.tobytes()
+        if pricing_memo is not None:
+            cached_times = pricing_memo.get(sc_key)
+            if cached_times is not None:
+                partitioned.set_dep_init_run_times_bulk(cached_times)
+                continue
+
+        times = np.zeros(partitioned.graph.n_deps, np.float64)
+        extra_e, extra_u, extra_v = [], [], []
+        for group in grouping["groups"]:
+            u_codes = [sc_list[i] for i in group["u_list"]]
+            v_codes = [sc_list[i] for i in group["v_list"]]
+            # placement-symmetric parent/child multisets -> true collective
+            if not group["sync"] and sorted(u_codes) != sorted(v_codes):
+                extra_e.append(group["edges"])
+                extra_u.append(group["u"])
+                extra_v.append(group["v"])
+                continue
+            servers = frozenset(u_codes).union(v_codes)
+            if len(servers) == 1:
+                run_time = 0.0
+            else:
+                span = span_cache.get(servers)
+                if span is None:
+                    span = (len({s_list[s] for s in servers}),
+                            len({r_list[s] for s in servers}),
+                            len({c_list[s] for s in servers}))
+                    span_cache[servers] = span
+                key = (group["msg"],) + span
+                run_time = allreduce_cache.get(key)
+                if run_time is None:
+                    run_time = ramp_all_reduce_time(
+                        message_size=group["msg"],
+                        num_servers=span[0],
+                        num_racks=span[1],
+                        num_comm_groups=span[2],
+                        network_comm_groups=topo.num_communication_groups,
+                        data_rate=rate,
+                        propagation_latency=prop,
+                        io_latency=io)
+                    allreduce_cache[key] = run_time
+            times[group["edges"]] = run_time
+
+        o2o_e = np.concatenate([grouping["o2o_edges"]] + extra_e)
+        o2o_u = np.concatenate([grouping["o2o_u"]] + extra_u)
+        o2o_v = np.concatenate([grouping["o2o_v"]] + extra_v)
+        sizes = arrays["edge_size"][o2o_e]
+        free = (sc[o2o_u] == sc[o2o_v]) | (sizes == 0)
+        times[o2o_e] = np.where(free, 0.0, prop + 2 * io + sizes / rate)
+        if not np.all(np.isfinite(times)):
+            raise ValueError(
+                f"non-finite communication time priced for job {job_id}")
+
+        if pricing_memo is not None:
+            pricing_memo[sc_key] = times
+        partitioned.set_dep_init_run_times_bulk(times)

@@ -1,0 +1,129 @@
+"""Analytical RAMP communication-time model.
+
+The cost of a RAMP all-reduce is modeled as reduce-scatter + all-gather over a
+hierarchy of subgroups -- communication groups, per-rack server ids, racks, and
+ceil(servers / num_comm_groups) -- with per-step effective-transceiver
+bandwidth, propagation + 2x IO latency, and a roofline parallel-add compute
+term (memory frequency vs peak FLOPs). One-to-one transfers cost
+latency + 2 x IO + size / rate.
+
+This replicates the reference's formulas exactly
+(ddls/environments/ramp_cluster/actions/utils.py:42-124), including its
+quirks, because simulated JCTs (and hence RL rewards) derive from them:
+
+* the per-transceiver data rate is the *channel* bandwidth (already
+  ``total / x``) divided by ``x`` again (actions/utils.py:62 with the
+  call-site passing ``cluster.topology.channel_bandwidth`` at :141);
+* ``cont_racks`` is effectively always 1: the reference derives rack/cg ids
+  from the server id, so the conflict test can never fire
+  (actions/utils.py:221-232);
+* the hierarchy sizes are counts of *distinct* cg ids, rack ids, and
+  server-within-rack ids used by the collective.
+
+Everything here is a pure scalar function -- trivially jittable/vmappable if a
+JAX-resident environment needs it (``jnp`` works through these ops).
+
+Port: a copy of ``ddls_tpu/sim/comm_model.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+
+
+def effective_transceivers(cg: int, d: float, J: int = 1) -> float:
+    """Usable transceivers per communicator for a subgroup of ``d`` devices in
+    a network of ``cg`` communication groups with ``J`` contending racks
+    (reference: actions/utils.py:101-106)."""
+    if d == 1:
+        return 0.0
+    spare = min(cg // J, cg // (d - 1)) - 1
+    return 1.0 + spare
+
+
+def parallel_add_time(data_sz: float,
+                      devices: float,
+                      mem_frequency: float = 2e12,
+                      peak_flops: float = 130e12,
+                      bytes_per_comp: int = 2) -> float:
+    """Roofline estimate of the parallel-add compute inside a collective
+    (reference: actions/utils.py:108-117)."""
+    n_op = np.ceil(np.log2(devices))
+    n_bytes = (devices + 1) * bytes_per_comp
+    arithmetic_intensity = n_op / n_bytes
+    total_ops = n_op * (data_sz / devices) / bytes_per_comp
+    return float(total_ops / min(mem_frequency * arithmetic_intensity,
+                                 peak_flops))
+
+
+def ramp_all_reduce_time(message_size: float,
+                         num_servers: int,
+                         num_racks: int,
+                         num_comm_groups: int,
+                         network_comm_groups: int = 32,
+                         data_rate: float = 1.6e12,
+                         contending_racks: int = 1,
+                         mem_frequency: float = 2e12,
+                         peak_flops: float = 130e12,
+                         bytes_per_comp: int = 2,
+                         propagation_latency: float = 1.25e-6,
+                         io_latency: float = 100e-9) -> float:
+    """Time for an all-reduce of ``message_size`` bytes across a collective
+    spanning ``num_comm_groups`` distinct communication groups,
+    ``num_racks`` distinct rack ids, and ``num_servers`` distinct
+    server-within-rack ids, in a network of ``network_comm_groups`` total
+    groups (reference: actions/utils.py:42-88)."""
+    x = network_comm_groups
+    data_per_tx = data_rate / x
+    subgroups = [num_comm_groups,
+                 min(num_comm_groups, num_servers),
+                 num_racks,
+                 np.ceil(num_servers / x)]
+
+    msg_sizes = [np.ceil(message_size / subgroups[0])]
+    for sub in subgroups[1:]:
+        msg_sizes.append(np.ceil(msg_sizes[-1] / sub))
+
+    comm_time = 0.0
+    comp_time = 0.0
+    for step, sub in enumerate(subgroups):
+        if sub > 1:
+            comp_time += parallel_add_time(
+                msg_sizes[step] * sub, sub, mem_frequency=mem_frequency,
+                peak_flops=peak_flops, bytes_per_comp=bytes_per_comp)
+            bw = effective_transceivers(x, sub, contending_racks) * data_per_tx
+            comm_time += (propagation_latency + 2 * io_latency
+                          + msg_sizes[step] / bw)
+    # x2: all-reduce = reduce-scatter + all-gather
+    total = 2 * comm_time + comp_time
+    if math.isinf(total):
+        raise ValueError("infinite RAMP all-reduce time computed")
+    return float(total)
+
+
+def one_to_one_time(message_size: float,
+                    data_rate: float = 1.6e12,
+                    propagation_latency: float = 1.25e-6,
+                    io_latency: float = 100e-9) -> float:
+    """(reference: actions/utils.py:90-99)"""
+    t = propagation_latency + 2 * io_latency + message_size / data_rate
+    if math.isinf(t):
+        raise ValueError("infinite one-to-one communication time computed")
+    return float(t)
+
+
+def collective_span(server_ids: Sequence[str]):
+    """Distinct (comm-group, rack, server) counts spanned by a set of RAMP
+    server ids ``"c-r-s"`` (reference: actions/utils.py:169-245
+    get_collective_info)."""
+    cgs, racks, servers, full = set(), set(), set(), set()
+    for sid in server_ids:
+        c, r, s = sid.split("-")
+        cgs.add(c)
+        racks.add(r)
+        servers.add(s)
+        full.add(sid)
+    return len(cgs), len(racks), len(servers), len(full)

@@ -1,0 +1,125 @@
+"""Graph partitioning transforms: data-parallel replication and model/tensor
+op splitting.
+
+Reproduces the reference's two rewrite passes
+(ddls/environments/ramp_cluster/agents/partitioners/utils.py:5-110) with the
+same observable semantics, because partitioned-graph costs feed directly into
+simulated JCTs:
+
+``data_split`` (dp_splits=0 in the PAC-ML path): relabels ops to string ids
+and **rewrites every edge's size to the memory cost of its producer op**
+(activation+parameter) -- partitioned graphs measure dependencies in resident
+bytes, unlike raw profile graphs which use activation sizes
+(partitioners/utils.py:33-38).
+
+``model_split``: each split forward op ``f`` (and, simultaneously, its
+backward counterpart) is replaced by ``n`` sub-ops ``f"a", f"b", ...`` with
+compute/memory divided by ``n``; in/out edges are rewired to every sub-op with
+size = (neighbour's current memory cost)/n; the backward sub-ops additionally
+get a bidirectional all-to-all clique of weight-sync edges, each sized at the
+sub-op's memory cost (partitioners/utils.py:54-105). Edge sizes are assigned
+at creation time from the neighbour's memory at that moment; when a neighbour
+is split later the edge is destroyed and recreated, which reproduces the
+reference's last-writer-wins attribute application.
+
+Sub-op id scheme: ``str(int(op)) + chr(97 + i)``
+(reference: agents/placers/utils.py:324).
+
+Port: a copy of ``ddls_tpu/sim/partition.py`` with its imports pointed at
+``ddls_tpu_torch``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+from ddls_tpu_torch.graphs.op_graph import OpGraph
+from ddls_tpu_torch.graphs.readers import backward_op_id
+
+
+def partitioned_op_id(op_id, split_idx: int) -> str:
+    return f"{int(op_id)}{chr(97 + split_idx)}"
+
+
+def data_split(graph: OpGraph) -> OpGraph:
+    """Relabel ops to canonical string ids and re-base edge sizes on producer
+    memory cost (the reference's data_split_node with dp_splits=0)."""
+    out = OpGraph(graph.device_type)
+    for op in graph.op_ids:
+        out.add_op(str(int(op)),
+                   compute=graph.compute_cost(op),
+                   memory=graph.memory_cost(op),
+                   is_forward=graph.is_forward(op),
+                   counterpart=graph.counterpart(op))
+    for u, v in graph.edge_ids:
+        out.add_edge(str(int(u)), str(int(v)), size=graph.memory_cost(u))
+    out.meta = dict(graph.meta)
+    return out
+
+
+def model_split(graph: OpGraph,
+                split_forward_op_ids: Sequence[str],
+                splits: Sequence[int]) -> OpGraph:
+    """Split the given forward ops (and their backward counterparts) in order.
+
+    ``graph`` must already be data_split output. Returns a new OpGraph.
+    """
+    g = graph.copy()
+    n_forward = len(graph.forward_op_ids())
+
+    for f_op, n in zip(split_forward_op_ids, splits):
+        f_op = str(f_op)
+        if not g.has_op(f_op) or not graph.is_forward(f_op):
+            continue
+        b_op = backward_op_id(f_op, n_forward)
+        for node_id, is_backward_pass in ((f_op, False), (b_op, True)):
+            in_nbrs = g.predecessors(node_id)
+            out_nbrs = g.successors(node_id)
+            compute = g.compute_cost(node_id) / n
+            memory = g.memory_cost(node_id) / n
+            is_fwd = g.is_forward(node_id)
+            in_sizes = {p: g.memory_cost(p) / n for p in in_nbrs}
+            out_sizes = {c: g.memory_cost(c) / n for c in out_nbrs}
+
+            g.remove_op(node_id)
+            sub_ids = [partitioned_op_id(node_id, i) for i in range(n)]
+            for i, sub in enumerate(sub_ids):
+                other = partitioned_op_id(b_op if not is_backward_pass else f_op, i)
+                g.add_op(sub, compute=compute, memory=memory,
+                         is_forward=is_fwd, counterpart=other)
+            for sub in sub_ids:
+                for p in in_nbrs:
+                    g.add_edge(p, sub, size=in_sizes[p])
+                for c in out_nbrs:
+                    g.add_edge(sub, c, size=out_sizes[c])
+            if is_backward_pass:
+                # all-to-all weight-sync clique between backward sub-ops,
+                # each direction sized at the sub-op memory cost
+                for a in sub_ids:
+                    for b in sub_ids:
+                        if a != b:
+                            g.add_edge(a, b, size=memory)
+    return g
+
+
+def partition_graph(graph: OpGraph,
+                    op_to_num_partitions: Dict[str, int]) -> OpGraph:
+    """Full partition pipeline: data_split then model_split.
+
+    ``op_to_num_partitions`` maps op ids (forward and/or backward; backward
+    entries are ignored -- splitting is driven from the forward op and applied
+    to its counterpart) to an even partition count (or 1 for no split).
+    """
+    base = data_split(graph)
+    split_ids: List[str] = []
+    splits: List[int] = []
+    for op in graph.forward_op_ids():
+        n = int(op_to_num_partitions.get(str(int(op)), 1))
+        if n == 1:
+            continue
+        if n % 2 != 0:
+            raise ValueError(
+                f"num_partitions for op {op} must be 1 or even, got {n} "
+                "(RAMP symmetry requirement)")
+        split_ids.append(str(int(op)))
+        splits.append(n)
+    return model_split(base, split_ids, splits)

@@ -2,8 +2,9 @@
 process-global registry (disabled by default) behind a gated event API.
 
 Counterpart of ``ddls_tpu/telemetry/__init__.py``, trimmed to what the
-serve stack calls: hot paths reach the global registry only through
-``record_event``, which returns at once while telemetry is off.
+serve stack and the simulator call: hot paths reach the global registry
+only through ``record_event`` and ``inc``, which return at once while
+telemetry is off.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "Registry",
     "DEFAULT_LATENCY_BUCKETS_S", "DEFAULT_WINDOW",
     "percentile_from_bucket_counts", "aggregate_snapshots",
-    "registry", "enabled", "enable", "disable", "record_event",
+    "registry", "enabled", "enable", "disable", "record_event", "inc",
 ]
 
 _GLOBAL = Registry(enabled=False)
@@ -45,3 +46,8 @@ def disable() -> None:
 def record_event(kind: str, **fields) -> None:
     if _GLOBAL.enabled:
         _GLOBAL.event(kind, **fields)
+
+
+def inc(name: str, n: int = 1) -> None:
+    if _GLOBAL.enabled:
+        _GLOBAL.counter(name).inc(n)

@@ -1,0 +1,69 @@
+"""Agent checkpointing in torch.
+
+Counterpart of ``ddls_tpu/train/checkpointer.py``: ``Checkpointer`` owns
+the directory layout (the cadence belongs to the JAX package's launcher,
+which is not ported), and ``save_train_state`` /
+``restore_train_state`` write and read the learner's ``TrainState`` (the
+params by name, adam's moments, ``kl_coeff`` and ``step``) with
+``torch.save`` into ``<path>/train_state.pt``, where the JAX package
+writes an orbax tree. A restore copies into a target state in place, so a
+saved and restored state is bit-equal and stays on the target's device.
+The shipped weights come in through the numpy export instead
+(``serve.server.load_export``).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+import torch
+
+STATE_FILE = "train_state.pt"
+
+
+class Checkpointer:
+    """The checkpoint directory layout: ``<path_to_save>/checkpoints/
+    checkpoint_<epoch>``."""
+
+    def __init__(self, path_to_save: str):
+        self.checkpoints_dir = Path(path_to_save) / "checkpoints"
+        self.checkpoints_dir.mkdir(parents=True, exist_ok=True)
+
+    def write(self, epoch_loop, epoch_counter: int) -> str:
+        path = self.checkpoints_dir / f"checkpoint_{epoch_counter:06d}"
+        epoch_loop.save_agent_checkpoint(str(path))
+        return str(path)
+
+
+def save_train_state(state, path: str) -> None:
+    """Write ``state`` (a ``rl.ppo.TrainState``) under the directory
+    ``path`` as host tensors."""
+    out = Path(path)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save({
+        "names": list(state.names),
+        "params": [p.detach().cpu() for p in state.params],
+        "mu": [m.cpu() for m in state.mu],
+        "nu": [n.cpu() for n in state.nu],
+        "kl_coeff": state.kl_coeff.detach().cpu(),
+        "step": int(state.step),
+    }, out / STATE_FILE)
+
+
+def restore_train_state(path: str, target):
+    """Copy the state saved under ``path`` into ``target`` (a
+    ``TrainState`` of the same parameter names and shapes) in place and
+    return it; raises on a name or shape mismatch."""
+    saved = torch.load(Path(path) / STATE_FILE, map_location="cpu",
+                       weights_only=True)
+    if list(saved["names"]) != list(target.names):
+        raise ValueError(f"{path}: checkpoint params {saved['names']} do "
+                         f"not match the target's {target.names}")
+    with torch.no_grad():
+        for key in ("params", "mu", "nu"):
+            for dst, src in zip(getattr(target, key), saved[key]):
+                if dst.shape != src.shape:
+                    raise ValueError(f"{path}: {key} shape {tuple(src.shape)}"
+                                     f" != target {tuple(dst.shape)}")
+                dst.copy_(src)
+        target.kl_coeff = saved["kl_coeff"].to(target.kl_coeff.device)
+    target.step = int(saved["step"])
+    return target

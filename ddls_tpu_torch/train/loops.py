@@ -1,0 +1,411 @@
+"""The PPO epoch loop, sequential mode, and checkpoint evaluation.
+
+Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what sequential
+PPO reads: ``build_policy_from_model_config`` :127, ``_episode_summary``
+:149, ``RLEpochLoop`` :181 (the ``__init__`` subset of sequential PPO,
+``run`` :1283, ``_finalize_results`` :1350, ``make_eval_env`` :1378,
+``evaluate`` :1392 with its global-RNG isolation, the greedy episodes
+:1418-1498, ``save_agent_checkpoint`` / ``load_agent_checkpoint`` and
+``close``) and ``RLEvalLoop`` :2108.
+
+One ``run()`` is one epoch: ``RolloutCollector.collect`` over a
+``VectorEnv`` of the port's own simulator (each step's forward through
+K1-K3, the heads and K9), then ``PPOLearner.stage_traj`` and
+``train_step`` (K5-K8), then the learner's metrics in one read-back.
+Greedy evaluation takes K4. The learner and the collector draw from two
+explicit ``torch.Generator``s on the loop's device, seeded from ``seed``.
+
+Left out, each raising where it is asked for: the pipelined, fused and
+sebulba modes (``loop_mode`` other than ``"sequential"``), subprocess env
+workers (``use_parallel_envs=True``), ``pipeline_depth``, the device
+collector, sharded parameter layouts, socket collection, scenarios, the
+run ledger and periodic evaluation (``evaluation_interval``: ``evaluate``
+runs when the caller asks); the other learners (``make_epoch_loop`` takes ``"ppo"``
+only).
+"""
+from __future__ import annotations
+
+import copy
+import random
+import time
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ddls_tpu_torch.models.policy import GNNPolicy
+from ddls_tpu_torch.rl.ppo import METRIC_KEYS, PPOLearner, ppo_config_from_rllib
+from ddls_tpu_torch.rl.rollout import (RolloutCollector, VectorEnv,
+                                       harvest_episode_record, stack_obs)
+from ddls_tpu_torch.serve.server import resolve_device
+from ddls_tpu_torch.train.checkpointer import (restore_train_state,
+                                               save_train_state)
+from ddls_tpu_torch.utils.common import (get_class_from_path,
+                                         recursive_update, seed_everything)
+
+# flax's default Dense kernel init, lecun_normal: a normal truncated at two
+# standard deviations, rescaled to keep the variance 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+# what sequential PPO cannot honour, with the value that leaves it off
+_UNPORTED_OPTIONS = {
+    "pipeline_depth": (0, None),
+    "param_sharding": ("replicated", None),
+    "collect_transport": ("inprocess", None),
+    "socket_config": (None, {}),
+    "scenario": (None,),
+    "run_ledger": (None,),
+    "sebulba_config": (None, {}),
+    "fused_config": (None, {}),
+    "evaluation_interval": (None, 0),
+}
+
+
+def build_policy_from_model_config(n_actions: int, graph_feature_dim: int,
+                                   model_config: Optional[dict]
+                                   ) -> GNNPolicy:
+    """Build a ``GNNPolicy`` from the reference's model/gnn.yaml surface
+    (the width of the encoder's graph vector is given, not inferred)."""
+    model_config = model_config or {}
+    cmc = model_config.get("custom_model_config", {})
+    fcnet_hiddens = model_config.get("fcnet_hiddens") or (256, 256)
+    return GNNPolicy(
+        n_actions=n_actions,
+        graph_feature_dim=graph_feature_dim,
+        out_features_msg=cmc.get("out_features_msg", 32),
+        out_features_hidden=cmc.get("out_features_hidden", 64),
+        out_features_node=cmc.get("out_features_node", 16),
+        out_features_graph=cmc.get("out_features_graph", 8),
+        num_rounds=cmc.get("num_rounds", 2),
+        module_depth=cmc.get("module_depth", 1),
+        activation=cmc.get("aggregator_activation", "relu"),
+        fcnet_hiddens=tuple(fcnet_hiddens),
+        fcnet_activation=model_config.get("fcnet_activation", "relu"),
+        apply_action_mask=cmc.get("apply_action_mask", True))
+
+
+def init_like_flax(model: torch.nn.Module,
+                   generator: torch.Generator) -> None:
+    """flax's default initialisation: every Dense kernel lecun_normal,
+    biases zero, LayerNorm scale one (the numbers differ from flax's: the
+    generators differ)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif ".LayerNorm_" in name:
+                p.fill_(1.0)
+            else:
+                std = (1.0 / p.shape[1]) ** 0.5 / _TRUNC_STD
+                torch.nn.init.trunc_normal_(p, 0.0, std, -2.0 * std,
+                                            2.0 * std, generator=generator)
+
+
+def _episode_summary(episodes: List[dict]) -> Dict[str, float]:
+    if not episodes:
+        return {}
+    out: Dict[str, float] = {
+        "episode_reward_mean": float(np.mean(
+            [e["episode_return"] for e in episodes])),
+        "episode_reward_min": float(np.min(
+            [e["episode_return"] for e in episodes])),
+        "episode_reward_max": float(np.max(
+            [e["episode_return"] for e in episodes])),
+        "episode_len_mean": float(np.mean(
+            [e["episode_length"] for e in episodes])),
+        "episodes_this_iter": len(episodes),
+    }
+    # cluster custom metrics, averaged over episodes (what the reference's
+    # RLlib callback surfaces as custom_metrics: ramp_cluster/utils.py:25-73)
+    for key in ("num_jobs_completed", "num_jobs_blocked", "blocking_rate",
+                "acceptance_rate", "mean_job_completion_time",
+                "mean_job_completion_time_speedup"):
+        vals = [e[key] for e in episodes if key in e]
+        if vals:
+            out[f"custom_metrics/{key}_mean"] = float(np.mean(vals))
+    return out
+
+
+class RLEpochLoop:
+    """One PPO epoch per ``run()`` call; ``evaluate`` runs greedy episodes
+    when the caller asks (the reference's periodic evaluation is left out).
+
+    ``env_config`` / ``model`` / ``algo_config`` follow the reference's
+    config surfaces; ``num_envs`` (default: ``algo_config.num_workers``)
+    envs each step ``rollout_length`` (default: ``train_batch_size //
+    num_envs``) times per epoch. ``device`` is ``"cuda"`` unless the
+    caller asks for ``"cpu"`` (raises when CUDA is asked for and absent).
+    ``init_params`` (a state dict, e.g. ``load_export``'s) seeds the
+    policy; without it the policy starts from ``init_like_flax``.
+    """
+
+    def __init__(self,
+                 path_to_env_cls: str,
+                 env_config: dict,
+                 model: Optional[dict] = None,
+                 algo_config: Optional[dict] = None,
+                 num_envs: Optional[int] = None,
+                 rollout_length: Optional[int] = None,
+                 use_parallel_envs="auto",
+                 evaluation_config: Optional[dict] = None,
+                 seed: Optional[int] = 0,
+                 test_seed: Optional[int] = None,
+                 loop_mode: str = "sequential",
+                 device: str = "cuda",
+                 init_params: Optional[Mapping[str, Any]] = None,
+                 **kwargs):
+        if loop_mode != "sequential":
+            raise ValueError(f"the port runs loop_mode='sequential' only, "
+                             f"got {loop_mode!r}")
+        if use_parallel_envs is True:
+            raise ValueError("the port has no subprocess env workers yet "
+                             "(ParallelVectorEnv); use_parallel_envs must be "
+                             "False or 'auto'")
+        for key, off in _UNPORTED_OPTIONS.items():
+            if key in kwargs and kwargs[key] not in off:
+                raise ValueError(f"{key}={kwargs[key]!r} is not ported; "
+                                 f"sequential PPO needs it off")
+        if (algo_config or {}).get("device_collector"):
+            raise ValueError("the port has no device collector yet")
+        self.device = resolve_device(device)
+        self.env_cls = get_class_from_path(path_to_env_cls)
+        self.env_config = dict(env_config)
+        self.evaluation_config = evaluation_config or {}
+        self.seed = 0 if seed is None else int(seed)
+        self.test_seed = test_seed
+
+        algo_config = dict(algo_config or {})
+        self.ppo_cfg = ppo_config_from_rllib(algo_config)
+        self.num_envs = int(num_envs or algo_config.get("num_workers") or 8)
+        self.rollout_length = int(rollout_length or max(
+            self.ppo_cfg.train_batch_size // self.num_envs, 1))
+
+        seed_everything(self.seed)
+        self.vec_env = VectorEnv(
+            [lambda: self.env_cls(**self.env_config)
+             for _ in range(self.num_envs)],
+            seeds=[self.seed + i for i in range(self.num_envs)])
+        self.vec_env.reset()  # the observation space exists after a reset
+        template = self.vec_env.envs[0]
+        self.n_actions = template.action_space.n
+        graph_dim = template.observation_space["graph_features"].shape[0]
+        self.model = build_policy_from_model_config(self.n_actions,
+                                                    graph_dim, model)
+        if init_params is None:
+            init_like_flax(self.model,
+                           torch.Generator().manual_seed(self.seed))
+        self.learner = PPOLearner(self.model, self.ppo_cfg,
+                                  device=str(self.device))
+        self.state = self.learner.init_state(init_params)
+        self.collector = RolloutCollector(self.vec_env, self.learner,
+                                          self.rollout_length)
+
+        # the update and the collect streams, distinct as the reference's
+        # PRNGKey(seed + 1) and PRNGKey(seed + 7919) are
+        self._update_gen = torch.Generator(self.device).manual_seed(
+            self.seed + 1)
+        self._collect_gen = torch.Generator(self.device).manual_seed(
+            self.seed + 7919)
+        self.epoch_counter = 0
+        self.total_env_steps = 0
+        self.run_time = 0.0
+
+    # ---------------------------------------------------------------- epoch
+    def run(self) -> Dict[str, Any]:
+        """Collect one trajectory batch and apply one PPO update."""
+        start = time.time()
+        t0 = time.perf_counter()
+        out = self.collector.collect(generator=self._collect_gen)
+        t1 = time.perf_counter()
+        staged = self.learner.stage_traj(out["traj"], out["last_values"])
+        self.state, metrics = self.learner.train_step(
+            self.state, staged, generator=self._update_gen)
+        values = torch.stack([metrics[k] for k in (*METRIC_KEYS,
+                                                   "kl_coeff")])
+        learner_metrics = dict(zip((*METRIC_KEYS, "kl_coeff"),
+                                   values.cpu().tolist()))
+        t2 = time.perf_counter()
+        self.epoch_counter += 1
+        self.total_env_steps += out["env_steps"]
+        results: Dict[str, Any] = {
+            "epoch_counter": self.epoch_counter,
+            "env_steps_this_iter": out["env_steps"],
+            "total_env_steps": self.total_env_steps,
+            "learner": learner_metrics,
+            "timing": {"collect_s": t1 - t0, "update_s": t2 - t1,
+                       **out["timing"]},
+        }
+        return self._finalize_results(results, out["episodes"], start)
+
+    def _finalize_results(self, results: Dict[str, Any],
+                          episodes: List[dict], start: float
+                          ) -> Dict[str, Any]:
+        """Shared epoch epilogue: episode summary, timing bookkeeping."""
+        results.update(_episode_summary(episodes))
+        results["episodes"] = episodes
+        self.run_time += time.time() - start
+        results["epoch_time"] = time.time() - start
+        results["run_time"] = self.run_time
+        return results
+
+    # ----------------------------------------------------------- evaluation
+    def make_eval_env(self):
+        """The evaluation env: the training env_config with the
+        evaluation_config env overrides applied."""
+        env_config = copy.deepcopy(self.env_config)
+        overrides = (self.evaluation_config or {}).get("env_config") or {}
+        return self.env_cls(**recursive_update(env_config, overrides))
+
+    def evaluate(self, num_episodes: int,
+                 seed: Optional[int] = None) -> Dict[str, Any]:
+        """Greedy-policy evaluation episodes on fresh envs.
+
+        The process-global RNG state is snapshotted around evaluation:
+        env.reset(seed) seeds numpy/random globally, and letting the fixed
+        test seed leak into the training envs' workload sampling would both
+        corrupt training stochasticity and contaminate the held-out test
+        stream."""
+        np_state = np.random.get_state()
+        py_state = random.getstate()
+        try:
+            base_seed = (seed if seed is not None
+                         else (self.test_seed
+                               if self.test_seed is not None
+                               else self.seed + 10_000))
+            episodes = self._run_greedy_episodes_batched(num_episodes,
+                                                         base_seed)
+            return _episode_summary(episodes)
+        finally:
+            np.random.set_state(np_state)
+            random.setstate(py_state)
+
+    def _run_greedy_episodes_batched(self, num_episodes: int,
+                                     base_seed: int) -> List[dict]:
+        """One episode per eval env, all driven by one batched greedy
+        forward per step. Finished envs keep contributing their last obs to
+        the batch but are no longer stepped. Each env's global-RNG state is
+        swapped in around its reset and every step, so episode i consumes
+        exactly the stream seeded by ``base_seed + i`` (the same as running
+        the episodes one by one)."""
+        def rng_state():
+            return (np.random.get_state(), random.getstate())
+
+        def set_rng_state(state) -> None:
+            np.random.set_state(state[0])
+            random.setstate(state[1])
+
+        # env construction is expensive; env.reset(seed) makes reuse
+        # bit-identical to fresh envs
+        cache = getattr(self, "_eval_envs", [])
+        while len(cache) < num_episodes:
+            cache.append(self.make_eval_env())
+        self._eval_envs = cache
+        envs = cache[:num_episodes]
+        obs, rng_states = [], []
+        for i, env in enumerate(envs):
+            obs.append(env.reset(seed=base_seed + i))
+            rng_states.append(rng_state())
+        done = np.zeros(num_episodes, dtype=bool)
+        totals = np.zeros(num_episodes)
+        lengths = np.zeros(num_episodes, dtype=np.int64)
+        records: List[Optional[dict]] = [None] * num_episodes
+        while not done.all():
+            actions = self._greedy_actions(stack_obs(obs))
+            for i in np.flatnonzero(~done):
+                set_rng_state(rng_states[i])
+                obs[i], reward, d, _ = envs[i].step(int(actions[i]))
+                rng_states[i] = rng_state()
+                totals[i] += reward
+                lengths[i] += 1
+                if d:
+                    done[i] = True
+                    records[i] = harvest_episode_record(
+                        envs[i], i, totals[i], lengths[i])
+        return [r for r in records if r is not None]
+
+    def _run_greedy_episode(self, env, seed: int) -> Dict[str, Any]:
+        """Single-episode evaluation on a caller-provided env (RLEvalLoop
+        surface); same greedy policy as the batched path."""
+        obs = env.reset(seed=seed)
+        done = False
+        total, steps = 0.0, 0
+        while not done:
+            action = int(self._greedy_actions(stack_obs([obs]))[0])
+            obs, reward, done, _ = env.step(action)
+            total += reward
+            steps += 1
+        return harvest_episode_record(env, 0, total, steps)
+
+    def _greedy_actions(self, batched_obs) -> np.ndarray:
+        """Greedy actions for a [B, ...] obs batch: the forward and K4."""
+        return self.learner.greedy_actions(batched_obs)
+
+    # ---------------------------------------------------------- checkpoints
+    def save_agent_checkpoint(self, path: str) -> str:
+        save_train_state(self.state, path)
+        return path
+
+    def load_agent_checkpoint(self, path: str) -> None:
+        self.state = restore_train_state(path, target=self.state)
+
+    def close(self) -> None:
+        self.vec_env.close()
+
+
+class RLEvalLoop:
+    """Checkpoint-restoring policy evaluation (reference:
+    ddls/loops/rllib_eval_loop.py:11)."""
+
+    def __init__(self, epoch_loop: RLEpochLoop, **kwargs):
+        self.epoch_loop = epoch_loop
+
+    def run(self, checkpoint_path: Optional[str] = None,
+            seed: Optional[int] = None) -> Dict[str, Any]:
+        if checkpoint_path:
+            self.epoch_loop.load_agent_checkpoint(checkpoint_path)
+        env = self.epoch_loop.make_eval_env()
+        record = self.epoch_loop._run_greedy_episode(
+            env, seed if seed is not None
+            else (self.epoch_loop.test_seed or 0))
+        return {
+            "episode": record,
+            "episode_stats": dict(env.cluster.episode_stats),
+            "steps_log": {k: list(v)
+                          for k, v in env.cluster.steps_log.items()},
+        }
+
+
+EPOCH_LOOPS = {"ppo": RLEpochLoop}
+
+
+def make_epoch_loop(algo_name: Optional[str], **kwargs) -> RLEpochLoop:
+    name = (algo_name or "ppo").lower()
+    if name not in EPOCH_LOOPS:
+        raise ValueError(f"the port has no epoch loop for {algo_name!r}; "
+                         f"available: {sorted(EPOCH_LOOPS)}")
+    return EPOCH_LOOPS[name](**kwargs)
+
+
+def build_epoch_loop_kwargs(cfg: Mapping[str, Any]) -> Dict[str, Any]:
+    """Merge a composed config's groups into epoch-loop kwargs, as
+    ``scripts/train_from_config.py:build_epoch_loop_kwargs`` does."""
+    kwargs = {k: v for k, v in cfg.get("epoch_loop", {}).items()
+              if k != "_target_"}
+    if "env_config" in cfg:
+        kwargs["env_config"] = cfg["env_config"]
+    if "model" in cfg:
+        model = copy.deepcopy(cfg["model"])
+        algo_model = (cfg.get("algo") or {}).get("model")
+        if algo_model:
+            model = recursive_update(model, copy.deepcopy(algo_model))
+        kwargs["model"] = model
+    if "algo" in cfg:
+        kwargs["algo_config"] = cfg["algo"].get("algo_config", {})
+    if "evaluation_config" in cfg.get("eval_config", {}):
+        kwargs["evaluation_config"] = cfg["eval_config"]["evaluation_config"]
+    experiment = cfg.get("experiment", {})
+    if "train_seed" in experiment:
+        kwargs["seed"] = experiment["train_seed"]
+    if "test_seed" in experiment:
+        kwargs["test_seed"] = experiment["test_seed"]
+    return kwargs

@@ -2,9 +2,13 @@
 exported ppo_price_mixed policy is the restored checkpoint, the port's
 forward of it makes the JAX policy's decisions on the 64 recorded
 requests, both serving archives regenerate bit for bit from
-scripts/export_torch_serve_fixture.py, and the training archive (a real
+scripts/export_torch_serve_fixture.py, the training archive (a real
 trajectory and the JAX learner's update of it) from
-scripts/export_torch_train_fixture.py."""
+scripts/export_torch_train_fixture.py, the rollout archive (the sampler's
+uniforms and a recorded greedy episode) from
+scripts/export_torch_rollout_fixture.py, and the JSON training config from
+scripts/export_torch_train_config.py; the recorded uniforms reproduce the
+recorded actions."""
 import os
 import sys
 
@@ -15,7 +19,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
+import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
+import export_torch_train_config as config_export  # noqa: E402
 import export_torch_train_fixture as train_export  # noqa: E402
 from ddls_tpu.models.policy import batched_policy_apply  # noqa: E402
 from ddls_tpu.serve import ObsBucketer, default_buckets  # noqa: E402
@@ -24,7 +30,10 @@ from ddls_tpu_torch.models.convert import (flatten_tree,  # noqa: E402
 from ddls_tpu_torch.models.policy import (batch_to_device,  # noqa: E402
                                           prepare_flat_batch)
 from ddls_tpu_torch.serve import PolicyServer, load_export  # noqa: E402
-from ddls_tpu_torch.rl.fixture import TRAIN_PATH  # noqa: E402
+from ddls_tpu_torch.rl.fixture import (ROLLOUT_PATH,  # noqa: E402
+                                       TRAIN_CONFIG_PATH, TRAIN_PATH,
+                                       load_rollout_fixture,
+                                       load_train_fixture)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           REQUESTS_PATH, load_requests)
 
@@ -149,3 +158,49 @@ def test_train_fixture_regenerates_bit_for_bit(jax_policy):
     assert fresh["rewards"].shape == (train_export.ROLLOUT_LENGTH,
                                       train_export.N_ENVS)
     assert os.path.getsize(TRAIN_PATH) < 400_000
+
+
+def test_rollout_fixture_regenerates_bit_for_bit(jax_policy):
+    """The rollout archive rebuilt by its export script (which itself
+    checks that the uniforms reproduce all 512 recorded actions): the
+    uniforms and the recorded evaluation episode, equal in dtype, shape
+    and bits."""
+    _, model, params, _ = jax_policy
+    fresh = rollout_export.export_rollout(model, params)
+    with np.load(ROLLOUT_PATH, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh)
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, key
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert fresh["uniforms"].shape == (train_export.ROLLOUT_LENGTH,
+                                       train_export.N_ENVS, 17)
+    assert os.path.getsize(ROLLOUT_PATH) < 200_000
+
+
+def test_recorded_uniforms_reproduce_the_recorded_actions():
+    """Gumbel-max over the recorded trajectory's masked logits (the
+    shipped policy's, through the JAX forward) with the recorded uniforms
+    gives every recorded action."""
+    import jax.numpy as jnp
+
+    _, model, params, _ = export.load_policy()
+    fx = load_train_fixture()
+    uniforms = load_rollout_fixture()["uniforms"]
+    rollout_export.check_actions(model, params, uniforms)
+    # and the check is not vacuous: other uniforms give other actions
+    shifted = np.roll(uniforms, 1, axis=0)
+    obs = {k: jnp.asarray(v[0]) for k, v in fx["traj"]["obs"].items()}
+    logits = np.asarray(batched_policy_apply(model, params, obs)[0])
+    picks = np.argmax(logits - np.log(-np.log(shifted[0])), axis=1)
+    assert not np.array_equal(picks, fx["traj"]["actions"][0])
+
+
+def test_train_config_regenerates_byte_for_byte():
+    with open(TRAIN_CONFIG_PATH) as fh:
+        committed = fh.read()
+    cfg = config_export.composed_config()
+    assert config_export.config_text(cfg) == committed
+    assert cfg["env_config"]["pad_obs_kwargs"] == {"max_nodes": 150,
+                                                   "max_edges": 512}
+    assert cfg["algo"]["algo_config"]["sgd_minibatch_size"] == 128

@@ -1,5 +1,7 @@
-"""Import hygiene of the port: ddls_tpu_torch and chip_smoke.py import
-nothing of JAX, flax, orbax or the JAX package.
+"""Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
+native engine's loader, the rollout collector, the loop and its entry
+point included) and chip_smoke.py import nothing of JAX, flax, orbax,
+PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
 names, then imports every module of ddls_tpu_torch and chip_smoke.py; the
@@ -12,7 +14,7 @@ import sys
 import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "ddls_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "yaml", "ddls_tpu")
 
 _CHILD = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -36,7 +38,18 @@ _CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert {{"ddls_tpu_torch.rl", "ddls_tpu_torch.rl.ppo",
-             "ddls_tpu_torch.rl.fixture"}} <= set(names), names
+             "ddls_tpu_torch.rl.fixture", "ddls_tpu_torch.rl.rollout",
+             "ddls_tpu_torch.train.loops", "ddls_tpu_torch.train.__main__",
+             "ddls_tpu_torch.train.checkpointer", "ddls_tpu_torch.native",
+             "ddls_tpu_torch.sim.cluster",
+             "ddls_tpu_torch.sim.candidate_pricing",
+             "ddls_tpu_torch.sim.lookahead_arrays",
+             "ddls_tpu_torch.envs.partitioning_env",
+             "ddls_tpu_torch.demands.jobs_generator",
+             "ddls_tpu_torch.graphs.synthetic",
+             "ddls_tpu_torch.hardware.topologies",
+             "ddls_tpu_torch.agents.placers",
+             "ddls_tpu_torch.utils.common"}} <= set(names), names
     import chip_smoke
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
@@ -52,7 +65,7 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # every subpackage and module was walked, __main__ included
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 23
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 59
 
 
 def test_port_sources_name_no_jax_import():
