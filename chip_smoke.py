@@ -30,6 +30,16 @@ exits non-zero (nothing is caught):
    one-valid-action row, an exact tie and a near tie of ``m + g``; actions
    equal and logp within 1e-5 of its largest magnitude, bitwise across two
    runs, timed at the rollout shape.
+   Then K10–K12, the IMPALA and PG updates' kernels: every call of one
+   IMPALA and one PG full-batch update of the fixture trajectory (from the
+   params after each recorded first JAX update) and edge cases the
+   fixture cannot give (episode ends at t = 0, mid-way, T - 1 and on every
+   step, T = 1, importance weights far above and below both clips, a
+   fully masked row, a one-valid-action row, the dropped last step on and
+   off); each held against its plain version (1e-5 of each output's
+   largest magnitude; clip_rho_fraction may differ only by the rows whose
+   rho lies within 1e-5 of the clip), bitwise across two runs, timed at
+   the fixture's shapes.
 4. serve   — the main path: the shipped ppo_price_mixed export through
    ``build_fleet(device="cuda")`` at max_batch 8 on the default ladder,
    the 64 fixture requests, launch counters reset just before and read
@@ -64,12 +74,26 @@ exits non-zero (nothing is caught):
 8. eval    — ``RLEvalLoop`` with the shipped policy at a fixed
    interarrival time of 80 from seed 7005, greedy through K4: the episode
    record equal to the recorded JAX one, per-decision return > 0.2.
-9. loop    — the slice's main path: ``python -m ddls_tpu_torch.train``
+9. loop    — the PPO training path: ``python -m ddls_tpu_torch.train``
    (in this process) from the shipped export, 2 epochs at 8 envs x 64
    steps with the ppo.yaml update, one greedy evaluation episode and a
    checkpoint, with the launch counters reset just before and read just
    after (K1–K9 must all have run); run twice from one seed, bit-equal;
    then one warmed epoch under torch.profiler for the device busy share.
+10. ac_train — the recorded JAX IMPALA and PG updates (3 successive
+   updates each of the fixture trajectory from the shipped params, the
+   shipped impala.yaml / pg.yaml): params within 1e-5 of each leaf's
+   largest magnitude and metrics within 1e-5 of max(1, |JAX|) after each
+   (clip_rho_fraction: rows with |rho - 1| <= 1e-5 excluded at update 1,
+   exact at 2-3), V-trace's inputs and outputs (PG: the returns) against
+   the recorded ones, launch counters around the 3 updates, a second run
+   bit-equal; seconds per update and the device busy share of 3 updates.
+11. ac_loop — the slice's main path: ``python -m ddls_tpu_torch.train``
+   (in this process) from the shipped export, 2 epochs of the IMPALA
+   config (32 envs x 15 steps) and 2 of the PG config (8 x 25), with
+   checkpoints; launch counters reset just before each and read just after
+   (K1–K6, K9, the algo's scan and K12 must all have run); each run twice
+   from one seed, bit-equal.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -94,11 +118,17 @@ from ddls_tpu_torch.envs.baselines import FixedDegreePacking  # noqa: E402
 from ddls_tpu_torch.envs.obs import pad_obs_to  # noqa: E402
 from ddls_tpu_torch.models import gnn as gnn_mod  # noqa: E402
 from ddls_tpu_torch.models import policy as policy_mod  # noqa: E402
-from ddls_tpu_torch.models.convert import params_to_flax  # noqa: E402
+from ddls_tpu_torch.models.convert import (params_from_flax,  # noqa: E402
+                                           params_to_flax)
 from ddls_tpu_torch.ops import segment as segment_mod  # noqa: E402
+from ddls_tpu_torch.rl import actor_critic as ac_mod  # noqa: E402
+from ddls_tpu_torch.rl import impala as impala_mod  # noqa: E402
+from ddls_tpu_torch.rl import pg as pg_mod  # noqa: E402
 from ddls_tpu_torch.rl import ppo as ppo_mod  # noqa: E402
 from ddls_tpu_torch.envs import RampJobPartitioningEnvironment  # noqa: E402
-from ddls_tpu_torch.rl.fixture import (load_rollout_fixture,  # noqa: E402
+from ddls_tpu_torch.rl.fixture import (IMPALA_CONFIG_PATH,  # noqa: E402
+                                       PG_CONFIG_PATH, load_ac_fixture,
+                                       load_rollout_fixture,
                                        load_train_config, load_train_fixture)
 from ddls_tpu_torch.rl.rollout import RolloutCollector, VectorEnv  # noqa: E402
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
@@ -952,7 +982,7 @@ def phase_train(params, fx, card):
             snapshots.append({k: v.clone() for k, v in
                               state.state_dict().items()})
         for name, n in launches.items():
-            require(n > 0 or name in SAMPLE_SITES,
+            require(n > 0 or name in SAMPLE_SITES or name in AC_SITES,
                     f"kernel {name} was not launched by train_step")
         require(out["iter50_params_max_abs_err"] <= 1e-2,
                 "50-iteration update far off the recorded JAX params")
@@ -1089,6 +1119,220 @@ def check_sample_kernel(params, fx, uniforms):
                    library_ms=eager_ms(library),
                    library_device_ms=device_ms(library))
     return res
+
+
+# ----------------------------------- K10–K12: the IMPALA and PG updates
+def k10_parts(args, kwargs):
+    (behavior, target, rewards, values, dones, last, gamma, clip_rho,
+     clip_pg_rho) = args
+    t_len, lanes = rewards.shape
+    # five [T, B] inputs and [B] read once, two [T, B] outputs written once;
+    # ~20 operations per entry (exp, two clips, the delta, the carry, vs,
+    # pg_adv)
+    work = bound_ms(_nbytes(behavior, target, rewards, values, dones, last)
+                    + 2 * t_len * lanes * 4, 20 * t_len * lanes)
+    return (lambda: impala_mod.vtrace_plain(*args), None, work,
+            f"T={t_len} B={lanes}")
+
+
+def k11_parts(args, kwargs):
+    rewards, dones, gamma = args
+    t_len, lanes = rewards.shape
+    work = bound_ms(_nbytes(rewards, dones) + t_len * lanes * 4,
+                    4 * t_len * lanes)
+    return (lambda: pg_mod.reward_to_go_plain(*args), None, work,
+            f"T={t_len} B={lanes}")
+
+
+def k12l_parts(args, kwargs):
+    logits, actions = args
+    rows, a = logits.shape
+
+    def library():  # the log-probability as one call (its negation)
+        return torch.nn.functional.cross_entropy(logits, actions.long(),
+                                                 reduction="none")
+
+    work = bound_ms(_nbytes(logits, actions) + rows * 4, 4 * rows * a)
+    return (lambda: ac_mod.ac_logp_plain(*args), library, work,
+            f"rows={rows} actions={a}")
+
+
+def k12_parts(args, kwargs):
+    logits, values, actions, weights, vs, behavior, t_len, drop_last = \
+        args[:8]
+    rows, a = logits.shape
+    kept = rows - rows // t_len if drop_last else rows
+    # the kept rows' inputs read once (a dropped row's inputs are not
+    # needed), every row's gradients and the metrics written once; ~20
+    # operations per kept entry (log-softmax, entropy and their backward)
+    nbytes = (kept * (a + 5) * 4 + rows * (a + 1) * 4
+              + (len(ac_mod.AC_METRIC_KEYS) + 1) * 4)
+    return (lambda: ac_mod.ac_loss_grad_plain(*args), None,
+            bound_ms(nbytes, 20 * kept * a),
+            f"rows={rows} actions={a} T={t_len} drop_last={drop_last}")
+
+
+# (module whose global the update calls, attribute, parts function); the
+# IMPALA update calls ac_logp, vtrace and ac_loss, the PG update
+# reward_to_go and ac_loss
+AC_SITES = {
+    "vtrace": (impala_mod, "vtrace", k10_parts),
+    "reward_to_go": (pg_mod, "reward_to_go", k11_parts),
+    "ac_logp": (impala_mod, "ac_logp", k12l_parts),
+    "ac_loss": (ac_mod, "_ac_loss_cuda", k12_parts),
+}
+
+
+def scan_edge_cases():
+    """[T, B] inputs that the recorded trajectory (no episode end, every
+    importance weight ~1 at the first update) cannot give: episode ends at
+    t = 0, mid-way and T - 1 (lane 0) and on every step (lane 1), weights
+    far above and below both clips, at T = 64 and T = 1 (8 lanes) and at
+    the loops' shapes, [15, 32] (IMPALA) and [25, 8] (PG)."""
+    cases = []
+    for t_len, lanes in ((64, 8), (1, 8), (15, 32), (25, 8)):
+        g = torch.Generator(device="cpu").manual_seed(t_len)
+        behavior = torch.randn(t_len, lanes, generator=g) * 0.5 - 1.5
+        target = behavior + torch.randn(t_len, lanes, generator=g) * 3.0
+        dones = (torch.rand(t_len, lanes, generator=g) < 0.05).float()
+        dones[[0, t_len // 2, t_len - 1], 0] = 1.0
+        dones[:, 1] = 1.0
+        rewards = torch.randn(t_len, lanes, generator=g)
+        values = torch.randn(t_len, lanes, generator=g) * 3 + 50
+        last = torch.randn(lanes, generator=g) + 50
+        cases.append([x.cuda() for x in (behavior, target, rewards, values,
+                                         dones, last)])
+    return cases
+
+
+def loss_edge_cases(logits, values, actions, weights, vs, behavior, t_len):
+    """The recorded update's loss inputs with row 0 fully masked and row 1
+    left one valid action (its logp is then exactly 0), with the dropped
+    last step on and off; and their first 480 and 200 rows as the loops'
+    shapes, 32 lanes x 15 steps (IMPALA, last step dropped) and 8 x 25
+    (PG, its coefficients)."""
+    logits = logits.clone()
+    logits[0] = policy_mod.FLOAT32_MIN
+    logits[1] = policy_mod.FLOAT32_MIN
+    logits[1, int(actions[1])] = 1.5
+    args = (logits, values, actions, weights, vs, behavior)
+    cases = [(*args, t_len, drop, 0.5, 0.01, 1.0) for drop in (True, False)]
+    cases.append((*(x[:480].contiguous() for x in args), 15, True, 0.5,
+                  0.01, 1.0))
+    cases.append((*(x[:200].contiguous() for x in args), 25, False, 0.0,
+                  0.0, 1.0))
+    return cases
+
+
+def undecided_rows(args) -> int:
+    """Kept rows of an ac_loss call whose importance weight lies within
+    1e-5 of the clip: ``rho > clip`` there is a coin flip between two
+    correct forwards (at the fixture's first update every row is one)."""
+    logits, _, actions, _, _, behavior, t_len, drop_last = args[:8]
+    keep = ac_mod.keep_rows(logits.shape[0], t_len, drop_last,
+                            logits.device)
+    rho = torch.exp(ac_mod.ac_logp_plain(logits, actions) - behavior)[keep]
+    return int((torch.abs(rho - args[10]) <= 1e-5).sum())
+
+
+def k12_compare(out, ref, args):
+    """K12 against its plain version: every output within 1e-5 of its
+    largest magnitude, except clip_rho_fraction, which may differ by the
+    undecided rows' share (``undecided_rows``) and nothing more."""
+    frac = ac_mod.AC_METRIC_KEYS.index("clip_rho_fraction")
+    rows, t_len, drop_last = out[2].shape[0], args[6], args[7]
+    kept = rows - rows // t_len if drop_last else rows
+    require(abs(float(out[1][frac]) - float(ref[1][frac]))
+            <= undecided_rows(args) / kept,
+            "ac_loss's clip_rho_fraction differs from the plain version's "
+            "beyond its undecided rows")
+    others = [i for i in range(len(ac_mod.AC_METRIC_KEYS)) if i != frac]
+    return ((out[0], out[1][others], out[2], out[3]),
+            (ref[0], ref[1][others], ref[2], ref[3]))
+
+
+def check_ac_kernels(train_fx, ac_fx):
+    """Phase 3, K10–K12: every call of one IMPALA and one PG update of the
+    fixture trajectory (from the params after each recorded first update,
+    where the importance weights have moved off 1) and of the edge cases;
+    each held against its plain version (floats within 1e-5 of each
+    output's largest magnitude; clip_rho_fraction per ``k12_compare``),
+    bitwise across two runs, and its first call (its one call in an IMPALA
+    or a PG update) timed at the fixture's shapes."""
+    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+                      "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                      "library_device_ms": None, "bound_ms": 0.0,
+                      "bound_by": None, "calls_per_step": 0, "shapes": []}
+               for name in AC_SITES}
+    model, _, _ = load_export(EXPORT_PATH)
+    calls = {name: [] for name in AC_SITES}
+    for algo, cls in (("impala", impala_mod.ImpalaLearner),
+                      ("pg", pg_mod.PGLearner)):
+        learner = cls(copy.deepcopy(model), ac_fx[algo]["cfg"],
+                      device="cuda")
+        staged = learner.stage_traj(train_fx["traj"],
+                                    train_fx["last_values"])
+        state = learner.init_state({
+            k: v.cuda() for k, v in params_from_flax(
+                ac_fx[algo]["steps"][0]["params"], model).items()})
+        with torch.enable_grad():
+            recorded = record_sites(
+                AC_SITES, lambda: learner.loss_and_grads(state, staged))
+        for name, got in recorded.items():
+            calls[name] += got
+    edge = {"vtrace": [], "reward_to_go": [], "ac_logp": [], "ac_loss": []}
+    for behavior, target, rewards, values, dones, last in scan_edge_cases():
+        edge["vtrace"].append((behavior, target, rewards, values, dones,
+                               last, 0.99, 1.0, 0.8))
+        edge["reward_to_go"].append((rewards, dones, 0.99))
+    fn, args, _ = calls["ac_loss"][0]  # IMPALA's
+    edge["ac_loss"] = loss_edge_cases(*args[:7])
+    edge["ac_logp"] = [(x[0], x[2]) for x in edge["ac_loss"][:1]]
+    for name, res in results.items():
+        require(len(calls[name]) > 0, f"the updates made no {name} call")
+        parts = AC_SITES[name][2]
+        fn = calls[name][0][0]
+        bound_total = {"bytes": 0.0, "operations": 0.0}
+        # timed: the kernel's first call, in one update (ac_loss's second
+        # call, PG's, is held against its plain version but not timed)
+        runs = [(i == 0, a) for i, (_, a, _) in enumerate(calls[name])] + [
+            (False, a) for a in edge[name]]
+        for timed, args in runs:
+            plain, library, (bound, bound_by), shape = parts(args, {})
+            out = fn(*args)
+            again = fn(*args)
+            ref = plain()
+            torch.cuda.synchronize()
+            err, rel = max_err_scaled(*(k12_compare(out, ref, args)
+                                        if name == "ac_loss" else (out, ref)))
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel)
+            require(all(torch.equal(x, y) for x, y in
+                        zip(_flat(out), _flat(again))),
+                    f"{name} is not bitwise repeatable")
+            if name == "ac_loss" and not timed:
+                dropped = out[2].reshape(-1, args[6], out[2].shape[1])[:, -1]
+                require(bool((dropped == 0).all()) == args[7],
+                        "ac_loss's dropped last step has a gradient")
+            if name == "ac_logp" and not timed:
+                require(float(out[1]) == 0.0, "a one-valid-action row's "
+                                              "logp must be exactly 0")
+            if not timed:
+                continue
+            res["calls_per_step"] += 1
+            res["shapes"].append(shape)
+            res["ms"] += device_ms(lambda: fn(*args))
+            res["eager_ms"] += eager_ms(lambda: fn(*args))
+            res["plain_ms"] += eager_ms(plain, iters=20)
+            if library is not None:
+                res["library_ms"] = (res["library_ms"] or 0.0) + eager_ms(
+                    library)
+                res["library_device_ms"] = (res["library_device_ms"]
+                                            or 0.0) + device_ms(library)
+            res["bound_ms"] += bound
+            bound_total[bound_by] += bound
+        res["bound_by"] = max(bound_total, key=bound_total.get)
+    return results
 
 
 # ------------------------------------------- rollout, eval, loop phases
@@ -1290,7 +1534,8 @@ def phase_loop(card):
             runs.append((lines, state, wall))
         profiled = profile_epoch(cfg_path)
     for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched by the loop")
+        require(n > 0 or name in AC_SITES,
+                f"kernel {name} was not launched by the loop")
     (lines0, state0, wall0), (lines1, state1, _) = runs
     require([_deterministic(x) for x in lines0]
             == [_deterministic(x) for x in lines1],
@@ -1313,6 +1558,233 @@ def phase_loop(card):
          profiled_epoch=profiled,
          launches={k: v for k, v in launches.items() if v})
     return launches
+
+
+# ------------------------------------------- the IMPALA and PG phases
+def _ac_learner(algo, ac_fx, model):
+    cls = impala_mod.ImpalaLearner if algo == "impala" else pg_mod.PGLearner
+    return cls(copy.deepcopy(model), ac_fx[algo]["cfg"], device="cuda")
+
+
+def phase_ac_train(params, train_fx, ac_fx, card):
+    """Phase 10: the recorded JAX IMPALA and PG updates on the card, 3
+    successive updates each from the shipped params on the fixture
+    trajectory: params within 1e-5 of each leaf's largest magnitude and
+    metrics within 1e-5 of max(1, |JAX value|) after every update (IMPALA's
+    clip_rho_fraction per the rule below), IMPALA's V-trace inputs and
+    outputs against the recorded ones; the launch counters reset just
+    before the 3 updates and read just after; a second run bit-equal.
+
+    clip_rho_fraction counts rho > 1 strictly: at update 1 the params are
+    the behaviour policy's and every rho is 1 to within float32 rounding,
+    so the rows with |rho - 1| <= 1e-5 (by JAX's rho) are excluded there,
+    counted and reported, and the rest must agree row by row; at updates 2
+    and 3 the metric must equal JAX's."""
+    model, _, _ = load_export(EXPORT_PATH)
+    gpu_params = {k: v.cuda() for k, v in params.items()}
+    behavior = train_fx["traj"]["logp"][:-1]
+    out = {"card": card}
+    launches = {}
+    with torch.enable_grad():
+        for algo in ("impala", "pg"):
+            fx = ac_fx[algo]
+            learner = _ac_learner(algo, ac_fx, model)
+            t0 = time.monotonic()
+            staged = learner.stage_traj(train_fx["traj"],
+                                        train_fx["last_values"])
+            torch.cuda.synchronize()
+            res = {"stage_s": time.monotonic() - t0,
+                   "bucket": [staged.n_nodes, staged.n_edges],
+                   "rows": staged.t_len * staged.lanes}
+            state = learner.init_state(gpu_params)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            snapshots, update_s, errs = [], [], []
+            for ref in fx["steps"]:
+                t0 = time.monotonic()
+                state, metrics = learner.train_step(state, staged)
+                torch.cuda.synchronize()
+                update_s.append(time.monotonic() - t0)
+                snapshots.append(({k: v.clone() for k, v in
+                                   state.state_dict().items()},
+                                  {k: float(v) for k, v in metrics.items()}))
+            launches[algo] = kernels.launch_counts()
+            res["update_s"] = update_s
+            res["launches_per_3_updates"] = {
+                k: v for k, v in launches[algo].items() if v}
+            # the second run, with V-trace's (or the returns') check before
+            # each update; bit-equal to the first
+            state = learner.init_state(gpu_params)
+            excluded = []
+            for step, (ref, (snap, met)) in enumerate(
+                    zip(fx["steps"], snapshots), start=1):
+                if algo == "impala":
+                    _, _, scan = learner.loss_and_grads(state, staged)
+                    scan_err = {}
+                    for got, key in zip(scan, ("target_logp", "vs",
+                                               "pg_adv")):
+                        diff = float(np.abs(got.cpu().numpy()
+                                            - ref[key]).max())
+                        scan_err[key] = diff
+                        require(diff <= TOL * float(np.abs(ref[key]).max()),
+                                f"IMPALA update {step}: {key} off JAX's by "
+                                f"{diff}")
+                    rho_jax = np.exp(ref["target_logp"][:-1] - behavior)
+                    rho = np.exp(scan[0].cpu().numpy()[:-1] - behavior)
+                    decided = np.abs(rho_jax - 1.0) > 1e-5
+                    require(np.array_equal((rho > 1.0)[decided],
+                                           (rho_jax > 1.0)[decided]),
+                            f"IMPALA update {step}: a decided rho fell on "
+                            f"the other side of the clip")
+                    excluded.append(int((~decided).sum()))
+                else:
+                    _, _, returns = learner.loss_and_grads(state, staged)
+                    scan_err = {"returns": float(np.abs(
+                        returns.cpu().numpy() - fx["returns"]).max())}
+                    require(scan_err["returns"] <= TOL * float(
+                        np.abs(fx["returns"]).max()),
+                        "PG returns off JAX's")
+                state, _ = learner.train_step(state, staged)
+                require(all(torch.equal(v, snap[k]) for k, v in
+                            state.state_dict().items()),
+                        f"{algo} update {step}: two runs differ")
+                tree = params_to_flax(snap)
+                rel = max(float(np.abs(tree[k] - ref["params"][k]).max()
+                                / np.abs(ref["params"][k]).max())
+                          for k in tree)
+                require(rel <= TOL, f"{algo} update {step}: params off the "
+                                    f"recorded JAX ones by {rel} of a "
+                                    f"leaf's largest")
+                require(sorted(met) == sorted(ref["metrics"]),
+                        f"{algo} metric keys differ from JAX's")
+                metric_err = {}
+                for key, value in met.items():
+                    want = ref["metrics"][key]
+                    metric_err[key] = abs(value - want)
+                    if key == "clip_rho_fraction":
+                        bound = (excluded[0] / behavior.size if step == 1
+                                 else 0.0)
+                        require(metric_err[key] <= bound,
+                                f"IMPALA update {step}: clip_rho_fraction "
+                                f"{value} vs JAX's {want}")
+                        continue
+                    require(metric_err[key] <= TOL * max(1.0, abs(want)),
+                            f"{algo} update {step}: metric {key} off JAX's "
+                            f"by {metric_err[key]}")
+                errs.append({"params_max_rel_err": rel,
+                             "params_max_abs_err": max(
+                                 float(np.abs(tree[k]
+                                              - ref["params"][k]).max())
+                                 for k in tree),
+                             "metrics_abs_err": metric_err,
+                             "scan_max_abs_err": scan_err,
+                             "metrics": met})
+            res["steps"] = errs
+            if algo == "impala":
+                res["clip_rho_rows_excluded"] = excluded
+            scan = "vtrace" if algo == "impala" else "reward_to_go"
+            for name in (scan, "ac_loss", "ln_linear_act",
+                         "ln_linear_act_bwd", "csr_segment_mean_bwd",
+                         "csr_segment_sum", "masked_mean_pool_concat_bwd"):
+                require(launches[algo][name] > 0,
+                        f"the {algo} update did not launch {name}")
+            require(launches[algo]["ac_loss"] == len(fx["steps"]),
+                    "K12 is not one launch per update")
+            res["profiled"] = profile_update(learner, staged,
+                                             learner.init_state(gpu_params))
+            out[algo] = res
+    emit("ac_train", **out)
+    return launches
+
+
+def profile_update(learner, staged, state, n_updates: int = 3):
+    """``n_updates`` warmed updates under torch.profiler: device time over
+    wall time (the profiler's own host cost is inside the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    learner.train_step(state, staged)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_updates):
+            learner.train_step(state, staged)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    device_ms_total = sum(e.device_time_total for e in prof.events()
+                          if e.device_type == DeviceType.CUDA) / 1e3
+    return {"updates": n_updates, "wall_ms": wall_ms,
+            "device_ms": device_ms_total,
+            "device_busy_share": device_ms_total / wall_ms}
+
+
+def phase_ac_loop(card):
+    """Phase 11, the slice's main path: ``python -m ddls_tpu_torch.train``
+    (in this process) from the shipped export, 2 epochs of the IMPALA
+    config (32 envs x 15 steps, impala.yaml's update) and 2 of the PG config
+    (8 envs x 25 steps), each with a checkpoint; the launch counters reset
+    just before each and read just after (K1–K6, K9, the algo's scan and K12
+    must have run); each run twice from one seed, bit-equal."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for algo, cfg_path in (("impala", IMPALA_CONFIG_PATH),
+                               ("pg", PG_CONFIG_PATH)):
+            runs = []
+            for attempt in range(2):
+                ckpt_dir = os.path.join(tmp, f"{algo}{attempt}")
+                argv = ["--config", cfg_path, "--epochs", "2", "--device",
+                        "cuda", "--init-export", EXPORT_PATH,
+                        "--checkpoint-dir", ckpt_dir]
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.monotonic()
+                lines = _run_train_cli(argv)
+                wall = time.monotonic() - t0
+                if attempt == 0:
+                    launches[algo] = kernels.launch_counts()
+                state = torch.load(os.path.join(lines[-1]["checkpoint"],
+                                                "train_state.pt"),
+                                   weights_only=True)
+                runs.append((lines, state, wall))
+            (lines0, state0, wall0), (lines1, state1, _) = runs
+            require([_deterministic(x) for x in lines0]
+                    == [_deterministic(x) for x in lines1],
+                    f"two {algo} runs from one seed printed different "
+                    f"results")
+            require(sorted(state0) == sorted(state1)
+                    and "kl_coeff" not in state0
+                    and all(torch.equal(a, b) for key in ("params", "mu",
+                                                          "nu")
+                            for a, b in zip(state0[key], state1[key]))
+                    and state0["step"] == state1["step"] == 2,
+                    f"two {algo} runs from one seed saved different states")
+            scan = "vtrace" if algo == "impala" else "reward_to_go"
+            for name in (*KERNEL_SITES, "mask_sample_logp",
+                         "ln_linear_act_bwd", "ln_linear_act_bwd_reduce",
+                         "csr_segment_mean_bwd", "csr_segment_sum",
+                         "masked_mean_pool_concat_bwd", scan, "ac_loss"):
+                require(launches[algo][name] > 0,
+                        f"kernel {name} was not launched by the {algo} loop")
+            require(launches[algo]["ac_loss"] == 2,
+                    f"the {algo} loop did not take one K12 launch per epoch")
+            epochs = lines0[:-1]
+            for line in epochs:
+                require(all(np.isfinite(v) for v in line["learner"].values()),
+                        f"non-finite {algo} learner metrics")
+            emit("ac_loop", algo=algo, card=card, wall_s=wall0,
+                 epochs=len(epochs),
+                 env_steps_per_epoch=epochs[0]["env_steps_this_iter"],
+                 epoch_s=[x["epoch_time"] for x in epochs],
+                 env_steps_per_s=[x["env_steps_this_iter"] / x["epoch_time"]
+                                  for x in epochs],
+                 timing=[x["timing"] for x in epochs],
+                 learner=[x["learner"] for x in epochs],
+                 launches={k: v for k, v in launches[algo].items() if v})
+    return {name: launches["impala"][name] + launches["pg"][name]
+            for name in launches["impala"]}
 
 
 # ------------------------------------------------------------------ phases
@@ -1546,35 +2018,50 @@ def main() -> int:
     emit("sample_kernel_checked", card=card, mask_sample_logp={
         k: v for k, v in sample_result.items() if k != "shape"})
 
+    ac_fx = load_ac_fixture()
+    ac_results = check_ac_kernels(fx, ac_fx)
+    emit("ac_kernels_checked", card=card,
+         **{name: {k: v for k, v in r.items() if k != "shapes"}
+            for name, r in ac_results.items()})
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
     train_launches = phase_train(params, fx, card)
     phase_rollout(params, fx, rollout_fx["uniforms"], card)
     phase_eval(rollout_fx["eval"], card)
     loop_launches = phase_loop(card)
+    ac_train_launches = phase_ac_train(params, fx, ac_fx, card)
+    ac_loop_launches = phase_ac_loop(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
     rows = []
     for name, r in {**results, **train_results,
-                    "mask_sample_logp": sample_result}.items():
+                    "mask_sample_logp": sample_result, **ac_results}.items():
         spec = kernels.KERNELS[name]
         forward = name in KERNEL_SITES
         sampling = name in SAMPLE_SITES
+        actor_critic = name in AC_SITES
         main_path = ("serve" if forward else
-                     "rollout loop" if sampling else "train_step")
+                     "rollout loop" if sampling else
+                     "ac_loop" if actor_critic else "train_step")
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
             "replaces": spec.replaces,
             # the main path of each kernel: serving for the forward ones,
-            # one 50-iteration train_step for the update's, the training
-            # loop (2 epochs + 1 eval episode) for K9
+            # one 50-iteration train_step for the PPO update's, the PPO
+            # training loop (2 epochs + 1 eval episode) for K9, the IMPALA
+            # and PG loops (2 epochs each) for K10-K12
             "launches": (launches[name] if forward else
                          loop_launches[name] if sampling else
+                         ac_loop_launches[name] if actor_critic else
                          train_launches[name]),
             "main_path": main_path,
             "train_step_launches": train_launches[name],
             "loop_launches": loop_launches[name],
+            "ac_train_launches": {algo: n[name] for algo, n in
+                                  ac_train_launches.items()},
+            "ac_loop_launches": ac_loop_launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
@@ -1584,7 +2071,8 @@ def main() -> int:
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
             "calls_per": ("forward" if forward else "rollout step"
                           if sampling else "update"
-                          if name == "gae_normalize" else "minibatch step"),
+                          if name == "gae_normalize" or actor_critic
+                          else "minibatch step"),
             "shapes": r["shapes"], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -17,8 +17,10 @@ versions, in the modules that call them (``ln_linear_act`` and its
 backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``masked_mean_pool_concat`` and their backwards in ``ops/segment.py``;
 ``mask_logits_argmax`` and ``mask_sample_logp`` in ``models/policy.py``;
-``gae_normalize`` and
-``ppo_loss`` in ``rl/ppo.py``); each wrapper checks its tensors with
+``gae_normalize`` and ``ppo_loss`` in ``rl/ppo.py``; ``vtrace`` in
+``rl/impala.py``; ``reward_to_go`` in ``rl/pg.py``; ``ac_logp`` and
+``ac_loss``, which both of those learners call, in ``rl/actor_critic.py``);
+each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
 one count per entry point).
@@ -96,6 +98,15 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/rl/ppo.py:101"),
     KernelSpec("ppo_loss", "ddls_ppo_loss", "pppppppppppppiiffffffp",
                "ddls_tpu/rl/ppo.py:124"),
+    # the IMPALA and PG updates' scans (K10, K11) and loss (K12)
+    KernelSpec("vtrace", "ddls_vtrace", "ppppppppiifffp",
+               "ddls_tpu/rl/impala.py:69", file="reverse_scan"),
+    KernelSpec("reward_to_go", "ddls_reward_to_go", "pppiifp",
+               "ddls_tpu/rl/pg.py:49", file="reverse_scan"),
+    KernelSpec("ac_logp", "ddls_ac_logp", "pppiip",
+               "ddls_tpu/rl/impala.py:201", file="ac_loss"),
+    KernelSpec("ac_loss", "ddls_ac_loss", "pppppppppppiiiifffp",
+               "ddls_tpu/rl/impala.py:201", file="ac_loss"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

@@ -1,11 +1,19 @@
-"""Reinforcement learning in the port: the PPO learner (``rl/ppo.py``),
-counterpart of ``ddls_tpu/rl/ppo.py`` on one device."""
+"""Reinforcement learning in the port: the shared learner base
+(``rl/learner.py``), the PPO, IMPALA and PG learners (``rl/ppo.py``,
+``rl/impala.py``, ``rl/pg.py``, counterparts of ``ddls_tpu/rl``'s on one
+device), their shared actor-critic loss (``rl/actor_critic.py``) and the
+rollout collector."""
+from ddls_tpu_torch.rl.actor_critic import AC_METRIC_KEYS, ac_logp, ac_loss
+from ddls_tpu_torch.rl.impala import ImpalaConfig, ImpalaLearner, vtrace
+from ddls_tpu_torch.rl.learner import Learner, StagedTraj, TrainState
+from ddls_tpu_torch.rl.pg import PGConfig, PGLearner, reward_to_go
 from ddls_tpu_torch.rl.ppo import (METRIC_KEYS, PPOConfig, PPOLearner,
-                                   StagedTraj, TrainState,
                                    categorical_entropy, compute_gae,
                                    gae_normalize, ppo_config_from_rllib,
                                    ppo_loss)
 
-__all__ = ["METRIC_KEYS", "PPOConfig", "PPOLearner", "StagedTraj",
-           "TrainState", "categorical_entropy", "compute_gae",
-           "gae_normalize", "ppo_config_from_rllib", "ppo_loss"]
+__all__ = ["AC_METRIC_KEYS", "ImpalaConfig", "ImpalaLearner", "Learner",
+           "METRIC_KEYS", "PGConfig", "PGLearner", "PPOConfig", "PPOLearner",
+           "StagedTraj", "TrainState", "ac_logp", "ac_loss",
+           "categorical_entropy", "compute_gae", "gae_normalize",
+           "ppo_config_from_rllib", "ppo_loss", "reward_to_go", "vtrace"]

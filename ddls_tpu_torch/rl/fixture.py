@@ -1,9 +1,12 @@
 """The shipped training fixtures: a real trajectory of the shipped
 ``ppo_price_mixed`` policy and the JAX learner's update of it
-(``scripts/export_torch_train_fixture.py``); the uniforms the JAX sampler
+(``scripts/export_torch_train_fixture.py``); the JAX IMPALA and PG
+learners' updates of the same trajectory
+(``scripts/export_torch_ac_fixture.py``); the uniforms the JAX sampler
 drew for that trajectory and a recorded greedy evaluation episode
 (``scripts/export_torch_rollout_fixture.py``); and the composed training
-config of that run as JSON (``scripts/export_torch_train_config.py``).
+configs of the PPO, IMPALA and PG runs as JSON
+(``scripts/export_torch_train_config.py``).
 
 They travel with the port as numpy archives and JSON, so a machine with
 neither JAX, orbax nor PyYAML can hold the port's rollout, update and
@@ -17,12 +20,18 @@ from typing import Any, Dict
 
 import numpy as np
 
+from ddls_tpu_torch.rl.impala import ImpalaConfig
+from ddls_tpu_torch.rl.pg import PGConfig
 from ddls_tpu_torch.rl.ppo import PPOConfig
 from ddls_tpu_torch.serve.fixture import DATA_DIR
 
 TRAIN_PATH = os.path.join(DATA_DIR, "ppo_train_price_mixed.npz")
+AC_TRAIN_PATH = os.path.join(DATA_DIR, "ac_train_price_mixed.npz")
 ROLLOUT_PATH = os.path.join(DATA_DIR, "ppo_rollout_price_mixed.npz")
 TRAIN_CONFIG_PATH = os.path.join(DATA_DIR, "train_config_price_mixed.json")
+IMPALA_CONFIG_PATH = os.path.join(DATA_DIR,
+                                  "train_config_impala_price_mixed.json")
+PG_CONFIG_PATH = os.path.join(DATA_DIR, "train_config_pg_price_mixed.json")
 TRAJ_KEYS = ("actions", "logp", "values", "rewards", "dones")
 
 
@@ -67,6 +76,38 @@ def load_train_fixture(path: str = TRAIN_PATH) -> Dict[str, Any]:
             "mb0": mb0}
 
 
+def load_ac_fixture(path: str = AC_TRAIN_PATH) -> Dict[str, Any]:
+    """``{"impala": {"cfg": ImpalaConfig, "steps": [...]}, "pg": {"cfg":
+    PGConfig, "returns" [T, B], "steps": [...]}}``: the JAX learners'
+    successive updates of the training fixture's trajectory from the
+    shipped params. Step k (the list's item k - 1) holds ``params`` {flax
+    path: array} after update k and its ``metrics`` {key: float}; IMPALA's
+    also ``target_logp``, ``vs`` and ``pg_adv`` [T, B], V-trace's at the
+    params before update k."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    out: Dict[str, Any] = {}
+    for algo, cls in (("impala", ImpalaConfig), ("pg", PGConfig)):
+        steps: Dict[int, Dict[str, Any]] = {}
+        for key, value in arrays.items():
+            head, _, rest = key.partition("/")
+            step, _, rest = rest.partition("/")
+            if head != algo or not step.startswith("step"):
+                continue
+            entry = steps.setdefault(int(step[len("step"):]),
+                                     {"params": {}, "metrics": {}})
+            if rest.startswith("params/"):
+                entry["params"][rest] = value
+            elif rest.startswith("metrics/"):
+                entry["metrics"][rest[len("metrics/"):]] = float(value)
+            else:
+                entry[rest] = value
+        out[algo] = {"cfg": cls(**json.loads(str(arrays[f"{algo}/config"]))),
+                     "steps": [steps[k] for k in sorted(steps)]}
+    out["pg"]["returns"] = arrays["pg/returns"]
+    return out
+
+
 def load_rollout_fixture(path: str = ROLLOUT_PATH) -> Dict[str, Any]:
     """``{"uniforms" [T, B, A] float32, "eval": {"record": {...}, "seed":
     int, "interarrival": float}}``: the uniforms behind the training
@@ -80,6 +121,7 @@ def load_rollout_fixture(path: str = ROLLOUT_PATH) -> Dict[str, Any]:
 
 
 def load_train_config(path: str = TRAIN_CONFIG_PATH) -> Dict[str, Any]:
-    """The composed training config (a fresh dict each call)."""
+    """A composed training config (a fresh dict each call); by default
+    the PPO run's."""
     with open(path) as fh:
         return json.load(fh)

@@ -1,4 +1,5 @@
-"""Train the PPO partitioning policy with the port's sequential loop.
+"""Train the partitioning policy with the port's sequential loop (PPO,
+IMPALA or PG, as the config's ``algo.algo_name`` says).
 
     python -m ddls_tpu_torch.train --config CONFIG.json --epochs N
         [--device cuda|cpu] [--init-export EXPORT.npz]
@@ -6,9 +7,11 @@
 
 ``CONFIG.json`` is a composed config tree (``epoch_loop``,
 ``env_config``, ``model``, ``algo``, ``eval_config``, ``experiment``), as
-``scripts/export_torch_train_config.py`` writes it
-(``ddls_tpu_torch/data/train_config_price_mixed.json``: the shipped
-policy's PPO run on ``env_load32_price_mixed``); its
+``scripts/export_torch_train_config.py`` writes it: under
+``ddls_tpu_torch/data/``, ``train_config_price_mixed.json`` (the shipped
+policy's PPO run on ``env_load32_price_mixed``, 8 envs x 32 steps),
+``train_config_impala_price_mixed.json`` (IMPALA, 32 envs x 15 steps)
+and ``train_config_pg_price_mixed.json`` (PG, 8 envs x 25 steps); its
 ``experiment.train_seed`` seeds the loop. The loop runs on the card
 unless ``--device cpu`` is given, and raises when CUDA is asked for and
 absent. ``--init-export`` starts from an exported policy (default: flax's
@@ -32,7 +35,7 @@ from ddls_tpu_torch.train.loops import (RLEpochLoop, build_epoch_loop_kwargs,
 
 def build_loop(cfg: Dict[str, Any], device: str = "cuda",
                init_export: Optional[str] = None) -> RLEpochLoop:
-    """The sequential PPO loop of a composed config."""
+    """The sequential loop of a composed config, for its algorithm."""
     kwargs = build_epoch_loop_kwargs(cfg)
     kwargs.update(loop_mode="sequential", device=device)
     if init_export:

@@ -3,8 +3,10 @@
 Counterpart of ``ddls_tpu/train/checkpointer.py``: ``Checkpointer`` owns
 the directory layout (the cadence belongs to the JAX package's launcher,
 which is not ported), and ``save_train_state`` /
-``restore_train_state`` write and read the learner's ``TrainState`` (the
-params by name, adam's moments, ``kl_coeff`` and ``step``) with
+``restore_train_state`` write and read a learner's ``TrainState`` (the
+params by name, the optimiser's moments: adam's ``mu`` and ``nu``, or
+rmsprop's ``nu`` and, with momentum, its trace in ``mu``; PPO's
+``kl_coeff``; ``step``) with
 ``torch.save`` into ``<path>/train_state.pt``, where the JAX package
 writes an orbax tree. A restore copies into a target state in place, so a
 saved and restored state is bit-equal and stays on the target's device.
@@ -34,36 +36,45 @@ class Checkpointer:
 
 
 def save_train_state(state, path: str) -> None:
-    """Write ``state`` (a ``rl.ppo.TrainState``) under the directory
-    ``path`` as host tensors."""
+    """Write ``state`` (a ``rl.learner.TrainState``) under the directory
+    ``path`` as host tensors; a part the learner does not keep (``mu`` of
+    rmsprop without momentum, ``kl_coeff`` outside PPO) is not written."""
     out = Path(path)
     out.mkdir(parents=True, exist_ok=True)
-    torch.save({
-        "names": list(state.names),
-        "params": [p.detach().cpu() for p in state.params],
-        "mu": [m.cpu() for m in state.mu],
-        "nu": [n.cpu() for n in state.nu],
-        "kl_coeff": state.kl_coeff.detach().cpu(),
-        "step": int(state.step),
-    }, out / STATE_FILE)
+    saved = {"names": list(state.names),
+             "params": [p.detach().cpu() for p in state.params],
+             "nu": [n.cpu() for n in state.nu],
+             "step": int(state.step)}
+    if state.mu is not None:
+        saved["mu"] = [m.cpu() for m in state.mu]
+    if state.kl_coeff is not None:
+        saved["kl_coeff"] = state.kl_coeff.detach().cpu()
+    torch.save(saved, out / STATE_FILE)
 
 
 def restore_train_state(path: str, target):
     """Copy the state saved under ``path`` into ``target`` (a
-    ``TrainState`` of the same parameter names and shapes) in place and
-    return it; raises on a name or shape mismatch."""
+    ``TrainState`` of the same learner: parameter names, shapes and
+    optimiser parts) in place and return it; raises on a mismatch."""
     saved = torch.load(Path(path) / STATE_FILE, map_location="cpu",
                        weights_only=True)
     if list(saved["names"]) != list(target.names):
         raise ValueError(f"{path}: checkpoint params {saved['names']} do "
                          f"not match the target's {target.names}")
+    for key in ("mu", "kl_coeff"):
+        if (key in saved) != (getattr(target, key) is not None):
+            raise ValueError(f"{path}: {key} is in one of the checkpoint "
+                             f"and the target and not in the other (another "
+                             f"learner or optimiser)")
     with torch.no_grad():
         for key in ("params", "mu", "nu"):
-            for dst, src in zip(getattr(target, key), saved[key]):
+            for dst, src in zip(getattr(target, key) or (),
+                                saved.get(key, ())):
                 if dst.shape != src.shape:
                     raise ValueError(f"{path}: {key} shape {tuple(src.shape)}"
                                      f" != target {tuple(dst.shape)}")
                 dst.copy_(src)
-        target.kl_coeff = saved["kl_coeff"].to(target.kl_coeff.device)
+        if "kl_coeff" in saved:
+            target.kl_coeff = saved["kl_coeff"].to(target.kl_coeff.device)
     target.step = int(saved["step"])
     return target

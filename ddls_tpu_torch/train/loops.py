@@ -1,27 +1,35 @@
-"""The PPO epoch loop, sequential mode, and checkpoint evaluation.
+"""The actor-critic epoch loops, sequential mode, and checkpoint evaluation.
 
 Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what sequential
-PPO reads: ``build_policy_from_model_config`` :127, ``_episode_summary``
-:149, ``RLEpochLoop`` :181 (the ``__init__`` subset of sequential PPO,
-``run`` :1283, ``_finalize_results`` :1350, ``make_eval_env`` :1378,
-``evaluate`` :1392 with its global-RNG isolation, the greedy episodes
-:1418-1498, ``save_agent_checkpoint`` / ``load_agent_checkpoint`` and
-``close``) and ``RLEvalLoop`` :2108.
+PPO, IMPALA and PG read: ``_reject_unknown_algo_keys`` :59 (in
+``rl/learner.py``), ``build_policy_from_model_config`` :127,
+``_episode_summary`` :149, ``RLEpochLoop`` :181 (the ``__init__`` subset
+of the sequential loop, the algo hooks ``_size_rollouts`` /
+``_configure_algo`` / ``_make_learner`` :641-659, ``run`` :1283,
+``_finalize_results`` :1350, ``make_eval_env`` :1378, ``evaluate`` :1392
+with its global-RNG isolation, the greedy episodes :1418-1498,
+``save_agent_checkpoint`` / ``load_agent_checkpoint`` and ``close``),
+``impala_config_from_rllib`` / ``pg_config_from_rllib`` :1824-1848,
+``ImpalaEpochLoop`` :1864, ``PGEpochLoop`` :1903 and ``RLEvalLoop``
+:2108.
 
 One ``run()`` is one epoch: ``RolloutCollector.collect`` over a
 ``VectorEnv`` of the port's own simulator (each step's forward through
-K1-K3, the heads and K9), then ``PPOLearner.stage_traj`` and
-``train_step`` (K5-K8), then the learner's metrics in one read-back.
-Greedy evaluation takes K4. The learner and the collector draw from two
-explicit ``torch.Generator``s on the loop's device, seeded from ``seed``.
+K1-K3, the heads and K9), then the learner's ``stage_traj`` and
+``train_step`` (PPO: K5-K8; IMPALA: K10 and K12; PG: K11 and K12, each
+with the policy's backward K5/K6), then the learner's metrics in one
+read-back. Greedy evaluation takes K4. The learner and the collector draw
+from two explicit ``torch.Generator``s on the loop's device, seeded from
+``seed`` (the IMPALA and PG updates draw nothing).
 
 Left out, each raising where it is asked for: the pipelined, fused and
 sebulba modes (``loop_mode`` other than ``"sequential"``), subprocess env
-workers (``use_parallel_envs=True``), ``pipeline_depth``, the device
-collector, sharded parameter layouts, socket collection, scenarios, the
-run ledger and periodic evaluation (``evaluation_interval``: ``evaluate``
-runs when the caller asks); the other learners (``make_epoch_loop`` takes ``"ppo"``
-only).
+workers (``use_parallel_envs=True``), ``pipeline_depth`` (IMPALA's stale
+collection), the device collector, sharded parameter layouts, socket
+collection, scenarios, the run ledger and periodic evaluation
+(``evaluation_interval``: ``evaluate`` runs when the caller asks); the
+DQN and ES learners (``make_epoch_loop`` takes ``"ppo"``, ``"impala"``
+and ``"pg"``).
 """
 from __future__ import annotations
 
@@ -34,7 +42,10 @@ import numpy as np
 import torch
 
 from ddls_tpu_torch.models.policy import GNNPolicy
-from ddls_tpu_torch.rl.ppo import METRIC_KEYS, PPOLearner, ppo_config_from_rllib
+from ddls_tpu_torch.rl.impala import ImpalaConfig, ImpalaLearner
+from ddls_tpu_torch.rl.learner import reject_unknown_algo_keys
+from ddls_tpu_torch.rl.pg import PGConfig, PGLearner
+from ddls_tpu_torch.rl.ppo import PPOLearner, ppo_config_from_rllib
 from ddls_tpu_torch.rl.rollout import (RolloutCollector, VectorEnv,
                                        harvest_episode_record, stack_obs)
 from ddls_tpu_torch.serve.server import resolve_device
@@ -47,7 +58,7 @@ from ddls_tpu_torch.utils.common import (get_class_from_path,
 # standard deviations, rescaled to keep the variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
 
-# what sequential PPO cannot honour, with the value that leaves it off
+# what the sequential loop cannot honour, with the value that leaves it off
 _UNPORTED_OPTIONS = {
     "pipeline_depth": (0, None),
     "param_sharding": ("replicated", None),
@@ -127,8 +138,10 @@ def _episode_summary(episodes: List[dict]) -> Dict[str, float]:
 
 
 class RLEpochLoop:
-    """One PPO epoch per ``run()`` call; ``evaluate`` runs greedy episodes
-    when the caller asks (the reference's periodic evaluation is left out).
+    """One epoch per ``run()`` call: a collect, then one learner update
+    (PPO here; ``ImpalaEpochLoop`` and ``PGEpochLoop`` swap the learner
+    through the algo hooks). ``evaluate`` runs greedy episodes when the
+    caller asks (the reference's periodic evaluation is left out).
 
     ``env_config`` / ``model`` / ``algo_config`` follow the reference's
     config surfaces; ``num_envs`` (default: ``algo_config.num_workers``)
@@ -164,7 +177,7 @@ class RLEpochLoop:
         for key, off in _UNPORTED_OPTIONS.items():
             if key in kwargs and kwargs[key] not in off:
                 raise ValueError(f"{key}={kwargs[key]!r} is not ported; "
-                                 f"sequential PPO needs it off")
+                                 f"the sequential loop needs it off")
         if (algo_config or {}).get("device_collector"):
             raise ValueError("the port has no device collector yet")
         self.device = resolve_device(device)
@@ -174,11 +187,8 @@ class RLEpochLoop:
         self.seed = 0 if seed is None else int(seed)
         self.test_seed = test_seed
 
-        algo_config = dict(algo_config or {})
-        self.ppo_cfg = ppo_config_from_rllib(algo_config)
-        self.num_envs = int(num_envs or algo_config.get("num_workers") or 8)
-        self.rollout_length = int(rollout_length or max(
-            self.ppo_cfg.train_batch_size // self.num_envs, 1))
+        self._configure_algo(dict(algo_config or {}), num_envs,
+                             rollout_length)
 
         seed_everything(self.seed)
         self.vec_env = VectorEnv(
@@ -194,8 +204,7 @@ class RLEpochLoop:
         if init_params is None:
             init_like_flax(self.model,
                            torch.Generator().manual_seed(self.seed))
-        self.learner = PPOLearner(self.model, self.ppo_cfg,
-                                  device=str(self.device))
+        self.learner = self._make_learner()
         self.state = self.learner.init_state(init_params)
         self.collector = RolloutCollector(self.vec_env, self.learner,
                                           self.rollout_length)
@@ -210,9 +219,27 @@ class RLEpochLoop:
         self.total_env_steps = 0
         self.run_time = 0.0
 
+    # ----------------------------------------------------------- algo hooks
+    def _size_rollouts(self, algo_config, num_envs, rollout_length,
+                       train_batch_size: int) -> None:
+        """num_envs from config (reference: num_workers), rollout length
+        sized so one epoch collects about one train batch."""
+        self.num_envs = int(num_envs or algo_config.get("num_workers") or 8)
+        self.rollout_length = int(
+            rollout_length or max(train_batch_size // self.num_envs, 1))
+
+    def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
+        """Translate the RLlib-style algo_config; PPO by default."""
+        self.algo_cfg = ppo_config_from_rllib(algo_config)
+        self._size_rollouts(algo_config, num_envs, rollout_length,
+                            self.algo_cfg.train_batch_size)
+
+    def _make_learner(self):
+        return PPOLearner(self.model, self.algo_cfg, device=str(self.device))
+
     # ---------------------------------------------------------------- epoch
     def run(self) -> Dict[str, Any]:
-        """Collect one trajectory batch and apply one PPO update."""
+        """Collect one trajectory batch and apply one update."""
         start = time.time()
         t0 = time.perf_counter()
         out = self.collector.collect(generator=self._collect_gen)
@@ -220,10 +247,9 @@ class RLEpochLoop:
         staged = self.learner.stage_traj(out["traj"], out["last_values"])
         self.state, metrics = self.learner.train_step(
             self.state, staged, generator=self._update_gen)
-        values = torch.stack([metrics[k] for k in (*METRIC_KEYS,
-                                                   "kl_coeff")])
-        learner_metrics = dict(zip((*METRIC_KEYS, "kl_coeff"),
-                                   values.cpu().tolist()))
+        # each learner's own metric keys, read back in one copy
+        learner_metrics = dict(zip(metrics, torch.stack(
+            list(metrics.values())).cpu().tolist()))
         t2 = time.perf_counter()
         self.epoch_counter += 1
         self.total_env_steps += out["env_steps"]
@@ -352,6 +378,74 @@ class RLEpochLoop:
         self.vec_env.close()
 
 
+# RLlib IMPALA keys (algo/impala.yaml) -> ImpalaConfig fields
+_RLLIB_TO_IMPALA = {
+    "lr": "lr",
+    "gamma": "gamma",
+    "vtrace_clip_rho_threshold": "vtrace_clip_rho_threshold",
+    "vtrace_clip_pg_rho_threshold": "vtrace_clip_pg_rho_threshold",
+    "vtrace_drop_last_ts": "vtrace_drop_last_ts",
+    "vf_loss_coeff": "vf_loss_coeff",
+    "entropy_coeff": "entropy_coeff",
+    "grad_clip": "grad_clip",
+    "opt_type": "opt_type",
+    "decay": "decay",
+    "momentum": "momentum",
+    "epsilon": "epsilon",
+    "train_batch_size": "train_batch_size",
+}
+
+
+def impala_config_from_rllib(algo_config: Optional[dict]) -> ImpalaConfig:
+    reject_unknown_algo_keys("impala", (algo_config or {}),
+                             _RLLIB_TO_IMPALA)
+    kwargs = {}
+    for src, dst in _RLLIB_TO_IMPALA.items():
+        if algo_config and algo_config.get(src) is not None:
+            kwargs[dst] = algo_config[src]
+    return ImpalaConfig(**kwargs)
+
+
+def pg_config_from_rllib(algo_config: Optional[dict]) -> PGConfig:
+    known = (("lr", "lr"), ("gamma", "gamma"), ("grad_clip", "grad_clip"),
+             ("train_batch_size", "train_batch_size"))
+    reject_unknown_algo_keys("pg", (algo_config or {}),
+                             [src for src, _ in known])
+    kwargs = {}
+    for src, dst in known:
+        if algo_config and algo_config.get(src) is not None:
+            kwargs[dst] = algo_config[src]
+    return PGConfig(**kwargs)
+
+
+class ImpalaEpochLoop(RLEpochLoop):
+    """IMPALA epoch loop: the same collector as PPO, then one V-trace
+    update per batch (reference: algo/impala.yaml). The reference's
+    ``pipeline_depth >= 1`` (stale collection ahead of the learner) is not
+    ported and raises."""
+
+    def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
+        self.algo_cfg = impala_config_from_rllib(algo_config)
+        self._size_rollouts(algo_config, num_envs, rollout_length,
+                            self.algo_cfg.train_batch_size)
+
+    def _make_learner(self):
+        return ImpalaLearner(self.model, self.algo_cfg,
+                             device=str(self.device))
+
+
+class PGEpochLoop(RLEpochLoop):
+    """Vanilla policy-gradient epoch loop (reference: algo/pg.yaml)."""
+
+    def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
+        self.algo_cfg = pg_config_from_rllib(algo_config)
+        self._size_rollouts(algo_config, num_envs, rollout_length,
+                            self.algo_cfg.train_batch_size)
+
+    def _make_learner(self):
+        return PGLearner(self.model, self.algo_cfg, device=str(self.device))
+
+
 class RLEvalLoop:
     """Checkpoint-restoring policy evaluation (reference:
     ddls/loops/rllib_eval_loop.py:11)."""
@@ -375,7 +469,10 @@ class RLEvalLoop:
         }
 
 
-EPOCH_LOOPS = {"ppo": RLEpochLoop}
+# algo_name -> epoch-loop class; an unknown name raises, so a mistyped algo
+# never trains PPO with defaults
+EPOCH_LOOPS = {"ppo": RLEpochLoop, "impala": ImpalaEpochLoop,
+               "pg": PGEpochLoop}
 
 
 def make_epoch_loop(algo_name: Optional[str], **kwargs) -> RLEpochLoop:

@@ -6,7 +6,9 @@ scripts/export_torch_serve_fixture.py, the training archive (a real
 trajectory and the JAX learner's update of it) from
 scripts/export_torch_train_fixture.py, the rollout archive (the sampler's
 uniforms and a recorded greedy episode) from
-scripts/export_torch_rollout_fixture.py, and the JSON training config from
+scripts/export_torch_rollout_fixture.py, the JAX IMPALA and PG updates of
+the training trajectory from scripts/export_torch_ac_fixture.py, and the
+JSON training configs (PPO, IMPALA, PG) from
 scripts/export_torch_train_config.py; the recorded uniforms reproduce the
 recorded actions."""
 import os
@@ -19,6 +21,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
+import export_torch_ac_fixture as ac_export  # noqa: E402
 import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
 import export_torch_train_config as config_export  # noqa: E402
@@ -30,8 +33,10 @@ from ddls_tpu_torch.models.convert import (flatten_tree,  # noqa: E402
 from ddls_tpu_torch.models.policy import (batch_to_device,  # noqa: E402
                                           prepare_flat_batch)
 from ddls_tpu_torch.serve import PolicyServer, load_export  # noqa: E402
-from ddls_tpu_torch.rl.fixture import (ROLLOUT_PATH,  # noqa: E402
-                                       TRAIN_CONFIG_PATH, TRAIN_PATH,
+from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
+                                       IMPALA_CONFIG_PATH, PG_CONFIG_PATH,
+                                       ROLLOUT_PATH, TRAIN_CONFIG_PATH,
+                                       TRAIN_PATH,
                                        load_rollout_fixture,
                                        load_train_fixture)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
@@ -204,3 +209,42 @@ def test_train_config_regenerates_byte_for_byte():
     assert cfg["env_config"]["pad_obs_kwargs"] == {"max_nodes": 150,
                                                    "max_edges": 512}
     assert cfg["algo"]["algo_config"]["sgd_minibatch_size"] == 128
+
+
+@pytest.mark.parametrize("algo,path,sizes", [
+    ("impala", IMPALA_CONFIG_PATH, (32, 500)),
+    ("pg", PG_CONFIG_PATH, (8, 200))])
+def test_ac_train_configs_regenerate_byte_for_byte(algo, path, sizes):
+    """The IMPALA and PG configs: the shipped algo yaml on
+    env_load32_price_mixed, with the epoch loop's sizes left to the yaml
+    (num_workers envs, train_batch_size // num_workers steps)."""
+    with open(path) as fh:
+        committed = fh.read()
+    cfg = config_export.composed_config(algo)
+    assert config_export.config_text(cfg) == committed
+    assert cfg["algo"]["algo_name"] == algo
+    assert cfg["env_config"]["pad_obs_kwargs"] == {"max_nodes": 150,
+                                                   "max_edges": 512}
+    assert cfg["epoch_loop"]["num_envs"] is None
+    assert cfg["epoch_loop"]["rollout_length"] is None
+    algo_cfg = cfg["algo"]["algo_config"]
+    assert (algo_cfg["num_workers"], algo_cfg["train_batch_size"]) == sizes
+
+
+def test_ac_fixture_regenerates_bit_for_bit(jax_policy):
+    """The IMPALA and PG archive rebuilt by its export script: three JAX
+    updates of each learner from the shipped params (params, metrics,
+    V-trace's inputs and outputs, the returns), equal in dtype, shape and
+    bits."""
+    fresh = ac_export.export_ac(*jax_policy)
+    with np.load(AC_TRAIN_PATH, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh)
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, key
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert fresh["impala/step1/vs"].shape == (train_export.ROLLOUT_LENGTH,
+                                              train_export.N_ENVS)
+    assert sum(k.endswith("/metrics/total_loss") for k in fresh) == \
+        2 * ac_export.STEPS
+    assert os.path.getsize(AC_TRAIN_PATH) < 300_000

@@ -1,6 +1,6 @@
 """Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
-native engine's loader, the rollout collector, the loop and its entry
-point included) and chip_smoke.py import nothing of JAX, flax, orbax,
+native engine's loader, the rollout collector, the PPO, IMPALA and PG
+learners, the loops and their entry point included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
@@ -38,6 +38,8 @@ _CHILD = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert {{"ddls_tpu_torch.rl", "ddls_tpu_torch.rl.ppo",
+             "ddls_tpu_torch.rl.learner", "ddls_tpu_torch.rl.impala",
+             "ddls_tpu_torch.rl.pg", "ddls_tpu_torch.rl.actor_critic",
              "ddls_tpu_torch.rl.fixture", "ddls_tpu_torch.rl.rollout",
              "ddls_tpu_torch.train.loops", "ddls_tpu_torch.train.__main__",
              "ddls_tpu_torch.train.checkpointer", "ddls_tpu_torch.native",
@@ -65,7 +67,7 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # every subpackage and module was walked, __main__ included
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 59
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 63
 
 
 def test_port_sources_name_no_jax_import():

@@ -10,13 +10,14 @@ package, so the repo's JAX conftest is skipped):
 
 Tolerance: abs and rel 1e-5 for the forward kernels (float32; the
 plain versions repeat the kernels' roundings except in the activations'
-transcendental functions). The backward kernels K5–K8 are held at abs
-1e-5 of each output's own largest magnitude (exactly where that is 0):
+transcendental functions). The backward kernels K5–K8 and the IMPALA and
+PG update's kernels K10–K12 are held at abs 1e-5 of each output's own
+largest magnitude (exactly where that is 0):
 their parameter gradients are float32 sums over up to 16,384 rows in
 another order than the plain versions' matrix products. K5's plain
 version takes relu's kink decisions from K1's output on the same inputs,
-as K5, which recomputes K1's pre-activations, does. K2, K4 and K5–K8 are
-also held bitwise across two runs.
+as K5, which recomputes K1's pre-activations, does. K2, K4, K5–K8 and K10–K12
+are also held bitwise across two runs.
 """
 import numpy as np
 import pytest
@@ -25,13 +26,15 @@ import torch
 from ddls_tpu_torch import kernels
 from ddls_tpu_torch.models import gnn, policy
 from ddls_tpu_torch.ops import segment
-from ddls_tpu_torch.rl import ppo
+from ddls_tpu_torch.rl import actor_critic, impala, pg, ppo
 
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
 FORWARD_KERNELS = ("ln_linear_act", "csr_segment_mean",
                    "masked_mean_pool_concat", "mask_logits_argmax")
+# the IMPALA and PG updates' kernels (K10-K12), which PPO never launches
+AC_KERNELS = ("vtrace", "reward_to_go", "ac_logp", "ac_loss")
 
 
 @pytest.fixture
@@ -435,9 +438,10 @@ def test_fixture_update_on_the_card_matches_the_recorded_jax(cuda):
     kernels.reset_launch_counts()
     state, metrics = learner.train_step(state, staged, perms=run["perms"])
     torch.cuda.synchronize()
-    # K9 samples rollouts; the update never launches it
+    # K9 samples rollouts and K10-K12 belong to the other learners: the
+    # PPO update never launches them
     assert all(n > 0 for name, n in kernels.launch_counts().items()
-               if name != "mask_sample_logp")
+               if name not in ("mask_sample_logp", *AC_KERNELS))
     tree = params_to_flax(state.state_dict())
     for key, value in tree.items():
         np.testing.assert_allclose(value, run["params"][key], rtol=0,
@@ -469,6 +473,140 @@ def test_first_minibatch_gradients_on_the_card_match_recorded_jax(cuda):
         np.testing.assert_allclose(got[key], ref, rtol=0,
                                    atol=1e-5 * float(np.abs(ref).max()),
                                    err_msg=key)
+
+
+# ------------------------------------- K10–K12: the IMPALA and PG updates
+def _scan_case(cuda, t_len, lanes=8, seed=0):
+    """[T, B] scan inputs: episode ends at t = 0, mid-way and T - 1 (lane
+    0) and on every step (lane 1), importance weights far above and below
+    both clips."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    behavior = torch.randn(t_len, lanes, generator=g) * 0.5 - 1.5
+    target = behavior + torch.randn(t_len, lanes, generator=g) * 3.0
+    rewards = torch.randn(t_len, lanes, generator=g)
+    values = torch.randn(t_len, lanes, generator=g) * 3 + 50
+    dones = (torch.rand(t_len, lanes, generator=g) < 0.05).float()
+    dones[[0, t_len // 2, t_len - 1], 0] = 1.0
+    dones[:, 1] = 1.0
+    last = torch.randn(lanes, generator=g) + 50
+    return [x.to(cuda) for x in (behavior, target, rewards, values, dones,
+                                 last)]
+
+
+@pytest.mark.parametrize("t_len,lanes", [(64, 8), (15, 32), (25, 8), (1, 8)])
+def test_vtrace_and_reward_to_go_match_plain_and_repeat_bitwise(cuda, t_len,
+                                                                lanes):
+    args = _scan_case(cuda, t_len, lanes)
+    rho = torch.exp(args[1] - args[0])
+    assert bool((rho > 4).any()) and bool((rho < 0.25).any())
+    before = kernels.launch_counts()
+    out = impala.vtrace(*args, 0.99, 1.0, 0.8)
+    again = impala.vtrace(*args, 0.99, 1.0, 0.8)
+    ref = impala.vtrace_plain(*args, 0.99, 1.0, 0.8)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
+    ret = pg.reward_to_go(args[2], args[4], 0.99)
+    _close_scaled(ret, pg.reward_to_go_plain(args[2], args[4], 0.99))
+    assert torch.equal(ret, pg.reward_to_go(args[2], args[4], 0.99))
+    after = kernels.launch_counts()
+    assert after["vtrace"] == before["vtrace"] + 2
+    assert after["reward_to_go"] == before["reward_to_go"] + 2
+
+
+def _ac_case(cuda, t_len=16, lanes=8, a=17, seed=5):
+    """B-major rows of masked logits with a fully masked row and a row with
+    one valid action, and the loss's other inputs."""
+    rng = np.random.default_rng(seed)
+    rows = t_len * lanes
+    logits = rng.normal(0, 2, (rows, a)).astype(np.float32)
+    mask = rng.uniform(0, 1, (rows, a)) < 0.6
+    mask[:, 0] = True
+    mask[5] = False
+    mask[9] = False
+    mask[9, 3] = True
+    actions = np.array([rng.choice(np.flatnonzero(r)) if r.any() else 0
+                        for r in mask], np.int32)
+    masked = np.where(mask, logits, logits + np.finfo(np.float32).min)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    return (t(masked.astype(np.float32)),
+            t(rng.normal(50, 2, rows).astype(np.float32)), t(actions),
+            t(rng.normal(0, 3, rows).astype(np.float32)),
+            t(rng.normal(50, 2, rows).astype(np.float32)),
+            t(rng.normal(-1.5, 0.5, rows).astype(np.float32)))
+
+
+@pytest.mark.parametrize("drop_last", [True, False])
+def test_ac_loss_matches_plain_autograd(cuda, drop_last):
+    """K12 (loss, seven metrics, d loss / d logits and values in one
+    launch) against autograd of the plain loss, with masked actions, a
+    fully masked row, a one-valid-action row, the IMPALA coefficients and
+    each setting of the dropped last step; through autograd the gradient is
+    K12's, scaled; ``ac_logp`` equals its plain version."""
+    logits, values, actions, weights, vs, behavior = _ac_case(cuda)
+    args = (logits, values, actions, weights, vs, behavior, 16, drop_last,
+            0.5, 0.01, 1.0)
+    out = actor_critic._ac_loss_cuda(*args)
+    again = actor_critic._ac_loss_cuda(*args)
+    ref = actor_critic.ac_loss_grad_plain(*args)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
+    dropped = out[2].reshape(8, 16, -1)[:, -1]
+    assert bool((dropped == 0).all()) == drop_last
+    lo = logits.clone().requires_grad_(True)
+    with torch.enable_grad():
+        total, _ = actor_critic.ac_loss(lo, *args[1:])
+        (grad,) = torch.autograd.grad(total * 2.0, lo)
+    assert torch.equal(grad, out[2] * 2.0)
+    lp = actor_critic.ac_logp(logits, actions)
+    _close_scaled(lp, actor_critic.ac_logp_plain(logits, actions))
+    assert float(lp[9]) == 0.0  # the one valid action
+
+
+@pytest.mark.parametrize("algo", ["impala", "pg"])
+def test_ac_update_on_the_card_matches_the_recorded_jax(cuda, algo):
+    """The first recorded JAX update of each learner on the fixture
+    trajectory, on the card: params within 1e-5 of each leaf's largest
+    magnitude, and the update's kernels launched (IMPALA: K10 and K12,
+    PG: K11 and K12, both through the policy's backward)."""
+    from ddls_tpu_torch.models.convert import params_to_flax
+    from ddls_tpu_torch.rl.fixture import load_ac_fixture, load_train_fixture
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_ac_fixture()[algo]
+    train = load_train_fixture()
+    model, params, _ = load_export(EXPORT_PATH)
+    cls = impala.ImpalaLearner if algo == "impala" else pg.PGLearner
+    learner = cls(model, fx["cfg"])
+    staged = learner.stage_traj(train["traj"], train["last_values"])
+    state = learner.init_state({k: v.to(cuda) for k, v in params.items()})
+    kernels.reset_launch_counts()
+    state, _ = learner.train_step(state, staged)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    scan = "vtrace" if algo == "impala" else "reward_to_go"
+    assert launched[scan] == 1 and launched["ac_loss"] == 1
+    assert launched["ln_linear_act_bwd"] > 0
+    tree = params_to_flax(state.state_dict())
+    for key, value in tree.items():
+        ref = fx["steps"][0]["params"][key]
+        np.testing.assert_allclose(value, ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()),
+                                   err_msg=key)
+
+
+def test_ac_wrappers_reject_what_they_cannot_take(cuda):
+    logits, values, actions, weights, vs, behavior = _ac_case(cuda)
+    with pytest.raises(ValueError, match="whole lanes"):
+        actor_critic._ac_loss_cuda(logits, values, actions, weights, vs,
+                                   behavior, 15, True, 0.5, 0.01, 1.0)
+    with pytest.raises(ValueError, match="A <= 64"):
+        actor_critic.ac_logp(torch.rand(4, 65, device=cuda),
+                             actions[:4])
+    with pytest.raises(TypeError, match="float32"):
+        impala.vtrace(*[x.double() for x in _scan_case(cuda, 4)], 0.99)
 
 
 def test_backward_wrappers_reject_what_they_cannot_take(cuda):
