@@ -122,15 +122,20 @@ from ddls_tpu_torch.models.convert import (params_from_flax,  # noqa: E402
                                            params_to_flax)
 from ddls_tpu_torch.ops import segment as segment_mod  # noqa: E402
 from ddls_tpu_torch.rl import actor_critic as ac_mod  # noqa: E402
+from ddls_tpu_torch.rl import dqn as dqn_mod  # noqa: E402
+from ddls_tpu_torch.rl import es as es_mod  # noqa: E402
 from ddls_tpu_torch.rl import impala as impala_mod  # noqa: E402
 from ddls_tpu_torch.rl import pg as pg_mod  # noqa: E402
 from ddls_tpu_torch.rl import ppo as ppo_mod  # noqa: E402
 from ddls_tpu_torch.envs import RampJobPartitioningEnvironment  # noqa: E402
-from ddls_tpu_torch.rl.fixture import (IMPALA_CONFIG_PATH,  # noqa: E402
-                                       PG_CONFIG_PATH, load_ac_fixture,
+from ddls_tpu_torch.rl.fixture import (DQN_CONFIG_PATH,  # noqa: E402
+                                       ES_CONFIG_PATH, IMPALA_CONFIG_PATH,
+                                       PG_CONFIG_PATH, fixture_replay,
+                                       load_ac_fixture, load_dqn_es_fixture,
                                        load_rollout_fixture,
                                        load_train_config, load_train_fixture)
-from ddls_tpu_torch.rl.rollout import RolloutCollector, VectorEnv  # noqa: E402
+from ddls_tpu_torch.rl.rollout import (RolloutCollector,  # noqa: E402
+                                       VectorEnv, stack_obs)
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
                                   build_fleet, default_buckets, load_export)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
@@ -982,7 +987,8 @@ def phase_train(params, fx, card):
             snapshots.append({k: v.clone() for k, v in
                               state.state_dict().items()})
         for name, n in launches.items():
-            require(n > 0 or name in SAMPLE_SITES or name in AC_SITES,
+            require(n > 0 or name in SAMPLE_SITES or name in AC_SITES
+                    or name in DQN_ES_SITES,
                     f"kernel {name} was not launched by train_step")
         require(out["iter50_params_max_abs_err"] <= 1e-2,
                 "50-iteration update far off the recorded JAX params")
@@ -1534,7 +1540,7 @@ def phase_loop(card):
             runs.append((lines, state, wall))
         profiled = profile_epoch(cfg_path)
     for name, n in launches.items():
-        require(n > 0 or name in AC_SITES,
+        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES,
                 f"kernel {name} was not launched by the loop")
     (lines0, state0, wall0), (lines1, state1, _) = runs
     require([_deterministic(x) for x in lines0]
@@ -1787,6 +1793,677 @@ def phase_ac_loop(card):
             for name in launches["impala"]}
 
 
+# ------------------------------- K13–K16: the Ape-X DQN and ES kernels
+def k13_parts(args, kwargs):
+    logits, values, mask, eps, u_explore, u_pick, dueling = args
+    rows, a = logits.shape
+
+    def composition():
+        q = (values[:, None] + logits - logits.mean(1, keepdim=True)
+             if dueling else logits)
+        greedy = q.masked_fill(mask == 0, policy_mod.FLOAT32_MIN).argmax(1)
+        drawn = (torch.log(mask.float() + 1e-30)
+                 - torch.log(-torch.log(u_pick))).argmax(1)
+        return torch.where(u_explore < eps, drawn, greedy)
+
+    # six inputs read once ([B, A] logits, mask, uniforms; [B] values,
+    # epsilons, uniforms), the [B] actions written once; ~12 operations
+    # per entry (the mean, the dueling sum, the mask, two logs, two
+    # argmaxes)
+    work = bound_ms(_nbytes(logits, values, mask, eps, u_explore, u_pick)
+                    + rows * 4, 12 * rows * a)
+    return (lambda: dqn_mod.dqn_act_plain(*args), composition, work,
+            f"rows={rows} actions={a} dueling={dueling}")
+
+
+def k14_parts(args, kwargs):
+    (logits, values, next_logits, next_values, tgt_logits, tgt_values,
+     next_mask, actions, rewards, discounts, weights, double_q,
+     dueling) = args
+    n, a = logits.shape
+
+    def composition():
+        def duel(lg, v):
+            return v[:, None] + lg - lg.mean(1, keepdim=True) if dueling \
+                else lg
+        q, q_t = duel(logits, values), duel(tgt_logits, tgt_values)
+        src = duel(next_logits, next_values) if double_q else q_t
+        best = src.masked_fill(next_mask == 0,
+                               policy_mod.FLOAT32_MIN).argmax(1)
+        td = (q.gather(1, actions.long()[:, None])[:, 0]
+              - (rewards + discounts * q_t.gather(1, best[:, None])[:, 0]))
+        loss = torch.mean(weights * torch.nn.functional.huber_loss(
+            td, torch.zeros_like(td), reduction="none"))
+        g = weights * td.clamp(-1.0, 1.0) / n
+        onehot = torch.nn.functional.one_hot(actions.long(), a).float()
+        dlogits = g[:, None] * (onehot - 1.0 / a) if dueling \
+            else g[:, None] * onehot
+        return loss, td.abs(), dlogits, g
+
+    forwards = 3 if double_q else 2
+    # the forwards' heads, the mask and the four per-row inputs read once;
+    # the gradient, |td|, the metrics and the loss written once; ~15
+    # operations per entry of each forward
+    nbytes = (forwards * n * (a + 1) * 4 + _nbytes(next_mask, actions,
+                                                   rewards, discounts,
+                                                   weights)
+              + n * (a + 2) * 4 + 5 * 4)
+    return (lambda: dqn_mod.dqn_td_loss_grad_plain(*args), composition,
+            bound_ms(nbytes, 15 * forwards * n * a),
+            f"rows={n} actions={a} double_q={double_q} dueling={dueling}")
+
+
+def k15_parts(args, kwargs):
+    fitness, eps, theta, sigma, l2 = args
+    p, n = fitness.shape[0], theta.shape[0]
+
+    def composition():
+        ranks = torch.argsort(torch.argsort(fitness, stable=True),
+                              stable=True).float()
+        w = ranks / max(p - 1, 1) - 0.5
+        g = -torch.matmul(w[:p // 2] - w[p // 2:], eps) / (p * sigma) \
+            + l2 * theta
+        return g, torch.linalg.vector_norm(g)
+
+    # the fitness, the noise and the params read once, the gradient,
+    # the ranks and the metrics written once; the weighted sum is P
+    # operations per parameter, the ranks P^2 comparisons
+    work = bound_ms(_nbytes(fitness, eps, theta) + (n + p + 4) * 4,
+                    (p + 3) * n + p * p)
+    return (lambda: es_mod.es_update_plain(*args), composition, work,
+            f"population={p} params={n}")
+
+
+def k16_parts(args, kwargs):
+    logits, mask, noise, std = args
+    rows, a = logits.shape
+
+    def composition():
+        return (logits.masked_fill(mask == 0, policy_mod.FLOAT32_MIN)
+                + std * noise).argmax(1)
+
+    work = bound_ms(_nbytes(logits, mask, noise) + rows * 4, 5 * rows * a)
+    return (lambda: es_mod.es_act_plain(*args), composition, work,
+            f"members={rows} actions={a}")
+
+
+# (module whose global the learner calls, attribute, parts function)
+DQN_ES_SITES = {
+    "dqn_act": (dqn_mod, "dqn_act", k13_parts),
+    "dqn_td_loss": (dqn_mod, "_dqn_td_loss_cuda", k14_parts),
+    "es_update": (es_mod, "es_update", k15_parts),
+    "es_act": (es_mod, "es_act", k16_parts),
+}
+
+
+def dqn_learner(dqn_fx):
+    """(learner, its state at the recorded JAX initialisation) on the card."""
+    model = policy_mod.GNNPolicy(**dqn_fx["arch"])
+    learner = dqn_mod.ApexDQNLearner(model, dqn_fx["cfg"], device="cuda")
+    return learner, learner.init_state(
+        {k: v.cuda() for k, v in params_from_flax(dqn_fx["init"],
+                                                  model).items()})
+
+
+def es_noise(learner, model, eps_tree):
+    """The recorded per-leaf noise [P/2, ...] as the learner's flat [P/2, n]
+    on the card."""
+    half = next(iter(eps_tree.values())).shape[0]
+    return torch.stack([learner.flat(params_from_flax(
+        {k: v[i] for k, v in eps_tree.items()}, model))
+        for i in range(half)]).cuda()
+
+
+def dqn_act_edge_cases(args):
+    """K13's recorded call (8 envs) and what it cannot give: a fully masked
+    row, a one-valid-action row and an exact tie of Q (the lower index must
+    win), each greedy; the same rows exploring; dueling off; and the loop's
+    shape (32 envs, tiled, per_worker_epsilons at 400,000 steps)."""
+    logits, values, mask, eps, u_explore, u_pick, dueling = args
+    a = logits.shape[1]
+    ext = [x[:3].clone() for x in (logits, values, mask, eps, u_explore,
+                                   u_pick)]
+    ext[2][0] = 0
+    ext[2][1] = 0
+    ext[2][1, a - 2] = 1
+    ext[0][2] = 0.75
+    ext[2][2] = 1
+    ext[3][:] = 0.5
+    ext[4][:] = 0.9
+    greedy = tuple(torch.cat([x, e]) for x, e in zip(args[:6], ext))
+    explore = list(greedy)
+    explore[4] = torch.zeros_like(greedy[4])
+    tiled = [x.repeat((4,) + (1,) * (x.dim() - 1)) for x in args[:6]]
+    tiled[3] = torch.as_tensor(dqn_mod.per_worker_epsilons(
+        32, 400_000, dqn_mod.DQNConfig()), device="cuda")
+    return ([(*greedy, dueling), (*explore, dueling), (*greedy, False)],
+            (*tiled, dueling))
+
+
+def dqn_td_edge_cases(args):
+    """K14's recorded call (512 replay rows) with rows the replay cannot
+    give: next row 0 fully masked, next row 1 one valid action, row 2 no
+    bootstrap; rows 3-5 with zero logits, value 0.25 and rewards that make
+    td exactly -0.5, -1 and 2 (|td| below, at and above the Huber kink);
+    under dueling and double-Q, and with either off."""
+    cases = []
+    for double_q, dueling in ((True, True), (False, True), (True, False),
+                              (False, False)):
+        case = [x.clone() if torch.is_tensor(x) else x for x in args]
+        logits, values, next_mask, rewards, discounts = (
+            case[0], case[1], case[6], case[8], case[9])
+        next_mask[0] = 0
+        next_mask[1] = 0
+        next_mask[1, logits.shape[1] // 2] = 1
+        discounts[2] = 0.0
+        for row, td in ((3, -0.5), (4, -1.0), (5, 2.0)):
+            logits[row] = 0.0
+            values[row] = 0.25
+            discounts[row] = 0.0
+            rewards[row] = (0.25 if dueling else 0.0) - td
+        case[11], case[12] = double_q, dueling
+        cases.append(tuple(case))
+    return cases
+
+
+def es_update_edge_cases(args):
+    """K15's recorded call (P = 10) with fitness it cannot give: ties,
+    every member equal, a NaN; and a population of 2."""
+    fitness, eps, theta, sigma, l2 = args
+    f = fitness.clone()
+    cases = []
+    for values in ([3.0, 1.0, 3.0, 2.0, 1.0, 1.0, 0.5, 3.0, 2.5, 4.0],
+                   [2.0] * 10, [1.0, float("nan"), 3.0, 0.0, -0.0, 2.0,
+                                2.0, 5.0, float("nan"), 1.0]):
+        cases.append((torch.tensor(values, device=f.device), eps, theta,
+                      sigma, l2))
+    cases.append((torch.tensor([1.0, 1.0], device=f.device), eps[:1],
+                  theta, sigma, l2))
+    cases.append((torch.tensor([2.0, 1.0], device=f.device),
+                  eps[:1].contiguous(), theta, sigma, l2))
+    return cases
+
+
+def es_act_edge_cases(args):
+    """K16's recorded call (10 members) with a fully masked member (index 0
+    must win), a one-valid-action member, and an exact tie at zero noise
+    (the lower index must win)."""
+    logits, mask, noise, std = args
+    a = logits.shape[1]
+    lg, mk, nz = logits.clone(), mask.clone(), noise.clone()
+    mk[0] = 0
+    mk[1] = 0
+    mk[1, a - 1] = 1
+    lg[2] = -3.0
+    lg[2, 4] = lg[2, 9] = 2.0
+    mk[2] = 1
+    return [(lg, mk, nz, std), (lg, mk, torch.zeros_like(nz), 0.0),
+            (lg, mk, nz, 100.0)]
+
+
+def _same_bits(x, y) -> bool:
+    """Bit-equal tensors (a NaN equals a NaN of the same bits)."""
+    if x.dtype.is_floating_point:
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        x, y = (t.view(ints[t.element_size()]) for t in (x, y))
+    return torch.equal(x, y)
+
+
+def k15_compare(out, ref):
+    """K15 against its plain version: the centred ranks exactly, the
+    gradient within 1e-5 of its largest magnitude, the metrics likewise
+    (a NaN fitness makes the mean, max and std NaN in both)."""
+    require(torch.equal(out[2], ref[2]), "es_update's centred ranks differ "
+                                         "from the plain version's")
+    nan = torch.isnan(ref[1])
+    require(torch.equal(torch.isnan(out[1]), nan),
+            "es_update's NaN metrics differ from the plain version's")
+    return ((out[0], torch.where(nan, 0.0, out[1])),
+            (ref[0], torch.where(nan, 0.0, ref[1])))
+
+
+def check_dqn_es_kernels(dqn_es_fx, train_fx, params):
+    """Phase 3, K13–K16: each kernel's call in one step of its learner on
+    the recorded fixtures (K13: DQN acting on recorded step 0, 8 envs; K14:
+    the first recorded DQN update, 512 rows; K15: the first recorded ES
+    update, P = 10 over the shipped policy's parameters; K16: the first
+    step of the recorded ES window) and the edge cases they cannot give;
+    each held against its plain version (K13, K16 and K15's ranks exactly;
+    every float within 1e-5 of its largest magnitude), bitwise across two
+    runs, and timed at the main path's shapes (K13 at the loop's 32 envs),
+    with a PyTorch composition of the same function beside it."""
+    dqn_fx, es_fx = dqn_es_fx["dqn"], dqn_es_fx["es"]
+    calls = {}
+    learner, state = dqn_learner(dqn_fx)
+    obs = {k: v[0] for k, v in train_fx["traj"]["obs"].items()}
+    calls.update(record_sites({"dqn_act": DQN_ES_SITES["dqn_act"]},
+                              lambda: learner.eps_greedy_actions(
+                                  obs, dqn_fx["act"]["eps"][1],
+                                  torch.as_tensor(dqn_fx["act"][
+                                      "u_explore"][1, 0], device="cuda"),
+                                  torch.as_tensor(dqn_fx["act"][
+                                      "u_pick"][1, 0], device="cuda"))))
+    replay = fixture_replay(dqn_fx["cfg"])
+    ref = dqn_fx["updates"][0]
+    staged = learner.stage_batch(dqn_mod.train_batch(
+        replay.gather(ref["idx"]), ref["weights"]))
+    with torch.enable_grad():
+        calls.update(record_sites(
+            {"dqn_td_loss": DQN_ES_SITES["dqn_td_loss"]},
+            lambda: learner.loss_and_grads(state, staged)))
+    model, _, _ = load_export(EXPORT_PATH)
+    es_learner = es_mod.ESLearner(model, es_fx["cfg"], 10, device="cuda")
+    es_state = es_learner.init_state({k: v.cuda() for k, v in
+                                      params.items()})
+    eps = es_noise(es_learner, model, es_fx["window"]["eps"])
+    stacked = es_learner.stack(es_learner.flat(es_state.params), eps)
+    env_cfg = load_train_config()["env_config"]
+    vec = VectorEnv([lambda: RampJobPartitioningEnvironment(
+        **copy.deepcopy(env_cfg)) for _ in range(10)],
+        seeds=list(range(10)))
+    vec.reset()
+    noise = torch.as_tensor(es_fx["window"]["noise"][0], device="cuda")
+    calls.update(record_sites({"es_act": DQN_ES_SITES["es_act"]},
+                              lambda: es_learner.pop_actions(
+                                  stacked, stack_obs(vec.obs), noise,
+                                  es_fx["cfg"].action_noise_std)))
+    calls.update(record_sites({"es_update": DQN_ES_SITES["es_update"]},
+                              lambda: es_learner.update(
+                                  es_state, eps, es_fx["window"][
+                                      "fitness"])))
+    results = {}
+    for name, (_, _, parts) in DQN_ES_SITES.items():
+        require(len(calls[name]) == 1,
+                f"one learner step made {len(calls[name])} {name} calls")
+        fn, args, _ = calls[name][0]
+        if name == "dqn_act":
+            edge, timed_args = dqn_act_edge_cases(args)
+        elif name == "dqn_td_loss":
+            edge, timed_args = dqn_td_edge_cases(args), args
+        elif name == "es_update":
+            edge, timed_args = es_update_edge_cases(args), args
+        else:
+            edge, timed_args = es_act_edge_cases(args), args
+        res = {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None,
+               "library_device_ms": None, "calls_per_step": 1}
+        for case in [args, *edge, timed_args]:
+            plain, _, _, _ = parts(case, {})
+            out, again, ref_out = fn(*case), fn(*case), plain()
+            torch.cuda.synchronize()
+            require(all(_same_bits(x, y) for x, y in
+                        zip(_flat(out), _flat(again))),
+                    f"{name} is not bitwise repeatable")
+            if name == "es_update":
+                err, rel = max_err_scaled(*k15_compare(out, ref_out))
+            else:
+                err, rel = max_err_scaled(out, ref_out)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel)
+        if name == "dqn_act":
+            out = fn(*edge[0]).cpu().numpy()
+            n = args[0].shape[0]
+            require(out[n] == 0 and out[n + 1] == args[0].shape[1] - 2
+                    and out[n + 2] == 0, "K13's greedy edge rows: a fully "
+                                         "masked row, one valid action, a tie")
+        if name == "dqn_td_loss":
+            td = fn(*edge[0])[2].cpu().numpy()
+            require(td[3:6].tolist() == [0.5, 1.0, 2.0],
+                    f"K14's pinned |td| rows gave {td[3:6]}")
+        if name == "es_act":
+            out = fn(*edge[0]).cpu().numpy()
+            tie = fn(*edge[1]).cpu().numpy()
+            require(out[0] == 0 and out[1] == args[0].shape[1] - 1
+                    and tie[2] == 4, "K16's edge members: fully masked, "
+                                     "one valid action, a tie")
+        plain, composition, (bound, bound_by), shape = parts(timed_args, {})
+        res.update(shape=shape, bound_ms=bound, bound_by=bound_by,
+                   ms=device_ms(lambda: fn(*timed_args)),
+                   eager_ms=eager_ms(lambda: fn(*timed_args)),
+                   plain_ms=eager_ms(plain, iters=20),
+                   composition_ms=eager_ms(composition),
+                   composition_device_ms=device_ms(composition))
+        results[name] = res
+    return results
+
+
+# ----------------------------------------- the Ape-X DQN and ES phases
+def profile_calls(fn, n_calls: int = 3):
+    """``n_calls`` warmed calls of ``fn`` under torch.profiler: device time
+    over wall time (the profiler's own host cost is inside the wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    device_ms_total = sum(e.device_time_total for e in prof.events()
+                          if e.device_type == DeviceType.CUDA) / 1e3
+    return {"calls": n_calls, "wall_ms": wall_ms,
+            "device_ms": device_ms_total,
+            "device_busy_share": device_ms_total / wall_ms}
+
+
+def _leaf_rel(state, key, ref):
+    tree = params_to_flax(dict(zip(state.names, [
+        x.detach() for x in getattr(state, key)])))
+    return max(float(np.abs(tree[k] - ref[k]).max()
+                     / max(np.abs(ref[k]).max(), 1e-30)) for k in ref)
+
+
+def phase_dqn_train(dqn_es_fx, train_fx, card):
+    """Phase 12: the recorded JAX Ape-X DQN on the card. K13 on the recorded
+    trajectory's observations (64 steps x 8 envs) with the recorded
+    epsilons and uniforms at 3 schedule points: every action JAX's. Then
+    the 3 recorded updates on the same replay rows and importance weights
+    (the port's own replay buffer holds the same 488 n-step transitions):
+    the first gradient, and params, target params and adam's moments after
+    each update within 1e-5 of each leaf's largest magnitude, the target
+    bit-equal to the params right after the update-2 sync, metrics within
+    1e-5 of max(1, |JAX|), |td| within 1e-5 of its largest; the port's own
+    priorities against the recorded ones (reported: they differ at float32
+    rounding, so the port's own draw could pick other rows). Launch
+    counters reset before the acting and read after the updates (K1-K3,
+    K5, K6, K13, K14 must have run; the DQN path launches no K4: its
+    Q-network is unmasked and K13 does the masking). A second run of the
+    updates bit-equal; seconds per update and the device busy share of 3
+    updates under torch.profiler."""
+    dqn_fx = dqn_es_fx["dqn"]
+    obs, act = train_fx["traj"]["obs"], dqn_fx["act"]
+    learner, state = dqn_learner(dqn_fx)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    mismatches = 0
+    for k in range(len(act["env_steps"])):
+        for t in range(obs["action_mask"].shape[0]):
+            got = learner.eps_greedy_actions(
+                {key: v[t] for key, v in obs.items()}, act["eps"][k],
+                torch.as_tensor(act["u_explore"][k, t], device="cuda"),
+                torch.as_tensor(act["u_pick"][k, t], device="cuda"))
+            mismatches += int((got != act["actions"][k, t]).sum())
+    act_s = time.monotonic() - t0
+    require(mismatches == 0, f"K13 acting differs from JAX's on "
+                             f"{mismatches} decisions")
+    replay = fixture_replay(dqn_fx["cfg"])
+    base = (replay.priorities.copy(), replay.max_priority)
+    batches = [dqn_mod.train_batch(replay.gather(ref["idx"]),
+                                   ref["weights"])
+               for ref in dqn_fx["updates"]]
+    runs, errs, update_s = [], [], []
+    launches = None
+    for attempt in range(2):
+        if attempt:
+            learner, state = dqn_learner(dqn_fx)
+        replay.priorities[:], replay.max_priority = base[0].copy(), base[1]
+        snaps = []
+        for step, (ref, batch) in enumerate(zip(dqn_fx["updates"], batches),
+                                            start=1):
+            if step == 1 and attempt == 0:
+                with torch.enable_grad():
+                    _, _, grads = learner.loss_and_grads(
+                        state, learner.stage_batch(batch))
+                tree = params_to_flax(dict(zip(state.names, grads)))
+                grad_rel = max(float(np.abs(tree[k] - ref["grads"][k]).max()
+                                     / np.abs(ref["grads"][k]).max())
+                               for k in tree)
+                require(grad_rel <= TOL, f"DQN first gradient off JAX's by "
+                                         f"{grad_rel} of a leaf's largest")
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            state, metrics, td = learner.train_step(state, batch)
+            torch.cuda.synchronize()
+            if attempt == 0:
+                update_s.append(time.monotonic() - t1)
+            replay.update_priorities(ref["idx"], td)
+            snaps.append(([x.detach().clone() for key in (
+                "params", "target_params", "mu", "nu")
+                for x in getattr(state, key)], metrics, td,
+                replay.priorities[:replay.size].copy()))
+            if attempt:
+                continue
+            err = {key: _leaf_rel(state, key, ref[key]) for key in
+                   ("params", "target_params", "mu", "nu")}
+            for key, value in err.items():
+                require(value <= TOL, f"DQN update {step}: {key} off JAX's "
+                                      f"by {value} of a leaf's largest")
+            synced = all(torch.equal(a, b) for a, b in
+                         zip(state.target_params, state.params))
+            require(synced == (step == 2), f"DQN update {step}: target "
+                                           f"sync {synced}")
+            metric_err = {}
+            for key, want in ref["metrics"].items():
+                metric_err[key] = abs(metrics[key] - want)
+                require(metric_err[key] <= TOL * max(1.0, abs(want)),
+                        f"DQN update {step}: {key} off JAX's by "
+                        f"{metric_err[key]}")
+            td_err = float(np.abs(td - ref["td_abs"]).max())
+            require(td_err <= TOL * float(np.abs(ref["td_abs"]).max()),
+                    f"DQN update {step}: |td| off JAX's by {td_err}")
+            errs.append({**{f"{k}_max_rel_err": v for k, v in err.items()},
+                         "metrics_abs_err": metric_err,
+                         "td_abs_max_abs_err": td_err,
+                         "priorities_max_rel_err": float(np.max(
+                             np.abs(replay.priorities[:replay.size]
+                                    - ref["priorities"])
+                             / ref["priorities"])),
+                         "metrics": metrics})
+        if attempt == 0:
+            launches = kernels.launch_counts()
+        runs.append(snaps)
+    for (s0, m0, t0_, p0), (s1, m1, t1_, p1) in zip(*runs):
+        require(all(torch.equal(a, b) for a, b in zip(s0, s1))
+                and m0 == m1 and np.array_equal(t0_, t1_)
+                and np.array_equal(p0, p1), "two DQN runs differ")
+    for name in ("ln_linear_act", "csr_segment_mean",
+                 "masked_mean_pool_concat", "ln_linear_act_bwd",
+                 "ln_linear_act_bwd_reduce", "csr_segment_mean_bwd",
+                 "csr_segment_sum", "masked_mean_pool_concat_bwd",
+                 "dqn_act", "dqn_td_loss"):
+        require(launches[name] > 0, f"the DQN acting and updates did not "
+                                    f"launch {name}")
+    # one K14 launch per update, and one for the first-gradient check
+    require(launches["dqn_td_loss"] == 4, "K14 is not one launch per update")
+    require(launches["mask_logits_argmax"] == 0, "the DQN path launched K4")
+    profiled = profile_calls(lambda: learner.train_step(state, batches[2]))
+    emit("dqn_train", card=card, act_decisions=int(act["actions"].size),
+         act_s=act_s, first_grad_max_rel_err=grad_rel, steps=errs,
+         update_s=update_s, rows=int(dqn_fx["cfg"].train_batch_size),
+         profiled=profiled,
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_es_train(dqn_es_fx, params, card):
+    """Phase 13: the recorded JAX ES on the card. The recorded 32-step
+    window: 10 of the port's env_load32_price_mixed envs (seeded 0-9), the
+    shipped params perturbed by the recorded noise, the recorded action
+    noise: every action JAX's and the fitness bit-equal. Then the 3
+    recorded updates: params and adam's moments within 1e-5 of each leaf's
+    largest magnitude, metrics within 1e-5 of max(1, |JAX|); a second run
+    of the updates bit-equal; launch counters around the window (K1-K3,
+    K16) and the updates (K15); seconds per update."""
+    es_fx = dqn_es_fx["es"]
+    model, _, _ = load_export(EXPORT_PATH)
+    gpu_params = {k: v.cuda() for k, v in params.items()}
+    learner = es_mod.ESLearner(model, es_fx["cfg"], 10, device="cuda")
+    state = learner.init_state(gpu_params)
+    stacked = learner.stack(learner.flat(state.params),
+                            es_noise(learner, model, es_fx["window"]["eps"]))
+    env_cfg = load_train_config()["env_config"]
+    vec = VectorEnv([lambda: RampJobPartitioningEnvironment(
+        **copy.deepcopy(env_cfg)) for _ in range(10)], seeds=list(range(10)))
+    vec.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    fitness = np.zeros(10)
+    act_s = 0.0
+    for t, noise in enumerate(es_fx["window"]["noise"]):
+        t1 = time.monotonic()
+        actions = learner.pop_actions(stacked, stack_obs(vec.obs),
+                                      torch.as_tensor(noise, device="cuda"),
+                                      es_fx["cfg"].action_noise_std)
+        act_s += time.monotonic() - t1
+        require(np.array_equal(actions, es_fx["window"]["actions"][t]),
+                f"ES window step {t}: actions differ from JAX's")
+        _, rewards, _ = vec.step(actions)
+        fitness += rewards
+    window_s = time.monotonic() - t0
+    window_launches = kernels.launch_counts()
+    require(np.array_equal(fitness, es_fx["window"]["fitness"]),
+            "the ES window's fitness differs from JAX's")
+    require(window_launches["es_act"] == len(es_fx["window"]["noise"]),
+            "K16 is not one launch per window step")
+    for name in ("ln_linear_act", "csr_segment_mean",
+                 "masked_mean_pool_concat"):
+        require(window_launches[name] > 0, f"the ES window did not launch "
+                                           f"{name}")
+    eps = [es_noise(learner, model, ref["eps"]) for ref in es_fx["updates"]]
+    runs, errs, update_s = [], [], []
+    for attempt in range(2):
+        state = learner.init_state(gpu_params)
+        kernels.reset_launch_counts()
+        snaps = []
+        for step, (ref, e) in enumerate(zip(es_fx["updates"], eps), start=1):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            state, metrics = learner.update(state, e, ref["fitness"])
+            if attempt == 0:
+                update_s.append(time.monotonic() - t1)
+            snaps.append(([x.detach().clone() for key in ("params", "mu",
+                                                          "nu")
+                           for x in getattr(state, key)], metrics))
+            if attempt:
+                continue
+            err = {key: _leaf_rel(state, key, ref[key])
+                   for key in ("params", "mu", "nu")}
+            for key, value in err.items():
+                require(value <= TOL, f"ES update {step}: {key} off JAX's "
+                                      f"by {value} of a leaf's largest")
+            metric_err = {}
+            for key, want in ref["metrics"].items():
+                metric_err[key] = abs(metrics[key] - want)
+                require(metric_err[key] <= TOL * max(1.0, abs(want)),
+                        f"ES update {step}: {key} off JAX's by "
+                        f"{metric_err[key]}")
+            errs.append({**{f"{k}_max_rel_err": v for k, v in err.items()},
+                         "metrics_abs_err": metric_err, "metrics": metrics})
+        update_launches = kernels.launch_counts()
+        require(update_launches["es_update"] == 3,
+                "K15 is not one launch per update")
+        runs.append(snaps)
+    for (s0, m0), (s1, m1) in zip(*runs):
+        require(all(torch.equal(a, b) for a, b in zip(s0, s1)) and m0 == m1,
+                "two ES runs differ")
+    emit("es_train", card=card, window_steps=len(es_fx["window"]["noise"]),
+         window_s=window_s, act_ms_per_step=act_s / len(
+             es_fx["window"]["noise"]) * 1e3,
+         fitness=fitness.tolist(), steps=errs, update_s=update_s,
+         launches_window={k: v for k, v in window_launches.items() if v},
+         launches_updates={k: v for k, v in update_launches.items() if v})
+    return {name: window_launches[name] + update_launches[name]
+            for name in window_launches}
+
+
+def phase_dqn_es_loop(card):
+    """Phase 14, the slice's main path: ``python -m ddls_tpu_torch.train``
+    (in this process) with the apex_dqn config (32 envs x 16 steps, 3
+    epochs, learning_starts cut to 512 so that epochs 2 and 3 update; from
+    flax's initialisation) and with the es config (a population of 10, 2
+    epochs, rollout_length cut to 50; from the shipped export), each with
+    one greedy evaluation episode and a checkpoint; the launch counters
+    reset just before each run and read just after (DQN: K1-K3, K5, K6,
+    K13, K14; ES: K1-K4, K15, K16, K4 in the greedy evaluation); each run
+    twice from one seed, bit-equal."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for algo, path in (("apex_dqn", DQN_CONFIG_PATH),
+                           ("es", ES_CONFIG_PATH)):
+            cfg = load_train_config(path)
+            if algo == "apex_dqn":
+                cfg["algo"]["algo_config"]["replay_buffer_config"][
+                    "learning_starts"] = 512
+                epochs, init = "3", []
+            else:
+                cfg["epoch_loop"]["rollout_length"] = 50
+                epochs, init = "2", ["--init-export", EXPORT_PATH]
+            cfg_path = os.path.join(tmp, f"{algo}.json")
+            with open(cfg_path, "w") as fh:
+                json.dump(cfg, fh)
+            runs = []
+            for attempt in range(2):
+                argv = ["--config", cfg_path, "--epochs", epochs,
+                        "--device", "cuda", *init, "--checkpoint-dir",
+                        os.path.join(tmp, f"{algo}{attempt}"),
+                        "--eval-episodes", "1", "--eval-seed", "1799"]
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.monotonic()
+                lines = _run_train_cli(argv)
+                wall = time.monotonic() - t0
+                if attempt == 0:
+                    launches[algo] = kernels.launch_counts()
+                state = torch.load(os.path.join(lines[-1]["checkpoint"],
+                                                "train_state.pt"),
+                                   weights_only=True)
+                runs.append((lines, state, wall))
+            (lines0, state0, wall0), (lines1, state1, _) = runs
+            require([_deterministic(x) for x in lines0]
+                    == [_deterministic(x) for x in lines1],
+                    f"two {algo} runs from one seed printed different "
+                    f"results")
+            keys = ("params", "mu", "nu") + (
+                ("target_params",) if algo == "apex_dqn" else ())
+            require(sorted(state0) == sorted(state1)
+                    and all(torch.equal(a, b) for key in keys
+                            for a, b in zip(state0[key], state1[key]))
+                    and state0["step"] == state1["step"],
+                    f"two {algo} runs from one seed saved different states")
+            used = (("dqn_act", "dqn_td_loss", "ln_linear_act_bwd",
+                     "ln_linear_act_bwd_reduce", "csr_segment_mean_bwd",
+                     "csr_segment_sum", "masked_mean_pool_concat_bwd")
+                    if algo == "apex_dqn" else
+                    ("es_act", "es_update", "mask_logits_argmax"))
+            for name in ("ln_linear_act", "csr_segment_mean",
+                         "masked_mean_pool_concat", *used):
+                require(launches[algo][name] > 0,
+                        f"kernel {name} was not launched by the {algo} loop")
+            epochs_out = lines0[:-1]
+            if algo == "apex_dqn":
+                require([x["learner"].get("num_updates", 0)
+                         for x in epochs_out] == [0, 1, 1],
+                        "the DQN loop's updates per epoch are not 0, 1, 1")
+                require(launches[algo]["dqn_td_loss"] == 2,
+                        "the DQN loop did not take one K14 launch per update")
+                require(launches[algo]["mask_logits_argmax"] == 0,
+                        "the DQN loop launched K4")
+            else:
+                require(launches[algo]["es_update"] == 2,
+                        "the ES loop did not take one K15 launch per epoch")
+            for line in epochs_out:
+                require(all(np.isfinite(v) for v in line["learner"].values()),
+                        f"non-finite {algo} learner metrics")
+            emit("dqn_es_loop", algo=algo, card=card, wall_s=wall0,
+                 epochs=len(epochs_out),
+                 env_steps_per_epoch=epochs_out[0]["env_steps_this_iter"],
+                 epoch_s=[x["epoch_time"] for x in epochs_out],
+                 env_steps_per_s=[x["env_steps_this_iter"] / x["epoch_time"]
+                                  for x in epochs_out],
+                 timing=[x["timing"] for x in epochs_out],
+                 learner=[x["learner"] for x in epochs_out],
+                 evaluation=lines0[-1]["evaluation"],
+                 launches={k: v for k, v in launches[algo].items() if v})
+    return launches
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -2024,6 +2701,10 @@ def main() -> int:
          **{name: {k: v for k, v in r.items() if k != "shapes"}
             for name, r in ac_results.items()})
 
+    dqn_es_fx = load_dqn_es_fixture()
+    dqn_es_results = check_dqn_es_kernels(dqn_es_fx, fx, params)
+    emit("dqn_es_kernels_checked", card=card, **dqn_es_results)
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
     train_launches = phase_train(params, fx, card)
@@ -2032,18 +2713,28 @@ def main() -> int:
     loop_launches = phase_loop(card)
     ac_train_launches = phase_ac_train(params, fx, ac_fx, card)
     ac_loop_launches = phase_ac_loop(card)
+    dqn_train_launches = phase_dqn_train(dqn_es_fx, fx, card)
+    es_train_launches = phase_es_train(dqn_es_fx, params, card)
+    dqn_es_loop_launches = phase_dqn_es_loop(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
+    for r in dqn_es_results.values():
+        r["shapes"] = [r.pop("shape")]
     rows = []
     for name, r in {**results, **train_results,
-                    "mask_sample_logp": sample_result, **ac_results}.items():
+                    "mask_sample_logp": sample_result, **ac_results,
+                    **dqn_es_results}.items():
         spec = kernels.KERNELS[name]
         forward = name in KERNEL_SITES
         sampling = name in SAMPLE_SITES
         actor_critic = name in AC_SITES
+        dqn_es = name in DQN_ES_SITES
+        dqn_es_algo = "apex_dqn" if name.startswith("dqn") else "es"
         main_path = ("serve" if forward else
                      "rollout loop" if sampling else
-                     "ac_loop" if actor_critic else "train_step")
+                     "ac_loop" if actor_critic else
+                     f"dqn_es_loop ({dqn_es_algo})" if dqn_es
+                     else "train_step")
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
@@ -2051,28 +2742,38 @@ def main() -> int:
             # the main path of each kernel: serving for the forward ones,
             # one 50-iteration train_step for the PPO update's, the PPO
             # training loop (2 epochs + 1 eval episode) for K9, the IMPALA
-            # and PG loops (2 epochs each) for K10-K12
+            # and PG loops (2 epochs each) for K10-K12, the DQN loop (3
+            # epochs + 1 eval episode) for K13-K14 and the ES loop (2
+            # epochs + 1 eval episode) for K15-K16
             "launches": (launches[name] if forward else
                          loop_launches[name] if sampling else
                          ac_loop_launches[name] if actor_critic else
-                         train_launches[name]),
+                         dqn_es_loop_launches[dqn_es_algo][name] if dqn_es
+                         else train_launches[name]),
             "main_path": main_path,
             "train_step_launches": train_launches[name],
             "loop_launches": loop_launches[name],
             "ac_train_launches": {algo: n[name] for algo, n in
                                   ac_train_launches.items()},
             "ac_loop_launches": ac_loop_launches[name],
+            "dqn_train_launches": dqn_train_launches[name],
+            "es_train_launches": es_train_launches[name],
+            "dqn_es_loop_launches": {algo: n[name] for algo, n in
+                                     dqn_es_loop_launches.items()},
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_device_ms": r["library_device_ms"],
+            "composition_ms": r.get("composition_ms"),
+            "composition_device_ms": r.get("composition_device_ms"),
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
             "calls_per": ("forward" if forward else "rollout step"
-                          if sampling else "update"
+                          if sampling or name in ("dqn_act", "es_act")
+                          else "update"
                           if name == "gae_normalize" or actor_critic
-                          else "minibatch step"),
+                          or dqn_es else "minibatch step"),
             "shapes": r["shapes"], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

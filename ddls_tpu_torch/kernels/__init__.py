@@ -19,7 +19,9 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``mask_logits_argmax`` and ``mask_sample_logp`` in ``models/policy.py``;
 ``gae_normalize`` and ``ppo_loss`` in ``rl/ppo.py``; ``vtrace`` in
 ``rl/impala.py``; ``reward_to_go`` in ``rl/pg.py``; ``ac_logp`` and
-``ac_loss``, which both of those learners call, in ``rl/actor_critic.py``);
+``ac_loss``, which both of those learners call, in ``rl/actor_critic.py``;
+``dqn_act`` and ``dqn_td_loss`` in ``rl/dqn.py``; ``es_update`` and
+``es_act`` in ``rl/es.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -107,6 +109,16 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/rl/impala.py:201", file="ac_loss"),
     KernelSpec("ac_loss", "ddls_ac_loss", "pppppppppppiiiifffp",
                "ddls_tpu/rl/impala.py:201", file="ac_loss"),
+    # the Ape-X DQN acting and update (K13, K14) and the ES update and
+    # acting (K15, K16)
+    KernelSpec("dqn_act", "ddls_dqn_act", "pppppppiiifp",
+               "ddls_tpu/rl/dqn.py:262", file="dqn"),
+    KernelSpec("dqn_td_loss", "ddls_dqn_td_loss",
+               "p" * 17 + "iiiiffp", "ddls_tpu/rl/dqn.py:290", file="dqn"),
+    KernelSpec("es_update", "ddls_es_update", "ppppppiiffp",
+               "ddls_tpu/rl/es.py:63", file="es"),
+    KernelSpec("es_act", "ddls_es_act", "ppppiifp",
+               "ddls_tpu/rl/es.py:133", file="es"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

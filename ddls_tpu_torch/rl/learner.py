@@ -1,9 +1,10 @@
-"""What the port's three actor-critic learners share: the train state, the
-staged trajectory, acting, on-device batch assembly and the optimiser.
+"""What the port's learners share: the train state, the staged
+trajectory, acting, on-device batch assembly and the optimiser.
 
-``PPOLearner`` (``rl/ppo.py``), ``ImpalaLearner`` (``rl/impala.py``) and
-``PGLearner`` (``rl/pg.py``) subclass ``Learner``, which holds the parts
-the reference repeats in each of ``ddls_tpu/rl/{ppo,impala,pg}.py``:
+``PPOLearner`` (``rl/ppo.py``), ``ImpalaLearner`` (``rl/impala.py``),
+``PGLearner`` (``rl/pg.py``), ``ApexDQNLearner`` (``rl/dqn.py``) and
+``ESLearner`` (``rl/es.py``) subclass ``Learner``, which holds the parts
+the reference repeats in each of ``ddls_tpu/rl/{ppo,impala,pg,dqn,es}.py``:
 
 * acting: ``device_batch``, ``sample_actions`` (the forward and K9),
   ``values``, ``greedy_actions`` (K4);
@@ -12,7 +13,8 @@ the reference repeats in each of ``ddls_tpu/rl/{ppo,impala,pg}.py``:
   host; ``minibatch`` gathers samples and offsets and concatenates their
   CSRs with a few tensor ops, with no host round trip;
 * the optimiser: optax's ``chain(clip_by_global_norm(grad_clip), adam(lr))``
-  or, for IMPALA's ``opt_type: rmsprop``, ``chain(clip_by_global_norm,
+  (adam alone where ``grad_clip`` is None, as ES's) or, for
+  IMPALA's ``opt_type: rmsprop``, ``chain(clip_by_global_norm,
   rmsprop(lr, decay, eps, momentum))``, in optax's arithmetic.
 """
 from __future__ import annotations
@@ -56,13 +58,15 @@ class TrainState:
     (None where rmsprop's momentum is 0: the trace is then the update
     itself); ``kl_coeff`` PPO's adaptive KL coefficient, a float32 scalar
     on the device (float32 as in the JAX ``TrainState``), None for the
-    other learners; ``step`` counts optimiser steps."""
+    other learners; ``target_params`` DQN's target network's parameters
+    (None for the other learners); ``step`` counts optimiser steps."""
     names: List[str]
     params: List[torch.Tensor]
     mu: Optional[List[torch.Tensor]]
     nu: List[torch.Tensor]
     kl_coeff: Optional[torch.Tensor] = None
     step: int = 0
+    target_params: Optional[List[torch.Tensor]] = None
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in zip(self.names, self.params)}
@@ -122,7 +126,7 @@ class StagedTraj:
         return self.tensors[key]
 
 
-def _pack_to_device(arrays: Dict[str, np.ndarray], device: torch.device
+def pack_to_device(arrays: Dict[str, np.ndarray], device: torch.device
                     ) -> Dict[str, torch.Tensor]:
     """Every array in one pinned byte buffer, one host-to-device copy, then
     a typed view per array."""
@@ -162,9 +166,10 @@ class Learner:
     ``GNNPolicy``) on one device. ``device`` is ``"cuda"`` unless the
     caller asks for ``"cpu"``; raises when CUDA is asked for and absent.
     The learner's float type is the model's (float32 on the card; the CPU
-    parity runs use float64). ``cfg`` has ``lr`` and ``grad_clip``, and,
-    where it names ``opt_type: rmsprop``, rmsprop's ``decay``, ``momentum``
-    and ``epsilon``; any other ``opt_type`` is adam, as in the reference."""
+    parity runs use float64). ``cfg`` has ``lr`` and ``grad_clip`` (None:
+    no clip), and, where it names ``opt_type: rmsprop``, rmsprop's
+    ``decay``, ``momentum`` and ``epsilon``; any other ``opt_type`` is
+    adam, as in the reference."""
 
     def __init__(self, model: GNNPolicy, cfg: Any, device: str = "cuda"):
         self.device = resolve_device(device)
@@ -196,13 +201,14 @@ class Learner:
             nu=[torch.zeros_like(p) for p in plist])
 
     # ------------------------------------------------------------- acting
-    def device_batch(self, obs: Mapping[str, Any]
-                     ) -> Dict[str, torch.Tensor]:
+    def host_batch(self, obs: Mapping[str, Any], grad: bool = False
+                   ) -> Dict[str, np.ndarray]:
         """A stacked host observation batch (the ``envs/obs.py`` keys, [B,
-        ...] at the env's pad) as the forward's flattened-graph batch on
-        the learner's device, trimmed to the smallest bucket of the serving
-        ladder that holds it (as ``stage_traj`` trims) and copied in one
-        host-to-device copy."""
+        ...] at the env's pad) as the forward's flattened-graph host arrays
+        in the learner's float type, trimmed to the smallest bucket of the
+        serving ladder that holds it (as ``stage_traj`` trims); with
+        ``grad``, also the arrays the card's backward reads
+        (``GRAD_INPUT_KEYS``)."""
         obs = {k: np.asarray(obs[k]) for k in TRAJ_OBS_KEYS}
         n_b, e_b = trim_bucket(obs["node_split"], obs["edge_split"],
                                obs["node_features"].shape[1],
@@ -212,9 +218,15 @@ class Learner:
             obs[key] = obs[key][:, :e_b]
         fdt = np.dtype(str(self.dtype).replace("torch.", ""))
         host = prepare_flat_batch(obs)
-        arrays = {k: (v.astype(fdt) if v.dtype.kind == "f" else v)
-                  for k, v in host.items() if k not in GRAD_INPUT_KEYS}
-        return _pack_to_device(arrays, self.device)
+        return {k: (v.astype(fdt) if v.dtype.kind == "f" else v)
+                for k, v in host.items()
+                if grad or k not in GRAD_INPUT_KEYS}
+
+    def device_batch(self, obs: Mapping[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+        """``host_batch`` (no backward) on the learner's device, in one
+        host-to-device copy."""
+        return pack_to_device(self.host_batch(obs), self.device)
 
     def sample_actions(self, obs: Mapping[str, Any], u: torch.Tensor
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -291,7 +303,7 @@ class Learner:
             "dones": np.asarray(traj["dones"]).astype(fdt),
             "last_values": np.asarray(last_values, fdt),
         }
-        return StagedTraj(_pack_to_device(arrays, self.device), t_len, lanes,
+        return StagedTraj(pack_to_device(arrays, self.device), t_len, lanes,
                           n_b, e_b)
 
     def _positions(self, n: int) -> torch.Tensor:
@@ -396,13 +408,25 @@ class Learner:
             torch._foreach_mul_(squared, 1.0 - ADAM_B2)
             torch._foreach_mul_(state.nu, ADAM_B2)
             torch._foreach_add_(state.nu, squared)
-            mu_hat = torch._foreach_div(state.mu, 1.0 - ADAM_B1 ** count)
-            denom = torch._foreach_div(state.nu, 1.0 - ADAM_B2 ** count)
+            mu_hat = torch._foreach_div(state.mu,
+                                        self._bias_correction(ADAM_B1, count))
+            denom = torch._foreach_div(state.nu,
+                                       self._bias_correction(ADAM_B2, count))
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, ADAM_EPS)
             updates = torch._foreach_div(mu_hat, denom)
             torch._foreach_mul_(updates, -cfg.lr)
         torch._foreach_add_(state.params, updates)
+
+    def _bias_correction(self, decay: float, count: int) -> float:
+        """optax's ``1 - decay**count``, in the parameters' float type as
+        optax takes it (a float32 power of float32 ``decay`` on the card:
+        in float64 ``1 - 0.999`` is 1.3e-5 larger, enough to move a tiny
+        adam step by 6e-6 of itself)."""
+        if self.dtype == torch.float32:
+            return float(np.float32(1.0)
+                         - np.float32(decay) ** np.float32(count))
+        return 1.0 - decay ** count
 
     def _rmsprop(self, state: TrainState, grads: List[torch.Tensor]
                  ) -> List[torch.Tensor]:

@@ -1,7 +1,8 @@
 """Vectorised rollout collection, sequential.
 
 Counterpart of ``ddls_tpu/rl/rollout.py`` (``stack_obs`` :32,
-``harvest_episode_record`` :37, ``VectorEnv`` :60-157 and the plain path of
+``harvest_episode_record`` :37, ``VectorEnv`` :60-157 with its
+``stacked_obs`` :73 and ``restart_episodes`` :141, and the plain path of
 ``RolloutCollector.collect`` :1185-1247): one host process steps B
 environment instances, stacks their padded observations into [B, ...]
 arrays and samples all B actions in one batched forward on the learner's
@@ -75,6 +76,10 @@ class VectorEnv:
         self.completed_episodes: List[Dict[str, Any]] = []
         self.obs: Optional[List[Dict[str, np.ndarray]]] = None
 
+    def stacked_obs(self) -> Dict[str, np.ndarray]:
+        """The current obs list as one [B, ...] batch."""
+        return stack_obs(self.obs)
+
     def reset(self) -> List[Dict[str, np.ndarray]]:
         self.obs = [env.reset(seed=self.seeds[i])
                     for i, env in enumerate(self.envs)]
@@ -107,6 +112,20 @@ class VectorEnv:
     def drain_completed_episodes(self) -> List[Dict[str, Any]]:
         out, self.completed_episodes = self.completed_episodes, []
         return out
+
+    def restart_episodes(self) -> List[Dict[str, np.ndarray]]:
+        """Abandon every in-progress episode and start fresh ones on
+        advanced per-env seeds. Completed-episode records are kept; the
+        abandoned partial returns and lengths are dropped (used after an
+        off-policy interlude, such as ES's eval window, so its steps never
+        leak into training episode stats)."""
+        for i in range(self.num_envs):
+            self.seeds[i] += self.num_envs
+        self.obs = [env.reset(seed=self.seeds[i])
+                    for i, env in enumerate(self.envs)]
+        self.episode_returns[:] = 0.0
+        self.episode_lengths[:] = 0
+        return self.obs
 
     def close(self) -> None:
         pass

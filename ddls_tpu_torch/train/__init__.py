@@ -1,20 +1,25 @@
-"""Training in the port: the sequential PPO, IMPALA and PG epoch loops,
-checkpoint evaluation and torch checkpoints (counterpart of
+"""Training in the port: the sequential PPO, Ape-X DQN, IMPALA, PG and ES
+epoch loops, checkpoint evaluation and torch checkpoints (counterpart of
 ``ddls_tpu/train``); ``python -m ddls_tpu_torch.train`` is the entry
 point."""
 from ddls_tpu_torch.train.checkpointer import (Checkpointer,
                                                restore_train_state,
                                                save_train_state)
-from ddls_tpu_torch.train.loops import (ImpalaEpochLoop, PGEpochLoop,
+from ddls_tpu_torch.train.loops import (ApexDQNEpochLoop, ESEpochLoop,
+                                        ImpalaEpochLoop, PGEpochLoop,
                                         RLEpochLoop, RLEvalLoop,
                                         build_epoch_loop_kwargs,
                                         build_policy_from_model_config,
+                                        dqn_config_from_rllib,
+                                        es_config_from_rllib,
                                         impala_config_from_rllib,
                                         init_like_flax, make_epoch_loop,
                                         pg_config_from_rllib)
 
-__all__ = ["Checkpointer", "restore_train_state", "save_train_state",
+__all__ = ["ApexDQNEpochLoop", "Checkpointer", "ESEpochLoop",
            "ImpalaEpochLoop", "PGEpochLoop", "RLEpochLoop", "RLEvalLoop",
            "build_epoch_loop_kwargs", "build_policy_from_model_config",
+           "dqn_config_from_rllib", "es_config_from_rllib",
            "impala_config_from_rllib", "init_like_flax", "make_epoch_loop",
-           "pg_config_from_rllib"]
+           "pg_config_from_rllib", "restore_train_state",
+           "save_train_state"]

@@ -1,5 +1,5 @@
 """Train the partitioning policy with the port's sequential loop (PPO,
-IMPALA or PG, as the config's ``algo.algo_name`` says).
+Ape-X DQN, IMPALA, PG or ES, as the config's ``algo.algo_name`` says).
 
     python -m ddls_tpu_torch.train --config CONFIG.json --epochs N
         [--device cuda|cpu] [--init-export EXPORT.npz]
@@ -10,12 +10,17 @@ IMPALA or PG, as the config's ``algo.algo_name`` says).
 ``scripts/export_torch_train_config.py`` writes it: under
 ``ddls_tpu_torch/data/``, ``train_config_price_mixed.json`` (the shipped
 policy's PPO run on ``env_load32_price_mixed``, 8 envs x 32 steps),
-``train_config_impala_price_mixed.json`` (IMPALA, 32 envs x 15 steps)
-and ``train_config_pg_price_mixed.json`` (PG, 8 envs x 25 steps); its
-``experiment.train_seed`` seeds the loop. The loop runs on the card
-unless ``--device cpu`` is given, and raises when CUDA is asked for and
-absent. ``--init-export`` starts from an exported policy (default: flax's
-initialisation from the seed). Prints one JSON line per epoch; after the
+``train_config_impala_price_mixed.json`` (IMPALA, 32 envs x 15 steps),
+``train_config_pg_price_mixed.json`` (PG, 8 envs x 25 steps),
+``train_config_apex_dqn_price_mixed.json`` (Ape-X DQN, 32 envs x 16
+steps, updates of 512 once 10,000 steps were sampled; its Q-network's
+heads are 256 wide, so it starts from flax's initialisation) and
+``train_config_es_price_mixed.json`` (ES, a population of 10 at 200 steps
+per member); its ``experiment.train_seed`` seeds the loop. The loop runs
+on the card unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent. ``--init-export`` starts from an exported policy of
+the same architecture (default: flax's initialisation from the seed).
+Prints one JSON line per epoch; after the
 last epoch, ``--eval-episodes`` greedy episodes from ``--eval-seed`` and
 a checkpoint under ``--checkpoint-dir`` (one JSON line for both).
 Evaluation runs once, at the end; the config's per-epoch

@@ -6,7 +6,7 @@ which is not ported), and ``save_train_state`` /
 ``restore_train_state`` write and read a learner's ``TrainState`` (the
 params by name, the optimiser's moments: adam's ``mu`` and ``nu``, or
 rmsprop's ``nu`` and, with momentum, its trace in ``mu``; PPO's
-``kl_coeff``; ``step``) with
+``kl_coeff``; DQN's target network's ``target_params``; ``step``) with
 ``torch.save`` into ``<path>/train_state.pt``, where the JAX package
 writes an orbax tree. A restore copies into a target state in place, so a
 saved and restored state is bit-equal and stays on the target's device.
@@ -38,7 +38,8 @@ class Checkpointer:
 def save_train_state(state, path: str) -> None:
     """Write ``state`` (a ``rl.learner.TrainState``) under the directory
     ``path`` as host tensors; a part the learner does not keep (``mu`` of
-    rmsprop without momentum, ``kl_coeff`` outside PPO) is not written."""
+    rmsprop without momentum, ``kl_coeff`` outside PPO, ``target_params``
+    outside DQN) is not written."""
     out = Path(path)
     out.mkdir(parents=True, exist_ok=True)
     saved = {"names": list(state.names),
@@ -49,6 +50,9 @@ def save_train_state(state, path: str) -> None:
         saved["mu"] = [m.cpu() for m in state.mu]
     if state.kl_coeff is not None:
         saved["kl_coeff"] = state.kl_coeff.detach().cpu()
+    if state.target_params is not None:
+        saved["target_params"] = [p.detach().cpu()
+                                  for p in state.target_params]
     torch.save(saved, out / STATE_FILE)
 
 
@@ -61,13 +65,13 @@ def restore_train_state(path: str, target):
     if list(saved["names"]) != list(target.names):
         raise ValueError(f"{path}: checkpoint params {saved['names']} do "
                          f"not match the target's {target.names}")
-    for key in ("mu", "kl_coeff"):
+    for key in ("mu", "kl_coeff", "target_params"):
         if (key in saved) != (getattr(target, key) is not None):
             raise ValueError(f"{path}: {key} is in one of the checkpoint "
                              f"and the target and not in the other (another "
                              f"learner or optimiser)")
     with torch.no_grad():
-        for key in ("params", "mu", "nu"):
+        for key in ("params", "mu", "nu", "target_params"):
             for dst, src in zip(getattr(target, key) or (),
                                 saved.get(key, ())):
                 if dst.shape != src.shape:

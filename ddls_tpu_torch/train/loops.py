@@ -1,7 +1,8 @@
-"""The actor-critic epoch loops, sequential mode, and checkpoint evaluation.
+"""The epoch loops, sequential mode, and checkpoint evaluation.
 
-Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what sequential
-PPO, IMPALA and PG read: ``_reject_unknown_algo_keys`` :59 (in
+Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what the sequential
+PPO, IMPALA, PG, Ape-X DQN and ES loops read:
+``_reject_unknown_algo_keys`` :59 (in
 ``rl/learner.py``), ``build_policy_from_model_config`` :127,
 ``_episode_summary`` :149, ``RLEpochLoop`` :181 (the ``__init__`` subset
 of the sequential loop, the algo hooks ``_size_rollouts`` /
@@ -9,8 +10,10 @@ of the sequential loop, the algo hooks ``_size_rollouts`` /
 ``_finalize_results`` :1350, ``make_eval_env`` :1378, ``evaluate`` :1392
 with its global-RNG isolation, the greedy episodes :1418-1498,
 ``save_agent_checkpoint`` / ``load_agent_checkpoint`` and ``close``),
-``impala_config_from_rllib`` / ``pg_config_from_rllib`` :1824-1848,
-``ImpalaEpochLoop`` :1864, ``PGEpochLoop`` :1903 and ``RLEvalLoop``
+``dqn_config_from_rllib`` :88-125, ``ApexDQNEpochLoop`` :1630-1822,
+``impala_config_from_rllib`` / ``pg_config_from_rllib`` /
+``es_config_from_rllib`` :1824-1862, ``ImpalaEpochLoop`` :1864,
+``PGEpochLoop`` :1903, ``ESEpochLoop`` :1923-2047 and ``RLEvalLoop``
 :2108.
 
 One ``run()`` is one epoch: ``RolloutCollector.collect`` over a
@@ -18,18 +21,23 @@ One ``run()`` is one epoch: ``RolloutCollector.collect`` over a
 K1-K3, the heads and K9), then the learner's ``stage_traj`` and
 ``train_step`` (PPO: K5-K8; IMPALA: K10 and K12; PG: K11 and K12, each
 with the policy's backward K5/K6), then the learner's metrics in one
-read-back. Greedy evaluation takes K4. The learner and the collector draw
-from two explicit ``torch.Generator``s on the loop's device, seeded from
-``seed`` (the IMPALA and PG updates draw nothing).
+read-back. Greedy evaluation takes K4. The Ape-X DQN loop acts through
+the forward and K13 into a prioritised replay buffer and updates through
+three forwards and K14; the ES loop evaluates a population (one forward
+per member and K16 a step) and updates through K15; each has its own
+``run``. The learner and the collector draw from two explicit
+``torch.Generator``s on the loop's device, seeded from ``seed`` (the
+IMPALA, PG and DQN updates draw nothing; ES draws its population and its
+eval gate from the update stream and its action noise from the collect
+stream).
 
 Left out, each raising where it is asked for: the pipelined, fused and
 sebulba modes (``loop_mode`` other than ``"sequential"``), subprocess env
 workers (``use_parallel_envs=True``), ``pipeline_depth`` (IMPALA's stale
 collection), the device collector, sharded parameter layouts, socket
 collection, scenarios, the run ledger and periodic evaluation
-(``evaluation_interval``: ``evaluate`` runs when the caller asks); the
-DQN and ES learners (``make_epoch_loop`` takes ``"ppo"``, ``"impala"``
-and ``"pg"``).
+(``evaluation_interval``: ``evaluate`` runs when the caller asks), and
+the multi-host fitness average of ES.
 """
 from __future__ import annotations
 
@@ -41,13 +49,19 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from ddls_tpu_torch.models.policy import GNNPolicy
+from ddls_tpu_torch.models.policy import GNNPolicy, gumbel_uniforms
+from ddls_tpu_torch.rl.dqn import (ApexDQNLearner, DQNConfig,
+                                   PrioritizedReplayBuffer,
+                                   nstep_transitions, per_worker_epsilons,
+                                   train_batch)
+from ddls_tpu_torch.rl.es import ESConfig, ESLearner
 from ddls_tpu_torch.rl.impala import ImpalaConfig, ImpalaLearner
 from ddls_tpu_torch.rl.learner import reject_unknown_algo_keys
 from ddls_tpu_torch.rl.pg import PGConfig, PGLearner
 from ddls_tpu_torch.rl.ppo import PPOLearner, ppo_config_from_rllib
-from ddls_tpu_torch.rl.rollout import (RolloutCollector, VectorEnv,
-                                       harvest_episode_record, stack_obs)
+from ddls_tpu_torch.rl.rollout import (OBS_KEYS, RolloutCollector,
+                                       VectorEnv, harvest_episode_record,
+                                       stack_obs)
 from ddls_tpu_torch.serve.server import resolve_device
 from ddls_tpu_torch.train.checkpointer import (restore_train_state,
                                                save_train_state)
@@ -199,15 +213,11 @@ class RLEpochLoop:
         template = self.vec_env.envs[0]
         self.n_actions = template.action_space.n
         graph_dim = template.observation_space["graph_features"].shape[0]
-        self.model = build_policy_from_model_config(self.n_actions,
-                                                    graph_dim, model)
+        self.model = self._build_model(self.n_actions, graph_dim, model)
         if init_params is None:
             init_like_flax(self.model,
                            torch.Generator().manual_seed(self.seed))
-        self.learner = self._make_learner()
-        self.state = self.learner.init_state(init_params)
-        self.collector = RolloutCollector(self.vec_env, self.learner,
-                                          self.rollout_length)
+        self._build_learner(init_params)
 
         # the update and the collect streams, distinct as the reference's
         # PRNGKey(seed + 1) and PRNGKey(seed + 7919) are
@@ -236,6 +246,19 @@ class RLEpochLoop:
 
     def _make_learner(self):
         return PPOLearner(self.model, self.algo_cfg, device=str(self.device))
+
+    def _build_model(self, n_actions: int, graph_dim: int,
+                     model_config) -> GNNPolicy:
+        return build_policy_from_model_config(n_actions, graph_dim,
+                                              model_config)
+
+    def _build_learner(self, init_params) -> None:
+        """The learner, its state and the collector (the reference's
+        ``_build_learner``; the DQN and ES loops build their own)."""
+        self.learner = self._make_learner()
+        self.state = self.learner.init_state(init_params)
+        self.collector = RolloutCollector(self.vec_env, self.learner,
+                                          self.rollout_length)
 
     # ---------------------------------------------------------------- epoch
     def run(self) -> Dict[str, Any]:
@@ -446,6 +469,242 @@ class PGEpochLoop(RLEpochLoop):
         return PGLearner(self.model, self.algo_cfg, device=str(self.device))
 
 
+# RLlib Ape-X DQN keys (algo/apex_dqn.yaml) -> DQNConfig fields; nested
+# replay_buffer_config / exploration_config keys are flattened first
+_RLLIB_TO_DQN = {
+    "lr": "lr",
+    "gamma": "gamma",
+    "n_step": "n_step",
+    "train_batch_size": "train_batch_size",
+    "target_network_update_freq": "target_network_update_freq",
+    "double_q": "double_q",
+    "dueling": "dueling",
+    "num_atoms": "num_atoms",
+    "grad_clip": "grad_clip",
+    "training_intensity": "training_intensity",
+    "capacity": "buffer_capacity",
+    "prioritized_replay_alpha": "prioritized_replay_alpha",
+    "prioritized_replay_beta": "prioritized_replay_beta",
+    "prioritized_replay_eps": "prioritized_replay_eps",
+    "learning_starts": "learning_starts",
+    "initial_epsilon": "initial_epsilon",
+    "final_epsilon": "final_epsilon",
+    "epsilon_timesteps": "epsilon_timesteps",
+}
+
+
+def dqn_config_from_rllib(algo_config: Optional[dict]) -> DQNConfig:
+    """Translate an RLlib-style Ape-X DQN config dict into a ``DQNConfig``
+    (``replay_buffer_config`` and ``exploration_config`` flattened
+    first)."""
+    flat = dict(algo_config or {})
+    for nested in ("replay_buffer_config", "exploration_config"):
+        flat.update(flat.pop(nested, None) or {})
+    reject_unknown_algo_keys("apex_dqn", flat, _RLLIB_TO_DQN)
+    kwargs = {}
+    for src, dst in _RLLIB_TO_DQN.items():
+        if flat.get(src) is not None:
+            kwargs[dst] = flat[src]
+    return DQNConfig(**kwargs)
+
+
+def es_config_from_rllib(algo_config: Optional[dict]) -> ESConfig:
+    known = ("stepsize", "noise_stdev", "l2_coeff", "episodes_per_batch",
+             "report_length", "eval_prob", "action_noise_std",
+             "train_batch_size")
+    reject_unknown_algo_keys("es", (algo_config or {}), known)
+    kwargs = {}
+    for key in known:
+        if algo_config and algo_config.get(key) is not None:
+            kwargs[key] = algo_config[key]
+    return ESConfig(**kwargs)
+
+
+def _slim(obs: Mapping[str, Any]) -> Dict[str, Any]:
+    """The network-consumed keys of an observation (replay stores these)."""
+    return {k: obs[k] for k in OBS_KEYS}
+
+
+class ApexDQNEpochLoop(RLEpochLoop):
+    """Ape-X DQN epoch loop: epsilon-greedy collection (the forward and K13
+    a step) into a prioritised replay buffer through per-env n-step queues,
+    then ``training_intensity``-matched DQN updates (three forwards and
+    K14 each) once ``learning_starts`` transitions were sampled (reference:
+    algo/apex_dqn.yaml, ``ddls_tpu/train/loops.py:1630``). The Q-network
+    runs unmasked; invalid actions are masked at selection."""
+
+    def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
+        self.algo_cfg = dqn_config_from_rllib(algo_config)
+        self._size_rollouts(algo_config, num_envs, rollout_length,
+                            self.algo_cfg.train_batch_size)
+
+    def _build_model(self, n_actions: int, graph_dim: int,
+                     model_config) -> GNNPolicy:
+        # the Q-net's logits stay finite for the dueling mean; invalid
+        # actions are masked at selection instead
+        model_config = copy.deepcopy(model_config or {})
+        model_config.setdefault("custom_model_config", {})[
+            "apply_action_mask"] = False
+        return build_policy_from_model_config(n_actions, graph_dim,
+                                              model_config)
+
+    def _build_learner(self, init_params) -> None:
+        cfg = self.algo_cfg
+        self.learner = ApexDQNLearner(self.model, cfg,
+                                      device=str(self.device))
+        self.state = self.learner.init_state(init_params)
+        self.replay = PrioritizedReplayBuffer(
+            cfg.buffer_capacity, cfg.prioritized_replay_alpha,
+            cfg.prioritized_replay_beta, cfg.prioritized_replay_eps,
+            seed=self.seed)
+        self._nstep_queues: List[List[dict]] = [
+            [] for _ in range(self.num_envs)]
+        self.collector = None
+
+    def run(self) -> Dict[str, Any]:
+        """Collect ``rollout_length`` epsilon-greedy steps per env into
+        replay, then apply ``round(env_steps * training_intensity /
+        train_batch_size)`` updates once the learning-starts gate opens.
+        ``timing``: the collect's env stepping (``env_s``) and acting
+        (``sample_s``), and the updates (``update_s``)."""
+        cfg = self.algo_cfg
+        start = time.time()
+        t_len, lanes = self.rollout_length, self.num_envs
+        env_s = sample_s = 0.0
+        t0 = time.perf_counter()
+        for _ in range(t_len):
+            ts = time.perf_counter()
+            batched = self.vec_env.stacked_obs()
+            eps = per_worker_epsilons(lanes, self.total_env_steps, cfg)
+            u_explore = torch.rand(lanes, generator=self._collect_gen,
+                                   device=self.device)
+            u_pick = gumbel_uniforms((lanes, self.n_actions),
+                                     self._collect_gen, self.device)
+            actions = self.learner.eps_greedy_actions(batched, eps,
+                                                      u_explore, u_pick)
+            te = time.perf_counter()
+            prev_obs = list(self.vec_env.obs)
+            _, rewards, dones = self.vec_env.step(actions)
+            for i in range(lanes):
+                queue = self._nstep_queues[i]
+                queue.append({
+                    "obs": _slim(prev_obs[i]), "action": int(actions[i]),
+                    "reward": float(rewards[i]), "done": bool(dones[i]),
+                    # at an episode end this is the auto-reset obs, but
+                    # then discount == 0 and the target never reads it
+                    "next_obs": _slim(self.vec_env.obs[i])})
+                for tr in nstep_transitions(queue, cfg.n_step, cfg.gamma,
+                                            flush=bool(dones[i])):
+                    self.replay.add(tr)
+            self.total_env_steps += lanes
+            sample_s += te - ts
+            env_s += time.perf_counter() - te
+        t1 = time.perf_counter()
+
+        env_steps = t_len * lanes
+        metrics_acc: List[Dict[str, float]] = []
+        # learning_starts counts sampled transitions (as RLlib does), and
+        # the buffer-warm gate is a deterministic lower bound on replay
+        # size (sampled steps minus the worst n-step queue residue)
+        replay_lower_bound = self.total_env_steps - lanes * (cfg.n_step - 1)
+        if (self.total_env_steps >= cfg.learning_starts
+                and replay_lower_bound >= cfg.train_batch_size
+                and self.replay.size >= cfg.train_batch_size):
+            num_updates = max(1, int(round(
+                env_steps * cfg.training_intensity / cfg.train_batch_size)))
+            for _ in range(num_updates):
+                batch, idx, weights = self.replay.sample(
+                    cfg.train_batch_size)
+                self.state, metrics, td = self.learner.train_step(
+                    self.state, train_batch(batch, weights))
+                self.replay.update_priorities(idx, td)
+                metrics_acc.append(metrics)
+        t2 = time.perf_counter()
+
+        self.epoch_counter += 1
+        learner_metrics: Dict[str, Any] = (
+            {k: float(np.mean([m[k] for m in metrics_acc]))
+             for k in metrics_acc[0]} if metrics_acc else {})
+        learner_metrics.update(num_updates=len(metrics_acc),
+                               replay_size=self.replay.size)
+        results: Dict[str, Any] = {
+            "epoch_counter": self.epoch_counter,
+            "env_steps_this_iter": env_steps,
+            "total_env_steps": self.total_env_steps,
+            "learner": learner_metrics,
+            "timing": {"collect_s": t1 - t0, "update_s": t2 - t1,
+                       "env_s": env_s, "sample_s": sample_s},
+        }
+        return self._finalize_results(
+            results, self.vec_env.drain_completed_episodes(), start)
+
+
+class ESEpochLoop(RLEpochLoop):
+    """Evolution-strategies epoch loop (reference: algo/es.yaml,
+    ``ddls_tpu/train/loops.py:1923``): each epoch draws an antithetic
+    population (one member per env), evaluates every member's fitness over
+    a ``rollout_length`` window (P forwards and K16 a step), then applies
+    the rank-shaped update (K15 and adam). ``num_envs`` is the population,
+    rounded up to even. With probability ``eval_prob`` the epoch also runs
+    the unperturbed params for a window, drops that window's episodes and
+    restarts every env's episode."""
+
+    def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
+        self.algo_cfg = es_config_from_rllib(algo_config)
+        self.num_envs = int(num_envs or algo_config.get("num_workers") or 10)
+        if self.num_envs % 2:
+            self.num_envs += 1  # antithetic pairs
+        self.rollout_length = int(
+            rollout_length
+            or max(self.algo_cfg.train_batch_size // self.num_envs, 1))
+
+    def _build_learner(self, init_params) -> None:
+        self.learner = ESLearner(self.model, self.algo_cfg, self.num_envs,
+                                 device=str(self.device))
+        self.state = self.learner.init_state(init_params)
+        self.collector = None
+
+    def run(self) -> Dict[str, Any]:
+        cfg = self.algo_cfg
+        start = time.time()
+        t0 = time.perf_counter()
+        # the population and the eval gate from the update stream, the
+        # action noise from the collect stream
+        stacked, eps = self.learner.perturb(self.state.params,
+                                            self._update_gen)
+        gate = float(torch.rand((), generator=self._update_gen,
+                                device=self.device))
+        fitness = self.learner.evaluate_population(
+            stacked, self.vec_env, self.rollout_length,
+            generator=self._collect_gen)
+        t1 = time.perf_counter()
+        self.state, metrics = self.learner.update(self.state, eps, fitness)
+        t2 = time.perf_counter()
+        # training episodes are drained before any eval window, so the
+        # mean policy's episodes never reach the training stats
+        completed_episodes = self.vec_env.drain_completed_episodes()
+        eval_env_steps = 0
+        if cfg.eval_prob > 0 and gate < cfg.eval_prob:
+            metrics["eval_fitness_mean"] = self.learner.evaluate_mean_params(
+                self.state.params, self.vec_env, self.rollout_length)
+            eval_env_steps = self.rollout_length * self.num_envs
+            self.vec_env.drain_completed_episodes()
+            self.vec_env.restart_episodes()
+        self.epoch_counter += 1
+        env_steps = self.rollout_length * self.num_envs
+        self.total_env_steps += env_steps
+        results: Dict[str, Any] = {
+            "epoch_counter": self.epoch_counter,
+            "env_steps_this_iter": env_steps,
+            "total_env_steps": self.total_env_steps,
+            "learner": metrics,
+            "timing": {"collect_s": t1 - t0, "update_s": t2 - t1},
+        }
+        if eval_env_steps:
+            results["eval_env_steps_this_iter"] = eval_env_steps
+        return self._finalize_results(results, completed_episodes, start)
+
+
 class RLEvalLoop:
     """Checkpoint-restoring policy evaluation (reference:
     ddls/loops/rllib_eval_loop.py:11)."""
@@ -471,8 +730,9 @@ class RLEvalLoop:
 
 # algo_name -> epoch-loop class; an unknown name raises, so a mistyped algo
 # never trains PPO with defaults
-EPOCH_LOOPS = {"ppo": RLEpochLoop, "impala": ImpalaEpochLoop,
-               "pg": PGEpochLoop}
+EPOCH_LOOPS = {"ppo": RLEpochLoop, "apex_dqn": ApexDQNEpochLoop,
+               "impala": ImpalaEpochLoop, "pg": PGEpochLoop,
+               "es": ESEpochLoop}
 
 
 def make_epoch_loop(algo_name: Optional[str], **kwargs) -> RLEpochLoop:

@@ -1,8 +1,8 @@
 """Export the composed training config of a run on the shipped policy's
 environment as JSON, for the PyTorch port.
 
-    python scripts/export_torch_train_config.py [--algo ppo|impala|pg]
-        [--out-dir DIR]
+    python scripts/export_torch_train_config.py
+        [--algo ppo|impala|pg|apex_dqn|es] [--out-dir DIR]
 
 Composes ``scripts/ramp_job_partitioning_configs/rllib_config.yaml`` with
 ``env_config=env_load32_price_mixed``, ``algo=<algo>`` and
@@ -14,10 +14,12 @@ PyYAML.
 
 * ``ppo`` (default): ``train_config_price_mixed.json``, the shipped
   policy's PPO run at epoch_loop_default's 8 envs x 32 steps;
-* ``impala`` and ``pg``: ``train_config_{impala,pg}_price_mixed.json``,
-  with ``epoch_loop.num_envs`` and ``rollout_length`` unset, so that each
-  algo yaml's own sizes apply (``num_workers`` envs, ``train_batch_size
-  // num_workers`` steps: IMPALA 32 x 15, PG 8 x 25).
+* ``impala``, ``pg``, ``apex_dqn`` and ``es``:
+  ``train_config_<algo>_price_mixed.json``, with ``epoch_loop.num_envs``
+  and ``rollout_length`` unset, so that each algo yaml's own sizes apply
+  (``num_workers`` envs, ``train_batch_size // num_workers`` steps:
+  IMPALA 32 x 15, PG 8 x 25, Ape-X DQN 32 x 16, ES a population of 10 x
+  200).
 
 The ``_target_`` paths stay as the configs name them (``ddls_tpu.*``);
 the port maps them onto its own classes. Deterministic: rerunning it
@@ -36,10 +38,10 @@ if REPO not in sys.path:
 
 CONFIG_PATH = os.path.join(REPO, "scripts", "ramp_job_partitioning_configs")
 OUT_DIR = os.path.join(REPO, "ddls_tpu_torch", "data")
-ALGOS = ("ppo", "impala", "pg")
+ALGOS = ("ppo", "impala", "pg", "apex_dqn", "es")
 OUT_NAMES = {"ppo": "train_config_price_mixed.json",
-             "impala": "train_config_impala_price_mixed.json",
-             "pg": "train_config_pg_price_mixed.json"}
+             **{algo: f"train_config_{algo}_price_mixed.json"
+                for algo in ALGOS[1:]}}
 OUT_NAME = OUT_NAMES["ppo"]
 
 

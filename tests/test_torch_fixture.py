@@ -7,8 +7,9 @@ trajectory and the JAX learner's update of it) from
 scripts/export_torch_train_fixture.py, the rollout archive (the sampler's
 uniforms and a recorded greedy episode) from
 scripts/export_torch_rollout_fixture.py, the JAX IMPALA and PG updates of
-the training trajectory from scripts/export_torch_ac_fixture.py, and the
-JSON training configs (PPO, IMPALA, PG) from
+the training trajectory from scripts/export_torch_ac_fixture.py, the JAX
+Ape-X DQN and ES recordings from scripts/export_torch_dqn_es_fixture.py,
+and the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
 scripts/export_torch_train_config.py; the recorded uniforms reproduce the
 recorded actions."""
 import os
@@ -22,6 +23,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_ac_fixture as ac_export  # noqa: E402
+import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
 import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
 import export_torch_train_config as config_export  # noqa: E402
@@ -34,6 +36,8 @@ from ddls_tpu_torch.models.policy import (batch_to_device,  # noqa: E402
                                           prepare_flat_batch)
 from ddls_tpu_torch.serve import PolicyServer, load_export  # noqa: E402
 from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
+                                       DQN_CONFIG_PATH, DQN_ES_TRAIN_PATH,
+                                       ES_CONFIG_PATH,
                                        IMPALA_CONFIG_PATH, PG_CONFIG_PATH,
                                        ROLLOUT_PATH, TRAIN_CONFIG_PATH,
                                        TRAIN_PATH,
@@ -213,9 +217,11 @@ def test_train_config_regenerates_byte_for_byte():
 
 @pytest.mark.parametrize("algo,path,sizes", [
     ("impala", IMPALA_CONFIG_PATH, (32, 500)),
-    ("pg", PG_CONFIG_PATH, (8, 200))])
+    ("pg", PG_CONFIG_PATH, (8, 200)),
+    ("apex_dqn", DQN_CONFIG_PATH, (32, 512)),
+    ("es", ES_CONFIG_PATH, (10, 2000))])
 def test_ac_train_configs_regenerate_byte_for_byte(algo, path, sizes):
-    """The IMPALA and PG configs: the shipped algo yaml on
+    """The IMPALA, PG, Ape-X DQN and ES configs: the shipped algo yaml on
     env_load32_price_mixed, with the epoch loop's sizes left to the yaml
     (num_workers envs, train_batch_size // num_workers steps)."""
     with open(path) as fh:
@@ -248,3 +254,25 @@ def test_ac_fixture_regenerates_bit_for_bit(jax_policy):
     assert sum(k.endswith("/metrics/total_loss") for k in fresh) == \
         2 * ac_export.STEPS
     assert os.path.getsize(AC_TRAIN_PATH) < 300_000
+
+
+def test_dqn_es_fixture_regenerates_bit_for_bit(jax_policy):
+    """The Ape-X DQN and ES archive rebuilt by its export script (which
+    itself checks that the recorded uniforms reproduce every DQN action,
+    that the recorded noise reproduces every ES action, and that the
+    target network holds the params it names): every array equal in dtype,
+    shape and bits."""
+    fresh = dqn_es_export.export_dqn_es(*jax_policy)
+    with np.load(DQN_ES_TRAIN_PATH, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh)
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, key
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert fresh["dqn/act/u_pick"].shape == (
+        3, train_export.ROLLOUT_LENGTH, train_export.N_ENVS, 17)
+    assert fresh["es/window/noise"].shape == (dqn_es_export.WINDOW,
+                                              dqn_es_export.POPULATION, 17)
+    assert [int(fresh[f"dqn/update{k}/target_from"]) for k in (1, 2, 3)] \
+        == [0, 2, 2]
+    assert os.path.getsize(DQN_ES_TRAIN_PATH) < 1_800_000

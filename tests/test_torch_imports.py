@@ -1,6 +1,7 @@
 """Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
-native engine's loader, the rollout collector, the PPO, IMPALA and PG
-learners, the loops and their entry point included) and chip_smoke.py import nothing of JAX, flax, orbax,
+native engine's loader, the rollout collector, the PPO, IMPALA, PG, Ape-X
+DQN and ES learners, the fixture loaders, the loops and their entry point
+included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
@@ -40,7 +41,9 @@ _CHILD = textwrap.dedent("""
     assert {{"ddls_tpu_torch.rl", "ddls_tpu_torch.rl.ppo",
              "ddls_tpu_torch.rl.learner", "ddls_tpu_torch.rl.impala",
              "ddls_tpu_torch.rl.pg", "ddls_tpu_torch.rl.actor_critic",
-             "ddls_tpu_torch.rl.fixture", "ddls_tpu_torch.rl.rollout",
+             "ddls_tpu_torch.rl.dqn", "ddls_tpu_torch.rl.es",
+             "ddls_tpu_torch.rl.fixture", "ddls_tpu_torch.serve.fixture",
+             "ddls_tpu_torch.rl.rollout",
              "ddls_tpu_torch.train.loops", "ddls_tpu_torch.train.__main__",
              "ddls_tpu_torch.train.checkpointer", "ddls_tpu_torch.native",
              "ddls_tpu_torch.sim.cluster",

@@ -17,7 +17,11 @@ their parameter gradients are float32 sums over up to 16,384 rows in
 another order than the plain versions' matrix products. K5's plain
 version takes relu's kink decisions from K1's output on the same inputs,
 as K5, which recomputes K1's pre-activations, does. K2, K4, K5–K8 and K10–K12
-are also held bitwise across two runs.
+are also held bitwise across two runs. The Ape-X DQN and ES kernels: K13
+(acting) and K16 (the population's noisy argmax) equal their plain
+versions exactly, as K15's centred ranks do; K14 (the TD loss and its
+gradient) and K15's gradient within 1e-5 of each output's largest
+magnitude; all four bitwise across two runs.
 """
 import numpy as np
 import pytest
@@ -26,7 +30,7 @@ import torch
 from ddls_tpu_torch import kernels
 from ddls_tpu_torch.models import gnn, policy
 from ddls_tpu_torch.ops import segment
-from ddls_tpu_torch.rl import actor_critic, impala, pg, ppo
+from ddls_tpu_torch.rl import actor_critic, dqn, es, impala, pg, ppo
 
 pytestmark = pytest.mark.gpu
 
@@ -35,6 +39,8 @@ FORWARD_KERNELS = ("ln_linear_act", "csr_segment_mean",
                    "masked_mean_pool_concat", "mask_logits_argmax")
 # the IMPALA and PG updates' kernels (K10-K12), which PPO never launches
 AC_KERNELS = ("vtrace", "reward_to_go", "ac_logp", "ac_loss")
+# the Ape-X DQN and ES kernels (K13-K16), which PPO never launches either
+DQN_ES_KERNELS = ("dqn_act", "dqn_td_loss", "es_update", "es_act")
 
 
 @pytest.fixture
@@ -438,10 +444,11 @@ def test_fixture_update_on_the_card_matches_the_recorded_jax(cuda):
     kernels.reset_launch_counts()
     state, metrics = learner.train_step(state, staged, perms=run["perms"])
     torch.cuda.synchronize()
-    # K9 samples rollouts and K10-K12 belong to the other learners: the
+    # K9 samples rollouts and K10-K16 belong to the other learners: the
     # PPO update never launches them
     assert all(n > 0 for name, n in kernels.launch_counts().items()
-               if name not in ("mask_sample_logp", *AC_KERNELS))
+               if name not in ("mask_sample_logp", *AC_KERNELS,
+                               *DQN_ES_KERNELS))
     tree = params_to_flax(state.state_dict())
     for key, value in tree.items():
         np.testing.assert_allclose(value, run["params"][key], rtol=0,
@@ -630,3 +637,185 @@ def test_backward_wrappers_reject_what_they_cannot_take(cuda):
                 torch.rand(5, 4, device=cuda), torch.zeros(5, device=cuda),
                 "relu", idx=torch.zeros(3, dtype=torch.int32, device=cuda),
                 b=torch.rand(3, 2, device=cuda))
+
+
+# ------------------------------------------ K13-K16: Ape-X DQN and ES
+def _dqn_case(cuda, rows=64, a=17, seed=12):
+    """Heads of three forwards, a mask with a fully masked row and a
+    one-valid-action row, actions, rewards (rows 3-5 pinned to td -0.5, -1,
+    2 under dueling), discounts with a zero, weights, epsilons and
+    uniforms."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(0, 1, shape).astype(np.float32)).to(cuda)
+    logits, values = f(3, rows, a), f(3, rows)
+    mask = (rng.random((rows, a)) < 0.5).astype(np.int32)
+    mask[:, 1] = 1
+    mask[0] = 0
+    mask[2] = 0
+    mask[2, 7] = 1
+    mask = torch.from_numpy(mask).to(cuda)
+    rewards, discounts = f(rows), torch.full((rows,), 0.997, device=cuda)
+    discounts[1] = 0.0
+    for row, td in ((3, -0.5), (4, -1.0), (5, 2.0)):
+        logits[0, row] = 0.0
+        values[0, row] = 0.25
+        discounts[row] = 0.0
+        rewards[row] = 0.25 - td
+    actions = torch.from_numpy(rng.integers(0, a, rows).astype(
+        np.int32)).to(cuda)
+    weights = torch.from_numpy(rng.uniform(0.2, 1, rows).astype(
+        np.float32)).to(cuda)
+    eps = torch.linspace(0, 1, rows, device=cuda)
+    u_explore = torch.from_numpy(rng.random(rows).astype(np.float32)).to(
+        cuda)
+    u_pick = torch.from_numpy(rng.uniform(1e-6, 1, (rows, a)).astype(
+        np.float32)).to(cuda)
+    return (logits, values, mask, actions, rewards, discounts, weights, eps,
+            u_explore, u_pick)
+
+
+@pytest.mark.parametrize("dueling", [True, False])
+def test_dqn_act_matches_plain_and_repeats_bitwise(cuda, dueling):
+    (logits, values, mask, _, _, _, _, eps, u_explore,
+     u_pick) = _dqn_case(cuda)
+    args = (logits[0], values[0], mask, eps, u_explore, u_pick, dueling)
+    before = kernels.launch_counts()["dqn_act"]
+    out = dqn.dqn_act(*args)
+    again = dqn.dqn_act(*args)
+    assert kernels.launch_counts()["dqn_act"] == before + 2
+    assert torch.equal(out, dqn.dqn_act_plain(*args))
+    assert torch.equal(out, again) and out.dtype == torch.int32
+    greedy = dqn.dqn_act(logits[0], values[0], mask, torch.zeros_like(eps),
+                         u_explore, u_pick, dueling).cpu().numpy()
+    assert greedy[0] == 0 and greedy[2] == 7  # fully masked, one valid
+
+
+@pytest.mark.parametrize("double_q,dueling", [(True, True), (False, True),
+                                              (True, False), (False, False)])
+def test_dqn_td_loss_matches_plain_autograd(cuda, double_q, dueling):
+    """K14 (loss, metrics, |td| and the online forward's gradient in one
+    entry) against autograd of the plain loss; the pinned rows' |td| 0.5,
+    1 and 2 exactly; through autograd the gradient is K14's, scaled."""
+    (logits, values, mask, actions, rewards, discounts, weights, _, _,
+     _) = _dqn_case(cuda)
+    if not dueling:
+        rewards[3:6] -= 0.25
+    args = (logits[0], values[0], logits[1], values[1], logits[2],
+            values[2], mask, actions, rewards, discounts, weights,
+            double_q, dueling)
+    out = dqn._dqn_td_loss_cuda(*args)
+    again = dqn._dqn_td_loss_cuda(*args)
+    ref = dqn.dqn_td_loss_grad_plain(*args)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
+    assert out[2][3:6].tolist() == [0.5, 1.0, 2.0]
+    lo = logits[0].clone().requires_grad_(True)
+    with torch.enable_grad():
+        loss, _, _ = dqn.dqn_td_loss(lo, *args[1:])
+        (grad,) = torch.autograd.grad(loss * 2.0, lo)
+    assert torch.equal(grad, out[3] * 2.0)
+
+
+@pytest.mark.parametrize("p", [2, 10, 64])
+def test_es_update_matches_plain_and_repeats_bitwise(cuda, p):
+    """K15 at populations 2, 10 and 64 over 6,000 parameters, on fitness
+    with ties, every member equal and a NaN: the centred ranks exactly the
+    plain version's, the gradient and its norm within 1e-5 of their
+    largest magnitude, bitwise across two runs."""
+    rng = np.random.default_rng(p)
+    eps = torch.from_numpy(rng.normal(0, 1, (p // 2, 6000)).astype(
+        np.float32)).to(cuda)
+    theta = torch.from_numpy(rng.normal(0, 1, 6000).astype(
+        np.float32)).to(cuda)
+    nan = rng.integers(0, 3, p).astype(np.float32)
+    nan[p // 2] = np.nan
+    for fit in (rng.integers(0, 3, p).astype(np.float32),
+                np.full(p, 2.0, np.float32), nan):
+        fitness = torch.from_numpy(fit).to(cuda)
+        out = es.es_update(fitness, eps, theta, 0.02, 0.005)
+        again = es.es_update(fitness, eps, theta, 0.02, 0.005)
+        ref = es.es_update_plain(fitness, eps, theta, 0.02, 0.005)
+        torch.cuda.synchronize()
+        assert torch.equal(out[2], ref[2])
+        _close_scaled(out[0], ref[0])
+        finite = ~torch.isnan(ref[1])
+        assert torch.equal(torch.isnan(out[1]), ~finite)
+        _close_scaled(out[1][finite], ref[1][finite])
+        assert torch.equal(out[0], again[0]) and torch.equal(out[2],
+                                                             again[2])
+
+
+def test_es_act_matches_plain_and_repeats_bitwise(cuda):
+    rng = np.random.default_rng(13)
+    logits = torch.from_numpy(rng.normal(0, 0.02, (10, 17)).astype(
+        np.float32)).to(cuda)
+    mask = torch.from_numpy((rng.random((10, 17)) < 0.5).astype(
+        np.int32)).to(cuda)
+    mask[:, 4] = 1
+    mask[0] = 0
+    noise = torch.from_numpy(rng.normal(0, 1, (10, 17)).astype(
+        np.float32)).to(cuda)
+    for std in (0.0, 0.01, 1.0):
+        out = es.es_act(logits, mask, noise, std)
+        assert torch.equal(out, es.es_act_plain(logits, mask, noise, std))
+        assert torch.equal(out, es.es_act(logits, mask, noise, std))
+        assert int(out[0]) == 0  # the fully masked member
+
+
+def test_dqn_es_wrappers_reject_what_they_cannot_take(cuda):
+    (logits, values, mask, _, _, _, _, eps, u_explore,
+     u_pick) = _dqn_case(cuda, a=33)
+    with pytest.raises(ValueError, match="A <= 32"):
+        dqn.dqn_act(logits[0], values[0], mask, eps, u_explore, u_pick, True)
+    with pytest.raises(ValueError, match="even"):
+        es.es_update(torch.zeros(3, device=cuda),
+                     torch.zeros(1, 5, device=cuda),
+                     torch.zeros(5, device=cuda), 0.02, 0.005)
+    with pytest.raises(TypeError, match="float32"):
+        es.es_act(logits[0, :4, :17].double(), mask[:4, :17],
+                  u_pick[:4, :17], 0.01)
+
+
+def test_dqn_and_es_updates_on_the_card_match_the_recorded_jax(cuda):
+    """The first recorded JAX DQN update (512 replay rows) and ES update
+    (P = 10), on the card: params within 1e-5 of each leaf's largest
+    magnitude, and K14 and K15 each launched once."""
+    from ddls_tpu_torch.models.convert import (params_from_flax,
+                                               params_to_flax)
+    from ddls_tpu_torch.rl.fixture import (fixture_replay,
+                                           load_dqn_es_fixture)
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_dqn_es_fixture()
+    dqn_fx, es_fx = fx["dqn"], fx["es"]
+    model = policy.GNNPolicy(**dqn_fx["arch"])
+    learner = dqn.ApexDQNLearner(model, dqn_fx["cfg"])
+    state = learner.init_state({k: v.to(cuda) for k, v in params_from_flax(
+        dqn_fx["init"], model).items()})
+    ref = dqn_fx["updates"][0]
+    replay = fixture_replay(dqn_fx["cfg"])
+    kernels.reset_launch_counts()
+    state, _, _ = learner.train_step(state, dqn.train_batch(
+        replay.gather(ref["idx"]), ref["weights"]))
+    es_model, params, _ = load_export(EXPORT_PATH)
+    es_learner = es.ESLearner(es_model, es_fx["cfg"], 10)
+    es_state = es_learner.init_state({k: v.to(cuda)
+                                      for k, v in params.items()})
+    eps = torch.stack([es_learner.flat(params_from_flax(
+        {k: v[i] for k, v in es_fx["window"]["eps"].items()}, es_model))
+        for i in range(5)]).to(cuda)
+    es_state, _ = es_learner.update(es_state, eps, es_fx["window"][
+        "fitness"])
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts()
+    assert launched["dqn_td_loss"] == 1 and launched["es_update"] == 1
+    for st, want in ((state, ref["params"]),
+                     (es_state, es_fx["updates"][0]["params"])):
+        tree = params_to_flax(st.state_dict())
+        for key, value in tree.items():
+            np.testing.assert_allclose(
+                value, want[key], rtol=0,
+                atol=1e-5 * float(np.abs(want[key]).max()), err_msg=key)

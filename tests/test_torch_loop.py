@@ -104,7 +104,7 @@ def test_unported_modes_raise(tiny_config):
     with pytest.raises(ValueError, match="sequential"):
         make_epoch_loop("ppo", **dict(kwargs, loop_mode="pipelined"))
     with pytest.raises(ValueError, match="no epoch loop"):
-        make_epoch_loop("apex_dqn", **kwargs)
+        make_epoch_loop("apex_dqn_typo", **kwargs)
     with pytest.raises(ValueError, match="not ported"):
         RLEpochLoop(**dict(kwargs, loop_mode="sequential", pipeline_depth=2))
     with pytest.raises(ValueError, match="not ported"):
