@@ -94,6 +94,29 @@ exits non-zero (nothing is caught):
    checkpoints; launch counters reset just before each and read just after
    (K1–K6, K9, the algo's scan and K12 must all have run); each run twice
    from one seed, bit-equal.
+12.–14. dqn_train, es_train, dqn_es_loop — the recorded JAX Ape-X DQN
+   and ES updates (the ES updates within 1e-6, as K15 takes the jitted
+   reference's arithmetic) and their loops (see each function).
+   The loop phases 9, 11 and 14 run the sequential loop over in-process
+   envs without per-epoch evaluation, as before the pipelined loop was
+   ported; 15 and 16 run the configs' own modes.
+15. pipeline — the slice's main path: the recorded JAX collect over 8
+   subprocess envs on the shm transport reproduced by the port's
+   ParallelVectorEnv (as [rollout]'s limits), its env steps/s beside
+   [rollout]'s in-process figure; then ``python -m ddls_tpu_torch.train``
+   on train_config_price_mixed as the config asks (pipelined, subprocess
+   envs, an evaluation every epoch) at 8 envs x 64 steps, 2 epochs, with
+   the launch counters around it (K1–K9, K17–K20), and the sequential
+   loop on shm and the pipelined loop on the pipe transport, each
+   bit-equal to it.
+16. ring — the IMPALA config's loop at pipeline_depth 1 over 32
+   subprocess envs: finite metrics, params ages 0 then 1, a 3-segment
+   trajectory ring, no /dev/shm segment left.
+
+Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
+K18 (the heads' backward and its reduce), K19 (the optimiser's three
+launches, the clip firing, not firing and at a tie) and K20 (the
+minibatch assembly, exactly) against their plain versions.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -101,6 +124,7 @@ Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import subprocess
@@ -125,6 +149,7 @@ from ddls_tpu_torch.rl import actor_critic as ac_mod  # noqa: E402
 from ddls_tpu_torch.rl import dqn as dqn_mod  # noqa: E402
 from ddls_tpu_torch.rl import es as es_mod  # noqa: E402
 from ddls_tpu_torch.rl import impala as impala_mod  # noqa: E402
+from ddls_tpu_torch.rl import learner as learner_mod  # noqa: E402
 from ddls_tpu_torch.rl import pg as pg_mod  # noqa: E402
 from ddls_tpu_torch.rl import ppo as ppo_mod  # noqa: E402
 from ddls_tpu_torch.envs import RampJobPartitioningEnvironment  # noqa: E402
@@ -132,10 +157,13 @@ from ddls_tpu_torch.rl.fixture import (DQN_CONFIG_PATH,  # noqa: E402
                                        ES_CONFIG_PATH, IMPALA_CONFIG_PATH,
                                        PG_CONFIG_PATH, fixture_replay,
                                        load_ac_fixture, load_dqn_es_fixture,
+                                       load_pipeline_fixture,
                                        load_rollout_fixture,
                                        load_train_config, load_train_fixture)
-from ddls_tpu_torch.rl.rollout import (RolloutCollector,  # noqa: E402
-                                       VectorEnv, stack_obs)
+from ddls_tpu_torch.rl.shm import SlabSet  # noqa: E402
+from ddls_tpu_torch.rl.rollout import (ParallelVectorEnv,  # noqa: E402
+                                       RolloutCollector, VectorEnv,
+                                       stack_obs)
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
                                   build_fleet, default_buckets, load_export)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
@@ -149,6 +177,9 @@ from ddls_tpu_torch.train.__main__ import main as train_main  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 TOL = 1e-5
+# the recorded ES updates: K15 takes the jitted reference's arithmetic, so
+# only adam's roundings separate them (3.5e-7 of a leaf's largest on the CPU)
+ES_UPDATE_TOL = 1e-6
 # the rollout's values against the recorded JAX ones: about 3x the largest
 # difference seen (1.53e-5, 4 float32 steps of a value near 54)
 VALUES_TOL = 5e-5
@@ -301,6 +332,49 @@ def k4_parts(args, kwargs):
             work, f"rows={rows} actions={a}")
 
 
+def _heads_composition(x, logit_layers, value_layers, activation):
+    """The heads as ``torch.addmm`` and the activation, layer by layer:
+    K17's and K18's library yardstick."""
+    act = gnn_mod.get_activation(activation)
+
+    def run(layers):
+        h = x
+        for i, (w, b) in enumerate(layers):
+            h = torch.addmm(b, h, w.t())
+            if i < len(layers) - 1:
+                h = act(h)
+        return h
+
+    return run(logit_layers), run(value_layers)[:, 0]
+
+
+def _heads_work(x, logit_layers, value_layers, backward=False):
+    """K17's (or K18's) bound: x, every weight and bias and the outputs
+    (K18: x, weights, the output gradients, d x and the parameter
+    gradients) moved once; 2 operations per weight and row (K18: 4, and
+    the recomputed forward's 2)."""
+    rows = x.shape[0]
+    weights = [t for layer in logit_layers + value_layers for t in layer]
+    n_w = sum(w.shape[0] * w.shape[1] for w, _ in logit_layers
+              + value_layers)
+    a = logit_layers[-1][0].shape[0]
+    if backward:
+        nbytes = 2 * _nbytes(x, *weights) + rows * (a + 1) * 4
+        return bound_ms(nbytes, 6 * rows * n_w)
+    return bound_ms(_nbytes(x, *weights) + rows * (a + 1) * 4,
+                    2 * rows * n_w)
+
+
+def k17_parts(args, kwargs):
+    x, logit_layers, value_layers, activation = args
+    widths = [w.shape[0] for w, _ in logit_layers]
+    return (lambda: policy_mod.mlp_heads_plain(*args),
+            lambda: _heads_composition(*args),
+            _heads_work(x, logit_layers, value_layers),
+            f"rows={x.shape[0]} in={x.shape[1]} logit={widths} "
+            f"value={[w.shape[0] for w, _ in value_layers]}")
+
+
 # (module whose global the forward calls, attribute, parts builder)
 KERNEL_SITES = {
     "ln_linear_act": (gnn_mod, "ln_linear_act", k1_parts),
@@ -308,6 +382,7 @@ KERNEL_SITES = {
     "masked_mean_pool_concat": (policy_mod, "masked_mean_pool_concat",
                                 k3_parts),
     "mask_logits_argmax": (policy_mod, "mask_logits_argmax", k4_parts),
+    "mlp_heads": (policy_mod, "mlp_heads", k17_parts),
 }
 
 
@@ -1402,6 +1477,7 @@ def phase_rollout(params, fx, uniforms, card):
                  "masked_mean_pool_concat"):
         require(launches[name] > 0, f"the rollout did not launch {name}")
     steps = t_len * n_envs
+    measured = {"env_steps_per_s": steps / wall}
     emit("rollout", card=card, env_steps=steps, wall_s=wall,
          env_steps_per_s=steps / wall, env_s=out["timing"]["env_s"],
          sample_s=out["timing"]["sample_s"],
@@ -1412,6 +1488,7 @@ def phase_rollout(params, fx, uniforms, card):
          logp_max_abs_err=logp_err, values_max_abs_err=val_err,
          last_values_max_abs_err=last_err, values_tol=VALUES_TOL,
          launches={k: v for k, v in launches.items() if v})
+    return measured
 
 
 def phase_eval(recorded, card):
@@ -1426,7 +1503,8 @@ def phase_eval(recorded, card):
     cfg["env_config"]["jobs_config"]["job_interarrival_time_dist"].update(
         {"_target_": "ddls_tpu.demands.distributions.Fixed",
          "val": interarrival})
-    cfg["epoch_loop"].update(num_envs=1, rollout_length=1)
+    cfg["epoch_loop"].update(num_envs=1, rollout_length=1,
+                             use_parallel_envs=False)
     loop = build_loop(cfg, "cuda", EXPORT_PATH)
     try:
         torch.cuda.synchronize()
@@ -1514,7 +1592,7 @@ def phase_loop(card):
     Then one more warmed epoch under torch.profiler."""
     import tempfile
 
-    cfg = load_train_config()
+    cfg = _earlier_slice(load_train_config())
     cfg["epoch_loop"].update(num_envs=8, rollout_length=64)
     runs, launches = [], None
     with tempfile.TemporaryDirectory() as tmp:
@@ -1736,8 +1814,11 @@ def phase_ac_loop(card):
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for algo, cfg_path in (("impala", IMPALA_CONFIG_PATH),
-                               ("pg", PG_CONFIG_PATH)):
+        for algo, path in (("impala", IMPALA_CONFIG_PATH),
+                           ("pg", PG_CONFIG_PATH)):
+            cfg_path = os.path.join(tmp, f"{algo}.json")
+            with open(cfg_path, "w") as fh:
+                json.dump(_earlier_slice(load_train_config(path)), fh)
             runs = []
             for attempt in range(2):
                 ckpt_dir = os.path.join(tmp, f"{algo}{attempt}")
@@ -2284,8 +2365,8 @@ def phase_es_train(dqn_es_fx, params, card):
     window: 10 of the port's env_load32_price_mixed envs (seeded 0-9), the
     shipped params perturbed by the recorded noise, the recorded action
     noise: every action JAX's and the fitness bit-equal. Then the 3
-    recorded updates: params and adam's moments within 1e-5 of each leaf's
-    largest magnitude, metrics within 1e-5 of max(1, |JAX|); a second run
+    recorded updates: params and adam's moments within 1e-6 of each leaf's
+    largest magnitude, metrics within 1e-6 of max(1, |JAX|); a second run
     of the updates bit-equal; launch counters around the window (K1-K3,
     K16) and the updates (K15); seconds per update."""
     es_fx = dqn_es_fx["es"]
@@ -2344,12 +2425,14 @@ def phase_es_train(dqn_es_fx, params, card):
             err = {key: _leaf_rel(state, key, ref[key])
                    for key in ("params", "mu", "nu")}
             for key, value in err.items():
-                require(value <= TOL, f"ES update {step}: {key} off JAX's "
-                                      f"by {value} of a leaf's largest")
+                require(value <= ES_UPDATE_TOL,
+                        f"ES update {step}: {key} off JAX's by {value} of a "
+                        f"leaf's largest")
             metric_err = {}
             for key, want in ref["metrics"].items():
                 metric_err[key] = abs(metrics[key] - want)
-                require(metric_err[key] <= TOL * max(1.0, abs(want)),
+                require(metric_err[key]
+                        <= ES_UPDATE_TOL * max(1.0, abs(want)),
                         f"ES update {step}: {key} off JAX's by "
                         f"{metric_err[key]}")
             errs.append({**{f"{k}_max_rel_err": v for k, v in err.items()},
@@ -2387,7 +2470,7 @@ def phase_dqn_es_loop(card):
     with tempfile.TemporaryDirectory() as tmp:
         for algo, path in (("apex_dqn", DQN_CONFIG_PATH),
                            ("es", ES_CONFIG_PATH)):
-            cfg = load_train_config(path)
+            cfg = _earlier_slice(load_train_config(path))
             if algo == "apex_dqn":
                 cfg["algo"]["algo_config"]["replay_buffer_config"][
                     "learning_starts"] = 512
@@ -2461,6 +2544,579 @@ def phase_dqn_es_loop(card):
                  learner=[x["learner"] for x in epochs_out],
                  evaluation=lines0[-1]["evaluation"],
                  launches={k: v for k, v in launches[algo].items() if v})
+    return launches
+
+
+# --------------------------- K18–K20: heads backward, optimiser, minibatch
+def _new_result(**extra):
+    return {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None,
+            "library_device_ms": None, "calls_per_step": 1, **extra}
+
+
+def _random_heads(hiddens, n_actions, seed):
+    """Head layers of nn.Linear's layout on the card, seeded."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for final in (n_actions, 1):
+        widths = [24, *hiddens, final]
+        out.append([((torch.randn(widths[i + 1], widths[i], generator=g)
+                      / widths[i] ** 0.5).cuda(),
+                     (torch.randn(widths[i + 1], generator=g) * 0.1).cuda())
+                    for i in range(len(widths) - 1)])
+    return out
+
+
+def _clip_adam_entries(state, grads, hp):
+    """K19's three launches one at a time, with the wrapper's arguments
+    (the leaf table built as the wrapper builds it)."""
+    opt = learner_mod._optimizer_table(state)
+    n = len(state.params)
+    grad_table = (ctypes.c_int64 * n)(*(g.data_ptr() for g in grads))
+    partial = state.params[0].new_zeros(n * opt.chunks)
+    norm = state.params[0].new_zeros(1)
+    f32 = np.float32
+
+    def norm_pass():
+        kernels.launch("clip_adam_norm", ctypes.addressof(grad_table),
+                       opt.table.data_ptr(), partial.data_ptr(), n,
+                       opt.chunks)
+
+    def reduce_pass():
+        kernels.launch("clip_adam_reduce", partial.data_ptr(),
+                       norm.data_ptr(), partial.numel())
+
+    def update_pass():
+        kernels.launch("clip_adam_update", ctypes.addressof(grad_table),
+                       opt.table.data_ptr(), norm.data_ptr(), n, opt.chunks,
+                       0, float(hp.grad_clip), hp.lr, hp.b1,
+                       float(f32(1.0 - hp.b1)), hp.b2,
+                       float(f32(1.0 - hp.b2)), hp.eps, hp.bc1, hp.bc2)
+
+    return norm_pass, reduce_pass, update_pass, partial
+
+
+def check_heads_optim_kernels(params, fx):
+    """Phase 3, K18–K20 on the training fixture's first minibatch step (128
+    rows at the (38, 128) bucket, the shipped heads 24 -> 17 -> {17, 1}):
+    K18 (the heads' backward and its block-order reduce) against autograd
+    of the plain heads, also on the Ape-X DQN's heads (24 -> 256 -> {17, 1}
+    at 512 rows), the default (256, 256) heads and one row; K19 (the global
+    norm, its reduce, the clipped adam update) against the plain optimiser
+    over five steps of the shipped policy's 36 leaves with the clip not
+    firing, firing, and at a norm within rounding of the clip; K20 (the
+    minibatch assembly) against its plain version and
+    ``prepare_flat_batch``'s arrays on the minibatch, repeated samples, one
+    sample and the full batch, exactly. Every float within 1e-5 of each
+    output's largest magnitude, every kernel bitwise across two runs, and
+    timed at the minibatch step's shapes."""
+    model, _, _ = load_export(EXPORT_PATH)
+    cfg = fx["cfg"]
+    learner = ppo_mod.PPOLearner(model, cfg, device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    n = staged.t_len * staged.lanes
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+    results = {}
+
+    # K20: the minibatch assembly
+    rng = np.random.default_rng(0)
+    res = _new_result()
+    obs = fx["traj"]["obs"]
+    rows = {k: np.swapaxes(np.asarray(v), 0, 1).reshape(
+        (n,) + np.shape(v)[2:]) for k, v in obs.items()}
+    for case in (idx, torch.as_tensor(rng.integers(0, n, 128),
+                                      device="cuda"),
+                 idx[:1].clone(), learner._positions(n)):
+        out = learner_mod.minibatch_gather(staged.tensors, case,
+                                           staged.n_nodes, staged.n_edges)
+        again = learner_mod.minibatch_gather(staged.tensors, case,
+                                             staged.n_nodes, staged.n_edges)
+        plain = learner_mod.minibatch_gather_plain(
+            staged.tensors, case, staged.n_nodes, staged.n_edges)
+        sel = {k: v[case.cpu().numpy()] for k, v in rows.items()}
+        sel["node_features"] = sel["node_features"][:, :staged.n_nodes]
+        for key in ("edge_features", "edges_src", "edges_dst"):
+            sel[key] = sel[key][:, :staged.n_edges]
+        host = policy_mod.prepare_flat_batch(sel)
+        torch.cuda.synchronize()
+        require(sorted(out) == sorted(plain) == sorted(host),
+                "K20's arrays differ from prepare_flat_batch's")
+        for key in out:
+            require(torch.equal(out[key], again[key])
+                    and torch.equal(out[key], plain[key])
+                    and np.array_equal(out[key].cpu().numpy(), host[key]),
+                    f"K20's {key} differs from its plain version or "
+                    f"prepare_flat_batch")
+    m = idx.shape[0]
+    per_sample = sum(t[0].numel() * t.element_size() for t in (
+        staged["node_features"], staged["edge_features"],
+        staged["graph_features"], staged["action_mask"],
+        staged["node_mask"], staged["structure"]))
+    out = learner_mod.minibatch_gather(staged.tensors, idx, staged.n_nodes,
+                                       staged.n_edges)
+    written = sum(t.numel() * t.element_size() for t in out.values())
+    bound, bound_by = bound_ms(m * per_sample + _nbytes(idx) + written,
+                               0.0)
+
+    def gather():
+        return learner_mod.minibatch_gather(staged.tensors, idx,
+                                            staged.n_nodes, staged.n_edges)
+
+    def gather_plain():
+        return learner_mod.minibatch_gather_plain(
+            staged.tensors, idx, staged.n_nodes, staged.n_edges)
+
+    res.update(shape=f"samples={m} of {n} nodes={staged.n_nodes} "
+                     f"edges={staged.n_edges}",
+               bound_ms=bound, bound_by=bound_by, ms=device_ms(gather),
+               eager_ms=eager_ms(gather),
+               plain_ms=eager_ms(gather_plain, iters=20))
+    results["minibatch_gather"] = res
+
+    # K18: the heads' backward, from the minibatch forward's pooled rows
+    batch = learner.minibatch(staged, idx)
+    calls = record_sites({"mlp_heads": (policy_mod, "mlp_heads",
+                                        k17_parts)},
+                         lambda: learner.model.flat_batched(batch))
+    x, logit_layers, value_layers, activation = calls["mlp_heads"][0][1]
+    g = torch.Generator().manual_seed(1)
+
+    def grads_in(rows, a):
+        return (torch.randn(rows, a, generator=g).cuda(),
+                torch.randn(rows, generator=g).cuda())
+
+    main_case = (x, logit_layers, value_layers, activation,
+                 *grads_in(x.shape[0], logit_layers[-1][0].shape[0]))
+    cases = [main_case]
+    for hiddens, rows_n, seed in (((256,), 512, 2), ((256, 256), 128, 3),
+                                  ((17,), 1, 4)):
+        lh, vh = _random_heads(hiddens, 17, seed)
+        cases.append((torch.randn(rows_n, 24, generator=g).cuda(), lh, vh,
+                      "relu", *grads_in(rows_n, 17)))
+    res = _new_result()
+    for case in cases:
+        out = policy_mod.mlp_heads_bwd(*case)
+        again = policy_mod.mlp_heads_bwd(*case)
+        ref = policy_mod.mlp_heads_bwd_plain(*case)
+        torch.cuda.synchronize()
+        outs, refs = [out[0], *out[1]], [ref[0], *ref[1]]
+        require(all(torch.equal(a, b) for a, b in
+                    zip(outs, [again[0], *again[1]])),
+                "mlp_heads_bwd is not bitwise repeatable")
+        err, rel = max_err_scaled(tuple(outs), tuple(refs))
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_rel_err"] = max(res["max_rel_err"], rel)
+    leaves = [t.detach().clone().requires_grad_() for t in
+              [x] + [t for layer in logit_layers + value_layers
+                     for t in layer]]
+    pairs = list(zip(leaves[1::2], leaves[2::2]))
+    n_l = len(logit_layers)
+
+    def library_bwd():
+        with torch.enable_grad():
+            lo, va = _heads_composition(leaves[0], pairs[:n_l],
+                                        pairs[n_l:], activation)
+            return torch.autograd.grad((lo, va), leaves, main_case[4:])
+
+    bound, bound_by = _heads_work(x, logit_layers, value_layers,
+                                  backward=True)
+    res.update(shape=f"rows={x.shape[0]} in={x.shape[1]} logit="
+                     f"{[w.shape[0] for w, _ in logit_layers]} value="
+                     f"{[w.shape[0] for w, _ in value_layers]}",
+               bound_ms=bound, bound_by=bound_by,
+               ms=device_ms(lambda: policy_mod.mlp_heads_bwd(*main_case)),
+               eager_ms=eager_ms(lambda: policy_mod.mlp_heads_bwd(
+                   *main_case)),
+               plain_ms=eager_ms(lambda: policy_mod.mlp_heads_bwd_plain(
+                   *main_case), iters=20),
+               library_ms=eager_ms(library_bwd, iters=50),
+               library_device_ms=profiled_device_ms(library_bwd))
+    results["mlp_heads_bwd"] = res
+    # its block-order reduce alone, on the main case's partial sums
+    n_params = sum(w.numel() + b.numel()
+                   for w, b in logit_layers + value_layers)
+    blocks = max(1, min(-(-x.shape[0] // policy_mod._HEAD_BWD_TILE),
+                        policy_mod._HEAD_BWD_MAX_BLOCKS))
+    partial = torch.randn(blocks, n_params, generator=g).cuda()
+    reduced = partial.new_empty(n_params)
+
+    def reduce():
+        kernels.launch("mlp_heads_bwd_reduce", partial.data_ptr(),
+                       reduced.data_ptr(), blocks, n_params)
+        return reduced
+
+    out = reduce().clone()
+    ref = gnn_mod.ln_linear_act_bwd_reduce_plain(partial)
+    torch.cuda.synchronize()
+    require(torch.equal(out, reduce()), "mlp_heads_bwd_reduce is not "
+                                        "bitwise repeatable")
+    err, rel = max_err_scaled(out, ref)
+    bound, bound_by = bound_ms(_nbytes(partial) + n_params * 4,
+                               blocks * n_params)
+    results["mlp_heads_bwd_reduce"] = _new_result(
+        max_abs_err=err, max_rel_err=rel,
+        shape=f"blocks={blocks} params={n_params}", bound_ms=bound,
+        bound_by=bound_by, ms=device_ms(reduce), eager_ms=eager_ms(reduce),
+        plain_ms=eager_ms(lambda: gnn_mod.ln_linear_act_bwd_reduce_plain(
+            partial), iters=20),
+        library_ms=eager_ms(lambda: partial.sum(dim=0)),
+        library_device_ms=device_ms(lambda: partial.sum(dim=0)))
+
+    # K19: the optimiser over the shipped policy's leaves
+    def fresh_state():
+        """The shipped params in the learner's model (its live tensors),
+        with fresh moments."""
+        return learner.init_state({k: v.cuda() for k, v in params.items()})
+
+    def copies(st):
+        return ([p.detach().clone() for p in st.params],
+                [torch.zeros_like(p) for p in st.params],
+                [torch.zeros_like(p) for p in st.params])
+
+    def step_hp(count, clip):
+        return learner_mod.OptimizerStep(
+            "adam", cfg.lr, clip, learner_mod.ADAM_B1, learner_mod.ADAM_B2,
+            learner_mod.ADAM_EPS,
+            learner._bias_correction(learner_mod.ADAM_B1, count),
+            learner._bias_correction(learner_mod.ADAM_B2, count))
+
+    res = {name: _new_result() for name in ("clip_adam_norm",
+                                            "clip_adam_reduce",
+                                            "clip_adam_update")}
+    opt_err = opt_rel = 0.0
+    for scale, clip in ((0.01, cfg.grad_clip), (1.0, cfg.grad_clip),
+                        (0.05, "tie")):
+        st = fresh_state()
+        ref_p, ref_mu, ref_nu = copies(st)
+        for count in range(1, 6):
+            grads = [torch.randn(p.shape, generator=g).cuda() * scale
+                     for p in st.params]
+            if clip == "tie":
+                norm64 = float(torch.sqrt(sum((t.double() ** 2).sum()
+                                              for t in grads)))
+                hp = step_hp(count, float(np.float32(norm64)))
+            else:
+                hp = step_hp(count, clip)
+            learner_mod.clip_adam(st, grads, hp)
+            learner_mod.clip_adam_plain(ref_p, grads, ref_mu, ref_nu, hp)
+        torch.cuda.synchronize()
+        err, rel = max_err_scaled(
+            tuple(t.detach() for key in ("params", "mu", "nu")
+                  for t in getattr(st, key)),
+            tuple(ref_p + ref_mu + ref_nu))
+        opt_err, opt_rel = max(opt_err, err), max(opt_rel, rel)
+    grads = [torch.randn(p.shape, generator=g).cuda() for p in st.params]
+    runs = []
+    for _ in range(2):
+        st = fresh_state()
+        learner_mod.clip_adam(st, grads, step_hp(1, cfg.grad_clip))
+        runs.append([p.detach().clone() for p in st.params])
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(*runs)),
+            "clip_adam is not bitwise repeatable")
+    st = fresh_state()
+    hp = step_hp(1, cfg.grad_clip)
+    norm_pass, reduce_pass, update_pass, partial = _clip_adam_entries(
+        st, grads, hp)
+    n_el = sum(p.numel() for p in st.params)
+    n_leaves = len(st.params)
+    lib_params = [torch.nn.Parameter(p.detach().clone())
+                  for p in st.params]
+    for p, gr in zip(lib_params, grads):
+        p.grad = gr.clone()
+    adam = torch.optim.Adam(lib_params, lr=cfg.lr, fused=True)
+
+    def library_norm():
+        return torch.nn.utils.clip_grad_norm_(lib_params, cfg.grad_clip,
+                                              foreach=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(lib_params, cfg.grad_clip,
+                                       foreach=True)
+        adam.step()
+
+    plain_p, plain_mu, plain_nu = copies(st)
+
+    def plain_step():
+        learner_mod.clip_adam_plain(plain_p, grads, plain_mu, plain_nu, hp)
+
+    def plain_norm():
+        return torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+
+    shape = f"leaves={n_leaves} params={n_el}"
+    for name, fn, nbytes, ops in (
+            ("clip_adam_norm", norm_pass, 4 * n_el + partial.numel() * 4,
+             2 * n_el),
+            ("clip_adam_reduce", reduce_pass, partial.numel() * 4 + 4,
+             partial.numel()),
+            ("clip_adam_update", update_pass, 7 * 4 * n_el + 4,
+             16 * n_el)):
+        bound, bound_by = bound_ms(nbytes, ops)
+        res[name].update(shape=shape, bound_ms=bound, bound_by=bound_by,
+                         ms=device_ms(fn), eager_ms=eager_ms(fn),
+                         max_abs_err=opt_err, max_rel_err=opt_rel)
+    res["clip_adam_norm"].update(
+        plain_ms=eager_ms(plain_norm, iters=20),
+        library_ms=eager_ms(library_norm, iters=50),
+        library_device_ms=profiled_device_ms(library_norm))
+    res["clip_adam_reduce"].update(
+        plain_ms=eager_ms(lambda: torch.sqrt(partial.sum()), iters=20))
+    step_state = fresh_state()
+    res["clip_adam_update"].update(
+        step_ms=device_ms(lambda: learner_mod.clip_adam(step_state, grads,
+                                                        hp)),
+        step_eager_ms=eager_ms(lambda: learner_mod.clip_adam(
+            step_state, grads, hp)),
+        plain_ms=eager_ms(plain_step, iters=20),
+        library_ms=eager_ms(library_step, iters=50),
+        library_device_ms=profiled_device_ms(library_step))
+    results.update(res)
+    return results
+
+
+# ------------------------------- the pipelined loop and subprocess envs
+def _earlier_slice(cfg):
+    """A config copy for the phases of earlier slices: the sequential loop
+    over in-process envs without per-epoch evaluation, as they ran before
+    the pipelined loop, subprocess envs and the evaluation cadence were
+    ported (``[pipeline]`` and ``[ring]`` run the configs' own modes)."""
+    cfg["epoch_loop"].update(loop_mode="sequential", use_parallel_envs=False)
+    cfg["eval_config"]["evaluation_interval"] = None
+    return cfg
+
+
+class _VecEnvs:
+    """The ``ParallelVectorEnv``s built while the block runs."""
+
+    def __enter__(self):
+        self.made = []
+        self._init = ParallelVectorEnv.__init__
+        made, init = self.made, self._init
+
+        def wrapped(env, *args, **kwargs):
+            init(env, *args, **kwargs)
+            made.append(env)
+
+        ParallelVectorEnv.__init__ = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        ParallelVectorEnv.__init__ = self._init
+        return False
+
+
+class _ShmSegments:
+    """The shared-memory segment names of every ``SlabSet`` (so every
+    ``TrajRing`` segment) built between ``start()`` and ``leaked()``,
+    which restores ``SlabSet`` and lists those names still in /dev/shm."""
+
+    def start(self):
+        self.names = []
+        self._init = init = SlabSet.__init__
+        names = self.names
+
+        def wrapped(slabs, *args, **kwargs):
+            init(slabs, *args, **kwargs)
+            names.extend(slabs.segment_names())
+
+        SlabSet.__init__ = wrapped
+        return self
+
+    def leaked(self):
+        SlabSet.__init__ = self._init
+        require(len(self.names) > 0, "the run built no shared memory")
+        return [n for n in self.names
+                if os.path.exists(os.path.join("/dev/shm", n.lstrip("/")))]
+
+
+def phase_pipeline(params, fx, uniforms, rollout, card):
+    """Phase 15, this slice's main path. (1) The recorded JAX collect over
+    subprocess envs (``ppo_pipeline_price_mixed.npz``: 8
+    env_load32_price_mixed envs seeded 0-7, each in its own worker on the
+    shm transport, 64 steps, the shipped policy, the recorded uniforms)
+    through the port's ParallelVectorEnv and deferred-fetch collector:
+    observations, rewards and dones bit-equal, actions equal, logp within
+    1e-5 and values within VALUES_TOL, as [rollout]; its env steps/s beside
+    [rollout]'s in-process figure. (2) ``python -m ddls_tpu_torch.train``
+    (in this process) on train_config_price_mixed as the config asks it
+    (loop_mode pipelined, use_parallel_envs auto, evaluation every epoch,
+    3 episodes) at 8 envs x 64 steps, 2 epochs from the shipped export,
+    with the launch counters reset just before and read just after (K1-K9
+    and K17-K20 must all have run), over subprocess envs on the shm
+    transport; then the sequential loop on shm and the pipelined loop on
+    the pipe transport: every epoch line (metrics, episodes, evaluation)
+    and the checkpoints bit-equal to the first run's."""
+    import tempfile
+
+    # (1) the recorded collect over subprocess envs
+    pipe_fx = load_pipeline_fixture()
+    ref = pipe_fx["traj"]
+    model, _, _ = load_export(EXPORT_PATH)
+    learner = ppo_mod.PPOLearner(model, fx["cfg"], device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    t_len, n_envs = ref["rewards"].shape
+    segments = _ShmSegments().start()
+    t0 = time.monotonic()
+    vec = ParallelVectorEnv(RampJobPartitioningEnvironment,
+                            copy.deepcopy(load_train_config()["env_config"]),
+                            n_envs, seeds=list(range(n_envs)),
+                            backend="shm")
+    try:
+        vec.reset()
+        startup_s = time.monotonic() - t0
+        collector = RolloutCollector(vec, learner, t_len,
+                                     deferred_fetch=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = collector.collect(noise=uniforms)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        traj = out["traj"]
+        for key, value in traj["obs"].items():
+            require(np.array_equal(value, ref["obs"][key]),
+                    f"subprocess collect obs {key} differs from the "
+                    f"recorded JAX collect")
+        ring = vec.traj_ring.stats()
+    finally:
+        vec.close()
+    for key in ("rewards", "dones", "actions"):
+        require(np.array_equal(traj[key], ref[key]),
+                f"subprocess collect {key} differ from the recorded JAX "
+                f"collect")
+    logp_err = float(np.abs(traj["logp"] - ref["logp"]).max())
+    val_err = max(float(np.abs(traj["values"] - ref["values"]).max()),
+                  float(np.abs(out["last_values"]
+                               - pipe_fx["last_values"]).max()))
+    require(logp_err <= TOL, f"subprocess collect logp off JAX's by "
+                             f"{logp_err}")
+    require(val_err <= VALUES_TOL, f"subprocess collect values off JAX's "
+                                   f"by {val_err}")
+    collect = {"env_steps": t_len * n_envs, "wall_s": wall,
+               "worker_startup_s": startup_s,
+               "env_steps_per_s": t_len * n_envs / wall,
+               "in_process_env_steps_per_s": rollout["env_steps_per_s"],
+               "env_s": out["timing"]["env_s"],
+               "sample_s": out["timing"]["sample_s"], "ring": ring,
+               "logp_max_abs_err": logp_err, "values_max_abs_err": val_err}
+
+    # (2) the CLI: pipelined over shm, sequential over shm, pipelined over
+    # the pipe transport
+    runs = {}
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, over in (("pipelined_shm", {}),
+                           ("sequential_shm", {"loop_mode": "sequential"}),
+                           ("pipelined_pipe", {"vec_env_backend": "pipe"})):
+            cfg = load_train_config()
+            cfg["epoch_loop"].update(num_envs=8, rollout_length=64, **over)
+            cfg_path = os.path.join(tmp, f"{name}.json")
+            with open(cfg_path, "w") as fh:
+                json.dump(cfg, fh)
+            argv = ["--config", cfg_path, "--epochs", "2", "--device",
+                    "cuda", "--init-export", EXPORT_PATH,
+                    "--checkpoint-dir", os.path.join(tmp, name)]
+            torch.cuda.synchronize()
+            if name == "pipelined_shm":
+                kernels.reset_launch_counts()
+            t0 = time.monotonic()
+            with _VecEnvs() as made:
+                lines = _run_train_cli(argv)
+            wall = time.monotonic() - t0
+            if name == "pipelined_shm":
+                launches = kernels.launch_counts()
+            backend = "pipe" if name.endswith("pipe") else "shm"
+            require(len(made.made) == 1 and made.made[0].backend == backend,
+                    f"the {name} run did not collect over {backend} "
+                    f"subprocess envs")
+            state = torch.load(os.path.join(lines[-1]["checkpoint"],
+                                            "train_state.pt"),
+                               weights_only=True)
+            runs[name] = (lines, state, wall)
+    lines0, state0, wall0 = runs["pipelined_shm"]
+    epochs = lines0[:-1]
+    require([x["loop_mode"] for x in epochs] == ["pipelined"] * 2,
+            "the CLI did not run the config's pipelined loop")
+    require(all("evaluation" in x for x in epochs),
+            "the CLI did not evaluate at the config's interval")
+    for name in ("sequential_shm", "pipelined_pipe"):
+        lines, state, _ = runs[name]
+
+        def same(line):
+            return {k: v for k, v in _deterministic(line).items()
+                    if k != "loop_mode"}
+
+        require([same(x) for x in lines] == [same(x) for x in lines0],
+                f"the {name} run printed other results than pipelined_shm")
+        require(all(torch.equal(a, b) for key in ("params", "mu", "nu")
+                    for a, b in zip(state0[key], state[key]))
+                and torch.equal(state0["kl_coeff"], state["kl_coeff"]),
+                f"the {name} run saved another state than pipelined_shm")
+    for name, n in launches.items():
+        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES,
+                f"kernel {name} was not launched by the pipelined loop")
+    for line in epochs:
+        require(all(np.isfinite(v) for v in line["learner"].values()),
+                "non-finite learner metrics")
+    leaked = segments.leaked()
+    require(not leaked, f"shared memory left in /dev/shm: {leaked}")
+    emit("pipeline", card=card, collect=collect, wall_s=wall0,
+         epochs=len(epochs),
+         env_steps_per_epoch=epochs[0]["env_steps_this_iter"],
+         epoch_s=[x["epoch_time"] for x in epochs],
+         env_steps_per_s=[x["env_steps_this_iter"] / x["timing"]["collect_s"]
+                          for x in epochs],
+         timing=[x["timing"] for x in epochs],
+         learner=[x["learner"] for x in epochs],
+         evaluation=[x["evaluation"] for x in epochs],
+         runs_wall_s={k: v[2] for k, v in runs.items()},
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_ring(card):
+    """Phase 16: the IMPALA loop of train_config_impala_price_mixed (32
+    subprocess envs on the shm transport, 15 steps, evaluation every epoch)
+    at pipeline_depth 1, 2 epochs from the shipped export: finite metrics,
+    each batch's params age 0 then 1, a 3-segment trajectory ring whose
+    segments are all released, and no /dev/shm segment left once it
+    closes; launch counters around it."""
+    cfg = load_train_config(IMPALA_CONFIG_PATH)
+    cfg["epoch_loop"]["pipeline_depth"] = 1
+    segments = _ShmSegments().start()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    loop = build_loop(cfg, "cuda", EXPORT_PATH)
+    try:
+        require(isinstance(loop.vec_env, ParallelVectorEnv)
+                and loop.vec_env.backend == "shm",
+                "the IMPALA loop did not collect over shm subprocess envs")
+        results = [loop.run() for _ in range(2)]
+        learner = [dict(r["learner"]) for r in results]
+        stats = loop.ring_stats()
+    finally:
+        loop.close()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    require([m["params_age_updates"] for m in learner] == [0, 1],
+            "the depth-1 batches are not 0 then 1 update stale")
+    require(all(np.isfinite(v) for m in learner for v in m.values()),
+            "non-finite IMPALA metrics at depth 1")
+    require(stats["segments"] == 3 and stats["stalls"] == 0,
+            f"the ring is not 3 segments without stalls: {stats}")
+    leaked = segments.leaked()
+    require(not leaked, f"the ring left /dev/shm segments: {leaked}")
+    for name in ("vtrace", "ac_loss", "mlp_heads", "mlp_heads_bwd",
+                 "clip_adam_update", "minibatch_gather", "mask_sample_logp"):
+        require(launches[name] > 0, f"the depth-1 IMPALA loop did not "
+                                    f"launch {name}")
+    emit("ring", card=card, wall_s=wall,
+         epoch_s=[r["epoch_time"] for r in results],
+         timing=[r["timing"] for r in results], learner=learner,
+         evaluation=[r.get("evaluation") for r in results], ring=stats,
+         launches={k: v for k, v in launches.items() if v})
     return launches
 
 
@@ -2705,10 +3361,13 @@ def main() -> int:
     dqn_es_results = check_dqn_es_kernels(dqn_es_fx, fx, params)
     emit("dqn_es_kernels_checked", card=card, **dqn_es_results)
 
+    heads_optim_results = check_heads_optim_kernels(params, fx)
+    emit("heads_optim_kernels_checked", card=card, **heads_optim_results)
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
     train_launches = phase_train(params, fx, card)
-    phase_rollout(params, fx, rollout_fx["uniforms"], card)
+    rollout = phase_rollout(params, fx, rollout_fx["uniforms"], card)
     phase_eval(rollout_fx["eval"], card)
     loop_launches = phase_loop(card)
     ac_train_launches = phase_ac_train(params, fx, ac_fx, card)
@@ -2716,25 +3375,29 @@ def main() -> int:
     dqn_train_launches = phase_dqn_train(dqn_es_fx, fx, card)
     es_train_launches = phase_es_train(dqn_es_fx, params, card)
     dqn_es_loop_launches = phase_dqn_es_loop(card)
+    pipeline_launches = phase_pipeline(params, fx, rollout_fx["uniforms"],
+                                       rollout, card)
+    ring_launches = phase_ring(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
-    for r in dqn_es_results.values():
+    for r in (*dqn_es_results.values(), *heads_optim_results.values()):
         r["shapes"] = [r.pop("shape")]
     rows = []
     for name, r in {**results, **train_results,
                     "mask_sample_logp": sample_result, **ac_results,
-                    **dqn_es_results}.items():
+                    **dqn_es_results, **heads_optim_results}.items():
         spec = kernels.KERNELS[name]
         forward = name in KERNEL_SITES
         sampling = name in SAMPLE_SITES
         actor_critic = name in AC_SITES
         dqn_es = name in DQN_ES_SITES
+        pipeline = name in heads_optim_results
         dqn_es_algo = "apex_dqn" if name.startswith("dqn") else "es"
         main_path = ("serve" if forward else
                      "rollout loop" if sampling else
                      "ac_loop" if actor_critic else
-                     f"dqn_es_loop ({dqn_es_algo})" if dqn_es
-                     else "train_step")
+                     f"dqn_es_loop ({dqn_es_algo})" if dqn_es else
+                     "pipeline" if pipeline else "train_step")
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
@@ -2745,10 +3408,13 @@ def main() -> int:
             # and PG loops (2 epochs each) for K10-K12, the DQN loop (3
             # epochs + 1 eval episode) for K13-K14 and the ES loop (2
             # epochs + 1 eval episode) for K15-K16
+            # and the pipelined PPO loop (2 epochs, an evaluation each)
+            # for K18-K20
             "launches": (launches[name] if forward else
                          loop_launches[name] if sampling else
                          ac_loop_launches[name] if actor_critic else
                          dqn_es_loop_launches[dqn_es_algo][name] if dqn_es
+                         else pipeline_launches[name] if pipeline
                          else train_launches[name]),
             "main_path": main_path,
             "train_step_launches": train_launches[name],
@@ -2760,6 +3426,8 @@ def main() -> int:
             "es_train_launches": es_train_launches[name],
             "dqn_es_loop_launches": {algo: n[name] for algo, n in
                                      dqn_es_loop_launches.items()},
+            "pipeline_launches": pipeline_launches[name],
+            "ring_launches": ring_launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
@@ -2768,6 +3436,8 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "composition_ms": r.get("composition_ms"),
             "composition_device_ms": r.get("composition_device_ms"),
+            "step_ms": r.get("step_ms"),
+            "step_eager_ms": r.get("step_eager_ms"),
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
             "calls_per": ("forward" if forward else "rollout step"
                           if sampling or name in ("dqn_act", "es_act")

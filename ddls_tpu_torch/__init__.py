@@ -7,7 +7,8 @@ TPU become hand-written CUDA kernels (``kernels/``), each beside a plain
 PyTorch version that runs wherever the tensors lie on the CPU.
 
 What is ported so far: the serving path of the shipped PPO policy
-(``python -m ddls_tpu_torch.serve``) and its PPO update
-(``rl.PPOLearner.train_step``), forward and backward through the
-kernels.
+(``python -m ddls_tpu_torch.serve``), the host simulator, every learner
+of the JAX package, and its training loop, sequential or pipelined over
+subprocess envs (``python -m ddls_tpu_torch.train``), forward and
+backward through the kernels.
 """

@@ -26,10 +26,9 @@ One deliberate fix vs the reference: its is-max-compute flag compares an op
 id against a per-device dict and is constantly False
 (ramp_job_partitioning_observation.py:533); here the flag is real.
 
-Port: a copy of ``ddls_tpu/envs/obs.py`` (the whole encoder, plus the
-masked-pad re-padding the serving bucketer uses); ``write_obs_into`` and
-``ObsWriter``, the shared-memory rollout transport's writers, wait for the
-port of that transport.
+Port: a copy of ``ddls_tpu/envs/obs.py`` (the whole encoder, the
+masked-pad re-padding the serving bucketer uses, and ``ObsWriter``, the
+writer of the shared-memory rollout transport).
 """
 from __future__ import annotations
 
@@ -357,3 +356,18 @@ def pad_obs_to(obs: Dict[str, np.ndarray], max_nodes: int,
             np.copyto(dst, np.asarray(obs[key]))
     res.update(out)
     return res
+
+
+class ObsWriter:
+    """``pad_obs_to(obs, max_nodes, max_edges, out=out)`` bound to one pad
+    target: the subprocess env worker (``rl/rollout.py``) builds one per
+    slab attachment, so each step's write carries the pad target instead
+    of reading it off the destination."""
+
+    def __init__(self, max_nodes: int, max_edges: int):
+        self.max_nodes = int(max_nodes)
+        self.max_edges = int(max_edges)
+
+    def write(self, obs: Dict[str, np.ndarray],
+              out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return pad_obs_to(obs, self.max_nodes, self.max_edges, out=out)

@@ -21,7 +21,9 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``rl/impala.py``; ``reward_to_go`` in ``rl/pg.py``; ``ac_logp`` and
 ``ac_loss``, which both of those learners call, in ``rl/actor_critic.py``;
 ``dqn_act`` and ``dqn_td_loss`` in ``rl/dqn.py``; ``es_update`` and
-``es_act`` in ``rl/es.py``);
+``es_act`` in ``rl/es.py``; ``mlp_heads`` and its backward in
+``models/policy.py``; ``clip_adam`` and ``minibatch_gather``, which every
+learner calls, in ``rl/learner.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -119,6 +121,23 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/rl/es.py:63", file="es"),
     KernelSpec("es_act", "ddls_es_act", "ppppiifp",
                "ddls_tpu/rl/es.py:133", file="es"),
+    # the heads forward and backward (K17, K18), the optimiser (K19) and
+    # the minibatch assembly (K20) that every update runs
+    KernelSpec("mlp_heads", "ddls_mlp_heads", "ppppiip",
+               "ddls_tpu/models/policy.py:38"),
+    KernelSpec("mlp_heads_bwd", "ddls_mlp_heads_bwd", "ppppppiiip",
+               "ddls_tpu/models/policy.py:38", file="mlp_heads"),
+    KernelSpec("mlp_heads_bwd_reduce", "ddls_mlp_heads_bwd_reduce", "ppiip",
+               "ddls_tpu/models/policy.py:38", file="mlp_heads"),
+    KernelSpec("clip_adam_norm", "ddls_clip_adam_norm", "pppiip",
+               "ddls_tpu/rl/ppo.py:206", file="clip_adam"),
+    KernelSpec("clip_adam_reduce", "ddls_clip_adam_reduce", "ppip",
+               "ddls_tpu/rl/ppo.py:206", file="clip_adam"),
+    KernelSpec("clip_adam_update", "ddls_clip_adam_update",
+               "pppiiifffffffffp", "ddls_tpu/rl/ppo.py:206",
+               file="clip_adam"),
+    KernelSpec("minibatch_gather", "ddls_minibatch_gather",
+               "p" * 18 + "iiiiiiip", "ddls_tpu/rl/ppo.py:343"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

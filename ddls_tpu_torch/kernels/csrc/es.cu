@@ -13,9 +13,13 @@
 // first half's noise eps [P/2, n] over the n parameters theta:
 //   rank_i = #{j: f_j < f_i} + #{j < i: f_j = f_i}, NaN above every number
 //            (argsort(argsort(f)), stable, as jnp.argsort orders NaN last)
-//   w_i    = rank_i / max(P - 1, 1) - 0.5
+//   w_i    = fma(rank_i, f32(1 / max(P - 1, 1)), -0.5), rounded once (the
+//            reciprocal rounded to float32 first, as the jitted reference
+//            computes it)
 //   pw_k   = w_k - w_{k + P/2}
-//   g      = -(pw_0 eps_0 + pw_1 eps_1 + ...) / (P sigma) + l2 theta
+//   g      = fma(l2, theta, -acc * f32(1 / (P sigma))), with
+//   acc    = fma(pw_{P/2-1}, eps_{P/2-1}, ... fma(pw_1, eps_1, pw_0 eps_0))
+//   (the jitted reference's operations on XLA's CPU backend, in order)
 // with the fitness mean, max (NaN-propagating), standard deviation (ddof 0)
 // and sqrt(sum g^2), optax's global norm.
 //
@@ -71,9 +75,11 @@ es_update_kernel(const float* __restrict__ fitness,  // [p]
                 : (!nan_j && (fj < fi || (fj == fi && j < i)));
       rank += before ? 1 : 0;
     }
-    const float w = __fsub_rn(
-        __fdiv_rn(static_cast<float>(rank), static_cast<float>(max(p - 1, 1))),
-        0.5f);
+    // the jitted reference's arithmetic: XLA multiplies by the float32
+    // reciprocal of the constant denominator and fuses the - 0.5
+    const float w = __fmaf_rn(static_cast<float>(rank),
+                              __frcp_rn(static_cast<float>(max(p - 1, 1))),
+                              -0.5f);
     w_s[i] = w;
     weights[i] = w;
   }
@@ -83,14 +89,15 @@ es_update_kernel(const float* __restrict__ fitness,  // [p]
   }
   __syncthreads();
   float sq = 0.0f;
+  // the division by the constant P sigma as the jitted reference does it:
+  // a product with the float32 reciprocal
+  const float inv_p_sigma = __frcp_rn(p_sigma);
   for (int i = threadIdx.x; i < n; i += kThreads) {
     float acc = __fmul_rn(pair_w[0], eps[i]);
     for (int k = 1; k < half; ++k) {
-      acc = __fadd_rn(acc, __fmul_rn(pair_w[k],
-                                     eps[static_cast<size_t>(k) * n + i]));
+      acc = __fmaf_rn(pair_w[k], eps[static_cast<size_t>(k) * n + i], acc);
     }
-    const float g = __fadd_rn(__fdiv_rn(-acc, p_sigma),
-                              __fmul_rn(l2, theta[i]));
+    const float g = __fmaf_rn(l2, theta[i], __fmul_rn(-acc, inv_p_sigma));
     grads[i] = g;
     sq = __fadd_rn(sq, __fmul_rn(g, g));
   }

@@ -6,9 +6,9 @@ flattened mega-graph of B*N nodes and B*E edges, as ``flat_batched`` does
 there; the host assembles it (``flat_graph_inputs``: per-sample offsets,
 the node mask and the destination-sorted CSR) so the device runs only the
 forward. The readout is kernel K3 (pooling + concat), the two MLP heads
-are ``F.linear`` (tiny, as the JAX package left them to XLA), and kernel
-K4 (``mask_logits_argmax``) masks the logits and picks the greedy action
-in one launch; rollouts take kernel K9 (``mask_sample_logp``) in its place,
+are kernel K17 (``mlp_heads``: both heads, every layer, one launch; its
+backward K18), and kernel K4 (``mask_logits_argmax``) masks the logits and
+picks the greedy action in one launch; rollouts take kernel K9 (``mask_sample_logp``) in its place,
 which masks, samples by Gumbel-max from handed-in uniforms and gives the
 log-probability. Training differentiates through the mask: ``logits +
 max(log mask, finfo.min)`` has derivative 1 with respect to the logits, so
@@ -16,15 +16,18 @@ on the card K4's autograd wrapper passes the gradient through unchanged.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import ctypes
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ddls_tpu_torch import kernels
 from ddls_tpu_torch.envs.obs import EDGE_FEATURE_DIM, NODE_FEATURE_DIM
-from ddls_tpu_torch.models.gnn import GNN, FeatureModule, get_activation
+from ddls_tpu_torch.models.gnn import (_ACTIVATION_CODES, GNN, FeatureModule,
+                                       get_activation)
 from ddls_tpu_torch.ops.segment import build_csr, masked_mean_pool_concat
 
 FLOAT32_MIN = float(np.finfo(np.float32).min)
@@ -143,6 +146,202 @@ def mask_sample_logp(logits: torch.Tensor, mask: torch.Tensor,
     return actions, logp
 
 
+# -------------------------------- K17, K18: the logit and value heads
+Layers = List[Tuple[torch.Tensor, torch.Tensor]]
+# what K17 and K18 take: up to three layers a head, hidden widths up to
+# 256, an input up to 64 wide, up to 64 actions (kernels/csrc/mlp_heads.cu)
+_HEAD_MAX_LAYERS, _HEAD_MAX_HIDDEN, _HEAD_MAX_IN, _HEAD_MAX_OUT = 3, 256, 64, 64
+# K18's grid: tiles of 8 rows, at most one block per SM of the H100, so the
+# partial sums (and the bits of the result) depend on the row count alone
+_HEAD_BWD_TILE, _HEAD_BWD_MAX_BLOCKS = 8, 132
+
+
+def _mlp_stack(x: torch.Tensor, layers: Layers, activation: str
+               ) -> torch.Tensor:
+    """One head in plain PyTorch: ``F.linear`` then the activation on
+    every layer but the last (``nn.Linear``'s arithmetic, as flax's
+    ``MLPHead``)."""
+    act = get_activation(activation)
+    for i, (w, b) in enumerate(layers):
+        x = F.linear(x, w, b)
+        if i < len(layers) - 1:
+            x = act(x)
+    return x
+
+
+def mlp_heads_plain(x: torch.Tensor, logit_layers: Layers,
+                    value_layers: Layers, activation: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both heads in plain PyTorch; returns (logits [B, A], values
+    [B])."""
+    return (_mlp_stack(x, logit_layers, activation),
+            _mlp_stack(x, value_layers, activation)[:, 0])
+
+
+def mlp_heads_bwd_plain(x: torch.Tensor, logit_layers: Layers,
+                        value_layers: Layers, activation: str,
+                        dlogits: torch.Tensor, dvalue: torch.Tensor
+                        ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The backward of ``mlp_heads_plain`` by autograd: (dx [B, K], the
+    gradients of every weight and bias, head by head and layer by layer,
+    in the order of ``logit_layers + value_layers`` flattened)."""
+    leaves = [t.detach().requires_grad_() for t in
+              [x] + [t for layer in logit_layers + value_layers
+                     for t in layer]]
+    pairs = list(zip(leaves[1::2], leaves[2::2]))
+    n_logit = len(logit_layers)
+    with torch.enable_grad():
+        logits, values = mlp_heads_plain(leaves[0], pairs[:n_logit],
+                                         pairs[n_logit:], activation)
+        grads = torch.autograd.grad((logits, values), leaves,
+                                    (dlogits, dvalue), allow_unused=True,
+                                    materialize_grads=True)
+    return grads[0], list(grads[1:])
+
+
+def head_layers(head: "MLPHead") -> Layers:
+    """A head's (weight [out, in], bias [out]) pairs, where its
+    ``nn.Linear``s hold them (under ``functional_call``, the ones it
+    substitutes)."""
+    return [(getattr(head, f"Dense_{i}").weight,
+             getattr(head, f"Dense_{i}").bias)
+            for i in range(head.n_layers)]
+
+
+def mlp_heads(x: torch.Tensor, logit_layers: Layers, value_layers: Layers,
+              activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K17: the logit head and the value head over ``x`` [B, K] in one
+    launch -> (raw logits [B, A], values [B]); on the card differentiable
+    through K18. The weights are read in ``nn.Linear``'s layout, [out, in]
+    float32, where they lie (no copy). Takes up to three layers a head (at
+    most two hidden, each up to 256 wide), K <= 64 and A <= 64; raises on
+    anything else."""
+    flat = [x] + [t for layer in logit_layers + value_layers for t in layer]
+    if kernels.on_cpu(*flat):
+        return mlp_heads_plain(x, logit_layers, value_layers, activation)
+    if kernels.needs_grad(*flat):
+        return _MLPHeads.apply(activation, len(logit_layers), *flat)
+    table, _ = _heads_table(x, logit_layers, value_layers, activation)
+    return _mlp_heads_cuda(x, table, logit_layers, activation)
+
+
+def _heads_table(x, logit_layers, value_layers, activation):
+    """Raise on what K17 and K18 cannot take; returns the host layer table
+    their C entries read (per head and layer: the weight and bias
+    pointers, in, out; then the two layer counts) and the parameter
+    count."""
+    if activation not in _ACTIVATION_CODES:
+        get_activation(activation)  # raises with the known names
+    kernels.check_cuda("x", x, torch.float32)
+    if x.dim() != 2 or not 0 < x.shape[1] <= _HEAD_MAX_IN:
+        raise ValueError(f"x must be [B, K <= {_HEAD_MAX_IN}], got "
+                         f"{tuple(x.shape)}")
+    table = [0] * (2 * _HEAD_MAX_LAYERS * 4 + 2)
+    n_params = 0
+    for h, layers in enumerate((logit_layers, value_layers)):
+        if not 0 < len(layers) <= _HEAD_MAX_LAYERS:
+            raise ValueError(f"the heads take 1 to {_HEAD_MAX_LAYERS} "
+                             f"layers, got {len(layers)}")
+        width = x.shape[1]
+        for i, (w, b) in enumerate(layers):
+            out = w.shape[0] if w.dim() == 2 else -1
+            kernels.check_cuda(f"head {h} layer {i} weight", w,
+                               torch.float32, (out, width))
+            kernels.check_cuda(f"head {h} layer {i} bias", b, torch.float32,
+                               (out,))
+            last = i == len(layers) - 1
+            limit = ((_HEAD_MAX_OUT if h == 0 else 1) if last
+                     else _HEAD_MAX_HIDDEN)
+            if not 0 < out <= limit:
+                raise ValueError(f"head {h} layer {i} has {out} outputs; "
+                                 f"the kernel takes 1 to {limit}")
+            at = (h * _HEAD_MAX_LAYERS + i) * 4
+            table[at:at + 4] = [w.data_ptr(), b.data_ptr(), width, out]
+            n_params += out * width + out
+            width = out
+        table[2 * _HEAD_MAX_LAYERS * 4 + h] = len(layers)
+    return (ctypes.c_int64 * len(table))(*table), n_params
+
+
+def _mlp_heads_cuda(x, table, logit_layers, activation):
+    rows = x.shape[0]
+    logits = x.new_empty((rows, logit_layers[-1][0].shape[0]))
+    values = x.new_empty(rows)
+    if rows:
+        kernels.launch("mlp_heads", x.data_ptr(), ctypes.addressof(table),
+                       logits.data_ptr(), values.data_ptr(), rows,
+                       _ACTIVATION_CODES[activation])
+    return logits, values
+
+
+def mlp_heads_bwd(x: torch.Tensor, logit_layers: Layers,
+                  value_layers: Layers, activation: str,
+                  dlogits: torch.Tensor, dvalue: torch.Tensor
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K18 and its block-order reduce: ``mlp_heads_bwd_plain``'s result
+    from float32 tensors on the card. It recomputes K17's pre-activations,
+    so its activation-derivative decisions are K17's."""
+    flat = [x] + [t for layer in logit_layers + value_layers for t in layer]
+    if kernels.on_cpu(*flat, dlogits, dvalue):
+        return mlp_heads_bwd_plain(x, logit_layers, value_layers,
+                                   activation, dlogits, dvalue)
+    table, n_params = _heads_table(x, logit_layers, value_layers,
+                                   activation)
+    rows = x.shape[0]
+    kernels.check_cuda("dlogits", dlogits, torch.float32,
+                       (rows, logit_layers[-1][0].shape[0]))
+    kernels.check_cuda("dvalue", dvalue, torch.float32, (rows,))
+    dx = x.new_empty(x.shape)
+    blocks = max(1, min(-(-rows // _HEAD_BWD_TILE), _HEAD_BWD_MAX_BLOCKS))
+    # no rows: zero partials, so the reduce gives zero gradients
+    partial = (x.new_empty if rows else x.new_zeros)((blocks, n_params))
+    if rows:
+        kernels.launch("mlp_heads_bwd", x.data_ptr(),
+                       ctypes.addressof(table), dlogits.data_ptr(),
+                       dvalue.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                       rows, _ACTIVATION_CODES[activation], blocks)
+    grads = x.new_empty(n_params)
+    kernels.launch("mlp_heads_bwd_reduce", partial.data_ptr(),
+                   grads.data_ptr(), blocks, n_params)
+    out, at = [], 0
+    for w, b in logit_layers + value_layers:
+        out.append(grads[at:at + w.numel()].view(w.shape))
+        at += w.numel()
+        out.append(grads[at:at + b.numel()])
+        at += b.numel()
+    return dx, out
+
+
+class _MLPHeads(torch.autograd.Function):
+    """K17 forward, K18 backward (a head the loss does not reach gets a
+    zero output gradient, as ``jax.grad`` gives it)."""
+
+    @staticmethod
+    def forward(ctx, activation, n_logit, x, *flat):
+        pairs = list(zip(flat[0::2], flat[1::2]))
+        table, _ = _heads_table(x, pairs[:n_logit], pairs[n_logit:],
+                                activation)
+        ctx.save_for_backward(x, *flat)
+        ctx.activation, ctx.n_logit = activation, n_logit
+        return _mlp_heads_cuda(x, table, pairs[:n_logit], activation)
+
+    @staticmethod
+    def backward(ctx, dlogits, dvalue):
+        x, *flat = ctx.saved_tensors
+        pairs = list(zip(flat[0::2], flat[1::2]))
+        n_logit = ctx.n_logit
+        rows = x.shape[0]
+        if dlogits is None:
+            dlogits = x.new_zeros((rows, pairs[n_logit - 1][0].shape[0]))
+        if dvalue is None:
+            dvalue = x.new_zeros(rows)
+        dx, grads = mlp_heads_bwd(x, pairs[:n_logit], pairs[n_logit:],
+                                  ctx.activation, dlogits.contiguous(),
+                                  dvalue.contiguous())
+        return (None, None, dx if ctx.needs_input_grad[2] else None,
+                *grads)
+
+
 # ---------------------------------------------------- host batch assembly
 def flat_graph_inputs(edges_src: np.ndarray, edges_dst: np.ndarray,
                       node_split: np.ndarray, edge_split: np.ndarray,
@@ -218,8 +417,9 @@ GRAD_INPUT_KEYS = ("edge_dst", "src_csr_row_ptr", "src_csr_col")
 
 # ----------------------------------------------------------------- modules
 class MLPHead(nn.Module):
-    """Plain Dense stack for the logit and value readouts; ``Dense_k``
-    names follow flax's."""
+    """Dense stack for the logit and value readouts; ``Dense_k`` names
+    follow flax's. ``GNNPolicy`` runs both heads through K17
+    (``mlp_heads``); ``forward`` is the one head in plain PyTorch."""
 
     def __init__(self, in_features: int, hiddens: Sequence[int],
                  out_features: int, activation: str = "relu", device=None):
@@ -233,12 +433,7 @@ class MLPHead(nn.Module):
                     nn.Linear(widths[i], widths[i + 1], device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = get_activation(self.activation)
-        for i in range(self.n_layers):
-            x = getattr(self, f"Dense_{i}")(x)
-            if i < self.n_layers - 1:
-                x = act(x)
-        return x
+        return _mlp_stack(x, head_layers(self), self.activation)
 
 
 class GNNPolicy(nn.Module):
@@ -312,7 +507,8 @@ class GNNPolicy(nn.Module):
 
     def trunk(self, batch: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """GNN, pooling and both heads: (raw logits [B, A], values [B])."""
+        """GNN, pooling and both heads (K17): (raw logits [B, A], values
+        [B])."""
         nf = batch["node_features"]
         ef = batch["edge_features"]
         b, n, fn = nf.shape
@@ -327,7 +523,9 @@ class GNNPolicy(nn.Module):
         final_emb = masked_mean_pool_concat(
             node_emb.reshape(b, n, node_emb.shape[1]),
             node_mask.reshape(b, n), graph_emb)
-        return self.logit_head(final_emb), self.value_head(final_emb)[:, 0]
+        return mlp_heads(final_emb, head_layers(self.logit_head),
+                         head_layers(self.value_head),
+                         self.logit_head.activation)
 
     def forward(self, obs: Dict[str, np.ndarray]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

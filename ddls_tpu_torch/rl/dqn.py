@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ddls_tpu_torch import kernels
-from ddls_tpu_torch.rl.learner import Learner, TrainState, pack_to_device
+from ddls_tpu_torch.rl.learner import (Learner, TrainState, minibatch_gather,
+                                       pack_to_device)
 
 DQN_METRIC_KEYS = ("loss", "mean_q", "mean_td_error", "max_td_error")
 
@@ -449,25 +450,30 @@ class ApexDQNLearner(Learner):
     def stage_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """A replay sample (``obs`` and ``next_obs`` dicts of [N, ...] host
         arrays at the env's pad, ``actions``, ``rewards``, ``discounts``,
-        ``weights`` [N]) on the device in one host-to-device copy: each
-        half's flattened graph at the smallest bucket that holds it, the
-        ``obs`` half with what the backward reads."""
+        ``weights`` [N]) on the device in one host-to-device copy, each
+        half's rows at the smallest bucket that holds them, then each half
+        as one flattened graph by K20 (``minibatch_gather``)."""
         fdt = np.dtype(str(self.dtype).replace("torch.", ""))
-        arrays = {f"obs/{k}": v for k, v in
-                  self.host_batch(batch["obs"], grad=True).items()}
-        arrays.update({f"next_obs/{k}": v for k, v in
-                       self.host_batch(batch["next_obs"]).items()})
+        arrays, buckets = {}, {}
+        for half in ("obs", "next_obs"):
+            rows, n_b, e_b = self.row_arrays(batch[half])
+            arrays.update({f"{half}/{k}": v for k, v in rows.items()})
+            buckets[half] = (n_b, e_b)
         arrays["actions"] = np.asarray(batch["actions"], np.int32)
         for key in ("rewards", "discounts", "weights"):
             arrays[key] = np.asarray(batch[key], fdt)
         dev = pack_to_device(arrays, self.device)
-        staged: Dict[str, Any] = {"obs": {}, "next_obs": {}}
+        staged: Dict[str, Any] = {}
+        rows = {"obs": {}, "next_obs": {}}
         for key, value in dev.items():
             half, _, name = key.rpartition("/")
             if half:
-                staged[half][name] = value
+                rows[half][name] = value
             else:
                 staged[key] = value
+        idx = self._positions(len(arrays["actions"]))
+        for half, (n_b, e_b) in buckets.items():
+            staged[half] = minibatch_gather(rows[half], idx, n_b, e_b)
         return staged
 
     def loss_and_grads(self, state: TrainState, staged: Mapping[str, Any]

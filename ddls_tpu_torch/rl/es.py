@@ -34,7 +34,6 @@ from ddls_tpu_torch import kernels
 from ddls_tpu_torch.models.policy import FLOAT32_MIN
 from ddls_tpu_torch.rl.learner import (TRAJ_OBS_KEYS, Learner, TrainState,
                                        pack_to_device)
-from ddls_tpu_torch.rl.rollout import stack_obs
 
 ES_METRIC_KEYS = ("fitness_mean", "fitness_max", "fitness_std", "grad_norm")
 
@@ -66,11 +65,9 @@ class ESConfig:
         return None
 
 
-def centered_ranks(fitness: torch.Tensor) -> torch.Tensor:
-    """Fitness [P] -> centred ranks in [-0.5, 0.5]: ``argsort(argsort(f))``
-    (stable, NaN above every number, -0 equal to 0, as ``jnp.argsort``
-    orders them) over ``max(P - 1, 1)``, minus 0.5, in the fitness's
-    type."""
+def _ranks(fitness: torch.Tensor) -> torch.Tensor:
+    """``argsort(argsort(f))`` (stable, NaN above every number, -0 equal to
+    0, as ``jnp.argsort`` orders them), in the fitness's type."""
     p = fitness.shape[0]
     nan = torch.isnan(fitness)
     idx = torch.arange(p, device=fitness.device)
@@ -79,10 +76,30 @@ def centered_ranks(fitness: torch.Tensor) -> torch.Tensor:
     before = torch.where(
         nan[:, None], ~nan[None, :] | earlier,
         ~nan[None, :] & ((f_j < f_i) | ((f_j == f_i) & earlier)))
-    ranks = before.sum(dim=1).to(fitness.dtype)
+    return before.sum(dim=1).to(fitness.dtype)
+
+
+def centered_ranks(fitness: torch.Tensor) -> torch.Tensor:
+    """Fitness [P] -> centred ranks in [-0.5, 0.5]: the ranks (``_ranks``)
+    over ``max(P - 1, 1)``, minus 0.5, in the fitness's type (the
+    reference's eager ``centered_ranks``, which divides)."""
+    ranks = _ranks(fitness)
     # a tensor denominator: true division on every device (a scalar would
     # become a multiplication by its reciprocal on the card)
-    return ranks / torch.full_like(ranks, max(p - 1, 1)) - 0.5
+    return ranks / torch.full_like(ranks, max(fitness.shape[0] - 1, 1)) - 0.5
+
+
+def rank_weights(fitness: torch.Tensor) -> torch.Tensor:
+    """The centred ranks as the reference's jitted ``_update`` computes
+    them: XLA turns the division by the constant ``max(P - 1, 1)`` into a
+    product with its reciprocal rounded to float32 once and fuses the
+    ``- 0.5``, so each weight is ``fma(rank, f32(1 / (P - 1)), -0.5)``,
+    rounded once (exact in float64, then rounded to the fitness's type).
+    For P = 10 some weights are one float32 step off ``centered_ranks``'s
+    quotients."""
+    ranks = _ranks(fitness)
+    recip = float(np.float32(1.0) / np.float32(max(fitness.shape[0] - 1, 1)))
+    return (ranks.double() * recip - 0.5).to(fitness.dtype)
 
 
 # ---------------------------------------------- K15: the ES gradient
@@ -92,16 +109,30 @@ def es_update_plain(fitness: torch.Tensor, eps: torch.Tensor,
     """``ESLearner._update``'s gradient and metrics (reference :172-197):
     ``fitness`` [P] float32, ``eps`` [P/2, n] and ``theta`` [n] in the
     parameters' type -> (g [n], metrics [4] in ``ES_METRIC_KEYS`` order,
-    the centred ranks [P] float32). ``g = -sum_k pw_k eps_k / (P sigma) +
-    l2 theta`` with ``pw_k = w_k - w_{k + P/2}``, the sum in pair order."""
+    the rank weights [P] float32). ``g = -sum_k pw_k eps_k / (P sigma) +
+    l2 theta`` with ``pw_k = w_k - w_{k + P/2}`` (``rank_weights``), the
+    sum in pair order. In float32 it is the jitted reference's arithmetic
+    on XLA's CPU backend, operation for operation: ``acc = pw_0 eps_0``,
+    then ``acc = fma(pw_k, eps_k, acc)``; ``g = fma(l2, theta, (-acc) *
+    f32(1 / (P sigma)))`` (each fma exact in float64, then rounded once).
+    In float64 the same formula, a multiply and an add each."""
     p = fitness.shape[0]
-    weights = centered_ranks(fitness)
+    weights = rank_weights(fitness)
     half = p // 2
     pair_w = (weights[:half] - weights[half:]).to(eps.dtype)
-    acc = pair_w[0] * eps[0]
-    for k in range(1, half):
-        acc = acc + pair_w[k] * eps[k]
-    g = -acc / (p * sigma) + l2 * theta
+    if eps.dtype == torch.float32:
+        acc = pair_w[0] * eps[0]
+        for k in range(1, half):
+            acc = (pair_w[k].double() * eps[k].double()
+                   + acc.double()).float()
+        scale = float(np.float32(1.0) / np.float32(p * sigma))
+        g = (float(np.float32(l2)) * theta.double()
+             + ((-acc) * scale).double()).float()
+    else:
+        acc = pair_w[0] * eps[0]
+        for k in range(1, half):
+            acc = acc + pair_w[k] * eps[k]
+        g = -acc * (1.0 / (p * sigma)) + l2 * theta
     metrics = torch.stack([fitness.mean(), fitness.max(),
                            fitness.std(correction=0)]).to(g.dtype)
     metrics = torch.cat([metrics, torch.linalg.vector_norm(g)[None]])
@@ -263,13 +294,13 @@ class ESLearner(Learner):
             return actions.cpu().numpy()
 
     # ------------------------------------------------------------ update
-    def update(self, state: TrainState, eps: torch.Tensor, fitness: Any
-               ) -> Tuple[TrainState, Dict[str, float]]:
+    def update(self, state: TrainState, eps: torch.Tensor, fitness: Any,
+               fetch: bool = True) -> Tuple[TrainState, Dict[str, Any]]:
         """An adam step (no clip) on the ES gradient estimate of the
         population drawn as ``eps`` [P/2, n] with ``fitness`` [P] (cast to
-        float32, as the reference casts it): K15 then the optimiser.
-        Returns the state (updated in place) and the metrics
-        (``ES_METRIC_KEYS``) as floats."""
+        float32, as the reference casts it): K15 then K19. Returns the
+        state (updated in place) and the metrics (``ES_METRIC_KEYS``) as
+        floats, or, with ``fetch`` False, as device scalars."""
         fit = torch.as_tensor(np.asarray(fitness, np.float32),
                               device=self.device)
         cfg = self.cfg
@@ -278,8 +309,9 @@ class ESLearner(Learner):
                                           cfg.noise_stdev, cfg.l2_coeff)
             self._apply_optimizer(state, self.unflat(grads))
             state.step += 1
-            values = metrics.cpu().tolist()
-        return state, dict(zip(ES_METRIC_KEYS, values))
+        if not fetch:
+            return state, dict(zip(ES_METRIC_KEYS, metrics.unbind()))
+        return state, dict(zip(ES_METRIC_KEYS, metrics.cpu().tolist()))
 
     # --------------------------------------------------------- evaluation
     def evaluate_population(self, stacked: torch.Tensor, vec_env,
@@ -304,7 +336,7 @@ class ESLearner(Learner):
             else:
                 step_noise = torch.zeros(shape, dtype=self.dtype,
                                          device=self.device)
-            actions = self.pop_actions(stacked, stack_obs(vec_env.obs),
+            actions = self.pop_actions(stacked, vec_env.stacked_obs(),
                                        step_noise, std)
             _, rewards, _ = vec_env.step(actions)
             fitness += rewards

@@ -41,6 +41,7 @@ DQN_CONFIG_PATH = os.path.join(DATA_DIR,
                                "train_config_apex_dqn_price_mixed.json")
 ES_CONFIG_PATH = os.path.join(DATA_DIR, "train_config_es_price_mixed.json")
 DQN_ES_TRAIN_PATH = os.path.join(DATA_DIR, "dqn_es_train_price_mixed.npz")
+PIPELINE_PATH = os.path.join(DATA_DIR, "ppo_pipeline_price_mixed.npz")
 TRAJ_KEYS = ("actions", "logp", "values", "rewards", "dones")
 
 
@@ -127,6 +128,19 @@ def load_rollout_fixture(path: str = ROLLOUT_PATH) -> Dict[str, Any]:
                 "eval": {"record": json.loads(str(data["eval/record"])),
                          "seed": int(data["eval/seed"]),
                          "interarrival": float(data["eval/interarrival"])}}
+
+
+def load_pipeline_fixture(path: str = PIPELINE_PATH) -> Dict[str, Any]:
+    """``{"traj": {"obs": {...}, "actions", ...} [T, B, ...],
+    "last_values" [B]}``: the JAX collect of the shipped policy over 8
+    subprocess envs on the shm transport, on the deferred-fetch schedule
+    (``scripts/export_torch_pipeline_fixture.py``); its sampler drew
+    ``load_rollout_fixture``'s uniforms."""
+    with np.load(path, allow_pickle=False) as data:
+        traj = {"obs": {k[len("obs/"):]: data[k] for k in data.files
+                        if k.startswith("obs/")}}
+        traj.update({k: data[k] for k in TRAJ_KEYS})
+        return {"traj": traj, "last_values": data["last_values"]}
 
 
 def load_train_config(path: str = TRAIN_CONFIG_PATH) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
-"""Training in the port: the sequential PPO, Ape-X DQN, IMPALA, PG and ES
-epoch loops, checkpoint evaluation and torch checkpoints (counterpart of
+"""Training in the port: the PPO, Ape-X DQN, IMPALA, PG and ES epoch loops
+(sequential or pipelined, over in-process or subprocess envs), lazy
+metrics, checkpoint evaluation and torch checkpoints (counterpart of
 ``ddls_tpu/train``); ``python -m ddls_tpu_torch.train`` is the entry
 point."""
 from ddls_tpu_torch.train.checkpointer import (Checkpointer,

@@ -1,5 +1,5 @@
-"""Train the partitioning policy with the port's sequential loop (PPO,
-Ape-X DQN, IMPALA, PG or ES, as the config's ``algo.algo_name`` says).
+"""Train the partitioning policy with the port's epoch loop (PPO, Ape-X
+DQN, IMPALA, PG or ES, as the config's ``algo.algo_name`` says).
 
     python -m ddls_tpu_torch.train --config CONFIG.json --epochs N
         [--device cuda|cpu] [--init-export EXPORT.npz]
@@ -17,14 +17,16 @@ steps, updates of 512 once 10,000 steps were sampled; its Q-network's
 heads are 256 wide, so it starts from flax's initialisation) and
 ``train_config_es_price_mixed.json`` (ES, a population of 10 at 200 steps
 per member); its ``experiment.train_seed`` seeds the loop. The loop runs
-on the card unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent. ``--init-export`` starts from an exported policy of
-the same architecture (default: flax's initialisation from the seed).
-Prints one JSON line per epoch; after the
-last epoch, ``--eval-episodes`` greedy episodes from ``--eval-seed`` and
-a checkpoint under ``--checkpoint-dir`` (one JSON line for both).
-Evaluation runs once, at the end; the config's per-epoch
-``evaluation_interval`` is not read.
+as the config's ``epoch_loop`` asks (every exported config: ``loop_mode:
+pipelined`` over subprocess envs, ``use_parallel_envs: auto``) and
+evaluates every ``eval_config.evaluation_interval`` epochs; it runs on the
+card unless ``--device cpu`` is given, and raises when CUDA is asked for
+and absent. ``--init-export`` starts from an exported policy of the same
+architecture (default: flax's initialisation from the seed). Prints one
+JSON line per epoch (``loop_mode`` names the mode it ran); after the last
+epoch, ``--eval-episodes`` greedy episodes from ``--eval-seed`` and a
+checkpoint under ``--checkpoint-dir`` (one JSON line for both). The
+launcher's stop conditions and checkpoint and log cadences are not read.
 """
 from __future__ import annotations
 
@@ -36,13 +38,14 @@ from typing import Any, Dict, Optional
 from ddls_tpu_torch.train.checkpointer import Checkpointer
 from ddls_tpu_torch.train.loops import (RLEpochLoop, build_epoch_loop_kwargs,
                                         make_epoch_loop)
+from ddls_tpu_torch.train.metrics import materialize_results
 
 
 def build_loop(cfg: Dict[str, Any], device: str = "cuda",
                init_export: Optional[str] = None) -> RLEpochLoop:
-    """The sequential loop of a composed config, for its algorithm."""
+    """The epoch loop of a composed config, for its algorithm."""
     kwargs = build_epoch_loop_kwargs(cfg)
-    kwargs.update(loop_mode="sequential", device=device)
+    kwargs.update(device=device)
     if init_export:
         from ddls_tpu_torch.serve.server import load_export
 
@@ -51,9 +54,11 @@ def build_loop(cfg: Dict[str, Any], device: str = "cuda",
     return make_epoch_loop(algo, **kwargs)
 
 
-def epoch_line(results: Dict[str, Any]) -> Dict[str, Any]:
-    """An epoch's results without the per-episode records."""
-    return {k: v for k, v in results.items() if k != "episodes"}
+def epoch_line(results: Dict[str, Any], loop_mode: str) -> Dict[str, Any]:
+    """An epoch's results without the per-episode records, its metrics
+    read back, with the loop mode that ran it."""
+    line = {k: v for k, v in results.items() if k != "episodes"}
+    return {**materialize_results(line), "loop_mode": loop_mode}
 
 
 def main(argv=None) -> int:
@@ -72,7 +77,8 @@ def main(argv=None) -> int:
     loop = build_loop(cfg, args.device, args.init_export)
     try:
         for _ in range(args.epochs):
-            print(json.dumps(epoch_line(loop.run())), flush=True)
+            print(json.dumps(epoch_line(loop.run(), loop.loop_mode)),
+                  flush=True)
         final: Dict[str, Any] = {"epochs": loop.epoch_counter,
                                  "total_env_steps": loop.total_env_steps}
         if args.eval_episodes > 0:

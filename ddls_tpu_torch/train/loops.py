@@ -1,43 +1,60 @@
-"""The epoch loops, sequential mode, and checkpoint evaluation.
+"""The epoch loops, sequential and pipelined, and checkpoint evaluation.
 
-Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what the sequential
-PPO, IMPALA, PG, Ape-X DQN and ES loops read:
+Counterpart of ``ddls_tpu/train/loops.py``, trimmed to what the PPO,
+IMPALA, PG, Ape-X DQN and ES loops read:
 ``_reject_unknown_algo_keys`` :59 (in
 ``rl/learner.py``), ``build_policy_from_model_config`` :127,
 ``_episode_summary`` :149, ``RLEpochLoop`` :181 (the ``__init__`` subset
-of the sequential loop, the algo hooks ``_size_rollouts`` /
-``_configure_algo`` / ``_make_learner`` :641-659, ``run`` :1283,
-``_finalize_results`` :1350, ``make_eval_env`` :1378, ``evaluate`` :1392
-with its global-RNG isolation, the greedy episodes :1418-1498,
-``save_agent_checkpoint`` / ``load_agent_checkpoint`` and ``close``),
-``dqn_config_from_rllib`` :88-125, ``ApexDQNEpochLoop`` :1630-1822,
-``impala_config_from_rllib`` / ``pg_config_from_rllib`` /
-``es_config_from_rllib`` :1824-1862, ``ImpalaEpochLoop`` :1864,
-``PGEpochLoop`` :1903, ``ESEpochLoop`` :1923-2047 and ``RLEvalLoop``
-:2108.
+of the sequential and pipelined modes with subprocess env workers, the
+algo hooks ``_size_rollouts`` / ``_configure_algo`` / ``_make_learner``
+:641-659, the pipelining plumbing ``_collect_and_stage`` /
+``_next_batch`` / ``_harvest_metrics`` / ``_maybe_sync_metrics`` /
+``sync_metrics`` / ``ring_stats`` :1027-1213, ``run`` :1283,
+``_finalize_results`` :1350 with its periodic evaluation,
+``make_eval_env`` :1378, ``evaluate`` :1392 with its global-RNG
+isolation, the greedy episodes :1418-1498, ``save_agent_checkpoint`` /
+``load_agent_checkpoint`` and ``close`` :1581), ``dqn_config_from_rllib``
+:88-125, ``ApexDQNEpochLoop`` :1630-1822, ``impala_config_from_rllib`` /
+``pg_config_from_rllib`` / ``es_config_from_rllib`` :1824-1862,
+``ImpalaEpochLoop`` :1864, ``PGEpochLoop`` :1903, ``ESEpochLoop``
+:1923-2047 and ``RLEvalLoop`` :2108.
 
-One ``run()`` is one epoch: ``RolloutCollector.collect`` over a
-``VectorEnv`` of the port's own simulator (each step's forward through
-K1-K3, the heads and K9), then the learner's ``stage_traj`` and
-``train_step`` (PPO: K5-K8; IMPALA: K10 and K12; PG: K11 and K12, each
-with the policy's backward K5/K6), then the learner's metrics in one
-read-back. Greedy evaluation takes K4. The Ape-X DQN loop acts through
-the forward and K13 into a prioritised replay buffer and updates through
-three forwards and K14; the ES loop evaluates a population (one forward
-per member and K16 a step) and updates through K15; each has its own
-``run``. The learner and the collector draw from two explicit
-``torch.Generator``s on the loop's device, seeded from ``seed`` (the
-IMPALA, PG and DQN updates draw nothing; ES draws its population and its
-eval gate from the update stream and its action noise from the collect
-stream).
+One ``run()`` is one epoch: ``RolloutCollector.collect`` over the envs
+(each step's forward through K1-K3, K17 and K9), then the learner's
+``stage_traj`` and ``train_step`` (K20 assembles each minibatch, K17/K18
+run the heads, K19 the optimiser; PPO: K5-K8; IMPALA: K10 and K12; PG:
+K11 and K12, each with the policy's backward K5/K6). The envs are a
+``ParallelVectorEnv`` of subprocess workers (``use_parallel_envs``:
+``"auto"`` takes them on any host with more than one core, as the
+reference does; ``vec_env_backend`` picks their pipe or shared-memory
+transport) or an in-process ``VectorEnv``. Greedy evaluation takes K4,
+every ``evaluation_interval`` epochs (``evaluation_duration`` episodes).
+The Ape-X DQN loop acts through the forward and K13 into a prioritised
+replay buffer and updates through K20, three forwards and K14; the ES
+loop evaluates a population (one forward per member and K16 a step) and
+updates through K15 and K19; each has its own ``run``. The learner and
+the collector draw from two explicit ``torch.Generator``s on the loop's
+device, seeded from ``seed`` (the IMPALA, PG and DQN updates draw
+nothing; ES draws its population and its eval gate from the update stream
+and its action noise from the collect stream).
 
-Left out, each raising where it is asked for: the pipelined, fused and
-sebulba modes (``loop_mode`` other than ``"sequential"``), subprocess env
-workers (``use_parallel_envs=True``), ``pipeline_depth`` (IMPALA's stale
-collection), the device collector, sharded parameter layouts, socket
-collection, scenarios, the run ledger and periodic evaluation
-(``evaluation_interval``: ``evaluate`` runs when the caller asks), and
-the multi-host fitness average of ES.
+``loop_mode``: ``"sequential"`` reads each update's metrics back at once
+and collects on the plain schedule; ``"pipelined"`` (the configs' and the
+reference's default) keeps the metrics on the card as ``LazyMetrics``
+futures read back in one copy every ``metrics_sync_interval`` epochs (or
+at an evaluation, ``sync_metrics`` or ``close``), and collects on the
+deferred-fetch schedule over a trajectory ring where the envs run on the
+shm transport. The two modes give the same params, metrics and episodes
+bit for bit. ``pipeline_depth >= 1`` (IMPALA only, pipelined only) keeps
+that many collections in flight on a background thread against a
+snapshot of the pre-update params, whose lag V-trace corrects (reported
+per batch as ``params_age_updates``).
+
+Left out, each raising where it is asked for: the fused and sebulba
+modes, the device collector, sharded parameter layouts, socket
+collection, scenarios, the run ledger, warm starts, W&B, and the
+multi-host fitness average of ES. The launcher's checkpoint and log
+cadences belong to the launcher (not ported).
 """
 from __future__ import annotations
 
@@ -59,31 +76,42 @@ from ddls_tpu_torch.rl.impala import ImpalaConfig, ImpalaLearner
 from ddls_tpu_torch.rl.learner import reject_unknown_algo_keys
 from ddls_tpu_torch.rl.pg import PGConfig, PGLearner
 from ddls_tpu_torch.rl.ppo import PPOLearner, ppo_config_from_rllib
-from ddls_tpu_torch.rl.rollout import (OBS_KEYS, RolloutCollector,
-                                       VectorEnv, harvest_episode_record,
-                                       stack_obs)
+from ddls_tpu_torch.rl.ring import READY
+from ddls_tpu_torch.rl.rollout import (OBS_KEYS, ParallelVectorEnv,
+                                       RolloutCollector, VectorEnv,
+                                       harvest_episode_record, stack_obs)
 from ddls_tpu_torch.serve.server import resolve_device
 from ddls_tpu_torch.train.checkpointer import (restore_train_state,
                                                save_train_state)
-from ddls_tpu_torch.utils.common import (get_class_from_path,
+from ddls_tpu_torch.train.metrics import LazyMetrics, read_back
+from ddls_tpu_torch.utils.common import (available_cores,
+                                         get_class_from_path,
                                          recursive_update, seed_everything)
 
 # flax's default Dense kernel init, lecun_normal: a normal truncated at two
 # standard deviations, rescaled to keep the variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
 
-# what the sequential loop cannot honour, with the value that leaves it off
+# the reference's options that the port does not honour, with the values
+# that leave them off; any other value raises, as does any option the
+# reference does not have
 _UNPORTED_OPTIONS = {
-    "pipeline_depth": (0, None),
     "param_sharding": ("replicated", None),
+    "tp_size": (None,),
+    "n_devices": (None, 1),
     "collect_transport": ("inprocess", None),
     "socket_config": (None, {}),
     "scenario": (None,),
     "run_ledger": (None,),
     "sebulba_config": (None, {}),
     "fused_config": (None, {}),
-    "evaluation_interval": (None, 0),
+    "updates_per_epoch": (None, 4),
+    "test_time_checkpoint_path": (None,),
+    "initial_checkpoint_path": (None,),
+    "path_to_model_cls": (None,),
+    "wandb": (None,),
 }
+LOOP_MODES = ("sequential", "pipelined")
 
 
 def build_policy_from_model_config(n_actions: int, graph_feature_dim: int,
@@ -154,17 +182,23 @@ def _episode_summary(episodes: List[dict]) -> Dict[str, float]:
 class RLEpochLoop:
     """One epoch per ``run()`` call: a collect, then one learner update
     (PPO here; ``ImpalaEpochLoop`` and ``PGEpochLoop`` swap the learner
-    through the algo hooks). ``evaluate`` runs greedy episodes when the
-    caller asks (the reference's periodic evaluation is left out).
+    through the algo hooks), with greedy evaluation every
+    ``evaluation_interval`` epochs (None or 0: never).
 
     ``env_config`` / ``model`` / ``algo_config`` follow the reference's
     config surfaces; ``num_envs`` (default: ``algo_config.num_workers``)
     envs each step ``rollout_length`` (default: ``train_batch_size //
-    num_envs``) times per epoch. ``device`` is ``"cuda"`` unless the
-    caller asks for ``"cpu"`` (raises when CUDA is asked for and absent).
-    ``init_params`` (a state dict, e.g. ``load_export``'s) seeds the
-    policy; without it the policy starts from ``init_like_flax``.
+    num_envs``) times per epoch. ``loop_mode``, ``metrics_sync_interval``,
+    ``pipeline_depth``, ``use_parallel_envs`` and ``vec_env_backend`` are
+    the reference's (see the module docstring). ``device`` is ``"cuda"``
+    unless the caller asks for ``"cpu"`` (raises when CUDA is asked for
+    and absent). ``init_params`` (a state dict, e.g. ``load_export``'s)
+    seeds the policy; without it the policy starts from ``init_like_flax``.
     """
+
+    # collecting against stale params needs an off-policy correction:
+    # ImpalaEpochLoop opts in
+    SUPPORTS_STALE_COLLECTION = False
 
     def __init__(self,
                  path_to_env_cls: str,
@@ -174,45 +208,90 @@ class RLEpochLoop:
                  num_envs: Optional[int] = None,
                  rollout_length: Optional[int] = None,
                  use_parallel_envs="auto",
+                 metric: str = "evaluation/episode_reward_mean",
+                 metric_goal: str = "maximise",
+                 evaluation_interval: Optional[int] = 1,
+                 evaluation_duration: int = 3,
                  evaluation_config: Optional[dict] = None,
                  seed: Optional[int] = 0,
                  test_seed: Optional[int] = None,
-                 loop_mode: str = "sequential",
+                 loop_mode: str = "pipelined",
+                 metrics_sync_interval: int = 10,
+                 pipeline_depth: int = 0,
+                 vec_env_backend: str = "auto",
                  device: str = "cuda",
                  init_params: Optional[Mapping[str, Any]] = None,
                  **kwargs):
-        if loop_mode != "sequential":
-            raise ValueError(f"the port runs loop_mode='sequential' only, "
-                             f"got {loop_mode!r}")
-        if use_parallel_envs is True:
-            raise ValueError("the port has no subprocess env workers yet "
-                             "(ParallelVectorEnv); use_parallel_envs must be "
-                             "False or 'auto'")
-        for key, off in _UNPORTED_OPTIONS.items():
-            if key in kwargs and kwargs[key] not in off:
-                raise ValueError(f"{key}={kwargs[key]!r} is not ported; "
-                                 f"the sequential loop needs it off")
+        for key, value in kwargs.items():
+            if key not in _UNPORTED_OPTIONS:
+                raise ValueError(f"unknown epoch-loop option {key!r}")
+            if value not in _UNPORTED_OPTIONS[key]:
+                raise ValueError(f"{key}={value!r} is not ported; the "
+                                 f"port's loop needs it off")
+        if loop_mode not in LOOP_MODES:
+            raise ValueError(f"loop_mode must be one of {LOOP_MODES} in "
+                             f"the port, got {loop_mode!r}")
+        self.pipeline_depth = int(pipeline_depth or 0)
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth must be >= 0, got {pipeline_depth}")
+        if self.pipeline_depth and not self.SUPPORTS_STALE_COLLECTION:
+            raise ValueError(
+                f"{type(self).__name__} does not support pipeline_depth > "
+                "0: collecting against stale params needs an explicit "
+                "off-policy correction (IMPALA's V-trace); ppo/pg/dqn/es "
+                "must collect with the current params (pipeline_depth=0)")
+        if self.pipeline_depth and loop_mode != "pipelined":
+            raise ValueError(
+                "pipeline_depth > 0 requires loop_mode='pipelined'")
+        if vec_env_backend not in ("auto", "pipe", "shm"):
+            raise ValueError(
+                f"vec_env_backend must be 'auto', 'pipe' or 'shm', got "
+                f"{vec_env_backend!r}")
         if (algo_config or {}).get("device_collector"):
             raise ValueError("the port has no device collector yet")
+        self.loop_mode = loop_mode
+        self.metrics_sync_interval = max(int(metrics_sync_interval or 1), 1)
+        self.vec_env_backend = vec_env_backend
         self.device = resolve_device(device)
         self.env_cls = get_class_from_path(path_to_env_cls)
         self.env_config = dict(env_config)
+        self.metric = metric
+        self.metric_goal = metric_goal
+        self.evaluation_interval = evaluation_interval
+        self.evaluation_duration = int(evaluation_duration)
         self.evaluation_config = evaluation_config or {}
         self.seed = 0 if seed is None else int(seed)
         self.test_seed = test_seed
+        # pipelining state: the queue of (future, updates dispatched at
+        # submission) of in-flight collections, the unsynced metrics, the
+        # collection thread and the stale collections' parameter snapshots
+        self._collect_futures: List[Any] = []
+        self._collect_executor = None
+        self._metrics_ring: List[LazyMetrics] = []
+        self._updates_dispatched = 0
+        self._snapshots: List[GNNPolicy] = []
 
         self._configure_algo(dict(algo_config or {}), num_envs,
                              rollout_length)
 
         seed_everything(self.seed)
-        self.vec_env = VectorEnv(
-            [lambda: self.env_cls(**self.env_config)
-             for _ in range(self.num_envs)],
-            seeds=[self.seed + i for i in range(self.num_envs)])
-        self.vec_env.reset()  # the observation space exists after a reset
-        template = self.vec_env.envs[0]
-        self.n_actions = template.action_space.n
-        graph_dim = template.observation_space["graph_features"].shape[0]
+        if use_parallel_envs == "auto":
+            # subprocess env workers pay off only with cores to run on
+            use_parallel_envs = available_cores() > 1
+        seeds = [self.seed + i for i in range(self.num_envs)]
+        if use_parallel_envs:
+            self.vec_env = ParallelVectorEnv(
+                self.env_cls, self.env_config, self.num_envs, seeds=seeds,
+                backend=self.vec_env_backend)
+        else:
+            self.vec_env = VectorEnv(
+                [lambda: self.env_cls(**self.env_config)
+                 for _ in range(self.num_envs)], seeds=seeds)
+        self.vec_env.reset()  # the observation shapes exist after a reset
+        first = self.vec_env.stacked_obs()
+        self.n_actions = int(first["action_mask"].shape[1])
+        graph_dim = int(first["graph_features"].shape[1])
         self.model = self._build_model(self.n_actions, graph_dim, model)
         if init_params is None:
             init_like_flax(self.model,
@@ -257,25 +336,143 @@ class RLEpochLoop:
         ``_build_learner``; the DQN and ES loops build their own)."""
         self.learner = self._make_learner()
         self.state = self.learner.init_state(init_params)
-        self.collector = RolloutCollector(self.vec_env, self.learner,
-                                          self.rollout_length)
+        pipelined = self.loop_mode == "pipelined"
+        self.collector = RolloutCollector(
+            self.vec_env, self.learner, self.rollout_length,
+            deferred_fetch=pipelined,
+            ring_segments=self.pipeline_depth + 2 if pipelined else None)
+
+    # ------------------------------------------------ pipelining plumbing
+    def _update_token(self) -> Any:
+        """The marker that the update just dispatched has run: an event on
+        the card, ``READY`` on the CPU (where it ran when it returned)."""
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            return event
+        return READY
+
+    def _collect_and_stage(self, model: Optional[GNNPolicy] = None):
+        """Collect one batch and stage it on the learner's device; for a
+        trajectory-ring segment, phase 1 of the ring's token protocol
+        (``TrajRing.note_staged``: the alias verdict, and the staging's
+        token where the staging copied the segment's rows)."""
+        out = self.collector.collect(generator=self._collect_gen,
+                                     model=model)
+        staged = self.learner.stage_traj(out["traj"], out["last_values"])
+        segment = out.get("ring_segment")
+        if segment is not None:
+            out["ring"].note_staged(segment, staged,
+                                    generation=out["ring_generation"])
+        return out, staged
+
+    def _snapshot(self) -> GNNPolicy:
+        """A copy of the current params for a stale collection, in one of
+        ``pipeline_depth + 1`` models used in turn (no more collections
+        than that hold one at a time); the copy is queued on the stream
+        before the update that follows it."""
+        if len(self._snapshots) <= self.pipeline_depth:
+            self._snapshots.append(copy.deepcopy(self.model)
+                                   .requires_grad_(False))
+        model = self._snapshots.pop(0)
+        self._snapshots.append(model)
+        with torch.no_grad():
+            for dst, src in zip(model.parameters(),
+                                self.model.parameters()):
+                dst.copy_(src)
+        return model
+
+    def _next_batch(self):
+        """The epoch's staged batch; under ``pipeline_depth >= 1`` also
+        tops the background collections back up to ``depth``, each against
+        a snapshot of the CURRENT (pre-update) params, so a batch is as
+        many updates stale as landed before it is consumed (its
+        ``params_age``). Collections run one at a time on one thread, in
+        submission order, so the collect stream is drawn in the same
+        order at every depth."""
+        if self._collect_futures:
+            future, version = self._collect_futures.pop(0)
+            out, staged = future.result()
+            out["params_age"] = self._updates_dispatched - version
+        else:
+            out, staged = self._collect_and_stage()
+            out["params_age"] = 0
+        if self.pipeline_depth:
+            if self._collect_executor is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._collect_executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="collect-pipeline")
+            while len(self._collect_futures) < self.pipeline_depth:
+                self._collect_futures.append((
+                    self._collect_executor.submit(
+                        self._collect_and_stage, self._snapshot()),
+                    self._updates_dispatched))
+        return out, staged
+
+    def _harvest_metrics(self, metrics: Mapping[str, Any],
+                         extras: Optional[dict] = None) -> Any:
+        """Sequential mode: the metrics read back now, as floats.
+        Pipelined mode: a ``LazyMetrics`` future on the unsynced ring,
+        read back at the next sync boundary. ``extras`` are host values
+        (the depth-K loop's ``params_age_updates``)."""
+        if self.loop_mode == "sequential":
+            fetched = dict(zip(metrics, read_back(list(metrics.values()))))
+            fetched.update(extras or {})
+            return fetched
+        lazy = LazyMetrics(dict(metrics), extras=extras)
+        self._metrics_ring.append(lazy)
+        return lazy
+
+    def _maybe_sync_metrics(self, force: bool = False) -> None:
+        """Read back the unsynced metrics in ONE copy at a sync boundary:
+        every ``metrics_sync_interval`` epochs, an evaluation epoch, or
+        ``force``."""
+        if not self._metrics_ring:
+            return
+        if not (force
+                or self.epoch_counter % self.metrics_sync_interval == 0):
+            return
+        ring, self._metrics_ring = self._metrics_ring, []
+        LazyMetrics.materialize_group(ring)
+
+    def sync_metrics(self) -> None:
+        """Read back any unsynced metrics now (checkpoint, shutdown)."""
+        self._maybe_sync_metrics(force=True)
+
+    def ring_stats(self) -> Optional[Dict[str, Any]]:
+        """The trajectory ring's ledger counters, or None without a
+        ring."""
+        ring = getattr(self.vec_env, "traj_ring", None)
+        return ring.stats() if ring is not None else None
 
     # ---------------------------------------------------------------- epoch
     def run(self) -> Dict[str, Any]:
         """Collect one trajectory batch and apply one update."""
         start = time.time()
         t0 = time.perf_counter()
-        out = self.collector.collect(generator=self._collect_gen)
+        out, staged = self._next_batch()
         t1 = time.perf_counter()
-        staged = self.learner.stage_traj(out["traj"], out["last_values"])
         self.state, metrics = self.learner.train_step(
             self.state, staged, generator=self._update_gen)
-        # each learner's own metric keys, read back in one copy
-        learner_metrics = dict(zip(metrics, torch.stack(
-            list(metrics.values())).cpu().tolist()))
-        t2 = time.perf_counter()
+        self._updates_dispatched += 1
+        segment = out.get("ring_segment")
+        if segment is not None:
+            # phase 2 of the ring's token protocol: the update's token
+            out["ring"].note_update(segment, self._update_token(),
+                                    generation=out["ring_generation"])
+        extras = None
+        if self.pipeline_depth:
+            age = int(out["params_age"])
+            extras = {"params_age_updates": age}
+            ring = out.get("ring")
+            if ring is not None:
+                ring.observe_params_age(age)
         self.epoch_counter += 1
         self.total_env_steps += out["env_steps"]
+        learner_metrics = self._harvest_metrics(metrics, extras=extras)
+        self._maybe_sync_metrics()
+        t2 = time.perf_counter()
         results: Dict[str, Any] = {
             "epoch_counter": self.epoch_counter,
             "env_steps_this_iter": out["env_steps"],
@@ -289,9 +486,20 @@ class RLEpochLoop:
     def _finalize_results(self, results: Dict[str, Any],
                           episodes: List[dict], start: float
                           ) -> Dict[str, Any]:
-        """Shared epoch epilogue: episode summary, timing bookkeeping."""
+        """Shared epoch epilogue: episode summary, periodic evaluation,
+        timing bookkeeping."""
         results.update(_episode_summary(episodes))
         results["episodes"] = episodes
+        if (self.evaluation_interval
+                and self.epoch_counter % self.evaluation_interval == 0):
+            # an evaluation is a logging boundary: read back the unsynced
+            # metrics first, and let in-flight background collections
+            # settle, since evaluate() snapshots and reseeds the global
+            # numpy/random state that their env stepping draws from
+            self._maybe_sync_metrics(force=True)
+            for future, _ in self._collect_futures:
+                future.result()
+            results["evaluation"] = self.evaluate(self.evaluation_duration)
         self.run_time += time.time() - start
         results["epoch_time"] = time.time() - start
         results["run_time"] = self.run_time
@@ -398,6 +606,18 @@ class RLEpochLoop:
         self.state = restore_train_state(path, target=self.state)
 
     def close(self) -> None:
+        """Settle the background collections, read back unsynced metrics,
+        and close the envs (their workers and shared memory)."""
+        for future, _ in self._collect_futures:
+            try:  # leave the env workers in a consistent state
+                future.result(timeout=60)
+            except Exception:
+                pass
+        self._collect_futures = []
+        if self._collect_executor is not None:
+            self._collect_executor.shutdown(wait=True)
+            self._collect_executor = None
+        self.sync_metrics()
         self.vec_env.close()
 
 
@@ -443,9 +663,14 @@ def pg_config_from_rllib(algo_config: Optional[dict]) -> PGConfig:
 
 class ImpalaEpochLoop(RLEpochLoop):
     """IMPALA epoch loop: the same collector as PPO, then one V-trace
-    update per batch (reference: algo/impala.yaml). The reference's
-    ``pipeline_depth >= 1`` (stale collection ahead of the learner) is not
-    ported and raises."""
+    update per batch (reference: algo/impala.yaml). The one loop where
+    ``pipeline_depth >= 1`` is sound: up to ``depth`` collections run ahead
+    on the background thread against snapshots of pre-update params while
+    the card applies updates, and V-trace's importance weights correct
+    that lag (``params_age_updates`` per batch). On the shm transport the
+    in-flight batches live in a ``depth + 2``-segment trajectory ring."""
+
+    SUPPORTS_STALE_COLLECTION = True
 
     def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
         self.algo_cfg = impala_config_from_rllib(algo_config)
@@ -560,13 +785,20 @@ class ApexDQNEpochLoop(RLEpochLoop):
         self._nstep_queues: List[List[dict]] = [
             [] for _ in range(self.num_envs)]
         self.collector = None
+        if (self.loop_mode == "pipelined"
+                and getattr(self.vec_env, "prefetch_stacked", None)
+                is False):
+            self.vec_env.prefetch_stacked = True
 
     def run(self) -> Dict[str, Any]:
         """Collect ``rollout_length`` epsilon-greedy steps per env into
         replay, then apply ``round(env_steps * training_intensity /
         train_batch_size)`` updates once the learning-starts gate opens.
         ``timing``: the collect's env stepping (``env_s``) and acting
-        (``sample_s``), and the updates (``update_s``)."""
+        (``sample_s``), and the updates (``update_s``). Only the metrics'
+        schedule differs between the loop modes: each update reads its
+        ``|td|`` back for the priorities, with the metrics in the same
+        copy; the pipelined loop logs their mean as one ``LazyMetrics``."""
         cfg = self.algo_cfg
         start = time.time()
         t_len, lanes = self.rollout_length, self.num_envs
@@ -622,11 +854,18 @@ class ApexDQNEpochLoop(RLEpochLoop):
         t2 = time.perf_counter()
 
         self.epoch_counter += 1
-        learner_metrics: Dict[str, Any] = (
-            {k: float(np.mean([m[k] for m in metrics_acc]))
-             for k in metrics_acc[0]} if metrics_acc else {})
-        learner_metrics.update(num_updates=len(metrics_acc),
-                               replay_size=self.replay.size)
+        extras = {"num_updates": len(metrics_acc),
+                  "replay_size": self.replay.size}
+        if self.loop_mode == "sequential":
+            learner_metrics: Any = (
+                {k: float(np.mean([m[k] for m in metrics_acc]))
+                 for k in metrics_acc[0]} if metrics_acc else {})
+            learner_metrics.update(extras)
+        else:
+            learner_metrics = LazyMetrics(metrics_acc, reduce="mean",
+                                          extras=extras)
+            self._metrics_ring.append(learner_metrics)
+            self._maybe_sync_metrics()
         results: Dict[str, Any] = {
             "epoch_counter": self.epoch_counter,
             "env_steps_this_iter": env_steps,
@@ -678,7 +917,9 @@ class ESEpochLoop(RLEpochLoop):
             stacked, self.vec_env, self.rollout_length,
             generator=self._collect_gen)
         t1 = time.perf_counter()
-        self.state, metrics = self.learner.update(self.state, eps, fitness)
+        self.state, metrics = self.learner.update(self.state, eps, fitness,
+                                                  fetch=False)
+        metrics = self._harvest_metrics(metrics)
         t2 = time.perf_counter()
         # training episodes are drained before any eval window, so the
         # mean policy's episodes never reach the training stats
@@ -691,6 +932,8 @@ class ESEpochLoop(RLEpochLoop):
             self.vec_env.drain_completed_episodes()
             self.vec_env.restart_episodes()
         self.epoch_counter += 1
+        # the sync gate after the increment, as the other loops'
+        self._maybe_sync_metrics()
         env_steps = self.rollout_length * self.num_envs
         self.total_env_steps += env_steps
         results: Dict[str, Any] = {
@@ -745,7 +988,9 @@ def make_epoch_loop(algo_name: Optional[str], **kwargs) -> RLEpochLoop:
 
 def build_epoch_loop_kwargs(cfg: Mapping[str, Any]) -> Dict[str, Any]:
     """Merge a composed config's groups into epoch-loop kwargs, as
-    ``scripts/train_from_config.py:build_epoch_loop_kwargs`` does."""
+    ``scripts/train_from_config.py:build_epoch_loop_kwargs`` does
+    (``eval_config``'s ``evaluation_interval``, ``evaluation_duration``
+    and ``evaluation_config`` included)."""
     kwargs = {k: v for k, v in cfg.get("epoch_loop", {}).items()
               if k != "_target_"}
     if "env_config" in cfg:
@@ -758,8 +1003,11 @@ def build_epoch_loop_kwargs(cfg: Mapping[str, Any]) -> Dict[str, Any]:
         kwargs["model"] = model
     if "algo" in cfg:
         kwargs["algo_config"] = cfg["algo"].get("algo_config", {})
-    if "evaluation_config" in cfg.get("eval_config", {}):
-        kwargs["evaluation_config"] = cfg["eval_config"]["evaluation_config"]
+    eval_config = cfg.get("eval_config") or {}
+    for key in ("evaluation_interval", "evaluation_duration",
+                "evaluation_config"):
+        if key in eval_config:
+            kwargs[key] = eval_config[key]
     experiment = cfg.get("experiment", {})
     if "train_seed" in experiment:
         kwargs["seed"] = experiment["train_seed"]

@@ -114,6 +114,16 @@ class Stopwatch:
         return self._time
 
 
+def available_cores() -> int:
+    """CPU cores this process may use (affinity-aware where supported)."""
+    import os
+
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # non-Linux
+        return os.cpu_count() or 1
+
+
 def seed_everything(seed: int, torch_too: bool = False) -> None:
     """Seed numpy + stdlib random (the simulator's global streams: the
     job sampler and the distributions draw from them), and torch's default

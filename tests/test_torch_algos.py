@@ -598,7 +598,8 @@ def test_loops_size_rollouts_from_the_algo_yaml():
         loop = tloops.EPOCH_LOOPS[algo].__new__(tloops.EPOCH_LOOPS[algo])
         loop._configure_algo(kwargs["algo_config"], None, None)
         assert (loop.num_envs, loop.rollout_length) == want
-    with pytest.raises(ValueError, match="not ported"):
+    # stale collection is IMPALA's, and only in the pipelined loop
+    with pytest.raises(ValueError, match="requires loop_mode='pipelined'"):
         kwargs = tloops.build_epoch_loop_kwargs(_tiny("impala"))
         tloops.make_epoch_loop("impala", **dict(
             kwargs, device="cpu", loop_mode="sequential", pipeline_depth=1))

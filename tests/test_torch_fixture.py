@@ -9,7 +9,8 @@ uniforms and a recorded greedy episode) from
 scripts/export_torch_rollout_fixture.py, the JAX IMPALA and PG updates of
 the training trajectory from scripts/export_torch_ac_fixture.py, the JAX
 Ape-X DQN and ES recordings from scripts/export_torch_dqn_es_fixture.py,
-and the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
+the JAX collect over subprocess envs from
+scripts/export_torch_pipeline_fixture.py, and the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
 scripts/export_torch_train_config.py; the recorded uniforms reproduce the
 recorded actions."""
 import os
@@ -24,6 +25,7 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_ac_fixture as ac_export  # noqa: E402
 import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
+import export_torch_pipeline_fixture as pipeline_export  # noqa: E402
 import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
 import export_torch_train_config as config_export  # noqa: E402
@@ -39,7 +41,7 @@ from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
                                        DQN_CONFIG_PATH, DQN_ES_TRAIN_PATH,
                                        ES_CONFIG_PATH,
                                        IMPALA_CONFIG_PATH, PG_CONFIG_PATH,
-                                       ROLLOUT_PATH, TRAIN_CONFIG_PATH,
+                                       PIPELINE_PATH, ROLLOUT_PATH, TRAIN_CONFIG_PATH,
                                        TRAIN_PATH,
                                        load_rollout_fixture,
                                        load_train_fixture)
@@ -185,6 +187,23 @@ def test_rollout_fixture_regenerates_bit_for_bit(jax_policy):
     assert fresh["uniforms"].shape == (train_export.ROLLOUT_LENGTH,
                                        train_export.N_ENVS, 17)
     assert os.path.getsize(ROLLOUT_PATH) < 200_000
+
+
+def test_pipeline_fixture_regenerates_bit_for_bit(jax_policy):
+    """The subprocess-env collect rebuilt by its export script (8 JAX
+    worker processes on the shm transport): every array equal in dtype,
+    shape and bits."""
+    cfg, model, params, _ = jax_policy
+    fresh = pipeline_export.collect_subprocess(cfg, model, params)
+    with np.load(PIPELINE_PATH, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh)
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, key
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert fresh["rewards"].shape == (train_export.ROLLOUT_LENGTH,
+                                      train_export.N_ENVS)
+    assert os.path.getsize(PIPELINE_PATH) < 200_000
 
 
 def test_recorded_uniforms_reproduce_the_recorded_actions():

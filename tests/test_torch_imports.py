@@ -43,7 +43,8 @@ _CHILD = textwrap.dedent("""
              "ddls_tpu_torch.rl.pg", "ddls_tpu_torch.rl.actor_critic",
              "ddls_tpu_torch.rl.dqn", "ddls_tpu_torch.rl.es",
              "ddls_tpu_torch.rl.fixture", "ddls_tpu_torch.serve.fixture",
-             "ddls_tpu_torch.rl.rollout",
+             "ddls_tpu_torch.rl.rollout", "ddls_tpu_torch.rl.shm",
+             "ddls_tpu_torch.rl.ring", "ddls_tpu_torch.train.metrics",
              "ddls_tpu_torch.train.loops", "ddls_tpu_torch.train.__main__",
              "ddls_tpu_torch.train.checkpointer", "ddls_tpu_torch.native",
              "ddls_tpu_torch.sim.cluster",

@@ -21,8 +21,15 @@ are also held bitwise across two runs. The Ape-X DQN and ES kernels: K13
 (acting) and K16 (the population's noisy argmax) equal their plain
 versions exactly, as K15's centred ranks do; K14 (the TD loss and its
 gradient) and K15's gradient within 1e-5 of each output's largest
-magnitude; all four bitwise across two runs.
+magnitude; all four bitwise across two runs. The heads, optimiser and
+minibatch kernels: K17 (both heads) and K18 (their backward) within 1e-5
+of each output's largest magnitude, each row's K17 answer bit-equal
+whatever shares its batch, K18 bitwise across two runs; K19 within 1e-6
+of each leaf's largest after five steps (its norm sums in another order
+than the plain version's per-leaf norms), at a tie too; K20 exactly.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +43,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
 FORWARD_KERNELS = ("ln_linear_act", "csr_segment_mean",
-                   "masked_mean_pool_concat", "mask_logits_argmax")
+                   "masked_mean_pool_concat", "mask_logits_argmax",
+                   "mlp_heads")
 # the IMPALA and PG updates' kernels (K10-K12), which PPO never launches
 AC_KERNELS = ("vtrace", "reward_to_go", "ac_logp", "ac_loss")
 # the Ape-X DQN and ES kernels (K13-K16), which PPO never launches either
@@ -819,3 +827,245 @@ def test_dqn_and_es_updates_on_the_card_match_the_recorded_jax(cuda):
             np.testing.assert_allclose(
                 value, want[key], rtol=0,
                 atol=1e-5 * float(np.abs(want[key]).max()), err_msg=key)
+
+
+# ------------------------------------- K17-K20: heads, optimiser, minibatch
+HEAD_CASES = [((17,), "relu"), ((256,), "relu"), ((256, 256), "relu"),
+              ((), "relu"), ((17,), "tanh"), ((32, 16), "gelu")]
+
+
+def _head_layers(cuda, hiddens, n_actions=17, k_in=24, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for final in (n_actions, 1):
+        widths = [k_in, *hiddens, final]
+        out.append([((torch.randn(widths[i + 1], widths[i], generator=g)
+                      / widths[i] ** 0.5).to(cuda),
+                     (torch.randn(widths[i + 1], generator=g) * 0.1).to(cuda))
+                    for i in range(len(widths) - 1)])
+    return out
+
+
+@pytest.mark.parametrize("hiddens,activation", HEAD_CASES)
+def test_mlp_heads_matches_plain_and_is_row_independent(cuda, hiddens,
+                                                        activation):
+    """K17 against the plain heads (F.linear) within 1e-5 of each output's
+    largest magnitude, at 1, 8, 128 and 515 rows (a ragged last tile); each
+    row's answer bit-equal whatever else shares the batch (the serving
+    invariant); one launch per call."""
+    logit_layers, value_layers = _head_layers(cuda, hiddens)
+    x = torch.randn(515, 24, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda)
+    for rows in (1, 8, 128, 515):
+        before = kernels.launch_counts()["mlp_heads"]
+        logits, values = policy.mlp_heads(x[:rows], logit_layers,
+                                          value_layers, activation)
+        assert kernels.launch_counts()["mlp_heads"] == before + 1
+        ref = policy.mlp_heads_plain(x[:rows], logit_layers, value_layers,
+                                     activation)
+        _close_scaled(logits, ref[0])
+        _close_scaled(values, ref[1])
+    full = policy.mlp_heads(x, logit_layers, value_layers, activation)
+    for r in (0, 7, 300, 514):
+        one = policy.mlp_heads(x[r:r + 1], logit_layers, value_layers,
+                               activation)
+        assert torch.equal(one[0][0], full[0][r])
+        assert torch.equal(one[1][0], full[1][r])
+
+
+@pytest.mark.parametrize("hiddens,activation", HEAD_CASES)
+def test_mlp_heads_bwd_matches_plain_autograd(cuda, hiddens, activation):
+    """K18 (through K17's autograd function) against autograd of the plain
+    heads: dx and every weight and bias gradient within 1e-5 of its
+    largest magnitude, at 128 and 1,000 rows (past K18's 132-block cap);
+    bitwise across two runs; one K18 and one reduce launch a backward; a
+    head the loss does not reach gets zero gradients."""
+    logit_layers, value_layers = _head_layers(cuda, hiddens)
+    g = torch.Generator().manual_seed(2)
+    for rows in (128, 1000):
+        x = torch.randn(rows, 24, generator=g).to(cuda)
+        dlogits = torch.randn(rows, 17, generator=g).to(cuda)
+        dvalue = torch.randn(rows, generator=g).to(cuda)
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  [x] + [t for layer in logit_layers + value_layers
+                         for t in layer]]
+        pairs = list(zip(leaves[1::2], leaves[2::2]))
+        n = len(logit_layers)
+        runs = []
+        for _ in range(2):
+            before = kernels.launch_counts()
+            logits, values = policy.mlp_heads(leaves[0], pairs[:n],
+                                              pairs[n:], activation)
+            grads = torch.autograd.grad((logits, values), leaves,
+                                        (dlogits, dvalue))
+            after = kernels.launch_counts()
+            assert after["mlp_heads_bwd"] == before["mlp_heads_bwd"] + 1
+            assert (after["mlp_heads_bwd_reduce"]
+                    == before["mlp_heads_bwd_reduce"] + 1)
+            runs.append(grads)
+        dx, ref = policy.mlp_heads_bwd_plain(x, logit_layers, value_layers,
+                                             activation, dlogits, dvalue)
+        for got, want in zip(runs[0], [dx, *ref]):
+            _close_scaled(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        # PG's value head: no gradient reaches it
+        logits, _ = policy.mlp_heads(leaves[0], pairs[:n], pairs[n:],
+                                     activation)
+        grads = torch.autograd.grad(logits, leaves, dlogits,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        assert all(not t.any() for t in grads[1 + 2 * n:])
+
+
+def _opt_state(cuda, rule, seed=0):
+    from ddls_tpu_torch.rl.learner import TrainState
+
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(16, 5), (16,), (64, 32), (64,), (17, 24), (17,), (1, 17),
+              (1,), (3000,)]
+    params = [torch.randn(s, generator=g).to(cuda) for s in shapes]
+    mu = None if rule == "rmsprop" else [torch.zeros_like(p)
+                                          for p in params]
+    return TrainState(names=[str(i) for i in range(len(shapes))],
+                      params=params, mu=mu,
+                      nu=[torch.zeros_like(p) for p in params]), g
+
+
+@pytest.mark.parametrize("rule", ["adam", "rmsprop", "rmsprop_momentum"])
+@pytest.mark.parametrize("clip", [None, 1e6, 0.5])
+def test_clip_adam_matches_plain_over_steps(cuda, rule, clip):
+    """K19 against the plain optimiser over 5 steps (clip absent, never
+    firing, always firing): params, mu and nu within 1e-6 of each leaf's
+    largest magnitude; three launches a step with the clip, one without;
+    the leaf table built once."""
+    from ddls_tpu_torch.rl.learner import (OptimizerStep, clip_adam,
+                                           clip_adam_plain)
+
+    state, g = _opt_state(cuda, rule)
+    ref_params = [p.clone() for p in state.params]
+    ref_mu = None if state.mu is None else [m.clone() for m in state.mu]
+    ref_nu = [v.clone() for v in state.nu]
+    tables = set()
+    for step in range(1, 6):
+        hp = (OptimizerStep("adam", 1e-3, clip, 0.9, 0.999, 1e-8,
+                            1 - 0.9 ** step, 1 - 0.999 ** step)
+              if rule == "adam" else
+              OptimizerStep(rule, 1e-3, clip, 0.5, 0.99, 0.1))
+        grads = [torch.randn(p.shape, generator=g).to(cuda)
+                 for p in state.params]
+        before = sum(kernels.launch_counts()[k] for k in
+                     ("clip_adam_norm", "clip_adam_reduce",
+                      "clip_adam_update"))
+        clip_adam(state, grads, hp)
+        after = sum(kernels.launch_counts()[k] for k in
+                    ("clip_adam_norm", "clip_adam_reduce",
+                     "clip_adam_update"))
+        assert after - before == (1 if clip is None else 3)
+        tables.add(id(state.opt_table))
+        clip_adam_plain(ref_params, grads, ref_mu, ref_nu, hp)
+    assert len(tables) == 1
+    for got, want in ((state.params, ref_params), (state.nu, ref_nu),
+                      (state.mu or [], ref_mu or [])):
+        for a, b in zip(got, want):
+            torch.cuda.synchronize()
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-6 * float(b.abs().max()))
+
+
+def test_clip_adam_at_the_clip_tie(cuda):
+    """A global norm within rounding of grad_clip: K19's fixed-order norm
+    and the plain version's per-leaf norms may fall on either side of the
+    comparison, and the two results then differ by that rounding only
+    (within 1e-6 of each leaf's largest magnitude); the kernel's step is
+    one of its two candidates (kept or clipped gradient)."""
+    from ddls_tpu_torch.rl.learner import (OptimizerStep, clip_adam,
+                                           clip_adam_plain)
+
+    for seed in range(4):
+        state, g = _opt_state(cuda, "adam", seed)
+        grads = [torch.randn(p.shape, generator=g).to(cuda)
+                 for p in state.params]
+        norm = float(np.sqrt(sum(float((x.double() ** 2).sum())
+                                 for x in grads)))
+        clip = float(np.float32(norm))
+        hp = OptimizerStep("adam", 1e-3, clip, 0.9, 0.999, 1e-8, 0.1,
+                           1e-3)
+        ref = [p.clone() for p in state.params]
+        clip_adam_plain(ref, grads, [torch.zeros_like(p) for p in ref],
+                        [torch.zeros_like(p) for p in ref], hp)
+        candidates = []
+        for scale in (1.0, clip / norm):  # the gradient kept, or clipped
+            alt = [p.clone() for p in state.params]
+            clip_adam_plain(alt, [x * scale for x in grads],
+                            [torch.zeros_like(p) for p in alt],
+                            [torch.zeros_like(p) for p in alt],
+                            dataclasses.replace(hp, grad_clip=None))
+            candidates.append(alt)
+        clip_adam(state, grads, hp)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(state.params, ref)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-6 * float(b.abs().max()))
+            assert any(torch.allclose(a, c[i], rtol=0,
+                                      atol=1e-6 * float(c[i].abs().max()))
+                       for c in candidates)
+
+
+def test_minibatch_gather_equals_plain_and_the_host_batch(cuda):
+    """K20 on the staged training fixture (8 x 64 samples at the (38, 128)
+    bucket): a permutation's minibatch of 128, a minibatch with repeated
+    samples, one sample, and the full batch in row order, each equal array
+    for array to the plain version and to ``prepare_flat_batch`` of the
+    same samples on the host; one launch a call."""
+    from ddls_tpu_torch.rl.fixture import load_train_fixture
+    from ddls_tpu_torch.rl.learner import (TRAJ_OBS_KEYS,
+                                           minibatch_gather_plain)
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_train_fixture()
+    model, _, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, fx["cfg"])
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    n = staged.t_len * staged.lanes
+    obs = fx["traj"]["obs"]
+    rows = {k: np.swapaxes(np.asarray(obs[k]), 0, 1).reshape(
+        (n,) + np.shape(obs[k])[2:]) for k in TRAJ_OBS_KEYS}
+    rng = np.random.default_rng(5)
+    for idx in (rng.permutation(n)[:128], rng.integers(0, n, 128),
+                np.array([17]), np.arange(n)):
+        idx_t = torch.from_numpy(idx.astype(np.int64)).to(cuda)
+        before = kernels.launch_counts()["minibatch_gather"]
+        got = learner.minibatch(staged, idx_t)
+        assert kernels.launch_counts()["minibatch_gather"] == before + 1
+        plain = minibatch_gather_plain(staged.tensors, idx_t,
+                                       staged.n_nodes, staged.n_edges)
+        sel = {k: v[idx] for k, v in rows.items()}
+        sel["node_features"] = sel["node_features"][:, :staged.n_nodes]
+        for key in ("edge_features", "edges_src", "edges_dst"):
+            sel[key] = sel[key][:, :staged.n_edges]
+        host = policy.prepare_flat_batch(sel)
+        torch.cuda.synchronize()
+        assert set(got) == set(plain) == set(host)
+        for key in got:
+            assert torch.equal(got[key], plain[key]), key
+            assert np.array_equal(got[key].cpu().numpy(), host[key]), key
+
+
+def test_heads_optimiser_wrappers_reject_what_they_cannot_take(cuda):
+    from ddls_tpu_torch.rl.learner import OptimizerStep, clip_adam
+
+    logit_layers, value_layers = _head_layers(cuda, (256, 256, 256))
+    x = torch.zeros(4, 24, device=cuda)
+    with pytest.raises(ValueError, match="1 to 3 layers"):
+        policy.mlp_heads(x, logit_layers, value_layers, "relu")
+    logit_layers, value_layers = _head_layers(cuda, (300,))
+    with pytest.raises(ValueError, match="outputs"):
+        policy.mlp_heads(x, logit_layers, value_layers, "relu")
+    logit_layers, value_layers = _head_layers(cuda, (17,))
+    with pytest.raises(TypeError, match="float32"):
+        policy.mlp_heads(x.double(), logit_layers, value_layers, "relu")
+    state, _ = _opt_state(cuda, "adam")
+    with pytest.raises(TypeError, match="float32"):
+        clip_adam(state, [p.double() for p in state.params],
+                  OptimizerStep("adam", 1e-3, None, 0.9, 0.999, 1e-8))

@@ -97,19 +97,26 @@ def test_checkpoint_round_trip_is_bit_equal(tiny_config, tmp_path):
 
 
 def test_unported_modes_raise(tiny_config):
+    """What the port's loop does not run raises before any env is built:
+    the fused and sebulba modes, an unknown algorithm, stale collection
+    outside IMPALA's pipelined loop, an unported option turned on, an
+    option the reference does not have, and the card where there is
+    none."""
     from ddls_tpu_torch.train.loops import build_epoch_loop_kwargs
 
     kwargs = build_epoch_loop_kwargs(tiny_config)
     kwargs.update(device="cpu")
-    with pytest.raises(ValueError, match="sequential"):
-        make_epoch_loop("ppo", **dict(kwargs, loop_mode="pipelined"))
+    for mode in ("fused", "sebulba"):
+        with pytest.raises(ValueError, match="loop_mode must be one of"):
+            make_epoch_loop("ppo", **dict(kwargs, loop_mode=mode))
     with pytest.raises(ValueError, match="no epoch loop"):
         make_epoch_loop("apex_dqn_typo", **kwargs)
+    with pytest.raises(ValueError, match="does not support pipeline_depth"):
+        RLEpochLoop(**dict(kwargs, loop_mode="pipelined", pipeline_depth=2))
     with pytest.raises(ValueError, match="not ported"):
-        RLEpochLoop(**dict(kwargs, loop_mode="sequential", pipeline_depth=2))
-    with pytest.raises(ValueError, match="not ported"):
-        RLEpochLoop(**dict(kwargs, loop_mode="sequential",
-                           evaluation_interval=1))
+        RLEpochLoop(**dict(kwargs, param_sharding="fsdp"))
+    with pytest.raises(ValueError, match="unknown epoch-loop option"):
+        RLEpochLoop(**dict(kwargs, evaluation_intervall=1))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_epoch_loop("ppo", **dict(kwargs, loop_mode="sequential",
