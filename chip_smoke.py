@@ -113,10 +113,28 @@ exits non-zero (nothing is caught):
    subprocess envs: finite metrics, params ages 0 then 1, a 3-segment
    trajectory ring, no /dev/shm segment left.
 
+17. lookahead — the shipped policy's in-process rollout (4
+   env_load32_price_mixed envs, 32 steps) with ``candidate_pricing="jax"``
+   and ``use_jax_lookahead=True`` on the card: K21 launched; after the
+   counted window, each of its K21 calls run again (the same prices) and
+   on the C++ engine (within rel 2e-4, abs 1e-5), each timed. Then
+   lookahead_hook — the cluster hook alone on the card: the plain
+   env_load32 surface (no pricing) with ``use_jax_lookahead=True``, 64
+   FixedDegreePacking(8) decisions: K21 launched, the episode's stats
+   equal to the C++ engine's (times within rel 1e-4).
+18. checkpoints — all six shipped checkpoints on their own surfaces (32
+   servers, 8/72/128 servers, the JCT-blocking reward, the plain
+   observation): the recorded JAX greedy decisions through K1–K4 and K17,
+   ``ppo_device_trained`` equal to FixedDegreePacking(8) over seed 7009
+   and above 0.2 a decision at seed 7005.
+
 Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
 K18 (the heads' backward and its reduce), K19 (the optimiser's three
 launches, the clip firing, not firing and at a tie) and K20 (the
-minibatch assembly, exactly) against their plain versions.
+minibatch assembly, exactly) against their plain versions, and K21 (the
+array lookahead engine) on the recorded lanes in float32 and float64:
+bit-equal to its plain version and, in float32, to the recorded JAX
+answers; within 1e-9 of the C++ engine in float64.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -166,8 +184,12 @@ from ddls_tpu_torch.rl.rollout import (ParallelVectorEnv,  # noqa: E402
                                        stack_obs)
 from ddls_tpu_torch.serve import (BucketForward, ObsBucketer,  # noqa: E402
                                   build_fleet, default_buckets, load_export)
-from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
+from ddls_tpu_torch.serve.fixture import (CHECKPOINT_NAMES,  # noqa: E402
+                                          EXPORT_PATH, greedy_episode,
+                                          load_checkpoint_fixture,
                                           load_requests)
+from ddls_tpu_torch.sim import lookahead as lookahead_mod  # noqa: E402
+from ddls_tpu_torch.sim.fixture import load_lookahead_lanes  # noqa: E402
 from ddls_tpu_torch.train import RLEvalLoop  # noqa: E402
 from ddls_tpu_torch.train.__main__ import build_loop  # noqa: E402
 from ddls_tpu_torch.train.__main__ import main as train_main  # noqa: E402
@@ -185,6 +207,9 @@ ES_UPDATE_TOL = 1e-6
 VALUES_TOL = 5e-5
 MAX_BATCH = 8
 PAD_NODES, PAD_EDGES = 150, 512
+# the simulator's kernels: only the env's array-engine options launch
+# them (use_jax_lookahead, candidate_pricing="jax"), no learner's path
+SIM_KERNELS = ("lookahead",)
 TIMED_ITERS = 200
 
 
@@ -1063,7 +1088,7 @@ def phase_train(params, fx, card):
                               state.state_dict().items()})
         for name, n in launches.items():
             require(n > 0 or name in SAMPLE_SITES or name in AC_SITES
-                    or name in DQN_ES_SITES,
+                    or name in DQN_ES_SITES or name in SIM_KERNELS,
                     f"kernel {name} was not launched by train_step")
         require(out["iter50_params_max_abs_err"] <= 1e-2,
                 "50-iteration update far off the recorded JAX params")
@@ -1618,7 +1643,8 @@ def phase_loop(card):
             runs.append((lines, state, wall))
         profiled = profile_epoch(cfg_path)
     for name, n in launches.items():
-        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES,
+        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES
+                or name in SIM_KERNELS,
                 f"kernel {name} was not launched by the loop")
     (lines0, state0, wall0), (lines1, state1, _) = runs
     require([_deterministic(x) for x in lines0]
@@ -3054,7 +3080,8 @@ def phase_pipeline(params, fx, uniforms, rollout, card):
                 and torch.equal(state0["kl_coeff"], state["kl_coeff"]),
                 f"the {name} run saved another state than pipelined_shm")
     for name, n in launches.items():
-        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES,
+        require(n > 0 or name in AC_SITES or name in DQN_ES_SITES
+                or name in SIM_KERNELS,
                 f"kernel {name} was not launched by the pipelined loop")
     for line in epochs:
         require(all(np.isfinite(v) for v in line["learner"].values()),
@@ -3118,6 +3145,388 @@ def phase_ring(card):
          evaluation=[r.get("evaluation") for r in results], ring=stats,
          launches={k: v for k, v in launches.items() if v})
     return launches
+
+
+# --------------------------------------- the array lookahead engine (K21)
+# the main path's call: one 32-server pricing decision (6 candidates,
+# padded to 512 ops and 16,384 deps)
+LOOKAHEAD_MAIN_GROUP = "price32"
+# the [lookahead] rollout: envs x steps of the shipped policy
+LOOKAHEAD_ENVS, LOOKAHEAD_STEPS = 4, 32
+# the cluster hook's episode on the card: FixedDegreePacking(8)'s decisions
+LOOKAHEAD_HOOK_DECISIONS = 64
+# the JAX pricing backend against the C++ engine
+# (tests/test_candidate_pricing.py:124-142)
+PRICE_REL, PRICE_ABS = 2e-4, 1e-5
+
+
+def _lanes_on_card(group, dtype):
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in group["args"]]
+    return [a.to(dtype) if a.is_floating_point() else a for a in args]
+
+
+def _cpp_lanes(group):
+    """Each lane of a recorded group as the C++ engine's exact-size
+    float64 arrays (the float32 lanes widened)."""
+    from ddls_tpu_torch.sim.lookahead_arrays import LookaheadArrays
+
+    out = []
+    for b, (n, m) in enumerate(zip(group["n"], group["m"])):
+        a = [np.ascontiguousarray(x[b, :n] if i < 5 else x[b, :m])
+             for i, x in enumerate(group["args"])]
+        for i in (0, 3, 5, 11):
+            a[i] = a[i].astype(np.float64)
+        out.append(LookaheadArrays(*a, num_workers=group["num_workers"],
+                                   num_channels=group["num_channels"]))
+    return out
+
+
+def check_lookahead_kernel():
+    """Phase 3, K21 on every recorded group of lanes
+    (``ddls_tpu_torch/data/lookahead_lanes_recorded.npz``: the candidates
+    of the first decision of the 32-, 72- and 128-server surfaces, the
+    cluster hook's lookaheads on env_load32, the edge cases), in float32
+    and float64: bit-equal to its plain version on the card (and its tick
+    counts), bitwise across two runs; in float32 bit-equal to the recorded
+    JAX answers; in float64, on the real lanes (not the edge cases' tied
+    scores), within 1e-9 relative of the C++ engine (lanes it cannot
+    finish are the ones K21 reports not ok). Timed at the main
+    path's call (one 32-server pricing decision), beside the C++ engine's
+    host time for the same lanes (there is no library call)."""
+    from ddls_tpu_torch.native import run_lookahead
+
+    groups = load_lookahead_lanes()
+    res = _new_result(groups={})
+    for name, g in groups.items():
+        kw = dict(num_workers=g["num_workers"],
+                  num_channels=g["num_channels"])
+        lanes = len(g["n"])
+        info = {"lanes": lanes, "pad": list(g["args"][0].shape[1:]) +
+                list(g["args"][5].shape[1:]) + [g["args"][12].shape[2]],
+                "num_workers": g["num_workers"],
+                "num_channels": g["num_channels"]}
+        for dtype in (torch.float32, torch.float64):
+            args = _lanes_on_card(g, dtype)
+            ticks = torch.empty(lanes, dtype=torch.int32, device="cuda")
+            out = lookahead_mod.lookahead(*args, ticks=ticks, **kw)
+            again = lookahead_mod.lookahead(*args, **kw)
+            plain = lookahead_mod.lookahead_plain(*args, **kw)
+            torch.cuda.synchronize()
+            for o, a, p in zip(out, again, plain):
+                require(torch.equal(o, p), f"K21 differs from its plain "
+                                           f"version on {name} {dtype}")
+                require(torch.equal(o, a), f"K21 is not bitwise "
+                                           f"repeatable on {name}")
+            require(torch.equal(ticks, plain[5]),
+                    f"K21's tick counts differ from the plain version's "
+                    f"on {name}")
+            ok = out[4].cpu().numpy()
+            if dtype == torch.float32:
+                for o, want in zip(out, g["jax"]):
+                    require(np.array_equal(o.cpu().numpy(), want),
+                            f"K21 differs from the recorded JAX answer on "
+                            f"{name}")
+                info["ticks"] = ticks.tolist()
+                info["ok"] = ok.tolist()
+                continue
+            if name == "edge":
+                # tied scores select every tied op (the JAX engine's rule);
+                # the C++ engine keeps distinct scores, so it is held on
+                # the recorded real lanes only
+                continue
+            vals = torch.stack(out[:4], 1).cpu().numpy()
+            rel = 0.0
+            for b, arrays in enumerate(_cpp_lanes(g)):
+                want = run_lookahead(arrays)
+                require((want is not None) == bool(ok[b]),
+                        f"K21 and the C++ engine disagree on whether lane "
+                        f"{b} of {name} finishes")
+                if want is not None:
+                    rel = max(rel, max(abs(v - w) / max(abs(w), 1e-300)
+                                       for v, w in zip(vals[b], want)))
+            require(rel <= 1e-9, f"K21 float64 off the C++ engine by {rel} "
+                                 f"on {name}")
+            info["f64_max_rel_err_vs_cpp"] = rel
+        res["groups"][name] = info
+
+    g = groups[LOOKAHEAD_MAIN_GROUP]
+    kw = dict(num_workers=g["num_workers"], num_channels=g["num_channels"])
+    args = _lanes_on_card(g, torch.float32)
+    args64 = _lanes_on_card(g, torch.float64)
+    lanes = len(g["n"])
+    links = g["args"][12].shape[2]
+    ticks = np.asarray(res["groups"][LOOKAHEAD_MAIN_GROUP]["ticks"])
+    # bytes: the two valid masks in full (they alone say which slots are
+    # padding), the other fields of each lane's valid ops and deps once,
+    # the outputs once; operations: every valid op and every channel
+    # column of every valid dep visited once a tick, for the ticks these
+    # lanes need
+    op_fields = sum(args[i].element_size() for i in (0, 2, 3, 4))
+    dep_fields = (sum(args[i].element_size() for i in (5, 7, 8, 9, 10, 11))
+                  + links * args[12].element_size())
+    nbytes = (_nbytes(args[1], args[6]) + int(np.sum(g["n"])) * op_fields
+              + int(np.sum(g["m"])) * dep_fields + lanes * (4 * 4 + 1 + 4))
+    ops = float(np.sum(ticks * (g["n"] + g["m"] * links)))
+    bound, bound_by = bound_ms(nbytes, ops)
+    cpp = _cpp_lanes(g)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        for arrays in cpp:
+            run_lookahead(arrays)
+    cpp_ms = (time.perf_counter() - t0) / 5 * 1e3
+    res.update(
+        shape=(f"{LOOKAHEAD_MAIN_GROUP}: lanes={lanes} N={args[0].shape[1]} "
+               f"E={args[5].shape[1]} L={links} W={g['num_workers']} "
+               f"C={g['num_channels']} ticks={ticks.tolist()}"),
+        bound_ms=bound, bound_by=bound_by,
+        ms=device_ms(lambda: lookahead_mod.lookahead(*args, **kw),
+                     iters=10, replays=3),
+        f64_ms=device_ms(lambda: lookahead_mod.lookahead(*args64, **kw),
+                         iters=10, replays=3),
+        eager_ms=eager_ms(lambda: lookahead_mod.lookahead(*args, **kw),
+                          iters=10),
+        plain_ms=eager_ms(lambda: lookahead_mod.lookahead_plain(
+            *args, **kw), iters=2),
+        cpp_engine_host_ms=cpp_ms, calls_per_step=1)
+    return {"lookahead": res}
+
+
+def _price_tuples_close(got, want) -> float:
+    """The largest |got - want| / (PRICE_ABS + PRICE_REL |want|) over every
+    priced candidate; None prices must match."""
+    worst = 0.0
+    require(set(got) == set(want), "the backends priced other degrees")
+    for d, w in want.items():
+        require((got[d] is None) == (w is None),
+                f"degree {d}: one backend found it unplaceable")
+        if w is not None:
+            for g_, w_ in zip(got[d], w):
+                worst = max(worst, abs(g_ - w_) / (PRICE_ABS
+                                                   + PRICE_REL * abs(w_)))
+    return worst
+
+
+def _packing_episode(env_cfg, decisions: int):
+    """FixedDegreePacking(8)'s episode on ``env_cfg`` from reset(7009), up
+    to ``decisions`` decisions: (decisions taken, the cluster's episode
+    stats)."""
+    env = RampJobPartitioningEnvironment(**copy.deepcopy(env_cfg))
+    actor = FixedDegreePacking(8)
+    obs = env.reset(seed=7009)
+    done, taken = False, 0
+    while not done and taken < decisions:
+        obs, _, done, _ = env.step(actor.compute_action(obs))
+        taken += 1
+    return taken, copy.deepcopy(dict(env.cluster.episode_stats))
+
+
+def phase_lookahead_hook(card):
+    """Phase 17a: the cluster hook on the card. ``ppo_device_trained``'s
+    surface (plain env_load32, no candidate pricing, so every cache-miss
+    lookahead of a mounted job reaches the hook) with
+    ``use_jax_lookahead=True``: FixedDegreePacking(8)'s first
+    ``LOOKAHEAD_HOOK_DECISIONS`` decisions from seed 7009, the launch
+    counters reset just before and read just after (K21 must have run,
+    one launch a lookahead); the episode's stats against the same
+    episode on the C++ engine, as ``tests/test_torch_lookahead.py`` holds
+    the plain engine against the host engine (job counts equal,
+    completion and communication times within rel 1e-4)."""
+    env_cfg = dict(load_checkpoint_fixture("ppo_device_trained")[
+        "env_config"], use_jax_lookahead=True, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    taken, stats = _packing_episode(env_cfg, LOOKAHEAD_HOOK_DECISIONS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    require(launches["lookahead"] > 0, "the cluster hook did not launch K21")
+    t0 = time.monotonic()
+    native_taken, native = _packing_episode(
+        dict(env_cfg, use_jax_lookahead=False), LOOKAHEAD_HOOK_DECISIONS)
+    native_wall = time.monotonic() - t0
+    require(taken == native_taken, "the hook's episode is of another length")
+    for key in ("num_jobs_completed", "num_jobs_blocked"):
+        require(stats[key] == native[key],
+                f"the hook's {key} differs from the C++ engine's")
+    worst = 0.0
+    for key, tol_abs in (("job_completion_time", 0.0),
+                         ("job_communication_overhead_time", 1e-6)):
+        got = np.asarray(stats[key], np.float64)
+        want = np.asarray(native[key], np.float64)
+        require(got.shape == want.shape, f"the hook's {key} differs in shape")
+        if got.size:
+            worst = max(worst, float(np.max(
+                np.abs(got - want) / (tol_abs + 1e-4 * np.abs(want)))))
+    require(worst <= 1.0, f"the hook's episode off the C++ engine's by "
+                          f"{worst} of the rel 1e-4 tolerance")
+    require(stats["num_jobs_completed"] > 0, "the hook's episode completed "
+                                             "no job")
+    emit("lookahead_hook", card=card, decisions=taken,
+         k21_launches=launches["lookahead"], wall_s=wall,
+         native_wall_s=native_wall, tolerance_used=worst,
+         jobs_completed=stats["num_jobs_completed"],
+         jobs_blocked=stats["num_jobs_blocked"])
+    return launches
+
+
+def phase_lookahead(params, recorded_groups, card):
+    """Phase 17: the shipped policy's in-process rollout (4
+    env_load32_price_mixed envs seeded 0-3, 32 steps, its own samples)
+    with ``candidate_pricing="jax"`` and ``use_jax_lookahead=True`` on the
+    card, the launch counters reset just before and read just after (K21
+    must have run). Each of the main path's K21 calls (the candidates the
+    memo did not hold) is recorded in the window and, after it, run again
+    on K21 (it must give the same prices) and on the C++ engine (within
+    rel 2e-4, abs 1e-5), each timed: pricing ms per call of each backend
+    over the same candidates. Prints the recorded lanes' tick counts
+    beside them (``recorded_groups``: phase 3's K21 groups)."""
+    from ddls_tpu_torch.sim import candidate_pricing as pricing_mod
+
+    cfg = load_train_config()
+    env_cfg = dict(copy.deepcopy(cfg["env_config"]), candidate_pricing="jax",
+                   use_jax_lookahead=True, device="cuda")
+    model, _, _ = load_export(EXPORT_PATH)
+    fx_cfg = load_train_fixture()["cfg"]
+    learner = ppo_mod.PPOLearner(model, fx_cfg, device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    vec = VectorEnv([lambda: RampJobPartitioningEnvironment(
+        **copy.deepcopy(env_cfg)) for _ in range(LOOKAHEAD_ENVS)],
+        seeds=list(range(LOOKAHEAD_ENVS)))
+    collector = RolloutCollector(vec, learner, LOOKAHEAD_STEPS)
+    main_s = []
+    calls = []  # (cluster, pending candidates, the main path's prices)
+    price = RampJobPartitioningEnvironment._price_candidates
+    evaluate = pricing_mod._evaluate
+
+    def timed_price(env):
+        t_start = time.perf_counter()
+        price(env)
+        main_s.append(time.perf_counter() - t_start)
+
+    def recorded_evaluate(cluster, pending, backend):
+        out = evaluate(cluster, pending, backend)
+        calls.append((cluster, pending, out))
+        return out
+
+    RampJobPartitioningEnvironment._price_candidates = timed_price
+    pricing_mod._evaluate = recorded_evaluate
+    try:
+        vec.reset()
+        main_s.clear()
+        calls.clear()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        out = collector.collect(generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+    finally:
+        RampJobPartitioningEnvironment._price_candidates = price
+        pricing_mod._evaluate = evaluate
+    require(launches["lookahead"] > 0,
+            "the jax-pricing rollout did not launch K21")
+    require(np.isfinite(out["traj"]["rewards"]).all(),
+            "non-finite rollout rewards")
+
+    timing = {"jax": [], "native": []}
+    worst, priced = 0.0, 0
+    for cluster, pending, main_out in calls:
+        t_start = time.perf_counter()
+        again = evaluate(cluster, pending, "jax")
+        timing["jax"].append(time.perf_counter() - t_start)
+        require(again == main_out, "K21 priced the main path's candidates "
+                                   "differently when run again")
+        t_start = time.perf_counter()
+        native = evaluate(cluster, pending, "native")
+        timing["native"].append(time.perf_counter() - t_start)
+        worst = max(worst, _price_tuples_close(dict(enumerate(main_out)),
+                                               dict(enumerate(native))))
+        priced += sum(v is not None for v in native)
+    require(worst <= 1.0,
+            f"K21's prices off the C++ engine's by {worst} of the "
+            f"rel {PRICE_REL}, abs {PRICE_ABS} tolerance")
+    require(priced > 0, "no candidate was priced")
+
+    def ms(xs):
+        return float(np.mean(xs) * 1e3) if xs else None
+
+    emit("lookahead", card=card, envs=LOOKAHEAD_ENVS, steps=LOOKAHEAD_STEPS,
+         wall_s=wall, env_s=out["timing"]["env_s"],
+         decisions=len(main_s), k21_calls=len(calls),
+         k21_launches=launches["lookahead"],
+         price_tolerance_used=worst,
+         pricing_ms_per_decision_main_path=ms(main_s),
+         pricing_ms_per_k21_call={"jax_k21": ms(timing["jax"]),
+                                  "native": ms(timing["native"])},
+         candidates_per_k21_call=float(np.mean(
+             [len(p) for _, p, _ in calls])),
+         recorded_lane_ticks={g: info["ticks"]
+                              for g, info in recorded_groups.items()},
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
+def phase_checkpoints(card):
+    """Phase 18: all six shipped checkpoints on the card, each on its own
+    surface (``ddls_tpu_torch/data/checkpoint_<name>.npz``): the recorded
+    JAX greedy decisions (actions equal, logits within 1e-4, masked ones
+    the float32 floor) through K1-K4 and K17, which must have run on the
+    8-, 72- and 128-server observations; ``ppo_device_trained``'s greedy
+    episode from seed 7009 equal to FixedDegreePacking(8) at every step
+    (more than 100 decisions), and its per-decision return from seed 7005
+    above 0.2."""
+    f32_min = np.finfo(np.float32).min
+    report = {}
+    for name in CHECKPOINT_NAMES:
+        fx = load_checkpoint_fixture(name)
+        rec = fx["recorded"]
+        model = fx["model"].to("cuda").eval()
+        env = RampJobPartitioningEnvironment(**fx["env_config"])
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        got = greedy_episode(model, env, fx["seed"],
+                             max_decisions=len(rec["jax_actions"]))
+        wall = time.monotonic() - t0
+        launches = kernels.launch_counts()
+        require(np.array_equal(got["actions"], rec["jax_actions"]),
+                f"{name}: greedy actions differ from JAX's")
+        masked = rec["jax_logits"] == f32_min
+        require(np.array_equal(got["logits"] == f32_min, masked),
+                f"{name}: masked logits differ")
+        err = float(np.abs(got["logits"][~masked]
+                           - rec["jax_logits"][~masked]).max())
+        require(err <= 1e-4, f"{name}: logits off JAX's by {err}")
+        for kname in ("ln_linear_act", "csr_segment_mean",
+                      "masked_mean_pool_concat", "mask_logits_argmax",
+                      "mlp_heads"):
+            require(launches[kname] > 0, f"{name}: {kname} did not run")
+        report[name] = {"decisions": len(got["actions"]),
+                        "servers": fx["env_config"]["node_config"]["type_1"][
+                            "num_nodes"],
+                        "logits_max_abs_err": err,
+                        "ms_per_decision": wall / len(got["actions"]) * 1e3}
+    fx = load_checkpoint_fixture("ppo_device_trained")
+    model = fx["model"].to("cuda").eval()
+    packing = greedy_episode(
+        model, RampJobPartitioningEnvironment(**fx["env_config"]), 7009,
+        actor=FixedDegreePacking(8))
+    require(len(packing["actions"]) > 100
+            and np.array_equal(packing["actions"], packing["actor_actions"]),
+            "ppo_device_trained is not FixedDegreePacking(8) over seed 7009")
+    scored = greedy_episode(
+        model, RampJobPartitioningEnvironment(**fx["env_config"]), 7005)
+    per_decision = float(scored["rewards"].sum()
+                         / max(len(scored["rewards"]), 1))
+    require(per_decision > 0.2,
+            f"ppo_device_trained per-decision return {per_decision}")
+    emit("checkpoints", card=card, checkpoints=report,
+         device_trained={"packing_decisions": len(packing["actions"]),
+                         "per_decision_7005": per_decision,
+                         "decisions_7005": len(scored["rewards"])})
 
 
 # ------------------------------------------------------------------ phases
@@ -3364,6 +3773,9 @@ def main() -> int:
     heads_optim_results = check_heads_optim_kernels(params, fx)
     emit("heads_optim_kernels_checked", card=card, **heads_optim_results)
 
+    lookahead_results = check_lookahead_kernel()
+    emit("lookahead_kernel_checked", card=card, **lookahead_results)
+
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
     train_launches = phase_train(params, fx, card)
@@ -3378,26 +3790,36 @@ def main() -> int:
     pipeline_launches = phase_pipeline(params, fx, rollout_fx["uniforms"],
                                        rollout, card)
     ring_launches = phase_ring(card)
+    lookahead_launches = phase_lookahead(
+        params, lookahead_results["lookahead"]["groups"], card)
+    lookahead_results["lookahead"]["hook_launches"] = phase_lookahead_hook(
+        card)["lookahead"]
+    phase_checkpoints(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
-    for r in (*dqn_es_results.values(), *heads_optim_results.values()):
+    for r in (*dqn_es_results.values(), *heads_optim_results.values(),
+              *lookahead_results.values()):
         r["shapes"] = [r.pop("shape")]
     rows = []
     for name, r in {**results, **train_results,
                     "mask_sample_logp": sample_result, **ac_results,
-                    **dqn_es_results, **heads_optim_results}.items():
+                    **dqn_es_results, **heads_optim_results,
+                    **lookahead_results}.items():
         spec = kernels.KERNELS[name]
         forward = name in KERNEL_SITES
         sampling = name in SAMPLE_SITES
         actor_critic = name in AC_SITES
         dqn_es = name in DQN_ES_SITES
         pipeline = name in heads_optim_results
+        engine = name in lookahead_results
         dqn_es_algo = "apex_dqn" if name.startswith("dqn") else "es"
         main_path = ("serve" if forward else
                      "rollout loop" if sampling else
                      "ac_loop" if actor_critic else
                      f"dqn_es_loop ({dqn_es_algo})" if dqn_es else
-                     "pipeline" if pipeline else "train_step")
+                     "pipeline" if pipeline else
+                     "lookahead (rollout, jax pricing)" if engine else
+                     "train_step")
         rows.append({
             "name": name, "route": "cuda",
             "source": os.path.relpath(spec.source, REPO),
@@ -3409,12 +3831,13 @@ def main() -> int:
             # epochs + 1 eval episode) for K13-K14 and the ES loop (2
             # epochs + 1 eval episode) for K15-K16
             # and the pipelined PPO loop (2 epochs, an evaluation each)
-            # for K18-K20
+            # for K18-K20, the jax-pricing rollout for K21
             "launches": (launches[name] if forward else
                          loop_launches[name] if sampling else
                          ac_loop_launches[name] if actor_critic else
                          dqn_es_loop_launches[dqn_es_algo][name] if dqn_es
                          else pipeline_launches[name] if pipeline
+                         else lookahead_launches[name] if engine
                          else train_launches[name]),
             "main_path": main_path,
             "train_step_launches": train_launches[name],
@@ -3428,6 +3851,7 @@ def main() -> int:
                                      dqn_es_loop_launches.items()},
             "pipeline_launches": pipeline_launches[name],
             "ring_launches": ring_launches[name],
+            "lookahead_launches": lookahead_launches[name],
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"],
             "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
@@ -3438,8 +3862,12 @@ def main() -> int:
             "composition_device_ms": r.get("composition_device_ms"),
             "step_ms": r.get("step_ms"),
             "step_eager_ms": r.get("step_eager_ms"),
+            "f64_ms": r.get("f64_ms"),
+            "cpp_engine_host_ms": r.get("cpp_engine_host_ms"),
+            "hook_launches": r.get("hook_launches"),
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
-            "calls_per": ("forward" if forward else "rollout step"
+            "calls_per": ("forward" if forward else "pricing decision"
+                          if engine else "rollout step"
                           if sampling or name in ("dqn_act", "es_act")
                           else "update"
                           if name == "gae_normalize" or actor_critic

@@ -23,7 +23,7 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``dqn_act`` and ``dqn_td_loss`` in ``rl/dqn.py``; ``es_update`` and
 ``es_act`` in ``rl/es.py``; ``mlp_heads`` and its backward in
 ``models/policy.py``; ``clip_adam`` and ``minibatch_gather``, which every
-learner calls, in ``rl/learner.py``);
+learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -138,6 +138,10 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                file="clip_adam"),
     KernelSpec("minibatch_gather", "ddls_minibatch_gather",
                "p" * 18 + "iiiiiiip", "ddls_tpu/rl/ppo.py:343"),
+    # the simulator's array lookahead engine (K21): the env's
+    # use_jax_lookahead and candidate_pricing="jax" options
+    KernelSpec("lookahead", "ddls_lookahead", "p" * 21 + "i" * 7 + "p",
+               "ddls_tpu/sim/jax_lookahead.py:313"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

@@ -17,8 +17,12 @@ the canonical RAMP shape); returns {} on other topologies or when the
 op placer is non-deterministic w.r.t. replays (RandomOpPlacer), where a
 prefetched key could never be hit again.
 
-Port: a copy of ``ddls_tpu/sim/candidate_pricing.py`` with the native
-(C++) backend only; ``backend="jax"`` raises.
+Port: a copy of ``ddls_tpu/sim/candidate_pricing.py``. ``backend="jax"``
+keeps the reference's name and prices all pending candidates in one call
+of the array engine (``sim/lookahead.py``) on the cluster's ``device``:
+one K21 launch per decision on the CUDA card, the plain version with
+``device="cpu"`` (float32, like the reference's jax backend). ``"auto"``
+is the native (C++) engine, as in the reference wherever that exists.
 """
 from __future__ import annotations
 
@@ -119,22 +123,29 @@ def price_candidate_degrees(env, degrees=None,
 
 
 def _evaluate(cluster, pending, backend: str):
-    """Run the C++ tick engine over the pending candidates; returns a list
-    of per-step (t, comm, comp, busy) tuples (None = engine failed)."""
-    if backend == "jax":
-        raise NotImplementedError(
-            "the port has no JAX lookahead engine; candidate pricing runs "
-            "on the native (C++) engine")
-    if backend not in ("auto", "native"):
-        raise ValueError(f"unknown candidate-pricing backend {backend!r}"
-                         " (native | auto)")
-    from ddls_tpu_torch.native import run_lookahead
-    from ddls_tpu_torch.sim.lookahead_arrays import \
-        build_native_lookahead_arrays
+    """Run the tick engine over the pending candidates; returns a list of
+    per-step (t, comm, comp, busy) tuples (None = engine failed)."""
+    from ddls_tpu_torch.sim.lookahead_arrays import (
+        build_lookahead_arrays, build_native_lookahead_arrays)
 
-    out = []
-    for _, _, partitioned, ctx in pending:
-        arrays = build_native_lookahead_arrays(cluster, partitioned,
-                                               context=ctx)
-        out.append(run_lookahead(arrays))
-    return out
+    if backend in ("auto", "native"):
+        from ddls_tpu_torch.native import run_lookahead
+
+        out = []
+        for _, _, partitioned, ctx in pending:
+            arrays = build_native_lookahead_arrays(cluster, partitioned,
+                                                   context=ctx)
+            out.append(run_lookahead(arrays))
+        return out
+    if backend != "jax":
+        raise ValueError(f"unknown candidate-pricing backend {backend!r}"
+                         " (native | jax | auto)")
+    from ddls_tpu_torch.sim.lookahead import bucket, engine_device, run_lanes
+
+    device = engine_device(cluster.device)
+    pad_ops = bucket(max(p.graph.n_ops for _, _, p, _ in pending))
+    pad_deps = bucket(max(p.graph.n_deps for _, _, p, _ in pending))
+    batch = [build_lookahead_arrays(cluster, p, pad_ops, pad_deps,
+                                    context=ctx)
+             for _, _, p, ctx in pending]
+    return run_lanes(batch, device)

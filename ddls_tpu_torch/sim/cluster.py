@@ -33,11 +33,14 @@ of all priority deps (reference :642 takes a global argmax, which can delete
 non-contending deps); this only affects tick granularity, never which deps
 ultimately transfer.
 
-Port: a copy of ``ddls_tpu/sim/cluster.py``, host only. Left out: the
-JAX lookahead engine (``use_jax_lookahead=True`` raises), the scenario
-runtime (``scenarios/failures.py`` imports JAX; a ``scenario_runtime``
-raises) and the flight-recorder emits (off by default; they change no
-output). The host engine, the native (C++) engine and the memo stay.
+Port: a copy of ``ddls_tpu/sim/cluster.py``. ``use_jax_lookahead=True``
+keeps the reference's name and runs each cache-miss lookahead on the array
+engine (``sim/lookahead.py``) on the cluster's ``device``: K21 on the CUDA
+card (the default), its plain version with ``device="cpu"``. Left out: the
+scenario runtime (``scenarios/failures.py`` imports JAX; a
+``scenario_runtime`` raises) and the flight-recorder emits (off by
+default; they change no output). The host engine, the native (C++) engine
+and the memo stay.
 """
 from __future__ import annotations
 
@@ -72,17 +75,22 @@ class RampClusterEnvironment:
                  use_jax_lookahead: bool = False,
                  use_native_lookahead: str | bool = "auto",
                  machine_epsilon: float = 1e-7,
-                 scenario_runtime=None):
+                 scenario_runtime=None,
+                 device: str = "cuda"):
         self.name = name
-        # trimmed in the port (module docstring): both would need JAX
+        # trimmed in the port (module docstring): it would need JAX
         if scenario_runtime is not None:
             raise NotImplementedError(
                 "the port's simulator has no scenario runtime "
                 "(scenarios/failures.py is not ported)")
+        # the array lookahead engine's device (use_jax_lookahead, and the
+        # env's candidate_pricing="jax"): K21 on "cuda", the plain version
+        # on "cpu"; without a card the opt-in raises here
+        self.device = device
         if use_jax_lookahead:
-            raise NotImplementedError(
-                "the port has no JAX lookahead engine; use the native "
-                "(C++) or host engine")
+            from ddls_tpu_torch.sim.lookahead import engine_device
+            engine_device(device)
+        self.use_jax_lookahead = bool(use_jax_lookahead)
         self.use_sqlite_database = use_sqlite_database
         # C++ lookahead engine (ddls_tpu_torch/native): bit-exact with the
         # host engine; "auto" enables it, and a failed build raises
@@ -509,10 +517,16 @@ class RampClusterEnvironment:
             # memo hit): telemetry counters
             backend = "cache"
             if cached is None:
-                # the host engine serves what the native engine bails on
-                # (and raises with diagnostics where the engine is wrong)
+                # the explicit array-engine opt-in outranks the
+                # auto-enabled native engine; the host engine serves what
+                # either leaves (and raises with diagnostics where the
+                # engine is wrong)
                 backend = "host"
-                if self.use_native_lookahead:
+                if self.use_jax_lookahead:
+                    cached = self._run_jax_lookahead(job)
+                    if cached is not None:
+                        backend = "jax"
+                if cached is None and self.use_native_lookahead:
                     cached = self._run_native_lookahead(job)
                     if cached is not None:
                         backend = "native"
@@ -525,7 +539,7 @@ class RampClusterEnvironment:
             elif _telemetry.enabled():
                 _telemetry.inc("sim.lookahead_cache.hit")
             # one simulated training step happened for this job, whichever
-            # backend (host/native) served it and whether or not the
+            # backend (host/native/jax) served it and whether or not the
             # memo cache did — keeps job.training_step_counter meaningful
             # independent of engine choice (RAMP-path completion itself is
             # event-driven off the lookahead JCT, not this counter)
@@ -548,6 +562,35 @@ class RampClusterEnvironment:
         result = run_lookahead(arrays)
         if result is None:
             return None
+        t, comm, comp, busy = result
+        steps = job.num_training_steps
+        return t * steps, comm * steps, comp * steps, busy
+
+    def _run_jax_lookahead(self, job: Job):
+        """Cache-miss lookahead on the array engine (opt-in), on the
+        cluster's device: one K21 launch on CUDA. Pads op/dep counts up to
+        power-of-two buckets; returns None (the native, then the host
+        engine serve it) when the job does not fit the padding (more
+        channels per flow than ``pad_links``)."""
+        from ddls_tpu_torch.sim.lookahead import bucket, run_lanes
+        from ddls_tpu_torch.sim.lookahead_arrays import \
+            build_lookahead_arrays
+
+        try:
+            arrays = build_lookahead_arrays(
+                job=job, cluster=self,
+                pad_ops=bucket(job.graph.n_ops),
+                pad_deps=bucket(job.graph.n_deps),
+                pad_links=2)
+        except ValueError:
+            # padding overflow only; bookkeeping errors (KeyError) must
+            # crash as loudly as they would on the host path
+            return None
+        (result,) = run_lanes([arrays], self.device)
+        if result is None:
+            raise RuntimeError(
+                f"array lookahead failed to converge for job {job.job_id} "
+                "(engine bug)")
         t, comm, comp, busy = result
         steps = job.num_training_steps
         return t * steps, comm * steps, comp * steps, busy

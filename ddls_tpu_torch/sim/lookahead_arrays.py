@@ -1,15 +1,17 @@
-"""The C++ lookahead engine's inputs: one job's ops and deps as flat
-arrays.
+"""The lookahead engines' inputs: one job's ops and deps as flat arrays.
 
-Port: ``LookaheadArrays`` and ``build_native_lookahead_arrays`` from
-``ddls_tpu/sim/jax_lookahead.py:43,188`` (numpy only). The JAX tick engine
-of that module (``jax_lookahead``, ROADMAP B10) is not part of the port
-yet; the port's simulator prices on the native engine.
+Port: ``LookaheadArrays``, ``build_lookahead_arrays`` (padded, float32:
+the array engine's, ``sim/lookahead.py``), ``build_native_lookahead_arrays``
+(exact size, float64: the C++ engine's) and ``arrays_as_args`` from
+``ddls_tpu/sim/jax_lookahead.py:43,68,188,474`` (numpy only). The padded
+builder is the native one's output padded and cast, with the reference's
+worker and channel numbering: the same arrays as the reference's padded
+builder, without its Python loop over every dep.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -38,6 +40,75 @@ class LookaheadArrays:
     dep_channel: np.ndarray    # [E, L] i32 (-1 pad)
     num_workers: int           # static
     num_channels: int          # static
+
+
+def _padded(x: np.ndarray, size: int, fill, dtype) -> np.ndarray:
+    out = np.full((size,) + x.shape[1:], fill, dtype)
+    out[:len(x)] = x
+    return out
+
+
+def build_lookahead_arrays(cluster, job, pad_ops: int, pad_deps: int,
+                           pad_links: int = 1,
+                           context: dict | None = None) -> LookaheadArrays:
+    """The C++ engine's arrays (:func:`build_native_lookahead_arrays`,
+    same ``context``) padded to ``pad_ops`` ops, ``pad_deps`` deps and
+    ``pad_links`` channels per dep, in float32: the array engine's
+    inputs (``sim/lookahead.py``). Workers are renumbered in sorted-id
+    order and channels in order of first use, the reference's numbering
+    (the engine's result does not depend on it: workers and channels only
+    partition ops and deps). Raises ``ValueError`` when the job does not
+    fit the padding (ops, deps, or channels per flow dep)."""
+    n, m = job.graph.n_ops, job.graph.n_deps
+    if n > pad_ops or m > pad_deps:
+        raise ValueError(f"job needs ({n},{m}) > padding ({pad_ops},{pad_deps})")
+    a = build_native_lookahead_arrays(cluster, job, context=context)
+    links = a.dep_channel.shape[1]
+    if links > pad_links:
+        raise ValueError(f"a dep rides {links} channels > pad_links "
+                         f"{pad_links}")
+
+    # workers: the native numbering is by first use in op order
+    op_to_worker = (context["op_to_worker"] if context is not None
+                    else cluster.job_op_to_worker[job.details["job_idx"]])
+    op_ids = job.graph.finalize()["op_ids"]
+    first_op = np.unique(a.op_worker, return_index=True)[1]
+    ids = [op_to_worker[op_ids[i]] for i in first_op]
+    worker_rank = np.empty(len(ids), np.int32)
+    worker_rank[sorted(range(len(ids)), key=ids.__getitem__)] = np.arange(
+        len(ids), dtype=np.int32)
+    op_worker = worker_rank[a.op_worker] if n else a.op_worker
+
+    # channels: by first use in dep order, a dep's own in its list's order
+    dep_channel = a.dep_channel
+    used = dep_channel[dep_channel >= 0]
+    if len(used):
+        chans, first_use = np.unique(used, return_index=True)
+        chan_rank = np.empty(chans[-1] + 1, np.int32)
+        chan_rank[chans[np.argsort(first_use)]] = np.arange(
+            len(chans), dtype=np.int32)
+        dep_channel = np.where(dep_channel >= 0,
+                               chan_rank[np.maximum(dep_channel, 0)], -1)
+    dep_channel = np.pad(dep_channel.astype(np.int32),
+                         ((0, pad_deps - m), (0, pad_links - links)),
+                         constant_values=-1)
+
+    f32, i32 = np.float32, np.int32
+    return LookaheadArrays(
+        op_remaining=_padded(a.op_remaining, pad_ops, 0, f32),
+        op_valid=_padded(a.op_valid, pad_ops, False, bool),
+        op_worker=_padded(op_worker, pad_ops, -1, i32),
+        op_score=_padded(a.op_score, pad_ops, 0, f32),
+        num_parents=_padded(a.num_parents, pad_ops, 0, i32),
+        dep_remaining=_padded(a.dep_remaining, pad_deps, 0, f32),
+        dep_valid=_padded(a.dep_valid, pad_deps, False, bool),
+        dep_src=_padded(a.dep_src, pad_deps, 0, i32),
+        dep_dst=_padded(a.dep_dst, pad_deps, 0, i32),
+        dep_mutual=_padded(a.dep_mutual, pad_deps, False, bool),
+        dep_is_flow=_padded(a.dep_is_flow, pad_deps, False, bool),
+        dep_score=_padded(a.dep_score, pad_deps, 0, f32),
+        dep_channel=dep_channel,
+        num_workers=a.num_workers, num_channels=a.num_channels)
 
 
 def build_native_lookahead_arrays(cluster, job,
@@ -162,3 +233,11 @@ def build_native_lookahead_arrays(cluster, job,
         dep_score=dep_score, dep_channel=dep_channel,
         num_workers=max(len(worker_dense), 1),
         num_channels=max(n_chan, 1))
+
+
+def arrays_as_args(a: LookaheadArrays) -> Tuple[np.ndarray, ...]:
+    """The thirteen arrays in the engine's argument order."""
+    return (a.op_remaining, a.op_valid, a.op_worker, a.op_score,
+            a.num_parents, a.dep_remaining, a.dep_valid, a.dep_src,
+            a.dep_dst, a.dep_mutual, a.dep_is_flow, a.dep_score,
+            a.dep_channel)

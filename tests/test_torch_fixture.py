@@ -10,9 +10,12 @@ scripts/export_torch_rollout_fixture.py, the JAX IMPALA and PG updates of
 the training trajectory from scripts/export_torch_ac_fixture.py, the JAX
 Ape-X DQN and ES recordings from scripts/export_torch_dqn_es_fixture.py,
 the JAX collect over subprocess envs from
-scripts/export_torch_pipeline_fixture.py, and the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
-scripts/export_torch_train_config.py; the recorded uniforms reproduce the
-recorded actions."""
+scripts/export_torch_pipeline_fixture.py, the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
+scripts/export_torch_train_config.py, the six shipped checkpoints with
+their JAX greedy decisions from scripts/export_torch_checkpoints_fixture.py
+and the recorded lookahead lanes from
+scripts/export_torch_lookahead_lanes.py; the recorded uniforms reproduce
+the recorded actions."""
 import os
 import sys
 
@@ -24,7 +27,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_ac_fixture as ac_export  # noqa: E402
+import export_torch_checkpoints_fixture as ckpt_export  # noqa: E402
 import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
+import export_torch_lookahead_lanes as lanes_export  # noqa: E402
 import export_torch_pipeline_fixture as pipeline_export  # noqa: E402
 import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
@@ -46,7 +51,9 @@ from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
                                        load_rollout_fixture,
                                        load_train_fixture)
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
-                                          REQUESTS_PATH, load_requests)
+                                          REQUESTS_PATH, checkpoint_path,
+                                          load_requests)
+from ddls_tpu_torch.sim.fixture import LANES_PATH  # noqa: E402
 
 F32_MIN = np.finfo(np.float32).min
 
@@ -295,3 +302,27 @@ def test_dqn_es_fixture_regenerates_bit_for_bit(jax_policy):
     assert [int(fresh[f"dqn/update{k}/target_from"]) for k in (1, 2, 3)] \
         == [0, 2, 2]
     assert os.path.getsize(DQN_ES_TRAIN_PATH) < 1_800_000
+
+
+def _assert_regenerates(path, fresh, max_bytes):
+    with np.load(path, allow_pickle=False) as committed:
+        assert sorted(committed.files) == sorted(fresh), path
+        for key, value in fresh.items():
+            got = committed[key]
+            assert got.dtype == value.dtype, (path, key)
+            np.testing.assert_array_equal(got, value, err_msg=key)
+    assert os.path.getsize(path) < max_bytes
+
+
+@pytest.mark.parametrize("name", ckpt_export.NAMES)
+def test_checkpoint_fixture_regenerates_bit_for_bit(name):
+    """Each shipped checkpoint's archive rebuilt by the export script: the
+    params, arch, env surface, seed and the JAX greedy decisions."""
+    _assert_regenerates(checkpoint_path(name),
+                        ckpt_export.export_checkpoint(name), 100_000)
+
+
+def test_lookahead_lanes_regenerate_bit_for_bit():
+    """The recorded lanes (32/72/128-server pricing, the cluster hook's,
+    the edge cases) and the JAX engine's answers to them."""
+    _assert_regenerates(LANES_PATH, lanes_export.export_lanes(), 1_000_000)

@@ -26,7 +26,10 @@ minibatch kernels: K17 (both heads) and K18 (their backward) within 1e-5
 of each output's largest magnitude, each row's K17 answer bit-equal
 whatever shares its batch, K18 bitwise across two runs; K19 within 1e-6
 of each leaf's largest after five steps (its norm sums in another order
-than the plain version's per-leaf norms), at a tie too; K20 exactly.
+than the plain version's per-leaf norms), at a tie too; K20 exactly. The
+array lookahead engine K21 equals its plain version bit for bit, tick
+counts included, in float32 and float64, on every recorded group of lanes
+(and in float32 the recorded JAX answers), and bitwise across two runs.
 """
 import dataclasses
 
@@ -38,6 +41,8 @@ from ddls_tpu_torch import kernels
 from ddls_tpu_torch.models import gnn, policy
 from ddls_tpu_torch.ops import segment
 from ddls_tpu_torch.rl import actor_critic, dqn, es, impala, pg, ppo
+from ddls_tpu_torch.sim import lookahead as lookahead_mod
+from ddls_tpu_torch.sim.fixture import load_lookahead_lanes
 
 pytestmark = pytest.mark.gpu
 
@@ -1069,3 +1074,44 @@ def test_heads_optimiser_wrappers_reject_what_they_cannot_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         clip_adam(state, [p.double() for p in state.params],
                   OptimizerStep("adam", 1e-3, None, 0.9, 0.999, 1e-8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lookahead_equals_plain_on_recorded_lanes(cuda, dtype):
+    for name, group in load_lookahead_lanes().items():
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                for a in group["args"]]
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        kw = dict(num_workers=group["num_workers"],
+                  num_channels=group["num_channels"])
+        ticks = torch.empty(args[0].shape[0], dtype=torch.int32,
+                            device=cuda)
+        got = lookahead_mod.lookahead(*args, ticks=ticks, **kw)
+        again = lookahead_mod.lookahead(*args, **kw)
+        plain = lookahead_mod.lookahead_plain(*args, **kw)
+        for g, a, p in zip(got, again, plain):
+            assert torch.equal(g, p), name
+            assert torch.equal(g, a), name
+        assert torch.equal(ticks, plain[5]), name
+        if dtype == torch.float32:
+            for g, want in zip(got, group["jax"]):
+                np.testing.assert_array_equal(g.cpu().numpy(), want,
+                                              err_msg=name)
+
+
+def test_lookahead_wrapper_rejects_what_it_cannot_take(cuda):
+    group = load_lookahead_lanes()["edge"]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in group["args"]]
+    kw = dict(num_workers=group["num_workers"],
+              num_channels=group["num_channels"])
+    bad = list(args)
+    bad[2] = bad[2].long()  # op_worker must be int32
+    with pytest.raises(TypeError):
+        lookahead_mod.lookahead(*bad, **kw)
+    bad = list(args)
+    bad[0] = bad[0].half()
+    with pytest.raises(TypeError):
+        lookahead_mod.lookahead(*bad, **kw)
+    with pytest.raises(ValueError):
+        lookahead_mod.lookahead(*args, num_workers=0, num_channels=1)

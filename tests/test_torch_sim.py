@@ -4,7 +4,7 @@ rewards, dones, candidate prices (the native engine's float64) and the
 cluster's episode stats, on env_small and on env_load32_price_mixed (the
 shipped policy's env, with candidate pricing and price features), for a
 fixed cycle over the valid actions and for FixedDegreePacking(8); and the
-trimmed features raise.
+trimmed scenario runtime raises.
 
 The simulator draws from the global ``random`` and ``numpy.random``
 streams, which ``env.reset(seed)`` reseeds: each side runs its whole
@@ -87,18 +87,11 @@ def test_simulator_copy_is_bit_equal(name, policy):
 
 
 def test_trimmed_features_raise():
+    """The scenario runtime is not ported and raises. (The array
+    lookahead's options run: tests/test_torch_lookahead.py.)"""
     cfg = env_config("env_small")
     with pytest.raises(NotImplementedError, match="scenario"):
         PortEnv(**cfg, scenario_runtime=object())
-    with pytest.raises(NotImplementedError, match="JAX lookahead"):
-        PortEnv(**cfg, use_jax_lookahead=True)
-    env = PortEnv(**cfg)
-    env.reset(seed=0)
-    with pytest.raises(NotImplementedError, match="native"):
-        env.price_candidate_degrees(backend="jax")
-    priced = PortEnv(**dict(cfg, candidate_pricing="jax"))
-    with pytest.raises(NotImplementedError, match="native"):
-        priced.reset(seed=0)
 
 
 def test_config_targets_map_onto_the_port():
