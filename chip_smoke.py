@@ -128,6 +128,23 @@ exits non-zero (nothing is caught):
    ``ppo_device_trained`` equal to FixedDegreePacking(8) over seed 7009
    and above 0.2 a decision at seed 7005.
 
+19. episode — the device episode replay (``sim/device_env.py``) at full
+   width on env_load32_price_mixed (45 configs, N 480, M 13,072), from
+   ``ddls_tpu_torch/data/device_env_replay.npz``: the recorded JAX replays
+   of 8 job banks x 400 decisions (float32) and of bank 0 (x64), each
+   bank at 1 lane and all at 8 lanes (every decision's accept, cause and
+   reward equal, t and jct bit-equal in float32 and within rel 1e-9 in
+   float64, the counters equal; the other x64 lanes equal to each bank
+   replayed alone), the 8-lane float32 replay counted (K21 with skip and
+   K23-K25 once a decision); the first 16 decisions' kernel calls held
+   against their plain versions in both float types; the same replay
+   under torch.profiler (device ms a decision by kernel, K21's ticks,
+   the busy share); then the port's own host env on that surface (pricing
+   off), the reference test's mixed-action policy from seed 17, replayed
+   in float64 decision for decision; and K22 over that episode's free
+   grids, one launch a split value (counted), against its plain version
+   and the host's C++ first fit.
+
 Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
 K18 (the heads' backward and its reduce), K19 (the optimiser's three
 launches, the clip firing, not firing and at a tie) and K20 (the
@@ -188,6 +205,8 @@ from ddls_tpu_torch.serve.fixture import (CHECKPOINT_NAMES,  # noqa: E402
                                           EXPORT_PATH, greedy_episode,
                                           load_checkpoint_fixture,
                                           load_requests)
+from ddls_tpu_torch.sim import device_env  # noqa: E402
+from ddls_tpu_torch.sim import fixture as device_env_fixture  # noqa: E402
 from ddls_tpu_torch.sim import lookahead as lookahead_mod  # noqa: E402
 from ddls_tpu_torch.sim.fixture import load_lookahead_lanes  # noqa: E402
 from ddls_tpu_torch.train import RLEvalLoop  # noqa: E402
@@ -207,9 +226,11 @@ ES_UPDATE_TOL = 1e-6
 VALUES_TOL = 5e-5
 MAX_BATCH = 8
 PAD_NODES, PAD_EDGES = 150, 512
-# the simulator's kernels: only the env's array-engine options launch
-# them (use_jax_lookahead, candidate_pricing="jax"), no learner's path
-SIM_KERNELS = ("lookahead",)
+# the simulator's kernels: only the env's array-engine options (K21:
+# use_jax_lookahead, candidate_pricing="jax") and the device episode
+# replay (K21-K25) launch them, no learner's path
+SIM_KERNELS = ("lookahead", "first_fit_block", "allocate_job",
+               "price_and_score", "episode_step")
 TIMED_ITERS = 200
 
 
@@ -3529,6 +3550,579 @@ def phase_checkpoints(card):
                          "decisions_7005": len(scored["rewards"])})
 
 
+# ------------------------------------------- the device episode replay
+# K23-K25 and K21 (with skip): one launch each a decision, over all lanes
+EPISODE_KERNELS = device_env_fixture.EPISODE_KERNELS
+# the decisions whose kernel calls are held against the plain versions,
+# and (K21's plain version takes ~50 launches a tick) those where K21 is
+EPISODE_CHECKED = 16
+EPISODE_LA_PLAIN = (0, 7, 15)
+# t and jct of the float64 replays against the recorded x64 ones and the
+# host env (tests/test_jax_episode.py's limit); the float32 replays are
+# held bit for bit (their kernels repeat XLA's float32 arithmetic)
+EPISODE_REL = 1e-9
+_diff = device_env_fixture.max_difference
+
+
+def _episode_bank(banks, lanes, dtype):
+    return {name: torch.from_numpy(np.ascontiguousarray(banks[name][lanes]))
+            .to("cuda", want or dtype) for name, want in
+            device_env.BANK_FIELDS}
+
+
+def check_episode_kernels(et, fx, dtype, lanes):
+    """The first ``EPISODE_CHECKED`` decisions of the recorded banks
+    ``lanes``, decision by decision: K23, K24 and K25 against their plain
+    versions on each decision's own inputs, K21 (with ``skip``) at
+    ``EPISODE_LA_PLAIN``. Returns the largest difference per kernel (0:
+    bit-equal floats, equal integers) and the number of calls held."""
+    ek = device_env.episode_kernels(et, device="cuda", dtype=dtype)
+    bank = _episode_bank(fx["banks"], lanes, dtype)
+    acts = torch.from_numpy(np.stack([fx["actions"]] * len(lanes))).to(
+        "cuda", torch.int32)
+    err, held, _ = device_env_fixture.episode_kernel_diffs(
+        ek, bank, acts, EPISODE_CHECKED, EPISODE_LA_PLAIN)
+    torch.cuda.synchronize()
+    for name, value in err.items():
+        require(value == 0, f"{name} differs from its plain version on the "
+                            f"episode's calls ({dtype}): {value}")
+    return err, held
+
+
+def _replay(fn, banks, actions, lanes):
+    bank = {k: v[lanes] for k, v in banks.items()}
+    acts = np.stack([actions] * len(lanes))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn(bank, acts)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _hold_replay(out, out_rows, want, rows, dtype, what):
+    """Every decision's accept, cause and reward of lanes ``out_rows`` of
+    a replay equal to rows ``rows`` of the recording (``want``: {"trace",
+    "counters"}), t and jct bit-equal in float32 and within
+    ``EPISODE_REL`` in float64, the counters equal. Returns the largest
+    relative error of t and jct."""
+    worst = 0.0
+    for name, got in zip(device_env_fixture.TRACE_NAMES, out["trace"]):
+        got = got.cpu().numpy()[out_rows]
+        ref = want["trace"][name][rows]
+        if name in ("t", "jct") and dtype == torch.float64:
+            rel = float(np.max(np.abs(got - ref) /
+                               np.maximum(np.abs(ref), 1e-300)))
+            worst = max(worst, rel)
+            require(rel <= EPISODE_REL, f"{what}: {name} off the recording "
+                                        f"by rel {rel}")
+        else:
+            require(np.array_equal(got, ref), f"{what}: {name} differs from "
+                                              f"the recording")
+    for name, ref in want["counters"].items():
+        got = out[name].cpu().numpy()[out_rows]
+        ref = ref[rows]
+        if name in ("ret", "t") and dtype == torch.float64:
+            ok = np.allclose(got, ref, rtol=EPISODE_REL, atol=0)
+        else:
+            ok = np.array_equal(got, ref)
+        require(ok, f"{what}: counter {name} {got} differs from the "
+                    f"recording {ref}")
+    return worst
+
+
+def _profile_episode(et, fx, dtype, lanes):
+    """The recorded banks ``lanes`` replayed twice, decision by decision as
+    ``make_episode_fn`` runs them. The first run records what the bounds
+    count: each decision's config rows, active lanes, K21 ticks, accepts
+    and completions. The second, identical but for that recording, runs
+    under torch.profiler: device time per kernel, the device operations
+    (kernels, copies, fills) per decision, and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ek = device_env.episode_kernels(et, device="cuda", dtype=dtype)
+    bank = _episode_bank(fx["banks"], lanes, dtype)
+    acts = torch.from_numpy(np.stack([fx["actions"]] * len(lanes))).to(
+        "cuda", torch.int32)
+    D = acts.shape[1]
+
+    def run(record):
+        trace = {name: torch.zeros(acts.shape, dtype=want or dtype,
+                                   device="cuda")
+                 for name, want in device_env.TRACE_FIELDS}
+        state = ek.init_state(bank, acts)
+        for d in range(D):
+            raw = ek.evaluate(state)
+            if record is not None:
+                record.append([state["cfg"].clone(), state["active"].clone(),
+                               raw["ticks"].clone(),
+                               state["completed"].clone()])
+            device_env.episode_step(ek, state, bank, acts, raw, trace, d)
+            if record is not None:
+                record[-1] += [trace["accept"][:, d].clone(),
+                               state["completed"].clone()]
+
+    calls = []
+    run(calls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run(None)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_name, count = {}, {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.device_time_total / 1e3)
+            count[event.name] = count.get(event.name, 0) + 1
+    kernel_ms, kernel_ops = {}, {}
+    for name in EPISODE_KERNELS:
+        mine = [k for k in by_name if f"{name}_kernel<" in k]
+        kernel_ms[name] = sum(by_name[k] for k in mine)
+        kernel_ops[name] = sum(count[k] for k in mine) / D
+    others = sorted(((n, v) for n, v in count.items()
+                     if not any(f"{k}_kernel<" in n
+                                for k in EPISODE_KERNELS)),
+                    key=lambda x: -x[1])
+    device_total = sum(by_name.values())
+    stacked = [torch.stack([c[i] for c in calls]).cpu().numpy()
+               for i in range(6)]                                # [D, B]
+    return {"wall_ms": wall_ms, "device_ms": device_total,
+            "busy_share": device_total / wall_ms,
+            "kernel_device_ms": kernel_ms,
+            "other_device_ms": device_total - sum(kernel_ms.values()),
+            "device_ops_per_decision": sum(count.values()) / D,
+            "kernel_launches_per_decision": kernel_ops,
+            "other_device_ops_per_decision": {
+                n[:60]: c / D for n, c in others[:6]},
+            "decisions": D, "lanes": len(lanes), "cfg": stacked[0],
+            "active": stacked[1], "ticks": stacked[2],
+            "accept": stacked[4], "completions": stacked[5] - stacked[3]}
+
+
+def _episode_bounds(et, prof, dtype):
+    """Per call of each kernel on the profiled replay, the least bytes and
+    operations the call's work needs, as ``bound_ms`` of each. A config
+    row's valid masks count in full; its other fields count per valid op,
+    dep, group edge, sync pair and one-to-one edge of the lane's config;
+    K23, K24 and K21 count only the lanes that decide (the others' outputs
+    are not read); K25 counts every lane's state and trace, the decision's
+    inputs of the deciding lanes, the slot an accept writes and the slots
+    each completion frees. K25's occupancy indices (a slot number per
+    server and channel of a committed or freed slot) are left out, so its
+    bound is low rather than high. Operations: K23 one per cell test of
+    each valid op's shape row at the anchors of each shape's origin span;
+    K24 the sort's m log2 m comparisons, the op ranks' n^2, one per priced
+    group edge, sync pair and one-to-one edge; K21 one per valid op and
+    dep a tick of the ticks this run took; K25 one per valid dep and op of
+    a deciding lane and per server and channel of a committed or freed
+    slot."""
+    tb, pads = et.tables, et.pads
+    fb = 4 if dtype == torch.float32 else 8
+    N, M, F, P = pads.n_ops, pads.n_deps, pads.n_fwd, pads.n_parents
+    G, Eg, Sy, O = pads.n_groups, pads.group_edges, pads.n_sync, pads.n_o2o
+    S, C, R = et.n_srv, et.n_chan, et.n_srv
+    st = et.st
+    cfg, active = prof["cfg"], prof["active"].astype(np.float64)
+    ticks, accept = prof["ticks"], prof["accept"].astype(np.float64)
+    completions = prof["completions"].astype(np.float64)
+    D, B = cfg.shape
+    n_valid = tb["n_ops"][cfg]
+    m_valid = tb["n_deps"][cfg]
+    # K23: the config rows of each valid forward op (its sub-ops up to its
+    # split), and per launch each shape row the deciding lanes' ops use,
+    # with the anchors and cells of its shapes' origin spans
+    n_rows = st.row.shape[0]
+    split_row = np.minimum(np.maximum(tb["f_split"], 0), n_rows - 1)
+    f_bytes = (F + (tb["f_valid"] * (4 + fb + 4 * P + 8 * tb["f_split"]))
+               .sum(1))
+    shape_cells = (st.anchor_span[:, :, None]
+                   & (st.anchor_cells != -2)).sum((1, 2))
+    row_ids = [r[r >= 0] for r in st.row]
+    row_bytes = np.array([4 * len(r) + len(r) * S
+                          + 4 * int(shape_cells[r].sum()) for r in row_ids])
+    row_tests = np.array([int(shape_cells[r].sum()) for r in row_ids])
+    op_tests = (tb["f_valid"] * row_tests[split_row]).sum(1)
+    k23_rows = 0.0
+    for d in range(D):
+        used = np.unique(split_row[cfg[d]][
+            tb["f_valid"][cfg[d]] & (active[d] > 0)[:, None]])
+        k23_rows += row_bytes[used].sum()
+    k23_bytes = k23_rows + float(np.sum(active * (
+        4 + S * (fb + 1) + f_bytes[cfg] + 4 * n_valid + S * fb + 1)))
+    k23_ops = float(np.sum(active * op_tests[cfg]))
+    # K24: the lane's config rows and the priced edges, the pair channels
+    # once a launch, the outputs of the valid deps and ops
+    n_grp = tb["grp_valid"].sum(1)
+    n_gedge = tb["grp_edge_valid"].sum((1, 2))
+    n_sync = tb["sync_valid"].sum(1)
+    n_o2o = tb["o2o_valid"].sum(1)
+    k24_lane = (12 + N + M + G + Sy + O + n_grp * (Eg + fb) + n_gedge * 12
+                + n_sync * (16 + fb) + n_o2o * 4)[cfg]
+    k24_bytes = float(np.sum(active * (
+        k24_lane + n_valid * (4 + fb + 8 + fb)
+        + m_valid * (12 + fb + fb + 1 + 4 + fb) + 1))) + D * S * S * 4
+    k24_ops = float(np.sum(active * (
+        m_valid * np.ceil(np.log2(np.maximum(m_valid, 2)))
+        + n_valid.astype(np.float64) ** 2
+        + (n_gedge + n_sync + n_o2o)[cfg])))
+    # K25: every lane's scalar state (read and written), trace row, next
+    # action and bank row, slot table; a deciding lane's kernel outputs;
+    # an accept's slot and memory; each completion's slot and memory
+    scalars = 2 * (3 * fb + 30) + (3 * fb + 6) + 12 + 2 * fb + R * (1 + fb)
+    deciding = (M + 4 * m_valid + N + 4 * n_valid + S * fb + 2 * fb + 7
+                + 4 * np.minimum(m_valid, C))
+    slot = S * fb + S + C
+    k25_bytes = float(np.sum(scalars + active * deciding
+                             + accept * (slot + 2 * S * fb + 1 + fb)
+                             + completions * slot
+                             + (completions > 0) * 2 * S * fb))
+    k25_ops = float(np.sum(active * (m_valid + n_valid)
+                           + (accept + completions) * (S + C)))
+    # K21: the valid masks in full, the valid slots' other fields, the
+    # outputs, for the lanes that tick
+    la_bytes = float(np.sum(active * (N + M + n_valid * (2 * fb + 8)
+                                      + m_valid * (2 * fb + 14)
+                                      + 4 * fb + 5)))
+    la_ops = float(np.sum(active * ticks * (n_valid + m_valid)))
+    out = {}
+    for name, nbytes, ops in (("allocate_job", k23_bytes, k23_ops),
+                              ("price_and_score", k24_bytes, k24_ops),
+                              ("lookahead", la_bytes, la_ops),
+                              ("episode_step", k25_bytes, k25_ops)):
+        b, by = bound_ms(nbytes, ops)
+        out[name] = (b / D, by, nbytes / D, ops / D)
+    return out
+
+
+def _host_episode(card):
+    """(b): the port's own host env on the shipped surface (candidate
+    pricing off: it feeds only the observation, which the replay does not
+    read), the reference test's mixed-action policy from seed 17 / rng 23;
+    the free grid of each decision recorded for K22."""
+    from ddls_tpu_torch.agents.block_search import snapshot_free_servers
+    from ddls_tpu_torch.sim.device_block_search import free_grid_from_ramp
+
+    env_cfg = dict(load_checkpoint_fixture("ppo_price_mixed")["env_config"],
+                   candidate_pricing=None, obs_include_candidate_prices=False)
+    env = RampJobPartitioningEnvironment(**env_cfg)
+    grids = []
+
+    def before(env, job_idx):
+        grids.append(free_grid_from_ramp(
+            snapshot_free_servers(env.cluster), env.cluster.topology.shape,
+            job_idx))
+
+    t0 = time.monotonic()
+    arrivals, decisions, stats = device_env_fixture.mixed_action_episode(
+        env, before_step=before)
+    host_s = time.monotonic() - t0
+    et = device_env.build_episode_tables(env)
+    bank = device_env.build_job_bank(et, arrivals)
+    actions = np.array([d[0] for d in decisions], np.int32)
+    fn = device_env.make_episode_fn(et, device="cuda", dtype=torch.float64)
+    out = fn(bank, actions)
+    trace = {name: x.cpu().numpy() for name, x in
+             zip(device_env_fixture.TRACE_NAMES, out["trace"])}
+    host = np.array([d[1:] for d in decisions], np.float64)
+    require(trace["has_job"].all(), "the replay ran out of queued jobs "
+                                    "before the host env did")
+    require(np.array_equal(trace["reward"], host[:, 0]) and
+            np.array_equal(trace["accept"], host[:, 1] > 0) and
+            np.array_equal(trace["cause"], host[:, 2]),
+            "the float64 replay decides otherwise than the host env")
+    accepted = (host[:, 1] > 0) & np.isfinite(host[:, 4])
+    rel = max(float(np.max(np.abs(trace["t"] - host[:, 3]) /
+                           np.maximum(np.abs(host[:, 3]), 1.0))),
+              float(np.max(np.abs(trace["jct"][accepted] -
+                                  host[accepted, 4]) /
+                           host[accepted, 4])) if accepted.any() else 0.0)
+    require(rel <= EPISODE_REL, f"the replay's t / jct off the host env's "
+                                f"by rel {rel}")
+    for key in ("arrived", "blocked_total", "completed"):
+        require(int(out[key]) == stats[key], f"the replay's {key} "
+                                             f"{int(out[key])} differs from "
+                                             f"the host env's {stats[key]}")
+    causes = {int(c): int(n) for c, n in zip(*np.unique(
+        trace["cause"], return_counts=True))}
+    emit("episode_host_env", card=card, decisions=len(decisions),
+         host_episode_s=host_s, t_jct_max_rel_err=rel, causes=causes,
+         **stats)
+    return np.stack(grids), et
+
+
+def _first_fit_tests(grids, shapes, meta) -> int:
+    """The cell tests a first fit of ``shapes`` needs on the free grids
+    ``grids`` [G, C, R, S]: in first-fit order (shape, then lexicographic
+    origin), each anchor of each shape whose extents fit ``meta`` tests
+    its window's cells up to the first taken one, until the first anchor
+    that fits. A diagonal's window is empty (the reference's), so its
+    anchor tests its own cell; a shape that does not fit costs nothing."""
+    n_grids, C, R, S = grids.shape
+    tests, fits = [], []
+    for shape in shapes:
+        if not all(m >= s for m, s in zip(meta, shape)):
+            continue
+        window = [(dc, dr, ds) for dc in range(shape[0])
+                  for dr in range(shape[1]) for ds in range(shape[2])]
+        window = window or [(0, 0, 0)]
+        span = [min(max(m - s + 1, 0), n)
+                for m, s, n in zip(meta, shape, (C, R, S))]
+        for i in range(span[0]):
+            for j in range(span[1]):
+                for k in range(span[2]):
+                    cells = np.stack([grids[:, (i + dc) % C, (j + dr) % R,
+                                            (k + ds) % S]
+                                      for dc, dr, ds in window], 1)
+                    taken = ~cells
+                    fits.append(~taken.any(1))
+                    tests.append(np.where(taken.any(1),
+                                          taken.argmax(1) + 1, len(window)))
+    if not tests:
+        return 0
+    tests, fits = np.stack(tests, 1), np.stack(fits, 1)
+    last = np.where(fits.any(1), fits.argmax(1), fits.shape[1] - 1)
+    return int(np.take_along_axis(np.cumsum(tests, 1), last[:, None],
+                                  1).sum())
+
+
+def phase_block_search(grids, et, card):
+    """K22 over the free grids of the host episode's decisions, one batch
+    per split value's shape list (the launch counters reset just before
+    and read just after): equal to its plain version, and on the regular
+    shapes (the reference's primitive leaves diagonals to the placer) to
+    the host's C++ first fit, block for block."""
+    from ddls_tpu_torch.agents.block_search import (block_shapes_for,
+                                                    factor_pairs)
+    from ddls_tpu_torch.native import run_first_fit_block
+    from ddls_tpu_torch.sim.device_block_search import (block_cells,
+                                                        first_fit_block,
+                                                        first_fit_block_plain)
+
+    ramp = tuple(et.st.ramp_shape)
+    free = torch.from_numpy(grids).cuda()
+    splits = [d for d in et.degrees]
+    shape_lists = []
+    for split in splits:
+        shapes = block_shapes_for(factor_pairs(split), ramp)
+        shape_lists.append(shapes + [(split, split, -1), (split, 1, 1)])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    found = [first_fit_block(free, shapes, ramp) for shapes in shape_lists]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(launches["first_fit_block"] == len(splits),
+            "the block search did not launch K22 once a split")
+    err = 0.0
+    host_checked = 0
+    for shapes, got in zip(shape_lists, found):
+        want = first_fit_block_plain(free, shapes, ramp)
+        err = max(err, *(_diff(g, w) for g, w in zip(got, want)))
+        regular = [s for s in shapes if s[2] != -1]
+        reg = [x.cpu().numpy() for x in first_fit_block(free, regular,
+                                                        ramp)]
+        for g in range(len(grids)):
+            host = run_first_fit_block(
+                regular, ramp, ramp, np.zeros(grids[g].size),
+                (~grids[g]).reshape(-1).astype(np.uint8), None, False)
+            require((host is not None) == bool(reg[4][g]),
+                    "K22 and the host's first fit disagree on a fit")
+            if host is not None:
+                cells = block_cells(regular[int(reg[0][g])],
+                                    (int(reg[1][g]), int(reg[2][g]),
+                                     int(reg[3][g])), ramp)
+                require([tuple(c) for c in host[0]] == cells,
+                        "K22 found another block than the host's first fit")
+            host_checked += 1
+    require(err == 0, f"K22 differs from its plain version: {err}")
+    shapes_16 = shape_lists[-1]
+    nbytes = grids.size + 12 * len(shapes_16) + len(grids) * 17
+    ops = _first_fit_tests(grids, shapes_16, ramp)
+    bound, bound_by = bound_ms(nbytes, ops)
+    res = _new_result(
+        max_abs_err=err, bound_ms=bound, bound_by=bound_by,
+        ms=device_ms(lambda: first_fit_block(free, shapes_16, ramp)),
+        eager_ms=eager_ms(lambda: first_fit_block(free, shapes_16, ramp)),
+        plain_ms=eager_ms(lambda: first_fit_block_plain(free, shapes_16,
+                                                        ramp), iters=5),
+        shape=(f"grids={len(grids)} ramp={list(ramp)} shapes="
+               f"{len(shapes_16)} (split {splits[-1]})"),
+        calls_per_step=len(splits))
+    emit("block_search", card=card, grids=len(grids), splits=splits,
+         k22_launches=launches["first_fit_block"],
+         host_first_fit_checked=host_checked, max_abs_err=err,
+         ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=bound)
+    return {"first_fit_block": res}, launches
+
+
+def phase_episode(card):
+    """Phase 19: the device episode replay at full width on the shipped
+    surface (``ddls_tpu_torch/data/device_env_replay.npz``): (a) the
+    recorded JAX replays of eight banks (float32) and bank 0 (x64) at 1
+    lane and at 8 lanes, the 8-lane float32 replay the counted main path;
+    every decision and counter against the recording; each kernel call of
+    the first decisions against its plain version; (b) the port's host
+    env's own episode replayed in float64, decision for decision; K22 over
+    its grids; (c) decisions/s at 1 and 8 lanes, the device time per
+    decision by kernel, launches per decision, K21's ticks per decision
+    and the device busy share under torch.profiler."""
+    fx = device_env_fixture.load_device_env_fixture()
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    require(et.types == fx["types"], "the shipped surface's model types "
+                                     "differ from the recording's")
+    banks, actions = fx["banks"], fx["actions"]
+    lanes8 = list(range(8))
+    info = {}
+    for dtype, key in ((torch.float32, "f32"), (torch.float64, "x64")):
+        fn = device_env.make_episode_fn(et, device="cuda", dtype=dtype)
+        recorded = list(range(fx[key]["trace"]["cause"].shape[0]))
+        _replay(fn, banks, actions[:4], [0])        # first use, not timed
+        worst, one_lane_s = 0.0, []
+        for lane in recorded:
+            out, wall = _replay(fn, banks, actions, [lane])
+            one_lane_s.append(wall)
+            worst = max(worst, _hold_replay(out, [0], fx[key], [lane],
+                                            dtype, f"{key} bank {lane}, "
+                                                   "1 lane"))
+        if dtype == torch.float32:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+        out8, wall8 = _replay(fn, banks, actions, lanes8)
+        if dtype == torch.float32:
+            launches = kernels.launch_counts()
+            for name in EPISODE_KERNELS:
+                require(launches[name] == len(actions),
+                        f"{name} launched {launches[name]} times in "
+                        f"{len(actions)} decisions of the 8-lane replay")
+        worst = max(worst, _hold_replay(out8, recorded, fx[key], recorded,
+                                        dtype, f"{key}, 8 lanes"))
+        if dtype == torch.float64:
+            # the other lanes: each equal to that bank replayed alone
+            for lane in lanes8[1:]:
+                alone, _ = _replay(fn, banks, actions, [lane])
+                for s, a in zip(out8["trace"], alone["trace"]):
+                    require(torch.equal(s[lane], a[0]),
+                            f"x64 lane {lane} of 8 differs from its bank "
+                            f"replayed alone")
+        n_dec = int(out8["trace"][5].sum())
+        info[key] = {
+            "decisions_per_s_1_lane": len(actions) / float(np.mean(
+                one_lane_s)),
+            "decisions_per_s_8_lanes": n_dec / wall8,
+            "episode_s_1_lane": float(np.mean(one_lane_s)),
+            "episode_s_8_lanes": wall8,
+            "t_jct_max_rel_err": worst,
+            "accepted": out8["accepted"].tolist(),
+            "k21_ticks_per_lane_decision": float(
+                out8["lookahead_ticks"].sum()) / n_dec}
+    emit("episode", card=card, **info,
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_decision={k: launches[k] / len(actions)
+                                for k in EPISODE_KERNELS})
+
+    results = {}
+    for dtype, lanes in ((torch.float32, lanes8), (torch.float64, [0])):
+        err, held = check_episode_kernels(et, fx, dtype, lanes)
+        for name in EPISODE_KERNELS:
+            results.setdefault(name, _new_result(calls_per_step=1))
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err[name])
+            results[name].setdefault("held_calls", 0)
+            results[name]["held_calls"] += held[name]
+
+    prof = _profile_episode(et, fx, torch.float32, lanes8)
+    bounds = _episode_bounds(et, prof, torch.float32)
+    D = prof["decisions"]
+    ek = device_env.episode_kernels(et, device="cuda", dtype=torch.float32)
+    dev = ek.dev
+    bank = _episode_bank(banks, lanes8, torch.float32)
+    acts = torch.from_numpy(np.stack([actions] * 8)).to("cuda", torch.int32)
+    state = ek.init_state(bank, acts)
+    raw = ek.evaluate(state)
+    c = state["cfg"].long()
+    T = dev.t
+    valid = T["op_valid"][c]
+    la_args = (T["op_compute"][c], valid, torch.where(valid, raw["ots"], -1),
+               raw["op_score"], T["num_parents"][c], raw["times"],
+               T["dep_valid"][c], T["dep_src"][c], T["dep_dst"][c],
+               T["dep_mutual"][c], raw["is_flow"], raw["dep_score"],
+               raw["chan"][:, :, None])
+    la_kw = dict(num_workers=et.n_srv, num_channels=et.n_chan,
+                 skip=~state["active"])
+    trace = {name: torch.zeros(acts.shape, dtype=want or torch.float32,
+                               device="cuda")
+             for name, want in device_env.TRACE_FIELDS}
+
+    def step_plain():
+        s2 = {k: v.clone() for k, v in state.items()}
+        device_env.episode_step_plain(ek, s2, bank, acts, raw, trace, 0)
+
+    plain = {
+        "allocate_job": lambda: device_env.allocate_job_plain(
+            state["mem"], state["srv_job"] < 0, state["cfg"], dev),
+        "price_and_score": lambda: device_env.price_and_score_plain(
+            raw["ots"], state["cfg"], dev),
+        "lookahead": lambda: lookahead_mod.lookahead_plain(*la_args,
+                                                           **la_kw),
+        "episode_step": step_plain}
+    free0 = state["srv_job"] < 0
+    eager = {
+        "allocate_job": eager_ms(lambda: device_env.allocate_job(
+            state["mem"], free0, state["cfg"], dev)),
+        "price_and_score": eager_ms(lambda: device_env.price_and_score(
+            raw["ots"], state["cfg"], dev)),
+        "lookahead": eager_ms(lambda: lookahead_mod.lookahead(
+            *la_args, **la_kw), iters=20)}
+    clones = [{k: v.clone() for k, v in state.items()} for _ in range(20)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in clones:
+        device_env.episode_step(ek, s, bank, acts, raw, trace, 0)
+    end.record()
+    end.synchronize()
+    eager["episode_step"] = start.elapsed_time(end) / len(clones)
+    for name in EPISODE_KERNELS:
+        r = results[name]
+        r.update(ms=prof["kernel_device_ms"][name] / D,
+                 eager_ms=eager[name], bound_ms=bounds[name][0],
+                 bound_by=bounds[name][1],
+                 plain_ms=eager_ms(plain[name],
+                                   iters=1 if name == "lookahead" else 3),
+                 shape=(f"episode: lanes=8 decisions={D} N={et.pads.n_ops} "
+                        f"M={et.pads.n_deps} configs={dev.n_cfg} "
+                        f"servers={et.n_srv} channels={et.n_chan} float32"))
+    emit("episode_profile", card=card, decisions=D, lanes=8,
+         wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
+         device_busy_share=prof["busy_share"],
+         device_ms_per_decision={k: v / D for k, v in
+                                 prof["kernel_device_ms"].items()},
+         other_device_ms_per_decision=prof["other_device_ms"] / D,
+         k21_ticks_per_lane_decision=float(prof["ticks"].sum()) / (
+             D * prof["lanes"]),
+         k21_slowest_lane_ticks_per_decision=float(
+             prof["ticks"].max(1).mean()),
+         device_ops_per_decision=prof["device_ops_per_decision"],
+         kernel_launches_per_decision=prof[
+             "kernel_launches_per_decision"],
+         other_device_ops_per_decision=prof[
+             "other_device_ops_per_decision"],
+         bound_ms_per_call={k: v[0] for k, v in bounds.items()},
+         bound_bytes_per_call={k: v[2] for k, v in bounds.items()},
+         bound_ops_per_call={k: v[3] for k, v in bounds.items()})
+
+    grids, host_et = _host_episode(card)
+    bs_results, bs_launches = phase_block_search(grids, host_et, card)
+    results.update(bs_results)
+    return results, launches, bs_launches
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -3795,6 +4389,7 @@ def main() -> int:
     lookahead_results["lookahead"]["hook_launches"] = phase_lookahead_hook(
         card)["lookahead"]
     phase_checkpoints(card)
+    episode_results, episode_launches, block_launches = phase_episode(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
     for r in (*dqn_es_results.values(), *heads_optim_results.values(),
@@ -3873,6 +4468,27 @@ def main() -> int:
                           if name == "gae_normalize" or actor_critic
                           or dqn_es else "minibatch step"),
             "shapes": r["shapes"], "card": card})
+    for name, r in episode_results.items():
+        spec = kernels.KERNELS[name]
+        block = name == "first_fit_block"
+        rows.append({
+            # K21 on the episode, with skip, beside its row above
+            "name": "lookahead (skip)" if name == "lookahead" else name,
+            "route": "cuda", "source": os.path.relpath(spec.source, REPO),
+            "replaces": spec.replaces,
+            "launches": (block_launches if block else
+                         episode_launches)[name],
+            "main_path": ("block_search (the host episode's grids)" if block
+                          else "episode (8 lanes, the float32 replay)"),
+            "max_abs_err": r["max_abs_err"],
+            "max_rel_err": r["max_rel_err"], "held_calls": r.get(
+                "held_calls"),
+            "ms": r["ms"], "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_device_ms": None, "calls": r["calls_per_step"],
+            "calls_per": "split value" if block else "decision",
+            "shapes": [r["shape"]], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

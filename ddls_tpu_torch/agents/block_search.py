@@ -12,8 +12,10 @@ c-major/r/s) because "first fit" makes the order part of the semantics.
 
 Port: a copy of ``ddls_tpu/agents/block_search.py`` with its imports pointed at
 ``ddls_tpu_torch``; the search runs on the native (C++) kernel only, so the
-JAX package's Python fallback (``enumerate_block``, ``block_ok``,
-``first_fit_block``) is left out.
+JAX package's Python fallback (``block_ok``, ``first_fit_block``) is left
+out. ``enumerate_block`` stays: the device env's shape tables
+(``sim/device_env.py``) and ``sim/device_block_search.block_cells`` take
+their cell geometry from it.
 """
 from __future__ import annotations
 
@@ -61,6 +63,29 @@ def block_shapes_for(pairs: Sequence[Tuple[int, int]],
         shapes.append((a, 1, b))
         shapes.append((a, b, 1))
     return shapes
+
+
+def enumerate_block(shape: Coord, ramp_shape: Coord,
+                    origin: Coord) -> List[Coord]:
+    """Servers covered by a block of ``shape`` at ``origin``. ``shape[2] ==
+    -1`` selects the diagonal layout across comm-groups and racks
+    (reference: placers/utils.py:464-489)."""
+    C, R, S = shape
+    i, j, k = origin
+    block: List[Coord] = []
+    if S == -1:
+        for n in range(C):
+            block.append(((i + n) % (ramp_shape[0] + 1),
+                          (j + n) % (ramp_shape[1] + 1),
+                          k % ramp_shape[2]))
+    else:
+        for c in range(C):
+            for r in range(R):
+                for s in range(S):
+                    block.append(((i + c) % ramp_shape[0],
+                                  (j + r) % ramp_shape[1],
+                                  (k + s) % ramp_shape[2]))
+    return block
 
 
 def _ramp_arrays(ramp: Dict[Coord, dict], ramp_shape: Coord, job_idx):

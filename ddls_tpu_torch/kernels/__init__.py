@@ -23,7 +23,9 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``dqn_act`` and ``dqn_td_loss`` in ``rl/dqn.py``; ``es_update`` and
 ``es_act`` in ``rl/es.py``; ``mlp_heads`` and its backward in
 ``models/policy.py``; ``clip_adam`` and ``minibatch_gather``, which every
-learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``);
+learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``;
+``first_fit_block`` in ``sim/device_block_search.py``; ``allocate_job``,
+``price_and_score`` and ``episode_step`` in ``sim/device_env.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -49,12 +51,18 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEADERS = ("common.cuh", "ln_row.cuh")
+# per-source flags after NVCC_FLAGS: the device env's sources keep every
+# float sum and product apart unless the source fuses it itself, as the
+# reference's arithmetic does
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
+    stem: ("-fmad=false",) for stem in ("placement", "pricing", "episode")}
 
 
 @dataclass(frozen=True)
 class KernelSpec:
     """One kernel entry point: its C symbol and ctypes signature (``p`` a
-    pointer or stream, ``i`` a C int, ``f`` a C float), the JAX routine it
+    pointer or stream, ``i`` a C int, ``f`` a C float, ``d`` a C double),
+    the JAX routine it
     replaces, and the source stem it lives in (default: its name)."""
     name: str
     symbol: str
@@ -140,14 +148,28 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "p" * 18 + "iiiiiiip", "ddls_tpu/rl/ppo.py:343"),
     # the simulator's array lookahead engine (K21): the env's
     # use_jax_lookahead and candidate_pricing="jax" options
-    KernelSpec("lookahead", "ddls_lookahead", "p" * 21 + "i" * 7 + "p",
+    KernelSpec("lookahead", "ddls_lookahead", "p" * 22 + "i" * 7 + "p",
                "ddls_tpu/sim/jax_lookahead.py:313"),
+    # the device episode replay: the block-search primitive (K22), the
+    # placement scan (K23), dep pricing and SRPT scores (K24), the commit
+    # and the event clock (K25)
+    KernelSpec("first_fit_block", "ddls_first_fit_block", "ppppiiiiiiiip",
+               "ddls_tpu/sim/jax_block_search.py:62", file="placement"),
+    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 15 + "i" * 11 + "p",
+               "ddls_tpu/sim/jax_env.py:450", file="placement"),
+    KernelSpec("price_and_score", "ddls_price_and_score",
+               "p" * 33 + "i" * 10 + "dddd" + "i" + "p",
+               "ddls_tpu/sim/jax_env.py:606", file="pricing"),
+    KernelSpec("episode_step", "ddls_episode_step", "p" * 43 + "i" * 13
+               + "dddd" + "i" + "p", "ddls_tpu/sim/jax_env.py:974",
+               file="episode"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem
                                                for k in KERNELS.values()))
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "d": ctypes.c_double}
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes._CFuncPtr] = {}
 # launches per kernel since the last reset: how a run shows that it went
@@ -170,7 +192,8 @@ def nvcc_path() -> str:
 def library_path(stem: str) -> str:
     """``_build/lib<stem>-<digest>.so``: the digest covers the source, the
     shared headers and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS
+                                     + EXTRA_FLAGS.get(stem, ())).encode())
     for path in (os.path.join(CSRC, f"{stem}.cu"),
                  *(os.path.join(CSRC, h) for h in HEADERS)):
         with open(path, "rb") as fh:
@@ -196,7 +219,7 @@ def build(stems: Optional[Sequence[str]] = None) -> Dict[str, str]:
             continue
         nvcc = nvcc or nvcc_path()
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(stem, ()), "-o", tmp,
                os.path.join(CSRC, f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,

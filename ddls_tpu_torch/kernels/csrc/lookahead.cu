@@ -23,7 +23,9 @@
 //  7. comp_oh, comm_oh, busy += tick * #selected and t accumulate, in that
 //     order.
 // The loop stops when every valid op and dep is done, when stuck, or after
-// N + E + 4 ticks of the padded sizes; ok = finished && !stuck.
+// N + E + 4 ticks of the padded sizes; ok = finished && !stuck. A lane whose
+// `skip` flag is set (the reference's `skip`, :316,325-335,355; a null
+// `skip` sets none) runs no tick and returns its initial accumulators.
 //
 // What bounds it on the H100: latency, not bytes or operations. Each tick
 // is a few passes over the lane's N ops and E deps with a data-dependent
@@ -125,8 +127,9 @@ __global__ void __launch_bounds__(kMaxThreads) lookahead_kernel(
     unsigned char* __restrict__ flags_dep_ws,  // [B, 2, E]
     int* __restrict__ parents_ws,              // [B, N]
     T* __restrict__ out_vals,                  // [B, 4]: t, comm, comp, busy
-    bool* __restrict__ out_ok, int* __restrict__ out_ticks, int n, int e,
-    int links, int num_workers, int num_channels) {
+    bool* __restrict__ out_ok, int* __restrict__ out_ticks,
+    const bool* __restrict__ skip, int n, int e, int links, int num_workers,
+    int num_channels) {
   using N_ = Num<T>;
   using Ord = typename N_::Ord;
   extern __shared__ long long smem_raw[];
@@ -189,7 +192,8 @@ __global__ void __launch_bounds__(kMaxThreads) lookahead_kernel(
   T t = 0, comm = 0, comp = 0, busy = 0;
   const int max_iters = n + e + 4;
   int it = 0;
-  while (s_remaining > 0 && it < max_iters) {
+  const bool skipped = skip != nullptr && skip[lane];
+  while (!skipped && s_remaining > 0 && it < max_iters) {
     // 1. readiness; per-worker and per-channel best scores
     for (int i = tid; i < n; i += nthreads) {
       const bool ready = op_valid[i] && !op_done[i] &&
@@ -334,8 +338,9 @@ int threads_for(int n, int e) {
 template <typename T>
 int launch(const void* const* in, void* rem_op, void* rem_dep,
            void* flags_op, void* flags_dep, void* parents, void* out_vals,
-           void* out_ok, void* out_ticks, int lanes, int n, int e, int links,
-           int num_workers, int num_channels, cudaStream_t stream) {
+           void* out_ok, void* out_ticks, const void* skip, int lanes, int n,
+           int e, int links, int num_workers, int num_channels,
+           cudaStream_t stream) {
   using Ord = typename Num<T>::Ord;
   const size_t smem =
       static_cast<size_t>(num_workers + num_channels) * sizeof(Ord);
@@ -356,7 +361,8 @@ int launch(const void* const* in, void* rem_op, void* rem_dep,
       static_cast<T*>(rem_dep), static_cast<unsigned char*>(flags_op),
       static_cast<unsigned char*>(flags_dep), static_cast<int*>(parents),
       static_cast<T*>(out_vals), static_cast<bool*>(out_ok),
-      static_cast<int*>(out_ticks), n, e, links, num_workers, num_channels);
+      static_cast<int*>(out_ticks), static_cast<const bool*>(skip), n, e,
+      links, num_workers, num_channels);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,7 +371,8 @@ int launch(const void* const* in, void* rem_op, void* rem_dep,
 // The thirteen inputs in jax_lookahead's order, each with a leading lane
 // axis ([B, N] ops, [B, E] deps, [B, E, L] dep_channel; floats of the type
 // `is_f64` names, bools as one byte, the rest int32), the working state
-// (uninitialised; the kernel sets it up), then the outputs.
+// (uninitialised; the kernel sets it up), the outputs, then `skip` ([B]
+// bools, or null).
 DDLS_EXPORT int ddls_lookahead(
     const void* op_remaining, const void* op_valid, const void* op_worker,
     const void* op_score, const void* num_parents, const void* dep_remaining,
@@ -373,8 +380,8 @@ DDLS_EXPORT int ddls_lookahead(
     const void* dep_mutual, const void* dep_is_flow, const void* dep_score,
     const void* dep_channel, void* rem_op, void* rem_dep, void* flags_op,
     void* flags_dep, void* parents, void* out_vals, void* out_ok,
-    void* out_ticks, int lanes, int n, int e, int links, int num_workers,
-    int num_channels, int is_f64, void* stream) {
+    void* out_ticks, const void* skip, int lanes, int n, int e, int links,
+    int num_workers, int num_channels, int is_f64, void* stream) {
   const void* in[13] = {op_remaining, op_valid, op_worker, op_score,
                         num_parents, dep_remaining, dep_valid, dep_src,
                         dep_dst, dep_mutual, dep_is_flow, dep_score,
@@ -385,12 +392,12 @@ DDLS_EXPORT int ddls_lookahead(
   }
   if (is_f64) {
     return launch<double>(in, rem_op, rem_dep, flags_op, flags_dep, parents,
-                          out_vals, out_ok, out_ticks, lanes, n, e, links,
-                          num_workers, num_channels,
+                          out_vals, out_ok, out_ticks, skip, lanes, n, e,
+                          links, num_workers, num_channels,
                           static_cast<cudaStream_t>(stream));
   }
   return launch<float>(in, rem_op, rem_dep, flags_op, flags_dep, parents,
-                       out_vals, out_ok, out_ticks, lanes, n, e, links,
+                       out_vals, out_ok, out_ticks, skip, lanes, n, e, links,
                        num_workers, num_channels,
                        static_cast<cudaStream_t>(stream));
 }

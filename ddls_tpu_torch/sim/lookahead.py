@@ -114,20 +114,23 @@ def run_lanes(batch: Sequence[LookaheadArrays], device
 def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
               dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
               dep_is_flow, dep_score, dep_channel, *, num_workers: int,
-              num_channels: int, ticks: Optional[torch.Tensor] = None
-              ) -> LookaheadOut:
+              num_channels: int, ticks: Optional[torch.Tensor] = None,
+              skip: Optional[torch.Tensor] = None) -> LookaheadOut:
     """K21: ``(t, comm_oh, comp_oh, busy, ok)``, each [B], for B lanes of
     padded arrays: [B, N] ops, [B, E] deps, [B, E, L] ``dep_channel``
     (dtypes as ``_ARG_DTYPES``; float32 or float64). ``num_workers`` and
     ``num_channels`` bound the dense worker and channel indices over all
     lanes. If ``ticks`` (int32 [B], on the inputs' device) is given, each
-    lane's tick count is written into it."""
+    lane's tick count is written into it. A lane whose ``skip`` (bool
+    [B]) is True runs no tick and returns its initial accumulators (the
+    reference's ``skip``, ``jax_lookahead.py:316,355``); without ``skip``
+    every lane runs."""
     args = (op_remaining, op_valid, op_worker, op_score, num_parents,
             dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
             dep_is_flow, dep_score, dep_channel)
-    if kernels.on_cpu(*args, ticks):
+    if kernels.on_cpu(*args, ticks, skip):
         out = lookahead_plain(*args, num_workers=num_workers,
-                              num_channels=num_channels)
+                              num_channels=num_channels, skip=skip)
         if ticks is not None:
             ticks.copy_(out[5])
         return out[:5]
@@ -154,6 +157,8 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
     if ticks is None:
         ticks = torch.empty(lanes, dtype=torch.int32, device=device)
     kernels.check_cuda("ticks", ticks, torch.int32, (lanes,))
+    if skip is not None:
+        kernels.check_cuda("skip", skip, torch.bool, (lanes,))
     # per-lane working state: remaining times, done and per-tick flags,
     # completed-parent counts (the kernel initialises all of it)
     rem_op = torch.empty((lanes, n), dtype=dtype, device=device)
@@ -166,7 +171,8 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
                        rem_op.data_ptr(), rem_dep.data_ptr(),
                        flags_op.data_ptr(), flags_dep.data_ptr(),
                        parents.data_ptr(), vals.data_ptr(), ok.data_ptr(),
-                       ticks.data_ptr(), lanes, n, e, links, num_workers,
+                       ticks.data_ptr(), kernels.ptr(skip), lanes, n, e,
+                       links, num_workers,
                        num_channels, int(dtype == torch.float64))
     return vals[:, 0], vals[:, 1], vals[:, 2], vals[:, 3], ok
 
@@ -205,11 +211,11 @@ def _busy_step(busy, tick, count):
 def lookahead_plain(op_remaining, op_valid, op_worker, op_score, num_parents,
                     dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
                     dep_is_flow, dep_score, dep_channel, *, num_workers: int,
-                    num_channels: int):
+                    num_channels: int, skip: Optional[torch.Tensor] = None):
     """K21's plain version: the reference's ``body`` over all lanes at
     once, each lane frozen once its own loop condition fails (as
-    ``vmap`` of ``lax.while_loop`` runs). Returns ``(t, comm_oh, comp_oh,
-    busy, ok, ticks)``."""
+    ``vmap`` of ``lax.while_loop`` runs; a ``skip`` lane's condition fails
+    from the start). Returns ``(t, comm_oh, comp_oh, busy, ok, ticks)``."""
     dt = op_remaining.dtype
     device = op_remaining.device
     lanes, n = op_remaining.shape
@@ -236,13 +242,15 @@ def lookahead_plain(op_remaining, op_valid, op_worker, op_score, num_parents,
                            for _ in range(4))
     ticks = torch.zeros(lanes, dtype=torch.int32, device=device)
     stuck = torch.zeros(lanes, dtype=torch.bool, device=device)
+    run = (torch.ones(lanes, dtype=torch.bool, device=device)
+           if skip is None else ~skip)
 
     def finished():
         return ((op_done | ~op_valid).all(1)
                 & (dep_done | ~dep_valid).all(1))
 
     for it in range(max_iters):
-        live = ~finished() & ~stuck
+        live = ~finished() & ~stuck & run
         if it % _LIVE_CHECK_EVERY == 0 and not bool(live.any()):
             break
         # 1. readiness, snapshotted before this tick's completions

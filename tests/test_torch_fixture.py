@@ -12,10 +12,11 @@ Ape-X DQN and ES recordings from scripts/export_torch_dqn_es_fixture.py,
 the JAX collect over subprocess envs from
 scripts/export_torch_pipeline_fixture.py, the JSON training configs (PPO, IMPALA, PG, Ape-X DQN, ES) from
 scripts/export_torch_train_config.py, the six shipped checkpoints with
-their JAX greedy decisions from scripts/export_torch_checkpoints_fixture.py
-and the recorded lookahead lanes from
-scripts/export_torch_lookahead_lanes.py; the recorded uniforms reproduce
-the recorded actions."""
+their JAX greedy decisions from scripts/export_torch_checkpoints_fixture.py,
+the recorded lookahead lanes from
+scripts/export_torch_lookahead_lanes.py and the JAX device episode
+replays from scripts/export_torch_device_env_fixture.py; the recorded
+uniforms reproduce the recorded actions."""
 import os
 import sys
 
@@ -28,6 +29,7 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_ac_fixture as ac_export  # noqa: E402
 import export_torch_checkpoints_fixture as ckpt_export  # noqa: E402
+import export_torch_device_env_fixture as device_env_export  # noqa: E402
 import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
 import export_torch_lookahead_lanes as lanes_export  # noqa: E402
 import export_torch_pipeline_fixture as pipeline_export  # noqa: E402
@@ -53,7 +55,8 @@ from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           REQUESTS_PATH, checkpoint_path,
                                           load_requests)
-from ddls_tpu_torch.sim.fixture import LANES_PATH  # noqa: E402
+from ddls_tpu_torch.sim.fixture import (DEVICE_ENV_PATH,  # noqa: E402
+                                        LANES_PATH)
 
 F32_MIN = np.finfo(np.float32).min
 
@@ -326,3 +329,25 @@ def test_lookahead_lanes_regenerate_bit_for_bit():
     """The recorded lanes (32/72/128-server pricing, the cluster hook's,
     the edge cases) and the JAX engine's answers to them."""
     _assert_regenerates(LANES_PATH, lanes_export.export_lanes(), 1_000_000)
+
+
+def test_device_env_fixture_regenerates_bit_for_bit():
+    """The device episode recordings rebuilt by the export script: the
+    shipped banks, actions and the small surface's host episode and JAX
+    x64 replay in full; the shipped banks' JAX replays (float32, and bank
+    0 under x64) over their first 48 decisions, which the replay's
+    causality makes the committed traces' first 48 columns."""
+    prefix = 48
+    fresh = device_env_export.export_fixture(prefix=prefix)
+    with np.load(DEVICE_ENV_PATH, allow_pickle=False) as data:
+        committed = {k: data[k] for k in data.files}
+    counters = {k for k in committed if k.startswith(("f32/counters/",
+                                                      "x64/counters/"))}
+    assert set(committed) == set(fresh) | counters
+    for key, value in fresh.items():
+        got = committed[key]
+        if key.startswith(("f32/trace/", "x64/trace/")):
+            got = got[:, :prefix]
+        assert got.dtype == value.dtype, key
+        np.testing.assert_array_equal(got, value, err_msg=key)
+    assert os.path.getsize(DEVICE_ENV_PATH) < 200_000

@@ -1,7 +1,7 @@
 """Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
 native engine's loader, the rollout collector, the PPO, IMPALA, PG, Ape-X
-DQN and ES learners, the fixture loaders, the loops and their entry point
-included) and chip_smoke.py import nothing of JAX, flax, orbax,
+DQN and ES learners, the fixture loaders, the loops and their entry point,
+the device env and its block search included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
@@ -50,6 +50,8 @@ _CHILD = textwrap.dedent("""
              "ddls_tpu_torch.sim.cluster",
              "ddls_tpu_torch.sim.candidate_pricing",
              "ddls_tpu_torch.sim.lookahead_arrays",
+             "ddls_tpu_torch.sim.device_block_search",
+             "ddls_tpu_torch.sim.device_env",
              "ddls_tpu_torch.envs.partitioning_env",
              "ddls_tpu_torch.demands.jobs_generator",
              "ddls_tpu_torch.graphs.synthetic",
@@ -94,7 +96,8 @@ def test_port_sources_name_no_jax_import():
 
 def test_kernel_signatures_match_their_c_entry_points():
     """Each KernelSpec's ctypes signature is its C entry's parameter list
-    (``p`` a pointer, ``i`` an int, ``f`` a float): a wrong one would pass
+    (``p`` a pointer, ``i`` an int, ``f`` a float, ``d`` a double): a
+    wrong one would pass
     arguments the card then misreads, which nothing on the CPU would
     catch."""
     import re
@@ -110,7 +113,8 @@ def test_kernel_signatures_match_their_c_entry_points():
         assert found, spec.symbol
         params = [p.strip() for p in found.group(1).split(",")]
         sig = "".join("p" if "void*" in p else
-                      "f" if p.startswith("float") else "i" for p in params)
+                      "f" if p.startswith("float") else
+                      "d" if p.startswith("double") else "i" for p in params)
         assert sig == spec.signature, (spec.name, sig)
     assert set(kernels.SOURCES) == {os.path.splitext(f)[0] for f in
                                     os.listdir(kernels.CSRC)

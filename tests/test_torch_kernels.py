@@ -29,7 +29,11 @@ of each leaf's largest after five steps (its norm sums in another order
 than the plain version's per-leaf norms), at a tie too; K20 exactly. The
 array lookahead engine K21 equals its plain version bit for bit, tick
 counts included, in float32 and float64, on every recorded group of lanes
-(and in float32 the recorded JAX answers), and bitwise across two runs.
+(and in float32 the recorded JAX answers), and bitwise across two runs,
+and with ``skip`` too. The device env's kernels K22-K25 equal their plain
+versions exactly (integers) and bit for bit (floats), in float32 and
+float64, on the calls of the first decisions of two recorded shipped
+banks, whose float32 trace is the recorded JAX one.
 """
 import dataclasses
 
@@ -38,11 +42,17 @@ import pytest
 import torch
 
 from ddls_tpu_torch import kernels
+from ddls_tpu_torch.agents.block_search import block_shapes_for, factor_pairs
 from ddls_tpu_torch.models import gnn, policy
 from ddls_tpu_torch.ops import segment
 from ddls_tpu_torch.rl import actor_critic, dqn, es, impala, pg, ppo
+from ddls_tpu_torch.sim import device_env
 from ddls_tpu_torch.sim import lookahead as lookahead_mod
-from ddls_tpu_torch.sim.fixture import load_lookahead_lanes
+from ddls_tpu_torch.sim.device_block_search import (first_fit_block,
+                                                    first_fit_block_plain)
+from ddls_tpu_torch.sim.fixture import (TRACE_NAMES, episode_kernel_diffs,
+                                        load_device_env_fixture,
+                                        load_lookahead_lanes)
 
 pytestmark = pytest.mark.gpu
 
@@ -1115,3 +1125,63 @@ def test_lookahead_wrapper_rejects_what_it_cannot_take(cuda):
         lookahead_mod.lookahead(*bad, **kw)
     with pytest.raises(ValueError):
         lookahead_mod.lookahead(*args, num_workers=0, num_channels=1)
+
+
+def test_lookahead_skip_equals_plain(cuda):
+    group = load_lookahead_lanes()["price32"]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in group["args"]]
+    kw = dict(num_workers=group["num_workers"],
+              num_channels=group["num_channels"])
+    lanes = args[0].shape[0]
+    skip = (torch.arange(lanes) % 2 == 1).to(cuda)
+    ticks = torch.empty(lanes, dtype=torch.int32, device=cuda)
+    got = lookahead_mod.lookahead(*args, ticks=ticks, skip=skip, **kw)
+    full = lookahead_mod.lookahead(*args, **kw)
+    plain = lookahead_mod.lookahead_plain(*args, skip=skip, **kw)
+    for g, f, p in zip(got, full, plain):
+        assert torch.equal(g, p)
+        assert torch.equal(g[~skip], f[~skip])
+    assert torch.equal(ticks, plain[5])
+    assert not bool(ticks[skip].any())
+
+
+def test_first_fit_block_equals_plain(cuda):
+    rng = np.random.RandomState(3)
+    for ramp in ((4, 4, 2), (2, 2, 2), (8, 8, 2)):
+        grids = torch.from_numpy(rng.rand(256, *ramp) < 0.7).to(cuda)
+        for split in (1, 2, 4, 8, 16):
+            shapes = block_shapes_for(factor_pairs(split), ramp)
+            shapes += [(split, split, -1), (split, 1, 1)]
+            got = first_fit_block(grids, shapes, ramp)
+            want = first_fit_block_plain(grids, shapes, ramp)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (ramp, split)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_env_kernels_equal_plain(cuda, dtype):
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+
+    fx = load_device_env_fixture()
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    ek = device_env.episode_kernels(et, device=cuda, dtype=dtype)
+    lanes, n_dec = [0, 3], 12
+    bank = {name: torch.from_numpy(fx["banks"][name][lanes]).to(
+        cuda, want or dtype).contiguous()
+        for name, want in device_env.BANK_FIELDS}
+    acts = torch.from_numpy(np.stack([fx["actions"][:n_dec]] * 2)).to(
+        cuda, torch.int32).contiguous()
+    diffs, held, trace = episode_kernel_diffs(ek, bank, acts, n_dec, (0, 5))
+    assert diffs == dict.fromkeys(diffs, 0.0), diffs
+    assert held == {"allocate_job": n_dec, "price_and_score": n_dec,
+                    "lookahead": 2, "episode_step": n_dec}
+    if dtype == torch.float32:
+        for name in TRACE_NAMES:
+            np.testing.assert_array_equal(
+                trace[name].cpu().numpy(),
+                fx["f32"]["trace"][name][lanes, :n_dec], err_msg=name)
