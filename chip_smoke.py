@@ -145,6 +145,27 @@ exits non-zero (nothing is caught):
    grids, one launch a split value (counted), against its plain version
    and the host's C++ first fit.
 
+20. device_collect — device-resident collection at full width on
+   env_load32 with ppo_device_trained (2 lanes of the device collector's
+   banks, float32): the recorded JAX collects (3 x 128 steps, the
+   reference's DevicePPOCollector with the memo off, its uniforms) equal
+   with the memo off (actions, rewards, dones, the compact fields and the
+   episode counters equal, the rebuilt graph features bit-equal, logp
+   within 1e-5, values and bootstrap values within 5e-5, the episode
+   records equal) and, counted, with the memo on, bit-equal to it; K26,
+   K25's prepare, K27, K28 and K25 with the reset held against their
+   plain versions on every call of 16 steps in float32 and float64; one
+   collect timed and one under torch.profiler (device ms a step by
+   kernel, launches a step, the busy share).
+21. policy_episode — ppo_device_trained greedy in-kernel (K4) in float64
+   on the bank of the port's host env episode at seed 7009 on its
+   surface: every decision equal to the host's.
+22. device_train — ``python -m ddls_tpu_torch.train --config
+   ddls_tpu_torch/data/train_config_ppo_device_load32.json --epochs 2`` in
+   this process (the route that trained ppo_device_trained), counted, run
+   twice from one seed and bit-equal; its collect, update and evaluation
+   split.
+
 Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
 K18 (the heads' backward and its reduce), K19 (the optimiser's three
 launches, the clip firing, not firing and at a tie) and K20 (the
@@ -227,9 +248,11 @@ VALUES_TOL = 5e-5
 MAX_BATCH = 8
 PAD_NODES, PAD_EDGES = 150, 512
 # the simulator's kernels: only the env's array-engine options (K21:
-# use_jax_lookahead, candidate_pricing="jax") and the device episode
-# replay (K21-K25) launch them, no learner's path
-SIM_KERNELS = ("lookahead", "first_fit_block", "allocate_job",
+# use_jax_lookahead, candidate_pricing="jax"), the device episode replay
+# (K21-K25) and device collection (K26-K28 and K25's prepare) launch them,
+# no host-collection learner's path
+SIM_KERNELS = ("kernel_obs", "episode_prepare", "memo_probe", "memo_insert",
+               "lookahead", "first_fit_block", "allocate_job",
                "price_and_score", "episode_step")
 TIMED_ITERS = 200
 
@@ -2675,11 +2698,11 @@ def check_heads_optim_kernels(params, fx):
     for case in (idx, torch.as_tensor(rng.integers(0, n, 128),
                                       device="cuda"),
                  idx[:1].clone(), learner._positions(n)):
-        out = learner_mod.minibatch_gather(staged.tensors, case,
+        out = policy_mod.minibatch_gather(staged.tensors, case,
                                            staged.n_nodes, staged.n_edges)
-        again = learner_mod.minibatch_gather(staged.tensors, case,
+        again = policy_mod.minibatch_gather(staged.tensors, case,
                                              staged.n_nodes, staged.n_edges)
-        plain = learner_mod.minibatch_gather_plain(
+        plain = policy_mod.minibatch_gather_plain(
             staged.tensors, case, staged.n_nodes, staged.n_edges)
         sel = {k: v[case.cpu().numpy()] for k, v in rows.items()}
         sel["node_features"] = sel["node_features"][:, :staged.n_nodes]
@@ -2700,18 +2723,18 @@ def check_heads_optim_kernels(params, fx):
         staged["node_features"], staged["edge_features"],
         staged["graph_features"], staged["action_mask"],
         staged["node_mask"], staged["structure"]))
-    out = learner_mod.minibatch_gather(staged.tensors, idx, staged.n_nodes,
+    out = policy_mod.minibatch_gather(staged.tensors, idx, staged.n_nodes,
                                        staged.n_edges)
     written = sum(t.numel() * t.element_size() for t in out.values())
     bound, bound_by = bound_ms(m * per_sample + _nbytes(idx) + written,
                                0.0)
 
     def gather():
-        return learner_mod.minibatch_gather(staged.tensors, idx,
+        return policy_mod.minibatch_gather(staged.tensors, idx,
                                             staged.n_nodes, staged.n_edges)
 
     def gather_plain():
-        return learner_mod.minibatch_gather_plain(
+        return policy_mod.minibatch_gather_plain(
             staged.tensors, idx, staged.n_nodes, staged.n_edges)
 
     res.update(shape=f"samples={m} of {n} nodes={staged.n_nodes} "
@@ -4123,6 +4146,550 @@ def phase_episode(card):
     return results, launches, bs_launches
 
 
+# ----------------------------------------- device collection (PR 9 slice)
+# the kernels a collection step launches besides the replay's: K26, K25's
+# prepare, K27, K28 and K25 (with the reset)
+SEGMENT_KERNELS = device_env_fixture.SEGMENT_KERNELS
+# the steps of the first recorded collect whose kernel calls are held
+# against the plain versions (float32 and float64)
+COLLECT_CHECKED = 16
+# the collects drawn after the recorded ones until a lane's episode ends
+RESET_COLLECTS = 3
+DEVICE_CONFIG_PATH = os.path.join(REPO, "ddls_tpu_torch", "data",
+                                  "train_config_ppo_device_load32.json")
+
+
+def _collect_surface():
+    """env_load32 as the device-collection config composes it (reset from
+    seed 0, as the loop's template env), its tables, and
+    ppo_device_trained on the card."""
+    with open(DEVICE_CONFIG_PATH) as fh:
+        cfg = json.load(fh)
+    env = RampJobPartitioningEnvironment(**copy.deepcopy(cfg["env_config"]))
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    model = load_checkpoint_fixture("ppo_device_trained")["model"]
+    return et, ot, model.to("cuda").eval()
+
+
+def _same_collect(a, b):
+    def flat(out):
+        return ([out["traj"][k] for k in ("actions", "logp", "values",
+                                          "rewards", "dones")]
+                + [out["traj"]["obs"][k] for k in sorted(out["traj"]["obs"])]
+                + [out["trace"][k] for k in sorted(out["trace"])
+                   if not k.startswith("memo_")] + [out["last_values"]])
+    return all(np.array_equal(x, y) for x, y in zip(flat(a), flat(b)))
+
+
+def _segment_bounds(et, tr):
+    """Per call of each collection kernel on a collect's trace ([T, B]
+    host arrays, the memo on), the least bytes and operations: K26 a
+    row's fields, its static graph-feature row, the rebuilt row and mask;
+    K25's prepare a lane's queue state, type, action, degree column and
+    config row; K27, for the lanes that evaluate, the key (the ops' server
+    codes and valid mask, the times' words), the hash weights, the groups
+    written, and the stored key a hit compares in full (a miss needs one
+    word a way; ``memo_hits_before``: each lane's hits before the
+    collect); K28 a deciding lane's results and, on a miss, the key it
+    writes; K25 every lane's scalar state, trace and fields, a deciding
+    lane's kernel outputs, an accept's slot, a completion's slot, and the
+    fresh state a reset writes. Operations: the hash's two a word and the
+    compare's one a word; K25's per valid op and dep and per server and
+    channel of a committed, freed or reset slot."""
+    tb, pads = et.tables, et.pads
+    fb = 4
+    N, M = pads.n_ops, pads.n_deps
+    S, C, R = et.n_srv, et.n_chan, et.n_srv
+    A = et.max_action + 1
+    T, B = tr["action"].shape
+    deg_col = np.full(max(et.max_action, max(et.degrees)) + 1, -1)
+    for i, d in enumerate(et.degrees):
+        deg_col[d] = i
+    col = deg_col[np.clip(tr["action"], 0, len(deg_col) - 1)]
+    active = ((tr["action"] > 0) & (col >= 0)).astype(np.float64)
+    cfg = np.clip(tr["jtype"] * len(et.degrees) + col, 0,
+                  len(tb["n_ops"]) - 1)
+    n_valid = tb["n_ops"][cfg].astype(np.float64)
+    m_valid = tb["n_deps"][cfg].astype(np.float64)
+    hits = np.diff(np.concatenate([tr["memo_hits_before"][None],
+                                   tr["memo_hits"]]), axis=0)
+    miss = active - hits
+    words = 1 + N + M
+    accept = tr["accept"].astype(np.float64)
+    done = tr["done"].astype(np.float64)
+    prev = np.concatenate([np.zeros((1, B)), tr["ep_completed"][:-1]])
+    prev = np.where(np.concatenate([np.zeros((1, B), bool),
+                                    tr["done"][:-1]]), 0, prev)
+    completions = np.maximum(tr["ep_completed"] - prev, 0)
+    k26 = B * (16 + 2 * fb + (17 + A) * 4 + 8 + (17 + A) * 4 + A * 4)
+    prep = B * 22
+    k27 = float(np.sum(active * (N * 5 + M * 4 + words * 4 + N * 4 + 20
+                                 + hits * words * 4 + miss * 4 * 2)))
+    k27_ops = float(np.sum(active * (2 * words + hits * words)))
+    k28 = float(np.sum(active * 24 + miss * (words * 4 + (N + M) * 4)))
+    scalars = 2 * (3 * fb + 30) + (3 * fb + 6) + 12 + 2 * fb + R * (1 + fb)
+    deciding = (M + 4 * m_valid + N + 4 * n_valid + S * fb + 2 * fb + 7
+                + 4 * np.minimum(m_valid, C))
+    slot = S * fb + S + C
+    fresh = S * (fb + 4) + C * 4 + R * (1 + fb) + R * S * (fb + 1) + R * C
+    k25 = float(np.sum(scalars + 40 + active * deciding
+                       + accept * (slot + 2 * S * fb + 1 + fb)
+                       + completions * slot + done * fresh))
+    k25_ops = float(np.sum(active * (m_valid + n_valid)
+                           + (accept + completions) * (S + C)
+                           + done * (S + C + R * (S + C))))
+    out = {}
+    for name, nbytes, ops in (("kernel_obs", T * k26, T * B * 12.0),
+                              ("episode_prepare", T * prep, T * B * 6.0),
+                              ("memo_probe", k27, k27_ops),
+                              ("memo_insert", k28, float(np.sum(active))),
+                              ("episode_step", k25, k25_ops)):
+        b, by = bound_ms(nbytes, ops)
+        out[name] = (b / T, by, nbytes / T, ops / T)
+    return out
+
+
+def _profile_collect(col, generator):
+    """One collect of a warmed collector under torch.profiler: device ms a
+    step by kernel (every kernel, the forward included), device operations
+    a step, the busy share, and the collect's trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    hits0 = col.state["memo"]["hits"].cpu().numpy().copy()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = col.collect(generator=generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    T = col.rollout_length
+    by_name, count = {}, {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            by_name[event.name] = (by_name.get(event.name, 0.0)
+                                   + event.device_time_total / 1e3)
+            count[event.name] = count.get(event.name, 0) + 1
+    mine = {}
+    for name in kernels.KERNELS:
+        keys = [k for k in by_name if f"{name}_kernel" in k]
+        if keys:
+            mine[name] = (sum(by_name[k] for k in keys),
+                          sum(count[k] for k in keys))
+    device_total = sum(by_name.values())
+    others = sorted(((n, v) for n, v in by_name.items()
+                     if not any(f"{k}_kernel" in n for k in mine)),
+                    key=lambda x: -x[1])
+    out["trace"]["memo_hits_before"] = hits0
+    return out, {
+        "wall_ms": wall_ms, "device_ms": device_total,
+        "device_busy_share": device_total / wall_ms,
+        "device_ops_per_step": sum(count.values()) / T,
+        "kernel_device_ms_per_step": {k: v[0] / T for k, v in mine.items()},
+        "kernel_launches_per_step": {k: v[1] / T for k, v in mine.items()},
+        "kernel_device_ms_per_launch": {k: v[0] / v[1]
+                                        for k, v in mine.items()},
+        "other_device_ms_per_step": {n[:60]: v / T for n, v in others[:8]},
+        "other_device_ops_per_step": sum(
+            c for n, c in count.items()
+            if not any(f"{k}_kernel" in n for k in mine)) / T}
+
+
+def _collect_kernel_times(et, ot, model, fx):
+    """Each collection kernel timed on a call of the first recorded
+    collect's first step (memo on, float32): eager ms between CUDA events
+    and the plain version's ms, on the same inputs."""
+    from ddls_tpu_torch.models.policy import mask_sample_logp
+    from ddls_tpu_torch.sim import device_memo
+
+    ek = device_env.episode_kernels(et, device="cuda", dtype=torch.float32)
+    dev = ek.dev
+    dobs = device_env.device_obs(ot, dev)
+    rec = fx["collects"][0]
+    b = device_env.device_bank(fx["banks"], dev)
+    lanes = b["type"].shape[0]
+    state = ek.init_state(b)
+    memo = device_memo.memo_init(lanes, dev.pads.n_ops, dev.pads.n_deps,
+                                 torch.float32, device_memo.MemoConfig(),
+                                 dev.device)
+    fields = device_env.obs_fields(state, b)
+    f = [fields[name] for name, _ in device_env.OBS_FIELDS]
+    gf, mask = device_env.kernel_obs(dobs, *f)
+    logits, _ = model.trunk(dobs.forward_batch(f[0], gf, mask))
+    u = torch.from_numpy(rec["uniforms"][:, 0]).cuda()
+    action, _ = mask_sample_logp(logits, mask, u)
+    device_env.episode_prepare(ek, state, b, action)
+    cfg, active = state["cfg"], state["active"]
+    ots = device_env.allocate_job(state["mem"], state["srv_job"] < 0, cfg,
+                                  dev)[0]
+    times = device_env.price_and_score(ots, cfg, dev)[0]
+    op_valid = dev.t["op_valid"]
+    probe = device_memo.memo_probe(memo, cfg, active, ots, op_valid, times,
+                                   et.n_srv)
+    t_c = torch.ones(lanes, dtype=torch.float32, device="cuda")
+    ok_c = torch.ones(lanes, dtype=torch.bool, device="cuda")
+    raw = ek.evaluate(state)
+    trace = {name: torch.zeros((lanes, 8), dtype=want or torch.float32,
+                               device="cuda")
+             for name, want in device_env.TRACE_FIELDS
+             + device_env.SEGMENT_TRACE_FIELDS}
+    seg_trace = {k: trace[k] for k, _ in device_env.SEGMENT_TRACE_FIELDS}
+    flds = {name: torch.zeros((lanes, 9), dtype=want or torch.float32,
+                              device="cuda")
+            for name, want in device_env.OBS_FIELDS}
+
+    # the insert rewrites the probed way each call (the same work a miss
+    # does), on its own copy of the table; K25 advances the state, so each
+    # of its timed calls takes a fresh copy made before the timing
+    tables = {plain: {k: v.clone() for k, v in memo.items()}
+              for plain in (False, True)}
+
+    def insert(plain):
+        fn = (device_memo.memo_insert_plain if plain
+              else device_memo.memo_insert)
+        fn(tables[plain], probe, cfg, active, times, t_c, ok_c)
+
+    def step_plain():
+        s = {k: v.clone() for k, v in state.items()}
+        device_env.episode_step_plain(ek, s, b, None, raw, trace, 0,
+                                      seg_trace=seg_trace, fields=flds,
+                                      reset=True)
+
+    def prepare_plain():
+        ek.prepare({k: v.clone() for k, v in state.items()}, b, action)
+
+    calls = {
+        "kernel_obs": (lambda: device_env.kernel_obs(dobs, *f),
+                       lambda: device_env.kernel_obs_plain(dobs, *f)),
+        "episode_prepare": (lambda: device_env.episode_prepare(
+            ek, state, b, action), prepare_plain),
+        "memo_probe": (lambda: device_memo.memo_probe(
+            memo, cfg, active, ots, op_valid, times, et.n_srv),
+            lambda: device_memo.memo_probe_plain(
+                memo, cfg, active, ots, op_valid, times, et.n_srv)),
+        "memo_insert": (lambda: insert(False), lambda: insert(True))}
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        out[name] = {"eager_ms": eager_ms(kernel, iters=50),
+                     "plain_ms": eager_ms(plain, iters=5)}
+    clones = [{k: v.clone() for k, v in state.items()} for _ in range(20)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in clones:
+        device_env.episode_step(ek, s, b, None, raw, trace, 0,
+                                seg_trace=seg_trace, fields=flds, reset=True)
+    end.record()
+    end.synchronize()
+    out["episode_step"] = {"eager_ms": start.elapsed_time(end) / len(clones),
+                           "plain_ms": eager_ms(step_plain, iters=5)}
+    return out
+
+
+def _hold_reset(et, ot, model, banks, col, traces):
+    """[device_collect] (d), the in-kernel reset at full width. From the
+    memo-on collector ``col`` after the recorded collects (their traces
+    ``traces``), collects of uniforms from a seeded generator until a
+    lane's episode ends in one (an episode is about 400 decisions: the
+    fourth collect). Over that collect, from the state before it: every
+    call of K26, K25's prepare, K27, K28 and K25 with the reset held
+    against its plain version in float32 (where a lane ends, K25 rewrites
+    its whole state: 32 slots x (32 + 32 + 992) entries and the scalars)
+    and the held segment's trace equal to the collect's; the collect's
+    episode records equal to those built from the steps alone; after
+    each lane's first end, its steps equal to a fresh collector's first
+    steps under the same uniforms. Returns the calls held per kernel, the
+    K25 calls held where a lane reset, and a summary."""
+    from ddls_tpu_torch.rl.ppo_device import DevicePPOCollector
+
+    fxm = device_env_fixture
+    T, lanes = col.rollout_length, col.num_envs
+    gen = torch.Generator("cuda").manual_seed(1)
+    traces = list(traces)
+    for _ in range(RESET_COLLECTS):
+        start = {part: {k: v.clone() for k, v in col.state[part].items()}
+                 for part in ("env", "memo")}
+        u = policy_mod.gumbel_uniforms((lanes, T, col.dobs.n_actions), gen)
+        out = col.collect(uniforms=u)
+        traces.append(out["trace"])
+        if out["trace"]["done"].any():
+            break
+    done = out["trace"]["done"]
+    require(done.any(), f"no episode ended in {len(traces)} collects of "
+                        f"{T} steps")
+    diffs, held, tr = fxm.segment_kernel_diffs(
+        et, ot, model, banks, u, T, device="cuda", dtype=torch.float32,
+        start=start)
+    torch.cuda.synchronize()
+    for name, value in diffs.items():
+        require(value == 0, f"{name} differs from its plain version on the "
+                            f"collect with a reset: {value}")
+    tr = {k: v.cpu().numpy().T for k, v in tr.items()}
+    differ = [k for k in fxm.COLLECT_EXACT_KEYS + fxm.DECISION_KEYS
+              if not np.array_equal(tr[k], out["trace"][k], equal_nan=True)]
+    require(not differ, f"the held segment differs from the collect with "
+                        f"a reset: {differ}")
+    records, faults = fxm.ended_episode_records(traces)
+    require(not faults, f"the episode counters disagree with the steps: "
+                        f"{faults}")
+    require(records == out["episodes"], "the collect's episode records "
+                                        "differ from the steps'")
+    ends, restart_u = fxm.restart_uniforms(u.cpu().numpy(), done)
+    fresh = DevicePPOCollector(et, ot, model, banks, T, device="cuda")
+    compared, faults = fxm.restart_faults(
+        out["trace"], fresh.collect(uniforms=restart_u)["trace"], ends)
+    require(not faults and compared > 0,
+            f"after the reset the lanes differ from a fresh collector "
+            f"({compared} steps compared): {faults}")
+    return held, int(done.any(1).sum()), {
+        "collect": len(traces), "steps_before": (len(traces) - 1) * T,
+        "end_steps": ends.tolist(), "resets": int(done.sum()),
+        "reset_calls_held": int(done.any(1).sum()),
+        "episodes": out["episodes"], "restart_steps_compared": compared}
+
+
+def phase_device_collect(card):
+    """[device_collect], the slice's path at full width (env_load32, 45
+    configs, N 480, M 13,072, 32 servers, 992 channels; ppo_device_trained;
+    2 lanes of stacked_job_banks(seed_base=0), float32): (a) the recorded
+    JAX collects (3 x 128 steps, the reference collector with the memo off,
+    its uniforms) reproduced with the memo off; (b) the same collects with
+    the memo on (the launch counters reset just before, read just after),
+    bit-equal to (a), its hit rate; each collection kernel's calls over the
+    first 16 steps held against its plain version in float32 and float64;
+    (d) the in-kernel reset at full width: the memo-on collector goes on
+    until a lane's episode ends in a collect, over which every call is
+    held again, the episode records and the restart checked
+    (``_hold_reset``); (c) a collect from the generator timed, and one
+    under torch.profiler: device ms a step by kernel, launches a step, the
+    busy share."""
+    from ddls_tpu_torch.rl.ppo_device import DevicePPOCollector
+    from ddls_tpu_torch.sim.device_memo import MemoConfig
+
+    fx = device_env_fixture.load_device_collect_fixture()["full"]
+    et, ot, model = _collect_surface()
+    require(et.types == fx["types"], "the surface's model types differ "
+                                     "from the recording's")
+    T = fx["collects"][0]["uniforms"].shape[1]
+    runs, launches, counters = {}, None, None
+    for memo in (False, True):
+        col = DevicePPOCollector(et, ot, model, fx["banks"], T,
+                                 memo_cfg=MemoConfig() if memo else None,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        if memo:
+            kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        outs = [col.collect(uniforms=r["uniforms"])
+                for r in fx["collects"]]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if memo:
+            launches = kernels.launch_counts()
+            counters = col.memo_counters()
+            memo_col = col
+        runs[memo] = (outs, wall)
+    errs = []
+    for c, (out, r) in enumerate(zip(runs[False][0], fx["collects"])):
+        faults, e = device_env_fixture.hold_collect(out, r)
+        require(not faults, f"collect {c} (memo off) differs from the "
+                            f"recording: {faults}")
+        errs.append(e)
+    for c, (on, off) in enumerate(zip(runs[True][0], runs[False][0])):
+        require(_same_collect(on, off), f"collect {c}: the memo changed the "
+                                        "results")
+    steps = T * len(fx["collects"])
+    for name in (*SEGMENT_KERNELS, "allocate_job", "price_and_score",
+                 "lookahead", "minibatch_gather", "mask_sample_logp",
+                 "mlp_heads", "ln_linear_act", "csr_segment_mean",
+                 "masked_mean_pool_concat"):
+        require(launches[name] > 0, f"the collection did not launch {name}")
+    for name in ("kernel_obs", "episode_prepare", "memo_probe",
+                 "memo_insert", "episode_step", "allocate_job",
+                 "price_and_score", "lookahead"):
+        want = steps + (len(fx["collects"]) * 2 if name == "kernel_obs"
+                        else 0)
+        require(launches[name] == want, f"{name} launched {launches[name]} "
+                                         f"times in {steps} steps")
+    require(counters["hits"] > 0, "the memo never hit")
+
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        diffs, held, _ = device_env_fixture.segment_kernel_diffs(
+            et, ot, model, fx["banks"],
+            fx["collects"][0]["uniforms"][:, :COLLECT_CHECKED],
+            COLLECT_CHECKED, MemoConfig(), device="cuda", dtype=dtype)
+        torch.cuda.synchronize()
+        for name, value in diffs.items():
+            require(value == 0, f"{name} differs from its plain version on "
+                                f"the collection's calls ({dtype}): {value}")
+            r = results.setdefault(name, _new_result(calls_per_step=1,
+                                                     held_calls=0))
+            r["held_calls"] += held[name]
+    held, reset_calls, reset = _hold_reset(
+        et, ot, model, fx["banks"], memo_col,
+        [o["trace"] for o in runs[True][0]])
+    for name in SEGMENT_KERNELS:
+        results[name]["held_calls"] += held[name]
+    results["episode_step"]["reset_calls_held"] = reset_calls
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    col = DevicePPOCollector(et, ot, model, fx["banks"], T, device="cuda")
+    col.collect(generator=gen)                      # first use, not timed
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    timed = col.collect(generator=gen)
+    torch.cuda.synchronize()
+    collect_s = time.monotonic() - t0
+    prof_out, prof = _profile_collect(col, gen)
+    bounds = _segment_bounds(et, prof_out["trace"])
+    times = _collect_kernel_times(et, ot, model, fx)
+    for name in SEGMENT_KERNELS:
+        r = results[name]
+        r.update(ms=prof["kernel_device_ms_per_launch"][name],
+                 eager_ms=times[name]["eager_ms"],
+                 plain_ms=times[name]["plain_ms"],
+                 bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                 shape=(f"collect: lanes=2 steps={T} N={et.pads.n_ops} "
+                        f"M={et.pads.n_deps} servers={et.n_srv} "
+                        f"channels={et.n_chan} float32, memo 64x2"))
+    emit("device_collect", card=card, steps_per_collect=T, lanes=2,
+         recorded_collect_s_memo_off=runs[False][1] / len(fx["collects"]),
+         recorded_collect_s_memo_on=runs[True][1] / len(fx["collects"]),
+         logp_max_abs_err=max(e[0] for e in errs),
+         value_max_abs_err=max(e[1] for e in errs),
+         last_value_max_abs_err=max(e[2] for e in errs),
+         memo=counters, collect_s=collect_s,
+         lane_steps_per_s=2 * T / collect_s,
+         timing=timed["timing"],
+         episodes=len(timed["episodes"]),
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_step={k: launches[k] / steps for k in
+                            SEGMENT_KERNELS})
+    emit("device_collect_reset", card=card, **reset)
+    emit("device_collect_profile", card=card, **prof,
+         bound_ms_per_call={k: v[0] for k, v in bounds.items()},
+         bound_bytes_per_call={k: v[2] for k, v in bounds.items()},
+         bound_ops_per_call={k: v[3] for k, v in bounds.items()})
+    return results
+
+
+def phase_policy_episode(card):
+    """[policy_episode]: ppo_device_trained greedy in-kernel (K4), float64,
+    on the bank of the port's host env episode on its surface
+    (tests/test_shipped_checkpoint.py's, seed 7009) under the same greedy
+    policy: every action, reward, accept and cause equal to the host's, t
+    and jct within rel 1e-9, the arrivals and blocks equal."""
+    from ddls_tpu_torch.models.policy import prepare_flat_batch
+
+    ck = load_checkpoint_fixture("ppo_device_trained")
+    env = RampJobPartitioningEnvironment(**ck["env_config"])
+    model = ck["model"].to("cuda").eval()
+
+    def greedy(obs):
+        batch = policy_mod.batch_to_device(
+            prepare_flat_batch(stack_obs([obs])), "cuda")
+        return int(model.flat_batched(batch)[2][0])
+
+    t0 = time.monotonic()
+    arrivals, decisions, stats = device_env_fixture.mixed_action_episode(
+        env, seed=7009, policy=greedy)
+    host_s = time.monotonic() - t0
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    bank = device_env.build_job_bank(et, arrivals)
+    fn = device_env.make_policy_episode_fn(et, ot, model, greedy=True,
+                                           device="cuda",
+                                           dtype=torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn(bank)
+    torch.cuda.synchronize()
+    device_s = time.monotonic() - t0
+    (action, _, _, reward, accept, cause, jct, t, has_job) = (
+        x.cpu().numpy() for x in out["trace"])
+    n = len(decisions)
+    host = np.array([d[:5] for d in decisions], np.float64)
+    hjct = np.array([d[5] for d in decisions])
+    require(has_job[:n].all(), "the policy episode ran out of jobs first")
+    require(np.array_equal(action[:n], host[:, 0]),
+            "the in-kernel greedy actions differ from the host episode's")
+    # a job accepted at the last decision is blocked by the simulation's
+    # end on the host (its step rewards the block, its record keeps no
+    # jct): the episode accepts it, and counts it in blocked_total
+    ended = (host[:, 2] > 0) & np.isnan(hjct)
+    require(np.array_equal(reward[:n][~ended], host[~ended, 1])
+            and np.array_equal(accept[:n], host[:, 2] > 0)
+            and np.array_equal(cause[:n], host[:, 3]),
+            "the policy episode decides otherwise than the host env")
+    ok = (host[:, 2] > 0) & np.isfinite(hjct)
+    rel = max(float(np.max(np.abs(t[:n] - host[:, 4])
+                           / np.maximum(np.abs(host[:, 4]), 1.0))),
+              float(np.max(np.abs(jct[:n][ok] - hjct[ok]) / hjct[ok]))
+              if ok.any() else 0.0)
+    require(rel <= EPISODE_REL, f"t / jct off the host's by rel {rel}")
+    for key in ("arrived", "blocked_total", "completed"):
+        require(int(out[key]) == stats[key], f"{key} {int(out[key])} differs "
+                                             f"from the host's {stats[key]}")
+    emit("policy_episode", card=card, decisions=n, host_episode_s=host_s,
+         device_episode_s=device_s, steps=int(has_job.size),
+         t_jct_max_rel_err=rel, actions=sorted(set(action[:n].tolist())),
+         accepted_at_the_end=int(ended.sum()),
+         memo={k: int(out[k]) for k in ("memo_hits", "memo_misses",
+                                        "memo_evicts")}, **stats)
+
+
+def phase_device_train(card):
+    """[device_train], the slice's main path: ``python -m
+    ddls_tpu_torch.train --config train_config_ppo_device_load32.json
+    --epochs 2`` in this process, as the config asks (pipelined, 2 lanes x
+    128 steps collected on the card, the memo on, an evaluation of 3
+    greedy host episodes each epoch), the launch counters reset just
+    before and read just after; run twice from one seed, bit-equal."""
+    runs, launches = [], None
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        lines = _run_train_cli(["--config", DEVICE_CONFIG_PATH, "--epochs",
+                                "2", "--device", "cuda"])
+        wall = time.monotonic() - t0
+        if attempt == 0:
+            launches = kernels.launch_counts()
+        runs.append((lines, wall))
+    (lines0, wall0), (lines1, _) = runs
+    require([_deterministic(x) for x in lines0]
+            == [_deterministic(x) for x in lines1],
+            "two runs of the device-collection loop printed different "
+            "results")
+    epochs = lines0[:-1]
+    for line in epochs:
+        require(line["env_steps_this_iter"] == 256,
+                f"an epoch collected {line['env_steps_this_iter']} steps")
+        require(line["loop_mode"] == "pipelined", "not the config's mode")
+        require(all(np.isfinite(v) for v in line["learner"].values()),
+                "non-finite learner metrics")
+    for name in (*SEGMENT_KERNELS, "allocate_job", "price_and_score",
+                 "lookahead", "minibatch_gather", "mask_sample_logp",
+                 "gae_normalize", "ppo_loss", "clip_adam_update"):
+        require(launches[name] > 0, f"kernel {name} was not launched by the "
+                                    "device-collection loop")
+    split = [{"collect_s": x["timing"]["collect_s"],
+              "update_s": x["timing"]["update_s"],
+              "evaluation_s": x["epoch_time"] - x["timing"]["collect_s"]
+              - x["timing"]["update_s"]} for x in epochs]
+    emit("device_train", card=card, wall_s=wall0, epochs=len(epochs),
+         split=split, learner=[x["learner"] for x in epochs],
+         episode_reward_mean=[x.get("episode_reward_mean") for x in epochs],
+         evaluation=[x.get("evaluation") for x in epochs],
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -4390,6 +4957,9 @@ def main() -> int:
         card)["lookahead"]
     phase_checkpoints(card)
     episode_results, episode_launches, block_launches = phase_episode(card)
+    collect_results = phase_device_collect(card)
+    phase_policy_episode(card)
+    device_train_launches = phase_device_train(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
     for r in (*dqn_es_results.values(), *heads_optim_results.values(),
@@ -4489,6 +5059,26 @@ def main() -> int:
             "library_device_ms": None, "calls": r["calls_per_step"],
             "calls_per": "split value" if block else "decision",
             "shapes": [r["shape"]], "card": card})
+    for name, r in collect_results.items():
+        spec = kernels.KERNELS[name]
+        rows.append({
+            # K25 with the reset, beside its replay row above
+            "name": "episode_step (reset)" if name == "episode_step"
+            else name,
+            "route": "cuda", "source": os.path.relpath(spec.source, REPO),
+            "replaces": ("ddls_tpu/sim/jax_env.py:1596" if name ==
+                         "episode_step" else spec.replaces),
+            "launches": device_train_launches[name],
+            "main_path": "device_train (2 epochs x 2 lanes x 128 steps)",
+            "max_abs_err": r["max_abs_err"],
+            "max_rel_err": r["max_rel_err"], "held_calls": r["held_calls"],
+            "reset_calls_held": r.get("reset_calls_held"),
+            "ms": r["ms"], "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_device_ms": None, "calls": r["calls_per_step"],
+            "calls_per": "collection step", "shapes": [r["shape"]],
+            "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,11 +21,13 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``rl/impala.py``; ``reward_to_go`` in ``rl/pg.py``; ``ac_logp`` and
 ``ac_loss``, which both of those learners call, in ``rl/actor_critic.py``;
 ``dqn_act`` and ``dqn_td_loss`` in ``rl/dqn.py``; ``es_update`` and
-``es_act`` in ``rl/es.py``; ``mlp_heads`` and its backward in
-``models/policy.py``; ``clip_adam`` and ``minibatch_gather``, which every
+``es_act`` in ``rl/es.py``; ``mlp_heads`` and its backward, and
+``minibatch_gather``, in ``models/policy.py``; ``clip_adam``, which every
 learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``;
 ``first_fit_block`` in ``sim/device_block_search.py``; ``allocate_job``,
-``price_and_score`` and ``episode_step`` in ``sim/device_env.py``);
+``price_and_score``, ``episode_step``, ``episode_prepare`` and
+``kernel_obs`` in ``sim/device_env.py``; ``memo_probe`` and
+``memo_insert`` in ``sim/device_memo.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
 reports a CUDA error and otherwise counts the launch (``launch_counts``,
@@ -55,7 +57,8 @@ HEADERS = ("common.cuh", "ln_row.cuh")
 # float sum and product apart unless the source fuses it itself, as the
 # reference's arithmetic does
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
-    stem: ("-fmad=false",) for stem in ("placement", "pricing", "episode")}
+    stem: ("-fmad=false",) for stem in ("placement", "pricing", "episode",
+                                        "obs", "memo")}
 
 
 @dataclass(frozen=True)
@@ -160,9 +163,20 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("price_and_score", "ddls_price_and_score",
                "p" * 33 + "i" * 10 + "dddd" + "i" + "p",
                "ddls_tpu/sim/jax_env.py:606", file="pricing"),
-    KernelSpec("episode_step", "ddls_episode_step", "p" * 43 + "i" * 13
-               + "dddd" + "i" + "p", "ddls_tpu/sim/jax_env.py:974",
+    KernelSpec("episode_step", "ddls_episode_step", "p" * 54 + "i" * 15
+               + "d" * 5 + "i" + "p", "ddls_tpu/sim/jax_env.py:974",
                file="episode"),
+    # device collection: the step's config row once its action is sampled
+    # (K25's prepare half), the in-kernel observation (K26) and the
+    # lookahead memo's probe and insert (K27, K28)
+    KernelSpec("episode_prepare", "ddls_episode_prepare", "p" * 7 + "i" * 5
+               + "p", "ddls_tpu/sim/jax_env.py:1596", file="episode"),
+    KernelSpec("kernel_obs", "ddls_kernel_obs", "p" * 11 + "i" * 6 + "p",
+               "ddls_tpu/sim/jax_env.py:1409", file="obs"),
+    KernelSpec("memo_probe", "ddls_memo_probe", "p" * 19 + "i" * 7 + "p",
+               "ddls_tpu/sim/jax_memo.py:201", file="memo"),
+    KernelSpec("memo_insert", "ddls_memo_insert", "p" * 24 + "i" * 9 + "p",
+               "ddls_tpu/sim/jax_memo.py:201", file="memo"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

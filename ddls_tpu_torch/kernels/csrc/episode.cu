@@ -12,6 +12,20 @@
 // then the next decision's config row, cfg = type[row] * n_deg +
 // deg_col[action], so that the episode needs no host sync. One CTA per lane.
 //
+// The segment and policy episodes (sim/jax_env.py:1457, :1596) use three
+// more parts, each switched on by its arguments: the episode counters of
+// the step (done, accepted, blocked with the still-running slots where
+// the episode ended, return, completed, arrived: :1702-1724); the
+// in-kernel reset (:1693-1699): an ended lane's state becomes its fresh
+// one, computed here from the bank (t 0, every server free with the
+// worker memory, job 0 queued, the next arrival arrival_t[1], the
+// counters 0) rather than read from a stored copy, which is the same
+// state bit for bit; and the next step's observation fields (type, SLA
+// fraction, steps of the queued job, the occupied servers and running
+// slots counted over the block). There the action is sampled on the card
+// after this kernel, so the config row comes from ddls_episode_prepare,
+// one thread a lane, launched once the action is known.
+//
 // Arithmetic as the reference's: jct = t_step * steps, max_jct = (sla_frac
 // * seq_compute) * steps, the commit time t + jct, each rounded on its own
 // (the file is built with -fmad=false, kernels/__init__.py EXTRA_FLAGS);
@@ -75,10 +89,25 @@ struct Raw {
   const int* la_ticks;
 };
 
+// the segment's per-step episode counters [B, decisions] (null: none)
+struct Seg {
+  bool* done;
+  int *accepted, *blocked;
+  void* ret;
+  int *completed, *arrived;
+};
+
+// the observation fields [B, decisions + 1] (null: none)
+struct Fields {
+  int* jtype;
+  void *frac, *steps;
+  int *n_occupied, *n_running;
+};
+
 struct Dims {
   int n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg, n_col,
-      t_step_stride;
-  double sim_end, eps, success, fail;
+      t_step_stride, prepare, reset;
+  double sim_end, eps, success, fail, worker_mem;
 };
 
 // the reference's cause codes (sim/device_env.py CAUSE_*)
@@ -89,12 +118,12 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     State st, Trace tr, Bank bk, const int* __restrict__ actions, Raw raw,
     const bool* __restrict__ op_valid, const T* __restrict__ seq_compute,
-    const int* __restrict__ deg_col, Dims dm) {
+    const int* __restrict__ deg_col, Seg sg, Fields fl, Dims dm) {
   extern __shared__ unsigned char smem[];
   unsigned char* s_srv = smem;                 // [n_srv] server mask
   unsigned char* s_chan = s_srv + dm.n_srv;    // [n_chan] channel mask
   unsigned char* s_comp = s_chan + dm.n_chan;  // [slots] completions
-  __shared__ int s_ok_chan, s_accept, s_slot, s_live;
+  __shared__ int s_ok_chan, s_accept, s_slot, s_live, s_running, s_occupied;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -289,8 +318,78 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     __syncthreads();
   }
 
+  // ---- the segment's counters, the in-kernel reset, the next fields
+  if (sg.done != nullptr || dm.reset || fl.jtype != nullptr) {
+    if (tid == 0) s_running = 0;
+    __syncthreads();
+    int running = 0;
+    for (int r = tid; r < R; r += nt) running += slot_valid[r] ? 1 : 0;
+    if (running) atomicAdd(&s_running, running);
+    __syncthreads();
+    const bool ended = st.done[b];
+    if (tid == 0 && sg.done != nullptr) {
+      const size_t td = static_cast<size_t>(b) * dm.decisions + dm.d;
+      sg.done[td] = ended;
+      sg.accepted[td] = st.accepted[b];
+      sg.blocked[td] = st.blocked[b] + (ended ? s_running : 0);
+      static_cast<T*>(sg.ret)[td] = static_cast<T*>(st.ret)[b];
+      sg.completed[td] = st.completed[b];
+      sg.arrived[td] = st.ptr[b];
+    }
+    __syncthreads();
+    if (dm.reset && ended) {
+      const T worker_mem = static_cast<T>(dm.worker_mem);
+      for (int s = tid; s < n_srv; s += nt) {
+        mem[s] = worker_mem;
+        srv_job[s] = -1;
+      }
+      for (int ch = tid; ch < n_chan; ch += nt) chan_occ[ch] = -1;
+      for (int r = tid; r < R; r += nt) {
+        slot_valid[r] = false;
+        slot_t_done[r] = static_cast<T>(0);
+      }
+      for (int i = tid; i < R * n_srv; i += nt) {
+        slot_mem[i] = static_cast<T>(0);
+        slot_servers[i] = false;
+      }
+      for (int i = tid; i < R * n_chan; i += nt) slot_chan[i] = false;
+      if (tid == 0) {
+        *t_p = static_cast<T>(0);
+        st.queue_row[b] = 0;
+        st.ptr[b] = 1;
+        *next_arrival = arrival_t[1];
+        st.done[b] = false;
+        st.completed[b] = 0;
+        st.accepted[b] = 0;
+        st.blocked[b] = 0;
+        static_cast<T*>(st.ret)[b] = static_cast<T>(0);
+        s_running = 0;
+      }
+      __syncthreads();
+    }
+    if (fl.jtype != nullptr) {
+      if (tid == 0) s_occupied = 0;
+      __syncthreads();
+      int occupied = 0;
+      for (int s = tid; s < n_srv; s += nt) occupied += srv_job[s] >= 0 ? 1 : 0;
+      if (occupied) atomicAdd(&s_occupied, occupied);
+      __syncthreads();
+      if (tid == 0) {
+        const int qr = st.queue_row[b];
+        const size_t at = static_cast<size_t>(b) * J + (qr > 0 ? qr : 0);
+        const size_t tf =
+            static_cast<size_t>(b) * (dm.decisions + 1) + dm.d + 1;
+        fl.jtype[tf] = bk.type[at];
+        static_cast<T*>(fl.frac)[tf] = static_cast<const T*>(bk.sla_frac)[at];
+        static_cast<T*>(fl.steps)[tf] = static_cast<const T*>(bk.steps)[at];
+        fl.n_occupied[tf] = s_occupied;
+        fl.n_running[tf] = s_running;
+      }
+    }
+  }
+
   // ---- the next decision's config row
-  if (tid == 0 && dm.d + 1 < dm.decisions) {
+  if (dm.prepare && tid == 0 && dm.d + 1 < dm.decisions) {
     const int action =
         actions[static_cast<size_t>(b) * dm.decisions + dm.d + 1];
     const int qr = st.queue_row[b];
@@ -305,15 +404,39 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
   }
 }
 
+// the config row and active flag of each lane's action (thread per lane)
+__global__ void episode_prepare_kernel(
+    const int* __restrict__ queue_row, const bool* __restrict__ done,
+    const int* __restrict__ bank_type, const int* __restrict__ action,
+    const int* __restrict__ deg_col, int* __restrict__ cfg,
+    bool* __restrict__ active, int lanes, int jobs, int n_deg, int n_cfg,
+    int n_col) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= lanes) return;
+  const int a = action[b];
+  const int qr = queue_row[b];
+  const bool has_job = qr >= 0 && !done[b];
+  const int col = deg_col[a < 0 ? 0 : (a >= n_col ? n_col - 1 : a)];
+  int c = bank_type[static_cast<size_t>(b) * jobs + (qr > 0 ? qr : 0)] *
+              n_deg + col;
+  c = c < 0 ? 0 : (c >= n_cfg ? n_cfg - 1 : c);
+  cfg[b] = c;
+  active[b] = has_job && a > 0 && col >= 0;
+}
+
 }  // namespace
 
 // The state (sim/device_env.py STATE_FIELDS order), the trace
-// (TRACE_FIELDS), the bank (BANK_FIELDS), actions [B, D] int32, the
-// decision's kernel outputs (ots, new_mem, ok_place, is_flow, chan,
-// finite_ok, t_step (every t_step_stride-th element), ok_la, the
-// lookahead's ticks), the tables op_valid [K, N], seq_compute [K] and
-// deg_col [n_col]; then the sizes and decision d; the constants sim_end,
-// eps, the success and fail rewards; floats of the type is_f64 names.
+// (TRACE_FIELDS), the bank (BANK_FIELDS), actions [B, D] int32 (null
+// without prepare), the decision's kernel outputs (ots, new_mem, ok_place,
+// is_flow, chan, finite_ok, t_step (every t_step_stride-th element),
+// ok_la, the lookahead's ticks), the tables op_valid [K, N], seq_compute
+// [K] and deg_col [n_col], the segment's counters (SEGMENT_TRACE_FIELDS,
+// [B, D], null for none) and the observation fields (OBS_FIELDS, [B, D +
+// 1], null for none); then the sizes, decision d, whether to prepare the
+// next decision from actions and whether to reset an ended episode; the
+// constants sim_end, eps, the success and fail rewards and the worker
+// memory; floats of the type is_f64 names.
 DDLS_EXPORT int ddls_episode_step(
     void* t, void* mem, void* srv_job, void* chan_occ, void* slot_valid,
     void* slot_t_done, void* slot_mem, void* slot_servers, void* slot_chan,
@@ -326,12 +449,17 @@ DDLS_EXPORT int ddls_episode_step(
     const void* new_mem, const void* ok_place, const void* is_flow,
     const void* chan, const void* finite_ok, const void* t_step,
     const void* ok_la, const void* la_ticks, const void* op_valid,
-    const void* seq_compute, const void* deg_col, int lanes, int n_srv,
+    const void* seq_compute, const void* deg_col, void* seg_done,
+    void* seg_accepted, void* seg_blocked, void* seg_ret,
+    void* seg_completed, void* seg_arrived, void* f_jtype, void* f_frac,
+    void* f_steps, void* f_occupied, void* f_running, int lanes, int n_srv,
     int n_chan, int slots, int n, int m, int jobs, int decisions, int d,
-    int n_deg, int n_cfg, int n_col, int t_step_stride, double sim_end,
-    double eps, double success, double fail, int is_f64, void* stream) {
+    int n_deg, int n_cfg, int n_col, int t_step_stride, int prepare,
+    int reset, double sim_end, double eps, double success, double fail,
+    double worker_mem, int is_f64, void* stream) {
   if (lanes <= 0 || n_srv < 1 || n_chan < 1 || slots < 1 || n < 1 || m < 1 ||
-      jobs < 1 || d < 0 || d >= decisions || n_col < 1 || n_cfg < 1) {
+      jobs < 1 || d < 0 || d >= decisions || n_col < 1 || n_cfg < 1 ||
+      (prepare && actions == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const State st{t, mem, static_cast<int*>(srv_job),
@@ -355,8 +483,16 @@ DDLS_EXPORT int ddls_episode_step(
                 static_cast<const bool*>(finite_ok), t_step,
                 static_cast<const bool*>(ok_la),
                 static_cast<const int*>(la_ticks)};
+  const Seg sg{static_cast<bool*>(seg_done), static_cast<int*>(seg_accepted),
+               static_cast<int*>(seg_blocked), seg_ret,
+               static_cast<int*>(seg_completed),
+               static_cast<int*>(seg_arrived)};
+  const Fields fl{static_cast<int*>(f_jtype), f_frac, f_steps,
+                  static_cast<int*>(f_occupied),
+                  static_cast<int*>(f_running)};
   const Dims dm{n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg,
-                n_col, t_step_stride, sim_end, eps, success, fail};
+                n_col, t_step_stride, prepare, reset, sim_end, eps, success,
+                fail, worker_mem};
   const size_t smem = static_cast<size_t>(n_srv) + n_chan + slots;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f64) {
@@ -364,13 +500,35 @@ DDLS_EXPORT int ddls_episode_step(
         st, tr, bk, static_cast<const int*>(actions), raw,
         static_cast<const bool*>(op_valid),
         static_cast<const double*>(seq_compute),
-        static_cast<const int*>(deg_col), dm);
+        static_cast<const int*>(deg_col), sg, fl, dm);
   } else {
     episode_step_kernel<float><<<lanes, kThreads, smem, s>>>(
         st, tr, bk, static_cast<const int*>(actions), raw,
         static_cast<const bool*>(op_valid),
         static_cast<const float*>(seq_compute),
-        static_cast<const int*>(deg_col), dm);
+        static_cast<const int*>(deg_col), sg, fl, dm);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// queue_row [B], done [B], bank type [B, J], action [B] int32, deg_col
+// [n_col]; out cfg [B], active [B].
+DDLS_EXPORT int ddls_episode_prepare(const void* queue_row, const void* done,
+                                     const void* bank_type,
+                                     const void* action, const void* deg_col,
+                                     void* cfg, void* active, int lanes,
+                                     int jobs, int n_deg, int n_cfg,
+                                     int n_col, void* stream) {
+  if (lanes <= 0 || jobs < 1 || n_deg < 1 || n_cfg < 1 || n_col < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kPrepareThreads = 128;
+  episode_prepare_kernel<<<ddls::grid_for(lanes, kPrepareThreads),
+                           kPrepareThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(queue_row), static_cast<const bool*>(done),
+      static_cast<const int*>(bank_type), static_cast<const int*>(action),
+      static_cast<const int*>(deg_col), static_cast<int*>(cfg),
+      static_cast<bool*>(active), lanes, jobs, n_deg, n_cfg, n_col);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,11 +13,17 @@ which masks, samples by Gumbel-max from handed-in uniforms and gives the
 log-probability. Training differentiates through the mask: ``logits +
 max(log mask, finfo.min)`` has derivative 1 with respect to the logits, so
 on the card K4's autograd wrapper passes the gradient through unchanged.
+
+A minibatch of stored samples (a learner's, or a device-collection step's
+per-type rows) is one flattened graph too: ``sample_structure`` keeps each
+sample's own graph arrays on the host, and kernel K20
+(``minibatch_gather``) gathers, offsets and concatenates them on the
+device in one launch, equal to ``prepare_flat_batch`` of the samples.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -413,6 +419,168 @@ def prepare_flat_batch(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 # the batch keys the card's backward reads (GNN.forward's grad_inputs)
 GRAD_INPUT_KEYS = ("edge_dst", "src_csr_row_ptr", "src_csr_col")
+
+
+# ------------------------------------------- K20: the minibatch assembly
+def sample_structure(obs: Dict[str, np.ndarray]
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per sample, the int32 row ``[src E | edge_dst E | dst row_ptr N+1 |
+    dst col E | src row_ptr N+1 | src col E]`` of its own flattened graph
+    (a batch of one) and its float node mask [N]: what the device offsets
+    and concatenates into a minibatch. One ``prepare_flat_batch`` of the
+    whole batch, each sample's part then re-based to itself: equal to
+    ``prepare_flat_batch`` of the sample alone, because the CSRs' stable
+    sort by flattened node keeps each sample's edges in its own order."""
+    host = prepare_flat_batch(obs)
+    b, n = np.shape(obs["node_features"])[:2]
+    e = np.shape(obs["edges_src"])[1]
+    node_off = (np.arange(b, dtype=np.int64) * n)[:, None]
+    edge_off = (np.arange(b, dtype=np.int64) * e)[:, None]
+    src = host["src"].reshape(b, e) - node_off
+    edge_dst = host["edge_dst"].reshape(b, e)
+    edge_dst = np.where(edge_dst >= 0, edge_dst - node_off, -1)
+    ptr_at = node_off + np.arange(n + 1)[None, :]
+    pos = np.arange(e)[None, :]
+
+    def local(row_ptr, col):
+        ptr = row_ptr[ptr_at] - row_ptr[node_off]
+        at = np.minimum(row_ptr[node_off] + pos, max(b * e - 1, 0))
+        real = pos < ptr[:, n:]
+        return ptr, np.where(real, col[at] - edge_off, 0)
+
+    dst_ptr, dst_col = local(host["csr_row_ptr"], host["csr_col"])
+    src_ptr, src_col = local(host["src_csr_row_ptr"], host["src_csr_col"])
+    rows = np.concatenate([src, edge_dst, dst_ptr, dst_col, src_ptr,
+                           src_col], axis=1).astype(np.int32)
+    return rows, host["node_mask"].reshape(b, n)
+
+
+def _offset_csr(row_ptr: torch.Tensor, col: torch.Tensor, n_nodes: int,
+                n_edges: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Concatenate m per-sample CSRs ([m, N+1] local row_ptr, [m, E] local
+    col) into the flattened graph's: row_ptr shifted by the running edge
+    count, col by each sample's edge offset and packed after the previous
+    sample's real edges (``build_csr``'s layout; entries past the last
+    real edge are 0)."""
+    m = row_ptr.shape[0]
+    device = row_ptr.device
+    nnz = row_ptr[:, n_nodes]
+    start = torch.cumsum(nnz, 0, dtype=torch.int32) - nnz
+    flat_ptr = torch.cat([(row_ptr[:, :n_nodes]
+                           + start[:, None]).reshape(-1),
+                          (start[-1:] + nnz[-1:])])
+    pos_e = torch.arange(n_edges, dtype=torch.int32, device=device)
+    slot = torch.where(pos_e[None, :] < nnz[:, None],
+                       start[:, None] + pos_e[None, :],
+                       torch.full_like(start[:, None], m * n_edges))
+    edge_off = (torch.arange(m, dtype=torch.int32, device=device)
+                * n_edges)[:, None]
+    flat_col = torch.zeros(m * n_edges + 1, dtype=torch.int32, device=device)
+    flat_col.scatter_(0, slot.reshape(-1).long(),
+                      (col + edge_off).reshape(-1))
+    return flat_ptr, flat_col[:-1]
+
+
+def minibatch_gather_plain(staged: Mapping[str, torch.Tensor],
+                           idx: torch.Tensor, n_nodes: int, n_edges: int
+                           ) -> Dict[str, torch.Tensor]:
+    """K20's plain version: the rows ``idx`` of the staged trajectory
+    (``StagedTraj.tensors``) as one flattened graph, with a few tensor
+    ops: the feature and mask rows by ``index_select``, ``src`` and
+    ``edge_dst`` offset by ``m * N`` (-1 kept), both CSRs concatenated
+    (``_offset_csr``)."""
+    n, e = n_nodes, n_edges
+    m = idx.shape[0]
+    s = staged["structure"].index_select(0, idx)
+    p = 0
+    parts = []
+    for width in (e, e, n + 1, e, n + 1, e):
+        parts.append(s[:, p:p + width])
+        p += width
+    src, edge_dst, dst_ptr, dst_col, src_ptr, src_col = parts
+    node_off = (torch.arange(m, dtype=torch.int32, device=idx.device)
+                * n)[:, None]
+    row_ptr, col = _offset_csr(dst_ptr, dst_col, n, e)
+    s_row_ptr, s_col = _offset_csr(src_ptr, src_col, n, e)
+    return {
+        "node_features": staged["node_features"].index_select(0, idx),
+        "edge_features": staged["edge_features"].index_select(0, idx),
+        "graph_features": staged["graph_features"].index_select(0, idx),
+        "action_mask": staged["action_mask"].index_select(0, idx),
+        "src": (src + node_off).reshape(-1),
+        "node_mask": staged["node_mask"].index_select(0, idx).reshape(-1),
+        "csr_row_ptr": row_ptr, "csr_col": col,
+        "edge_dst": torch.where(edge_dst >= 0, edge_dst + node_off,
+                                edge_dst).reshape(-1),
+        "src_csr_row_ptr": s_row_ptr, "src_csr_col": s_col,
+    }
+
+
+def minibatch_gather(staged: Mapping[str, torch.Tensor], idx: torch.Tensor,
+                     n_nodes: int, n_edges: int) -> Dict[str, torch.Tensor]:
+    """K20: the flattened-graph batch of the staged rows ``idx`` [M]
+    (int64) in one launch, one block per sample: equal, array for array,
+    to ``minibatch_gather_plain`` and to ``prepare_flat_batch`` of the
+    same samples. ``staged`` holds ``node_features`` [S, N, Fn],
+    ``edge_features`` [S, E, Fe], ``graph_features`` [S, G] and
+    ``node_mask`` [S, N] float32, ``action_mask`` [S, A] and
+    ``structure`` [S, 4E + 2(N + 1)] int32 (``sample_structure``)."""
+    keys = ("node_features", "edge_features", "graph_features",
+            "action_mask", "node_mask", "structure")
+    if kernels.on_cpu(idx, *(staged[k] for k in keys)):
+        return minibatch_gather_plain(staged, idx, n_nodes, n_edges)
+    n, e = n_nodes, n_edges
+    nf, ef = staged["node_features"], staged["edge_features"]
+    kernels.check_cuda("node_features", nf, torch.float32)
+    if nf.dim() != 3 or nf.shape[1] != n:
+        raise ValueError(f"node_features must be [S, {n}, Fn], got "
+                         f"{tuple(nf.shape)}")
+    s_rows, fn = nf.shape[0], nf.shape[2]
+    kernels.check_cuda("edge_features", ef, torch.float32)
+    if ef.dim() != 3 or ef.shape[:2] != (s_rows, e):
+        raise ValueError(f"edge_features must be [{s_rows}, {e}, Fe], got "
+                         f"{tuple(ef.shape)}")
+    fe = ef.shape[2]
+    gf, am = staged["graph_features"], staged["action_mask"]
+    if gf.dim() != 2 or am.dim() != 2:
+        raise ValueError(f"graph_features and action_mask must be [S, .], "
+                         f"got {tuple(gf.shape)} and {tuple(am.shape)}")
+    g, a = gf.shape[1], am.shape[1]
+    kernels.check_cuda("graph_features", gf, torch.float32, (s_rows, g))
+    kernels.check_cuda("action_mask", am, torch.int32, (s_rows, a))
+    kernels.check_cuda("node_mask", staged["node_mask"], torch.float32,
+                       (s_rows, n))
+    kernels.check_cuda("structure", staged["structure"], torch.int32,
+                       (s_rows, 4 * e + 2 * (n + 1)))
+    kernels.check_cuda("idx", idx, torch.int64)
+    if idx.dim() != 1 or not idx.shape[0]:
+        raise ValueError(f"idx must be [M >= 1], got {tuple(idx.shape)}")
+    m = idx.shape[0]
+    i32 = dict(dtype=torch.int32, device=nf.device)
+    out = {
+        "node_features": nf.new_empty((m, n, fn)),
+        "edge_features": ef.new_empty((m, e, fe)),
+        "graph_features": gf.new_empty((m, g)),
+        "action_mask": am.new_empty((m, a)),
+        "src": torch.empty(m * e, **i32),
+        "node_mask": nf.new_empty(m * n),
+        "csr_row_ptr": torch.empty(m * n + 1, **i32),
+        "csr_col": torch.empty(m * e, **i32),
+        "edge_dst": torch.empty(m * e, **i32),
+        "src_csr_row_ptr": torch.empty(m * n + 1, **i32),
+        "src_csr_col": torch.empty(m * e, **i32),
+    }
+    kernels.launch(
+        "minibatch_gather", nf.data_ptr(), ef.data_ptr(), gf.data_ptr(),
+        am.data_ptr(), staged["node_mask"].data_ptr(),
+        staged["structure"].data_ptr(), idx.data_ptr(),
+        out["node_features"].data_ptr(), out["edge_features"].data_ptr(),
+        out["graph_features"].data_ptr(), out["action_mask"].data_ptr(),
+        out["node_mask"].data_ptr(), out["src"].data_ptr(),
+        out["edge_dst"].data_ptr(), out["csr_row_ptr"].data_ptr(),
+        out["csr_col"].data_ptr(), out["src_csr_row_ptr"].data_ptr(),
+        out["src_csr_col"].data_ptr(), m, n, e, fn, fe, g, a)
+    return out
 
 
 # ----------------------------------------------------------------- modules

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from ddls_tpu_torch import kernels
-from ddls_tpu_torch.rl.learner import (Learner, TrainState, minibatch_gather,
-                                       pack_to_device)
+from ddls_tpu_torch.models.policy import minibatch_gather
+from ddls_tpu_torch.rl.learner import Learner, TrainState, pack_to_device
 
 DQN_METRIC_KEYS = ("loss", "mean_q", "mean_td_error", "max_td_error")
 

@@ -28,9 +28,20 @@ episode's device, built in float64 and cast to its float type (float32,
 as ``jnp.asarray`` leaves them without x64, or float64, the reference's
 x64 mode, which reproduces the host env's decisions exactly).
 
-Left out: the in-kernel lookahead memo (B11), the in-kernel observation
-and the policy, segment and oracle episodes (B12, the rest of B13), and
-the scenario mirror (``scenario_adjusted``, ``inflate_duration_jax``):
+* the lookahead memo (B11, ``sim/device_memo.py``: K27 before K21 and
+  K28 after it), threaded through ``EpisodeKernels.evaluate`` and
+  ``make_episode_fn``'s ``memo_cfg``;
+* the in-kernel observation (B12): ``build_obs_tables`` :1329,
+  ``kernel_action_mask`` :1395 and ``kernel_obs`` :1409 (K26), and the
+  policy forward's flattened batch put together on the device
+  (``DeviceObs.forward_batch``, K20 over per-type rows built once);
+* the policy and segment episodes (the rest of B13):
+  ``make_policy_episode_fn`` :1457, ``segment_init`` :1585,
+  ``make_segment_fn`` :1596 (K25 resets an ended lane's episode in
+  place) and ``rebuild_obs_batch`` :1766.
+
+Left out: the oracle episode and ``price_all`` (:1799, :1085), and the
+scenario mirror (``scenario_adjusted``, ``inflate_duration_jax``):
 ``build_episode_tables`` raises on a non-nominal scenario.
 
 Lanes are independent: a stacked run equals its lanes run one by one, bit
@@ -54,6 +65,7 @@ from ddls_tpu_torch.agents.block_search import (block_shapes_for,
                                                 factor_pairs)
 from ddls_tpu_torch.agents.partitioners import build_partition_action
 from ddls_tpu_torch.graphs.readers import backward_op_id
+from ddls_tpu_torch.sim import device_memo
 from ddls_tpu_torch.sim import lookahead as lookahead_mod
 from ddls_tpu_torch.sim.partition import partition_graph, partitioned_op_id
 
@@ -599,6 +611,9 @@ class DeviceTables:
         self.comm = {"x": float(comm["x"]), "rate": float(comm["rate"]),
                      "prop_io": float(comm["prop"] + 2 * comm["io"]),
                      "data_per_tx": float(comm["rate"] / float(comm["x"]))}
+        # the observation tables on this device (``device_obs``), by the
+        # id of the host tables they were built from (kept alive here)
+        self.obs_tables: Dict[int, tuple] = {}
 
 
 def device_tables(et: EpisodeTables, device="cuda",
@@ -1091,40 +1106,20 @@ class EpisodeKernels:
         self.R = et.n_srv  # max concurrent jobs: each owns >= 1 server
 
     # ---- the state -----------------------------------------------------
-    def init_state(self, bank: dict, actions: torch.Tensor) -> dict:
+    def init_state(self, bank: dict,
+                   actions: Optional[torch.Tensor] = None) -> dict:
         """Job 0 queued at t = 0 and every server free (the reference's
-        ``init_state``), then decision 0's config row."""
-        dev, et = self.dev, self.dev.et
+        ``init_state``), then, given ``actions`` [B, D], decision 0's
+        config row."""
         lanes = bank["type"].shape[0]
-        kw = dict(device=dev.device)
-        dt = dev.dtype
-        R = self.R
-        state = {
-            "t": torch.zeros(lanes, dtype=dt, **kw),
-            "mem": torch.full((lanes, et.n_srv), et.worker_mem, dtype=dt,
-                              **kw),
-            "srv_job": torch.full((lanes, et.n_srv), -1, dtype=torch.int32,
-                                  **kw),
-            "chan_occ": torch.full((lanes, et.n_chan), -1,
-                                   dtype=torch.int32, **kw),
-            "slot_valid": torch.zeros((lanes, R), dtype=torch.bool, **kw),
-            "slot_t_done": torch.zeros((lanes, R), dtype=dt, **kw),
-            "slot_mem": torch.zeros((lanes, R, et.n_srv), dtype=dt, **kw),
-            "slot_servers": torch.zeros((lanes, R, et.n_srv),
-                                        dtype=torch.bool, **kw),
-            "slot_chan": torch.zeros((lanes, R, et.n_chan),
-                                     dtype=torch.bool, **kw),
-            "queue_row": torch.zeros(lanes, dtype=torch.int32, **kw),
-            "ptr": torch.ones(lanes, dtype=torch.int32, **kw),
-            "next_arrival": bank["arrival_t"][:, 1].clone(),
-            "done": torch.zeros(lanes, dtype=torch.bool, **kw),
-        }
-        for name in ("completed", "accepted", "blocked", "cfg", "ticks"):
+        kw = dict(device=self.dev.device)
+        state = self.fresh_state(bank)
+        for name in ("cfg", "ticks"):
             state[name] = torch.zeros(lanes, dtype=torch.int32, **kw)
-        state["ret"] = torch.zeros(lanes, dtype=dt, **kw)
         state["active"] = torch.zeros(lanes, dtype=torch.bool, **kw)
-        self.prepare(state, bank, actions[:, 0])
-        return state
+        if actions is not None:
+            self.prepare(state, bank, actions[:, 0])
+        return {name: state[name] for name, _ in STATE_FIELDS}
 
     def prepare(self, state: dict, bank: dict, action: torch.Tensor):
         """The next decision's config row ``cfg = type[row] * n_deg +
@@ -1141,10 +1136,16 @@ class EpisodeKernels:
         state["active"] = has_job & (action > 0) & (col >= 0)
 
     # ---- one candidate ---------------------------------------------------
-    def evaluate(self, state: dict) -> dict:
+    def evaluate(self, state: dict, memo: Optional[dict] = None,
+                 memo_trace: Optional[dict] = None, d: int = 0) -> dict:
         """Placement (K23), pricing (K24) and the lookahead (K21, lanes
         that decide nothing skipped) of each lane's ``cfg`` against its
-        cluster state: the kernels' raw outputs."""
+        cluster state: the kernels' raw outputs. With ``memo`` (a
+        ``device_memo.memo_init`` table) the lookahead runs under the memo
+        (reference: ``eval_cfg`` :1064-1070): K27 probes before K21 and
+        skips its hit lanes, K28 serves them and inserts the misses (and,
+        with ``memo_trace``, writes the memo counters into column
+        ``d``)."""
         dev = self.dev
         cfg = state["cfg"]
         ots, new_mem, ok_place = allocate_job(
@@ -1156,13 +1157,22 @@ class EpisodeKernels:
         op_valid = T["op_valid"][c]
         ticks = torch.empty(cfg.shape[0], dtype=torch.int32,
                             device=cfg.device)
-        t_step, _, _, _, ok_la = lookahead_mod.lookahead(
-            T["op_compute"][c], op_valid, torch.where(op_valid, ots, -1),
-            op_score, T["num_parents"][c], times, T["dep_valid"][c],
-            T["dep_src"][c], T["dep_dst"][c], T["dep_mutual"][c], is_flow,
-            dep_score, chan[:, :, None], num_workers=dev.et.n_srv,
-            num_channels=dev.et.n_chan, ticks=ticks,
-            skip=~state["active"])
+
+        def compute(skip):
+            return lookahead_mod.lookahead(
+                T["op_compute"][c], op_valid, torch.where(op_valid, ots, -1),
+                op_score, T["num_parents"][c], times, T["dep_valid"][c],
+                T["dep_src"][c], T["dep_dst"][c], T["dep_mutual"][c],
+                is_flow, dep_score, chan[:, :, None],
+                num_workers=dev.et.n_srv, num_channels=dev.et.n_chan,
+                ticks=ticks, skip=skip)
+
+        if memo is None:
+            t_step, _, _, _, ok_la = compute(~state["active"])
+        else:
+            t_step, _, _, _, ok_la = device_memo.memo_lookahead(
+                memo, cfg, state["active"], ots, T["op_valid"], times,
+                dev.et.n_srv, compute, memo_trace, d)
         return {"ots": ots, "new_mem": new_mem, "ok_place": ok_place,
                 "times": times, "is_flow": is_flow, "chan": chan,
                 "op_score": op_score, "dep_score": dep_score,
@@ -1315,37 +1325,142 @@ class EpisodeKernels:
                                                 state["next_arrival"])
             state["done"] = torch.where(live, done2, state["done"])
 
+    def finish(self, state: dict, bank: dict, d: int,
+               seg_trace: Optional[dict], fields: Optional[dict],
+               reset: bool) -> None:
+        """After the event clock (reference: the segment's ``scan_body``
+        :1690-1724): the episode counters into column ``d`` of
+        ``seg_trace`` (``SEGMENT_TRACE_FIELDS``; ``ep_blocked`` counts the
+        jobs still running where the episode ended), with ``reset`` an
+        ended lane's state replaced by its fresh one (the memo is not part
+        of the state), then the next step's observation fields into
+        column ``d + 1`` of ``fields`` (``OBS_FIELDS``)."""
+        ended = state["done"].clone()
+        if seg_trace is not None:
+            running = state["slot_valid"].sum(1).to(torch.int32)
+            seg_trace["done"][:, d] = ended
+            seg_trace["ep_accepted"][:, d] = state["accepted"]
+            seg_trace["ep_blocked"][:, d] = state["blocked"] + torch.where(
+                ended, running, 0)
+            seg_trace["ep_return"][:, d] = state["ret"]
+            seg_trace["ep_completed"][:, d] = state["completed"]
+            seg_trace["ep_arrived"][:, d] = state["ptr"]
+        if reset:
+            fresh = self.fresh_state(bank)
+            for name in RESET_FIELDS:
+                x = state[name]
+                cond = ended.reshape((-1,) + (1,) * (x.dim() - 1))
+                state[name] = torch.where(cond, fresh[name], x)
+        if fields is not None:
+            for name, value in obs_fields(state, bank).items():
+                fields[name][:, d + 1] = value
+
+    def fresh_state(self, bank: dict) -> dict:
+        """Every lane's initial state (``RESET_FIELDS``): job 0 queued at
+        t = 0, every server free, the counters zero."""
+        dev, et = self.dev, self.dev.et
+        lanes = bank["type"].shape[0]
+        kw = dict(device=dev.device)
+        dt = dev.dtype
+        R = self.R
+        state = {
+            "t": torch.zeros(lanes, dtype=dt, **kw),
+            "mem": torch.full((lanes, et.n_srv), et.worker_mem, dtype=dt,
+                              **kw),
+            "srv_job": torch.full((lanes, et.n_srv), -1, dtype=torch.int32,
+                                  **kw),
+            "chan_occ": torch.full((lanes, et.n_chan), -1,
+                                   dtype=torch.int32, **kw),
+            "slot_valid": torch.zeros((lanes, R), dtype=torch.bool, **kw),
+            "slot_t_done": torch.zeros((lanes, R), dtype=dt, **kw),
+            "slot_mem": torch.zeros((lanes, R, et.n_srv), dtype=dt, **kw),
+            "slot_servers": torch.zeros((lanes, R, et.n_srv),
+                                        dtype=torch.bool, **kw),
+            "slot_chan": torch.zeros((lanes, R, et.n_chan),
+                                     dtype=torch.bool, **kw),
+            "queue_row": torch.zeros(lanes, dtype=torch.int32, **kw),
+            "ptr": torch.ones(lanes, dtype=torch.int32, **kw),
+            "next_arrival": bank["arrival_t"][:, 1].clone(),
+            "done": torch.zeros(lanes, dtype=torch.bool, **kw),
+        }
+        for name in ("completed", "accepted", "blocked"):
+            state[name] = torch.zeros(lanes, dtype=torch.int32, **kw)
+        state["ret"] = torch.zeros(lanes, dtype=dt, **kw)
+        return state
+
 
 def episode_step_plain(ek: EpisodeKernels, state: dict, bank: dict,
-                       actions: torch.Tensor, raw: dict, trace: dict,
-                       d: int) -> None:
+                       actions: Optional[torch.Tensor], raw: dict,
+                       trace: dict, d: int, *,
+                       seg_trace: Optional[dict] = None,
+                       fields: Optional[dict] = None,
+                       reset: bool = False) -> None:
     """K25's plain version: decision ``d``'s commit, the event clock to
-    the next decision, and that decision's config row."""
+    the next decision, the segment's counters, reset and fields
+    (``EpisodeKernels.finish``) and, given ``actions``, the next
+    decision's config row."""
     ek.decision(state, bank, raw, trace, d)
     ek.advance(state, bank)
-    if d + 1 < actions.shape[1]:
+    ek.finish(state, bank, d, seg_trace, fields, reset)
+    if actions is not None and d + 1 < actions.shape[1]:
         ek.prepare(state, bank, actions[:, d + 1])
 
 
 # the outputs of EpisodeKernels.evaluate that K25 reads, in its order
 _RAW_FIELDS = ("ots", "new_mem", "ok_place", "is_flow", "chan", "finite_ok",
                "t_step", "ok_la", "ticks")
+# the segment's per-step episode counters (K25 writes them; dtypes: None =
+# the float type) and the state an in-kernel reset restores
+SEGMENT_TRACE_FIELDS = (("done", torch.bool), ("ep_accepted", torch.int32),
+                        ("ep_blocked", torch.int32), ("ep_return", None),
+                        ("ep_completed", torch.int32),
+                        ("ep_arrived", torch.int32))
+RESET_FIELDS = ("t", "mem", "srv_job", "chan_occ", "slot_valid",
+                "slot_t_done", "slot_mem", "slot_servers", "slot_chan",
+                "queue_row", "ptr", "next_arrival", "done", "completed",
+                "accepted", "blocked", "ret")
+# a step's compact observation fields (the reference's ``obs_fields``
+# :1656), K26's inputs
+OBS_FIELDS = (("jtype", torch.int32), ("frac", None), ("steps", None),
+              ("n_occupied", torch.int32), ("n_running", torch.int32))
+
+
+def obs_fields(state: dict, bank: dict) -> Dict[str, torch.Tensor]:
+    """Each lane's observation fields of its queued job and cluster
+    (``OBS_FIELDS``, each [B]; reference: ``obs_fields`` :1656)."""
+    row = state["queue_row"].clamp(min=0).long()[:, None]
+    return {"jtype": bank["type"].gather(1, row)[:, 0],
+            "frac": bank["sla_frac"].gather(1, row)[:, 0],
+            "steps": bank["steps"].gather(1, row)[:, 0],
+            "n_occupied": (state["srv_job"] >= 0).sum(1).to(torch.int32),
+            "n_running": state["slot_valid"].sum(1).to(torch.int32)}
 
 
 def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
-                 actions: torch.Tensor, raw: dict, trace: dict,
-                 d: int) -> None:
+                 actions: Optional[torch.Tensor], raw: dict, trace: dict,
+                 d: int, *, seg_trace: Optional[dict] = None,
+                 fields: Optional[dict] = None, reset: bool = False) -> None:
     """K25: decision ``d``'s SLA gate, cause code and commit, the event
-    clock to the next decision, and that decision's config row, for every
-    lane, updating ``state`` in place and writing decision ``d`` of
-    ``trace`` (tensors as ``STATE_FIELDS``, ``TRACE_FIELDS``,
-    ``BANK_FIELDS``; ``raw`` from ``EpisodeKernels.evaluate``)."""
+    clock to the next decision, for every lane, updating ``state`` in
+    place and writing decision ``d`` of ``trace`` (tensors as
+    ``STATE_FIELDS``, ``TRACE_FIELDS``, ``BANK_FIELDS``; ``raw`` from
+    ``EpisodeKernels.evaluate``). Then, for the segment and policy
+    episodes: the episode counters into column ``d`` of ``seg_trace``
+    (``SEGMENT_TRACE_FIELDS``, [B, D]), with ``reset`` an ended lane's
+    state back to its fresh one (the in-kernel reset), and the next step's
+    observation fields into column ``d + 1`` of ``fields``
+    (``OBS_FIELDS``, [B, D + 1]). Given ``actions`` [B, D] (the replay),
+    the next decision's config row; without them the caller runs
+    ``episode_prepare`` once the next action is known."""
     if kernels.on_cpu(state["mem"], raw["ots"]):
-        return episode_step_plain(ek, state, bank, actions, raw, trace, d)
+        return episode_step_plain(ek, state, bank, actions, raw, trace, d,
+                                  seg_trace=seg_trace, fields=fields,
+                                  reset=reset)
     dev, et = ek.dev, ek.dev.et
     dt = dev.dtype
     lanes = state["t"].shape[0]
-    J, D = bank["type"].shape[1], actions.shape[1]
+    J = bank["type"].shape[1]
+    D = trace["reward"].shape[1]
     for name, want in STATE_FIELDS:
         kernels.check_cuda(name, state[name], want or dt)
     for name, want in TRACE_FIELDS:
@@ -1354,7 +1469,16 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
     for name, want in BANK_FIELDS:
         kernels.check_cuda(f"bank {name}", bank[name], want or dt,
                            (lanes, J + (name == "arrival_t")))
-    kernels.check_cuda("actions", actions, torch.int32, (lanes, D))
+    if actions is not None:
+        kernels.check_cuda("actions", actions, torch.int32, (lanes, D))
+    if seg_trace is not None:
+        for name, want in SEGMENT_TRACE_FIELDS:
+            kernels.check_cuda(f"segment trace {name}", seg_trace[name],
+                               want or dt, (lanes, D))
+    if fields is not None:
+        for name, want in OBS_FIELDS:
+            kernels.check_cuda(f"fields {name}", fields[name], want or dt,
+                               (lanes, D + 1))
     t_step = raw["t_step"]
     if t_step.dtype != dt or t_step.shape != (lanes,):
         raise ValueError("t_step must be the lookahead's [B] times")
@@ -1367,21 +1491,56 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
         "episode_step", *(state[name].data_ptr() for name, _ in STATE_FIELDS),
         *(trace[name].data_ptr() for name, _ in TRACE_FIELDS),
         *(bank[name].data_ptr() for name, _ in BANK_FIELDS),
-        actions.data_ptr(), *(raw[name].data_ptr() for name in _RAW_FIELDS),
+        kernels.ptr(actions), *(raw[name].data_ptr() for name in _RAW_FIELDS),
         dev.t["op_valid"].data_ptr(), dev.t["seq_compute"].data_ptr(),
-        dev.deg_col.data_ptr(), lanes, et.n_srv, et.n_chan, ek.R,
+        dev.deg_col.data_ptr(),
+        *(kernels.ptr(seg_trace[name]) if seg_trace is not None else None
+          for name, _ in SEGMENT_TRACE_FIELDS),
+        *(kernels.ptr(fields[name]) if fields is not None else None
+          for name, _ in OBS_FIELDS),
+        lanes, et.n_srv, et.n_chan, ek.R,
         dev.pads.n_ops, dev.pads.n_deps, J, D, d, dev.n_deg, dev.n_cfg,
-        dev.deg_col.shape[0], t_step.stride(0), ctypes.c_double(et.sim_end),
+        dev.deg_col.shape[0], t_step.stride(0), int(actions is not None),
+        int(reset), ctypes.c_double(et.sim_end),
         ctypes.c_double(et.eps), ctypes.c_double(et.success_reward),
-        ctypes.c_double(et.fail_reward), int(dt == torch.float64))
+        ctypes.c_double(et.fail_reward), ctypes.c_double(et.worker_mem),
+        int(dt == torch.float64))
 
 
-def make_episode_fn(et: EpisodeTables, *, device="cuda",
-                    dtype: torch.dtype = torch.float32):
-    """The device episode replay (reference: ``make_episode_fn`` :1240,
-    memo off): ``episode(bank, actions)`` runs every decision of the
-    action sequence on ``device`` and returns per-decision traces and the
-    final counters.
+def episode_prepare(ek: EpisodeKernels, state: dict, bank: dict,
+                    action: torch.Tensor) -> None:
+    """K25's prepare half as its own launch: each lane's config row and
+    ``active`` flag for ``action`` [B] int32 (the step's sampled action,
+    on the device), as ``EpisodeKernels.prepare``."""
+    if kernels.on_cpu(state["cfg"], action):
+        return ek.prepare(state, bank, action)
+    dev = ek.dev
+    lanes = state["cfg"].shape[0]
+    J = bank["type"].shape[1]
+    kernels.check_cuda("action", action, torch.int32, (lanes,))
+    for name in ("queue_row", "done", "cfg", "active"):
+        kernels.check_cuda(name, state[name], dict(STATE_FIELDS)[name],
+                           (lanes,))
+    kernels.check_cuda("bank type", bank["type"], torch.int32, (lanes, J))
+    if lanes:
+        kernels.launch(
+            "episode_prepare", state["queue_row"].data_ptr(),
+            state["done"].data_ptr(), bank["type"].data_ptr(),
+            action.data_ptr(), dev.deg_col.data_ptr(),
+            state["cfg"].data_ptr(), state["active"].data_ptr(), lanes, J,
+            dev.n_deg, dev.n_cfg, dev.deg_col.shape[0])
+
+
+def make_episode_fn(et: EpisodeTables,
+                    memo_cfg: Optional[device_memo.MemoConfig] = None, *,
+                    device="cuda", dtype: torch.dtype = torch.float32):
+    """The device episode replay (reference: ``make_episode_fn`` :1240):
+    ``episode(bank, actions)`` runs every decision of the action sequence
+    on ``device`` and returns per-decision traces and the final counters.
+    ``memo_cfg`` runs the lookahead under the memo (K27 and K28; a fresh
+    table each call; the results are the same bit for bit) and adds the
+    final ``memo_hits``, ``memo_misses`` and ``memo_evicts``; unlike the
+    reference's, the default is no memo.
 
     ``bank`` is a job bank (``build_job_bank``: [J] arrays, ``arrival_t``
     [J + 1]) with ``actions`` [D], or a stack of banks ([B, J]) with
@@ -1423,8 +1582,11 @@ def make_episode_fn(et: EpisodeTables, *, device="cuda",
                                    device=dev.device)
                  for name, want in TRACE_FIELDS}
         state = ek.init_state(b, acts)
+        memo = (None if memo_cfg is None else device_memo.memo_init(
+            lanes, dev.pads.n_ops, dev.pads.n_deps, dtype, memo_cfg,
+            dev.device))
         for d in range(D):
-            raw = ek.evaluate(state)
+            raw = ek.evaluate(state, memo)
             episode_step(ek, state, b, acts, raw, trace, d)
         out = {"trace": tuple(trace[name] for name, _ in TRACE_FIELDS),
                "accepted": state["accepted"], "blocked": state["blocked"],
@@ -1433,6 +1595,8 @@ def make_episode_fn(et: EpisodeTables, *, device="cuda",
                "blocked_total": state["blocked"]
                + state["slot_valid"].sum(1).int(),
                "arrived": state["ptr"], "lookahead_ticks": state["ticks"]}
+        if memo is not None:
+            out.update(device_memo.memo_trace_counters(memo))
         if single:
             out = {k: (tuple(x[0] for x in v) if k == "trace" else v[0])
                    for k, v in out.items()}
@@ -1447,3 +1611,481 @@ def episode_kernels(et: EpisodeTables, *, device="cuda",
     ``eval_cfg`` (the candidate, no memo), ``decision``, ``advance`` and
     ``init_state`` (reference: ``_episode_kernels`` :974)."""
     return EpisodeKernels(device_tables(et, device, dtype))
+
+
+# =========================================================================
+# The in-kernel observation (B12): K26; the forward's batch on the device.
+# =========================================================================
+
+# the static per-type rows of an observation, gathered by job type
+STATIC_OBS_KEYS = ("node_features", "edge_features", "edges_src",
+                   "edges_dst", "node_split", "edge_split")
+# the normalisation bounds of the rebuilt entries 2, 3, 4 and 8
+_BOUND_KEYS = ("seq_bounds", "jct_bounds", "frac_bounds", "steps_bounds")
+
+
+def build_obs_tables(env, et: EpisodeTables) -> dict:
+    """The static per-type observation rows and the constants the kernel
+    rebuilds the job-specific entries from (reference: :1329): the host
+    encoder's observation of each model's prototype, ``orig_seq_sum`` (the
+    exact ``compute.sum()`` the host multiplies by the training steps;
+    dividing it back out of ``seq_completion_time`` would cost an ulp),
+    the normalisation bounds and ``shapes_exist`` per action."""
+    gen = env.cluster.jobs_generator
+    obs_fn = env.observation_function
+    with_prices = bool(getattr(obs_fn, "include_candidate_prices", False))
+    params = gen.jobs_params
+
+    proto_by_model = {}
+    for proto in gen.sampler.prototypes:
+        proto_by_model.setdefault(proto.details["model"], proto)
+
+    rows = []
+    for model in et.types:
+        obs = {k: np.asarray(v) for k, v in
+               obs_fn.encode(proto_by_model[model], env).items()}
+        if with_prices:
+            # the template's price block is another job's decision-time
+            # data: dropped
+            obs["graph_features"] = obs["graph_features"][
+                :-(et.max_action + 1)]
+        rows.append(obs)
+
+    def stack(key):
+        return np.stack([r[key] for r in rows])
+
+    def bounds(key):
+        return (float(params[f"min_{key}"]), float(params[f"max_{key}"]))
+
+    out = {key: stack(key) for key in STATIC_OBS_KEYS + ("graph_features",)}
+    out.update({
+        "orig_seq_sum": np.array(
+            [float(proto_by_model[m].graph.finalize()["compute"].sum())
+             for m in et.types], np.float64),
+        "seq_bounds": bounds("job_sequential_completion_times"),
+        "jct_bounds": bounds("max_acceptable_job_completion_times"),
+        "frac_bounds": bounds("max_acceptable_job_completion_time_fracs"),
+        "steps_bounds": bounds("job_num_training_steps"),
+        "shapes_exist": np.array(
+            [bool(block_shapes_for(factor_pairs(a), et.st.ramp_shape))
+             for a in range(et.max_action + 1)], bool),
+        "with_prices": with_prices,
+    })
+    return out
+
+
+class DeviceObs:
+    """``build_obs_tables``'s tables on the episode's device: the static
+    graph-feature rows, ``orig_seq_sum`` in the episode's float type, the
+    bounds (lo, hi - lo, and the float32 reciprocal of hi - lo), the
+    static per-type rows at the env's pad (``rows``: what
+    ``rebuild_obs_batch`` gathers) and the policy forward's per-type
+    flattened-graph rows (``staged``: K20's input), built once."""
+
+    def __init__(self, ot: dict, dev: DeviceTables):
+        if ot.get("with_prices"):
+            raise ValueError(
+                "the in-kernel observation has no candidate-price features "
+                "(the compact trace carries no pricing state); build the "
+                "obs tables from an env without "
+                "obs_include_candidate_prices")
+        from ddls_tpu_torch.models.policy import sample_structure
+
+        self.dev = dev
+
+        def put(x, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(
+                dev.device, dtype)
+
+        self.static_gf = put(ot["graph_features"], torch.float32)
+        self.orig_seq_sum = put(ot["orig_seq_sum"], dev.dtype)
+        self.shapes_exist = put(ot["shapes_exist"])
+        self.bounds = []
+        for key in _BOUND_KEYS:
+            lo, hi = ot[key]
+            span = hi - lo
+            rc = float(np.float32(1) / np.float32(span)) if span else 0.0
+            self.bounds.append((lo, span, rc))
+        self.consts = put(np.array(self.bounds, np.float64))
+        self.n_srv = dev.et.n_srv
+        self.n_actions = len(ot["shapes_exist"])
+        self.rows = {k: put(ot[k]) for k in STATIC_OBS_KEYS}
+        self.action_set = torch.arange(self.n_actions, dtype=torch.int32,
+                                       device=dev.device)
+        per_type = {k: np.asarray(ot[k]) for k in STATIC_OBS_KEYS}
+        per_type["graph_features"] = np.asarray(ot["graph_features"],
+                                                np.float32)
+        per_type["action_mask"] = np.zeros(
+            (len(dev.et.types), self.n_actions), np.int32)
+        structure, node_mask = sample_structure(per_type)
+        self.n_nodes = per_type["node_features"].shape[1]
+        self.n_edges = per_type["edge_features"].shape[1]
+        self.staged = {
+            "node_features": put(per_type["node_features"], torch.float32),
+            "edge_features": put(per_type["edge_features"], torch.float32),
+            "graph_features": self.static_gf,
+            "action_mask": put(per_type["action_mask"]),
+            "structure": put(structure), "node_mask": put(node_mask,
+                                                          torch.float32)}
+
+    def forward_batch(self, jtype: torch.Tensor,
+                      graph_features: torch.Tensor,
+                      action_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The flattened graph of B observations of job types ``jtype``
+        [B] (``GNNPolicy.flat_batched``'s batch, at the env's pad): K20
+        gathers each type's rows and offsets the per-type CSRs by a prefix
+        of the lanes' edge counts; the graph features and the mask are
+        K26's ([B, G] float32, [B, A] int32)."""
+        from ddls_tpu_torch.models.policy import minibatch_gather
+
+        batch = minibatch_gather(self.staged, jtype.long(), self.n_nodes,
+                                 self.n_edges)
+        batch["graph_features"] = graph_features
+        batch["action_mask"] = action_mask
+        return batch
+
+
+def device_obs(ot: dict, dev: DeviceTables) -> DeviceObs:
+    """``ot`` on ``dev``'s device (built once per device and float type,
+    and kept on ``dev``)."""
+    if id(ot) not in dev.obs_tables:
+        dev.obs_tables[id(ot)] = (ot, DeviceObs(ot, dev))
+    return dev.obs_tables[id(ot)][1]
+
+
+def kernel_action_mask(dobs: DeviceObs, n_occupied: torch.Tensor
+                       ) -> torch.Tensor:
+    """The observation's action mask [R, A] bool from each row's occupied
+    server count (reference: ``_kernel_action_mask`` :1395): 0 always; 1
+    needs a free server; an even a needs a <= free servers and a
+    symmetric block shape of a servers."""
+    free = dobs.n_srv - n_occupied.long()[:, None]
+    a = torch.arange(dobs.n_actions, device=n_occupied.device)
+    return ((a == 0) | ((a == 1) & (free >= 1))
+            | ((a > 1) & (a % 2 == 0) & (a <= free) & dobs.shapes_exist))
+
+
+def kernel_obs_plain(dobs: DeviceObs, jtype, frac, steps, n_occupied,
+                     n_running) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K26's plain version (see ``kernel_obs``)."""
+    dt = frac.dtype
+    jt = jtype.long()
+    gf = dobs.static_gf[jt].to(dt)
+    seq = dobs.orig_seq_sum.to(dt)[jt] * steps
+
+    def norm(i, val, product=None):
+        lo, span, rc = dobs.bounds[i]
+        if span == 0:
+            return torch.ones_like(val)
+        lo_t = torch.full_like(val, lo)
+        if dt == torch.float32:
+            diff = (val - lo_t if product is None
+                    else lookahead_mod.fma32(product[0], product[1], -lo_t))
+            return diff * torch.full_like(val, rc)
+        return (val - lo_t) / torch.full_like(val, span)
+
+    gf[:, 2] = norm(0, seq)
+    gf[:, 3] = norm(1, frac * seq, (frac, seq))
+    gf[:, 4] = norm(2, frac)
+    gf[:, 5] = frac
+    gf[:, 8] = norm(3, steps)
+    n_srv = torch.full_like(frac, dobs.n_srv)
+    gf[:, 15] = n_occupied.to(dt) / n_srv
+    gf[:, 16] = n_running.to(dt) / n_srv
+    mask = kernel_action_mask(dobs, n_occupied)
+    a = mask.shape[1]
+    gf = torch.cat([gf[:, :-a].clamp(0.0, 1.0), mask.to(dt)], 1)
+    return gf.to(torch.float32), mask.to(torch.int32)
+
+
+def kernel_obs(dobs: DeviceObs, jtype: torch.Tensor, frac: torch.Tensor,
+               steps: torch.Tensor, n_occupied: torch.Tensor,
+               n_running: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K26: the observation's graph features [R, G] float32 and action
+    mask [R, A] int32 of R rows of compact fields (reference:
+    ``_kernel_obs`` :1409 over ``rebuild_obs_batch``'s rows): ``jtype``,
+    ``n_occupied`` and ``n_running`` int32, ``frac`` and ``steps`` of the
+    episode's float type, each [R] (1-D; all with one stride, so a column
+    of a [B, T + 1] field table is a valid input). The static entries are
+    the type's row; entries 2, 3, 4, 5, 8, 15 and 16 are rebuilt, clipped
+    to [0, 1] and cast to float32 last, then the mask follows as floats.
+    In float64 the formulas are the host encoder's (``envs/obs.py``), bit
+    for bit; in float32 they are XLA's float32 program of the reference
+    (the bounds' differences a multiply by the float32 reciprocal, and
+    ``frac * seq - lo`` one fused multiply-add)."""
+    fields = (jtype, frac, steps, n_occupied, n_running)
+    if kernels.on_cpu(*fields):
+        return kernel_obs_plain(dobs, *fields)
+    dt = dobs.dev.dtype
+    rows = jtype.shape[0]
+    stride = jtype.stride(0) if rows else 1
+    for name, x, want in zip(("jtype", "frac", "steps", "n_occupied",
+                              "n_running"), fields,
+                             (torch.int32, dt, dt, torch.int32,
+                              torch.int32)):
+        if x.dtype != want or x.dim() != 1 or x.shape[0] != rows or \
+                (rows > 1 and x.stride(0) != stride) or \
+                x.device != jtype.device:
+            raise ValueError(f"{name} must be [{rows}] {want} on "
+                             f"{jtype.device} with stride {stride}")
+    if jtype.device.index != torch.cuda.current_device():
+        raise ValueError(f"the fields must lie on the current CUDA device, "
+                         f"got {jtype.device}")
+    g, a = dobs.static_gf.shape[1], dobs.n_actions
+    gf = torch.empty((rows, g), dtype=torch.float32, device=jtype.device)
+    mask = torch.empty((rows, a), dtype=torch.int32, device=jtype.device)
+    if rows:
+        kernels.launch(
+            "kernel_obs", *(x.data_ptr() for x in fields),
+            dobs.static_gf.data_ptr(), dobs.orig_seq_sum.data_ptr(),
+            dobs.shapes_exist.data_ptr(), dobs.consts.data_ptr(),
+            gf.data_ptr(), mask.data_ptr(), rows, stride, g, a, dobs.n_srv,
+            int(dt == torch.float64))
+    return gf, mask
+
+
+def rebuild_obs_batch(dobs: DeviceObs, fields: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+    """The exact observations the step forwards saw, from compact fields
+    of any leading shape (reference: :1766): K26 over every row, the
+    static rows gathered by type. Returns the ``envs/obs.py`` keys as
+    tensors on the device, each of shape ``fields``' + its own."""
+    shape = tuple(fields["jtype"].shape)
+    flat = [fields[name].reshape(-1) for name, _ in OBS_FIELDS]
+    gf, mask = kernel_obs(dobs, *flat)
+    jt = flat[0].long()
+    out = {k: dobs.rows[k].index_select(0, jt) for k in STATIC_OBS_KEYS}
+    out["graph_features"] = gf
+    out["action_mask"] = mask
+    out["action_set"] = dobs.action_set.expand(jt.shape[0], -1)
+    return {k: v.reshape(shape + tuple(v.shape[1:])) for k, v in out.items()}
+
+
+# =========================================================================
+# The policy and segment episodes (the rest of B13).
+# =========================================================================
+
+def device_bank(bank: dict, dev: DeviceTables) -> dict:
+    """A job bank (``build_job_bank``'s [J] arrays) or a stack of banks
+    ([B, J]) as [B, J] tensors on ``dev``'s device (``BANK_FIELDS``)."""
+    out = {}
+    for name, want in BANK_FIELDS:
+        x = bank[name]
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        x = x[None] if x.dim() == 1 else x
+        out[name] = x.to(device=dev.device, dtype=want or dev.dtype
+                         ).contiguous()
+    return out
+
+
+def _step_uniforms(uniforms, generator, t_len: int, lanes: int, a: int,
+                   device) -> torch.Tensor:
+    """K9's uniforms [T, B, A] float32: handed in as [B, T, A] (the
+    reference's per-lane key splits, recorded), or drawn from
+    ``generator``."""
+    from ddls_tpu_torch.models.policy import gumbel_uniforms
+
+    if (uniforms is None) == (generator is None):
+        raise ValueError("pass exactly one of uniforms, generator")
+    if generator is not None:
+        return gumbel_uniforms((t_len, lanes, a), generator, device)
+    u = uniforms if isinstance(uniforms, torch.Tensor) else \
+        torch.from_numpy(np.asarray(uniforms, np.float32))
+    if tuple(u.shape) != (lanes, t_len, a):
+        raise ValueError(f"uniforms must be [{lanes}, {t_len}, {a}], got "
+                         f"{tuple(u.shape)}")
+    return u.to(device, torch.float32).transpose(0, 1).contiguous()
+
+
+def _policy_step(model, dobs: DeviceObs, fields: dict, d: int,
+                 u: Optional[torch.Tensor], greedy: bool):
+    """One step's observation (K26), forward (K20, K1-K3, K17) and action:
+    K9 with the uniforms ``u`` [B, A], or greedy through K4. Returns
+    (action [B] int32, logp [B], value [B])."""
+    from ddls_tpu_torch.models.policy import (mask_logits_argmax,
+                                              mask_sample_logp)
+
+    gf, mask = kernel_obs(dobs, *(fields[name][:, d]
+                                  for name, _ in OBS_FIELDS))
+    logits, value = model.trunk(dobs.forward_batch(fields["jtype"][:, d],
+                                                   gf, mask))
+    if not model.apply_action_mask:
+        mask = torch.ones_like(mask)
+    if not greedy:
+        action, logp = mask_sample_logp(logits, mask, u)
+        return action, logp, value
+    masked, action = mask_logits_argmax(logits, mask)
+    logp = torch.log_softmax(masked, 1).gather(1, action[:, None])[:, 0]
+    return action.to(torch.int32), logp, value
+
+
+def segment_init(et: EpisodeTables, bank: dict,
+                 memo_cfg: Optional[device_memo.MemoConfig] = None, *,
+                 device="cuda", dtype: torch.dtype = torch.float32) -> dict:
+    """The state ``make_segment_fn``'s segments carry (reference: :1585):
+    ``{"env": each lane's initial episode state, "memo": a fresh table
+    per lane or None}``; ``bank`` a stack of banks [B, J] (or one)."""
+    ek = episode_kernels(et, device=device, dtype=dtype)
+    b = device_bank(bank, ek.dev)
+    lanes = b["type"].shape[0]
+    memo = (None if memo_cfg is None else device_memo.memo_init(
+        lanes, ek.dev.pads.n_ops, ek.dev.pads.n_deps, dtype, memo_cfg,
+        ek.dev.device))
+    return {"env": ek.init_state(b), "memo": memo}
+
+
+def make_segment_fn(et: EpisodeTables, ot: dict, model, n_steps: int,
+                    memo_cfg: Optional[device_memo.MemoConfig] = None, *,
+                    device="cuda", dtype: torch.dtype = torch.float32):
+    """``segment(bank, state, uniforms=None, generator=None, model=None)
+    -> (trace, next_fields)`` (reference: ``make_segment_fn`` :1596):
+    exactly ``n_steps`` policy decisions of every lane of the stacked
+    banks, the state (``segment_init``'s, built with the same
+    ``memo_cfg``) carried across calls and updated in place, an ended
+    episode reset in place to a fresh run of its bank (``done`` marks the
+    step). The memo outlives the reset.
+
+    A step: K26 (the observation), K20 and the forward (K1-K3, K17), K9
+    (the action, from ``uniforms`` [B, T, A] handed in or drawn from
+    ``generator``), K25's prepare (the config row), K23, K24, with the
+    memo K27, K21 (``skip``), with the memo K28, then K25 (the commit, the
+    clock, the counters, the reset, the next step's fields). No host sync.
+    ``model`` (default: the one given here) is the ``GNNPolicy`` that
+    acts, on the device.
+
+    The port's functions are lane-batched, so ``vmap_segment_fn`` (:1740)
+    has no counterpart: a stack of banks is the lanes.
+
+    ``trace`` ([B, T] tensors on the device): the reference's ``action``,
+    ``logp``, ``value``, ``reward``, ``done``, ``ep_accepted``,
+    ``ep_blocked``, ``ep_return``, ``ep_completed``, ``ep_arrived``, the
+    compact fields (``OBS_FIELDS``) and with the memo ``memo_hits``,
+    ``memo_misses``, ``memo_evicts``; also the decision's ``accept``,
+    ``cause``, ``jct`` and ``t``. ``next_fields``: the fields after the
+    segment, [B] each."""
+    ek = episode_kernels(et, device=device, dtype=dtype)
+    dev = ek.dev
+    dobs = device_obs(ot, dev)
+    acting = model
+
+    def segment(bank: dict, state: dict, uniforms=None, generator=None,
+                model=None):
+        model = acting if model is None else model
+        b = device_bank(bank, dev)
+        env, memo = state["env"], state["memo"]
+        if (memo is None) != (memo_cfg is None):
+            raise ValueError("the state's memo does not match memo_cfg")
+        lanes, t_len = b["type"].shape[0], n_steps
+        kw = dict(device=dev.device)
+        u = _step_uniforms(uniforms, generator, t_len, lanes,
+                           dobs.n_actions, dev.device)
+        trace = {name: torch.zeros((lanes, t_len), dtype=want or dtype,
+                                   **kw)
+                 for name, want in TRACE_FIELDS + SEGMENT_TRACE_FIELDS}
+        fields = {name: torch.empty((lanes, t_len + 1), dtype=want or dtype,
+                                    **kw) for name, want in OBS_FIELDS}
+        for name, value in obs_fields(env, b).items():
+            fields[name][:, 0] = value
+        memo_trace = (None if memo is None else
+                      {k: torch.zeros((lanes, t_len), dtype=torch.int32,
+                                      **kw)
+                       for k in device_memo.MEMO_TRACE_KEYS})
+        seg_trace = {name: trace[name] for name, _ in SEGMENT_TRACE_FIELDS}
+        acts, logps, values = [], [], []
+        with torch.no_grad():
+            for d in range(t_len):
+                action, logp, value = _policy_step(model, dobs, fields, d,
+                                                   u[d], greedy=False)
+                episode_prepare(ek, env, b, action)
+                raw = ek.evaluate(env, memo, memo_trace, d)
+                episode_step(ek, env, b, None, raw, trace, d,
+                             seg_trace=seg_trace, fields=fields, reset=True)
+                acts.append(action)
+                logps.append(logp)
+                values.append(value)
+        trace.pop("has_job")
+        trace.update(action=torch.stack(acts, 1), logp=torch.stack(logps, 1),
+                     value=torch.stack(values, 1),
+                     **{name: fields[name][:, :t_len]
+                        for name, _ in OBS_FIELDS}, **(memo_trace or {}))
+        return trace, {name: fields[name][:, t_len]
+                       for name, _ in OBS_FIELDS}
+
+    return segment
+
+
+def make_policy_episode_fn(et: EpisodeTables, ot: dict, model,
+                           greedy: bool = False,
+                           memo_cfg: Optional[device_memo.MemoConfig]
+                           = device_memo.MemoConfig(), *, device="cuda",
+                           dtype: torch.dtype = torch.float32):
+    """``episode(bank, uniforms=None, generator=None)`` (reference:
+    ``make_policy_episode_fn`` :1457): the policy in the loop for one
+    decision per bank job (J steps), every lane at once: per step the
+    ``make_segment_fn`` step without the reset, a lane whose episode ended
+    deciding nothing (action 0, logp and value 0, cause -1). ``greedy``
+    acts through K4 (argmax of the masked logits), else K9 samples from
+    ``uniforms`` [B, J, A] or ``generator``. The memo is on by default, as
+    the reference's (the results do not depend on it).
+
+    Returns the reference's keys: ``trace`` (action, logp, value, reward,
+    accept, cause, jct, t, has_job; each [B, J], or [J] for one bank),
+    ``accepted``, ``blocked``, ``ret``, ``completed``, ``t``, ``done``,
+    ``blocked_total``, ``arrived``, and with the memo its counters."""
+    ek = episode_kernels(et, device=device, dtype=dtype)
+    dev = ek.dev
+    dobs = device_obs(ot, dev)
+
+    def episode(bank: dict, uniforms=None, generator=None) -> dict:
+        single = np.ndim(bank["type"]) == 1
+        b = device_bank(bank, dev)
+        lanes, n_steps = b["type"].shape
+        kw = dict(device=dev.device)
+        u = (None if greedy else _step_uniforms(
+            uniforms[None] if single and uniforms is not None else uniforms,
+            generator, n_steps, lanes, dobs.n_actions, dev.device))
+        state = ek.init_state(b)
+        memo = (None if memo_cfg is None else device_memo.memo_init(
+            lanes, dev.pads.n_ops, dev.pads.n_deps, dtype, memo_cfg,
+            dev.device))
+        trace = {name: torch.zeros((lanes, n_steps), dtype=want or dtype,
+                                   **kw) for name, want in TRACE_FIELDS}
+        fields = {name: torch.empty((lanes, n_steps + 1),
+                                    dtype=want or dtype, **kw)
+                  for name, want in OBS_FIELDS}
+        for name, value in obs_fields(state, b).items():
+            fields[name][:, 0] = value
+        acts, logps, values = [], [], []
+        with torch.no_grad():
+            for d in range(n_steps):
+                has_job = (state["queue_row"] >= 0) & ~state["done"]
+                action, logp, value = _policy_step(
+                    model, dobs, fields, d, None if u is None else u[d],
+                    greedy)
+                action = torch.where(has_job, action, 0).to(torch.int32)
+                episode_prepare(ek, state, b, action)
+                raw = ek.evaluate(state, memo)
+                episode_step(ek, state, b, None, raw, trace, d,
+                             fields=fields)
+                acts.append(action)
+                logps.append(torch.where(has_job, logp, 0.0))
+                values.append(torch.where(has_job, value, 0.0))
+        out = {"trace": (torch.stack(acts, 1), torch.stack(logps, 1),
+                         torch.stack(values, 1), trace["reward"],
+                         trace["accept"], trace["cause"], trace["jct"],
+                         trace["t"], trace["has_job"]),
+               "accepted": state["accepted"], "blocked": state["blocked"],
+               "ret": state["ret"], "completed": state["completed"],
+               "t": state["t"], "done": state["done"],
+               "blocked_total": state["blocked"]
+               + state["slot_valid"].sum(1).int(),
+               "arrived": state["ptr"]}
+        if memo is not None:
+            out.update(device_memo.memo_trace_counters(memo))
+        if single:
+            out = {k: (tuple(x[0] for x in v) if k == "trace" else v[0])
+                   for k, v in out.items()}
+        return out
+
+    return episode

@@ -15,7 +15,7 @@ zero). The JAX outputs were computed on exactly those padded arrays.
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -145,11 +145,12 @@ def load_device_env_fixture(path: str = DEVICE_ENV_PATH) -> Dict[str, object]:
 
 
 def mixed_action_episode(env, seed: int = 17, rng_seed: int = 23,
-                         before_step=None):
+                         before_step=None, policy=None):
     """One host episode of the reference's mixed-action policy
     (``tests/test_jax_episode.py:61-108``: 15% action 0, 40% the largest
-    valid action, else a uniform valid one), from ``env.reset(seed)``.
-    Works on the JAX package's env and on the port's.
+    valid action, else a uniform valid one), or of ``policy`` (a callable
+    of the observation) when given, from ``env.reset(seed)``. Works on the
+    JAX package's env and on the port's.
 
     Returns ``(arrivals, decisions, stats)``: one record per arrived job
     (``build_job_bank``'s), per decision ``(action, reward, accepted,
@@ -183,7 +184,9 @@ def mixed_action_episode(env, seed: int = 17, rng_seed: int = 23,
         t_dec = env.cluster.stopwatch.time()
         valid = np.nonzero(np.asarray(obs["action_mask"]))[0]
         r = rng.rand()
-        if r < 0.15:
+        if policy is not None:
+            action = int(policy(obs))
+        elif r < 0.15:
             action = 0
         elif r < 0.55:
             action = int(valid[-1])
@@ -342,3 +345,375 @@ def small_surface_kwargs(path_to_files: str) -> dict:
         max_partitions_per_op=8, min_op_run_time_quantum=0.01,
         reward_function="job_acceptance", max_simulation_run_time=5e3,
         pad_obs_kwargs={"max_nodes": 150, "max_edges": 512})
+
+
+# ------------------------------------------------------- device collection
+# The reference's device collection recorded
+# (scripts/export_torch_device_collect_fixture.py writes it): on the small
+# surface of the reference's memo test and at full width on env_load32
+# with ppo_device_trained, 2 lanes x 3 segments of its DevicePPOCollector
+# (memo off) with the uniforms its key splits drew, the segments' traces,
+# next fields, rebuilt observations, bootstrap values and episode records;
+# and the reference memo's decisions on a key sequence of the small
+# surface, in float32 and float64.
+DEVICE_COLLECT_PATH = os.path.join(DATA_DIR, "device_collect_recorded.npz")
+DEVICE_COLLECT_SURFACES = ("small", "full")
+# the tiny policy of the reference's memo test
+MEMO_TINY_ARCH = {"out_features_msg": 4, "out_features_hidden": 8,
+                  "out_features_node": 4, "out_features_graph": 4,
+                  "fcnet_hiddens": (16,)}
+
+
+def memo_surface_kwargs(path_to_files: str) -> dict:
+    """The env of the reference's memo test (``tests/test_jax_memo.py``
+    ``memo_env``: 8 servers, the profiles of
+    ``generate_pipedream_txt_files(path, n_cnn=1, n_translation=1, seed=9,
+    min_ops=4, max_ops=6)``, pads 32/64, max degree 4)."""
+    return dict(
+        topology_config={"type": "ramp", "kwargs": {
+            "num_communication_groups": 2,
+            "num_racks_per_communication_group": 2,
+            "num_servers_per_rack": 2, "num_channels": 1,
+            "total_node_bandwidth": 1.6e12,
+            "intra_gpu_propagation_latency": 50e-9,
+            "worker_io_latency": 100e-9}},
+        node_config={"type_1": {"num_nodes": 8, "workers_config": [
+            {"num_workers": 1, "worker": "A100"}]}},
+        jobs_config={"path_to_files": path_to_files,
+                     "job_interarrival_time_dist": {
+                         "_target_":
+                             "ddls_tpu.demands.distributions.Fixed",
+                         "val": 60.0},
+                     "max_acceptable_job_completion_time_frac_dist": {
+                         "_target_":
+                             "ddls_tpu.demands.distributions.Uniform",
+                         "min_val": 0.2, "max_val": 1.0, "decimals": 2},
+                     "replication_factor": 10,
+                     "job_sampling_mode": "remove_and_repeat",
+                     "num_training_steps": 10},
+        max_partitions_per_op=4, min_op_run_time_quantum=0.01,
+        reward_function="job_acceptance", max_simulation_run_time=6e2,
+        pad_obs_kwargs={"max_nodes": 32, "max_edges": 64})
+
+
+def memo_lane_records(types: Sequence[str], lane: int, n_jobs: int = 12):
+    """Lane ``lane``'s job bank of the reference's memo test
+    (``_lane_banks``: models and SLA fractions from ``RandomState(100 +
+    lane)``, 10 steps, a job every 60)."""
+    r = np.random.RandomState(100 + lane)
+    return [{"model": types[int(r.randint(0, len(types)))],
+             "num_training_steps": 10,
+             "sla_frac": round(float(r.uniform(0.2, 1.0)), 2),
+             "time_arrived": 60.0 * i} for i in range(n_jobs)]
+
+
+def load_device_collect_fixture(path: str = DEVICE_COLLECT_PATH
+                                ) -> Dict[str, object]:
+    """``{surface: {"types", "banks" {name: [B, J]}, "params" (the flax
+    tree, flattened; small only), "collects": [{"uniforms" [B, T, A],
+    "trace" {key: [B, T]}, "next" {key: [B]}, "graph_features" [T, B, G],
+    "action_mask" [T, B, A], "last_values" [B], "episodes" [records]},
+    ...]}, "memo": {dtype: {...}}}``."""
+    import json
+
+    with np.load(path, allow_pickle=False) as data:
+        def group(prefix):
+            return {k[len(prefix):]: data[k] for k in data.files
+                    if k.startswith(prefix)}
+
+        out: Dict[str, object] = {}
+        for s in DEVICE_COLLECT_SURFACES:
+            n = int(data[f"{s}/n_collects"])
+            collects = []
+            for c in range(n):
+                p = f"{s}/c{c}/"
+                collects.append({
+                    "uniforms": data[p + "uniforms"],
+                    "trace": group(p + "trace/"), "next": group(p + "next/"),
+                    "graph_features": data[p + "graph_features"],
+                    "action_mask": data[p + "action_mask"],
+                    "last_values": data[p + "last_values"],
+                    "episodes": json.loads(str(data[p + "episodes"]))})
+            out[s] = {"types": json.loads(str(data[f"{s}/types"])),
+                      "banks": group(f"{s}/banks/"),
+                      "params": group(f"{s}/params/"),
+                      "collects": collects}
+        out["memo"] = {dt: group(f"memo/{dt}/")
+                       for dt in ("float32", "float64")}
+        return out
+
+
+# a collect against its recording: the keys that must be equal, and the
+# limits of logp and of the values and bootstrap values (the rollout's: the
+# forward's float32 reductions run in another order than XLA's)
+COLLECT_EXACT_KEYS = ("action", "reward", "done", "ep_accepted",
+                      "ep_blocked", "ep_return", "ep_completed",
+                      "ep_arrived", "jtype", "frac", "steps", "n_occupied",
+                      "n_running")
+LOGP_TOL, VALUES_TOL = 1e-5, 5e-5
+
+
+def hold_collect(out, rec, steps: Optional[int] = None):
+    """A port collect (``DevicePPOCollector.collect``'s output, [T, B]
+    host arrays) against a recorded one (``load_device_collect_fixture``'s,
+    its trace [B, T]) over the first ``steps`` steps (all by default): the
+    exact keys and the actions equal, the rebuilt graph features and masks
+    bit-equal, logp within ``LOGP_TOL``, the values within ``VALUES_TOL``;
+    over a whole collect also the bootstrap values within ``VALUES_TOL``
+    and the episode records equal.
+
+    Returns ``(faults, errs)``: what differs (empty when the collect
+    holds) and the largest logp, value and bootstrap differences (the
+    last None over a part)."""
+    import json
+
+    t = steps or rec["uniforms"].shape[1]
+    whole = t == rec["uniforms"].shape[1]
+    tb = {k: np.swapaxes(v, 0, 1)[:t] for k, v in rec["trace"].items()}
+    faults = [key for key in COLLECT_EXACT_KEYS
+              if not np.array_equal(out["trace"][key][:t],
+                                    tb[key].astype(out["trace"][key].dtype))]
+    if not np.array_equal(out["traj"]["actions"][:t], tb["action"]):
+        faults.append("actions")
+    for key in ("graph_features", "action_mask"):
+        got = out["traj"]["obs"][key][:t]
+        if got.dtype != rec[key].dtype or not np.array_equal(
+                got, rec[key][:t]):
+            faults.append(key)
+    errs = [float(np.abs(out["traj"]["logp"][:t] - tb["logp"]).max()),
+            float(np.abs(out["traj"]["values"][:t] - tb["value"]).max()),
+            None]
+    if whole:
+        errs[2] = float(np.abs(out["last_values"]
+                               - rec["last_values"]).max())
+        if json.loads(json.dumps(out["episodes"], sort_keys=True)) \
+                != rec["episodes"]:
+            faults.append("episodes")
+    for name, err, tol in zip(("logp", "values", "last_values"), errs,
+                              (LOGP_TOL, VALUES_TOL, VALUES_TOL)):
+        if err is not None and not err <= tol:
+            faults.append(f"{name} off by {err}")
+    return faults, tuple(errs)
+
+
+# what a step decides besides the exact keys (a collector's trace holds it)
+DECISION_KEYS = ("accept", "cause", "jct", "t")
+
+
+def ended_episode_records(traces: Sequence[dict]) -> Tuple[List[dict],
+                                                          List[str]]:
+    """The records of the episodes that ended in the last of ``traces``
+    (a collector's ``trace`` of every collect from its first, [T, B] host
+    arrays), each built from the steps alone: the length counted since
+    the lane's previous end, the return the float32 sum of the step
+    rewards in step order, with the episode counters at the end step for
+    the jobs and the host's denominators (``DevicePPOCollector``'s record).
+    Returns ``(records, faults)``: the records in the collector's order,
+    and where an episode's counters disagree with its steps (``ep_return``
+    against the summed rewards, ``ep_accepted`` against the accepted
+    decisions)."""
+    done = np.concatenate([tr["done"] for tr in traces])
+    reward = np.concatenate([tr["reward"] for tr in traces])
+    accept = np.concatenate([tr["accept"] for tr in traces])
+    first = len(done) - len(traces[-1]["done"])
+    last = traces[-1]
+    lanes = done.shape[1]
+    begin = np.zeros(lanes, np.int64)
+    ret = np.zeros(lanes, np.float32)
+    n_acc = np.zeros(lanes, np.int64)
+    records, faults = [], []
+    for t in range(len(done)):
+        ret = (ret + reward[t]).astype(np.float32)
+        n_acc += accept[t]
+        for b in np.nonzero(done[t])[0]:
+            if t >= first:
+                s = t - first
+                arr = int(last["ep_arrived"][s, b])
+                com = int(last["ep_completed"][s, b])
+                blk = int(last["ep_blocked"][s, b])
+                records.append({
+                    "env_index": int(b), "episode_return": float(ret[b]),
+                    "episode_length": int(t - begin[b] + 1),
+                    "num_jobs_arrived": arr, "num_jobs_completed": com,
+                    "num_jobs_blocked": blk,
+                    "acceptance_rate": com / arr if arr else 0.0,
+                    "blocking_rate": blk / arr if arr else 0.0})
+                if last["ep_return"][s, b] != ret[b]:
+                    faults.append(f"lane {b} step {s}: ep_return")
+                if last["ep_accepted"][s, b] != n_acc[b]:
+                    faults.append(f"lane {b} step {s}: ep_accepted")
+            begin[b], ret[b], n_acc[b] = t + 1, 0, 0
+    return records, faults
+
+
+def restart_uniforms(uniforms, done) -> Tuple[np.ndarray, np.ndarray]:
+    """For a collect's ``uniforms`` [B, T, A] and its ``done`` [T, B]:
+    each lane's first end step (-1 where none), and uniforms [B, T, A]
+    whose first steps are, for each lane that ended, the lane's uniforms
+    after that end (0.5 elsewhere), so that a fresh collector takes the
+    steps that those lanes take after their reset."""
+    u = np.asarray(uniforms, np.float32)
+    d = np.asarray(done)
+    out = np.full_like(u, 0.5)
+    ends = np.full(u.shape[0], -1, np.int64)
+    for b in range(u.shape[0]):
+        hit = np.nonzero(d[:, b])[0]
+        if len(hit):
+            ends[b] = hit[0]
+            out[b, :u.shape[1] - hit[0] - 1] = u[b, hit[0] + 1:]
+    return ends, out
+
+
+def restart_faults(trace, fresh_trace, ends) -> Tuple[int, List[str]]:
+    """The steps that each lane takes after its first end (``ends``, from
+    ``restart_uniforms``) in a collect's ``trace`` against a fresh
+    collector's first steps under ``restart_uniforms``' uniforms
+    (``fresh_trace``), key by key: the exact keys and the decisions, equal.
+    Returns ``(steps compared, what differs)``."""
+    steps, faults = 0, []
+    T = len(trace["done"])
+    for b, s in enumerate(ends):
+        k = T - int(s) - 1 if s >= 0 else 0
+        steps += k
+        for key in COLLECT_EXACT_KEYS + DECISION_KEYS:
+            if k and not np.array_equal(trace[key][s + 1:, b],
+                                        fresh_trace[key][:k, b],
+                                        equal_nan=True):
+                faults.append(f"lane {b}: {key}")
+    return steps, faults
+
+
+# the kernels a device-collection step launches besides the replay's
+SEGMENT_KERNELS = ("kernel_obs", "episode_prepare", "memo_probe",
+                   "memo_insert", "episode_step")
+
+
+def segment_kernel_diffs(et, ot, model, bank: dict, uniforms, steps: int,
+                         memo_cfg=None, *, device="cuda", dtype=None,
+                         start: Optional[dict] = None):
+    """The first ``steps`` steps of a device-collection segment of the
+    stacked ``bank`` with the handed-in ``uniforms`` [B, T, A] (as
+    ``device_env.make_segment_fn`` runs them), each call of K26, K25's
+    prepare, K27, K28 (with a memo) and K25 with the reset held against
+    its plain version on the step's own inputs. The segment goes on with
+    the kernels' outputs. It starts from a fresh state and, with
+    ``memo_cfg``, an empty memo; or from ``start``, a segment state
+    (``segment_init``'s or a collector's ``state``, in ``dtype``: its
+    episodes and its memo), which it copies and leaves as it was.
+
+    Returns ``(diffs, held, trace)``: the largest ``max_difference`` per
+    kernel (0: bit-equal floats and equal integers), the calls held per
+    kernel, and the segment's trace (action, reward, done, the episode
+    counters, the fields)."""
+    import torch
+
+    from ddls_tpu_torch.models.policy import mask_sample_logp
+    from ddls_tpu_torch.sim import device_env as de
+    from ddls_tpu_torch.sim import device_memo
+    from ddls_tpu_torch.sim import lookahead as lookahead_mod
+
+    dtype = dtype or torch.float32
+    ek = de.episode_kernels(et, device=device, dtype=dtype)
+    dev = ek.dev
+    dobs = de.device_obs(ot, dev)
+    b = de.device_bank(bank, dev)
+    lanes = b["type"].shape[0]
+    if start is None:
+        state = ek.init_state(b)
+        memo = (None if memo_cfg is None else device_memo.memo_init(
+            lanes, dev.pads.n_ops, dev.pads.n_deps, dtype, memo_cfg,
+            dev.device))
+    else:
+        state = {k: v.clone() for k, v in start["env"].items()}
+        memo = (None if start["memo"] is None else
+                {k: v.clone() for k, v in start["memo"].items()})
+    u = de._step_uniforms(uniforms, None, steps, lanes, dobs.n_actions,
+                          dev.device)
+    kw = dict(device=dev.device)
+    trace = {name: torch.zeros((lanes, steps), dtype=want or dtype, **kw)
+             for name, want in de.TRACE_FIELDS + de.SEGMENT_TRACE_FIELDS}
+    seg_trace = {name: trace[name] for name, _ in de.SEGMENT_TRACE_FIELDS}
+    fields = {name: torch.zeros((lanes, steps + 1), dtype=want or dtype,
+                                **kw) for name, want in de.OBS_FIELDS}
+    for name, value in de.obs_fields(state, b).items():
+        fields[name][:, 0] = value
+    diffs = dict.fromkeys(SEGMENT_KERNELS, 0.0)
+    held = dict.fromkeys(SEGMENT_KERNELS, 0)
+    actions = []
+
+    def hold(name, got, want):
+        diffs[name] = max(diffs[name], *(max_difference(g, w)
+                                         for g, w in zip(got, want)))
+        held[name] += 1
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    tb = dev.t
+    with torch.no_grad():
+        for d in range(steps):
+            f = [fields[name][:, d] for name, _ in de.OBS_FIELDS]
+            gf, mask = de.kernel_obs(dobs, *f)
+            hold("kernel_obs", (gf, mask), de.kernel_obs_plain(dobs, *f))
+            logits, _ = model.trunk(dobs.forward_batch(f[0], gf, mask))
+            action, _ = mask_sample_logp(logits, mask, u[d])
+            actions.append(action)
+            s2 = clone(state)
+            de.episode_prepare(ek, state, b, action)
+            ek.prepare(s2, b, action)
+            hold("episode_prepare", (state["cfg"], state["active"]),
+                 (s2["cfg"], s2["active"]))
+            cfg, active = state["cfg"], state["active"]
+            ots, new_mem, ok_place = de.allocate_job(
+                state["mem"], state["srv_job"] < 0, cfg, dev)
+            times, is_flow, chan, op_score, dep_score, finite_ok = \
+                de.price_and_score(ots, cfg, dev)
+            c = cfg.long()
+            valid = tb["op_valid"][c]
+            skip = ~active
+            if memo is not None:
+                probe = device_memo.memo_probe(memo, cfg, active, ots,
+                                               tb["op_valid"], times,
+                                               et.n_srv)
+                want = device_memo.memo_probe_plain(
+                    memo, cfg, active, ots, tb["op_valid"], times, et.n_srv)
+                hold("memo_probe", [probe[k] for k in sorted(probe)],
+                     [want[k] for k in sorted(want)])
+                skip = probe["skip"]
+            ticks = torch.empty(lanes, dtype=torch.int32, **kw)
+            t_step, _, _, _, ok_la = lookahead_mod.lookahead(
+                tb["op_compute"][c], valid, torch.where(valid, ots, -1),
+                op_score, tb["num_parents"][c], times, tb["dep_valid"][c],
+                tb["dep_src"][c], tb["dep_dst"][c], tb["dep_mutual"][c],
+                is_flow, dep_score, chan[:, :, None], num_workers=et.n_srv,
+                num_channels=et.n_chan, ticks=ticks, skip=skip)
+            if memo is not None:
+                memo2, t2, ok2 = clone(memo), t_step.clone(), ok_la.clone()
+                device_memo.memo_insert(memo, probe, cfg, active, times,
+                                        t_step, ok_la)
+                device_memo.memo_insert_plain(memo2, probe, cfg, active,
+                                              times, t2, ok2)
+                hold("memo_insert", [memo[k] for k in sorted(memo)]
+                     + [t_step, ok_la], [memo2[k] for k in sorted(memo2)]
+                     + [t2, ok2])
+            raw = {"ots": ots, "new_mem": new_mem, "ok_place": ok_place,
+                   "is_flow": is_flow, "chan": chan, "finite_ok": finite_ok,
+                   "t_step": t_step, "ok_la": ok_la, "ticks": ticks}
+            s2, tr2, f2 = clone(state), clone(trace), clone(fields)
+            de.episode_step(ek, state, b, None, raw, trace, d,
+                            seg_trace=seg_trace, fields=fields, reset=True)
+            de.episode_step_plain(
+                ek, s2, b, None, raw, tr2, d,
+                seg_trace={k: tr2[k] for k in seg_trace}, fields=f2,
+                reset=True)
+            hold("episode_step",
+                 [state[k] for k in sorted(state)]
+                 + [trace[k] for k in sorted(trace)]
+                 + [fields[k] for k in sorted(fields)],
+                 [s2[k] for k in sorted(state)] + [tr2[k] for k in
+                                                   sorted(trace)]
+                 + [f2[k] for k in sorted(fields)])
+    out = {k: v for k, v in trace.items()}
+    out["action"] = torch.stack(actions, 1)
+    out.update({name: fields[name][:, :steps] for name, _ in de.OBS_FIELDS})
+    return diffs, held, out

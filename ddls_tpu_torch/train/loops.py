@@ -50,8 +50,14 @@ that many collections in flight on a background thread against a
 snapshot of the pre-update params, whose lag V-trace corrects (reported
 per batch as ``params_age_updates``).
 
+With ``algo_config.device_collector`` (PPO, IMPALA, PG) the envs run on
+the card instead (``rl/ppo_device.py:DevicePPOCollector``: the
+reference's ``_make_device_collector`` :964, banks from ``rl/fused.py``,
+``use_jax_lookahead_memo`` and ``device_bank_jobs`` as the reference
+reads them); the loop then keeps one in-process env as the template.
+
 Left out, each raising where it is asked for: the fused and sebulba
-modes, the device collector, sharded parameter layouts, socket
+modes, multi-device collection, sharded parameter layouts, socket
 collection, scenarios, the run ledger, warm starts, W&B, and the
 multi-host fitness average of ES. The launcher's checkpoint and log
 cadences belong to the launcher (not ported).
@@ -74,13 +80,18 @@ from ddls_tpu_torch.rl.dqn import (ApexDQNLearner, DQNConfig,
 from ddls_tpu_torch.rl.es import ESConfig, ESLearner
 from ddls_tpu_torch.rl.impala import ImpalaConfig, ImpalaLearner
 from ddls_tpu_torch.rl.learner import reject_unknown_algo_keys
+from ddls_tpu_torch.rl.fused import horizon_bank_jobs, stacked_job_banks
 from ddls_tpu_torch.rl.pg import PGConfig, PGLearner
 from ddls_tpu_torch.rl.ppo import PPOLearner, ppo_config_from_rllib
+from ddls_tpu_torch.rl.ppo_device import DevicePPOCollector
 from ddls_tpu_torch.rl.ring import READY
 from ddls_tpu_torch.rl.rollout import (OBS_KEYS, ParallelVectorEnv,
                                        RolloutCollector, VectorEnv,
                                        harvest_episode_record, stack_obs)
 from ddls_tpu_torch.serve.server import resolve_device
+from ddls_tpu_torch.sim.device_env import (build_episode_tables,
+                                           build_obs_tables)
+from ddls_tpu_torch.sim.device_memo import MemoConfig
 from ddls_tpu_torch.train.checkpointer import (restore_train_state,
                                                save_train_state)
 from ddls_tpu_torch.train.metrics import LazyMetrics, read_back
@@ -199,6 +210,9 @@ class RLEpochLoop:
     # collecting against stale params needs an off-policy correction:
     # ImpalaEpochLoop opts in
     SUPPORTS_STALE_COLLECTION = False
+    # the loops that consume the shared trajectory dict (PPO, IMPALA, PG)
+    # can collect on the card
+    SUPPORTS_DEVICE_COLLECTION = True
 
     def __init__(self,
                  path_to_env_cls: str,
@@ -230,7 +244,8 @@ class RLEpochLoop:
                                  f"port's loop needs it off")
         if loop_mode not in LOOP_MODES:
             raise ValueError(f"loop_mode must be one of {LOOP_MODES} in "
-                             f"the port, got {loop_mode!r}")
+                             f"the port, got {loop_mode!r} (the fused and "
+                             "sebulba modes are not ported: ROADMAP A5)")
         self.pipeline_depth = int(pipeline_depth or 0)
         if self.pipeline_depth < 0:
             raise ValueError(
@@ -248,8 +263,28 @@ class RLEpochLoop:
             raise ValueError(
                 f"vec_env_backend must be 'auto', 'pipe' or 'shm', got "
                 f"{vec_env_backend!r}")
-        if (algo_config or {}).get("device_collector"):
-            raise ValueError("the port has no device collector yet")
+        # collection on the card (rl/ppo_device.py): the algo keys the
+        # loop itself reads, as the reference's
+        algo_keys = dict(algo_config or {})
+        self.device_collector = bool(algo_keys.get("device_collector",
+                                                   False))
+        if self.device_collector and not self.SUPPORTS_DEVICE_COLLECTION:
+            raise ValueError(
+                f"{type(self).__name__} does not support algo_config."
+                "device_collector: its collection steps host envs (the "
+                "device collector serves ppo, impala and pg)")
+        self.device_bank_jobs = algo_keys.get("device_bank_jobs")
+        self.use_jax_lookahead_memo = algo_keys.get(
+            "use_jax_lookahead_memo", "auto")
+        if (self.use_jax_lookahead_memo != "auto"
+                and not self.device_collector):
+            # a forced value on a path that never reads it would be a
+            # silent no-op
+            raise ValueError(
+                "use_jax_lookahead_memo is a device-collection knob "
+                "(sim/device_memo.py): it needs algo_config."
+                "device_collector=true; remove it or leave it 'auto' for "
+                "host collection")
         self.loop_mode = loop_mode
         self.metrics_sync_interval = max(int(metrics_sync_interval or 1), 1)
         self.vec_env_backend = vec_env_backend
@@ -279,7 +314,12 @@ class RLEpochLoop:
         if use_parallel_envs == "auto":
             # subprocess env workers pay off only with cores to run on
             use_parallel_envs = available_cores() > 1
-        seeds = [self.seed + i for i in range(self.num_envs)]
+        pool = self.num_envs
+        if self.device_collector:
+            # the envs run on the card; one in-process env is the template
+            # of the tables and the observation (evaluation builds its own)
+            use_parallel_envs, pool = False, 1
+        seeds = [self.seed + i for i in range(pool)]
         if use_parallel_envs:
             self.vec_env = ParallelVectorEnv(
                 self.env_cls, self.env_config, self.num_envs, seeds=seeds,
@@ -287,7 +327,7 @@ class RLEpochLoop:
         else:
             self.vec_env = VectorEnv(
                 [lambda: self.env_cls(**self.env_config)
-                 for _ in range(self.num_envs)], seeds=seeds)
+                 for _ in range(pool)], seeds=seeds)
         self.vec_env.reset()  # the observation shapes exist after a reset
         first = self.vec_env.stacked_obs()
         self.n_actions = int(first["action_mask"].shape[1])
@@ -336,11 +376,42 @@ class RLEpochLoop:
         ``_build_learner``; the DQN and ES loops build their own)."""
         self.learner = self._make_learner()
         self.state = self.learner.init_state(init_params)
+        if self.device_collector:
+            self.collector = self._make_device_collector()
+            return
         pipelined = self.loop_mode == "pipelined"
         self.collector = RolloutCollector(
             self.vec_env, self.learner, self.rollout_length,
             deferred_fetch=pipelined,
             ring_segments=self.pipeline_depth + 2 if pipelined else None)
+
+    def _memo_knob(self):
+        """``use_jax_lookahead_memo`` as the collector reads it: "auto"
+        passes through, True / False force a ``MemoConfig`` / None."""
+        knob = self.use_jax_lookahead_memo
+        if knob == "auto":
+            return "auto"
+        return MemoConfig() if knob else None
+
+    def _make_device_collector(self) -> DevicePPOCollector:
+        """Collection on the card (``algo_config.device_collector``;
+        reference: ``_make_device_collector`` :964 with ``_device_tables``,
+        ``_device_bank_size`` and ``_stacked_banks`` :883-923): the tables
+        of the template env, one bank a lane sampled from its workload
+        (``horizon_bank_jobs`` from ``seed + 31``, lane seeds from
+        ``seed``), episodes stepped in-kernel. Needs the canonical RAMP
+        episode tables and an observation without price features."""
+        env0 = self.vec_env.envs[0]
+        et = build_episode_tables(env0)
+        ot = build_obs_tables(env0, et)
+        n_jobs = horizon_bank_jobs(env0, self.seed + 31,
+                                   explicit=self.device_bank_jobs)
+        banks = stacked_job_banks(et, env0, self.num_envs, n_jobs,
+                                  seed_base=self.seed)
+        return DevicePPOCollector(et, ot, self.learner.model, banks,
+                                  self.rollout_length,
+                                  memo_cfg=self._memo_knob(),
+                                  device=self.device)
 
     # ------------------------------------------------ pipelining plumbing
     def _update_token(self) -> Any:
@@ -758,6 +829,8 @@ class ApexDQNEpochLoop(RLEpochLoop):
     algo/apex_dqn.yaml, ``ddls_tpu/train/loops.py:1630``). The Q-network
     runs unmasked; invalid actions are masked at selection."""
 
+    SUPPORTS_DEVICE_COLLECTION = False
+
     def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
         self.algo_cfg = dqn_config_from_rllib(algo_config)
         self._size_rollouts(algo_config, num_envs, rollout_length,
@@ -887,6 +960,8 @@ class ESEpochLoop(RLEpochLoop):
     rounded up to even. With probability ``eval_prob`` the epoch also runs
     the unperturbed params for a window, drops that window's episodes and
     restarts every env's episode."""
+
+    SUPPORTS_DEVICE_COLLECTION = False
 
     def _configure_algo(self, algo_config, num_envs, rollout_length) -> None:
         self.algo_cfg = es_config_from_rllib(algo_config)

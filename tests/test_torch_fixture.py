@@ -14,9 +14,11 @@ scripts/export_torch_pipeline_fixture.py, the JSON training configs (PPO, IMPALA
 scripts/export_torch_train_config.py, the six shipped checkpoints with
 their JAX greedy decisions from scripts/export_torch_checkpoints_fixture.py,
 the recorded lookahead lanes from
-scripts/export_torch_lookahead_lanes.py and the JAX device episode
-replays from scripts/export_torch_device_env_fixture.py; the recorded
-uniforms reproduce the recorded actions."""
+scripts/export_torch_lookahead_lanes.py, the JAX device episode
+replays from scripts/export_torch_device_env_fixture.py, and the JAX
+device collection (and its training config) from
+scripts/export_torch_device_collect_fixture.py; the recorded uniforms
+reproduce the recorded actions."""
 import os
 import sys
 
@@ -29,6 +31,7 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import export_torch_ac_fixture as ac_export  # noqa: E402
 import export_torch_checkpoints_fixture as ckpt_export  # noqa: E402
+import export_torch_device_collect_fixture as collect_export  # noqa: E402
 import export_torch_device_env_fixture as device_env_export  # noqa: E402
 import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
 import export_torch_lookahead_lanes as lanes_export  # noqa: E402
@@ -55,8 +58,8 @@ from ddls_tpu_torch.rl.fixture import (AC_TRAIN_PATH,  # noqa: E402
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           REQUESTS_PATH, checkpoint_path,
                                           load_requests)
-from ddls_tpu_torch.sim.fixture import (DEVICE_ENV_PATH,  # noqa: E402
-                                        LANES_PATH)
+from ddls_tpu_torch.sim.fixture import (DEVICE_COLLECT_PATH,  # noqa: E402
+                                        DEVICE_ENV_PATH, LANES_PATH)
 
 F32_MIN = np.finfo(np.float32).min
 
@@ -351,3 +354,53 @@ def test_device_env_fixture_regenerates_bit_for_bit():
         assert got.dtype == value.dtype, key
         np.testing.assert_array_equal(got, value, err_msg=key)
     assert os.path.getsize(DEVICE_ENV_PATH) < 200_000
+
+
+def test_device_collect_fixture_regenerates_bit_for_bit():
+    """The device collection recordings rebuilt by the export script: the
+    small surface's three collects and the memo's decisions in full; the
+    full-width surface's banks and the first 16 steps of its first collect
+    (uniforms, trace, rebuilt graph features and masks), which the
+    segment's prefix-stable key splits make the committed arrays' first
+    16 steps."""
+    prefix = 16
+    fresh = collect_export.export_fixture(prefix=prefix)
+    with np.load(DEVICE_COLLECT_PATH, allow_pickle=False) as data:
+        committed = {k: data[k] for k in data.files}
+    # what depends on the segment's end or on later collects
+    tail = ("full/c0/next/", "full/c0/last_values", "full/c0/episodes",
+            "full/n_collects")
+    step_axis = {"full/c0/uniforms": 1, "full/c0/graph_features": 0,
+                 "full/c0/action_mask": 0}
+    checked = 0
+    for key, value in fresh.items():
+        if key.startswith(tail):
+            continue
+        got = committed[key]
+        if key.startswith("full/c0/trace/"):
+            got = got[:, :prefix]
+        elif key in step_axis:
+            got = np.take(got, np.arange(prefix), axis=step_axis[key])
+        assert got.dtype == value.dtype, key
+        np.testing.assert_array_equal(got, value, err_msg=key)
+        checked += 1
+    assert not {k for k in committed if k.startswith(("full/c1/",
+                                                      "full/c2/"))} & set(
+        fresh)
+    assert checked > 100
+    assert int(committed["full/n_collects"]) == 3
+    assert os.path.getsize(DEVICE_COLLECT_PATH) < 400_000
+
+
+def test_device_train_config_regenerates_byte_for_byte():
+    """The device-collection training config of ppo_device_trained's run
+    (env_load32, 2 envs x 128 steps, device_collector on)."""
+    path = os.path.join(os.path.dirname(DEVICE_COLLECT_PATH),
+                        collect_export.CONFIG_NAME)
+    with open(path) as fh:
+        committed = fh.read()
+    cfg = collect_export.composed_config()
+    assert config_export.config_text(cfg) == committed
+    assert cfg["algo"]["algo_config"]["device_collector"] is True
+    assert (cfg["epoch_loop"]["num_envs"],
+            cfg["epoch_loop"]["rollout_length"]) == (2, 128)

@@ -195,13 +195,13 @@ def _fixture_rows(n=None):
 
 
 def test_sample_structure_equals_each_sample_alone():
-    """``_sample_structure`` (one ``prepare_flat_batch`` of the batch,
+    """``sample_structure`` (one ``prepare_flat_batch`` of the batch,
     re-based per sample) equals ``prepare_flat_batch`` of every sample
     alone, row for row."""
     _, rows = _fixture_rows()
     idx = np.random.default_rng(1).permutation(len(rows["node_split"]))[:40]
     sel = {k: v[idx] for k, v in rows.items()}
-    structure, node_mask = tlearner._sample_structure(sel)
+    structure, node_mask = tpolicy.sample_structure(sel)
     for i in range(len(idx)):
         host = tpolicy.prepare_flat_batch({k: v[i:i + 1]
                                            for k, v in sel.items()})
@@ -229,7 +229,7 @@ def test_minibatch_plain_equals_prepare_flat_batch():
     rng = np.random.default_rng(2)
     for idx in (rng.permutation(n)[:128], rng.integers(0, n, 64),
                 np.array([5]), np.arange(n)):
-        got = tlearner.minibatch_gather(
+        got = tpolicy.minibatch_gather(
             staged.tensors, torch.from_numpy(idx.astype(np.int64)),
             staged.n_nodes, staged.n_edges)
         sel = {k: v[idx] for k, v in rows.items()}

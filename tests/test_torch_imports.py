@@ -1,7 +1,8 @@
 """Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
 native engine's loader, the rollout collector, the PPO, IMPALA, PG, Ape-X
 DQN and ES learners, the fixture loaders, the loops and their entry point,
-the device env and its block search included) and chip_smoke.py import nothing of JAX, flax, orbax,
+the device env, its memo and block search, the device collector and its
+banks included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
@@ -52,6 +53,8 @@ _CHILD = textwrap.dedent("""
              "ddls_tpu_torch.sim.lookahead_arrays",
              "ddls_tpu_torch.sim.device_block_search",
              "ddls_tpu_torch.sim.device_env",
+             "ddls_tpu_torch.sim.device_memo", "ddls_tpu_torch.rl.fused",
+             "ddls_tpu_torch.rl.ppo_device",
              "ddls_tpu_torch.envs.partitioning_env",
              "ddls_tpu_torch.demands.jobs_generator",
              "ddls_tpu_torch.graphs.synthetic",

@@ -1033,8 +1033,8 @@ def test_minibatch_gather_equals_plain_and_the_host_batch(cuda):
     for array to the plain version and to ``prepare_flat_batch`` of the
     same samples on the host; one launch a call."""
     from ddls_tpu_torch.rl.fixture import load_train_fixture
-    from ddls_tpu_torch.rl.learner import (TRAJ_OBS_KEYS,
-                                           minibatch_gather_plain)
+    from ddls_tpu_torch.models.policy import minibatch_gather_plain
+    from ddls_tpu_torch.rl.learner import TRAJ_OBS_KEYS
     from ddls_tpu_torch.serve import load_export
     from ddls_tpu_torch.serve.fixture import EXPORT_PATH
 
@@ -1185,3 +1185,79 @@ def test_device_env_kernels_equal_plain(cuda, dtype):
             np.testing.assert_array_equal(
                 trace[name].cpu().numpy(),
                 fx["f32"]["trace"][name][lanes, :n_dec], err_msg=name)
+
+
+def _memo_surface(cuda, tmp_path):
+    """The reference memo test's surface in the port (profiles from the
+    port's generator) with the recorded tiny policy and banks."""
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.graphs.synthetic import generate_pipedream_txt_files
+    from ddls_tpu_torch.models.convert import params_from_flax
+    from ddls_tpu_torch.sim.fixture import (MEMO_TINY_ARCH,
+                                            load_device_collect_fixture,
+                                            memo_surface_kwargs)
+
+    fx = load_device_collect_fixture()["small"]
+    generate_pipedream_txt_files(str(tmp_path), n_cnn=1, n_translation=1,
+                                 seed=9, min_ops=4, max_ops=6)
+    env = RampJobPartitioningEnvironment(**memo_surface_kwargs(
+        str(tmp_path)))
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    model = policy.GNNPolicy(n_actions=5, graph_feature_dim=22,
+                             **MEMO_TINY_ARCH)
+    model.load_state_dict(params_from_flax(fx["params"], model))
+    return fx, et, ot, model.to(cuda).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_device_collect_kernels_equal_plain(cuda, dtype, tmp_path):
+    """K26, K25's prepare, K27, K28 and K25 with the reset against their
+    plain versions on every call of the small surface's first recorded
+    segment (24 steps, 2 lanes, episodes ending and resetting), with the
+    memo; in float32 the segment is the recorded JAX one."""
+    from ddls_tpu_torch.sim.device_memo import MemoConfig
+    from ddls_tpu_torch.sim.fixture import segment_kernel_diffs
+
+    fx, et, ot, model = _memo_surface(cuda, tmp_path)
+    rec = fx["collects"][0]
+    steps = rec["uniforms"].shape[1]
+    diffs, held, trace = segment_kernel_diffs(
+        et, ot, model, fx["banks"], rec["uniforms"], steps,
+        MemoConfig(n_sets=16, n_ways=2), device=cuda, dtype=dtype)
+    assert diffs == dict.fromkeys(diffs, 0.0), diffs
+    assert held == dict.fromkeys(held, steps)
+    assert bool(trace["done"].any())
+    if dtype == torch.float32:
+        for key in ("action", "reward", "done", "ep_accepted", "ep_blocked",
+                    "ep_completed", "ep_arrived", "jtype", "n_occupied",
+                    "n_running"):
+            np.testing.assert_array_equal(
+                trace[key].cpu().numpy(),
+                rec["trace"][key].astype(trace[key].cpu().numpy().dtype),
+                err_msg=key)
+
+
+def test_segment_memo_on_equals_off(cuda, tmp_path):
+    """The segment with the memo equals it without, bit for bit, over the
+    small surface's three recorded segments on the card; the memo
+    hits."""
+    from ddls_tpu_torch.sim.device_memo import MemoConfig
+
+    fx, et, ot, model = _memo_surface(cuda, tmp_path)
+    out = {}
+    for memo_cfg in (None, MemoConfig(n_sets=16, n_ways=2)):
+        seg = device_env.make_segment_fn(et, ot, model, 24, memo_cfg,
+                                         device=cuda)
+        state = device_env.segment_init(et, fx["banks"], memo_cfg,
+                                        device=cuda)
+        out[memo_cfg is None] = [seg(fx["banks"], state,
+                                     uniforms=rec["uniforms"])
+                                 for rec in fx["collects"]]
+    for (on, nf_on), (off, nf_off) in zip(out[False], out[True]):
+        for key in off:
+            assert torch.equal(on[key], off[key]), key
+        for key in nf_off:
+            assert torch.equal(nf_on[key], nf_off[key]), key
+    assert int(out[False][-1][0]["memo_hits"][:, -1].sum()) > 0
