@@ -160,7 +160,30 @@ exits non-zero (nothing is caught):
 21. policy_episode — ppo_device_trained greedy in-kernel (K4) in float64
    on the bank of the port's host env episode at seed 7009 on its
    surface: every decision equal to the host's.
-22. device_train — ``python -m ddls_tpu_torch.train --config
+22. oracle — the in-kernel OracleJCT episode (``make_oracle_episode_fn``:
+   each step prices every degree of each lane's queued job with K23 on
+   the state-lane index, K24, K21 without the memo and K29, chooses with
+   K30, then decides as the replay) at full width on
+   env_load32_price_mixed in float32, the memo on: bench.py's banks 0-7
+   at 1 lane and at 8 lanes (counted), each lane equal to its bank alone,
+   banks 0 and 1's first 64 steps equal to the recorded JAX float32
+   episode (``ddls_tpu_torch/data/oracle_episode_recorded.npz``: actions,
+   accept, cause, reward, t and jct bit-equal); every call of K23
+   (indexed), K29 and K30 of the 8-lane episode bit-equal to its plain
+   version, and the first steps' pricing equal to the recorded JAX
+   ``price_all``; the float64 episode of the port's host OracleJCT
+   episode (native pricing, a job every 80, seed 7005) decision for
+   decision; decisions/s at 1 and 8 lanes and device ms a step by kernel
+   under torch.profiler.
+23. price_policy_episode — ppo_price_mixed greedy in-kernel with the
+   observation's price block (``price_all`` and K26 with prices each
+   step), float64, counted, on the bank of the port's host env episode
+   under the same policy ([eval]'s surface and seed): every decision
+   equal to the host's; then the recorded JAX float32 episode's first 64
+   steps at full width: the trace equal, K26's price block bit-equal,
+   every call of K23 (indexed), K29 and K26 (prices) bit-equal to its
+   plain version.
+24. device_train — ``python -m ddls_tpu_torch.train --config
    ddls_tpu_torch/data/train_config_ppo_device_load32.json --epochs 2`` in
    this process (the route that trained ppo_device_trained), counted, run
    twice from one seed and bit-equal; its collect, update and evaluation
@@ -183,6 +206,7 @@ import copy
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -253,7 +277,8 @@ PAD_NODES, PAD_EDGES = 150, 512
 # no host-collection learner's path
 SIM_KERNELS = ("kernel_obs", "episode_prepare", "memo_probe", "memo_insert",
                "lookahead", "first_fit_block", "allocate_job",
-               "price_and_score", "episode_step")
+               "price_and_score", "episode_step", "allocate_job_indexed",
+               "price_reduce", "oracle_select", "kernel_obs_prices")
 TIMED_ITERS = 200
 
 
@@ -3653,16 +3678,66 @@ def _hold_replay(out, out_rows, want, rows, dtype, what):
     return worst
 
 
+def _profile_by_kernel(run, steps, names=kernels.KERNELS):
+    """``run()`` under torch.profiler. Returns the device time of each
+    CUDA kernel's launches in launch order ({function name: [ms, ...]})
+    and the profile: the wall, the device ms and the busy share; a step's
+    device ms and device operations (kernels, copies, fills); per step the
+    device ms and launches of each of the kernels ``names`` that ran, and
+    per launch their device ms; the rest's device ms and operations a
+    step, and its eight costliest functions' ms a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    by_launch = {}
+    for e in events:
+        by_launch.setdefault(e.name, []).append(e.device_time_total / 1e3)
+    mine, claimed = {}, set()
+    for name in names:
+        keys = [k for k in by_launch if re.search(rf"\b{name}_kernel\b", k)]
+        if keys:
+            mine[name] = [t for k in keys for t in by_launch[k]]
+            claimed.update(keys)
+    theirs = {k: v for k, v in by_launch.items() if k not in claimed}
+    total = sum(sum(v) for v in by_launch.values())
+    top = sorted(theirs.items(), key=lambda kv: -sum(kv[1]))[:8]
+    return by_launch, {
+        "wall_ms": wall_ms, "device_ms": total,
+        "device_busy_share": total / wall_ms,
+        "device_ms_per_step": total / steps,
+        "device_ops_per_step": len(events) / steps,
+        "kernel_device_ms_per_step": {k: sum(v) / steps
+                                      for k, v in mine.items()},
+        "kernel_launches_per_step": {k: len(v) / steps
+                                     for k, v in mine.items()},
+        "kernel_device_ms_per_launch": {k: sum(v) / len(v)
+                                        for k, v in mine.items()},
+        "other_device_ms_per_step": sum(sum(v) for v in theirs.values())
+        / steps,
+        "other_device_ops_per_step": sum(len(v) for v in theirs.values())
+        / steps,
+        "top_other_device_ms_per_step": {k[:60]: sum(v) / steps
+                                         for k, v in top}}
+
+
 def _profile_episode(et, fx, dtype, lanes):
     """The recorded banks ``lanes`` replayed twice, decision by decision as
     ``make_episode_fn`` runs them. The first run records what the bounds
     count: each decision's config rows, active lanes, K21 ticks, accepts
     and completions. The second, identical but for that recording, runs
     under torch.profiler: device time per kernel, the device operations
-    (kernels, copies, fills) per decision, and the busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (kernels, copies, fills) per decision, and the busy share
+    (``_profile_by_kernel``'s, a step a decision)."""
     ek = device_env.episode_kernels(et, device="cuda", dtype=dtype)
     bank = _episode_bank(fx["banks"], lanes, dtype)
     acts = torch.from_numpy(np.stack([fx["actions"]] * len(lanes))).to(
@@ -3687,42 +3762,55 @@ def _profile_episode(et, fx, dtype, lanes):
 
     calls = []
     run(calls)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        run(None)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    by_name, count = {}, {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.device_time_total / 1e3)
-            count[event.name] = count.get(event.name, 0) + 1
-    kernel_ms, kernel_ops = {}, {}
-    for name in EPISODE_KERNELS:
-        mine = [k for k in by_name if f"{name}_kernel<" in k]
-        kernel_ms[name] = sum(by_name[k] for k in mine)
-        kernel_ops[name] = sum(count[k] for k in mine) / D
-    others = sorted(((n, v) for n, v in count.items()
-                     if not any(f"{k}_kernel<" in n
-                                for k in EPISODE_KERNELS)),
-                    key=lambda x: -x[1])
-    device_total = sum(by_name.values())
+    _, prof = _profile_by_kernel(lambda: run(None), D, EPISODE_KERNELS)
     stacked = [torch.stack([c[i] for c in calls]).cpu().numpy()
                for i in range(6)]                                # [D, B]
-    return {"wall_ms": wall_ms, "device_ms": device_total,
-            "busy_share": device_total / wall_ms,
-            "kernel_device_ms": kernel_ms,
-            "other_device_ms": device_total - sum(kernel_ms.values()),
-            "device_ops_per_decision": sum(count.values()) / D,
-            "kernel_launches_per_decision": kernel_ops,
-            "other_device_ops_per_decision": {
-                n[:60]: c / D for n, c in others[:6]},
-            "decisions": D, "lanes": len(lanes), "cfg": stacked[0],
+    return {**prof, "decisions": D, "lanes": len(lanes), "cfg": stacked[0],
             "active": stacked[1], "ticks": stacked[2],
             "accept": stacked[4], "completions": stacked[5] - stacked[3]}
+
+
+def _k23_work(et, cfg, active, fb, n_deg=None):
+    """K23's least bytes and operations over calls of config rows ``cfg``
+    [D, B] whose rows ``active`` [D, B] place a job: the config rows of
+    each valid forward op (its sub-ops up to its split), and per launch
+    each shape row the placing rows' ops use, with the anchors and cells
+    of its shapes' origin spans; the row's state (memory and occupancy)
+    and outputs. With ``n_deg`` (``price_all``'s indexed calls: each run
+    of ``n_deg`` rows prices one lane) a pricing lane's state is read once
+    for its rows, and the new memory is not counted: ``price_all`` reads
+    only the placements and verdicts. Operations: one per cell test of
+    each valid op's shape row at the anchors of each shape's origin
+    span."""
+    tb, pads = et.tables, et.pads
+    F, P = pads.n_fwd, pads.n_parents
+    S = et.n_srv
+    st = et.st
+    n_valid = tb["n_ops"][cfg]
+    n_rows = st.row.shape[0]
+    split_row = np.minimum(np.maximum(tb["f_split"], 0), n_rows - 1)
+    f_bytes = (F + (tb["f_valid"] * (4 + fb + 4 * P + 8 * tb["f_split"]))
+               .sum(1))
+    shape_cells = (st.anchor_span[:, :, None]
+                   & (st.anchor_cells != -2)).sum((1, 2))
+    row_ids = [r[r >= 0] for r in st.row]
+    row_bytes = np.array([4 * len(r) + len(r) * S
+                          + 4 * int(shape_cells[r].sum()) for r in row_ids])
+    row_tests = np.array([int(shape_cells[r].sum()) for r in row_ids])
+    op_tests = (tb["f_valid"] * row_tests[split_row]).sum(1)
+    rows_bytes = 0.0
+    for d in range(cfg.shape[0]):
+        used = np.unique(split_row[cfg[d]][
+            tb["f_valid"][cfg[d]] & (active[d] > 0)[:, None]])
+        rows_bytes += row_bytes[used].sum()
+    nbytes = rows_bytes + float(np.sum(active * (
+        4 + f_bytes[cfg] + 4 * n_valid + 1)))
+    if n_deg is None:
+        state = float(np.sum(active)) * (S * (fb + 1) + S * fb)
+    else:
+        lanes = active.reshape(cfg.shape[0], -1, n_deg).max(2)
+        state = float(np.sum(lanes)) * S * (fb + 1)
+    return nbytes + state, float(np.sum(active * op_tests[cfg]))
 
 
 def _episode_bounds(et, prof, dtype):
@@ -3744,38 +3832,16 @@ def _episode_bounds(et, prof, dtype):
     slot."""
     tb, pads = et.tables, et.pads
     fb = 4 if dtype == torch.float32 else 8
-    N, M, F, P = pads.n_ops, pads.n_deps, pads.n_fwd, pads.n_parents
+    N, M = pads.n_ops, pads.n_deps
     G, Eg, Sy, O = pads.n_groups, pads.group_edges, pads.n_sync, pads.n_o2o
     S, C, R = et.n_srv, et.n_chan, et.n_srv
-    st = et.st
     cfg, active = prof["cfg"], prof["active"].astype(np.float64)
     ticks, accept = prof["ticks"], prof["accept"].astype(np.float64)
     completions = prof["completions"].astype(np.float64)
     D, B = cfg.shape
     n_valid = tb["n_ops"][cfg]
     m_valid = tb["n_deps"][cfg]
-    # K23: the config rows of each valid forward op (its sub-ops up to its
-    # split), and per launch each shape row the deciding lanes' ops use,
-    # with the anchors and cells of its shapes' origin spans
-    n_rows = st.row.shape[0]
-    split_row = np.minimum(np.maximum(tb["f_split"], 0), n_rows - 1)
-    f_bytes = (F + (tb["f_valid"] * (4 + fb + 4 * P + 8 * tb["f_split"]))
-               .sum(1))
-    shape_cells = (st.anchor_span[:, :, None]
-                   & (st.anchor_cells != -2)).sum((1, 2))
-    row_ids = [r[r >= 0] for r in st.row]
-    row_bytes = np.array([4 * len(r) + len(r) * S
-                          + 4 * int(shape_cells[r].sum()) for r in row_ids])
-    row_tests = np.array([int(shape_cells[r].sum()) for r in row_ids])
-    op_tests = (tb["f_valid"] * row_tests[split_row]).sum(1)
-    k23_rows = 0.0
-    for d in range(D):
-        used = np.unique(split_row[cfg[d]][
-            tb["f_valid"][cfg[d]] & (active[d] > 0)[:, None]])
-        k23_rows += row_bytes[used].sum()
-    k23_bytes = k23_rows + float(np.sum(active * (
-        4 + S * (fb + 1) + f_bytes[cfg] + 4 * n_valid + S * fb + 1)))
-    k23_ops = float(np.sum(active * op_tests[cfg]))
+    k23_bytes, k23_ops = _k23_work(et, cfg, active, fb)
     # K24: the lane's config rows and the priced edges, the pair channels
     # once a launch, the outputs of the valid deps and ops
     n_grp = tb["grp_valid"].sum(1)
@@ -4113,7 +4179,7 @@ def phase_episode(card):
     eager["episode_step"] = start.elapsed_time(end) / len(clones)
     for name in EPISODE_KERNELS:
         r = results[name]
-        r.update(ms=prof["kernel_device_ms"][name] / D,
+        r.update(ms=prof["kernel_device_ms_per_step"][name],
                  eager_ms=eager[name], bound_ms=bounds[name][0],
                  bound_by=bounds[name][1],
                  plain_ms=eager_ms(plain[name],
@@ -4123,19 +4189,18 @@ def phase_episode(card):
                         f"servers={et.n_srv} channels={et.n_chan} float32"))
     emit("episode_profile", card=card, decisions=D, lanes=8,
          wall_ms=prof["wall_ms"], device_ms=prof["device_ms"],
-         device_busy_share=prof["busy_share"],
-         device_ms_per_decision={k: v / D for k, v in
-                                 prof["kernel_device_ms"].items()},
-         other_device_ms_per_decision=prof["other_device_ms"] / D,
+         device_busy_share=prof["device_busy_share"],
+         device_ms_per_decision=prof["kernel_device_ms_per_step"],
+         other_device_ms_per_decision=prof["other_device_ms_per_step"],
          k21_ticks_per_lane_decision=float(prof["ticks"].sum()) / (
              D * prof["lanes"]),
          k21_slowest_lane_ticks_per_decision=float(
              prof["ticks"].max(1).mean()),
-         device_ops_per_decision=prof["device_ops_per_decision"],
-         kernel_launches_per_decision=prof[
-             "kernel_launches_per_decision"],
-         other_device_ops_per_decision=prof[
-             "other_device_ops_per_decision"],
+         device_ops_per_decision=prof["device_ops_per_step"],
+         kernel_launches_per_decision=prof["kernel_launches_per_step"],
+         other_device_ops_per_decision=prof["other_device_ops_per_step"],
+         top_other_device_ms_per_decision=prof[
+             "top_other_device_ms_per_step"],
          bound_ms_per_call={k: v[0] for k, v in bounds.items()},
          bound_bytes_per_call={k: v[2] for k, v in bounds.items()},
          bound_ops_per_call={k: v[3] for k, v in bounds.items()})
@@ -4252,50 +4317,16 @@ def _segment_bounds(et, tr):
 
 
 def _profile_collect(col, generator):
-    """One collect of a warmed collector under torch.profiler: device ms a
-    step by kernel (every kernel, the forward included), device operations
-    a step, the busy share, and the collect's trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """One collect of a warmed collector under ``_profile_by_kernel``
+    (every kernel, the forward included; a step a collect step), and the
+    collect's output, its trace with each lane's memo hits before it."""
     hits0 = col.state["memo"]["hits"].cpu().numpy().copy()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        out = col.collect(generator=generator)
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3
-    T = col.rollout_length
-    by_name, count = {}, {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            by_name[event.name] = (by_name.get(event.name, 0.0)
-                                   + event.device_time_total / 1e3)
-            count[event.name] = count.get(event.name, 0) + 1
-    mine = {}
-    for name in kernels.KERNELS:
-        keys = [k for k in by_name if f"{name}_kernel" in k]
-        if keys:
-            mine[name] = (sum(by_name[k] for k in keys),
-                          sum(count[k] for k in keys))
-    device_total = sum(by_name.values())
-    others = sorted(((n, v) for n, v in by_name.items()
-                     if not any(f"{k}_kernel" in n for k in mine)),
-                    key=lambda x: -x[1])
-    out["trace"]["memo_hits_before"] = hits0
-    return out, {
-        "wall_ms": wall_ms, "device_ms": device_total,
-        "device_busy_share": device_total / wall_ms,
-        "device_ops_per_step": sum(count.values()) / T,
-        "kernel_device_ms_per_step": {k: v[0] / T for k, v in mine.items()},
-        "kernel_launches_per_step": {k: v[1] / T for k, v in mine.items()},
-        "kernel_device_ms_per_launch": {k: v[0] / v[1]
-                                        for k, v in mine.items()},
-        "other_device_ms_per_step": {n[:60]: v / T for n, v in others[:8]},
-        "other_device_ops_per_step": sum(
-            c for n, c in count.items()
-            if not any(f"{k}_kernel" in n for k in mine)) / T}
+    box = {}
+    _, prof = _profile_by_kernel(
+        lambda: box.update(out=col.collect(generator=generator)),
+        col.rollout_length)
+    box["out"]["trace"]["memo_hits_before"] = hits0
+    return box["out"], prof
 
 
 def _collect_kernel_times(et, ot, model, fx):
@@ -4643,6 +4674,386 @@ def phase_policy_episode(card):
                                         "memo_evicts")}, **stats)
 
 
+# ------------------------------------------- in-kernel candidate pricing
+# the kernels each phase's main path adds (K23 with the state-lane index,
+# K29, and K30 or K26 with the price block), by their launch-count names
+ORACLE_KERNELS = ("allocate_job_indexed", "price_reduce", "oracle_select")
+PRICE_POLICY_KERNELS = ("allocate_job_indexed", "price_reduce",
+                        "kernel_obs_prices")
+# the step of the 8-lane episode whose state the kernels are timed at
+PRICED_TIMED_STEP = 200
+
+
+def _shipped_priced_surface():
+    """env_load32_price_mixed as the checkpoint fixture composes it (a
+    job every 80, native candidate pricing, the price block in the
+    observation), reset from seed 0, and its episode and obs tables."""
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    return env, et, device_env.build_obs_tables(env, et)
+
+
+def _np_trace(out, names=device_env_fixture.ORACLE_TRACE_NAMES):
+    return {name: x.cpu().numpy() for name, x in zip(names, out["trace"])}
+
+
+def _hold_host(trace, out, decisions, stats, what):
+    """A float64 device episode's trace against the port's host episode
+    (``mixed_action_episode``'s decisions and stats): every action, accept
+    and cause equal, the rewards equal but where the episode's end blocks
+    a job accepted at the last decision on the host ([policy_episode]'s
+    exception), t and jct within ``EPISODE_REL``, the arrivals, blocks and
+    completions equal. Returns (decisions, rel, accepted at the end)."""
+    n = len(decisions)
+    host = np.array([d[:5] for d in decisions], np.float64)
+    hjct = np.array([d[5] for d in decisions])
+    require(trace["has_job"][:n].all() and not trace["has_job"][n:].any(),
+            f"{what}: the episode decided other steps than the host's")
+    require(np.array_equal(trace["action"][:n], host[:, 0]),
+            f"{what}: the actions differ from the host episode's")
+    ended = (host[:, 2] > 0) & np.isnan(hjct)
+    require(np.array_equal(trace["reward"][:n][~ended], host[~ended, 1])
+            and np.array_equal(trace["accept"][:n], host[:, 2] > 0)
+            and np.array_equal(trace["cause"][:n], host[:, 3]),
+            f"{what}: decides otherwise than the host env")
+    ok = (host[:, 2] > 0) & np.isfinite(hjct)
+    rel = max(float(np.max(np.abs(trace["t"][:n] - host[:, 4])
+                           / np.maximum(np.abs(host[:, 4]), 1.0))),
+              float(np.max(np.abs(trace["jct"][:n][ok] - hjct[ok])
+                           / hjct[ok])) if ok.any() else 0.0)
+    require(rel <= EPISODE_REL, f"{what}: t / jct off the host's by rel "
+                                f"{rel}")
+    for key in ("arrived", "blocked_total", "completed"):
+        require(int(out[key]) == stats[key], f"{what}: {key} "
+                                             f"{int(out[key])} differs from "
+                                             f"the host's {stats[key]}")
+    return n, rel, int(ended.sum())
+
+
+def _priced_bounds(et, types, has_job, dtype, policy_rows=0):
+    """Per call, the least bytes and operations of K23 (indexed), K29, K30
+    and K26 (prices) over an episode's steps: ``types`` [D, B] the queued
+    job's type and ``has_job`` [D, B] whether a lane priced at each step
+    (the rows of lanes without a job are not read). K23 counts as
+    ``_k23_work``'s indexed calls over the n_deg rows of each pricing
+    lane; K29 a pricing row's valid flow flags, its three verdicts, its
+    time and outputs, and each lane's queue state and steps (a flow's
+    channel and occupancy are left out, so its bound is low rather than
+    high), one operation a valid dep; K30 a deciding lane's verdicts and
+    prices, its server occupancy, its bank row and type's sum, the degrees
+    and their shapes and the action, an operation a server and three a
+    degree; K26 (``policy_rows`` graph features a row) a row's fields,
+    static row, the row, mask and price block written, the verdicts and
+    prices."""
+    tb = et.tables
+    fb = 4 if dtype == torch.float32 else 8
+    n_deg, S = len(et.degrees), et.n_srv
+    A = et.max_action + 1
+    D, B = types.shape
+    cfg = (types[:, :, None] * n_deg + np.arange(n_deg)).reshape(D, -1)
+    active = np.repeat(has_job, n_deg, axis=1).astype(np.float64)
+    k23 = _k23_work(et, cfg, active, fb, n_deg)
+    m_valid = tb["n_deps"][cfg].astype(np.float64)
+    k29 = (float(np.sum(active * (m_valid + 3 + fb + 1 + fb)))
+           + D * B * (4 + 1 + fb), float(np.sum(active * m_valid)))
+    lanes = has_job.astype(np.float64)
+    k30 = (float(np.sum(lanes * (n_deg * (1 + fb + 4 + 1) + S * 4 + 4 + 1
+                                 + 4 + 3 * fb + 4))),
+           float(np.sum(lanes * (S + 3 * n_deg))))
+    k26 = (float(np.sum(lanes * (16 + 2 * fb + policy_rows * 4
+                                 + (policy_rows + A) * 4 + A * 4
+                                 + n_deg * (1 + fb)))),
+           float(np.sum(lanes * (policy_rows + 3 * A))))
+    out = {}
+    for name, (nbytes, ops) in (("allocate_job_indexed", k23),
+                                ("price_reduce", k29),
+                                ("oracle_select", k30),
+                                ("kernel_obs_prices", k26)):
+        b, by = bound_ms(nbytes, ops)
+        out[name] = (b / D, by, nbytes / D, ops / D)
+    return out
+
+
+def phase_oracle(card):
+    """[oracle]: the in-kernel OracleJCT episode
+    (``make_oracle_episode_fn``) at full width on env_load32_price_mixed
+    (45 configs, 9 degrees: 72 pricing rows at 8 lanes), float32, the
+    memo on: (a) bench.py's banks 0-7 (420 jobs every 50) at 1 lane each
+    and at 8 lanes, the 8-lane run counted (K23 indexed, K29 and K30 once
+    a step); each of the 8 lanes equal to its bank alone; banks 0 and 1's
+    first steps equal to the recorded JAX float32 episode (actions,
+    accept, cause, reward, t and jct bit-equal); (b) every call of K23
+    (indexed), K29 and K30 of the 8-lane episode against its plain
+    version, bit for bit, its trace the counted run's and its first steps'
+    pricing the recorded JAX ``price_all``'s, and the new kernels and
+    their plain versions timed on the calls of step 200 (its wall
+    includes that timing); (c) the float64 episode of the port's host
+    env's OracleJCT episode (native pricing, a job every 80, seed 7005),
+    decision for decision; (d) decisions/s at 1 and 8 lanes, device ms a
+    step by kernel and launches a step under torch.profiler."""
+    from ddls_tpu_torch.sim.device_memo import MemoConfig
+
+    ofx = device_env_fixture.load_oracle_fixture()
+    dfx = device_env_fixture.load_device_env_fixture()
+    env, et, ot = _shipped_priced_surface()
+    require(et.types == ofx["full"]["types"] == dfx["types"],
+            "the shipped surface's model types differ from the recordings'")
+    banks = dfx["banks"]
+    J = banks["type"].shape[1]
+    lanes8 = list(range(8))
+    fn = device_env.make_oracle_episode_fn(et, ot, device="cuda",
+                                           dtype=torch.float32)
+
+    def run(lanes):
+        bank = {k: v[lanes] for k, v in banks.items()}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn(bank)
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+
+    run([0])                                 # first use, not timed
+    one = [run([lane]) for lane in lanes8]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out8, wall8 = run(lanes8)
+    launches = kernels.launch_counts()
+    for name in ORACLE_KERNELS + ("allocate_job", "episode_prepare",
+                                  "episode_step"):
+        require(launches[name] == J, f"{name} launched {launches[name]} "
+                                     f"times in the {J} steps of the "
+                                     "8-lane oracle episode")
+    for name in ("price_and_score", "lookahead"):
+        require(launches[name] == 2 * J, f"{name} launched "
+                                         f"{launches[name]} times in {J} "
+                                         "steps (pricing and decision)")
+    for lane, (alone, _) in enumerate(one):
+        for s, a in zip(out8["trace"], alone["trace"]):
+            require(torch.equal(s[lane], a[0]),
+                    f"lane {lane} of 8 differs from its bank alone")
+        for key in ("accepted", "blocked", "ret", "completed", "t", "done",
+                    "blocked_total", "arrived"):
+            require(torch.equal(out8[key][lane], alone[key][0]),
+                    f"lane {lane} of 8: {key} differs from its bank alone")
+    trace8 = _np_trace(out8)
+    rec = ofx["full"]["oracle"]
+    P = ofx["full"]["prefix"]
+    seeds = [int(s) for s in ofx["full"]["seeds"]]
+    for i, seed in enumerate(seeds):
+        for name in device_env_fixture.ORACLE_TRACE_NAMES:
+            require(np.array_equal(trace8[name][seed, :P],
+                                   rec["trace"][name][i]),
+                    f"bank {seed}: {name} differs from the recorded JAX "
+                    "float32 oracle episode")
+
+    # (b) every call held against its plain version, and the new kernels
+    # timed on the calls of step PRICED_TIMED_STEP
+    timed = {}
+
+    def time_call(d, name, kernel, plain):
+        if d == PRICED_TIMED_STEP:
+            timed[name] = (eager_ms(kernel), eager_ms(plain, iters=3))
+
+    bank8 = _episode_bank(banks, lanes8, torch.float32)
+    t0 = time.monotonic()
+    diffs, held, stepped = device_env_fixture.priced_episode_diffs(
+        et, ot, bank8, J, memo_cfg=MemoConfig(), device="cuda",
+        dtype=torch.float32, at_call=time_call)
+    torch.cuda.synchronize()
+    held_s = time.monotonic() - t0
+    for name, value in diffs.items():
+        require(value == 0, f"{name} differs from its plain version on the "
+                            f"oracle episode's calls: {value}")
+    for name in device_env_fixture.ORACLE_TRACE_NAMES:
+        require(np.array_equal(stepped[name].cpu().numpy(), trace8[name]),
+                f"the held episode's {name} differs from the counted run's")
+    for name in ("price_ok", "price_jct"):
+        got = stepped[name].cpu().numpy()[seeds, :P]
+        require(np.array_equal(got, rec[name]), f"price_all's {name} "
+                "differs from the recorded JAX float32 one")
+
+    # (c) float64 against the port's host OracleJCT
+    host_env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    t0 = time.monotonic()
+    arrivals, decisions, stats = device_env_fixture.oracle_episode(
+        host_env, 7005)
+    host_s = time.monotonic() - t0
+    et64 = device_env.build_episode_tables(host_env)
+    ot64 = device_env.build_obs_tables(host_env, et64)
+    fn64 = device_env.make_oracle_episode_fn(et64, ot64, device="cuda",
+                                             dtype=torch.float64)
+    bank64 = device_env.build_job_bank(et64, arrivals)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out64 = fn64(bank64)
+    torch.cuda.synchronize()
+    device64_s = time.monotonic() - t0
+    n64, rel64, ended64 = _hold_host(_np_trace(out64), out64, decisions,
+                                     stats, "the float64 oracle episode")
+
+    # (d) the profile
+    n_dec = int(trace8["has_job"].sum())
+    by_launch, prof = _profile_by_kernel(lambda: fn(
+        {k: v[lanes8] for k, v in banks.items()}), J)
+    alloc = next(v for k, v in by_launch.items()
+                 if "allocate_job_kernel<" in k)
+    # each step launches K23 for the pricing rows first, then for the
+    # decision: the indexed launches are the even ones
+    ms = {"allocate_job_indexed": float(np.mean(alloc[0::2]))}
+    for name in ("price_reduce", "oracle_select"):
+        times = next(v for k, v in by_launch.items()
+                     if f"{name}_kernel<" in k)
+        ms[name] = float(np.mean(times))
+    types = np.where(trace8["has_job"], banks["type"][:, :J], 0).T
+    bounds = _priced_bounds(et, types, trace8["has_job"].T, torch.float32)
+    results = {}
+    for name in ORACLE_KERNELS:
+        results[name] = _new_result(
+            calls_per_step=1, held_calls=held[name], ms=ms[name],
+            eager_ms=timed[name][0], plain_ms=timed[name][1],
+            bound_ms=bounds[name][0], bound_by=bounds[name][1],
+            max_abs_err=diffs[name],
+            shape=(f"oracle episode: lanes=8 steps={J} "
+                   f"rows={8 * len(et.degrees)} N={et.pads.n_ops} "
+                   f"M={et.pads.n_deps} float32, timed at step "
+                   f"{PRICED_TIMED_STEP}"))
+    emit("oracle", card=card, steps=J, decisions_8_lanes=n_dec,
+         decisions_per_s_1_lane=float(np.mean(
+             [int(o["trace"][6].sum()) / w for o, w in one])),
+         decisions_per_s_8_lanes=n_dec / wall8,
+         episode_s_1_lane=float(np.mean([w for _, w in one])),
+         episode_s_8_lanes=wall8, held_episode_s=held_s,
+         held_calls={k: v for k, v in held.items() if v},
+         recorded_prefix=P, recorded_banks=seeds,
+         accepted=out8["accepted"].tolist(),
+         actions=sorted(set(trace8["action"][trace8["has_job"]].tolist())),
+         memo={k: out8[k].tolist() for k in ("memo_hits", "memo_misses")},
+         host_f64={"decisions": n64, "t_jct_max_rel_err": rel64,
+                   "accepted_at_the_end": ended64, "host_episode_s": host_s,
+                   "device_episode_s": device64_s, **stats},
+         launches={k: v for k, v in launches.items() if v},
+         launches_per_step={k: v / J for k, v in launches.items() if v},
+         profile=prof,
+         bound_ms_per_call={k: bounds[k][0] for k in ORACLE_KERNELS},
+         bound_bytes_per_call={k: bounds[k][2] for k in ORACLE_KERNELS})
+    return results, launches
+
+
+def phase_price_policy_episode(card):
+    """[price_policy_episode]: ppo_price_mixed greedy in-kernel with the
+    price block (``make_policy_episode_fn`` over price-feature tables:
+    ``price_all`` then K26 with prices each step), float64, on the bank
+    of the port's host env episode under the same greedy policy on
+    [eval]'s surface and seed (a job every 80, native candidate pricing,
+    seed 7005), counted: every action, accept and cause equal, rewards but
+    [policy_episode]'s exception, returns within 1e-9; then the first
+    steps of bench.py's bank 0 at full width in float32, every call of
+    K23 (indexed), K29 and K26 (prices) held against its plain version,
+    against the recorded JAX float32 episode: the trace equal and the
+    price block bit-equal."""
+    from ddls_tpu_torch.models.policy import prepare_flat_batch
+
+    ck = load_checkpoint_fixture("ppo_price_mixed")
+    env = RampJobPartitioningEnvironment(**ck["env_config"])
+    model = ck["model"].to("cuda").eval()
+
+    def greedy(obs):
+        batch = policy_mod.batch_to_device(
+            prepare_flat_batch(stack_obs([obs])), "cuda")
+        return int(model.flat_batched(batch)[2][0])
+
+    t0 = time.monotonic()
+    arrivals, decisions, stats = device_env_fixture.mixed_action_episode(
+        env, seed=7005, policy=greedy)
+    host_s = time.monotonic() - t0
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    require(bool(ot["with_prices"]), "the shipped surface's observation "
+                                     "carries no price block")
+    bank = device_env.build_job_bank(et, arrivals)
+    fn = device_env.make_policy_episode_fn(et, ot, model, greedy=True,
+                                           device="cuda",
+                                           dtype=torch.float64)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    out = fn(bank)
+    torch.cuda.synchronize()
+    device_s = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    J = len(bank["type"])
+    for name in PRICE_POLICY_KERNELS + ("mask_logits_argmax",):
+        require(launches[name] == J, f"{name} launched {launches[name]} "
+                                     f"times in the policy episode's {J} "
+                                     "steps")
+    trace = _np_trace(out, ("action", "logp", "value")
+                      + device_env_fixture.ORACLE_TRACE_NAMES[1:])
+    n, rel, ended = _hold_host(trace, out, decisions, stats,
+                               "the price-feature policy episode")
+    ret_err = abs(float(out["ret"]) - float(np.sum([d[1] for d in
+                                                    decisions])))
+    require(ret_err <= 1e-9 + 2.0 * ended, f"the episode's return is off "
+                                           f"the host's by {ret_err}")
+    by_launch, prof = _profile_by_kernel(lambda: fn(bank), J)
+    k26_ms = float(np.mean(next(v for k, v in by_launch.items()
+                                if "kernel_obs_kernel<" in k)))
+
+    # the recorded JAX float32 prefix, every call held
+    ofx = device_env_fixture.load_oracle_fixture()["full"]
+    rec, P = ofx["policy"], ofx["prefix"]
+    banks = device_env_fixture.load_device_env_fixture()["banks"]
+    seed = int(ofx["seeds"][0])
+    bank32 = _episode_bank(banks, [seed], torch.float32)
+    diffs, held, stepped = device_env_fixture.priced_episode_diffs(
+        et, ot, bank32, P, model, device="cuda", dtype=torch.float32)
+    for name, value in diffs.items():
+        require(value == 0, f"{name} differs from its plain version on the "
+                            f"price-feature episode's calls: {value}")
+    for name in device_env_fixture.ORACLE_TRACE_NAMES:
+        require(np.array_equal(stepped[name][0].cpu().numpy(),
+                               rec["trace"][name]),
+                f"{name} differs from the recorded JAX float32 price-"
+                "feature policy episode")
+    require(np.array_equal(stepped["price_block"][0].cpu().numpy(),
+                           rec["price_block"]),
+            "K26's price block differs from the recorded JAX float32 one")
+    dobs = device_env.device_obs(ot, device_env.device_tables(
+        et, "cuda", torch.float64))
+    f = [torch.from_numpy(np.ascontiguousarray(rec[name])).to(
+        "cuda", want or torch.float64)
+        for name, want in device_env.OBS_FIELDS]
+    prices = (torch.from_numpy(rec["price_ok"]).cuda(),
+              torch.from_numpy(rec["price_jct"]).to("cuda", torch.float64))
+    bounds = _priced_bounds(et, np.where(trace["has_job"], bank["type"],
+                                         0)[:, None],
+                            trace["has_job"][:, None], torch.float64,
+                            policy_rows=ot["graph_features"].shape[1])
+    name = "kernel_obs_prices"
+    result = _new_result(
+        calls_per_step=1, held_calls=held["kernel_obs_prices"],
+        ms=k26_ms, max_abs_err=diffs["kernel_obs_prices"],
+        eager_ms=eager_ms(lambda: device_env.kernel_obs(dobs, *f,
+                                                        prices=prices)),
+        plain_ms=eager_ms(lambda: device_env.kernel_obs_plain(
+            dobs, *f, prices=prices), iters=3),
+        bound_ms=bounds[name][0], bound_by=bounds[name][1],
+        shape=(f"price-feature policy episode: 1 lane, {J} steps, float64; "
+               f"timed on the {P} recorded rows"))
+    emit("price_policy_episode", card=card, decisions=n, steps=J,
+         host_episode_s=host_s, device_episode_s=device_s,
+         decisions_per_s=n / device_s, t_jct_max_rel_err=rel,
+         return_err=ret_err, accepted_at_the_end=ended,
+         actions=sorted(set(trace["action"][:n].tolist())),
+         recorded_prefix=P, held_calls={k: v for k, v in held.items()
+                                        if v},
+         launches={k: v for k, v in launches.items() if v},
+         profile=prof, bound_ms_per_call=bounds[name][0], **stats)
+    return {name: result}, launches
+
+
 def phase_device_train(card):
     """[device_train], the slice's main path: ``python -m
     ddls_tpu_torch.train --config train_config_ppo_device_load32.json
@@ -4959,6 +5370,8 @@ def main() -> int:
     episode_results, episode_launches, block_launches = phase_episode(card)
     collect_results = phase_device_collect(card)
     phase_policy_episode(card)
+    oracle_results, oracle_launches = phase_oracle(card)
+    price_results, price_launches = phase_price_policy_episode(card)
     device_train_launches = phase_device_train(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
@@ -5079,6 +5492,25 @@ def main() -> int:
             "library_device_ms": None, "calls": r["calls_per_step"],
             "calls_per": "collection step", "shapes": [r["shape"]],
             "card": card})
+    for results, launched, main_path in (
+            (oracle_results, oracle_launches,
+             "oracle (8 lanes, the float32 OracleJCT episode)"),
+            (price_results, price_launches,
+             "price_policy_episode (ppo_price_mixed greedy, float64)")):
+        for name, r in results.items():
+            spec = kernels.KERNELS[name]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": os.path.relpath(spec.source, REPO),
+                "replaces": spec.replaces, "launches": launched[name],
+                "main_path": main_path, "max_abs_err": r["max_abs_err"],
+                "max_rel_err": r["max_rel_err"],
+                "held_calls": r["held_calls"], "ms": r["ms"],
+                "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None,
+                "library_device_ms": None, "calls": r["calls_per_step"],
+                "calls_per": "step", "shapes": [r["shape"]], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,9 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``minibatch_gather``, in ``models/policy.py``; ``clip_adam``, which every
 learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``;
 ``first_fit_block`` in ``sim/device_block_search.py``; ``allocate_job``,
-``price_and_score``, ``episode_step``, ``episode_prepare`` and
-``kernel_obs`` in ``sim/device_env.py``; ``memo_probe`` and
+``price_and_score``, ``episode_step``, ``episode_prepare``,
+``kernel_obs``, ``price_reduce`` and ``oracle_select`` in
+``sim/device_env.py``; ``memo_probe`` and
 ``memo_insert`` in ``sim/device_memo.py``);
 each wrapper checks its tensors with
 ``check_cuda`` and launches with ``launch``, which raises if the C entry
@@ -58,7 +59,7 @@ HEADERS = ("common.cuh", "ln_row.cuh")
 # reference's arithmetic does
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     stem: ("-fmad=false",) for stem in ("placement", "pricing", "episode",
-                                        "obs", "memo")}
+                                        "obs", "memo", "oracle")}
 
 
 @dataclass(frozen=True)
@@ -158,7 +159,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # and the event clock (K25)
     KernelSpec("first_fit_block", "ddls_first_fit_block", "ppppiiiiiiiip",
                "ddls_tpu/sim/jax_block_search.py:62", file="placement"),
-    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 15 + "i" * 11 + "p",
+    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 16 + "i" * 11 + "p",
                "ddls_tpu/sim/jax_env.py:450", file="placement"),
     KernelSpec("price_and_score", "ddls_price_and_score",
                "p" * 33 + "i" * 10 + "dddd" + "i" + "p",
@@ -171,12 +172,27 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # lookahead memo's probe and insert (K27, K28)
     KernelSpec("episode_prepare", "ddls_episode_prepare", "p" * 7 + "i" * 5
                + "p", "ddls_tpu/sim/jax_env.py:1596", file="episode"),
-    KernelSpec("kernel_obs", "ddls_kernel_obs", "p" * 11 + "i" * 6 + "p",
+    KernelSpec("kernel_obs", "ddls_kernel_obs", "p" * 14 + "i" * 7 + "p",
                "ddls_tpu/sim/jax_env.py:1409", file="obs"),
     KernelSpec("memo_probe", "ddls_memo_probe", "p" * 19 + "i" * 7 + "p",
                "ddls_tpu/sim/jax_memo.py:201", file="memo"),
     KernelSpec("memo_insert", "ddls_memo_insert", "p" * 24 + "i" * 9 + "p",
                "ddls_tpu/sim/jax_memo.py:201", file="memo"),
+    # in-kernel candidate pricing: K23 with the state-lane index and K26
+    # with the price block (the same entry points, counted apart from
+    # their other mode), the verdicts and prices (K29) and the OracleJCT
+    # episode's choice of degree (K30)
+    KernelSpec("allocate_job_indexed", "ddls_allocate_job",
+               "p" * 16 + "i" * 11 + "p", "ddls_tpu/sim/jax_env.py:1085",
+               file="placement"),
+    KernelSpec("kernel_obs_prices", "ddls_kernel_obs",
+               "p" * 14 + "i" * 7 + "p", "ddls_tpu/sim/jax_env.py:1492",
+               file="obs"),
+    KernelSpec("price_reduce", "ddls_price_reduce", "p" * 12 + "i" * 7 + "p",
+               "ddls_tpu/sim/jax_env.py:1085", file="oracle"),
+    KernelSpec("oracle_select", "ddls_oracle_select",
+               "p" * 12 + "i" * 5 + "p", "ddls_tpu/sim/jax_env.py:1799",
+               file="oracle"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

@@ -24,6 +24,16 @@
 // hi == lo give 1.0. The file builds with -fmad=false, so nvcc fuses
 // nothing else.
 //
+// With candidate prices (the price-feature observation, :1492-1512 and
+// :1437-1441; envs/obs.py _price_features), the row's K29 output (ok and
+// jct [n_deg] of the queued job's degrees) appends A more entries after
+// the mask: for an action a that is a degree column j whose candidate is
+// ok and allowed by the mask, min(jct / max(frac * seq, 1e-30), 2) / 2
+// (seq = orig_seq_sum * steps, as above: the host's limit), 1.0 for every
+// other action; in float64 the host encoder's arithmetic, in float32 the
+// same operations each rounded to float32 (the reference's float64 casts
+// are float32 without x64), the division correctly rounded.
+//
 // What bounds it on the H100: launch latency. A row reads ~20 bytes of
 // fields and a 136-byte static row and writes 204 bytes; one thread a row.
 #include "common.cuh"
@@ -48,6 +58,10 @@ struct Arith<float> {
     return __fmul_rn(__fmaf_rn(a, b, -static_cast<float>(c[0])),
                      static_cast<float>(c[2]));
   }
+  __device__ static float price(float jct, float frac, float seq) {
+    const float limit = fmaxf(__fmul_rn(frac, seq), 1e-30f);
+    return __fmul_rn(fminf(__fdiv_rn(jct, limit), 2.0f), 0.5f);
+  }
 };
 
 template <>
@@ -59,6 +73,10 @@ struct Arith<double> {
   __device__ static double norm_product(double a, double b, const double* c) {
     return norm(__dmul_rn(a, b), c);
   }
+  __device__ static double price(double jct, double frac, double seq) {
+    const double limit = fmax(__dmul_rn(frac, seq), 1e-30);
+    return __dmul_rn(fmin(__ddiv_rn(jct, limit), 2.0), 0.5);
+  }
 };
 
 template <typename T>
@@ -67,9 +85,10 @@ __global__ void __launch_bounds__(kThreads) kernel_obs_kernel(
     const T* __restrict__ steps, const int* __restrict__ n_occupied,
     const int* __restrict__ n_running, const float* __restrict__ static_gf,
     const T* __restrict__ orig_seq_sum, const bool* __restrict__ shapes_exist,
-    const double* __restrict__ consts, float* __restrict__ gf,
-    int* __restrict__ mask, int rows, int stride, int width, int n_actions,
-    int n_srv) {
+    const double* __restrict__ consts, const bool* __restrict__ price_ok,
+    const T* __restrict__ price_jct, const int* __restrict__ deg_col,
+    float* __restrict__ gf, int* __restrict__ mask, int rows, int stride,
+    int width, int n_actions, int n_srv, int n_deg) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= rows) return;
   const size_t at = static_cast<size_t>(r) * stride;
@@ -79,7 +98,8 @@ __global__ void __launch_bounds__(kThreads) kernel_obs_kernel(
   const int occ = n_occupied[at];
   const int run = n_running[at];
   const float* row = static_gf + static_cast<size_t>(jt) * width;
-  float* out = gf + static_cast<size_t>(r) * width;
+  const int out_width = width + (price_ok != nullptr ? n_actions : 0);
+  float* out = gf + static_cast<size_t>(r) * out_width;
   int* mout = mask + static_cast<size_t>(r) * n_actions;
   const int n_feat = width - n_actions;
   const T seq = orig_seq_sum[jt] * st;
@@ -106,6 +126,14 @@ __global__ void __launch_bounds__(kThreads) kernel_obs_kernel(
                     (a > 1 && a % 2 == 0 && a <= free_srv && shapes_exist[a]);
     mout[a] = ok ? 1 : 0;
     out[n_feat + a] = ok ? 1.0f : 0.0f;
+    if (price_ok != nullptr) {
+      const int j = deg_col[a];
+      const size_t at_j = static_cast<size_t>(r) * n_deg + j;
+      out[width + a] =
+          j >= 0 && ok && price_ok[at_j]
+              ? static_cast<float>(Arith<T>::price(price_jct[at_j], fr, seq))
+              : 1.0f;
+    }
   }
 }
 
@@ -115,18 +143,25 @@ __global__ void __launch_bounds__(kThreads) kernel_obs_kernel(
 // `stride` apart; frac and steps of the type is_f64 names), the tables
 // static_gf [K, width] float32, orig_seq_sum [K], shapes_exist [A] and
 // consts [4, 3] double (lo, hi - lo, float32 reciprocal of hi - lo of the
-// sequential-JCT, max-JCT, SLA-fraction and training-steps bounds); out
-// gf [R, width] float32 and mask [R, A] int32.
+// sequential-JCT, max-JCT, SLA-fraction and training-steps bounds); with
+// prices, price_ok [R, n_deg] bools and price_jct [R, n_deg] floats (K29's)
+// and deg_col [>= A] int32 (action -> degree column, -1 for none), else
+// three nulls; out gf [R, width (+ A with prices)] float32 and mask
+// [R, A] int32.
 DDLS_EXPORT int ddls_kernel_obs(const void* jtype, const void* frac,
                                 const void* steps, const void* n_occupied,
                                 const void* n_running, const void* static_gf,
                                 const void* orig_seq_sum,
                                 const void* shapes_exist, const void* consts,
-                                void* gf, void* mask, int rows, int stride,
-                                int width, int n_actions, int n_srv,
+                                const void* price_ok, const void* price_jct,
+                                const void* deg_col, void* gf, void* mask,
+                                int rows, int stride, int width,
+                                int n_actions, int n_srv, int n_deg,
                                 int is_f64, void* stream) {
   if (rows <= 0 || stride < 1 || width <= n_actions || n_actions < 1 ||
-      n_srv < 1) {
+      n_srv < 1 ||
+      (price_ok != nullptr &&
+       (price_jct == nullptr || deg_col == nullptr || n_deg < 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -140,8 +175,11 @@ DDLS_EXPORT int ddls_kernel_obs(const void* jtype, const void* frac,
         static_cast<const float*>(static_gf),
         static_cast<const double*>(orig_seq_sum),
         static_cast<const bool*>(shapes_exist),
-        static_cast<const double*>(consts), static_cast<float*>(gf),
-        static_cast<int*>(mask), rows, stride, width, n_actions, n_srv);
+        static_cast<const double*>(consts),
+        static_cast<const bool*>(price_ok),
+        static_cast<const double*>(price_jct), static_cast<const int*>(deg_col),
+        static_cast<float*>(gf), static_cast<int*>(mask), rows, stride,
+        width, n_actions, n_srv, n_deg);
   } else {
     kernel_obs_kernel<float><<<grid, kThreads, 0, s>>>(
         static_cast<const int*>(jtype), static_cast<const float*>(frac),
@@ -151,8 +189,11 @@ DDLS_EXPORT int ddls_kernel_obs(const void* jtype, const void* frac,
         static_cast<const float*>(static_gf),
         static_cast<const float*>(orig_seq_sum),
         static_cast<const bool*>(shapes_exist),
-        static_cast<const double*>(consts), static_cast<float*>(gf),
-        static_cast<int*>(mask), rows, stride, width, n_actions, n_srv);
+        static_cast<const double*>(consts),
+        static_cast<const bool*>(price_ok),
+        static_cast<const float*>(price_jct), static_cast<const int*>(deg_col),
+        static_cast<float*>(gf), static_cast<int*>(mask), rows, stride,
+        width, n_actions, n_srv, n_deg);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,10 @@
 // precomputed from the host (ShapeTables.anchor_cells, built from the
 // reference's own formula), so the kernel gathers where the reference
 // computes. Inactive lanes write nothing (the reference scatters them into
-// a dummy slot N).
+// a dummy slot N). With a state-lane index (state_lane[b], else b itself),
+// row b places its job against that lane's memory and occupancy: in-kernel
+// candidate pricing (jax_env.py:1085 price_all) evaluates every degree of
+// a lane's queued job as its own row against the one live state.
 //
 // What bounds them on the H100: latency. K23 is a chain of 15 dependent
 // steps of a few hundred tests each (16 shapes x 32 anchors at most), with
@@ -95,7 +98,8 @@ __global__ void __launch_bounds__(kThreads) first_fit_block_kernel(
 template <typename T>
 __global__ void __launch_bounds__(kThreads) allocate_job_kernel(
     const T* __restrict__ mem_in, const bool* __restrict__ other_free,
-    const int* __restrict__ cfg, const bool* __restrict__ f_valid,
+    const int* __restrict__ cfg, const int* __restrict__ state_lane,
+    const bool* __restrict__ f_valid,
     const int* __restrict__ f_split, const T* __restrict__ f_mem,
     const int* __restrict__ f_parents, const int* __restrict__ f_sub_fwd,
     const int* __restrict__ f_sub_bwd, const int* __restrict__ row_table,
@@ -117,9 +121,12 @@ __global__ void __launch_bounds__(kThreads) allocate_job_kernel(
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int c = cfg[lane];
+  const size_t src =
+      static_cast<size_t>(state_lane != nullptr ? state_lane[lane] : lane) *
+      n_srv;
   for (int s = tid; s < n_srv; s += blockDim.x) {
-    s_mem[s] = mem_in[static_cast<size_t>(lane) * n_srv + s];
-    s_other[s] = other_free[static_cast<size_t>(lane) * n_srv + s];
+    s_mem[s] = mem_in[src + s];
+    s_other[s] = other_free[src + s];
   }
   int* lane_ots = ots + static_cast<size_t>(lane) * n;
   for (int i = tid; i < n; i += blockDim.x) lane_ots[i] = -1;
@@ -241,14 +248,15 @@ int launch_allocate(const void* const* p, int lanes, int n_srv, int n,
   }
   allocate_job_kernel<T><<<lanes, kThreads, smem, stream>>>(
       static_cast<const T*>(p[0]), static_cast<const bool*>(p[1]),
-      static_cast<const int*>(p[2]), static_cast<const bool*>(p[3]),
-      static_cast<const int*>(p[4]), static_cast<const T*>(p[5]),
-      static_cast<const int*>(p[6]), static_cast<const int*>(p[7]),
+      static_cast<const int*>(p[2]), static_cast<const int*>(p[3]),
+      static_cast<const bool*>(p[4]), static_cast<const int*>(p[5]),
+      static_cast<const T*>(p[6]), static_cast<const int*>(p[7]),
       static_cast<const int*>(p[8]), static_cast<const int*>(p[9]),
-      static_cast<const int*>(p[10]), static_cast<const bool*>(p[11]),
-      static_cast<int*>(const_cast<void*>(p[12])),
-      static_cast<T*>(const_cast<void*>(p[13])),
-      static_cast<bool*>(const_cast<void*>(p[14])), n_srv, n, n_fwd, n_par,
+      static_cast<const int*>(p[10]), static_cast<const int*>(p[11]),
+      static_cast<const bool*>(p[12]),
+      static_cast<int*>(const_cast<void*>(p[13])),
+      static_cast<T*>(const_cast<void*>(p[14])),
+      static_cast<bool*>(const_cast<void*>(p[15])), n_srv, n, n_fwd, n_par,
       smax, n_rows, row_cols, max_cells);
   return static_cast<int>(cudaGetLastError());
 }
@@ -272,23 +280,24 @@ DDLS_EXPORT int ddls_first_fit_block(const void* free, const void* shapes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K23: mem [B, n_srv] floats (is_f64 names the type), other_free [B, n_srv]
-// bools, cfg [B] int32; the config tables f_valid [K, F], f_split [K, F],
+// K23: mem [S, n_srv] floats (is_f64 names the type), other_free [S, n_srv]
+// bools, cfg [B] int32, state_lane [B] int32 (each row's state lane, < S;
+// null: row b reads lane b, S = B); the config tables f_valid [K, F], f_split [K, F],
 // f_mem [K, F], f_parents [K, F, P], f_sub_fwd / f_sub_bwd [K, F, Smax];
 // the shape tables row [n_rows, row_cols], anchor_cells [n_shapes, n_srv,
 // max_cells], anchor_span [n_shapes, n_srv]; outputs ots [B, N] int32,
 // new_mem [B, n_srv], ok [B] bools.
 DDLS_EXPORT int ddls_allocate_job(
     const void* mem, const void* other_free, const void* cfg,
-    const void* f_valid, const void* f_split, const void* f_mem,
-    const void* f_parents, const void* f_sub_fwd, const void* f_sub_bwd,
-    const void* row, const void* anchor_cells, const void* anchor_span,
-    void* ots, void* new_mem, void* ok, int lanes, int n_srv, int n,
-    int n_fwd, int n_par, int smax, int n_rows, int row_cols, int n_shapes,
-    int max_cells, int is_f64, void* stream) {
-  const void* p[15] = {mem, other_free, cfg, f_valid, f_split, f_mem,
-                       f_parents, f_sub_fwd, f_sub_bwd, row, anchor_cells,
-                       anchor_span, ots, new_mem, ok};
+    const void* state_lane, const void* f_valid, const void* f_split,
+    const void* f_mem, const void* f_parents, const void* f_sub_fwd,
+    const void* f_sub_bwd, const void* row, const void* anchor_cells,
+    const void* anchor_span, void* ots, void* new_mem, void* ok, int lanes,
+    int n_srv, int n, int n_fwd, int n_par, int smax, int n_rows,
+    int row_cols, int n_shapes, int max_cells, int is_f64, void* stream) {
+  const void* p[16] = {mem, other_free, cfg, state_lane, f_valid, f_split,
+                       f_mem, f_parents, f_sub_fwd, f_sub_bwd, row,
+                       anchor_cells, anchor_span, ots, new_mem, ok};
   if (lanes <= 0 || n_srv < 1 || n_fwd < 0 || n_par < 1 || smax < 1 ||
       n_rows < 1 || row_cols < 1 || max_cells < 1) {
     return static_cast<int>(cudaErrorInvalidValue);

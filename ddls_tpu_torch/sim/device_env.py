@@ -38,11 +38,17 @@ x64 mode, which reproduces the host env's decisions exactly).
 * the policy and segment episodes (the rest of B13):
   ``make_policy_episode_fn`` :1457, ``segment_init`` :1585,
   ``make_segment_fn`` :1596 (K25 resets an ended lane's episode in
-  place) and ``rebuild_obs_batch`` :1766.
+  place) and ``rebuild_obs_batch`` :1766;
+* in-kernel candidate pricing and the OracleJCT episode (B13's oracle):
+  ``EpisodeKernels.price_all`` :1085 (K23 with a state-lane index, K24,
+  K21 without the memo, K29 ``price_reduce``), the oracle's choice
+  (``oracle_select``, K30, :1831-1869) and ``make_oracle_episode_fn``
+  :1799; the observation's price block (K26 with prices, :1492-1512),
+  which the price-feature ``make_policy_episode_fn`` computes each step.
 
-Left out: the oracle episode and ``price_all`` (:1799, :1085), and the
-scenario mirror (``scenario_adjusted``, ``inflate_duration_jax``):
-``build_episode_tables`` raises on a non-nominal scenario.
+Left out: the scenario mirror (``scenario_adjusted``,
+``inflate_duration_jax``): ``build_episode_tables`` raises on a
+non-nominal scenario.
 
 Lanes are independent: a stacked run equals its lanes run one by one, bit
 for bit. The episode updates its state tensors in place (the reference's
@@ -53,6 +59,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import functools
 import random as _random
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -603,7 +610,11 @@ class DeviceTables:
         for i, d in enumerate(et.degrees):
             deg_col[d] = i
         self.deg_col = put(deg_col)
+        self.degrees = put(np.array(et.degrees, np.int32))
+        self.deg_arange = put(np.arange(len(et.degrees), dtype=np.int32))
         self.n_deg = len(et.degrees)
+        # each candidate-pricing row's state lane, by the number of lanes
+        self.price_lanes: Dict[int, torch.Tensor] = {}
         self.n_cfg = len(et.tables["n_ops"])
         comm = et.comm
         # the reference's Python-float constants, as its float type rounds
@@ -676,9 +687,12 @@ def _first_fit_rows(dev: DeviceTables, free: torch.Tensor,
 
 
 def allocate_job_plain(mem: torch.Tensor, other_free: torch.Tensor,
-                       cfg: torch.Tensor, dev: DeviceTables):
+                       cfg: torch.Tensor, dev: DeviceTables,
+                       state_lane: Optional[torch.Tensor] = None):
     """K23's plain version: the reference's scan over the forward ops
     (``jax_allocate_job`` :450) for every lane at once."""
+    if state_lane is not None:
+        mem, other_free = mem[state_lane.long()], other_free[state_lane.long()]
     lanes, n_srv = mem.shape
     pads = dev.pads
     F, N, Smax, P = pads.n_fwd, pads.n_ops, pads.max_split, pads.n_parents
@@ -744,28 +758,39 @@ def allocate_job_plain(mem: torch.Tensor, other_free: torch.Tensor,
 
 
 def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
-                 cfg: torch.Tensor, dev: DeviceTables):
-    """K23: place one job per lane. ``mem`` [B, n_srv] free memory (the
-    episode's float type), ``other_free`` [B, n_srv] bool (not occupied by
-    another job), ``cfg`` [B] int32 config rows. Returns ``(ots [B, N]
-    int32 (-1 unplaced), new_mem [B, n_srv], ok [B] bool)``; where ok is
-    False the outputs are partial, as the reference's."""
-    if kernels.on_cpu(mem, other_free, cfg):
-        return allocate_job_plain(mem, other_free, cfg, dev)
-    lanes, n_srv = mem.shape
-    kernels.check_cuda("mem", mem, dev.dtype, (lanes, dev.et.n_srv))
-    kernels.check_cuda("other_free", other_free, torch.bool, (lanes, n_srv))
+                 cfg: torch.Tensor, dev: DeviceTables,
+                 state_lane: Optional[torch.Tensor] = None):
+    """K23: place one job per row. ``mem`` [S, n_srv] free memory (the
+    episode's float type), ``other_free`` [S, n_srv] bool (not occupied by
+    another job), ``cfg`` [B] int32 config rows; row ``b`` reads state lane
+    ``state_lane[b]`` (int32 [B], each < S; candidate pricing's rows share
+    their lane's state) or, without it, lane ``b`` (S = B). Returns ``(ots
+    [B, N] int32 (-1 unplaced), new_mem [B, n_srv], ok [B] bool)``; where
+    ok is False the outputs are partial, as the reference's."""
+    if kernels.on_cpu(mem, other_free, cfg, state_lane):
+        return allocate_job_plain(mem, other_free, cfg, dev, state_lane)
+    states, n_srv = mem.shape
+    lanes = cfg.shape[0]
+    kernels.check_cuda("mem", mem, dev.dtype, (states, dev.et.n_srv))
+    kernels.check_cuda("other_free", other_free, torch.bool, (states, n_srv))
     kernels.check_cuda("cfg", cfg, torch.int32, (lanes,))
+    if state_lane is None:
+        if states != lanes:
+            raise ValueError(f"{lanes} config rows for {states} state lanes "
+                             "need a state_lane index")
+    else:
+        kernels.check_cuda("state_lane", state_lane, torch.int32, (lanes,))
     pads = dev.pads
     ots = torch.empty((lanes, pads.n_ops), dtype=torch.int32,
                       device=mem.device)
-    new_mem = torch.empty_like(mem)
+    new_mem = torch.empty((lanes, n_srv), dtype=mem.dtype, device=mem.device)
     ok = torch.empty(lanes, dtype=torch.bool, device=mem.device)
     T = dev.t
     if lanes:
         kernels.launch(
-            "allocate_job", mem.data_ptr(), other_free.data_ptr(),
-            cfg.data_ptr(), T["f_valid"].data_ptr(),
+            "allocate_job" if state_lane is None else "allocate_job_indexed",
+            mem.data_ptr(), other_free.data_ptr(),
+            cfg.data_ptr(), kernels.ptr(state_lane), T["f_valid"].data_ptr(),
             T["f_split"].data_ptr(), T["f_mem"].data_ptr(),
             T["f_parents"].data_ptr(), T["f_sub_fwd"].data_ptr(),
             T["f_sub_bwd"].data_ptr(), dev.row.data_ptr(),
@@ -1179,6 +1204,71 @@ class EpisodeKernels:
                 "finite_ok": finite_ok, "t_step": t_step, "ok_la": ok_la,
                 "ticks": ticks}
 
+    def price_rows(self, state: dict, bank: dict) -> dict:
+        """``price_all`` up to K29: every degree column ``j`` of each
+        lane's queued job (config ``type * n_deg + j``) evaluated against
+        that lane's live state with no commit, as B * n_deg rows: K23
+        (each row reading its lane's memory and occupancy through the
+        state-lane index), K24 and K21 without the memo (the reference's
+        pricing is memo-less; the rows of lanes with no queued job
+        skipped). Returns K23's inputs (``cfg``, ``state_lane``, ``free``)
+        and outputs (``alloc``) and K29's row inputs (``reduce``)."""
+        dev = self.dev
+        n_deg = dev.n_deg
+        lanes = state["queue_row"].shape[0]
+        state_lane = dev.price_lanes.get(lanes)
+        if state_lane is None:
+            state_lane = dev.price_lanes[lanes] = torch.arange(
+                lanes * n_deg, dtype=torch.int32,
+                device=dev.device) // n_deg
+        row = state["queue_row"].clamp(min=0).long()[:, None]
+        cfg = (bank["type"].gather(1, row) * n_deg
+               + dev.deg_arange).reshape(-1)
+        free = state["srv_job"] < 0
+        ots, new_mem, ok_place = allocate_job(state["mem"], free, cfg, dev,
+                                              state_lane)
+        times, is_flow, chan, op_score, dep_score, finite_ok = \
+            price_and_score(ots, cfg, dev)
+        has_job = (state["queue_row"] >= 0) & ~state["done"]
+        T = dev.t
+        c = cfg.long()
+        op_valid = T["op_valid"][c]
+        t_step, _, _, _, ok_la = lookahead_mod.lookahead(
+            T["op_compute"][c], op_valid, torch.where(op_valid, ots, -1),
+            op_score, T["num_parents"][c], times, T["dep_valid"][c],
+            T["dep_src"][c], T["dep_dst"][c], T["dep_mutual"][c], is_flow,
+            dep_score, chan[:, :, None], num_workers=dev.et.n_srv,
+            num_channels=dev.et.n_chan,
+            skip=~has_job.repeat_interleave(n_deg))
+        return {"cfg": cfg, "state_lane": state_lane, "free": free,
+                "alloc": (ots, new_mem, ok_place),
+                "reduce": (is_flow, chan, ok_place, finite_ok, t_step,
+                           ok_la)}
+
+    def price_all(self, state: dict, bank: dict, hold=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """In-kernel candidate pricing (reference: ``price_all`` :1085):
+        ``price_rows``, then K29. Returns ``(ok [B, n_deg] bool, jct [B,
+        n_deg])``: ok where the candidate places, finds free channels,
+        converges and prices finitely; jct its lookahead time times the
+        job's training steps (ok False and jct 0 on lanes with no queued
+        job). ``hold(name, got, kernel, plain)``, where given, is called
+        with K23's (``"allocate_job_indexed"``) and K29's outputs and
+        callables of the kernel and of its plain version on the call's own
+        inputs."""
+        rows = self.price_rows(state, bank)
+        args = rows["reduce"] + (state, bank)
+        ok, jct = price_reduce(*args)
+        if hold is not None:
+            alloc = (state["mem"], rows["free"], rows["cfg"], self.dev,
+                     rows["state_lane"])
+            hold("allocate_job_indexed", rows["alloc"],
+                 lambda: allocate_job(*alloc),
+                 lambda: allocate_job_plain(*alloc))
+            hold("price_reduce", (ok, jct), lambda: price_reduce(*args),
+                 lambda: price_reduce_plain(*args))
+        return ok, jct
+
     def eval_cfg(self, state: dict, bank: dict, raw: dict) -> dict:
         """The reference's ``eval_cfg`` outputs from ``evaluate``'s: the
         channel check, the SLA gate and the masks a commit writes."""
@@ -1531,6 +1621,150 @@ def episode_prepare(ek: EpisodeKernels, state: dict, bank: dict,
             dev.n_deg, dev.n_cfg, dev.deg_col.shape[0])
 
 
+# =========================================================================
+# In-kernel candidate pricing and the OracleJCT choice (B13 oracle): K29,
+# K30.
+# =========================================================================
+
+def price_reduce_plain(is_flow: torch.Tensor, chan: torch.Tensor,
+                       ok_place: torch.Tensor, finite_ok: torch.Tensor,
+                       t_step: torch.Tensor, ok_la: torch.Tensor,
+                       state: dict, bank: dict
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K29's plain version (see ``price_reduce``)."""
+    queue_row, done = state["queue_row"], state["done"]
+    lanes = queue_row.shape[0]
+    n_deg = is_flow.shape[0] // lanes
+    lane = torch.arange(lanes * n_deg, device=is_flow.device) // n_deg
+    occ = state["chan_occ"][lane].gather(1, chan.clamp(min=0).long())
+    ok_chan = (~is_flow | (occ < 0)).all(1)
+    has_job = ((queue_row >= 0) & ~done)[lane]
+    steps = bank["steps"].gather(1, queue_row.clamp(min=0).long()[:, None])
+    ok = ok_place & ok_chan & ok_la & finite_ok & has_job
+    jct = torch.where(has_job, t_step * steps[lane, 0],
+                      torch.zeros_like(t_step))
+    return ok.reshape(lanes, n_deg), jct.reshape(lanes, n_deg)
+
+
+def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
+                 ok_place: torch.Tensor, finite_ok: torch.Tensor,
+                 t_step: torch.Tensor, ok_la: torch.Tensor, state: dict,
+                 bank: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K29: candidate pricing's verdicts and prices (reference: the end of
+    ``price_all`` :1085 over ``eval_cfg`` :1023) from K23's, K24's and
+    K21's outputs on B * n_deg rows (row ``r`` prices lane ``r // n_deg``'s
+    queued job at degree column ``r % n_deg``): ``ok = ok_place & ok_chan
+    & ok_la & finite_ok`` (``ok_chan``: no flow's channel is occupied in
+    the lane's ``chan_occ``) and ``jct = t_step * steps``, each [B,
+    n_deg]; ok False and jct 0 for lanes with no queued job. ``t_step``
+    may be strided (K21's output column)."""
+    if kernels.on_cpu(is_flow, chan, t_step, state["chan_occ"]):
+        return price_reduce_plain(is_flow, chan, ok_place, finite_ok,
+                                  t_step, ok_la, state, bank)
+    queue_row = state["queue_row"]
+    lanes = queue_row.shape[0]
+    rows, m = is_flow.shape
+    if not lanes or rows % lanes:
+        raise ValueError(f"{rows} price rows for {lanes} lanes")
+    n_deg = rows // lanes
+    dt = t_step.dtype
+    kernels.check_cuda("is_flow", is_flow, torch.bool, (rows, m))
+    kernels.check_cuda("chan", chan, torch.int32, (rows, m))
+    for name, x in (("ok_place", ok_place), ("finite_ok", finite_ok),
+                    ("ok_la", ok_la)):
+        kernels.check_cuda(name, x, torch.bool, (rows,))
+    if dt not in (torch.float32, torch.float64) or t_step.shape != (rows,) \
+            or t_step.device != is_flow.device:
+        raise ValueError(f"t_step must be [{rows}] float32 or float64 on "
+                         f"{is_flow.device}")
+    chan_occ = state["chan_occ"]
+    kernels.check_cuda("chan_occ", chan_occ, torch.int32)
+    kernels.check_cuda("queue_row", queue_row, torch.int32, (lanes,))
+    kernels.check_cuda("done", state["done"], torch.bool, (lanes,))
+    kernels.check_cuda("bank steps", bank["steps"], dt)
+    ok = torch.empty((lanes, n_deg), dtype=torch.bool, device=is_flow.device)
+    jct = torch.empty((lanes, n_deg), dtype=dt, device=is_flow.device)
+    kernels.launch(
+        "price_reduce", is_flow.data_ptr(), chan.data_ptr(),
+        ok_place.data_ptr(), finite_ok.data_ptr(), t_step.data_ptr(),
+        ok_la.data_ptr(), chan_occ.data_ptr(), queue_row.data_ptr(),
+        state["done"].data_ptr(), bank["steps"].data_ptr(), ok.data_ptr(),
+        jct.data_ptr(), lanes, n_deg, m, chan_occ.shape[1],
+        bank["steps"].shape[1], t_step.stride(0), int(dt == torch.float64))
+    return ok, jct
+
+
+def oracle_select_plain(ok: torch.Tensor, jct: torch.Tensor, state: dict,
+                        bank: dict, dobs: "DeviceObs") -> torch.Tensor:
+    """K30's plain version (see ``oracle_select``)."""
+    degrees = dobs.dev.degrees
+    queue_row = state["queue_row"]
+    n_occupied = (state["srv_job"] >= 0).sum(1)
+    mask = kernel_action_mask(dobs, n_occupied)[:, degrees.long()]
+    row = queue_row.clamp(min=0).long()[:, None]
+    jtype = bank["type"].gather(1, row)[:, 0].long()
+    steps = bank["steps"].gather(1, row)[:, 0]
+    frac = bank["sla_frac"].gather(1, row)[:, 0]
+    max_jct = frac * (dobs.orig_seq_sum[jtype] * steps)
+    acceptable = mask & ok & (jct <= max_jct[:, None])
+    placeable = mask & ok
+    none = torch.full_like(queue_row, -1)
+    first_acc = torch.where(acceptable.any(1), degrees[
+        acceptable.to(torch.uint8).argmax(1)], none)
+    best_jct = torch.full_like(max_jct, _INF)
+    best_deg = none
+    for j in range(degrees.shape[0]):
+        take = placeable[:, j] & (jct[:, j] < best_jct)
+        best_jct = torch.where(take, jct[:, j], best_jct)
+        best_deg = torch.where(take, degrees[j], best_deg)
+    first_valid = torch.where(mask.any(1), degrees[
+        mask.to(torch.uint8).argmax(1)], torch.zeros_like(none))
+    action = torch.where(first_acc >= 0, first_acc,
+                         torch.where(best_deg >= 0, best_deg, first_valid))
+    has_job = (queue_row >= 0) & ~state["done"]
+    return torch.where(has_job, action, 0).to(torch.int32)
+
+
+def oracle_select(ok: torch.Tensor, jct: torch.Tensor, state: dict,
+                  bank: dict, dobs: "DeviceObs") -> torch.Tensor:
+    """K30: the OracleJCT episode's action [B] int32 (reference:
+    ``make_oracle_episode_fn`` :1831-1869; the host's
+    ``envs/baselines.py`` ``OracleJCT``) from K29's ``ok`` and ``jct``
+    [B, n_deg]: with the observation's action mask restricted to the
+    degrees and the limit ``sla_frac * (orig_seq_sum[type] * steps)`` (the
+    unpartitioned job's), the smallest degree that is allowed, ok and
+    within the limit; else the smallest-JCT allowed ok degree (the first
+    minimum in degree order); else the smallest allowed degree; else 0.
+    Lanes with no queued job take action 0."""
+    if kernels.on_cpu(ok, jct, state["srv_job"]):
+        return oracle_select_plain(ok, jct, state, bank, dobs)
+    dev = dobs.dev
+    lanes, n_deg = ok.shape
+    dt = dev.dtype
+    J = bank["type"].shape[1]
+    kernels.check_cuda("ok", ok, torch.bool, (lanes, dev.n_deg))
+    kernels.check_cuda("jct", jct, dt, (lanes, n_deg))
+    kernels.check_cuda("srv_job", state["srv_job"], torch.int32,
+                       (lanes, dev.et.n_srv))
+    kernels.check_cuda("queue_row", state["queue_row"], torch.int32,
+                       (lanes,))
+    kernels.check_cuda("done", state["done"], torch.bool, (lanes,))
+    for name, want in BANK_FIELDS[:3]:
+        kernels.check_cuda(f"bank {name}", bank[name], want or dt,
+                           (lanes, J))
+    action = torch.empty(lanes, dtype=torch.int32, device=ok.device)
+    if lanes:
+        kernels.launch(
+            "oracle_select", ok.data_ptr(), jct.data_ptr(),
+            state["srv_job"].data_ptr(), state["queue_row"].data_ptr(),
+            state["done"].data_ptr(), bank["type"].data_ptr(),
+            bank["steps"].data_ptr(), bank["sla_frac"].data_ptr(),
+            dobs.orig_seq_sum.data_ptr(), dobs.shapes_exist.data_ptr(),
+            dev.degrees.data_ptr(), action.data_ptr(), lanes, n_deg,
+            dev.et.n_srv, J, int(dt == torch.float64))
+    return action
+
+
 def make_episode_fn(et: EpisodeTables,
                     memo_cfg: Optional[device_memo.MemoConfig] = None, *,
                     device="cuda", dtype: torch.dtype = torch.float32):
@@ -1683,15 +1917,12 @@ class DeviceObs:
     flattened-graph rows (``staged``: K20's input), built once."""
 
     def __init__(self, ot: dict, dev: DeviceTables):
-        if ot.get("with_prices"):
-            raise ValueError(
-                "the in-kernel observation has no candidate-price features "
-                "(the compact trace carries no pricing state); build the "
-                "obs tables from an env without "
-                "obs_include_candidate_prices")
         from ddls_tpu_torch.models.policy import sample_structure
 
         self.dev = dev
+        # the observation ends in the candidate-price block (K26 appends
+        # it from ``EpisodeKernels.price_all``'s verdicts and prices)
+        self.with_prices = bool(ot.get("with_prices"))
 
         def put(x, dtype=None):
             return torch.from_numpy(np.ascontiguousarray(x)).to(
@@ -1709,6 +1940,8 @@ class DeviceObs:
         self.consts = put(np.array(self.bounds, np.float64))
         self.n_srv = dev.et.n_srv
         self.n_actions = len(ot["shapes_exist"])
+        self.width = self.static_gf.shape[1] + (
+            self.n_actions if self.with_prices else 0)
         self.rows = {k: put(ot[k]) for k in STATIC_OBS_KEYS}
         self.action_set = torch.arange(self.n_actions, dtype=torch.int32,
                                        device=dev.device)
@@ -1766,8 +1999,10 @@ def kernel_action_mask(dobs: DeviceObs, n_occupied: torch.Tensor
 
 
 def kernel_obs_plain(dobs: DeviceObs, jtype, frac, steps, n_occupied,
-                     n_running) -> Tuple[torch.Tensor, torch.Tensor]:
+                     n_running, prices=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K26's plain version (see ``kernel_obs``)."""
+    _check_prices(dobs, prices)
     dt = frac.dtype
     jt = jtype.long()
     gf = dobs.static_gf[jt].to(dt)
@@ -1794,13 +2029,37 @@ def kernel_obs_plain(dobs: DeviceObs, jtype, frac, steps, n_occupied,
     gf[:, 16] = n_running.to(dt) / n_srv
     mask = kernel_action_mask(dobs, n_occupied)
     a = mask.shape[1]
-    gf = torch.cat([gf[:, :-a].clamp(0.0, 1.0), mask.to(dt)], 1)
+    parts = [gf[:, :-a].clamp(0.0, 1.0), mask.to(dt)]
+    if prices is not None:
+        # the host's limit frac * (sum * steps), floored at 1e-30
+        ok, jct = prices
+        degrees = dobs.dev.degrees.long()
+        limit = torch.maximum(frac * seq, torch.full_like(frac, 1e-30))
+        vals = torch.minimum(jct / limit[:, None],
+                             torch.full_like(jct, 2.0)) * 0.5
+        block = torch.ones((gf.shape[0], a), dtype=dt, device=gf.device)
+        block[:, degrees] = torch.where(ok & mask[:, degrees], vals,
+                                        torch.ones_like(vals))
+        parts.append(block)
+    gf = torch.cat(parts, 1)
     return gf.to(torch.float32), mask.to(torch.int32)
+
+
+def _check_prices(dobs: DeviceObs, prices) -> None:
+    if dobs.with_prices and prices is None:
+        raise ValueError("the obs tables carry price features; pass prices "
+                         "(EpisodeKernels.price_all's ok and jct; "
+                         "envs/obs.py:_price_features)")
+    if prices is not None and not dobs.with_prices:
+        raise ValueError("prices given for obs tables without price "
+                         "features")
 
 
 def kernel_obs(dobs: DeviceObs, jtype: torch.Tensor, frac: torch.Tensor,
                steps: torch.Tensor, n_occupied: torch.Tensor,
-               n_running: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               n_running: torch.Tensor,
+               prices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K26: the observation's graph features [R, G] float32 and action
     mask [R, A] int32 of R rows of compact fields (reference:
     ``_kernel_obs`` :1409 over ``rebuild_obs_batch``'s rows): ``jtype``,
@@ -1812,10 +2071,18 @@ def kernel_obs(dobs: DeviceObs, jtype: torch.Tensor, frac: torch.Tensor,
     In float64 the formulas are the host encoder's (``envs/obs.py``), bit
     for bit; in float32 they are XLA's float32 program of the reference
     (the bounds' differences a multiply by the float32 reciprocal, and
-    ``frac * seq - lo`` one fused multiply-add)."""
+    ``frac * seq - lo`` one fused multiply-add).
+
+    With price features (``dobs.with_prices``; reference: :1492-1512),
+    ``prices`` is ``EpisodeKernels.price_all``'s ``(ok [R, n_deg] bool,
+    jct [R, n_deg])`` and A entries follow the mask: for a degree the mask
+    allows whose candidate is ok, ``min(jct / max(frac * seq, 1e-30), 2) /
+    2`` (the host's ``envs/obs.py:_price_features``; in float32 each
+    operation rounded to float32), 1.0 for every other action."""
     fields = (jtype, frac, steps, n_occupied, n_running)
-    if kernels.on_cpu(*fields):
-        return kernel_obs_plain(dobs, *fields)
+    if kernels.on_cpu(*fields, *(prices or ())):
+        return kernel_obs_plain(dobs, *fields, prices=prices)
+    _check_prices(dobs, prices)
     dt = dobs.dev.dtype
     rows = jtype.shape[0]
     stride = jtype.stride(0) if rows else 1
@@ -1832,15 +2099,24 @@ def kernel_obs(dobs: DeviceObs, jtype: torch.Tensor, frac: torch.Tensor,
         raise ValueError(f"the fields must lie on the current CUDA device, "
                          f"got {jtype.device}")
     g, a = dobs.static_gf.shape[1], dobs.n_actions
-    gf = torch.empty((rows, g), dtype=torch.float32, device=jtype.device)
+    n_deg = dobs.dev.n_deg
+    if prices is not None:
+        kernels.check_cuda("price ok", prices[0], torch.bool, (rows, n_deg))
+        kernels.check_cuda("price jct", prices[1], dt, (rows, n_deg))
+    gf = torch.empty((rows, dobs.width), dtype=torch.float32,
+                     device=jtype.device)
     mask = torch.empty((rows, a), dtype=torch.int32, device=jtype.device)
     if rows:
         kernels.launch(
-            "kernel_obs", *(x.data_ptr() for x in fields),
+            "kernel_obs" if prices is None else "kernel_obs_prices",
+            *(x.data_ptr() for x in fields),
             dobs.static_gf.data_ptr(), dobs.orig_seq_sum.data_ptr(),
             dobs.shapes_exist.data_ptr(), dobs.consts.data_ptr(),
+            *((prices[0].data_ptr(), prices[1].data_ptr(),
+               dobs.dev.deg_col.data_ptr()) if prices is not None
+              else (None, None, None)),
             gf.data_ptr(), mask.data_ptr(), rows, stride, g, a, dobs.n_srv,
-            int(dt == torch.float64))
+            n_deg, int(dt == torch.float64))
     return gf, mask
 
 
@@ -1850,6 +2126,10 @@ def rebuild_obs_batch(dobs: DeviceObs, fields: Dict[str, torch.Tensor]
     of any leading shape (reference: :1766): K26 over every row, the
     static rows gathered by type. Returns the ``envs/obs.py`` keys as
     tensors on the device, each of shape ``fields``' + its own."""
+    if dobs.with_prices:
+        raise ValueError(
+            "rebuild_obs_batch does not support price-feature "
+            "observations (the compact trace carries no pricing state)")
     shape = tuple(fields["jtype"].shape)
     flat = [fields[name].reshape(-1) for name, _ in OBS_FIELDS]
     gf, mask = kernel_obs(dobs, *flat)
@@ -1899,15 +2179,23 @@ def _step_uniforms(uniforms, generator, t_len: int, lanes: int, a: int,
 
 
 def _policy_step(model, dobs: DeviceObs, fields: dict, d: int,
-                 u: Optional[torch.Tensor], greedy: bool):
-    """One step's observation (K26), forward (K20, K1-K3, K17) and action:
-    K9 with the uniforms ``u`` [B, A], or greedy through K4. Returns
-    (action [B] int32, logp [B], value [B])."""
+                 u: Optional[torch.Tensor], greedy: bool, prices=None,
+                 hold=None):
+    """One step's observation (K26, with the price block of ``prices``
+    where the tables carry one), forward (K20, K1-K3, K17) and action: K9
+    with the uniforms ``u`` [B, A], or greedy through K4. Returns (action
+    [B] int32, logp [B], value [B]). ``hold`` as ``price_all``'s, called
+    with K26's outputs where it appends prices
+    (``"kernel_obs_prices"``)."""
     from ddls_tpu_torch.models.policy import (mask_logits_argmax,
                                               mask_sample_logp)
 
-    gf, mask = kernel_obs(dobs, *(fields[name][:, d]
-                                  for name, _ in OBS_FIELDS))
+    f = [fields[name][:, d] for name, _ in OBS_FIELDS]
+    gf, mask = kernel_obs(dobs, *f, prices=prices)
+    if hold is not None and prices is not None:
+        hold("kernel_obs_prices", (gf, mask),
+             lambda: kernel_obs(dobs, *f, prices=prices),
+             lambda: kernel_obs_plain(dobs, *f, prices=prices))
     logits, value = model.trunk(dobs.forward_batch(fields["jtype"][:, d],
                                                    gf, mask))
     if not model.apply_action_mask:
@@ -1964,6 +2252,12 @@ def make_segment_fn(et: EpisodeTables, ot: dict, model, n_steps: int,
     ``memo_misses``, ``memo_evicts``; also the decision's ``accept``,
     ``cause``, ``jct`` and ``t``. ``next_fields``: the fields after the
     segment, [B] each."""
+    if ot.get("with_prices"):
+        raise ValueError(
+            "segment collection does not support price-feature "
+            "observations (the compact PPO trace carries no pricing "
+            "state); build obs tables from an env without "
+            "obs_include_candidate_prices")
     ek = episode_kernels(et, device=device, dtype=dtype)
     dev = ek.dev
     dobs = device_obs(ot, dev)
@@ -2020,14 +2314,22 @@ def make_policy_episode_fn(et: EpisodeTables, ot: dict, model,
                            memo_cfg: Optional[device_memo.MemoConfig]
                            = device_memo.MemoConfig(), *, device="cuda",
                            dtype: torch.dtype = torch.float32):
-    """``episode(bank, uniforms=None, generator=None)`` (reference:
-    ``make_policy_episode_fn`` :1457): the policy in the loop for one
-    decision per bank job (J steps), every lane at once: per step the
+    """``episode(bank, uniforms=None, generator=None, steps=None,
+    hold=None)`` (reference: ``make_policy_episode_fn`` :1457): the policy
+    in the loop for one decision per bank job (J steps, or the first
+    ``steps``), every lane at once: per step the
     ``make_segment_fn`` step without the reset, a lane whose episode ended
     deciding nothing (action 0, logp and value 0, cause -1). ``greedy``
     acts through K4 (argmax of the masked logits), else K9 samples from
     ``uniforms`` [B, J, A] or ``generator``. The memo is on by default, as
-    the reference's (the results do not depend on it).
+    the reference's (the results do not depend on it). Where ``ot``
+    carries price features (an env with ``obs_include_candidate_prices``),
+    each step first prices every degree of the queued job
+    (``EpisodeKernels.price_all``: K23 indexed, K24, K21 without the memo,
+    K29) and K26 appends the price block; ``hold(d, name, got, kernel,
+    plain)``, where given, is called at step ``d`` with the outputs of
+    K23 (indexed), K29 and K26 (prices) and callables of each kernel and
+    its plain version on the call's own inputs.
 
     Returns the reference's keys: ``trace`` (action, logp, value, reward,
     accept, cause, jct, t, has_job; each [B, J], or [J] for one bank),
@@ -2037,10 +2339,12 @@ def make_policy_episode_fn(et: EpisodeTables, ot: dict, model,
     dev = ek.dev
     dobs = device_obs(ot, dev)
 
-    def episode(bank: dict, uniforms=None, generator=None) -> dict:
+    def episode(bank: dict, uniforms=None, generator=None, steps=None,
+                hold=None) -> dict:
         single = np.ndim(bank["type"]) == 1
         b = device_bank(bank, dev)
         lanes, n_steps = b["type"].shape
+        n_steps = n_steps if steps is None else steps
         kw = dict(device=dev.device)
         u = (None if greedy else _step_uniforms(
             uniforms[None] if single and uniforms is not None else uniforms,
@@ -2060,9 +2364,12 @@ def make_policy_episode_fn(et: EpisodeTables, ot: dict, model,
         with torch.no_grad():
             for d in range(n_steps):
                 has_job = (state["queue_row"] >= 0) & ~state["done"]
+                at = None if hold is None else functools.partial(hold, d)
+                prices = (ek.price_all(state, b, at) if dobs.with_prices
+                          else None)
                 action, logp, value = _policy_step(
                     model, dobs, fields, d, None if u is None else u[d],
-                    greedy)
+                    greedy, prices, at)
                 action = torch.where(has_job, action, 0).to(torch.int32)
                 episode_prepare(ek, state, b, action)
                 raw = ek.evaluate(state, memo)
@@ -2073,6 +2380,81 @@ def make_policy_episode_fn(et: EpisodeTables, ot: dict, model,
                 values.append(torch.where(has_job, value, 0.0))
         out = {"trace": (torch.stack(acts, 1), torch.stack(logps, 1),
                          torch.stack(values, 1), trace["reward"],
+                         trace["accept"], trace["cause"], trace["jct"],
+                         trace["t"], trace["has_job"]),
+               "accepted": state["accepted"], "blocked": state["blocked"],
+               "ret": state["ret"], "completed": state["completed"],
+               "t": state["t"], "done": state["done"],
+               "blocked_total": state["blocked"]
+               + state["slot_valid"].sum(1).int(),
+               "arrived": state["ptr"]}
+        if memo is not None:
+            out.update(device_memo.memo_trace_counters(memo))
+        if single:
+            out = {k: (tuple(x[0] for x in v) if k == "trace" else v[0])
+                   for k, v in out.items()}
+        return out
+
+    return episode
+
+
+def make_oracle_episode_fn(et: EpisodeTables, ot: dict,
+                           memo_cfg: Optional[device_memo.MemoConfig]
+                           = device_memo.MemoConfig(), *, device="cuda",
+                           dtype: torch.dtype = torch.float32):
+    """``episode(bank, steps=None, hold=None)`` (reference:
+    ``make_oracle_episode_fn`` :1799): the OracleJCT heuristic in the loop
+    for one decision per bank job (J steps, or the first ``steps``), every
+    lane at once. A step prices every degree of each lane's
+    queued job (``EpisodeKernels.price_all``: K23 indexed, K24, K21
+    without the memo, K29), chooses the degree (K30, the host's
+    ``envs/baselines.py`` ``OracleJCT``), then runs K25's prepare, the
+    decision's own evaluation (K23, K24, with the memo K27, K21 and K28)
+    and K25, with no host sync; on ``device="cpu"`` the plain versions. A
+    lane whose episode ended decides nothing (action 0, cause -1). The
+    memo serves the decision's lookahead only and is on by default, as the
+    reference's (the results do not depend on it). ``ot`` is
+    ``build_obs_tables``' (K30 reads its action-mask shapes and
+    ``orig_seq_sum``). ``hold(d, name, got, kernel, plain)``, where given,
+    is called at step ``d`` with the outputs of K23 (indexed), K29 and K30
+    and callables of each kernel and its plain version on the call's own
+    inputs.
+
+    ``bank`` is a job bank ([J] arrays) or a stack of banks ([B, J]).
+    Returns the reference's keys: ``trace`` (action, reward, accept,
+    cause, jct, t, has_job; each [B, J], or [J] for one bank),
+    ``accepted``, ``blocked``, ``ret``, ``completed``, ``t``, ``done``,
+    ``blocked_total``, ``arrived``, and with the memo its counters."""
+    ek = episode_kernels(et, device=device, dtype=dtype)
+    dev = ek.dev
+    dobs = device_obs(ot, dev)
+
+    def episode(bank: dict, steps=None, hold=None) -> dict:
+        single = np.ndim(bank["type"]) == 1
+        b = device_bank(bank, dev)
+        lanes, n_steps = b["type"].shape
+        n_steps = n_steps if steps is None else steps
+        state = ek.init_state(b)
+        memo = (None if memo_cfg is None else device_memo.memo_init(
+            lanes, dev.pads.n_ops, dev.pads.n_deps, dtype, memo_cfg,
+            dev.device))
+        trace = {name: torch.zeros((lanes, n_steps), dtype=want or dtype,
+                                   device=dev.device)
+                 for name, want in TRACE_FIELDS}
+        acts = []
+        for d in range(n_steps):
+            ok, jct = ek.price_all(state, b, None if hold is None
+                                   else functools.partial(hold, d))
+            action = oracle_select(ok, jct, state, b, dobs)
+            if hold is not None:
+                hold(d, "oracle_select", (action,),
+                     lambda: (oracle_select(ok, jct, state, b, dobs),),
+                     lambda: (oracle_select_plain(ok, jct, state, b, dobs),))
+            episode_prepare(ek, state, b, action)
+            raw = ek.evaluate(state, memo)
+            episode_step(ek, state, b, None, raw, trace, d)
+            acts.append(action)
+        out = {"trace": (torch.stack(acts, 1), trace["reward"],
                          trace["accept"], trace["cause"], trace["jct"],
                          trace["t"], trace["has_job"]),
                "accepted": state["accepted"], "blocked": state["blocked"],

@@ -347,6 +347,95 @@ def small_surface_kwargs(path_to_files: str) -> dict:
         pad_obs_kwargs={"max_nodes": 150, "max_edges": 512})
 
 
+def oracle_surface_kwargs(path_to_files: str, interarrival: float = 45.0,
+                          prices: bool = False) -> dict:
+    """The env of the reference's in-kernel OracleJCT test
+    (``tests/test_jax_oracle_episode.py``: the small surface's topology
+    and profiles, a job every ``interarrival``, 30 replicas, simulation end
+    4e3, native candidate pricing) or, with ``prices`` and interarrival
+    40, of its price-feature policy test
+    (``tests/test_jax_policy_episode.py``'s price variant: the
+    observation carries the price block)."""
+    kw = small_surface_kwargs(path_to_files)
+    kw["jobs_config"]["job_interarrival_time_dist"]["val"] = interarrival
+    kw["jobs_config"]["replication_factor"] = 30
+    kw.update(max_simulation_run_time=4e3, candidate_pricing="native",
+              obs_include_candidate_prices=prices)
+    return kw
+
+
+def oracle_episode(env, seed: int):
+    """The host OracleJCT's episode on ``env`` (native candidate pricing)
+    from ``reset(seed)``: ``mixed_action_episode``'s ``(arrivals,
+    decisions, stats)`` with the actor choosing from the env's prices."""
+    from ddls_tpu_torch.envs.baselines import OracleJCT
+
+    actor = OracleJCT()
+
+    def policy(obs):
+        job = next(iter(env.cluster.job_queue.jobs.values()))
+        return actor.compute_action(obs, job_to_place=job, env=env)
+
+    return mixed_action_episode(env, seed=seed, policy=policy)
+
+
+# The in-kernel candidate pricing recordings
+# (scripts/export_torch_oracle_fixture.py writes them): on the small
+# surfaces of the reference's oracle and price-feature policy tests, the
+# host episodes, the JAX x64 traces and each step's pricing and price
+# block; at full width on the shipped surface, the first steps of the
+# JAX float32 oracle episodes of two banks and of ppo_price_mixed's
+# greedy policy episode.
+ORACLE_PATH = os.path.join(DATA_DIR, "oracle_episode_recorded.npz")
+ORACLE_TRACE_NAMES = ("action", "reward", "accept", "cause", "jct", "t",
+                      "has_job")
+POLICY_TRACE_NAMES = ("action", "logp", "value", "reward", "accept",
+                      "cause", "jct", "t", "has_job")
+# the random-init policy of the reference's price-feature policy test
+POLICY_ARCH = {"out_features_msg": 8, "out_features_hidden": 16,
+               "out_features_node": 8, "out_features_graph": 4,
+               "fcnet_hiddens": (32,)}
+# the small surfaces' episodes: (interarrival, price features, reset seed)
+ORACLE_SURFACES = {"oracle": (45.0, False, 31), "policy": (40.0, True, 17)}
+
+
+def load_oracle_fixture(path: str = ORACLE_PATH) -> Dict[str, object]:
+    """``{"small": {"oracle", "policy": {"types", "bank", "host",
+    "params" (policy only: the flax tree, flattened), "x64": {"trace",
+    "counters", and "price_ok", "price_jct" (oracle) or "price_block"
+    (policy)}}}, "full": {"types", "seeds", "prefix", "oracle": {"trace",
+    "price_ok", "price_jct"}, "policy": {"trace", "price_ok",
+    "price_jct", "price_block", and the compact fields}}}``."""
+    import json
+
+    with np.load(path, allow_pickle=False) as data:
+        def group(prefix, nested=False):
+            return {k[len(prefix):]: data[k] for k in data.files
+                    if k.startswith(prefix)
+                    and (nested or "/" not in k[len(prefix):])}
+
+        def run(prefix):
+            out = group(prefix)
+            out["trace"] = group(prefix + "trace/")
+            out["counters"] = group(prefix + "counters/")
+            return out
+
+        small = {}
+        for name in ORACLE_SURFACES:
+            p = f"small/{name}/"
+            small[name] = {"types": json.loads(str(data[p + "types"])),
+                           "bank": group(p + "bank/"),
+                           "host": group(p + "host/"),
+                           "params": group(p + "params/", nested=True),
+                           "x64": run(p + "x64/")}
+        full = {"types": json.loads(str(data["full/types"])),
+                "seeds": data["full/seeds"],
+                "prefix": int(data["prefix"]),
+                "oracle": run("full/oracle/f32/"),
+                "policy": run("full/policy/f32/")}
+        return {"small": small, "full": full}
+
+
 # ------------------------------------------------------- device collection
 # The reference's device collection recorded
 # (scripts/export_torch_device_collect_fixture.py writes it): on the small
@@ -716,4 +805,112 @@ def segment_kernel_diffs(et, ot, model, bank: dict, uniforms, steps: int,
     out = {k: v for k, v in trace.items()}
     out["action"] = torch.stack(actions, 1)
     out.update({name: fields[name][:, :steps] for name, _ in de.OBS_FIELDS})
+    return diffs, held, out
+
+
+def fuzzed_price_lanes(et, ot, rng, lanes: int = 96):
+    """K30's inputs on lanes of random occupancy, queued jobs and K29
+    outputs (numpy, float64), with its edge cases laid out in the first
+    lanes: 0 no placeable degree, 1 every degree acceptable, 2 none
+    acceptable and every jct tied, 3 one jct equal to the limit, 4 no
+    queued job, 5 an ended episode, 6 no free server. Returns ``(state
+    {srv_job, queue_row, done}, bank {type, steps, sla_frac}, ok, jct,
+    limit)``, ``limit`` the host's ``frac * (sum * steps)`` of each
+    lane's queued job."""
+    n_deg, n_srv, J = len(et.degrees), et.n_srv, 6
+    srv_job = np.where(rng.rand(lanes, n_srv) < rng.uniform(
+        0, 0.9, (lanes, 1)), 0, -1).astype(np.int32)
+    bank = {"type": rng.randint(0, len(et.types), (lanes, J)).astype(
+                np.int32),
+            "steps": rng.choice([10.0, 20.0, 37.0], (lanes, J)),
+            "sla_frac": np.round(rng.uniform(0.1, 1.0, (lanes, J)), 2)}
+    queue_row = rng.randint(0, J, lanes).astype(np.int32)
+    done = np.zeros(lanes, bool)
+    row = (np.arange(lanes), queue_row)
+    limit = bank["sla_frac"][row] * (np.asarray(ot["orig_seq_sum"])[
+        bank["type"][row]] * bank["steps"][row])
+    ok = rng.rand(lanes, n_deg) < 0.7
+    jct = limit[:, None] * rng.choice([0.3, 0.8, 1.0, 1.2, 2.5],
+                                      (lanes, n_deg))
+    srv_job[:8] = -1                          # every degree allowed
+    ok[0] = False                             # no placeable degree
+    ok[1], jct[1] = True, limit[1] * 0.5      # every degree acceptable
+    ok[2], jct[2] = True, limit[2] * 3.0      # none acceptable, all tied
+    ok[3], jct[3, :] = True, limit[3] * 2.0   # ... and the limit exactly
+    jct[3, 1] = limit[3]
+    queue_row[4] = -1                         # no queued job
+    done[5] = True                            # the episode ended
+    srv_job[6] = 0                            # no free server
+    return ({"srv_job": srv_job, "queue_row": queue_row, "done": done},
+            bank, ok, jct, limit)
+
+
+# the kernels in-kernel candidate pricing adds, by their launch-count
+# names: K23 with the state-lane index, K29, and K30 (the oracle) or K26
+# with the price block (the price-feature policy)
+PRICED_KERNELS = ("allocate_job_indexed", "price_reduce", "oracle_select",
+                  "kernel_obs_prices")
+
+
+def priced_episode_diffs(et, ot, bank: dict, steps: int, model=None,
+                         memo_cfg=None, *, device="cuda", dtype=None,
+                         at_call=None):
+    """The first ``steps`` steps of the OracleJCT episode of the stacked
+    ``bank`` (``model`` None, ``device_env.make_oracle_episode_fn``) or of
+    ``model``'s greedy price-feature policy episode
+    (``make_policy_episode_fn``), with ``memo_cfg`` the decision's memo,
+    each call of K23 with the state-lane index, K29, and K30 or K26 with
+    the price block held against its plain version on the call's own
+    inputs through the episode's ``hold``. On the CPU the wrappers are the
+    plain versions, so nothing is held there. ``at_call(d, name, kernel,
+    plain)``, where given, is called with each held call's callables at
+    step ``d`` before the episode goes on.
+
+    Returns ``(diffs, held, out)``: the largest ``max_difference`` per
+    kernel (0: bit-equal floats and equal integers), the calls held per
+    kernel, and ``out``: the trace (``ORACLE_TRACE_NAMES``, and for the
+    policy ``logp`` and ``value``; [B, steps]), each step's ``price_ok``
+    and ``price_jct`` [B, steps, n_deg] and, for the policy, its
+    ``price_block`` [B, steps, A] (the observation's last A graph
+    features)."""
+    import torch
+
+    from ddls_tpu_torch.sim import device_env as de
+
+    dtype = dtype or torch.float32
+    bank = {k: v[None] if v.ndim == 1 else v for k, v in bank.items()}
+    if model is None:
+        fn = de.make_oracle_episode_fn(et, ot, memo_cfg, device=device,
+                                       dtype=dtype)
+        names = ORACLE_TRACE_NAMES
+    else:
+        fn = de.make_policy_episode_fn(et, ot, model, greedy=True,
+                                       memo_cfg=memo_cfg, device=device,
+                                       dtype=dtype)
+        names = POLICY_TRACE_NAMES
+    n_actions = et.max_action + 1
+    compare = torch.device(device).type != "cpu"
+    diffs = dict.fromkeys(PRICED_KERNELS, 0.0)
+    held = dict.fromkeys(PRICED_KERNELS, 0)
+    oks, jcts, blocks = [], [], []
+
+    def hold(d, name, got, kernel, plain):
+        if name == "price_reduce":
+            oks.append(got[0])
+            jcts.append(got[1])
+        elif name == "kernel_obs_prices":
+            blocks.append(got[0][:, -n_actions:])
+        if compare:
+            diffs[name] = max(diffs[name], *(max_difference(g, w)
+                                             for g, w in zip(got, plain())))
+            held[name] += 1
+        if at_call is not None:
+            at_call(d, name, kernel, plain)
+
+    run = fn(bank, steps=steps, hold=hold)
+    out = dict(zip(names, run["trace"]))
+    out["price_ok"] = torch.stack(oks, 1)
+    out["price_jct"] = torch.stack(jcts, 1)
+    if blocks:
+        out["price_block"] = torch.stack(blocks, 1)
     return diffs, held, out

@@ -15,10 +15,12 @@ scripts/export_torch_train_config.py, the six shipped checkpoints with
 their JAX greedy decisions from scripts/export_torch_checkpoints_fixture.py,
 the recorded lookahead lanes from
 scripts/export_torch_lookahead_lanes.py, the JAX device episode
-replays from scripts/export_torch_device_env_fixture.py, and the JAX
+replays from scripts/export_torch_device_env_fixture.py, the JAX
 device collection (and its training config) from
-scripts/export_torch_device_collect_fixture.py; the recorded uniforms
-reproduce the recorded actions."""
+scripts/export_torch_device_collect_fixture.py, and the JAX in-kernel
+OracleJCT and price-feature policy episodes from
+scripts/export_torch_oracle_fixture.py; the recorded uniforms reproduce
+the recorded actions."""
 import os
 import sys
 
@@ -35,6 +37,7 @@ import export_torch_device_collect_fixture as collect_export  # noqa: E402
 import export_torch_device_env_fixture as device_env_export  # noqa: E402
 import export_torch_dqn_es_fixture as dqn_es_export  # noqa: E402
 import export_torch_lookahead_lanes as lanes_export  # noqa: E402
+import export_torch_oracle_fixture as oracle_export  # noqa: E402
 import export_torch_pipeline_fixture as pipeline_export  # noqa: E402
 import export_torch_rollout_fixture as rollout_export  # noqa: E402
 import export_torch_serve_fixture as export  # noqa: E402
@@ -59,7 +62,8 @@ from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           REQUESTS_PATH, checkpoint_path,
                                           load_requests)
 from ddls_tpu_torch.sim.fixture import (DEVICE_COLLECT_PATH,  # noqa: E402
-                                        DEVICE_ENV_PATH, LANES_PATH)
+                                        DEVICE_ENV_PATH, LANES_PATH,
+                                        ORACLE_PATH)
 
 F32_MIN = np.finfo(np.float32).min
 
@@ -390,6 +394,32 @@ def test_device_collect_fixture_regenerates_bit_for_bit():
     assert checked > 100
     assert int(committed["full/n_collects"]) == 3
     assert os.path.getsize(DEVICE_COLLECT_PATH) < 400_000
+
+
+def test_oracle_fixture_regenerates_bit_for_bit():
+    """The in-kernel candidate pricing recordings rebuilt by the export
+    script: the small surfaces' host episodes, JAX x64 traces, per-step
+    pricing and price blocks, and the policy's params in full; the
+    full-width JAX float32 oracle and price-feature policy episodes over
+    their first 4 steps, which the episodes' causality makes the committed
+    arrays' first 4 steps."""
+    prefix = 4
+    fresh = oracle_export.export_fixture(prefix=prefix)
+    with np.load(ORACLE_PATH, allow_pickle=False) as data:
+        committed = {k: data[k] for k in data.files}
+    assert set(committed) == set(fresh)
+    assert int(committed["prefix"]) == oracle_export.PREFIX
+    for key, value in fresh.items():
+        if key == "prefix":
+            continue
+        got = committed[key]
+        if key.startswith("full/oracle/"):
+            got = got[:, :prefix]
+        elif key.startswith("full/policy/"):
+            got = got[:prefix]
+        assert got.dtype == value.dtype, key
+        np.testing.assert_array_equal(got, value, err_msg=key)
+    assert os.path.getsize(ORACLE_PATH) < 300_000
 
 
 def test_device_train_config_regenerates_byte_for_byte():

@@ -1,7 +1,8 @@
 """Import hygiene of the port: ddls_tpu_torch (the simulator copy, the
 native engine's loader, the rollout collector, the PPO, IMPALA, PG, Ape-X
 DQN and ES learners, the fixture loaders, the loops and their entry point,
-the device env, its memo and block search, the device collector and its
+the device env, its memo and block search, its in-kernel pricing and
+oracle episode, the heuristic actors, the device collector and its
 banks included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 

@@ -64,6 +64,11 @@ FORWARD_KERNELS = ("ln_linear_act", "csr_segment_mean",
 AC_KERNELS = ("vtrace", "reward_to_go", "ac_logp", "ac_loss")
 # the Ape-X DQN and ES kernels (K13-K16), which PPO never launches either
 DQN_ES_KERNELS = ("dqn_act", "dqn_td_loss", "es_update", "es_act")
+# the simulator's kernels (K21-K30), which no learner's update launches
+SIM_KERNELS = ("lookahead", "first_fit_block", "allocate_job",
+               "allocate_job_indexed", "price_and_score", "episode_step",
+               "episode_prepare", "kernel_obs", "kernel_obs_prices",
+               "memo_probe", "memo_insert", "price_reduce", "oracle_select")
 
 
 @pytest.fixture
@@ -467,11 +472,11 @@ def test_fixture_update_on_the_card_matches_the_recorded_jax(cuda):
     kernels.reset_launch_counts()
     state, metrics = learner.train_step(state, staged, perms=run["perms"])
     torch.cuda.synchronize()
-    # K9 samples rollouts and K10-K16 belong to the other learners: the
-    # PPO update never launches them
+    # K9 samples rollouts, K10-K16 belong to the other learners and
+    # K21-K30 to the simulator: the PPO update never launches them
     assert all(n > 0 for name, n in kernels.launch_counts().items()
                if name not in ("mask_sample_logp", *AC_KERNELS,
-                               *DQN_ES_KERNELS))
+                               *DQN_ES_KERNELS, *SIM_KERNELS))
     tree = params_to_flax(state.state_dict())
     for key, value in tree.items():
         np.testing.assert_allclose(value, run["params"][key], rtol=0,
@@ -1261,3 +1266,174 @@ def test_segment_memo_on_equals_off(cuda, tmp_path):
         for key in nf_off:
             assert torch.equal(nf_on[key], nf_off[key]), key
     assert int(out[False][-1][0]["memo_hits"][:, -1].sum()) > 0
+
+
+def _priced_surface():
+    """env_load32_price_mixed (a job every 80, the price block in the
+    observation), reset from seed 0, its tables, and the recordings."""
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+    from ddls_tpu_torch.sim.fixture import load_oracle_fixture
+
+    ck = load_checkpoint_fixture("ppo_price_mixed")
+    env = RampJobPartitioningEnvironment(**ck["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    return (et, ot, ck["model"], load_device_env_fixture()["banks"],
+            load_oracle_fixture()["full"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_oracle_kernels_equal_plain(cuda, dtype):
+    """K23 with the state-lane index, K29 and K30 against their plain
+    versions on every call of the first 12 steps of the OracleJCT episode
+    of the two recorded shipped banks at full width (72 pricing rows); in
+    float32 the steps, the verdicts and the prices are the recorded JAX
+    ones."""
+    from ddls_tpu_torch.sim.fixture import (ORACLE_TRACE_NAMES,
+                                            priced_episode_diffs)
+
+    et, ot, _, banks, rec = _priced_surface()
+    lanes = [int(s) for s in rec["seeds"]]
+    steps = 12
+    bank = {k: v[lanes] for k, v in banks.items()}
+    diffs, held, out = priced_episode_diffs(et, ot, bank, steps,
+                                            device=cuda, dtype=dtype)
+    assert diffs == dict.fromkeys(diffs, 0.0), diffs
+    assert held == {"allocate_job_indexed": steps, "price_reduce": steps,
+                    "oracle_select": steps, "kernel_obs_prices": 0}
+    if dtype == torch.float32:
+        for name in ORACLE_TRACE_NAMES:
+            np.testing.assert_array_equal(
+                out[name].cpu().numpy(),
+                rec["oracle"]["trace"][name][:, :steps], err_msg=name)
+        for name in ("price_ok", "price_jct"):
+            np.testing.assert_array_equal(
+                out[name].cpu().numpy(), rec["oracle"][name][:, :steps],
+                err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_price_policy_kernels_equal_plain(cuda, dtype):
+    """K26 with the price block, K23 (indexed) and K29 against their
+    plain versions on every call of the first 8 steps of ppo_price_mixed's
+    greedy price-feature episode of bank 0 at full width; in float32 the
+    actions and the price block are the recorded JAX ones."""
+    from ddls_tpu_torch.sim.fixture import priced_episode_diffs
+
+    et, ot, model, banks, rec = _priced_surface()
+    steps = 8
+    bank = {k: v[[int(rec["seeds"][0])]] for k, v in banks.items()}
+    diffs, held, out = priced_episode_diffs(
+        et, ot, bank, steps, model.to(cuda).eval(), device=cuda,
+        dtype=dtype)
+    assert diffs == dict.fromkeys(diffs, 0.0), diffs
+    assert held["kernel_obs_prices"] == steps
+    if dtype == torch.float32:
+        np.testing.assert_array_equal(out["action"][0].cpu().numpy(),
+                                      rec["policy"]["trace"]["action"][
+                                          :steps])
+        np.testing.assert_array_equal(out["price_block"][0].cpu().numpy(),
+                                      rec["policy"]["price_block"][:steps])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_price_kernels_on_their_edge_cases(cuda, dtype):
+    """On fuzzed inputs with the edge cases laid out: K30 with no
+    placeable degree, every degree acceptable, ties in jct, a jct equal
+    to the limit, lanes without a job or a free server; K29 with lanes
+    without a job, occupied and free channels, a strided time; K23 with
+    a state-lane index that repeats and skips lanes, and without one; K26
+    with prices of every verdict, past twice the limit and at zero. Each
+    equal to its plain version."""
+    from ddls_tpu_torch.sim.fixture import fuzzed_price_lanes
+
+    et, ot, _, _, _ = _priced_surface()
+    dev = device_env.device_tables(et, cuda, dtype)
+    dobs = device_env.device_obs(ot, dev)
+    rng = np.random.RandomState(9)
+    state, bank, ok, jct, _ = fuzzed_price_lanes(et, ot, rng)
+    lanes, n_deg = ok.shape
+    s = {k: torch.from_numpy(v).to(cuda) for k, v in state.items()}
+    b = {k: torch.from_numpy(v).to(cuda, want or dtype) for k, v in
+         bank.items() for want in [dict(device_env.BANK_FIELDS)[k]]}
+    okt = torch.from_numpy(ok).to(cuda)
+    jctt = torch.from_numpy(jct).to(cuda, dtype)
+    got = device_env.oracle_select(okt, jctt, s, b, dobs)
+    want = device_env.oracle_select_plain(okt, jctt, s, b, dobs)
+    assert torch.equal(got, want)
+    assert got[4] == 0 and got[5] == 0 and got[6] == 0
+    # K29: lanes x n_deg rows over a short dep axis
+    m, n_chan = 300, et.n_chan
+    rows = lanes * n_deg
+    is_flow = torch.from_numpy(rng.rand(rows, m) < 0.1).to(cuda)
+    chan = torch.from_numpy(np.where(is_flow.cpu().numpy(), rng.randint(
+        0, n_chan, (rows, m)), -1).astype(np.int32)).to(cuda)
+    s["chan_occ"] = torch.from_numpy(np.where(
+        rng.rand(lanes, n_chan) < 0.002, 0, -1).astype(np.int32)).to(cuda)
+    flags = [torch.from_numpy(rng.rand(rows) < 0.8).to(cuda)
+             for _ in range(3)]
+    t4 = torch.from_numpy(rng.uniform(0, 50, (rows, 4))).to(cuda, dtype)
+    args = (is_flow, chan, flags[0], flags[1], t4[:, 0], flags[2], s, b)
+    for g, w in zip(device_env.price_reduce(*args),
+                    device_env.price_reduce_plain(*args)):
+        assert torch.equal(g, w)
+    ok29, _ = device_env.price_reduce(*args)
+    assert not ok29[4].any() and not ok29[5].any() and ok29.any()
+    # K23 with and without the state-lane index
+    mem = torch.full((lanes, et.n_srv), et.worker_mem, dtype=dtype,
+                     device=cuda) * torch.from_numpy(rng.choice(
+                         [1.0, 0.5, 0.01], (lanes, et.n_srv))).to(cuda,
+                                                                  dtype)
+    free = s["srv_job"] < 0
+    idx = torch.from_numpy(rng.randint(0, 8, 40).astype(np.int32)).to(cuda)
+    cfg = torch.from_numpy(rng.randint(0, dev.n_cfg, 40).astype(
+        np.int32)).to(cuda)
+    for g, w in zip(device_env.allocate_job(mem, free, cfg, dev, idx),
+                    device_env.allocate_job_plain(mem, free, cfg, dev, idx)):
+        assert torch.equal(g, w)
+    ident = torch.arange(lanes, dtype=torch.int32, device=cuda)
+    cfg_all = torch.from_numpy(rng.randint(0, dev.n_cfg, lanes).astype(
+        np.int32)).to(cuda)
+    for g, w in zip(device_env.allocate_job(mem, free, cfg_all, dev),
+                    device_env.allocate_job(mem, free, cfg_all, dev, ident)):
+        assert torch.equal(g, w)
+    # K26 with prices: verdicts of every kind, jct past twice the limit
+    # and at zero
+    jct26 = jctt.clone()
+    jct26[:, 0] = 0
+    fields = (b["type"][:, 0].contiguous(), b["sla_frac"][:, 0].contiguous(),
+              b["steps"][:, 0].contiguous(),
+              (s["srv_job"] >= 0).sum(1).to(torch.int32),
+              torch.from_numpy(rng.randint(0, 9, lanes).astype(
+                  np.int32)).to(cuda))
+    gf, mask = device_env.kernel_obs(dobs, *fields, prices=(okt, jct26))
+    gf_p, mask_p = device_env.kernel_obs_plain(dobs, *fields,
+                                               prices=(okt, jct26))
+    assert torch.equal(gf, gf_p) and torch.equal(mask, mask_p)
+    block = gf[:, -dobs.n_actions:]
+    assert (block == 1.0).any() and (block == 0.0).any() and \
+        ((block > 0) & (block < 1)).any()
+
+
+def test_price_wrappers_reject_what_they_cannot_take(cuda):
+    et, ot, _, _, _ = _priced_surface()
+    dev = device_env.device_tables(et, cuda, torch.float32)
+    dobs = device_env.device_obs(ot, dev)
+    lanes = 2
+    mem = torch.zeros((lanes, et.n_srv), device=cuda)
+    free = torch.ones((lanes, et.n_srv), dtype=torch.bool, device=cuda)
+    cfg = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="state_lane"):
+        device_env.allocate_job(mem, free, cfg, dev)
+    fields = (torch.zeros(lanes, dtype=torch.int32, device=cuda),
+              torch.ones(lanes, device=cuda), torch.ones(lanes, device=cuda),
+              torch.zeros(lanes, dtype=torch.int32, device=cuda),
+              torch.zeros(lanes, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="pass prices"):
+        device_env.kernel_obs(dobs, *fields)
+    bad = (torch.zeros((lanes, 3), dtype=torch.bool, device=cuda),
+           torch.zeros((lanes, 3), device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        device_env.kernel_obs(dobs, *fields, prices=bad)
