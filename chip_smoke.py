@@ -188,6 +188,27 @@ exits non-zero (nothing is caught):
    this process (the route that trained ppo_device_trained), counted, run
    twice from one seed and bit-equal; its collect, update and evaluation
    split.
+25. scenario — the scenario specs' fingerprints, failure windows and
+   loadgen traces against ``ddls_tpu_torch/data/scenario_recorded.npz``,
+   and the port's conformance harness on the card (host_native, host_jax
+   through K21, host_jitted through the device episode in float64,
+   golden) on the failures and canonical specs.
+26. scenario_episode — the full-width failure spec
+   (``ddls_tpu_torch/data/scenario_failures_load32.json``) replayed
+   through K25's scenario mode (the failure walk): the recorded JAX
+   float32 banks bit for bit at 1 and 8 lanes (counted), each lane equal
+   to its bank alone, bank 0 against the recorded x64 replay, the port's
+   host env's episode in float64; every K25 call against its plain
+   version, the walk's branches counted; C1's bank (three ticks of four
+   completions); decisions/s and K25's device ms with and without the
+   walk.
+27. scenario_device_train — phase 24's CLI with ``epoch_loop.scenario``
+   the full-width spec, run twice and bit-equal, every K25 call of the
+   first run held against its plain version, the second counted.
+
+Phase 20's reset part first reproduces the recorded JAX collect that
+crosses both lanes' first reset (the device-collect recording's
+``full/reset/``).
 
 Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
 K18 (the heads' backward and its reduce), K19 (the optimiser's three
@@ -278,12 +299,19 @@ PAD_NODES, PAD_EDGES = 150, 512
 SIM_KERNELS = ("kernel_obs", "episode_prepare", "memo_probe", "memo_insert",
                "lookahead", "first_fit_block", "allocate_job",
                "price_and_score", "episode_step", "allocate_job_indexed",
-               "price_reduce", "oracle_select", "kernel_obs_prices")
+               "price_reduce", "oracle_select", "kernel_obs_prices",
+               "episode_step_scenario")
 TIMED_ITERS = 200
 
 
+# the script's start: each phase line carries the seconds since it
+# (``at_s``), so the time a phase took is the difference to the line before
+START = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.monotonic() - START}), flush=True)
 
 
 def require(cond: bool, what: str) -> None:
@@ -3908,6 +3936,19 @@ def _host_episode(card):
     arrivals, decisions, stats = device_env_fixture.mixed_action_episode(
         env, before_step=before)
     host_s = time.monotonic() - t0
+    et, rel, causes = _hold_host_episode(env, arrivals, decisions, stats)
+    emit("episode_host_env", card=card, decisions=len(decisions),
+         host_episode_s=host_s, t_jct_max_rel_err=rel, causes=causes,
+         **stats)
+    return np.stack(grids), et
+
+
+def _hold_host_episode(env, arrivals, decisions, stats):
+    """A host env's episode (``mixed_action_episode``'s outputs) replayed
+    on the card in float64 from a bank of its arrivals: every decision's
+    reward, accept and cause equal, t and jct within ``EPISODE_REL``, the
+    episode's counts equal. Returns the tables, the largest relative
+    error and the count of each cause."""
     et = device_env.build_episode_tables(env)
     bank = device_env.build_job_bank(et, arrivals)
     actions = np.array([d[0] for d in decisions], np.int32)
@@ -3936,10 +3977,7 @@ def _host_episode(card):
                                              f"the host env's {stats[key]}")
     causes = {int(c): int(n) for c, n in zip(*np.unique(
         trace["cause"], return_counts=True))}
-    emit("episode_host_env", card=card, decisions=len(decisions),
-         host_episode_s=host_s, t_jct_max_rel_err=rel, causes=causes,
-         **stats)
-    return np.stack(grids), et
+    return et, rel, causes
 
 
 def _first_fit_tests(grids, shapes, meta) -> int:
@@ -4218,8 +4256,6 @@ SEGMENT_KERNELS = device_env_fixture.SEGMENT_KERNELS
 # the steps of the first recorded collect whose kernel calls are held
 # against the plain versions (float32 and float64)
 COLLECT_CHECKED = 16
-# the collects drawn after the recorded ones until a lane's episode ends
-RESET_COLLECTS = 3
 DEVICE_CONFIG_PATH = os.path.join(REPO, "ddls_tpu_torch", "data",
                                   "train_config_ppo_device_load32.json")
 
@@ -4421,37 +4457,35 @@ def _collect_kernel_times(et, ot, model, fx):
     return out
 
 
-def _hold_reset(et, ot, model, banks, col, traces):
+def _hold_reset(et, ot, model, banks, col, traces, recorded):
     """[device_collect] (d), the in-kernel reset at full width. From the
     memo-on collector ``col`` after the recorded collects (their traces
-    ``traces``), collects of uniforms from a seeded generator until a
-    lane's episode ends in one (an episode is about 400 decisions: the
-    fourth collect). Over that collect, from the state before it: every
-    call of K26, K25's prepare, K27, K28 and K25 with the reset held
-    against its plain version in float32 (where a lane ends, K25 rewrites
-    its whole state: 32 slots x (32 + 32 + 992) entries and the scalars)
-    and the held segment's trace equal to the collect's; the collect's
-    episode records equal to those built from the steps alone; after
-    each lane's first end, its steps equal to a fresh collector's first
-    steps under the same uniforms. Returns the calls held per kernel, the
-    K25 calls held where a lane reset, and a summary."""
+    ``traces``), the recorded JAX collect that crosses both lanes' first
+    reset (``recorded``), held against the recording as the recorded
+    collects are, and required to end an episode. Over that collect, from
+    the state before it: every call of K26, K25's prepare, K27, K28 and K25
+    with the reset held against its plain version in float32 (where a lane
+    ends, K25 rewrites its whole state: 32 slots x (32 + 32 + 992) entries
+    and the scalars) and the held segment's trace equal to the collect's;
+    the collect's episode records equal to those built from the steps
+    alone; after each lane's first end, its steps equal to a fresh
+    collector's first steps under the same uniforms. Returns the calls held
+    per kernel, the K25 calls held where a lane reset, and a summary."""
     from ddls_tpu_torch.rl.ppo_device import DevicePPOCollector
 
     fxm = device_env_fixture
-    T, lanes = col.rollout_length, col.num_envs
-    gen = torch.Generator("cuda").manual_seed(1)
-    traces = list(traces)
-    for _ in range(RESET_COLLECTS):
-        start = {part: {k: v.clone() for k, v in col.state[part].items()}
-                 for part in ("env", "memo")}
-        u = policy_mod.gumbel_uniforms((lanes, T, col.dobs.n_actions), gen)
-        out = col.collect(uniforms=u)
-        traces.append(out["trace"])
-        if out["trace"]["done"].any():
-            break
+    T = col.rollout_length
+    start = {part: {k: v.clone() for k, v in col.state[part].items()}
+             for part in ("env", "memo")}
+    u = recorded["uniforms"]
+    out = col.collect(uniforms=u)
+    faults, _ = fxm.hold_collect(out, recorded)
+    require(not faults, f"the collect across the reset differs from the "
+                        f"recording: {faults}")
+    traces = [*traces, out["trace"]]
     done = out["trace"]["done"]
-    require(done.any(), f"no episode ended in {len(traces)} collects of "
-                        f"{T} steps")
+    require(done.any(), f"the recorded collect after {len(traces) - 1} "
+                        f"collects of {T} steps ends no episode")
     diffs, held, tr = fxm.segment_kernel_diffs(
         et, ot, model, banks, u, T, device="cuda", dtype=torch.float32,
         start=start)
@@ -4469,7 +4503,7 @@ def _hold_reset(et, ot, model, banks, col, traces):
                         f"{faults}")
     require(records == out["episodes"], "the collect's episode records "
                                         "differ from the steps'")
-    ends, restart_u = fxm.restart_uniforms(u.cpu().numpy(), done)
+    ends, restart_u = fxm.restart_uniforms(u, done)
     fresh = DevicePPOCollector(et, ot, model, banks, T, device="cuda")
     compared, faults = fxm.restart_faults(
         out["trace"], fresh.collect(uniforms=restart_u)["trace"], ends)
@@ -4492,9 +4526,9 @@ def phase_device_collect(card):
     the memo on (the launch counters reset just before, read just after),
     bit-equal to (a), its hit rate; each collection kernel's calls over the
     first 16 steps held against its plain version in float32 and float64;
-    (d) the in-kernel reset at full width: the memo-on collector goes on
-    until a lane's episode ends in a collect, over which every call is
-    held again, the episode records and the restart checked
+    (d) the in-kernel reset at full width: the memo-on collector takes the
+    recorded collect that crosses both lanes' first reset, over which every
+    call is held again, the episode records and the restart checked
     (``_hold_reset``); (c) a collect from the generator timed, and one
     under torch.profiler: device ms a step by kernel, launches a step, the
     busy share."""
@@ -4563,7 +4597,7 @@ def phase_device_collect(card):
             r["held_calls"] += held[name]
     held, reset_calls, reset = _hold_reset(
         et, ot, model, fx["banks"], memo_col,
-        [o["trace"] for o in runs[True][0]])
+        [o["trace"] for o in runs[True][0]], fx["reset"])
     for name in SEGMENT_KERNELS:
         results[name]["held_calls"] += held[name]
     results["episode_step"]["reset_calls_held"] = reset_calls
@@ -5101,6 +5135,406 @@ def phase_device_train(card):
     return launches
 
 
+# ---------------------------------------- scenarios and the failure walk
+SCENARIO_PATH = device_env_fixture.FULL_SCENARIO_PATH
+# the registry specs whose conformance legs run on the card; multi_channel
+# runs only its jitted leg, which is skipped off the dense topology
+CONFORMANCE_SPECS = ("failures", "canonical")
+CONFORMANCE_LEGS = ("host_native", "host_jax", "host_jitted", "golden")
+# the lanes of the full-width scenario replay: the two recorded banks and
+# sample_job_bank's seeds 2-7
+SCENARIO_LANES = 8
+SCENARIO_BANK_JOBS = 420
+# the failure walk's branches each run must take
+WALK_TAKEN = ("preempt_push", "straggle_fit", "straggle_spill")
+
+
+def phase_scenario(card):
+    """[scenario], on the host: (a) every recorded spec's fingerprint,
+    failure windows and loadgen trace fingerprint and gaps equal to the
+    recording's; (b) the port's conformance harness on the card
+    (``scenarios/conformance.py``, ``device="cuda"``) on failures and
+    canonical: host_native, host_jax (K21), host_jitted (the device
+    episode in float64) and golden all ok; multi_channel's host_jitted
+    skipped with the reason."""
+    from ddls_tpu_torch import scenarios
+    from ddls_tpu_torch.demands.distributions import LoadgenInterarrival
+    from ddls_tpu_torch.scenarios import conformance
+
+    fx = device_env_fixture.load_scenario_fixture()
+    specs = {}
+    for name, rec in fx["specs"].items():
+        spec = scenarios.get_spec(SCENARIO_PATH if name == "failures_load32"
+                                  else name)
+        require(scenarios.spec_fingerprint(spec) == rec["fingerprint"],
+                f"spec {name}: fingerprint differs from the recording")
+        windows = scenarios.resolve_failure_windows(
+            spec, int(rec["n_servers"]), int(rec["n_channels"]))
+        for key in ("kind", "resource", "t0", "t1", "rate"):
+            require(np.array_equal(np.array([w[key] for w in windows]
+                                            ).reshape(-1),
+                                   rec["windows"][key]),
+                    f"spec {name}: window {key} differs from the recording")
+        entry = {"fingerprint": rec["fingerprint"], "windows": len(windows)}
+        if rec["loadgen"] is not None:
+            knobs = {k: v for k, v in spec.arrival.items() if k != "kind"}
+            dist = LoadgenInterarrival(**knobs)
+            require(dist.trace_fingerprint == rec["loadgen"]["fingerprint"]
+                    and np.array_equal(dist._gaps, rec["loadgen"]["gaps"]),
+                    f"spec {name}: the loadgen trace differs")
+            entry["loadgen_fingerprint"] = dist.trace_fingerprint
+        specs[name] = entry
+    legs = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    for name in CONFORMANCE_SPECS:
+        report = conformance.run_conformance(
+            scenarios.get_spec(name), seed=0, legs=CONFORMANCE_LEGS,
+            device="cuda")
+        for leg in report["legs"]:
+            require(leg["status"] == "ok", f"conformance {name}: {leg}")
+        legs[name] = {leg["leg"]: {k: leg.get(k) for k in
+                                   ("status", "decisions", "rtol")}
+                      for leg in report["legs"]}
+    report = conformance.run_conformance(
+        scenarios.get_spec("multi_channel"), seed=0,
+        legs=("host_jitted",), device="cuda")
+    leg = report["legs"][0]
+    require(leg["status"] == "skipped" and "single-channel" in
+            leg["reason"], f"multi_channel's jitted leg: {leg}")
+    legs["multi_channel"] = {"host_jitted": leg}
+    seconds = time.monotonic() - t0
+    launches = kernels.launch_counts()
+    for name in ("lookahead", "episode_step", "episode_step_scenario"):
+        require(launches[name] > 0, f"the conformance legs did not launch "
+                                    f"{name}")
+    emit("scenario", card=card, specs=specs, conformance=legs,
+         conformance_s=seconds,
+         launches={k: v for k, v in launches.items() if v})
+
+
+def _scenario_bounds(et, prof, dtype):
+    """K25's bound with the failure walk: nominal K25's bytes and
+    operations (``_episode_bounds``) plus, a call, the speeds and the
+    windows' t0, t1, rate, kind and resource read once, and a deciding
+    lane's walk (the server mask's minimum, ten operations a window)."""
+    fb = 4 if dtype == torch.float32 else 8
+    W = len(et.scenario["kind"])
+    D = prof["decisions"]
+    base = _episode_bounds(et, prof, dtype)["episode_step"]
+    nbytes = base[2] + (et.n_srv + 3 * W) * fb + 2 * W * 4
+    ops = base[3] + float(np.sum(prof["active"])) / D * (et.n_srv + 10 * W)
+    b, by = bound_ms(nbytes, ops)
+    return b, by, nbytes, ops
+
+
+def phase_scenario_episode(card):
+    """[scenario_episode]: the full-width failure spec
+    (``ddls_tpu_torch/data/scenario_failures_load32.json``: 32 servers, 32
+    windows) replayed on the card from the recording
+    (``scenario_recorded.npz``), K25 in scenario mode: (a) float32: the 2
+    recorded JAX banks at 1 lane and, with 6 more banks, at 8 lanes (the
+    counted main path) held bit for bit, each other lane equal to its
+    bank alone; float64: bank 0 against the recorded x64 replay and the
+    port's host env's own episode (native engine) decision for decision;
+    (b) every K25 call of the 8-lane float32 and 1-lane float64 replays
+    bit-equal to its plain version, and the walk's branches counted; (c)
+    C1's bank (three ticks of four completions, canonical spec) bit-equal
+    to its recorded JAX replay, each kernel call against its plain
+    version; (d) decisions/s at 1 and 8 lanes, and K25's device ms a
+    launch under torch.profiler with the walk and without it (the same
+    banks and actions on the spec's tables without the scenario)."""
+    import dataclasses
+
+    from ddls_tpu_torch import scenarios
+    from ddls_tpu_torch.scenarios import conformance
+
+    fxm = device_env_fixture
+    fx = fxm.load_scenario_fixture()
+    full = fx["full"]
+    env = conformance.build_env(scenarios.get_spec(SCENARIO_PATH), "host",
+                                device="cuda")
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    require(et.types == full["types"] and et.scenario is not None,
+            "the full-width spec's tables differ from the recording's")
+    # the recorded banks, then sample_job_bank's seeds 2-7
+    extra = [device_env.sample_job_bank(et, env, SCENARIO_BANK_JOBS, s)
+             for s in range(2, SCENARIO_LANES)]
+    banks = {k: np.concatenate([v, np.stack([b[k] for b in extra])])
+             for k, v in full["banks"].items()}
+    actions = full["actions"]
+    D = len(actions)
+    lanes = list(range(SCENARIO_LANES))
+    info, launches = {}, None
+    for dtype, key in ((torch.float32, "f32"), (torch.float64, "x64")):
+        fn = device_env.make_episode_fn(et, device="cuda", dtype=dtype)
+        recorded = list(range(full[key]["trace"]["cause"].shape[0]))
+        _replay(fn, banks, actions[:4], [0])        # first use, not timed
+        worst, one_lane_s, alone = 0.0, [], {}
+        for lane in recorded:
+            out, wall = _replay(fn, banks, actions, [lane])
+            one_lane_s.append(wall)
+            alone[lane] = out
+            worst = max(worst, _hold_replay(out, [0], full[key], [lane],
+                                            dtype, f"scenario {key} bank "
+                                                   f"{lane}, 1 lane"))
+        if dtype == torch.float32:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out8, wall8 = _replay(fn, banks, actions, lanes)
+            launches = kernels.launch_counts()
+            for name in ("allocate_job", "price_and_score", "lookahead",
+                         "episode_step_scenario"):
+                require(launches[name] == D, f"{name} launched "
+                                             f"{launches[name]} times in {D} "
+                                             f"decisions")
+            require(launches["episode_step"] == 0, "the scenario replay "
+                                                   "launched nominal K25")
+            worst = max(worst, _hold_replay(out8, recorded, full[key],
+                                            recorded, dtype,
+                                            "scenario f32, 8 lanes"))
+            for lane in lanes:
+                one = alone.get(lane)
+                if one is None:
+                    one, _ = _replay(fn, banks, actions, [lane])
+                for s, a in zip(out8["trace"], one["trace"]):
+                    require(_diff(s[lane], a[0]) == 0,
+                            f"scenario lane {lane} of 8 differs from its "
+                            f"bank replayed alone")
+            n_dec = int(out8["trace"][5].sum())
+            info[key] = {"decisions_per_s_1_lane": D / float(np.mean(
+                one_lane_s)), "decisions_per_s_8_lanes": D * 8 / wall8,
+                "job_decisions_8_lanes": n_dec,
+                "job_decisions_per_s_8_lanes": n_dec / wall8}
+        else:
+            info[key] = {"decisions_per_s_1_lane": D / float(np.mean(
+                one_lane_s))}
+        info[key].update(t_jct_max_rel_err=worst,
+                         episode_s_1_lane=float(np.mean(one_lane_s)))
+
+    # (b) every K25 call against its plain version, the walk's branches
+    results = {"episode_step_scenario": _new_result(held_calls=0)}
+    r = results["episode_step_scenario"]
+    branches = {}
+    for dtype, rows in ((torch.float32, lanes), (torch.float64, [0])):
+        ek = device_env.episode_kernels(et, device="cuda", dtype=dtype)
+        bank = _episode_bank(banks, rows, dtype)
+        acts = torch.from_numpy(np.stack([actions] * len(rows))).to(
+            "cuda", torch.int32)
+        diff, held, _, br = fxm.scenario_episode_diffs(ek, bank, acts, D)
+        torch.cuda.synchronize()
+        require(diff == 0, f"K25's scenario mode differs from its plain "
+                           f"version ({dtype}): {diff}")
+        r["held_calls"] += held
+        branches[str(dtype).split(".")[-1]] = br
+    for name in WALK_TAKEN:
+        require(branches["float32"][name] > 0, f"the 8-lane replay never "
+                                               f"took the walk's {name}")
+
+    # the port's host env's own episode on the spec, in float64
+    host_env = conformance.build_env(scenarios.get_spec(SCENARIO_PATH),
+                                     "native", device="cuda")
+    t0 = time.monotonic()
+    arrivals, decisions, stats = fxm.mixed_action_episode(host_env)
+    host_s = time.monotonic() - t0
+    _, host_rel, causes = _hold_host_episode(host_env, arrivals, decisions,
+                                             stats)
+
+    # (c) C1's bank: three ticks complete four slots each
+    c1 = fx["c1"]
+    c1_env = conformance.build_env(scenarios.canonical_spec(), "host",
+                                   device="cuda")
+    c1_env.reset(seed=0)
+    c1_et = device_env.build_episode_tables(c1_env)
+    require(c1_et.types == c1["types"], "C1's surface differs")
+    c1_bank = {k: v[None] for k, v in c1["bank"].items()}
+    c1_fn = device_env.make_episode_fn(c1_et, device="cuda",
+                                       dtype=torch.float32)
+    c1_out, _ = _replay(c1_fn, c1_bank, c1["actions"], [0])
+    _hold_replay(c1_out, [0], c1["f32"], [0], torch.float32, "C1's bank")
+    c1_ek = device_env.episode_kernels(c1_et, device="cuda",
+                                       dtype=torch.float32)
+    c1_err, c1_held, _ = fxm.episode_kernel_diffs(
+        c1_ek, _episode_bank(c1_bank, [0], torch.float32),
+        torch.from_numpy(c1["actions"][None]).to("cuda", torch.int32),
+        len(c1["actions"]), (0,))
+    torch.cuda.synchronize()
+    require(all(v == 0 for v in c1_err.values()), f"C1's kernel calls "
+                                                  f"differ: {c1_err}")
+
+    # (d) K25's device time with the walk and without it, each from a
+    # profile that caught every launch (one that missed launches is taken
+    # again, up to three times; the line says how it went)
+    fx8 = {"banks": banks, "actions": actions}
+
+    def whole_profile(table):
+        for attempt in range(1, 4):
+            prof = _profile_episode(table, fx8, torch.float32, lanes)
+            caught = prof["kernel_launches_per_step"]
+            complete = all(caught.get(k) == 1.0 for k in EPISODE_KERNELS)
+            if complete:
+                break
+        return prof, {"attempts": attempt, "complete": complete,
+                      "launches_per_decision": caught}
+
+    prof, caught = whole_profile(et)
+    nominal_et = dataclasses.replace(et, scenario=None, on_device={})
+    prof_nom, caught_nom = whole_profile(nominal_et)
+    nominal_fn = device_env.make_episode_fn(nominal_et, device="cuda",
+                                            dtype=torch.float32)
+    _replay(nominal_fn, banks, actions[:4], [0])
+    _, nominal_1 = _replay(nominal_fn, banks, actions, [0])
+    _, nominal_8 = _replay(nominal_fn, banks, actions, lanes)
+    bound, bound_by, nbytes, ops = _scenario_bounds(et, prof,
+                                                    torch.float32)
+    ek = device_env.episode_kernels(et, device="cuda", dtype=torch.float32)
+    bank = _episode_bank(banks, lanes, torch.float32)
+    acts = torch.from_numpy(np.stack([actions] * len(lanes))).to(
+        "cuda", torch.int32)
+    state = ek.init_state(bank, acts)
+    raw = ek.evaluate(state)
+    trace = {name: torch.zeros(acts.shape, dtype=want or torch.float32,
+                               device="cuda")
+             for name, want in device_env.TRACE_FIELDS}
+
+    def step_plain():
+        s2 = {k: v.clone() for k, v in state.items()}
+        device_env.episode_step_plain(ek, s2, bank, acts, raw, trace, 0)
+
+    clones = [{k: v.clone() for k, v in state.items()} for _ in range(20)]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in clones:
+        device_env.episode_step(ek, s, bank, acts, raw, trace, 0)
+    end.record()
+    end.synchronize()
+    per = prof["kernel_device_ms_per_launch"]
+    r.update(ms=per["episode_step"],
+             eager_ms=start.elapsed_time(end) / len(clones),
+             plain_ms=eager_ms(step_plain, iters=3), bound_ms=bound,
+             bound_by=bound_by,
+             shape=(f"scenario episode: lanes={SCENARIO_LANES} "
+                    f"decisions={D} servers={et.n_srv} "
+                    f"channels={et.n_chan} windows="
+                    f"{len(et.scenario['kind'])} float32"))
+    emit("scenario_episode", card=card, decisions=D, lanes=SCENARIO_LANES,
+         windows=len(et.scenario["kind"]), **info,
+         nominal_decisions_per_s_1_lane=D / nominal_1,
+         nominal_decisions_per_s_8_lanes=D * SCENARIO_LANES / nominal_8,
+         walk_branches=branches, k25_calls_held=r["held_calls"],
+         k25_scenario_device_ms_per_launch=per["episode_step"],
+         k25_nominal_device_ms_per_launch=prof_nom[
+             "kernel_device_ms_per_launch"]["episode_step"],
+         device_ms_per_decision=prof["kernel_device_ms_per_step"],
+         nominal_device_ms_per_decision=prof_nom[
+             "kernel_device_ms_per_step"],
+         device_busy_share=prof["device_busy_share"],
+         profiles={"scenario": caught, "nominal": caught_nom},
+         bound_bytes_per_call=nbytes, bound_ops_per_call=ops,
+         host_env={"decisions": len(decisions), "host_episode_s": host_s,
+                   "t_jct_max_rel_err": host_rel, "causes": causes,
+                   **stats},
+         c1={"held_calls": c1_held, "completed": int(
+             c1_out["completed"][0])},
+         launches={k: v for k, v in launches.items() if v})
+    return results, launches
+
+
+def phase_scenario_device_train(card):
+    """[scenario_device_train]: ``python -m ddls_tpu_torch.train`` on
+    ``train_config_ppo_device_load32.json`` with ``epoch_loop.scenario``
+    the full-width spec's absolute path (the config's env_config replaces
+    the spec's keys; the runtime rides into the device collector's tables
+    and the evaluation envs), 2 epochs, twice from one seed and bit-equal:
+    the first run with every K25 call held against its plain version on
+    clones of its inputs, the second counted; its collect, update and
+    evaluation split."""
+    import tempfile
+
+    with open(DEVICE_CONFIG_PATH) as fh:
+        cfg = json.load(fh)
+    cfg["epoch_loop"]["scenario"] = os.path.abspath(SCENARIO_PATH)
+    held = {"calls": 0, "max_abs_err": 0.0}
+    kernel_step = device_env.episode_step
+
+    def holding_step(ek, state, bank, actions, raw, trace, d, **kw):
+        if ek.dev.scenario is None:
+            return kernel_step(ek, state, bank, actions, raw, trace, d,
+                               **kw)
+        # one clone per tensor: the segment's counters are views of its
+        # trace's entries, and the plain version must write them alike
+        clones = {}
+        copies = [{k: clones.setdefault(id(v), v.clone())
+                   for k, v in x.items()} if x is not None else None
+                  for x in (state, trace, kw.get("seg_trace"),
+                            kw.get("fields"))]
+        kernel_step(ek, state, bank, actions, raw, trace, d, **kw)
+        device_env.episode_step_plain(
+            ek, copies[0], bank, actions, raw, copies[1], d,
+            seg_trace=copies[2], fields=copies[3],
+            reset=kw.get("reset", False))
+        for got, want in zip((state, trace, kw.get("seg_trace"),
+                              kw.get("fields")), copies):
+            for k in (got or {}):
+                held["max_abs_err"] = max(held["max_abs_err"],
+                                          _diff(got[k], want[k]))
+        held["calls"] += 1
+
+    runs, launches = [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_config_scenario.json")
+        with open(path, "w") as fh:
+            json.dump(cfg, fh)
+        for attempt in range(2):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            if attempt == 0:
+                device_env.episode_step = holding_step
+            try:
+                t0 = time.monotonic()
+                lines = _run_train_cli(["--config", path, "--epochs", "2",
+                                        "--device", "cuda"])
+                wall = time.monotonic() - t0
+            finally:
+                device_env.episode_step = kernel_step
+            if attempt == 1:
+                launches = kernels.launch_counts()
+            runs.append((lines, wall))
+    (lines0, _), (lines1, wall1) = runs
+    require([_deterministic(x) for x in lines0]
+            == [_deterministic(x) for x in lines1],
+            "two runs of the scenario device-collection loop printed "
+            "different results")
+    require(held["calls"] == 256 and held["max_abs_err"] == 0,
+            f"K25's scenario mode against its plain version in the loop: "
+            f"{held}")
+    epochs = lines1[:-1]
+    for line in epochs:
+        require(line["env_steps_this_iter"] == 256,
+                f"an epoch collected {line['env_steps_this_iter']} steps")
+        require(all(np.isfinite(v) for v in line["learner"].values()),
+                "non-finite learner metrics")
+    require(launches["episode_step_scenario"] == 256 and
+            launches["episode_step"] == 0,
+            f"the loop launched K25 {launches['episode_step_scenario']} "
+            f"times in scenario mode, {launches['episode_step']} nominal")
+    split = [{"collect_s": x["timing"]["collect_s"],
+              "update_s": x["timing"]["update_s"],
+              "evaluation_s": x["epoch_time"] - x["timing"]["collect_s"]
+              - x["timing"]["update_s"]} for x in epochs]
+    emit("scenario_device_train", card=card, wall_s=wall1,
+         epochs=len(epochs), split=split, k25_held=held,
+         learner=[x["learner"] for x in epochs],
+         episode_reward_mean=[x.get("episode_reward_mean") for x in epochs],
+         evaluation=[x.get("evaluation") for x in epochs],
+         launches={k: v for k, v in launches.items() if v})
+    return launches
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     require(torch.cuda.is_available(), "CUDA is not available")
@@ -5373,6 +5807,9 @@ def main() -> int:
     oracle_results, oracle_launches = phase_oracle(card)
     price_results, price_launches = phase_price_policy_episode(card)
     device_train_launches = phase_device_train(card)
+    phase_scenario(card)
+    scenario_results, scenario_launches = phase_scenario_episode(card)
+    scenario_train_launches = phase_scenario_device_train(card)
 
     sample_result["shapes"] = [sample_result.pop("shape")]
     for r in (*dqn_es_results.values(), *heads_optim_results.values(),
@@ -5511,6 +5948,22 @@ def main() -> int:
                 "bound_by": r["bound_by"], "library_ms": None,
                 "library_device_ms": None, "calls": r["calls_per_step"],
                 "calls_per": "step", "shapes": [r["shape"]], "card": card})
+    for name, r in scenario_results.items():
+        spec = kernels.KERNELS[name]
+        rows.append({
+            # K25 with the failure walk, beside its nominal rows above
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(spec.source, REPO),
+            "replaces": spec.replaces, "launches": scenario_launches[name],
+            "main_path": "scenario_episode (8 lanes, the float32 replay)",
+            "scenario_device_train_launches": scenario_train_launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "max_rel_err": r["max_rel_err"], "held_calls": r["held_calls"],
+            "ms": r["ms"], "kernel_ms": r["ms"], "eager_ms": r["eager_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library_device_ms": None, "calls": 1, "calls_per": "decision",
+            "shapes": [r["shape"]], "card": card})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

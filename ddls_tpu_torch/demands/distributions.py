@@ -9,10 +9,7 @@ Note the reference's Uniform references an undefined name in its
 negative-decimals branch (SURVEY.md §7.5); here negative ``decimals`` rounds to
 tens/hundreds/... as presumably intended.
 
-Port: a copy of ``ddls_tpu/demands/distributions.py`` without the
-trace-driven ``LoadgenInterarrival`` (it replays ``serve/loadgen.py``,
-which is not ported); a config that names it raises in
-``utils.get_class_from_path``.
+Port: a copy of ``ddls_tpu/demands/distributions.py``.
 """
 from __future__ import annotations
 
@@ -95,6 +92,42 @@ class CustomSkewNorm(Distribution):
         if size is None:
             return float(val)
         return val
+
+
+class LoadgenInterarrival(Distribution):
+    """Replay the serving stack's fingerprinted arrival process
+    (``serve/loadgen.py generate_trace``: diurnal + burst + heavy-tail
+    tenancy) as the SIMULATOR's job interarrival distribution, so
+    training and serving share one workload vocabulary (scenario
+    subsystem, docs/scenarios.md).
+
+    The trace is built ONCE at construction — a pure function of the
+    knobs — and its cumulative ``arrival_s`` (scaled by ``time_scale``
+    into simulator seconds) is replayed as successive gaps, cycling
+    when exhausted. Deterministic across resets: the cluster rebuilds
+    its JobsGenerator (and therefore this distribution) from the same
+    config dict each reset, re-zeroing the replay pointer.
+    """
+
+    def __init__(self, n_requests: int = 256, base_rps: float = 1.0,
+                 seed: int = 0, time_scale: float = 1.0, **knobs):
+        from ddls_tpu_torch.serve.loadgen import generate_trace, trace_fingerprint
+
+        trace = generate_trace(n_requests=int(n_requests),
+                               base_rps=float(base_rps), seed=int(seed),
+                               **knobs)
+        self.trace_fingerprint = trace_fingerprint(trace)
+        arrivals = np.asarray(trace["arrival_s"],
+                              dtype=np.float64) * float(time_scale)
+        self._gaps = np.diff(arrivals, prepend=0.0)
+        self._ptr = 0
+
+    def sample(self, size: Optional[int] = None):
+        if size is not None:
+            return np.array([self.sample() for _ in range(size)])
+        gap = self._gaps[self._ptr % len(self._gaps)]
+        self._ptr += 1
+        return float(gap)
 
 
 class ListOfDistributions(Distribution):

@@ -12,8 +12,8 @@ queued (so every agent step sees exactly one job to decide on).
 
 Port: a copy of ``ddls_tpu/envs/partitioning_env.py``; the
 flight-recorder emits are left out (off by default; they change no
-output), and the scenario runtime raises (see ``sim/cluster.py``). The
-options ``use_jax_lookahead`` and ``candidate_pricing="jax"`` keep the
+output); a ``scenario_runtime`` reaches the cluster (``sim/cluster.py``).
+The options ``use_jax_lookahead`` and ``candidate_pricing="jax"`` keep the
 reference's names (configs travel from it as JSON) and run the array
 lookahead engine on the env's ``device``: K21 on the CUDA card (the
 default; without a card they raise), its plain version with

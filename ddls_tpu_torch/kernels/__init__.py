@@ -25,7 +25,8 @@ backward in ``models/gnn.py``; ``csr_segment_mean``,
 ``minibatch_gather``, in ``models/policy.py``; ``clip_adam``, which every
 learner calls, in ``rl/learner.py``; ``lookahead`` in ``sim/lookahead.py``;
 ``first_fit_block`` in ``sim/device_block_search.py``; ``allocate_job``,
-``price_and_score``, ``episode_step``, ``episode_prepare``,
+``price_and_score``, ``episode_step`` (and its scenario mode,
+``episode_step_scenario``), ``episode_prepare``,
 ``kernel_obs``, ``price_reduce`` and ``oracle_select`` in
 ``sim/device_env.py``; ``memo_probe`` and
 ``memo_insert`` in ``sim/device_memo.py``);
@@ -82,6 +83,12 @@ class KernelSpec:
     def source(self) -> str:
         return os.path.join(CSRC, f"{self.stem}.cu")
 
+
+# K25's entry: the state, trace, bank, actions, the decision's outputs,
+# the tables, the segment's counters and fields (54 pointers), the sizes
+# and flags, the constants, the float type, then the scenario's tables
+# (6 pointers, null for none) and its window count
+_EPISODE_STEP_SIG = "p" * 54 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" + "p"
 
 KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("ln_linear_act", "ddls_ln_linear_act", "ppppppppiiiiiip",
@@ -164,9 +171,8 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("price_and_score", "ddls_price_and_score",
                "p" * 33 + "i" * 10 + "dddd" + "i" + "p",
                "ddls_tpu/sim/jax_env.py:606", file="pricing"),
-    KernelSpec("episode_step", "ddls_episode_step", "p" * 54 + "i" * 15
-               + "d" * 5 + "i" + "p", "ddls_tpu/sim/jax_env.py:974",
-               file="episode"),
+    KernelSpec("episode_step", "ddls_episode_step", _EPISODE_STEP_SIG,
+               "ddls_tpu/sim/jax_env.py:974", file="episode"),
     # device collection: the step's config row once its action is sampled
     # (K25's prepare half), the in-kernel observation (K26) and the
     # lookahead memo's probe and insert (K27, K28)
@@ -193,6 +199,11 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("oracle_select", "ddls_oracle_select",
                "p" * 12 + "i" * 5 + "p", "ddls_tpu/sim/jax_env.py:1799",
                file="oracle"),
+    # the scenario's failure walk: K25 with the scenario's tables (the
+    # same entry point, counted apart from its nominal mode)
+    KernelSpec("episode_step_scenario", "ddls_episode_step",
+               _EPISODE_STEP_SIG, "ddls_tpu/scenarios/failures.py:137",
+               file="episode"),
 )}
 # one library per source stem
 SOURCES: Tuple[str, ...] = tuple(dict.fromkeys(k.stem

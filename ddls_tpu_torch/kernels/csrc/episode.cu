@@ -31,8 +31,26 @@
 // (the file is built with -fmad=false, kernels/__init__.py EXTRA_FLAGS);
 // a completion frees its slot when done - t - eps <= 0, an arrival queues
 // when t + eps >= its time; the freed memory is the completing slots'
-// rows summed in slot order (the reference's completions @ slot_mem: the
-// products are exact, only the order of the sum matters), then added.
+// rows summed in slot order, then added (the reference's completions @
+// slot_mem: a server belongs to at most one slot, so each column sums at
+// most one nonzero row and every order gives the same bits).
+//
+// The scenario mode (the failure walk, ddls_tpu/scenarios/failures.py:137
+// inflate_duration_jax as sim/jax_env.py:1014 scenario_adjusted applies it
+// at :1138-1141): with the scenario's tables (per-server speeds, the
+// t0-sorted windows' t0, t1, rate, kind and resource), thread 0 inflates a
+// deciding lane's jct after the gate, before the trace and the commit:
+// r0, the slowest speed over the block's server mask (inf when it is
+// empty); t_done = t + jct / r0; then each window that touches the lane
+// (its server in the server mask for a preemption, its channel in the
+// channel mask for a straggler) and overlaps the remaining run from lo =
+// max(t0, t) either fits it at its rate (lo + remaining / r) or pushes it
+// past its end (t1 + (remaining - r * span)); the jct becomes t_done - t.
+// The expressions are the reference's, each rounded on its own (XLA fuses
+// none of them: the fuzzed rows of the recording say so), the divisor
+// guard included. The SLA gate stays on the nominal jct. A lane that
+// decides nothing keeps jct 0, which the walk leaves at 0. Without the
+// tables the kernel is the nominal one, a template instance of its own.
 //
 // What bounds it on the H100: latency. A decision reads the lane's placement
 // and pricing outputs (~30 KB at M = 13,072 deps) and writes a few hundred
@@ -104,6 +122,13 @@ struct Fields {
   int *n_occupied, *n_running;
 };
 
+// the scenario's tables (speeds [n_srv]; t0, t1, rate, kind, res [n_win])
+struct Scenario {
+  const void *speeds, *t0, *t1, *rate;
+  const int *kind, *res;
+  int n_win;
+};
+
 struct Dims {
   int n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg, n_col,
       t_step_stride, prepare, reset;
@@ -114,11 +139,44 @@ struct Dims {
 constexpr int kAccepted = 0, kNotHandled = 1, kOpPlacement = 2,
               kDepPlacement = 3, kSla = 4, kEngine = 5;
 
+// the failure walk of one lane (thread 0): the jct of a job of nominal
+// duration jct starting at t on the servers srv and channels chan
 template <typename T>
+__device__ T failure_walk(const Scenario& sc, T t, T jct,
+                          const unsigned char* srv, const unsigned char* chan,
+                          int n_srv) {
+  const T* speeds = static_cast<const T*>(sc.speeds);
+  const T* t0 = static_cast<const T*>(sc.t0);
+  const T* t1 = static_cast<const T*>(sc.t1);
+  const T* rate = static_cast<const T*>(sc.rate);
+  T r0 = static_cast<T>(INFINITY);
+  for (int s = 0; s < n_srv; ++s) {
+    if (srv[s]) r0 = speeds[s] < r0 ? speeds[s] : r0;
+  }
+  T t_done = t + jct / r0;
+  for (int i = 0; i < sc.n_win; ++i) {
+    const T w0 = t0[i], w1 = t1[i], r = rate[i];
+    const T lo = w0 > t ? w0 : t;
+    const bool affects = sc.kind[i] == 0 ? srv[sc.res[i]] : chan[sc.res[i]];
+    const bool overlap = affects && lo < w1 && t_done > lo;
+    const T remaining = t_done - lo;
+    const T span = w1 - lo;
+    const T cap = r * span;
+    const bool fits = r > static_cast<T>(0) && remaining <= cap;
+    const T t_new =
+        fits ? lo + remaining / (r > static_cast<T>(0) ? r : static_cast<T>(1))
+             : w1 + (remaining - cap);
+    t_done = overlap ? t_new : t_done;
+  }
+  return t_done - t;
+}
+
+template <typename T, bool kScenario>
 __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     State st, Trace tr, Bank bk, const int* __restrict__ actions, Raw raw,
     const bool* __restrict__ op_valid, const T* __restrict__ seq_compute,
-    const int* __restrict__ deg_col, Seg sg, Fields fl, Dims dm) {
+    const int* __restrict__ deg_col, Seg sg, Fields fl, Dims dm,
+    Scenario sc) {
   extern __shared__ unsigned char smem[];
   unsigned char* s_srv = smem;                 // [n_srv] server mask
   unsigned char* s_chan = s_srv + dm.n_srv;    // [n_chan] channel mask
@@ -193,6 +251,9 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       accept = false;
       cause = kNotHandled;
       jct = static_cast<T>(0);
+    }
+    if constexpr (kScenario) {
+      if (active) jct = failure_walk(sc, t, jct, s_srv, s_chan, n_srv);
     }
     int slot = 0;
     bool all_valid = true;
@@ -436,7 +497,9 @@ __global__ void episode_prepare_kernel(
 // 1], null for none); then the sizes, decision d, whether to prepare the
 // next decision from actions and whether to reset an ended episode; the
 // constants sim_end, eps, the success and fail rewards and the worker
-// memory; floats of the type is_f64 names.
+// memory; floats of the type is_f64 names; then the scenario's tables
+// (speeds [n_srv], t0, t1, rate [n_win] of that type, kind and res [n_win]
+// int32; speeds null for none) and n_win.
 DDLS_EXPORT int ddls_episode_step(
     void* t, void* mem, void* srv_job, void* chan_occ, void* slot_valid,
     void* slot_t_done, void* slot_mem, void* slot_servers, void* slot_chan,
@@ -456,10 +519,16 @@ DDLS_EXPORT int ddls_episode_step(
     int n_chan, int slots, int n, int m, int jobs, int decisions, int d,
     int n_deg, int n_cfg, int n_col, int t_step_stride, int prepare,
     int reset, double sim_end, double eps, double success, double fail,
-    double worker_mem, int is_f64, void* stream) {
+    double worker_mem, int is_f64, const void* sc_speeds, const void* sc_t0,
+    const void* sc_t1, const void* sc_rate, const void* sc_kind,
+    const void* sc_res, int n_win, void* stream) {
+  const bool scenario = sc_speeds != nullptr;
   if (lanes <= 0 || n_srv < 1 || n_chan < 1 || slots < 1 || n < 1 || m < 1 ||
       jobs < 1 || d < 0 || d >= decisions || n_col < 1 || n_cfg < 1 ||
-      (prepare && actions == nullptr)) {
+      (prepare && actions == nullptr) || n_win < 0 ||
+      (scenario && n_win > 0 &&
+       (sc_t0 == nullptr || sc_t1 == nullptr || sc_rate == nullptr ||
+        sc_kind == nullptr || sc_res == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const State st{t, mem, static_cast<int*>(srv_job),
@@ -493,20 +562,32 @@ DDLS_EXPORT int ddls_episode_step(
   const Dims dm{n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg,
                 n_col, t_step_stride, prepare, reset, sim_end, eps, success,
                 fail, worker_mem};
+  const Scenario sc{sc_speeds, sc_t0, sc_t1, sc_rate,
+                    static_cast<const int*>(sc_kind),
+                    static_cast<const int*>(sc_res), scenario ? n_win : 0};
   const size_t smem = static_cast<size_t>(n_srv) + n_chan + slots;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* acts = static_cast<const int*>(actions);
+  const bool* valid = static_cast<const bool*>(op_valid);
+  const int* cols = static_cast<const int*>(deg_col);
   if (is_f64) {
-    episode_step_kernel<double><<<lanes, kThreads, smem, s>>>(
-        st, tr, bk, static_cast<const int*>(actions), raw,
-        static_cast<const bool*>(op_valid),
-        static_cast<const double*>(seq_compute),
-        static_cast<const int*>(deg_col), sg, fl, dm);
+    const double* seq = static_cast<const double*>(seq_compute);
+    if (scenario) {
+      episode_step_kernel<double, true><<<lanes, kThreads, smem, s>>>(
+          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
+    } else {
+      episode_step_kernel<double, false><<<lanes, kThreads, smem, s>>>(
+          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
+    }
   } else {
-    episode_step_kernel<float><<<lanes, kThreads, smem, s>>>(
-        st, tr, bk, static_cast<const int*>(actions), raw,
-        static_cast<const bool*>(op_valid),
-        static_cast<const float*>(seq_compute),
-        static_cast<const int*>(deg_col), sg, fl, dm);
+    const float* seq = static_cast<const float*>(seq_compute);
+    if (scenario) {
+      episode_step_kernel<float, true><<<lanes, kThreads, smem, s>>>(
+          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
+    } else {
+      episode_step_kernel<float, false><<<lanes, kThreads, smem, s>>>(
+          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

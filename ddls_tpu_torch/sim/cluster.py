@@ -36,11 +36,13 @@ ultimately transfer.
 Port: a copy of ``ddls_tpu/sim/cluster.py``. ``use_jax_lookahead=True``
 keeps the reference's name and runs each cache-miss lookahead on the array
 engine (``sim/lookahead.py``) on the cluster's ``device``: K21 on the CUDA
-card (the default), its plain version with ``device="cpu"``. Left out: the
-scenario runtime (``scenarios/failures.py`` imports JAX; a
-``scenario_runtime`` raises) and the flight-recorder emits (off by
-default; they change no output). The host engine, the native (C++) engine
-and the memo stay.
+card (the default), its plain version with ``device="cpu"``. A
+``scenario_runtime`` (``scenarios/failures.py``) inflates each registered
+job's completion time as the reference's does. Left out: the
+flight-recorder emits (off by default; they change no output), the
+failure windows' crossing events among them; the window pointer advances
+as the reference's. The host engine, the native (C++) engine and the memo
+stay.
 """
 from __future__ import annotations
 
@@ -78,11 +80,12 @@ class RampClusterEnvironment:
                  scenario_runtime=None,
                  device: str = "cuda"):
         self.name = name
-        # trimmed in the port (module docstring): it would need JAX
-        if scenario_runtime is not None:
-            raise NotImplementedError(
-                "the port's simulator has no scenario runtime "
-                "(scenarios/failures.py is not ported)")
+        # scenario subsystem (ddls_tpu_torch/scenarios): deterministic
+        # failure windows + device-speed multipliers, applied as
+        # completion-time inflation at lookahead REGISTRATION — every
+        # lookahead backend stays nominal; None (the default) keeps the
+        # nominal path
+        self.scenario_runtime = scenario_runtime
         # the array lookahead engine's device (use_jax_lookahead, and the
         # env's candidate_pricing="jax"): K21 on "cuda", the plain version
         # on "cpu"; without a card the opt-in raises here
@@ -184,7 +187,11 @@ class RampClusterEnvironment:
         self.step_counter = 0
         self.action = None
         self.op_partition = None
-        # per-job realised jct ledger that survives unmount
+        # scenario bookkeeping: the next failure window whose t0 the clock
+        # has not crossed yet, and the per-job ADJUSTED jct ledger (==
+        # nominal when no scenario) that survives unmount — the env's
+        # end-of-sim sweep reads it (envs/partitioning_env.py)
+        self._scenario_emit_ptr = 0
         self.job_adjusted_jct: Dict[int, float] = {}
 
         # memo caches: partition_cache is keyed by (model, full split map)
@@ -613,7 +620,14 @@ class RampClusterEnvironment:
         step_time = jct / max(job.num_training_steps, 1)
         util = busy / (n_mounted * step_time) if step_time > 0 else 0.0
 
+        # scenario inflation (scenarios/failures.py): the SLA gate above and
+        # util stay NOMINAL (admission is failure-blind by design); only
+        # the realized completion time is adjusted. The device episode's
+        # decision applies the same walk (sim/device_env.py).
         job.details["nominal_lookahead_jct"] = jct
+        sr = self.scenario_runtime
+        if sr is not None and not sr.is_nominal:
+            jct = self._scenario_adjusted_jct(job, jct)
         self.job_adjusted_jct[job.details["job_idx"]] = jct
 
         job.details["lookahead_job_completion_time"] = jct
@@ -632,6 +646,31 @@ class RampClusterEnvironment:
                 if run_time != 0:
                     flow_size += job.graph.edge_size(*edge)
         job.details["job_total_flow_size"] = flow_size
+
+    def _scenario_adjusted_jct(self, job: Job, nominal: float) -> float:
+        """Adjusted completion time under the attached ScenarioRuntime:
+        progress gated at the slowest mounted server's speed, failure
+        windows (on mounted servers/channels) multiplied on top — the
+        shared formula in scenarios/failures.py, which the device
+        episode's walk mirrors in the same op order (reference:
+        :667-689)."""
+        from ddls_tpu_torch.scenarios.failures import (
+            FAILURE_WORKER_PREEMPT, inflate_duration)
+
+        sr = self.scenario_runtime
+        server_index = self.topology.dense_tables()["server_index"]
+        w2s = self.topology.worker_to_server
+        srv = {server_index[w2s[w]]
+               for w in job.details["mounted_workers"]}
+        r0 = min((float(sr.speeds[i]) for i in srv), default=1.0)
+        chans = job.details["mounted_channels"]
+        affects = [
+            (w["resource"] in srv)
+            if w["kind"] == FAILURE_WORKER_PREEMPT
+            else (w["resource"] in chans)
+            for w in sr.windows]
+        return inflate_duration(job.details["time_started"], nominal, r0,
+                                sr.win_t0, sr.win_t1, sr.win_rate, affects)
 
     # ------------------------------------------------------------------- step
     def step(self, action, verbose: bool = False):
@@ -674,6 +713,17 @@ class RampClusterEnvironment:
 
             self._accumulate_tick_stats(tick)
             self.stopwatch.tick(tick)
+
+            # scenario failure windows: the reference emits each window's
+            # crossing event once when the clock first passes its t0 (the
+            # port has no flight recorder); the pointer advances as its
+            # does (reference: :736-760)
+            sr = self.scenario_runtime
+            if sr is not None and self._scenario_emit_ptr < len(sr.windows):
+                now = self.stopwatch.time()
+                while (self._scenario_emit_ptr < len(sr.windows)
+                       and sr.windows[self._scenario_emit_ptr]["t0"] <= now):
+                    self._scenario_emit_ptr += 1
 
             completed = []
             for job in self.jobs_running.values():

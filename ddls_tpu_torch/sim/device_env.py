@@ -46,9 +46,12 @@ x64 mode, which reproduces the host env's decisions exactly).
   :1799; the observation's price block (K26 with prices, :1492-1512),
   which the price-feature ``make_policy_episode_fn`` computes each step.
 
-Left out: the scenario mirror (``scenario_adjusted``,
-``inflate_duration_jax``): ``build_episode_tables`` raises on a
-non-nominal scenario.
+* the scenario mirror (B13's failure walk): ``build_episode_tables``
+  keeps a non-nominal scenario's speeds and windows (reference:
+  :875-888), ``DeviceTables.scenario`` holds them on the device, and the
+  decision inflates each lane's jct after the gate and before the commit
+  (``scenario_adjusted``, the counterpart of ``scenario_adjusted`` :1014
+  over ``inflate_duration_jax``; K25's scenario mode).
 
 Lanes are independent: a stacked run equals its lanes run one by one, bit
 for bit. The episode updates its state tensors in place (the reference's
@@ -72,6 +75,7 @@ from ddls_tpu_torch.agents.block_search import (block_shapes_for,
                                                 factor_pairs)
 from ddls_tpu_torch.agents.partitioners import build_partition_action
 from ddls_tpu_torch.graphs.readers import backward_op_id
+from ddls_tpu_torch.scenarios.failures import FAILURE_WORKER_PREEMPT
 from ddls_tpu_torch.sim import device_memo
 from ddls_tpu_torch.sim import lookahead as lookahead_mod
 from ddls_tpu_torch.sim.partition import partition_graph, partitioned_op_id
@@ -453,6 +457,10 @@ class EpisodeTables:
     success_reward: float
     fail_reward: float
     worker_mem: float          # per-server memory capacity at reset
+    # a non-nominal scenario's inflation inputs in dense index space
+    # (speeds [n_srv], window t0 / t1 / rate [W] float64; kind / res [W]
+    # ints), or None
+    scenario: Optional[dict] = None
     # the tables on each (device, float type) they were asked on
     on_device: dict = dataclasses.field(default_factory=dict, repr=False,
                                         compare=False)
@@ -461,8 +469,9 @@ class EpisodeTables:
 def build_episode_tables(env, max_degree: Optional[int] = None,
                          quantum: Optional[float] = None) -> EpisodeTables:
     """The static side of the device episode, from a reset host env of the
-    port (canonical RAMP single-channel complete topology, nominal
-    scenario, the job_acceptance reward; reference: :827)."""
+    port (canonical RAMP single-channel complete topology, the
+    job_acceptance reward; reference: :827), with the cluster's scenario
+    runtime where it has one."""
     from ddls_tpu_torch.envs.rewards import JobAcceptance
 
     topo = env.cluster.topology
@@ -470,9 +479,6 @@ def build_episode_tables(env, max_degree: Optional[int] = None,
     if dense["pair_channel"] is None:
         raise ValueError("the device episode needs a single-channel "
                          "complete topology (canonical RAMP)")
-    if getattr(env.cluster, "scenario_runtime", None) is not None:
-        raise ValueError("the device episode replays nominal scenarios "
-                         "only; the failure walk is not ported")
     max_degree = max_degree or env.max_partitions_per_op
     quantum = quantum or env.min_op_run_time_quantum
     if max_degree > topo.num_workers:
@@ -506,6 +512,18 @@ def build_episode_tables(env, max_degree: Optional[int] = None,
     if len({w.memory_capacity for w in workers}) != 1:
         raise ValueError("the device episode needs homogeneous worker "
                          "memory")
+    # the scenario mirror: the inflation's inputs in dense index space
+    sr = getattr(env.cluster, "scenario_runtime", None)
+    scenario = None
+    if sr is not None and not sr.is_nominal:
+        scenario = {
+            "speeds": np.asarray(sr.speeds, np.float64),
+            "t0": np.asarray(sr.win_t0, np.float64),
+            "t1": np.asarray(sr.win_t1, np.float64),
+            "rate": np.asarray(sr.win_rate, np.float64),
+            "kind": [int(k) for k in sr.win_kind],
+            "res": [int(r) for r in sr.win_res],
+        }
     return EpisodeTables(
         st=st, tables=tables, pads=pads, types=types, degrees=degrees,
         comm={"x": topo.num_communication_groups,
@@ -520,7 +538,8 @@ def build_episode_tables(env, max_degree: Optional[int] = None,
         eps=env.cluster.machine_epsilon,
         success_reward=getattr(env.reward_function, "success_reward", 1.0),
         fail_reward=getattr(env.reward_function, "fail_reward", -1.0),
-        worker_mem=float(workers[0].memory_capacity))
+        worker_mem=float(workers[0].memory_capacity),
+        scenario=scenario)
 
 
 def build_job_bank(et: EpisodeTables, records: Sequence[dict]) -> dict:
@@ -625,6 +644,18 @@ class DeviceTables:
         # the observation tables on this device (``device_obs``), by the
         # id of the host tables they were built from (kept alive here)
         self.obs_tables: Dict[int, tuple] = {}
+        # the scenario's speeds [n_srv] and windows [W] in the float type,
+        # their kinds and resources [W] int32 (K25 reads them) and as
+        # host ints (the plain walk's unroll), or None
+        self.scenario = None
+        if et.scenario is not None:
+            sc = et.scenario
+            self.scenario = {
+                **{k: put(np.asarray(sc[k], np.float64))
+                   for k in ("speeds", "t0", "t1", "rate")},
+                **{k: put(np.asarray(sc[k], np.int32))
+                   for k in ("kind", "res")},
+                "windows": list(zip(sc["kind"], sc["res"]))}
 
 
 def device_tables(et: EpisodeTables, device="cuda",
@@ -1108,9 +1139,75 @@ BANK_FIELDS = (("type", torch.int32), ("steps", None), ("sla_frac", None),
 _INF = float("inf")
 
 
+# the failure walk's branches ``scenario_adjusted`` counts: per affected
+# window, one that ended by the start or the current completion, one that
+# begins at or after the completion, a preemption's push, a straggler that
+# fits or spills; per lane ``r0 != 1``, an empty server mask (``r0 =
+# inf``) and a zero or infinite nominal
+WALK_BRANCHES = ("preempt_push", "straggle_fit", "straggle_spill",
+                 "window_before", "window_after", "r0_not_1", "empty_mask",
+                 "zero_nominal", "infinite_nominal")
+
+
+def _count(branches: dict, **masks) -> None:
+    for name, mask in masks.items():
+        branches[name] = branches.get(name, 0) + mask.sum()
+
+
+def scenario_adjusted(sc: dict, t: torch.Tensor, jct: torch.Tensor,
+                      srv_mask: torch.Tensor, chan_mask: torch.Tensor,
+                      branches: Optional[dict] = None) -> torch.Tensor:
+    """The failure walk (K25's scenario mode, plain): each lane's
+    completion time under the scenario ``sc`` (``DeviceTables.scenario``)
+    for a job of nominal duration ``jct`` [B] starting at ``t`` [B] on the
+    servers ``srv_mask`` [B, n_srv] and channels ``chan_mask`` [B,
+    n_chan] (reference: ``scenario_adjusted`` :1014 over
+    ``inflate_duration_jax``, the same expressions in the same order).
+    ``r0`` is the slowest mounted server's speed (inf on an empty mask);
+    then, over the t0-sorted windows, an affected window that overlaps the
+    remaining run either holds it to its rate (a preemption pushes it
+    past the window; a straggler's run fits inside it or spills past its
+    end). The divisor guard repeats the reference's ``where(r > 0, r,
+    1)``, so the branch not taken makes no NaN. Given ``branches``, adds
+    to it, from the walk's own masks, how many lanes or windows took each
+    of ``WALK_BRANCHES`` (0-d tensors on the lanes' device)."""
+    inf = torch.full_like(sc["speeds"], _INF)
+    r0 = torch.where(srv_mask, sc["speeds"], inf).amin(1)
+    t_done = t + jct / r0
+    if branches is not None:
+        _count(branches, r0_not_1=torch.isfinite(r0) & (r0 != 1),
+               empty_mask=torch.isinf(r0), zero_nominal=jct == 0,
+               infinite_nominal=torch.isinf(jct))
+    one = torch.ones((), dtype=t.dtype, device=t.device)
+    for i, (kind, res) in enumerate(sc["windows"]):
+        w0, w1, r = sc["t0"][i], sc["t1"][i], sc["rate"][i]
+        lo = torch.maximum(w0, t)
+        affects = (srv_mask[:, res] if kind == FAILURE_WORKER_PREEMPT
+                   else chan_mask[:, res])
+        overlap = affects & (lo < w1) & (t_done > lo)
+        remaining = t_done - lo
+        span = w1 - lo
+        cap = r * span
+        fits = (r > 0) & (remaining <= cap)
+        t_new = torch.where(fits,
+                            lo + remaining / torch.where(r > 0, r, one),
+                            w1 + (remaining - cap))
+        if branches is not None:
+            _count(branches, window_before=affects & ~(lo < w1),
+                   window_after=affects & (lo < w1) & ~(t_done > lo),
+                   preempt_push=overlap & (r == 0),
+                   straggle_fit=overlap & fits,
+                   straggle_spill=overlap & ~fits & (r > 0))
+        t_done = torch.where(overlap, t_new, t_done)
+    return t_done - t
+
+
 def _ordered_sum(mask: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``mask.astype(dt) @ rows`` over the slot axis, summed in slot order
-    (the masked rows only; ``mask`` [B, R] bool, ``rows`` [B, R, n])."""
+    (the masked rows only; ``mask`` [B, R] bool, ``rows`` [B, R, n]). Any
+    order gives XLA's bits: a server belongs to at most one slot, so a
+    column sums at most one nonzero row (held on a recorded tick of four
+    completions, ``scenario_recorded.npz`` ``c1/``)."""
     acc = torch.zeros_like(rows[:, 0])
     for r in range(rows.shape[1]):
         acc = acc + torch.where(mask[:, r, None], rows[:, r],
@@ -1295,10 +1392,13 @@ class EpisodeKernels:
 
     # ---- the commit and the event clock (K25's plain halves) ----------
     def decision(self, state: dict, bank: dict, raw: dict,
-                 trace: dict, d: int) -> None:
+                 trace: dict, d: int,
+                 branches: Optional[dict] = None) -> None:
         """The SLA gate, the cause code and the masked commit into the
         first free slot (reference: ``decision`` :1105 and the episode's
-        ``scan_body`` :1269); writes decision ``d`` of ``trace``."""
+        ``scan_body`` :1269); writes decision ``d`` of ``trace``. With a
+        scenario, ``branches`` (if given) counts the failure walk's
+        branches (``scenario_adjusted``)."""
         dev, et = self.dev, self.dev.et
         dt = dev.dtype
         ev = self.eval_cfg(state, bank, raw)
@@ -1322,13 +1422,18 @@ class EpisodeKernels:
         new_mem = torch.where(action_ok[:, None], ev["new_mem"], mem)
         srv_mask = ev["srv_mask"] & action_ok[:, None]
         chan_mask = ev["chan_mask"] & action_ok[:, None]
+        t = state["t"]
+        if dev.scenario is not None:
+            # inflate AFTER the accept/cause decision: admission is
+            # failure-blind (reference: :1138-1141)
+            jct = scenario_adjusted(dev.scenario, t, jct, srv_mask,
+                                    chan_mask, branches)
 
         slot_valid = state["slot_valid"]
         slot = slot_valid.to(torch.int8).argmin(1)  # the first free slot
         accept = accept & ~slot_valid.all(1) & has_job
         ar = torch.arange(slot.shape[0], device=dev.device)
         delta = mem - new_mem
-        t = state["t"]
         a1 = accept[:, None]
         state["mem"] = torch.where(a1, new_mem, mem)
         state["srv_job"] = torch.where(a1 & srv_mask, slot[:, None].int(),
@@ -1484,18 +1589,22 @@ def episode_step_plain(ek: EpisodeKernels, state: dict, bank: dict,
                        trace: dict, d: int, *,
                        seg_trace: Optional[dict] = None,
                        fields: Optional[dict] = None,
-                       reset: bool = False) -> None:
+                       reset: bool = False,
+                       branches: Optional[dict] = None) -> None:
     """K25's plain version: decision ``d``'s commit, the event clock to
     the next decision, the segment's counters, reset and fields
     (``EpisodeKernels.finish``) and, given ``actions``, the next
-    decision's config row."""
-    ek.decision(state, bank, raw, trace, d)
+    decision's config row; ``branches`` as ``EpisodeKernels.decision``
+    takes it."""
+    ek.decision(state, bank, raw, trace, d, branches)
     ek.advance(state, bank)
     ek.finish(state, bank, d, seg_trace, fields, reset)
     if actions is not None and d + 1 < actions.shape[1]:
         ek.prepare(state, bank, actions[:, d + 1])
 
 
+# the scenario's tables K25's scenario mode reads, in its order
+SCENARIO_FIELDS = ("speeds", "t0", "t1", "rate", "kind", "res")
 # the outputs of EpisodeKernels.evaluate that K25 reads, in its order
 _RAW_FIELDS = ("ots", "new_mem", "ok_place", "is_flow", "chan", "finite_ok",
                "t_step", "ok_la", "ticks")
@@ -1541,7 +1650,11 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
     observation fields into column ``d + 1`` of ``fields``
     (``OBS_FIELDS``, [B, D + 1]). Given ``actions`` [B, D] (the replay),
     the next decision's config row; without them the caller runs
-    ``episode_prepare`` once the next action is known."""
+    ``episode_prepare`` once the next action is known. With a scenario
+    (``DeviceTables.scenario``) the launch is K25's scenario mode, counted
+    as ``episode_step_scenario``: the failure walk inflates each deciding
+    lane's jct after the gate, before the trace and the commit
+    (``scenario_adjusted``)."""
     if kernels.on_cpu(state["mem"], raw["ots"]):
         return episode_step_plain(ek, state, bank, actions, raw, trace, d,
                                   seg_trace=seg_trace, fields=fields,
@@ -1575,10 +1688,18 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
     for name in _RAW_FIELDS:
         if name != "t_step":
             kernels.check_cuda(name, raw[name], raw[name].dtype)
+    if dev.scenario is not None:
+        n_win = len(dev.scenario["windows"])
+        for name in SCENARIO_FIELDS:
+            want = torch.int32 if name in ("kind", "res") else dt
+            kernels.check_cuda(f"scenario {name}", dev.scenario[name], want,
+                               (et.n_srv,) if name == "speeds" else (n_win,))
     if not lanes:
         return
+    sc = dev.scenario
     kernels.launch(
-        "episode_step", *(state[name].data_ptr() for name, _ in STATE_FIELDS),
+        "episode_step" if sc is None else "episode_step_scenario",
+        *(state[name].data_ptr() for name, _ in STATE_FIELDS),
         *(trace[name].data_ptr() for name, _ in TRACE_FIELDS),
         *(bank[name].data_ptr() for name, _ in BANK_FIELDS),
         kernels.ptr(actions), *(raw[name].data_ptr() for name in _RAW_FIELDS),
@@ -1594,7 +1715,10 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
         int(reset), ctypes.c_double(et.sim_end),
         ctypes.c_double(et.eps), ctypes.c_double(et.success_reward),
         ctypes.c_double(et.fail_reward), ctypes.c_double(et.worker_mem),
-        int(dt == torch.float64))
+        int(dt == torch.float64),
+        *(kernels.ptr(None if sc is None else sc[name])
+          for name in SCENARIO_FIELDS),
+        0 if sc is None else len(sc["windows"]))
 
 
 def episode_prepare(ek: EpisodeKernels, state: dict, bank: dict,

@@ -436,6 +436,177 @@ def load_oracle_fixture(path: str = ORACLE_PATH) -> Dict[str, object]:
         return {"small": small, "full": full}
 
 
+# ---------------------------------------------------------------- scenarios
+# The scenario recordings (scripts/export_torch_scenario_fixture.py writes
+# them): per spec what the spec layer derives, the failure walk on fuzzed
+# rows, the registry failures spec's host episode and its x64 jitted
+# replay, the full-width spec's JAX replays, and C1's bank.
+SCENARIO_PATH = os.path.join(DATA_DIR, "scenario_recorded.npz")
+# the full-width failure spec (32 servers, env_load32_price_mixed's fabric
+# and workload, loadgen arrivals)
+FULL_SCENARIO_PATH = os.path.join(DATA_DIR, "scenario_failures_load32.json")
+# the speed levels the fuzzed walk rows' r0 takes; the servers of their
+# preemptive windows run at FUZZ_FAST, above every level, so a row's r0
+# stays its own
+FUZZ_LEVELS = (0.5, 0.7, 0.8, 1.0, 1.25)
+FUZZ_FAST = 1e30
+
+
+def load_scenario_fixture(path: str = SCENARIO_PATH) -> Dict[str, object]:
+    """``{"specs": {name: {"fingerprint", "n_servers", "n_channels",
+    "env_kwargs" (JSON), "windows" {kind, resource, t0, t1, rate, event},
+    "nominal", "runtime" {speeds, win_*}, "loadgen" {fingerprint, gaps}}},
+    "fuzz": {inputs, "host", "jit_f32", "jit_x64", "branches"},
+    "failures": {"types", "bank", "actions", "host", "jitted"}, "full":
+    {"types", "banks", "actions", "f32", "x64" ({"trace", "counters"})},
+    "c1": {"types", "bank", "actions", "f32"}}``."""
+    import json
+
+    with np.load(path, allow_pickle=False) as data:
+        def group(prefix):
+            return {k[len(prefix):]: data[k] for k in data.files
+                    if k.startswith(prefix) and "/" not in k[len(prefix):]}
+
+        def replay(prefix):
+            return {"trace": group(f"{prefix}/trace/"),
+                    "counters": group(f"{prefix}/counters/")}
+
+        specs = {}
+        for name in json.loads(str(data["specs"])):
+            p = f"spec/{name}/"
+            spec = {k: (str(v) if v.dtype.kind == "U" else v)
+                    for k, v in group(p).items()}
+            spec["nominal"] = bool(spec["nominal"])
+            spec["windows"] = group(p + "windows/")
+            spec["windows"]["event"] = json.loads(
+                str(spec["windows"]["event"]))
+            spec["runtime"] = group(p + "runtime/")
+            lg = group(p + "loadgen/")
+            spec["loadgen"] = ({"fingerprint": str(lg["fingerprint"]),
+                                "gaps": lg["gaps"]} if lg else None)
+            specs[name] = spec
+        fuzz = group("fuzz/")
+        fuzz["branches"] = json.loads(str(fuzz["branches"]))
+        return {
+            "specs": specs, "fuzz": fuzz,
+            "failures": {"types": json.loads(str(data["failures/types"])),
+                         "bank": group("failures/bank/"),
+                         "actions": data["failures/actions"],
+                         "host": group("failures/host/"),
+                         "jitted": group("failures/jitted/")},
+            "full": {"types": json.loads(str(data["full/types"])),
+                     "banks": group("full/banks/"),
+                     "actions": data["full/actions"],
+                     "f32": replay("full/f32"), "x64": replay("full/x64")},
+            "c1": {"types": json.loads(str(data["c1/types"])),
+                   "bank": group("c1/bank/"), "actions": data["c1/actions"],
+                   "f32": replay("c1/f32")}}
+
+
+def fuzz_walk(fz: dict, dtype, branches: Optional[dict] = None
+              ) -> np.ndarray:
+    """``device_env.scenario_adjusted`` on the recorded fuzzed walk rows
+    (``load_scenario_fixture()["fuzz"]``): per window group a scenario
+    whose speeds hold every r0 level (``FUZZ_LEVELS``), each row's server
+    mask the server of its r0 (none for r0 = inf) and those of the
+    preemptions that touch it, its channel mask the stragglers that do.
+    ``branches`` as ``scenario_adjusted`` takes it."""
+    import torch
+
+    from ddls_tpu_torch.sim import device_env
+
+    levels = np.asarray(FUZZ_LEVELS)
+    G, W = fz["t0"].shape
+    R = len(fz["t"]) // G
+    speeds = np.concatenate([levels, np.full(W, FUZZ_FAST)])
+    out = []
+    for g in range(G):
+        rows = slice(g * R, (g + 1) * R)
+        kind = fz["kind"][g]
+        res = [len(levels) + i if k == 0 else i for i, k in enumerate(kind)]
+        r0, aff = fz["r0"][rows], fz["affects"][rows]
+        srv = np.zeros((R, len(speeds)), bool)
+        chan = np.zeros((R, W), bool)
+        fin = np.isfinite(r0)
+        srv[np.flatnonzero(fin), np.searchsorted(levels, r0[fin])] = True
+        for i, k in enumerate(kind):
+            if k == 0:
+                srv[:, res[i]] |= aff[:, i]
+            else:
+                chan[:, i] = aff[:, i]
+
+        def t(x):
+            return torch.tensor(x, dtype=dtype)
+
+        sc = {"speeds": t(speeds), "t0": t(fz["t0"][g]),
+              "t1": t(fz["t1"][g]), "rate": t(fz["rate"][g]),
+              "windows": list(zip(kind.tolist(), res))}
+        out.append(device_env.scenario_adjusted(
+            sc, t(fz["t"][rows]), t(fz["nominal"][rows]),
+            torch.from_numpy(srv), torch.from_numpy(chan),
+            branches).numpy())
+    return np.concatenate(out)
+
+
+def fuzzed_scenario(et, horizon: float, seed: int = 1,
+                    windows: int = 24) -> dict:
+    """A fuzzed scenario in ``EpisodeTables.scenario``'s form on ``et``'s
+    servers and channels: ``windows`` t0-sorted, non-overlapping windows
+    over [0, horizon], preemptions (rate 0) and stragglers (rate 1/U(1.05,
+    1.5), so a short job can fit inside one) mixed, speeds U(0.5, 1.5)."""
+    rng = np.random.default_rng(seed)
+    edges = np.sort(rng.uniform(0.0, horizon, 2 * windows))
+    kind = rng.integers(0, 2, windows)
+    return {"speeds": rng.uniform(0.5, 1.5, et.n_srv),
+            "t0": edges[0::2], "t1": edges[1::2],
+            "rate": np.where(kind == 0, 0.0,
+                             1.0 / rng.uniform(1.05, 1.5, windows)),
+            "kind": [int(k) for k in kind],
+            "res": [int(rng.integers(et.n_srv if k == 0 else et.n_chan))
+                    for k in kind]}
+
+
+def branch_counts(branches: dict) -> Dict[str, int]:
+    """``scenario_adjusted``'s branch counts as ints, every branch of
+    ``WALK_BRANCHES`` present."""
+    from ddls_tpu_torch.sim.device_env import WALK_BRANCHES
+
+    return {k: int(branches.get(k, 0)) for k in WALK_BRANCHES}
+
+
+def scenario_episode_diffs(ek, bank: dict, actions, decisions: int):
+    """A device episode with a scenario (``ek.dev.scenario``), decision by
+    decision as ``make_episode_fn`` runs it, each call of K25 (scenario
+    mode) held against its plain version on the decision's own inputs
+    (the episode goes on with the kernel's outputs). Returns ``(diff,
+    held, trace, branches)``: the largest ``max_difference``, the calls
+    held, the trace, and the failure walk's branch counts over every
+    lane's walk, counted by the plain version's own walk
+    (``branch_counts``)."""
+    import torch
+
+    from ddls_tpu_torch.sim import device_env
+
+    dev = ek.dev
+    trace = {name: torch.zeros(actions.shape, dtype=want or dev.dtype,
+                               device=dev.device)
+             for name, want in device_env.TRACE_FIELDS}
+    state = ek.init_state(bank, actions)
+    diff, held, branches = 0.0, 0, {}
+    for d in range(decisions):
+        raw = ek.evaluate(state)
+        state2 = {k: v.clone() for k, v in state.items()}
+        trace2 = {k: v.clone() for k, v in trace.items()}
+        device_env.episode_step(ek, state, bank, actions, raw, trace, d)
+        device_env.episode_step_plain(ek, state2, bank, actions, raw,
+                                      trace2, d, branches=branches)
+        diff = max(diff, *(max_difference(state[k], state2[k])
+                           for k in state),
+                   *(max_difference(trace[k], trace2[k]) for k in trace))
+        held += 1
+    return diff, held, trace, branch_counts(branches)
+
+
 # ------------------------------------------------------- device collection
 # The reference's device collection recorded
 # (scripts/export_torch_device_collect_fixture.py writes it): on the small
@@ -502,7 +673,9 @@ def load_device_collect_fixture(path: str = DEVICE_COLLECT_PATH
     tree, flattened; small only), "collects": [{"uniforms" [B, T, A],
     "trace" {key: [B, T]}, "next" {key: [B]}, "graph_features" [T, B, G],
     "action_mask" [T, B, A], "last_values" [B], "episodes" [records]},
-    ...]}, "memo": {dtype: {...}}}``."""
+    ...], "reset": the collect after them, in which the lanes' first
+    episodes end (full width only; else None)}, "memo": {dtype:
+    {...}}}``."""
     import json
 
     with np.load(path, allow_pickle=False) as data:
@@ -512,21 +685,23 @@ def load_device_collect_fixture(path: str = DEVICE_COLLECT_PATH
 
         out: Dict[str, object] = {}
         for s in DEVICE_COLLECT_SURFACES:
-            n = int(data[f"{s}/n_collects"])
-            collects = []
-            for c in range(n):
-                p = f"{s}/c{c}/"
-                collects.append({
+            def collect(p):
+                return {
                     "uniforms": data[p + "uniforms"],
                     "trace": group(p + "trace/"), "next": group(p + "next/"),
                     "graph_features": data[p + "graph_features"],
                     "action_mask": data[p + "action_mask"],
                     "last_values": data[p + "last_values"],
-                    "episodes": json.loads(str(data[p + "episodes"]))})
+                    "episodes": json.loads(str(data[p + "episodes"]))}
+
+            n = int(data[f"{s}/n_collects"])
             out[s] = {"types": json.loads(str(data[f"{s}/types"])),
                       "banks": group(f"{s}/banks/"),
                       "params": group(f"{s}/params/"),
-                      "collects": collects}
+                      "collects": [collect(f"{s}/c{c}/") for c in range(n)],
+                      "reset": (collect(f"{s}/reset/")
+                                if f"{s}/reset/uniforms" in data.files
+                                else None)}
         out["memo"] = {dt: group(f"memo/{dt}/")
                        for dt in ("float32", "float64")}
         return out

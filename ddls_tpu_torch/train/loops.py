@@ -56,9 +56,14 @@ reference's ``_make_device_collector`` :964, banks from ``rl/fused.py``,
 ``use_jax_lookahead_memo`` and ``device_bank_jobs`` as the reference
 reads them); the loop then keeps one in-process env as the template.
 
+``scenario`` (a registry name, a spec-JSON path or a ``ScenarioSpec``;
+reference: :287-319) supplies the env kwargs and, for a failure spec,
+the ``ScenarioRuntime`` every env (subprocess workers and the device
+collector's template included) carries.
+
 Left out, each raising where it is asked for: the fused and sebulba
 modes, multi-device collection, sharded parameter layouts, socket
-collection, scenarios, the run ledger, warm starts, W&B, and the
+collection, the run ledger, warm starts, W&B, and the
 multi-host fitness average of ES. The launcher's checkpoint and log
 cadences belong to the launcher (not ported).
 """
@@ -112,7 +117,6 @@ _UNPORTED_OPTIONS = {
     "n_devices": (None, 1),
     "collect_transport": ("inprocess", None),
     "socket_config": (None, {}),
-    "scenario": (None,),
     "run_ledger": (None,),
     "sebulba_config": (None, {}),
     "fused_config": (None, {}),
@@ -235,6 +239,7 @@ class RLEpochLoop:
                  vec_env_backend: str = "auto",
                  device: str = "cuda",
                  init_params: Optional[Mapping[str, Any]] = None,
+                 scenario=None,
                  **kwargs):
         for key, value in kwargs.items():
             if key not in _UNPORTED_OPTIONS:
@@ -289,6 +294,28 @@ class RLEpochLoop:
         self.metrics_sync_interval = max(int(metrics_sync_interval or 1), 1)
         self.vec_env_backend = vec_env_backend
         self.device = resolve_device(device)
+        # scenario plumbing (reference: :294-319): the spec supplies the
+        # env construction kwargs and (for failure specs) the runtime; an
+        # explicit env_config entry replaces the spec's TOP-LEVEL key
+        # wholesale (never a deep merge). The canonical spec resolves
+        # runtime=None, so its env config equals the hand-built one.
+        self.scenario_fingerprint: Optional[str] = None
+        if scenario is not None:
+            from ddls_tpu_torch.hardware.topologies import build_topology
+            from ddls_tpu_torch.scenarios.spec import (build_runtime,
+                                                       env_kwargs,
+                                                       get_spec,
+                                                       spec_fingerprint)
+
+            spec = (get_spec(scenario) if isinstance(scenario, str)
+                    else scenario)
+            merged = dict(env_kwargs(spec))
+            merged.update(env_config or {})
+            runtime = build_runtime(spec, build_topology(spec.topology))
+            if runtime is not None:
+                merged["scenario_runtime"] = runtime
+            env_config = merged
+            self.scenario_fingerprint = spec_fingerprint(spec)
         self.env_cls = get_class_from_path(path_to_env_cls)
         self.env_config = dict(env_config)
         self.metric = metric

@@ -158,6 +158,7 @@ _PORTED = (
     "demands.distributions.ProbabilityMassFunction",
     "demands.distributions.CustomSkewNorm",
     "demands.distributions.ListOfDistributions",
+    "demands.distributions.LoadgenInterarrival",
     "envs.partitioning_env.RampJobPartitioningEnvironment",
     "envs.baselines.FixedDegreePacking",
     "train.loops.RLEpochLoop",

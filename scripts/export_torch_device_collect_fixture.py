@@ -19,7 +19,9 @@ Writes (default directory: ``ddls_tpu_torch/data``):
     ``horizon_bank_jobs(env, 31)``;
   each 3 collects of the reference ``DevicePPOCollector`` (``memo_cfg=
   None``: the reference's memo pins are red, ROADMAP C0) of 24 (small) or
-  128 (full) steps, from ``PRNGKey(7919)`` split once a collect: per
+  128 (full) steps, from ``PRNGKey(7919)`` split once a collect, and on
+  the full-width surface a fourth (``full/reset/``), steps 384-511, in
+  which both lanes end their first 400-decision episode and reset: per
   collect the uniforms K9 needs to take its samples ([B, T, A]: per lane
   the segment's key splits, ``uniform(key, (A,), minval=tiny, maxval=1)``
   as ``jax.random.categorical`` draws its Gumbel noise; the script first
@@ -302,8 +304,11 @@ def export_fixture(prefix: Optional[int] = None) -> Dict[str, np.ndarray]:
                 for k, v in flatten_tree({"params": params["params"]}
                                          ).items():
                     out[f"{name}/params/{k}"] = np.asarray(v, np.float32)
+            extra = int(name == "full" and not short)
             for k, v in record_collects(env, et, model, params, banks, steps,
-                                        n).items():
+                                        n + extra).items():
+                if k.startswith(f"c{n}/"):
+                    k = "reset/" + k[len(f"c{n}/"):]
                 out[f"{name}/{k}"] = v
         et_small = surfaces["small"][1]
         out.update({f"memo/float32/{k}": v for k, v in

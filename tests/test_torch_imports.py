@@ -3,7 +3,8 @@ native engine's loader, the rollout collector, the PPO, IMPALA, PG, Ape-X
 DQN and ES learners, the fixture loaders, the loops and their entry point,
 the device env, its memo and block search, its in-kernel pricing and
 oracle episode, the heuristic actors, the device collector and its
-banks included) and chip_smoke.py import nothing of JAX, flax, orbax,
+banks, the scenario specs, failure walk and conformance harness and the
+loadgen trace included) and chip_smoke.py import nothing of JAX, flax, orbax,
 PyYAML or the JAX package.
 
 A child interpreter installs a ``sys.meta_path`` finder that refuses those
@@ -61,7 +62,11 @@ _CHILD = textwrap.dedent("""
              "ddls_tpu_torch.graphs.synthetic",
              "ddls_tpu_torch.hardware.topologies",
              "ddls_tpu_torch.agents.placers",
-             "ddls_tpu_torch.utils.common"}} <= set(names), names
+             "ddls_tpu_torch.utils.common",
+             "ddls_tpu_torch.scenarios", "ddls_tpu_torch.scenarios.spec",
+             "ddls_tpu_torch.scenarios.failures",
+             "ddls_tpu_torch.scenarios.conformance",
+             "ddls_tpu_torch.serve.loadgen"}} <= set(names), names
     import chip_smoke
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
@@ -77,7 +82,7 @@ def test_port_and_chip_smoke_import_without_jax():
         capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     # every subpackage and module was walked, __main__ included
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 63
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 80
 
 
 def test_port_sources_name_no_jax_import():

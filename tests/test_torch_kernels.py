@@ -33,7 +33,12 @@ counts included, in float32 and float64, on every recorded group of lanes
 and with ``skip`` too. The device env's kernels K22-K25 equal their plain
 versions exactly (integers) and bit for bit (floats), in float32 and
 float64, on the calls of the first decisions of two recorded shipped
-banks, whose float32 trace is the recorded JAX one.
+banks, whose float32 trace is the recorded JAX one. K25's scenario mode
+(the failure walk) equals its plain version on every call of the recorded
+full-width scenario replay (whose float32 trace is the recorded JAX one)
+and of episodes under fuzzed scenarios that take each of the walk's
+branches; C1's bank holds; a nominal episode launches the nominal K25 and
+no scenario mode.
 """
 import dataclasses
 
@@ -68,7 +73,8 @@ DQN_ES_KERNELS = ("dqn_act", "dqn_td_loss", "es_update", "es_act")
 SIM_KERNELS = ("lookahead", "first_fit_block", "allocate_job",
                "allocate_job_indexed", "price_and_score", "episode_step",
                "episode_prepare", "kernel_obs", "kernel_obs_prices",
-               "memo_probe", "memo_insert", "price_reduce", "oracle_select")
+               "memo_probe", "memo_insert", "price_reduce", "oracle_select",
+               "episode_step_scenario")
 
 
 @pytest.fixture
@@ -1437,3 +1443,218 @@ def test_price_wrappers_reject_what_they_cannot_take(cuda):
            torch.zeros((lanes, 3), device=cuda))
     with pytest.raises(ValueError, match="shape"):
         device_env.kernel_obs(dobs, *fields, prices=bad)
+
+
+# ------------------------------------------------- the failure walk (K25)
+def _scenario_env(cuda, path):
+    from ddls_tpu_torch import scenarios
+    from ddls_tpu_torch.scenarios import conformance
+
+    env = conformance.build_env(scenarios.get_spec(path), "host",
+                                device=str(cuda))
+    env.reset(seed=0)
+    return env
+
+
+def _lanes(banks, rows, dtype, cuda):
+    return {name: torch.from_numpy(np.ascontiguousarray(banks[name][rows]))
+            .to(cuda, want or dtype) for name, want in device_env.BANK_FIELDS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scenario_step_equals_plain_on_the_recorded_replay(cuda, dtype):
+    from ddls_tpu_torch.sim.fixture import (FULL_SCENARIO_PATH,
+                                            load_scenario_fixture,
+                                            scenario_episode_diffs)
+
+    full = load_scenario_fixture()["full"]
+    et = device_env.build_episode_tables(_scenario_env(cuda,
+                                                       FULL_SCENARIO_PATH))
+    ek = device_env.episode_kernels(et, device=cuda, dtype=dtype)
+    acts = torch.from_numpy(np.stack([full["actions"]] * 2)).to(
+        cuda, torch.int32)
+    kernels.reset_launch_counts()
+    diff, held, trace, branches = scenario_episode_diffs(
+        ek, _lanes(full["banks"], [0, 1], dtype, cuda), acts,
+        acts.shape[1])
+    counts = kernels.launch_counts()
+    assert diff == 0 and held == acts.shape[1]
+    assert counts["episode_step_scenario"] == held
+    assert counts["episode_step"] == 0
+    for name in ("preempt_push", "straggle_fit", "straggle_spill"):
+        assert branches[name] > 0, branches
+    if dtype == torch.float32:
+        for name in TRACE_NAMES:
+            np.testing.assert_array_equal(trace[name].cpu().numpy(),
+                                          full["f32"]["trace"][name],
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_scenario_step_equals_plain_under_fuzzed_scenarios(cuda, seed):
+    """The failures spec's 8-server surface with a fuzzed scenario: dense,
+    short and long windows of both kinds over the episode, speeds between
+    0.5 and 1.5; 8 lanes of sampled banks in float32 and float64, every
+    K25 call against its plain version, a preemption's push, a straggler
+    that fits and one that spills each taken (and the empty masks of the
+    lanes that decide nothing)."""
+    import dataclasses
+
+    from ddls_tpu_torch.sim.fixture import scenario_episode_diffs
+
+    env = _scenario_env(cuda, "failures")
+    et = device_env.build_episode_tables(env)
+    rng = np.random.default_rng(seed)
+    W = 48
+    edges = np.sort(rng.uniform(0.0, 1.6e4, 2 * W))
+    kind = rng.integers(0, 2, W)
+    scenario = {
+        "speeds": rng.uniform(0.5, 1.5, et.n_srv),
+        "t0": edges[0::2], "t1": edges[1::2],
+        "rate": np.where(kind == 0, 0.0, 1.0 / rng.uniform(1.1, 4.0, W)),
+        "kind": [int(k) for k in kind],
+        "res": [int(rng.integers(et.n_srv if k == 0 else et.n_chan))
+                for k in kind]}
+    et = dataclasses.replace(et, scenario=scenario, on_device={})
+    banks = [device_env.sample_job_bank(et, env, 80, s) for s in range(8)]
+    banks = {k: np.stack([b[k] for b in banks]) for k in banks[0]}
+    actions = np.random.RandomState(seed).choice(
+        [0, 1, 2, 4, 6, 8], size=(8, 60)).astype(np.int32)
+    taken = dict.fromkeys(("preempt_push", "straggle_fit",
+                           "straggle_spill"), 0)
+    for dtype in (torch.float32, torch.float64):
+        ek = device_env.episode_kernels(et, device=cuda, dtype=dtype)
+        diff, held, _, branches = scenario_episode_diffs(
+            ek, _lanes(banks, list(range(8)), dtype, cuda),
+            torch.from_numpy(actions).to(cuda), actions.shape[1])
+        assert diff == 0 and held == actions.shape[1], dtype
+        for name in taken:
+            taken[name] += branches[name]
+    assert all(v > 0 for v in taken.values()), taken
+
+
+def _priced_scenario_surface(device):
+    """The failures spec's 8-server surface with the price block in the
+    observation (native candidate pricing), a 60-job bank from it and
+    ``fuzzed_scenario`` over the bank's arrivals in place of the spec's
+    four windows."""
+    from ddls_tpu_torch import scenarios
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.hardware.topologies import build_topology
+    from ddls_tpu_torch.sim.fixture import fuzzed_scenario
+
+    spec = scenarios.failures_spec()
+    env = RampJobPartitioningEnvironment(
+        **scenarios.env_kwargs(spec), candidate_pricing="native",
+        obs_include_candidate_prices=True, device=str(device),
+        scenario_runtime=scenarios.build_runtime(
+            spec, build_topology(spec.topology)))
+    obs = env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    ot = device_env.build_obs_tables(env, et)
+    bank = device_env.sample_job_bank(et, env, 60, 3)
+    arr = bank["arrival_t"]
+    et = dataclasses.replace(et, on_device={}, scenario=fuzzed_scenario(
+        et, float(arr[np.isfinite(arr)][-1]) + 2000.0))
+    return env, obs, et, ot, bank
+
+
+@pytest.mark.parametrize("priced", ["oracle", "price_policy"])
+def test_scenario_step_in_priced_episodes_equals_plain(cuda, priced):
+    """The oracle episode and the price-feature policy episode (greedy, a
+    seeded random init, its forward in float32 as the kernels take it)
+    under a fuzzed scenario in float64: on the card
+    they launch K25's scenario mode and never the nominal one; their
+    decisions equal the same episode's on the CPU (the plain versions), t
+    and jct within rel 1e-9; a replay of the card episode's actions holds
+    every K25 call against its plain version, gives the episode's jct and
+    accepts bit for bit, and takes the walk's three branches."""
+    from ddls_tpu_torch.sim.fixture import (POLICY_ARCH,
+                                            scenario_episode_diffs)
+
+    env, obs, et, ot, bank = _priced_scenario_surface(cuda)
+    names = ("action", "reward", "accept", "cause", "jct", "t", "has_job")
+    if priced == "price_policy":
+        names = ("action", "logp", "value") + names[1:]
+    runs, counts = {}, None
+    for device in ("cpu", cuda):
+        if priced == "oracle":
+            fn = device_env.make_oracle_episode_fn(et, ot, device=device,
+                                                   dtype=torch.float64)
+        else:
+            torch.manual_seed(7)
+            model = policy.GNNPolicy(
+                n_actions=env.max_partitions_per_op + 1,
+                graph_feature_dim=obs["graph_features"].shape[0],
+                **POLICY_ARCH).eval().to(device)
+            fn = device_env.make_policy_episode_fn(
+                et, ot, model, greedy=True, device=device,
+                dtype=torch.float64)
+        kernels.reset_launch_counts()
+        out = fn(bank)
+        counts = kernels.launch_counts()
+        runs[device] = {n: x.cpu().numpy() for n, x in zip(names,
+                                                           out["trace"])}
+    assert counts["episode_step_scenario"] == len(bank["type"]), counts
+    assert counts["episode_step"] == 0
+    got, want = runs[cuda], runs["cpu"]
+    for name in ("action", "reward", "accept", "cause", "has_job"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in ("t", "jct"):
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-9,
+                                   atol=0, err_msg=name)
+    ek = device_env.episode_kernels(et, device=cuda, dtype=torch.float64)
+    acts = torch.from_numpy(got["action"][None].astype(np.int32)).to(cuda)
+    diff, held, trace, branches = scenario_episode_diffs(
+        ek, _lanes({k: v[None] for k, v in bank.items()}, [0],
+                   torch.float64, cuda), acts, acts.shape[1])
+    assert diff == 0 and held == acts.shape[1]
+    np.testing.assert_array_equal(trace["jct"][0].cpu().numpy(), got["jct"])
+    np.testing.assert_array_equal(trace["accept"][0].cpu().numpy(),
+                                  got["accept"])
+    for name in ("preempt_push", "straggle_fit", "straggle_spill"):
+        assert branches[name] > 0, branches
+
+
+def test_c1_bank_equals_plain_and_the_recording(cuda):
+    from ddls_tpu_torch.sim.fixture import load_scenario_fixture
+
+    c1 = load_scenario_fixture()["c1"]
+    et = device_env.build_episode_tables(_scenario_env(cuda, "canonical"))
+    ek = device_env.episode_kernels(et, device=cuda, dtype=torch.float32)
+    acts = torch.from_numpy(c1["actions"][None]).to(cuda, torch.int32)
+    bank = {k: v[None] for k, v in c1["bank"].items()}
+    diffs, held, trace = episode_kernel_diffs(
+        ek, _lanes(bank, [0], torch.float32, cuda), acts, acts.shape[1],
+        (0, 4))
+    assert diffs == dict.fromkeys(diffs, 0.0), diffs
+    for name in TRACE_NAMES:
+        np.testing.assert_array_equal(trace[name].cpu().numpy(),
+                                      c1["f32"]["trace"][name],
+                                      err_msg=name)
+
+
+def test_null_scenario_launches_the_nominal_kernel(cuda):
+    """No scenario: K25's nominal instance, as before the failure walk,
+    whose float32 trace is the recorded JAX one."""
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+
+    fx = load_device_env_fixture()
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    assert et.scenario is None
+    fn = device_env.make_episode_fn(et, device=cuda)
+    n_dec = 24
+    kernels.reset_launch_counts()
+    out = fn({k: v[:2] for k, v in fx["banks"].items()},
+             np.stack([fx["actions"][:n_dec]] * 2))
+    counts = kernels.launch_counts()
+    assert counts["episode_step"] == n_dec
+    assert counts["episode_step_scenario"] == 0
+    for name, got in zip(TRACE_NAMES, out["trace"]):
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      fx["f32"]["trace"][name][:2, :n_dec],
+                                      err_msg=name)

@@ -3,8 +3,9 @@ config, seed and action sequence give bit-equal observations (every key),
 rewards, dones, candidate prices (the native engine's float64) and the
 cluster's episode stats, on env_small and on env_load32_price_mixed (the
 shipped policy's env, with candidate pricing and price features), for a
-fixed cycle over the valid actions and for FixedDegreePacking(8); and the
-trimmed scenario runtime raises.
+fixed cycle over the valid actions and for FixedDegreePacking(8); and a
+scenario runtime, trimmed until the scenarios were ported, reaches the
+cluster (``tests/test_torch_scenarios.py`` holds what it does).
 
 The simulator draws from the global ``random`` and ``numpy.random``
 streams, which ``env.reset(seed)`` reseeds: each side runs its whole
@@ -87,11 +88,29 @@ def test_simulator_copy_is_bit_equal(name, policy):
 
 
 def test_trimmed_features_raise():
-    """The scenario runtime is not ported and raises. (The array
-    lookahead's options run: tests/test_torch_lookahead.py.)"""
+    """The scenario runtime, once trimmed (a runtime raised), is ported:
+    the failures spec's runtime on env_small's fabric reaches the cluster
+    and inflates the registered completion times; an unported
+    distribution still raises. (The array lookahead's options run:
+    tests/test_torch_lookahead.py.)"""
+    from ddls_tpu_torch.hardware.topologies import build_topology
+    from ddls_tpu_torch.scenarios import build_runtime, failures_spec
+
     cfg = env_config("env_small")
-    with pytest.raises(NotImplementedError, match="scenario"):
-        PortEnv(**cfg, scenario_runtime=object())
+    runtime = build_runtime(failures_spec(),
+                            build_topology(cfg["topology_config"]))
+    env = PortEnv(**cfg, scenario_runtime=runtime)
+    assert env.cluster.scenario_runtime is runtime
+    obs, done = env.reset(seed=0), False
+    while not done:
+        obs, _, done, _ = env.step(
+            int(np.flatnonzero(obs["action_mask"])[-1]))
+    cluster = env.cluster
+    assert any(cluster.job_adjusted_jct[ji]
+               != j.details["nominal_lookahead_jct"]
+               for ji, j in cluster.jobs_completed.items())
+    with pytest.raises(ValueError, match="names no class of the port"):
+        get_class_from_path("ddls_tpu.serve.autoscale.Autoscaler")
 
 
 def test_config_targets_map_onto_the_port():
@@ -106,6 +125,8 @@ def test_config_targets_map_onto_the_port():
     assert (get_class_from_path(
         "ddls_tpu.envs.partitioning_env.RampJobPartitioningEnvironment")
         is PortEnv)
+    assert (get_class_from_path(
+        "ddls_tpu.demands.distributions.LoadgenInterarrival")
+        is distributions.LoadgenInterarrival)
     with pytest.raises(ValueError, match="names no class of the port"):
-        get_class_from_path(
-            "ddls_tpu.demands.distributions.LoadgenInterarrival")
+        get_class_from_path("ddls_tpu.serve.autoscale.Autoscaler")
