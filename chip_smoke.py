@@ -40,6 +40,14 @@ exits non-zero (nothing is caught):
    largest magnitude; clip_rho_fraction may differ only by the rows whose
    rho lies within 1e-5 of the clip), bitwise across two runs, timed at
    the fixture's shapes.
+   Then cluster — K24 and both K21 entries (per lane, indexed) spread each
+   lane over a thread-block cluster: each at every cluster size 1-16
+   against its plain version, bit for bit (ticks too), on the recorded
+   replay's calls (8 lanes, decisions 0, 7 and 15; 1 and 2 lanes), the
+   oracle step's 72 pricing rows and every recorded group of K21 lanes,
+   in float32 and float64; then device ms a call (CUDA graph) at cluster
+   sizes 1-16, the clusters of each size the card runs at once, and the
+   size each wrapper chooses (the kernels line's ``cluster``).
 4. serve   — the main path: the shipped ppo_price_mixed export through
    ``build_fleet(device="cuda")`` at max_batch 8 on the default ladder,
    the 64 fixture requests, launch counters reset just before and read
@@ -2582,7 +2590,7 @@ def phase_dqn_es_loop(card):
     (in this process) with the apex_dqn config (32 envs x 16 steps, 3
     epochs, learning_starts cut to 512 so that epochs 2 and 3 update; from
     flax's initialisation) and with the es config (a population of 10, 2
-    epochs, rollout_length cut to 50; from the shipped export), each with
+    epochs, rollout_length cut to 25; from the shipped export), each with
     one greedy evaluation episode and a checkpoint; the launch counters
     reset just before each run and read just after (DQN: K1-K3, K5, K6,
     K13, K14; ES: K1-K4, K15, K16, K4 in the greedy evaluation); each run
@@ -2599,7 +2607,7 @@ def phase_dqn_es_loop(card):
                     "learning_starts"] = 512
                 epochs, init = "3", []
             else:
-                cfg["epoch_loop"]["rollout_length"] = 50
+                cfg["epoch_loop"]["rollout_length"] = 25
                 epochs, init = "2", ["--init-export", EXPORT_PATH]
             cfg_path = os.path.join(tmp, f"{algo}.json")
             with open(cfg_path, "w") as fh:
@@ -3389,6 +3397,194 @@ def check_lookahead_kernel():
     return {"lookahead": res}
 
 
+# ------------------------------- K21 and K24 over thread-block clusters
+# every cluster size a launch may be given (1-16 CTAs a lane), and the
+# sizes whose device times the sweep reports
+CLUSTER_SIZES = tuple(range(1, kernels.MAX_CLUSTER + 1))
+CLUSTER_TIMED = (1, 2, 4, 8, 16)
+# the decisions of the recorded 8-lane replay whose K24 and K21 calls are
+# held at every cluster size, in float32 and in float64
+CLUSTER_DECISIONS = {torch.float32: (0, 7, 15), torch.float64: (0,)}
+
+
+def _hold_every_size(what, run, plain, sizes=CLUSTER_SIZES):
+    """``run(g)`` at every cluster size ``g`` against ``plain`` (the plain
+    version's outputs on the same inputs): bit for bit (NaN equal to
+    NaN), integers equal. Returns the number of calls held."""
+    for g in sizes:
+        got = run(g)
+        torch.cuda.synchronize()
+        for i, (o, p) in enumerate(zip(got, plain)):
+            diff = device_env_fixture.max_difference(o, p)
+            require(diff == 0, f"{what} at cluster {g}: output {i} differs "
+                               f"from its plain version by {diff}")
+    return len(sizes)
+
+
+def _k21_indexed(raw, cfg, skip, dev, g=None, ticks=None):
+    return lookahead_mod.lookahead_indexed(
+        cfg, raw["ots"], raw["op_score"], raw["times"], raw["is_flow"],
+        raw["dep_score"], raw["chan"], dev.t, num_workers=dev.et.n_srv,
+        num_channels=dev.et.n_chan, ticks=ticks, skip=skip, cluster=g)
+
+
+def _k21_indexed_held(raw, cfg, skip, dev, g):
+    ticks = torch.empty(cfg.shape[0], dtype=torch.int32, device="cuda")
+    return _k21_indexed(raw, cfg, skip, dev, g, ticks) + (ticks,)
+
+
+def _k21_indexed_plain(raw, cfg, skip, dev):
+    return lookahead_mod.lookahead_plain(
+        *lookahead_mod.gather_indexed(cfg, raw["ots"], raw["op_score"],
+                                      raw["times"], raw["is_flow"],
+                                      raw["dep_score"], raw["chan"], dev.t),
+        num_workers=dev.et.n_srv, num_channels=dev.et.n_chan, skip=skip)
+
+
+def _episode_calls(et, fx, dtype, lanes, decisions):
+    """The recorded replay of banks ``lanes`` up to the last of
+    ``decisions``: each of those decisions' config rows, active lanes and
+    ``evaluate`` outputs (K23, K24 and K21's inputs and outputs)."""
+    ek = device_env.episode_kernels(et, device="cuda", dtype=dtype)
+    bank = _episode_bank(fx["banks"], lanes, dtype)
+    acts = torch.from_numpy(np.stack([fx["actions"]] * len(lanes))).to(
+        "cuda", torch.int32)
+    trace = {name: torch.zeros(acts.shape, dtype=want or dtype,
+                               device="cuda")
+             for name, want in device_env.TRACE_FIELDS}
+    state = ek.init_state(bank, acts)
+    calls = []
+    for d in range(max(decisions) + 1):
+        raw = ek.evaluate(state)
+        if d in decisions:
+            calls.append((state["cfg"].clone(), state["active"].clone(),
+                          raw))
+        device_env.episode_step(ek, state, bank, acts, raw, trace, d)
+    return ek, calls
+
+
+def check_cluster_kernels(card):
+    """[cluster]: K24 and both K21 entries at every cluster size 1-16
+    against their plain versions, bit for bit, on the calls the main path
+    makes at full width (the shipped surface: 45 configs, N 480, M
+    13,072): the recorded 8-lane replay's decisions ``CLUSTER_DECISIONS``
+    of each float type (K24, the indexed K21 with ``skip``), its
+    banks 0 and 0-1 at decision 0 (lanes 1 and 2), the 72 pricing rows of
+    the oracle step at decision 0 (K24, the indexed K21 without the memo),
+    and the per-lane K21 on every recorded group of lanes (float32 and
+    float64). Then the sweep: device ms a call (CUDA graph) of K24 and
+    the indexed K21 at 8 lanes, K21 at the main path's pricing decision
+    (price32) and at the 72 rows, at each size of ``CLUSTER_TIMED``, with
+    the clusters of K24 of each size the card runs at once and the size
+    each wrapper takes (K24 chooses it from those counts; K21 takes
+    ``lookahead.CLUSTER``). Returns each redesigned row's size as the main
+    path takes it."""
+    fx = device_env_fixture.load_device_env_fixture()
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    held = {"price_and_score": 0, "lookahead (indexed)": 0,
+            "lookahead": 0}
+    timed = {}
+    for dtype in (torch.float32, torch.float64):
+        for lanes, decisions in ((list(range(8)), CLUSTER_DECISIONS[dtype]),
+                                 ([0], (0,)), ([0, 1], (0,))):
+            ek, calls = _episode_calls(et, fx, dtype, lanes, decisions)
+            dev = ek.dev
+            for d, (cfg, active, raw) in zip(decisions, calls):
+                what = f"{len(lanes)} lanes, decision {d}, {dtype}"
+                ots, skip = raw["ots"], ~active
+                held["price_and_score"] += _hold_every_size(
+                    f"K24 ({what})",
+                    lambda g: device_env.price_and_score(ots, cfg, dev, g),
+                    device_env.price_and_score_plain(ots, cfg, dev))
+                held["lookahead (indexed)"] += _hold_every_size(
+                    f"K21 indexed ({what})",
+                    lambda g: _k21_indexed_held(raw, cfg, skip, dev, g),
+                    _k21_indexed_plain(raw, cfg, skip, dev))
+                if dtype == torch.float32 and len(lanes) == 8 and d == 0:
+                    timed["episode"] = (dev, cfg, raw, skip)
+    # the oracle step's 72 pricing rows (8 lanes x 9 degrees)
+    ek = device_env.episode_kernels(et, device="cuda", dtype=torch.float32)
+    dev = ek.dev
+    bank = _episode_bank(fx["banks"], list(range(8)), torch.float32)
+    state = ek.init_state(bank)
+    rows = ek.price_rows(state, bank)
+    cfg72, ots72 = rows["cfg"], rows["alloc"][0]
+    raw72 = dict(zip(("times", "is_flow", "chan", "op_score", "dep_score"),
+                     device_env.price_and_score(ots72, cfg72, dev)[:5]),
+                 ots=ots72)
+    has_job = (state["queue_row"] >= 0) & ~state["done"]
+    skip72 = ~has_job.repeat_interleave(dev.n_deg)
+    held["price_and_score"] += _hold_every_size(
+        "K24 (72 pricing rows)",
+        lambda g: device_env.price_and_score(ots72, cfg72, dev, g),
+        device_env.price_and_score_plain(ots72, cfg72, dev))
+    held["lookahead (indexed)"] += _hold_every_size(
+        "K21 indexed (72 pricing rows)",
+        lambda g: _k21_indexed_held(raw72, cfg72, skip72, dev, g),
+        _k21_indexed_plain(raw72, cfg72, skip72, dev))
+    # the per-lane entry on the recorded groups
+    groups = load_lookahead_lanes()
+    for name, grp in groups.items():
+        kw = dict(num_workers=grp["num_workers"],
+                  num_channels=grp["num_channels"])
+        for dtype in (torch.float32, torch.float64):
+            args = _lanes_on_card(grp, dtype)
+
+            def run(g):
+                ticks = torch.empty(args[0].shape[0], dtype=torch.int32,
+                                    device="cuda")
+                return lookahead_mod.lookahead(*args, ticks=ticks,
+                                               cluster=g, **kw) + (ticks,)
+
+            held["lookahead"] += _hold_every_size(
+                f"K21 on {name} ({dtype})", run,
+                lookahead_mod.lookahead_plain(*args, **kw))
+
+    # the sweep
+    dev8, cfg8, raw8, skip8 = timed["episode"]
+    main = groups[LOOKAHEAD_MAIN_GROUP]
+    main_args = _lanes_on_card(main, torch.float32)
+    main_kw = dict(num_workers=main["num_workers"],
+                   num_channels=main["num_channels"])
+    calls = {
+        "price_and_score (8 lanes)": (
+            lambda g: device_env.price_and_score(raw8["ots"], cfg8, dev8, g),
+            device_env.price_cluster(8, dev8), 100),
+        "price_and_score (72 rows)": (
+            lambda g: device_env.price_and_score(ots72, cfg72, dev, g),
+            device_env.price_cluster(72, dev), 100),
+        "lookahead skip (8 lanes)": (
+            lambda g: _k21_indexed(raw8, cfg8, skip8, dev8, g),
+            lookahead_mod.CLUSTER, 20),
+        "lookahead (72 rows)": (
+            lambda g: _k21_indexed(raw72, cfg72, skip72, dev, g),
+            lookahead_mod.CLUSTER, 10),
+        "lookahead (price32)": (
+            lambda g: lookahead_mod.lookahead(*main_args, cluster=g,
+                                              **main_kw),
+            lookahead_mod.CLUSTER, 20)}
+    sweep = {}
+    for name, (fn, chosen, iters) in calls.items():
+        sizes = sorted(set(CLUSTER_TIMED) | {chosen})
+        sweep[name] = {"chosen": chosen, "device_ms": {
+            g: device_ms(lambda: fn(g), iters=iters, replays=3)
+            for g in sizes}}
+    fits = {g: kernels.cached_query(
+        "pricing", "ddls_price_and_score_clusters", et.pads.n_ops,
+        et.pads.n_deps, et.pads.n_groups, et.pads.group_edges,
+        et.pads.n_sync, et.pads.n_o2o, *dev.st.ramp_shape, g, 0)
+        for g in CLUSTER_TIMED}
+    emit("cluster", card=card, sms=kernels.sm_count(), held_calls=held,
+         sizes_held=len(CLUSTER_SIZES), sweep=sweep,
+         price_and_score_clusters_at_once=fits)
+    return {"lookahead": sweep["lookahead (price32)"]["chosen"],
+            "lookahead (skip)": sweep["lookahead skip (8 lanes)"]["chosen"],
+            "price_and_score": sweep["price_and_score (8 lanes)"]["chosen"]}
+
+
 def _price_tuples_close(got, want) -> float:
     """The largest |got - want| / (PRICE_ABS + PRICE_REL |want|) over every
     priced candidate; None prices must match."""
@@ -4171,16 +4367,7 @@ def phase_episode(card):
     acts = torch.from_numpy(np.stack([actions] * 8)).to("cuda", torch.int32)
     state = ek.init_state(bank, acts)
     raw = ek.evaluate(state)
-    c = state["cfg"].long()
-    T = dev.t
-    valid = T["op_valid"][c]
-    la_args = (T["op_compute"][c], valid, torch.where(valid, raw["ots"], -1),
-               raw["op_score"], T["num_parents"][c], raw["times"],
-               T["dep_valid"][c], T["dep_src"][c], T["dep_dst"][c],
-               T["dep_mutual"][c], raw["is_flow"], raw["dep_score"],
-               raw["chan"][:, :, None])
-    la_kw = dict(num_workers=et.n_srv, num_channels=et.n_chan,
-                 skip=~state["active"])
+    la_skip = ~state["active"]
     trace = {name: torch.zeros(acts.shape, dtype=want or torch.float32,
                                device="cuda")
              for name, want in device_env.TRACE_FIELDS}
@@ -4194,8 +4381,8 @@ def phase_episode(card):
             state["mem"], state["srv_job"] < 0, state["cfg"], dev),
         "price_and_score": lambda: device_env.price_and_score_plain(
             raw["ots"], state["cfg"], dev),
-        "lookahead": lambda: lookahead_mod.lookahead_plain(*la_args,
-                                                           **la_kw),
+        "lookahead": lambda: _k21_indexed_plain(raw, state["cfg"], la_skip,
+                                                dev),
         "episode_step": step_plain}
     free0 = state["srv_job"] < 0
     eager = {
@@ -4203,8 +4390,8 @@ def phase_episode(card):
             state["mem"], free0, state["cfg"], dev)),
         "price_and_score": eager_ms(lambda: device_env.price_and_score(
             raw["ots"], state["cfg"], dev)),
-        "lookahead": eager_ms(lambda: lookahead_mod.lookahead(
-            *la_args, **la_kw), iters=20)}
+        "lookahead": eager_ms(lambda: _k21_indexed(
+            raw, state["cfg"], la_skip, dev), iters=20)}
     clones = [{k: v.clone() for k, v in state.items()} for _ in range(20)]
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -5781,6 +5968,7 @@ def main() -> int:
 
     lookahead_results = check_lookahead_kernel()
     emit("lookahead_kernel_checked", card=card, **lookahead_results)
+    clusters = check_cluster_kernels(card)
 
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
@@ -5888,6 +6076,8 @@ def main() -> int:
                           if name == "gae_normalize" or actor_critic
                           or dqn_es else "minibatch step"),
             "shapes": r["shapes"], "card": card})
+        if engine:
+            rows[-1]["cluster"] = clusters[name]
     for name, r in episode_results.items():
         spec = kernels.KERNELS[name]
         block = name == "first_fit_block"
@@ -5909,6 +6099,8 @@ def main() -> int:
             "library_device_ms": None, "calls": r["calls_per_step"],
             "calls_per": "split value" if block else "decision",
             "shapes": [r["shape"]], "card": card})
+        if rows[-1]["name"] in clusters:
+            rows[-1]["cluster"] = clusters[rows[-1]["name"]]
     for name, r in collect_results.items():
         spec = kernels.KERNELS[name]
         rows.append({

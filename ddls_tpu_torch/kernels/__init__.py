@@ -54,13 +54,17 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("common.cuh", "ln_row.cuh")
+HEADERS = ("common.cuh", "ln_row.cuh", "cluster.cuh")
 # per-source flags after NVCC_FLAGS: the device env's sources keep every
 # float sum and product apart unless the source fuses it itself, as the
 # reference's arithmetic does
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {
     stem: ("-fmad=false",) for stem in ("placement", "pricing", "episode",
-                                        "obs", "memo", "oracle")}
+                                        "obs", "memo", "oracle",
+                                        "lookahead")}
+# the largest thread-block cluster a lane of K21 or K24 spreads over (the
+# H100's non-portable maximum)
+MAX_CLUSTER = 16
 
 
 @dataclass(frozen=True)
@@ -159,7 +163,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "p" * 18 + "iiiiiiip", "ddls_tpu/rl/ppo.py:343"),
     # the simulator's array lookahead engine (K21): the env's
     # use_jax_lookahead and candidate_pricing="jax" options
-    KernelSpec("lookahead", "ddls_lookahead", "p" * 22 + "i" * 7 + "p",
+    KernelSpec("lookahead", "ddls_lookahead", "p" * 20 + "i" * 9 + "p",
                "ddls_tpu/sim/jax_lookahead.py:313"),
     # the device episode replay: the block-search primitive (K22), the
     # placement scan (K23), dep pricing and SRPT scores (K24), the commit
@@ -169,7 +173,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("allocate_job", "ddls_allocate_job", "p" * 16 + "i" * 11 + "p",
                "ddls_tpu/sim/jax_env.py:450", file="placement"),
     KernelSpec("price_and_score", "ddls_price_and_score",
-               "p" * 33 + "i" * 10 + "dddd" + "i" + "p",
+               "p" * 33 + "i" * 11 + "dddd" + "i" + "p",
                "ddls_tpu/sim/jax_env.py:606", file="pricing"),
     KernelSpec("episode_step", "ddls_episode_step", _EPISODE_STEP_SIG,
                "ddls_tpu/sim/jax_env.py:974", file="episode"),
@@ -278,19 +282,23 @@ def build(stems: Optional[Sequence[str]] = None) -> Dict[str, str]:
     return reports
 
 
-def _symbol(name: str) -> ctypes._CFuncPtr:
+def _function(stem: str, symbol: str, signature: str) -> ctypes._CFuncPtr:
     with _LOCK:
-        fn = _LOADED.get(name)
+        fn = _LOADED.get(symbol)
         if fn is None:
-            spec = KERNELS[name]
-            path = library_path(spec.stem)
+            path = library_path(stem)
             if not os.path.exists(path):
-                build([spec.stem])
-            fn = getattr(ctypes.CDLL(path), spec.symbol)
-            fn.argtypes = [_CTYPES[c] for c in spec.signature]
+                build([stem])
+            fn = getattr(ctypes.CDLL(path), symbol)
+            fn.argtypes = [_CTYPES[c] for c in signature]
             fn.restype = ctypes.c_int
-            _LOADED[name] = fn
+            _LOADED[symbol] = fn
         return fn
+
+
+def _symbol(name: str) -> ctypes._CFuncPtr:
+    spec = KERNELS[name]
+    return _function(spec.stem, spec.symbol, spec.signature)
 
 
 def launch(name: str, *args) -> None:
@@ -306,6 +314,53 @@ def launch(name: str, *args) -> None:
                            f"cudaError {rc}")
     with _LOCK:
         _LAUNCHES[name] += 1
+
+
+def query(stem: str, symbol: str, *args: int) -> int:
+    """Call the C function ``symbol`` of source ``stem`` that takes
+    ``args`` (C ints) and writes one int through its last argument (a
+    size or a count; it launches nothing). Raises on a CUDA error."""
+    fn = _function(stem, symbol, "i" * len(args) + "p")
+    out = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{symbol} failed: cudaError {rc}")
+    return out.value
+
+
+_QUERIES: Dict[Tuple, int] = {}
+
+
+def cached_query(stem: str, symbol: str, *args: int) -> int:
+    """``query``, answered once per device and arguments."""
+    key = (torch.cuda.current_device(), stem, symbol, *args)
+    if key not in _QUERIES:
+        _QUERIES[key] = query(stem, symbol, *args)
+    return _QUERIES[key]
+
+
+def choose_cluster(lanes: int, sms: int, fits=None) -> int:
+    """The cluster size of a launch of ``lanes`` lanes, one cluster a
+    lane: the largest power of two G <= ``MAX_CLUSTER`` whose clusters the
+    card runs at once, or all but an eighth of them (a short second wave:
+    the lanes' extents differ, so the first clusters free their SMs
+    early).
+    ``fits(G)`` says how many clusters of G CTAs the card runs at once
+    (default: ``sms // G``, one CTA an SM); 1 when no larger G
+    qualifies."""
+    best, g = 1, 2
+    while g <= MAX_CLUSTER:
+        at_once = fits(g) if fits is not None else sms // g
+        if lanes <= at_once + at_once // 8:
+            best = g
+        g *= 2
+    return best
+
+
+def sm_count() -> int:
+    """The current CUDA device's streaming multiprocessors."""
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,6 +1,6 @@
-// K21 lookahead: the array lookahead engine's tick loop, one CTA per lane,
-// the whole loop inside the kernel (one launch per call, whatever the
-// number of ticks).
+// K21 lookahead: the array lookahead engine's tick loop, one thread-block
+// cluster per lane, the whole loop inside the kernel (one launch per call,
+// whatever the number of ticks).
 //
 // Replaces ddls_tpu/sim/jax_lookahead.py:313 jax_lookahead (a
 // lax.while_loop that XLA compiled, vmapped over lanes at :457). Per lane,
@@ -27,43 +27,75 @@
 // `skip` flag is set (the reference's `skip`, :316,325-335,355; a null
 // `skip` sets none) runs no tick and returns its initial accumulators.
 //
+// Two entries: the per-lane one reads every input with a leading lane
+// axis; the indexed one (the device env's) reads the config tables'
+// rows through `cfg` (op_compute as op_remaining, op_valid, num_parents,
+// dep_valid, dep_src, dep_dst, dep_mutual) and makes op_worker from the
+// placement (`ots` where the op is valid, else -1), so the episode
+// gathers nothing a step.
+//
 // What bounds it on the H100: latency, not bytes or operations. Each tick
-// is a few passes over the lane's N ops and E deps with a data-dependent
-// trip count (tens to hundreds of ticks), and every pass ends in a
-// block-wide barrier (four a tick). The bytes it must move are the inputs
-// read once and 6 numbers a lane written; the card could move them in
-// microseconds. What the design does about it:
-//  * lane state does not fit shared memory at the large buckets (the dep
-//    arrays alone are ~21 B x 16k = 340 KB against 227 KB a block): the
-//    read-only inputs and the mutable remaining times, flags and parent
-//    counts stay in global memory (16 lanes at the largest bucket fit the
-//    50 MB L2 many times over); shared memory holds only what each tick
-//    reduces: the per-worker and per-channel best scores (sized at launch
-//    from W and C, above 48 KB through cudaFuncSetAttribute; a launch that
-//    is still refused returns its error), the tick's minima and flags;
-//  * reductions use integer atomics in shared memory only: max and min are
-//    exact in any order, so an order-preserving float -> int encoding
-//    (not a plain bit cast: scores of -1 are negative) makes atomicMax and
-//    atomicMin deterministic; the parent-count update is an integer add.
-//    There is no float atomic anywhere;
+// is a few passes over the lane's ops and deps with a data-dependent trip
+// count (tens to hundreds of ticks), each pass ending in a barrier. The
+// bytes it must move are the inputs read once and 6 numbers a lane
+// written; the card could move them in microseconds. What the design does
+// about it:
+//  * extent: a setup pass finds each lane's last valid op and dep (the
+//    episode's valid slots are a prefix; the padded builder's last valid
+//    index is exact whatever the layout), and the ticks walk only up to
+//    them;
+//  * a lane runs on a cluster of G CTAs (1 <= G <= 16; the wrapper takes
+//    4 unless told otherwise); a lane of at most kClusterMinDeps
+//    deps runs on its first CTA alone, with block barriers, and the others
+//    leave at once (a cluster barrier costs ~1,400 cycles on the H100, and
+//    two a tick outweigh the share of a small lane's work they save).
+//    Every CTA keeps a copy of all the lane's ops (at most a few hundred)
+//    and runs the op side of each tick on it, the same bits in every
+//    copy: readiness, the per-worker bests, the selection, the shortest
+//    selected op, the advance. CTA r owns the r-th chunk of the lane's
+//    deps. Each CTA keeps its op copy, its deps' mutable state (remaining
+//    times, flags) and the fields each pass reads (score, source,
+//    destination, channels as their table slots, flow, mutual) in shared
+//    memory where they fit: each lane carves the shared memory launched
+//    for its own extents and keeps in global memory, as one CTA a lane
+//    did, the groups that do not fit (a lane of ~8,000 deps or more on
+//    one CTA: its dep fields); nothing is routed to another path;
+//  * a dep's readiness reads its source op in the CTA's own copy; a
+//    completed dep adds one to its child's parent count in every copy (G
+//    integer atomics over DSMEM);
+//  * the per-channel bests are one table spread over the cluster (channel
+//    c in CTA c % G), reduced with order-preserving integer max over DSMEM
+//    (max and min are exact in any order, so an order-preserving float ->
+//    int encoding makes them deterministic; scores of -1 are negative, so
+//    not a plain bit cast; in float64 the 64-bit max and min are
+//    compare-and-swap loops, cluster.cuh cluster_max); the shortest
+//    nominated dep, the flags and the completions are integer atomics into
+//    CTA 0's shared memory. Tables and counters are double-buffered by
+//    tick parity, so a tick takes two cluster barriers (the kernel's
+//    comment at lookahead_kernel says which phase each orders); every
+//    thread computes the tick from the same values (the same bits
+//    everywhere) and CTA 0's thread 0 the accumulators, in the reference's
+//    order. There is no float atomic anywhere;
 //  * bit equality: every accumulation is written with explicit rounding
 //    (__fadd_rn and friends), so nvcc contracts nothing on its own. In
 //    float32, busy + tick * count is one fused multiply-add (__fmaf_rn),
 //    as XLA's CPU compiler contracts it in the reference (rounding twice
 //    leaves the recorded lanes' busy a float32 step off); in float64 the
 //    product and the sum round apart, as the C++ engine computes them.
-//    The kernel equals its plain PyTorch version bit for bit, and in
-//    float32 the JAX engine's answers.
+//    The kernel equals its plain PyTorch version bit for bit at every G,
+//    and in float32 the JAX engine's answers.
 // The kernel is a template on the float type: float32 (the simulator's
-// two entry points, as the reference's arrays are float32) and float64
-// (the reference's x64 mode).
+// entry points, as the reference's arrays are float32) and float64 (the
+// reference's x64 mode).
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
 
 constexpr float kBig = 3.4e38f;  // the reference's BIG (float32, also x64)
-// at most 64 registers a thread, so a block of 1024 threads fits an SM
-constexpr int kMaxThreads = 1024;
+// threads a CTA at most: 512 leave 128 registers a thread and no spills
+// (at 1,024 the tick loop spills and a tick took ~20% longer on the H100)
+constexpr int kMaxThreads = 512;
 
 template <typename T>
 struct Num;
@@ -106,298 +138,748 @@ struct Num<double> {
   }
 };
 
-// op / dep flags of the tick (flags_*[1]); flags_*[0] holds done
+// op / dep flags of the tick
 constexpr unsigned char kReady = 1;     // op ready
 constexpr unsigned char kSelected = 2;  // op selected
 constexpr unsigned char kFlow = 1;      // dep ready, flow
 constexpr unsigned char kNonFlow = 2;   // dep ready, non-flow
 
+// The thirteen inputs; the table fields (op_remaining, op_valid,
+// num_parents, dep_valid, dep_src, dep_dst, dep_mutual) are read at row
+// cfg[lane] when `cfg` is given (the indexed entry, which makes op_worker
+// from `ots`), else at row lane.
+struct Inputs {
+  const void* op_remaining;
+  const bool* op_valid;
+  const int* op_worker;
+  const void* op_score;
+  const int* num_parents;
+  const void* dep_remaining;
+  const bool* dep_valid;
+  const int* dep_src;
+  const int* dep_dst;
+  const bool* dep_mutual;
+  const bool* dep_is_flow;
+  const void* dep_score;
+  const int* dep_channel;
+  const int* cfg;
+  const int* ots;
+  const bool* skip;
+};
+
+struct Outputs {
+  void* vals;  // [B, 4]: t, comm, comp, busy
+  bool* ok;
+  int* ticks;
+};
+
+// The sizes, the cluster, and which groups of a CTA's state live in its
+// shared memory: the ops (every op of the lane, one copy a CTA: state and
+// fields; else that copy in the lane's global workspace), the dep chunk's
+// state (else in the workspace) and the dep chunk's fields (else read from
+// the inputs). The best-score tables always live in shared memory. The
+// launch passes the padded sizes with no group placed; each lane places
+// its groups for its own extents (`plan`) in the `smem` bytes launched.
+struct Shape {
+  int n, e, links, W, C, G;
+  int dep_chunk, cslice;  // ceil(E / G), ceil(C / G)
+  int ops_smem, dep_state_smem, dep_fields_smem;
+  int smem;
+};
+
+// byte offsets of one CTA's arrays; each rounded up to 8 bytes. In shared
+// memory: the tables, the ops, the dep state, the dep fields (the groups
+// the shape puts there). In a lane's workspace: G copies of the ops group
+// (`ops_bytes` each) when they are not in shared memory, then the dep
+// state of all E deps when it is not.
+struct Layout {
+  size_t wbest, cbest;                                  // tables
+  size_t rem_op, op_score, num_parents, parent_done, worker, op_valid,
+      op_flag, op_done, ops_bytes;                      // ops (group-relative)
+  size_t ops, rem_dep, dep_done, dep_flag;              // dep state
+  size_t dep_score, dep_src, dep_dst, dep_channel, dep_valid, dep_mutual,
+      dep_flow;                                         // dep fields
+  size_t total;
+};
+
+struct Carver {
+  size_t at = 0;
+  __host__ __device__ size_t take(size_t bytes) {
+    const size_t here = at;
+    at += (bytes + 7) / 8 * 8;
+    return here;
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) lookahead_kernel(
-    const T* __restrict__ op_remaining, const bool* __restrict__ op_valid,
-    const int* __restrict__ op_worker, const T* __restrict__ op_score,
-    const int* __restrict__ num_parents, const T* __restrict__ dep_remaining,
-    const bool* __restrict__ dep_valid, const int* __restrict__ dep_src,
-    const int* __restrict__ dep_dst, const bool* __restrict__ dep_mutual,
-    const bool* __restrict__ dep_is_flow, const T* __restrict__ dep_score,
-    const int* __restrict__ dep_channel,
-    T* __restrict__ rem_op_ws,                 // [B, N]
-    T* __restrict__ rem_dep_ws,                // [B, E]
-    unsigned char* __restrict__ flags_op_ws,   // [B, 2, N]
-    unsigned char* __restrict__ flags_dep_ws,  // [B, 2, E]
-    int* __restrict__ parents_ws,              // [B, N]
-    T* __restrict__ out_vals,                  // [B, 4]: t, comm, comp, busy
-    bool* __restrict__ out_ok, int* __restrict__ out_ticks,
-    const bool* __restrict__ skip, int n, int e, int links, int num_workers,
-    int num_channels) {
+__host__ __device__ Layout carve(const Shape& s, bool smem) {
+  Layout L{};
+  const size_t fb = sizeof(T);  // also the order-preserving integer's size
+  Carver g;                     // the ops group, relative to its start
+  L.rem_op = g.take(s.n * fb);
+  L.op_score = g.take(s.n * fb);
+  L.num_parents = g.take(s.n * 4);
+  L.parent_done = g.take(s.n * 4);
+  L.worker = g.take(s.n * 4);
+  L.op_valid = g.take(s.n);
+  L.op_flag = g.take(s.n);
+  L.op_done = g.take(s.n);
+  L.ops_bytes = g.at;
+  const int ndep = smem ? s.dep_chunk : s.e;
+  Carver c;
+  if (smem) {
+    L.wbest = c.take(s.W * fb);
+    L.cbest = c.take(2 * static_cast<size_t>(s.cslice) * fb);
+  }
+  if (smem == static_cast<bool>(s.ops_smem)) {
+    L.ops = c.take(smem ? L.ops_bytes : L.ops_bytes * s.G);
+  }
+  if (smem == static_cast<bool>(s.dep_state_smem)) {
+    L.rem_dep = c.take(ndep * fb);
+    L.dep_done = c.take(ndep);
+    L.dep_flag = c.take(ndep);
+  }
+  if (smem && s.dep_fields_smem) {
+    L.dep_score = c.take(ndep * fb);
+    L.dep_src = c.take(ndep * 4);
+    L.dep_dst = c.take(ndep * 4);
+    L.dep_channel = c.take(static_cast<size_t>(ndep) * s.links * 4);
+    L.dep_valid = c.take(ndep);
+    L.dep_mutual = c.take(ndep);
+    L.dep_flow = c.take(ndep);
+  }
+  L.total = c.at;
+  return L;
+}
+
+template <typename V>
+__device__ __forceinline__ V warp_min(V v) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const V o = __shfl_xor_sync(0xffffffffu, v, offset);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+// `s` with n ops and e deps, no group placed.
+__host__ __device__ inline Shape shape_of(int n, int e, int links, int W,
+                                         int C, int G, int smem) {
+  return Shape{n, e, links, W, C, G, (e + G - 1) / G, (C + G - 1) / G,
+               0, 0, 0, smem};
+}
+
+// Places the groups of `s` in its shared memory, in the order the ticks
+// touch them most, while they fit.
+template <typename T>
+__host__ __device__ void plan(Shape* s) {
+  int* flags[3] = {&s->ops_smem, &s->dep_state_smem, &s->dep_fields_smem};
+  for (int* f : flags) {
+    *f = 1;
+    if (carve<T>(*s, true).total > static_cast<size_t>(s->smem)) *f = 0;
+  }
+}
+
+// A lane of more deps than this spreads over the launch's cluster; a
+// smaller one runs on one CTA (measured on the H100 over the replay's and
+// the pricing decision's lanes: at ~2,800 deps one CTA is faster than 2-8,
+// at ~11,500 four are faster than one).
+constexpr int kClusterMinDeps = 4096;
+
+// Orders the CTA's (G == 1) or the cluster's memory accesses: a cluster
+// barrier costs ~1,400 cycles at 1,024 threads on the H100, a block
+// barrier ~75.
+__device__ __forceinline__ void lane_sync(ddls::cg::cluster_group& cluster,
+                                          int G) {
+  if (G == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
+}
+
+// CTA 0's reductions of tick t, by parity p = t & 1: the shortest
+// nominated dep and the flags of tick t, and the completions of tick t - 1
+// (read together in phase C, one load a warp)
+template <typename Ord>
+struct __align__(16) Slot {
+  Ord min_dep;
+  int nonflow, flow, done;
+};
+
+// a channel's place in the cluster's table: its CTA (c % G) and its index
+// there (c / G), packed; -1 for a channel out of range
+__device__ __forceinline__ int channel_slot(int c, int C, int G) {
+  return c >= 0 && c < C ? ((c % G) << 20) | (c / G) : -1;
+}
+
+// The tick loop, two cluster barriers a tick. Every CTA keeps a copy of
+// all the lane's ops and runs the op side of each tick on it (readiness,
+// the per-worker bests, the selection, the shortest selected op, the
+// advance), the same bits in every CTA; each CTA owns a chunk of the deps.
+// Tick t (p = t & 1):
+//  B. each CTA: its op copy's readiness, bests, selection and shortest
+//     op; its ready flow deps nominated against channel table p, their
+//     shortest into CTA 0's slot p; slot p ^ 1 and table p ^ 1 reset;
+//  -- cluster barrier 1;
+//  C. each CTA: slot p (tick t - 1's completions: the loop ends here,
+//     before tick t, when nothing remains), the tick, the advance of its
+//     op copy, then one pass over its deps: the advance (a completed dep
+//     adds one to its child's parent count in every copy; CTA 0's slot
+//     p ^ 1 counts the completions, the ops' once) and the readiness for
+//     tick t + 1 (its flow deps' scores into table p ^ 1, channel c in CTA
+//     c % G; the flags into slot p ^ 1);
+//  -- cluster barrier 2.
+// Tick 0's readiness runs before the loop.
+// With G = 1 the barriers are block barriers. Another CTA's shared memory
+// is reached through DSMEM (~200 cycles a round trip on the H100), the
+// CTA's own directly.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    lookahead_kernel(Inputs in, Outputs out, Shape sh,
+                     unsigned char* __restrict__ ws, size_t ws_lane) {
   using N_ = Num<T>;
   using Ord = typename N_::Ord;
-  extern __shared__ long long smem_raw[];
-  Ord* s_wbest = reinterpret_cast<Ord*>(smem_raw);  // [W]
-  Ord* s_cbest = s_wbest + num_workers;             // [C]
-  __shared__ Ord s_min_op, s_min_dep;
-  __shared__ int s_any_nonflow, s_any_flow, s_nsel, s_remaining;
-  __shared__ int s_stuck, s_tick_nonflow;
-  __shared__ T s_tick;
+  ddls::cg::cluster_group cluster = ddls::cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  // CTA 0's: the setup's extents and count; the tick's slots
+  __shared__ int s_last_op, s_last_dep, s_count;
+  __shared__ Slot<Ord> s_slot[2];
+  // every CTA's: by parity, its shortest selected op and selected count
+  __shared__ Ord s_min_op[2];
+  __shared__ int s_nsel[2];
 
-  const int lane = blockIdx.x;
+  const int GL = sh.G;  // the launch's cluster size
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = blockIdx.x / GL;
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+  const int nt = blockDim.x;
+  const bool head = rank == 0 && tid == 0;
+  const int n = sh.n, e = sh.e, links = sh.links;
+  const int W = sh.W, C = sh.C;
+  const size_t row =
+      in.cfg != nullptr ? static_cast<size_t>(in.cfg[lane]) : lane;
+  const size_t tn = row * n, te = row * e;
   const size_t on = static_cast<size_t>(lane) * n;
   const size_t oe = static_cast<size_t>(lane) * e;
-  op_remaining += on; op_valid += on; op_worker += on; op_score += on;
-  num_parents += on; dep_remaining += oe; dep_valid += oe; dep_src += oe;
-  dep_dst += oe; dep_mutual += oe; dep_is_flow += oe; dep_score += oe;
-  dep_channel += oe * links;
-  T* rem_op = rem_op_ws + on;
-  T* rem_dep = rem_dep_ws + oe;
-  unsigned char* op_done = flags_op_ws + 2 * on;
-  unsigned char* op_flag = op_done + n;
-  unsigned char* dep_done = flags_dep_ws + 2 * oe;
-  unsigned char* dep_flag = dep_done + e;
-  int* parent_done = parents_ws + on;
-
   const Ord neg_one = N_::enc(static_cast<T>(-1));
   const Ord big = N_::enc(static_cast<T>(kBig));
-  if (tid == 0) {
-    s_min_op = big;
-    s_min_dep = big;
-    s_any_nonflow = 0;
-    s_any_flow = 0;
-    s_nsel = 0;
-    s_remaining = 0;
-    s_stuck = 0;
-  }
-  for (int w = tid; w < num_workers; w += nthreads) s_wbest[w] = neg_one;
-  for (int c = tid; c < num_channels; c += nthreads) s_cbest[c] = neg_one;
-  __syncthreads();
-  int valid_local = 0;
-  for (int i = tid; i < n; i += nthreads) {
-    rem_op[i] = op_remaining[i];
-    op_done[i] = 0;
-    op_flag[i] = 0;
-    parent_done[i] = 0;
-    valid_local += op_valid[i] ? 1 : 0;
-  }
-  for (int j = tid; j < e; j += nthreads) {
-    rem_dep[j] = dep_remaining[j];
-    dep_done[j] = 0;
-    dep_flag[j] = 0;
-    valid_local += dep_valid[j] ? 1 : 0;
-  }
-  if (valid_local) atomicAdd(&s_remaining, valid_local);
-  __syncthreads();
+  Slot<Ord>* slots = rank == 0 ? s_slot : cluster.map_shared_rank(s_slot, 0);
 
-  // thread 0's accumulators (the reference's scalars)
+  if (head) {
+    s_last_op = 0;
+    s_last_dep = 0;
+    s_count = 0;
+    for (int p = 0; p < 2; ++p) s_slot[p] = Slot<Ord>{big, 0, 0, 0};
+  }
+  if (tid == 0) {
+    for (int p = 0; p < 2; ++p) {
+      s_min_op[p] = big;
+      s_nsel[p] = 0;
+    }
+  }
+  lane_sync(cluster, GL);
+  // setup: the lane's last valid op and dep and its valid count
+  {
+    int last_op = 0, last_dep = 0, count = 0;
+    for (int i = rank * nt + tid; i < n; i += GL * nt) {
+      if (in.op_valid[tn + i]) {
+        last_op = i + 1;
+        ++count;
+      }
+    }
+    for (int j = rank * nt + tid; j < e; j += GL * nt) {
+      if (in.dep_valid[te + j]) {
+        last_dep = j + 1;
+        ++count;
+      }
+    }
+    last_op = __reduce_max_sync(0xffffffffu, last_op);
+    last_dep = __reduce_max_sync(0xffffffffu, last_dep);
+    count = __reduce_add_sync(0xffffffffu, count);
+    if ((tid & 31) == 0) {
+      if (last_op) atomicMax(cluster.map_shared_rank(&s_last_op, 0), last_op);
+      if (last_dep) {
+        atomicMax(cluster.map_shared_rank(&s_last_dep, 0), last_dep);
+      }
+      if (count) atomicAdd(cluster.map_shared_rank(&s_count, 0), count);
+    }
+  }
+  lane_sync(cluster, GL);
+  const int n_last = ddls::warp_read(cluster.map_shared_rank(&s_last_op, 0));
+  const int e_last =
+      ddls::warp_read(cluster.map_shared_rank(&s_last_dep, 0));
+  int remaining = ddls::warp_read(cluster.map_shared_rank(&s_count, 0));
+  T* vals = static_cast<T*>(out.vals) + 4 * static_cast<size_t>(lane);
+  if (in.skip != nullptr && in.skip[lane]) {
+    if (head) {
+      vals[0] = vals[1] = vals[2] = vals[3] = static_cast<T>(0);
+      out.ok[lane] = remaining == 0;
+      out.ticks[lane] = 0;
+    }
+    lane_sync(cluster, GL);  // CTA 0 stays until every CTA has read its counts
+    return;
+  }
+
+  // a lane of at most kClusterMinDeps deps runs on CTA 0 alone (block
+  // barriers; the other CTAs leave): two cluster barriers a tick cost more
+  // than its share of the work saves
+  const int G = e_last > kClusterMinDeps ? GL : 1;
+  if (rank >= G) return;
+  // this lane's shape: its extents, its groups placed in the shared
+  // memory launched (the workspace keeps the padded layout)
+  Shape ls = shape_of(n_last, e_last, links, W, C, G, sh.smem);
+  plan<T>(&ls);
+  const int dep_chunk = ls.dep_chunk;
+  const int dep_lo = min(rank * dep_chunk, e_last);
+  const int dep_len = min(dep_chunk, e_last - dep_lo);
+  const Layout S = carve<T>(ls, true);
+  const Layout Wl = carve<T>(sh, false);
+  unsigned char* lws = ws + static_cast<size_t>(lane) * ws_lane;
+  // this CTA's op copy; CTA q's parent counts
+  const bool ops_smem = ls.ops_smem;
+  const size_t o_rem = ops_smem ? S.rem_op : Wl.rem_op;
+  const size_t o_score = ops_smem ? S.op_score : Wl.op_score;
+  const size_t o_np = ops_smem ? S.num_parents : Wl.num_parents;
+  const size_t o_pd = ops_smem ? S.parent_done : Wl.parent_done;
+  const size_t o_worker = ops_smem ? S.worker : Wl.worker;
+  const size_t o_valid = ops_smem ? S.op_valid : Wl.op_valid;
+  const size_t o_flag = ops_smem ? S.op_flag : Wl.op_flag;
+  const size_t o_done = ops_smem ? S.op_done : Wl.op_done;
+  unsigned char* ops_base =
+      ops_smem ? smem + S.ops : lws + Wl.ops + rank * Wl.ops_bytes;
+  T* rem_op = reinterpret_cast<T*>(ops_base + o_rem);
+  T* op_score = reinterpret_cast<T*>(ops_base + o_score);
+  int* num_parents = reinterpret_cast<int*>(ops_base + o_np);
+  int* parent_done = reinterpret_cast<int*>(ops_base + o_pd);
+  int* worker = reinterpret_cast<int*>(ops_base + o_worker);
+  bool* op_valid = reinterpret_cast<bool*>(ops_base + o_valid);
+  unsigned char* op_flag = ops_base + o_flag;
+  unsigned char* op_done = ops_base + o_done;
+  auto parents_of = [&](int q) -> int* {
+    if (q == rank) return parent_done;
+    return ops_smem ? cluster.map_shared_rank(parent_done, q)
+                    : reinterpret_cast<int*>(lws + Wl.ops +
+                                             q * Wl.ops_bytes + o_pd);
+  };
+  // the dep chunk: element 0 is this CTA's first dep
+  const bool state_smem = ls.dep_state_smem;
+  unsigned char* db = state_smem ? smem : lws;
+  const size_t dd = state_smem ? 0 : dep_lo;
+  T* rem_dep = reinterpret_cast<T*>(db + (state_smem ? S.rem_dep
+                                                     : Wl.rem_dep)) + dd;
+  unsigned char* dep_done =
+      db + (state_smem ? S.dep_done : Wl.dep_done) + dd;
+  unsigned char* dep_flag =
+      db + (state_smem ? S.dep_flag : Wl.dep_flag) + dd;
+  // the fields; in shared memory each channel is kept as its table slot
+  const bool packed = ls.dep_fields_smem;
+  const bool* dep_valid;
+  const int *dep_src, *dep_dst, *dep_channel;
+  const bool *dep_mutual, *dep_flow;
+  const T* dep_score;
+  if (packed) {
+    bool* v = reinterpret_cast<bool*>(smem + S.dep_valid);
+    int* src = reinterpret_cast<int*>(smem + S.dep_src);
+    int* dst = reinterpret_cast<int*>(smem + S.dep_dst);
+    int* ch = reinterpret_cast<int*>(smem + S.dep_channel);
+    bool* mut = reinterpret_cast<bool*>(smem + S.dep_mutual);
+    bool* flow = reinterpret_cast<bool*>(smem + S.dep_flow);
+    T* sc = reinterpret_cast<T*>(smem + S.dep_score);
+    for (int jj = tid; jj < dep_len; jj += nt) {
+      const size_t j = dep_lo + jj;
+      v[jj] = in.dep_valid[te + j];
+      src[jj] = in.dep_src[te + j];
+      dst[jj] = in.dep_dst[te + j];
+      mut[jj] = in.dep_mutual[te + j];
+      flow[jj] = in.dep_is_flow[oe + j];
+      sc[jj] = static_cast<const T*>(in.dep_score)[oe + j];
+      for (int l = 0; l < links; ++l) {
+        ch[static_cast<size_t>(jj) * links + l] =
+            channel_slot(in.dep_channel[(oe + j) * links + l], C, G);
+      }
+    }
+    dep_valid = v;
+    dep_src = src;
+    dep_dst = dst;
+    dep_channel = ch;
+    dep_mutual = mut;
+    dep_flow = flow;
+    dep_score = sc;
+  } else {
+    dep_valid = in.dep_valid + te + dep_lo;
+    dep_src = in.dep_src + te + dep_lo;
+    dep_dst = in.dep_dst + te + dep_lo;
+    dep_mutual = in.dep_mutual + te + dep_lo;
+    dep_flow = in.dep_is_flow + oe + dep_lo;
+    dep_score = static_cast<const T*>(in.dep_score) + oe + dep_lo;
+    dep_channel = in.dep_channel + (oe + dep_lo) * links;
+  }
+  // the per-worker bests (this CTA's own) and, by parity, the per-channel
+  // bests (channel c in CTA c % G at c / G)
+  Ord* s_wbest = reinterpret_cast<Ord*>(smem + S.wbest);
+  Ord* s_cbest = reinterpret_cast<Ord*>(smem + S.cbest);
+  const int cslice = ls.cslice;
+  auto best_at = [&](int jj, int l, int p) -> Ord* {
+    const int c = dep_channel[static_cast<size_t>(jj) * links + l];
+    const int slot = packed ? c : channel_slot(c, C, G);
+    if (slot < 0) return nullptr;
+    const int q = slot >> 20;
+    Ord* table = q == rank ? s_cbest : cluster.map_shared_rank(s_cbest, q);
+    return table + p * cslice + (slot & 0xfffff);
+  };
+
+  for (int i = tid; i < n_last; i += nt) {
+    const bool v = in.op_valid[tn + i];
+    rem_op[i] = static_cast<const T*>(in.op_remaining)[tn + i];
+    op_score[i] = static_cast<const T*>(in.op_score)[on + i];
+    num_parents[i] = in.num_parents[tn + i];
+    parent_done[i] = 0;
+    worker[i] = in.ots != nullptr ? (v ? in.ots[on + i] : -1)
+                                  : in.op_worker[on + i];
+    op_valid[i] = v;
+    op_flag[i] = 0;
+    op_done[i] = 0;
+  }
+  for (int jj = tid; jj < dep_len; jj += nt) {
+    rem_dep[jj] = static_cast<const T*>(in.dep_remaining)[oe + dep_lo + jj];
+    dep_done[jj] = 0;
+    dep_flag[jj] = 0;
+  }
+  for (int w = tid; w < W; w += nt) s_wbest[w] = neg_one;
+  for (int x = tid; x < 2 * cslice; x += nt) s_cbest[x] = neg_one;
+  lane_sync(cluster, G);
+
+  // a dep's readiness for tick `tp` (parity `q`) from the op copy: its
+  // flag; a ready flow dep's score into the per-channel bests `q`; whether
+  // a flow or a non-flow dep is ready
+  auto find_ready = [&](int jj, bool done, int q, bool& any_flow,
+                        bool& any_nonflow) -> unsigned char {
+    const int src = dep_src[jj];
+    if (done || !dep_valid[jj] || src < 0 || src >= n_last ||
+        !op_done[src]) {
+      return 0;
+    }
+    if (!dep_flow[jj]) {
+      any_nonflow = true;
+      return kNonFlow;
+    }
+    any_flow = true;
+    const Ord sc = N_::enc(dep_score[jj]);
+    for (int l = 0; l < links; ++l) {
+      Ord* b = best_at(jj, l, q);
+      if (b != nullptr) ddls::cluster_max(b, sc);
+    }
+    return kFlow;
+  };
+  auto post_flags = [&](bool any_flow, bool any_nonflow, int q) {
+    if (__any_sync(0xffffffffu, any_flow) && (tid & 31) == 0) {
+      slots[q].flow = 1;
+    }
+    if (__any_sync(0xffffffffu, any_nonflow) && (tid & 31) == 0) {
+      slots[q].nonflow = 1;
+    }
+  };
+  // A(0): the deps ready at tick 0
+  {
+    bool any_flow = false, any_nonflow = false;
+    for (int jj = tid; jj < dep_len; jj += nt) {
+      dep_flag[jj] = find_ready(jj, false, 0, any_flow, any_nonflow);
+    }
+    post_flags(any_flow, any_nonflow, 0);
+  }
+  lane_sync(cluster, G);
+
+  // CTA 0's thread 0 keeps the reference's scalars
   T t = 0, comm = 0, comp = 0, busy = 0;
   const int max_iters = n + e + 4;
   int it = 0;
-  const bool skipped = skip != nullptr && skip[lane];
-  while (!skipped && s_remaining > 0 && it < max_iters) {
-    // 1. readiness; per-worker and per-channel best scores
-    for (int i = tid; i < n; i += nthreads) {
+  bool stuck = false, drained = false;
+  while (it < max_iters) {
+    const int p = it & 1;
+    // B. the deps' nomination (their shortest is read only when no
+    // non-flow dep is ready); the op copy's readiness, bests and
+    // selection; the other parity's slot and channel bests reset
+    if (head) s_slot[p ^ 1] = Slot<Ord>{big, 0, 0, 0};
+    if (tid == 0) {
+      s_min_op[p ^ 1] = big;
+      s_nsel[p ^ 1] = 0;
+    }
+    for (int x = tid; x < cslice; x += nt) {
+      s_cbest[(p ^ 1) * cslice + x] = neg_one;
+    }
+    Ord min_dep = big;
+    for (int jj = tid; jj < dep_len; jj += nt) {
+      if (dep_flag[jj] != kFlow) continue;
+      const T sc = dep_score[jj];
+      bool nominated = false;
+      for (int l = 0; l < links; ++l) {
+        const Ord* b = best_at(jj, l, p);
+        if (b == nullptr) continue;
+        const T best = N_::dec(*b);
+        if (sc >= best && sc > static_cast<T>(0)) nominated = true;
+      }
+      if (nominated) {
+        const Ord r = N_::enc(rem_dep[jj]);
+        min_dep = r < min_dep ? r : min_dep;
+      }
+    }
+    for (int i = tid; i < n_last; i += nt) {
       const bool ready = op_valid[i] && !op_done[i] &&
                          parent_done[i] >= num_parents[i];
       op_flag[i] = ready ? kReady : 0;
-      const int w = op_worker[i];
-      if (ready && w >= 0 && w < num_workers) {
+      const int w = worker[i];
+      if (ready && w >= 0 && w < W) {
         atomicMax(&s_wbest[w], N_::enc(op_score[i]));
       }
     }
-    for (int j = tid; j < e; j += nthreads) {
-      const bool ready = dep_valid[j] && !dep_done[j] && op_done[dep_src[j]];
-      unsigned char flag = 0;
-      if (ready) {
-        if (dep_is_flow[j]) {
-          flag = kFlow;
-          s_any_flow = 1;
-          const Ord sc = N_::enc(dep_score[j]);
-          for (int l = 0; l < links; ++l) {
-            const int c = dep_channel[static_cast<size_t>(j) * links + l];
-            if (c >= 0 && c < num_channels) atomicMax(&s_cbest[c], sc);
-          }
-        } else {
-          flag = kNonFlow;
-          s_any_nonflow = 1;
-        }
-      }
-      dep_flag[j] = flag;
+    min_dep = warp_min(min_dep);
+    if ((tid & 31) == 0 && min_dep != big) {
+      ddls::cluster_min(&slots[p].min_dep, min_dep);
     }
     __syncthreads();
-
-    // 2. selection and the two bounds
     int nsel_local = 0;
-    for (int i = tid; i < n; i += nthreads) {
+    Ord min_op = big;
+    for (int i = tid; i < n_last; i += nt) {
       if (!(op_flag[i] & kReady)) continue;
-      const int w = op_worker[i];
-      if (w < 0 || w >= num_workers) continue;
-      const Ord best = s_wbest[w];
-      if (op_score[i] == N_::dec(best) && N_::dec(best) > static_cast<T>(0)) {
+      const int w = worker[i];
+      if (w < 0 || w >= W) continue;
+      const T best = N_::dec(s_wbest[w]);
+      if (op_score[i] == best && best > static_cast<T>(0)) {
         op_flag[i] = kReady | kSelected;
         ++nsel_local;
-        atomicMin(&s_min_op, N_::enc(rem_op[i]));
+        const Ord r = N_::enc(rem_op[i]);
+        min_op = r < min_op ? r : min_op;
       }
     }
-    if (nsel_local) atomicAdd(&s_nsel, nsel_local);
-    if (!s_any_nonflow) {
-      for (int j = tid; j < e; j += nthreads) {
-        if (dep_flag[j] != kFlow) continue;
-        const T sc = dep_score[j];
-        bool nominated = false;
-        for (int l = 0; l < links; ++l) {
-          const int c = dep_channel[static_cast<size_t>(j) * links + l];
-          if (c >= 0 && c < num_channels && sc >= N_::dec(s_cbest[c]) &&
-              sc > static_cast<T>(0)) {
-            nominated = true;
-          }
-        }
-        if (nominated) atomicMin(&s_min_dep, N_::enc(rem_dep[j]));
-      }
+    nsel_local = __reduce_add_sync(0xffffffffu, nsel_local);
+    min_op = warp_min(min_op);
+    if ((tid & 31) == 0) {
+      if (nsel_local) atomicAdd(&s_nsel[p], nsel_local);
+      if (min_op != big) atomicMin(&s_min_op[p], min_op);
     }
-    __syncthreads();
+    lane_sync(cluster, G);
 
-    // 3. the tick, the accumulators, and the reset for the next tick
-    if (tid == 0) {
-      const T shortest_op = N_::dec(s_min_op);
-      const T shortest_comm =
-          s_any_nonflow ? static_cast<T>(0) : N_::dec(s_min_dep);
-      const T tick = shortest_op < shortest_comm ? shortest_op
-                                                 : shortest_comm;
-      const bool stuck = tick >= static_cast<T>(kBig);
-      s_tick = tick;
-      s_stuck = stuck;
-      s_tick_nonflow = s_any_nonflow;
-      if (!stuck) {
-        const bool ticked_ops = s_nsel > 0;
-        const bool ticked_flows = !s_any_nonflow && s_any_flow;
-        comp = N_::add(comp, ticked_ops ? tick : static_cast<T>(0));
-        comm = N_::add(comm, ticked_flows ? tick : static_cast<T>(0));
-        busy = N_::busy_step(busy, tick, static_cast<T>(s_nsel));
-        t = N_::add(t, tick);
-      }
-      s_min_op = big;
-      s_min_dep = big;
-      s_any_nonflow = 0;
-      s_any_flow = 0;
-      s_nsel = 0;
+    // C. the last tick's completions (the loop ends before this tick when
+    // nothing remains), the tick (every thread, the same bits) and the
+    // accumulators (CTA 0's thread 0)
+    const Slot<Ord> slot = slots[p];
+    remaining -= slot.done;
+    if (remaining <= 0) {
+      drained = true;
+      break;
     }
-    __syncthreads();
+    const bool nonflow = slot.nonflow != 0;
+    const T shortest_op = N_::dec(s_min_op[p]);
+    const int nsel = s_nsel[p];
+    const T shortest_comm =
+        nonflow ? static_cast<T>(0) : N_::dec(slot.min_dep);
+    const T tick = shortest_op < shortest_comm ? shortest_op : shortest_comm;
+    stuck = tick >= static_cast<T>(kBig);
+    if (head && !stuck) {
+      comp = N_::add(comp, nsel > 0 ? tick : static_cast<T>(0));
+      comm = N_::add(comm,
+                     !nonflow && slot.flow ? tick : static_cast<T>(0));
+      busy = N_::busy_step(busy, tick, static_cast<T>(nsel));
+      t = N_::add(t, tick);
+    }
     ++it;
     // a stuck tick adds nothing (the reference's safe_tick is 0) and ends
     // the lane
-    if (s_stuck) break;
+    if (stuck) break;
 
-    // 4.-6. advance ops and deps; count completions and parents
-    const T tick = s_tick;
-    const bool nonflow = s_tick_nonflow;
+    // advance the op copy; then, in one pass, advance the deps, count
+    // completions and parents, and find the deps ready at the next tick
+    // (A of tick it, parity p ^ 1)
     int done_local = 0;
-    for (int i = tid; i < n; i += nthreads) {
+    for (int w = tid; w < W; w += nt) s_wbest[w] = neg_one;
+    for (int i = tid; i < n_last; i += nt) {
       if (!(op_flag[i] & kSelected)) continue;
       T r = N_::sub(rem_op[i], tick);
       r = r > static_cast<T>(0) ? r : static_cast<T>(0);
       rem_op[i] = r;
       if (r <= static_cast<T>(0)) {
         op_done[i] = 1;
-        ++done_local;
+        if (rank == 0) ++done_local;
       }
     }
+    __syncthreads();  // the op copy's completions before the deps read it
     const unsigned char advance = nonflow ? kNonFlow : kFlow;
-    for (int j = tid; j < e; j += nthreads) {
-      if (dep_flag[j] != advance) continue;
-      T r = N_::sub(rem_dep[j], tick);
-      r = r > static_cast<T>(0) ? r : static_cast<T>(0);
-      rem_dep[j] = r;
-      if (r <= static_cast<T>(0)) {
-        dep_done[j] = 1;
-        ++done_local;
-        if (!dep_mutual[j]) atomicAdd(&parent_done[dep_dst[j]], 1);
+    bool any_flow = false, any_nonflow = false;
+    for (int jj = tid; jj < dep_len; jj += nt) {
+      bool done = dep_done[jj];
+      if (dep_flag[jj] == advance) {
+        T r = N_::sub(rem_dep[jj], tick);
+        r = r > static_cast<T>(0) ? r : static_cast<T>(0);
+        rem_dep[jj] = r;
+        if (r <= static_cast<T>(0)) {
+          dep_done[jj] = 1;
+          done = true;
+          ++done_local;
+          const int dst = dep_dst[jj];
+          // a child past the last valid op is never ready: its count is
+          // never read
+          if (!dep_mutual[jj] && dst >= 0 && dst < n_last) {
+            for (int q = 0; q < G; ++q) atomicAdd(parents_of(q) + dst, 1);
+          }
+        }
       }
+      dep_flag[jj] = find_ready(jj, done, p ^ 1, any_flow, any_nonflow);
     }
-    if (done_local) atomicSub(&s_remaining, done_local);
-    for (int w = tid; w < num_workers; w += nthreads) s_wbest[w] = neg_one;
-    for (int c = tid; c < num_channels; c += nthreads) s_cbest[c] = neg_one;
-    __syncthreads();
+    post_flags(any_flow, any_nonflow, p ^ 1);
+    done_local = __reduce_add_sync(0xffffffffu, done_local);
+    if ((tid & 31) == 0 && done_local) {
+      atomicAdd(&slots[p ^ 1].done, done_local);
+    }
+    lane_sync(cluster, G);
   }
-  if (tid == 0) {
-    T* out = out_vals + 4 * static_cast<size_t>(lane);
-    out[0] = t;
-    out[1] = comm;
-    out[2] = comp;
-    out[3] = busy;
-    out_ok[lane] = s_remaining == 0 && !s_stuck;
-    out_ticks[lane] = it;
+  lane_sync(cluster, G);  // every completion counted; CTA 0 stays until then
+  if (head) {
+    // leaving at the tick limit, the last tick's completions are still to
+    // be counted
+    if (!drained && !stuck) remaining -= s_slot[it & 1].done;
+    vals[0] = t;
+    vals[1] = comm;
+    vals[2] = comp;
+    vals[3] = busy;
+    out.ok[lane] = remaining <= 0 && !stuck;
+    out.ticks[lane] = it;
   }
 }
 
-int threads_for(int n, int e) {
+// threads a CTA: enough for the ops and the padded dep chunk at two slots
+// a thread, up to kMaxThreads
+int threads_for(int n, int dep_chunk) {
   int threads = 128;
-  while (threads < kMaxThreads && threads * 8 < n + e) threads *= 2;
+  while (threads < kMaxThreads && threads * 2 < n + dep_chunk) {
+    threads *= 2;
+  }
   return threads;
 }
 
+// The launch's shape: the padded sizes, no group placed, and the shared
+// memory a CTA takes: what the padded lane would place, up to `budget`.
+// Returns false when not even the best-score tables fit.
 template <typename T>
-int launch(const void* const* in, void* rem_op, void* rem_dep,
-           void* flags_op, void* flags_dep, void* parents, void* out_vals,
-           void* out_ok, void* out_ticks, const void* skip, int lanes, int n,
-           int e, int links, int num_workers, int num_channels,
+bool plan_launch(Shape* s, int n, int e, int links, int W, int C, int G,
+                 int budget) {
+  *s = shape_of(n, e, links, W, C, G, budget);
+  // a lane of up to kClusterMinDeps deps runs on one CTA
+  s->cslice = C;
+  const int one_cta = e < kClusterMinDeps ? e : kClusterMinDeps;
+  if (s->dep_chunk < one_cta) s->dep_chunk = one_cta;
+  if (carve<T>(*s, true).total > static_cast<size_t>(budget)) return false;
+  Shape full = *s;
+  plan<T>(&full);
+  s->smem = static_cast<int>(carve<T>(full, true).total);
+  return true;
+}
+
+
+bool sizes_ok(int n, int e, int links, int W, int C, int G) {
+  return n >= 0 && e >= 0 && links >= 1 && W >= 1 && C >= 1 && G >= 1 &&
+         G <= ddls::kMaxCluster;
+}
+
+template <typename T>
+int launch(const Inputs& in, const Outputs& out, void* ws, size_t ws_lane,
+           int lanes, int n, int e, int links, int W, int C, int G,
            cudaStream_t stream) {
-  using Ord = typename Num<T>::Ord;
-  const size_t smem =
-      static_cast<size_t>(num_workers + num_channels) * sizeof(Ord);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lookahead_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  int budget = 0;
+  int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  Shape sh;
+  if (!plan_launch<T>(&sh, n, e, links, W, C, G, budget)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  lookahead_kernel<T><<<lanes, threads_for(n, e), smem, stream>>>(
-      static_cast<const T*>(in[0]), static_cast<const bool*>(in[1]),
-      static_cast<const int*>(in[2]), static_cast<const T*>(in[3]),
-      static_cast<const int*>(in[4]), static_cast<const T*>(in[5]),
-      static_cast<const bool*>(in[6]), static_cast<const int*>(in[7]),
-      static_cast<const int*>(in[8]), static_cast<const bool*>(in[9]),
-      static_cast<const bool*>(in[10]), static_cast<const T*>(in[11]),
-      static_cast<const int*>(in[12]), static_cast<T*>(rem_op),
-      static_cast<T*>(rem_dep), static_cast<unsigned char*>(flags_op),
-      static_cast<unsigned char*>(flags_dep), static_cast<int*>(parents),
-      static_cast<T*>(out_vals), static_cast<bool*>(out_ok),
-      static_cast<int*>(out_ticks), static_cast<const bool*>(skip), n, e,
-      links, num_workers, num_channels);
+  if (carve<T>(sh, false).total > ws_lane) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(sh.smem);
+  cudaError_t err = ddls::prepare_cluster(lookahead_kernel<T>, G, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  ddls::cluster_config(&config, &attr, lanes, G,
+                       threads_for(n, sh.dep_chunk), smem, stream);
+  err = cudaLaunchKernelEx(&config, lookahead_kernel<T>, in, out, sh,
+                           static_cast<unsigned char*>(ws), ws_lane);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The thirteen inputs in jax_lookahead's order, each with a leading lane
-// axis ([B, N] ops, [B, E] deps, [B, E, L] dep_channel; floats of the type
-// `is_f64` names, bools as one byte, the rest int32), the working state
-// (uninitialised; the kernel sets it up), the outputs, then `skip` ([B]
-// bools, or null).
+// The thirteen inputs in jax_lookahead's order ([B, N] ops, [B, E] deps,
+// [B, E, L] dep_channel; floats of the type `is_f64` names, bools as one
+// byte, the rest int32), or, with `cfg` ([B] int32), the config tables
+// [K, N] / [K, E] for op_remaining, op_valid, num_parents, dep_valid,
+// dep_src, dep_dst, dep_mutual, with op_worker null and `ots` [B, N] int32
+// in its place; then `skip` ([B] bools, or null); the workspace
+// (`ws_lane` bytes a lane, uninitialised; the kernel sets up what it
+// uses); the outputs; the sizes and the cluster size G (1-16 CTAs a lane).
 DDLS_EXPORT int ddls_lookahead(
     const void* op_remaining, const void* op_valid, const void* op_worker,
     const void* op_score, const void* num_parents, const void* dep_remaining,
     const void* dep_valid, const void* dep_src, const void* dep_dst,
     const void* dep_mutual, const void* dep_is_flow, const void* dep_score,
-    const void* dep_channel, void* rem_op, void* rem_dep, void* flags_op,
-    void* flags_dep, void* parents, void* out_vals, void* out_ok,
-    void* out_ticks, const void* skip, int lanes, int n, int e, int links,
-    int num_workers, int num_channels, int is_f64, void* stream) {
-  const void* in[13] = {op_remaining, op_valid, op_worker, op_score,
-                        num_parents, dep_remaining, dep_valid, dep_src,
-                        dep_dst, dep_mutual, dep_is_flow, dep_score,
-                        dep_channel};
-  if (lanes <= 0 || n < 0 || e < 0 || links < 1 || num_workers < 1 ||
-      num_channels < 1) {
+    const void* dep_channel, const void* cfg, const void* ots,
+    const void* skip, void* ws, void* out_vals, void* out_ok,
+    void* out_ticks, int ws_lane, int lanes, int n, int e, int links,
+    int num_workers, int num_channels, int G, int is_f64, void* stream) {
+  if (lanes <= 0 || ws_lane < 0 ||
+      !sizes_ok(n, e, links, num_workers, num_channels, G) ||
+      (cfg == nullptr) != (ots == nullptr) ||
+      (cfg == nullptr) == (op_worker == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Inputs in{op_remaining,
+                  static_cast<const bool*>(op_valid),
+                  static_cast<const int*>(op_worker),
+                  op_score,
+                  static_cast<const int*>(num_parents),
+                  dep_remaining,
+                  static_cast<const bool*>(dep_valid),
+                  static_cast<const int*>(dep_src),
+                  static_cast<const int*>(dep_dst),
+                  static_cast<const bool*>(dep_mutual),
+                  static_cast<const bool*>(dep_is_flow),
+                  dep_score,
+                  static_cast<const int*>(dep_channel),
+                  static_cast<const int*>(cfg),
+                  static_cast<const int*>(ots),
+                  static_cast<const bool*>(skip)};
+  const Outputs out{out_vals, static_cast<bool*>(out_ok),
+                    static_cast<int*>(out_ticks)};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t wl = static_cast<size_t>(ws_lane);
   if (is_f64) {
-    return launch<double>(in, rem_op, rem_dep, flags_op, flags_dep, parents,
-                          out_vals, out_ok, out_ticks, skip, lanes, n, e,
-                          links, num_workers, num_channels,
-                          static_cast<cudaStream_t>(stream));
+    return launch<double>(in, out, ws, wl, lanes, n, e, links, num_workers,
+                          num_channels, G, s);
   }
-  return launch<float>(in, rem_op, rem_dep, flags_op, flags_dep, parents,
-                       out_vals, out_ok, out_ticks, skip, lanes, n, e, links,
-                       num_workers, num_channels,
-                       static_cast<cudaStream_t>(stream));
+  return launch<float>(in, out, ws, wl, lanes, n, e, links, num_workers,
+                       num_channels, G, s);
+}
+
+// The workspace a lane of K21 needs at these sizes (bytes, into *out):
+// what the launch's plan keeps out of shared memory.
+DDLS_EXPORT int ddls_lookahead_workspace(int n, int e, int links,
+                                         int num_workers, int num_channels,
+                                         int G, int is_f64, void* out) {
+  if (!sizes_ok(n, e, links, num_workers, num_channels, G)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int budget = 0;
+  const int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  Shape sh;
+  const bool ok =
+      is_f64 ? plan_launch<double>(&sh, n, e, links, num_workers,
+                                   num_channels, G, budget)
+             : plan_launch<float>(&sh, n, e, links, num_workers,
+                                  num_channels, G, budget);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  *static_cast<int*>(out) = static_cast<int>(
+      is_f64 ? carve<double>(sh, false).total : carve<float>(sh, false).total);
+  return 0;
 }

@@ -2,7 +2,7 @@
 // placed job per lane.
 //
 // Replaces ddls_tpu/sim/jax_env.py:606 jax_price_and_score and :564
-// _jnp_all_reduce_time. Per lane (one CTA):
+// _jnp_all_reduce_time. Per lane:
 //  1. the flow mask (valid, size > 0, source and destination on other
 //     servers) and each flow's channel (pair_channel, the direct link);
 //  2. candidate collective groups: symmetric iff the multiset of the valid
@@ -12,13 +12,12 @@
 //     groups, racks and servers among the present servers price the RAMP
 //     hierarchical all-reduce; asymmetric groups' edges fall back to
 //     one-to-one times; then the 2-edge sync pairs and the static
-//     one-to-one edges;
+//     one-to-one edges, each stage overwriting the one before;
 //  3. every valid dep's SRPT rank in one stable descending order of the
 //     priced times (the reference's lexsort: the key -time, then the edge
-//     index), as a bitonic sort in shared memory of (order-preserving key,
-//     index) pairs, -0.0 read as 0.0, NaN after +inf;
+//     index), -0.0 read as 0.0, NaN after +inf;
 //  4. each op's SRPT rank among the ops of its server (compute cost
-//     descending, insertion order breaking ties), an O(N^2) count;
+//     descending, insertion order breaking ties);
 //  5. the scores pri * (n + 1) + (n - sorted_rank), the mounted times (zero
 //     where not a flow) and the finite check.
 // Arithmetic as XLA compiles the reference on the CPU, in float32 and
@@ -31,15 +30,38 @@
 //
 // What bounds it on the H100: latency, and the sort. The bytes it must
 // move (the lane's config rows, ~0.5 MB at M = 13,072 deps, and the five
-// outputs) take ~0.2 us at 3.35 TB/s; the sort's 105 bitonic stages over
-// 16,384 slots are ~860k compare-exchanges, each stage ending in a
-// barrier, and the op ranks ~230k comparisons. The design: one CTA of
-// 1,024 threads per lane, the sort's keys (8 B) and indices (2 B) in
-// dynamic shared memory (160 KB at 16,384 slots), the group histograms and
-// the op arrays in shared memory beside them; integer atomics only, no
-// float atomics.
+// outputs) take ~0.2 us at 3.35 TB/s. The design:
+//  * a lane's valid deps and ops are the prefixes [0, n_deps[c]) and
+//    [0, n_ops[c]) of its config rows (device_env.stack_config_tables
+//    lays them out so), and only those are priced, sorted and ranked; the
+//    padded tail is written as the reference leaves it (time 0, no flow,
+//    channel -1, the score's fused multiply-add with priority 0);
+//  * a lane runs on a thread-block cluster of G CTAs (1 <= G <= 16, the
+//    wrapper's choice from the number of lanes, so that lanes x G fills
+//    the card's SMs with at most a short second wave,
+//    kernels.choose_cluster). CTA r owns the r-th chunk of
+//    ceil(m_c / G) valid deps and 1/G of the ops; the collective groups
+//    are dealt out g = r, r + G, ...; the sync pairs and one-to-one edges
+//    i = r, r + G, .... The priced times go to the `times` output, read
+//    back with L2 loads after the cluster barrier that ends each stage;
+//  * each CTA sorts its chunk's (order-preserving key, index) pairs in
+//    shared memory (bitonic, next_pow2(chunk) slots: 55 stages at 1,024
+//    slots against 105 at 16,384 on one CTA), then copies the other CTAs'
+//    sorted keys through distributed shared memory; a dep's rank is its
+//    place in its own chunk plus, in every other chunk, the keys below it
+//    (binary search). The chunks are index ranges, so a lower chunk's equal
+//    keys count and a higher chunk's do not: exactly the (key, index)
+//    order, any G giving the same ranks;
+//  * the trap: the reference sorts all M slots, and a valid dep whose time
+//    is NaN (key 0xff...fe) sorts after the M - m_c invalid slots (key of
+//    +inf), so its rank counts them; ranking the prefix alone adds them
+//    back (no other valid key exceeds +inf's, and a valid dep of time
+//    -inf ties with them and comes first by index);
+//  * integer atomics only, no float atomics; the finite check is an
+//    integer AND into CTA 0's shared memory.
 #include <cmath>
 
+#include "cluster.cuh"
 #include "common.cuh"
 
 namespace {
@@ -157,34 +179,73 @@ struct Tables {
   const int* pair_channel;
 };
 
+// the padded sizes, and the cluster: G CTAs a lane, each sorting at most
+// `chunk_max` deps in `p_max` (a power of two) slots and keeping a copy of
+// the other G - 1 chunks' sorted keys
 struct Dims {
-  int n, m, m_pad, groups, group_edges, n_sync, n_o2o, C, R, S;
+  int n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G, chunk_max,
+      p_max;
 };
+
+constexpr unsigned long long kNanKey = 0xfffffffffffffffeULL;
+constexpr unsigned long long kPadKey = 0xffffffffffffffffULL;
+
+// one CTA's dynamic shared memory, carved in this order by the kernel
+template <typename T>
+size_t smem_bytes(const Dims& dm) {
+  const size_t n_srv = static_cast<size_t>(dm.C) * dm.R * dm.S;
+  return static_cast<size_t>(dm.p_max) * 8 +
+         static_cast<size_t>(dm.G - 1) * dm.chunk_max * 8 +
+         static_cast<size_t>(dm.n + dm.groups) * sizeof(T) +
+         (static_cast<size_t>(dm.n) * 2 + dm.groups * n_srv * 2 +
+          dm.groups) * 4 +
+         static_cast<size_t>(dm.p_max) * 2 + dm.n + 16;
+}
+
+// the sorted keys[0, len) below `key`, or (`equal`) not above it
+__device__ int count_below(const unsigned long long* keys, int len,
+                           unsigned long long key, bool equal) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const unsigned long long k = keys[mid];
+    if (k < key || (equal && k == key)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
     const int* __restrict__ ots, const int* __restrict__ cfg, Tables tb,
-    T* __restrict__ times, bool* __restrict__ is_flow,
-    int* __restrict__ chan, T* __restrict__ op_score,
-    T* __restrict__ dep_score, bool* __restrict__ finite_ok, Dims dm,
-    Comm cm) {
+    T* times, bool* __restrict__ is_flow, int* __restrict__ chan,
+    T* __restrict__ op_score, T* __restrict__ dep_score,
+    bool* __restrict__ finite_ok, Dims dm, Comm cm) {
+  ddls::cg::cluster_group cluster = ddls::cg::this_cluster();
+  const int G = dm.G;
+  const int rank = static_cast<int>(cluster.block_rank());
   const int n_srv = dm.C * dm.R * dm.S;
   extern __shared__ unsigned long long smem_keys[];
-  unsigned long long* s_key = smem_keys;                          // [m_pad]
-  T* s_cost = reinterpret_cast<T*>(s_key + dm.m_pad);             // [N]
-  int* s_sc = reinterpret_cast<int*>(s_cost + dm.n);              // [N]
-  int* s_ins = s_sc + dm.n;                                       // [N]
-  int* s_hist = s_ins + dm.n;                          // [groups * n_srv]
-  int* s_present = s_hist + dm.groups * n_srv;         // [groups * n_srv]
-  T* s_grp_time = reinterpret_cast<T*>(s_present + dm.groups * n_srv);
-  int* s_sym = reinterpret_cast<int*>(s_grp_time + dm.groups);    // [G]
+  unsigned long long* s_key = smem_keys;                   // [p_max]
+  unsigned long long* s_rkey = s_key + dm.p_max;  // [(G - 1) chunk_max]
+  T* s_cost = reinterpret_cast<T*>(
+      s_rkey + static_cast<size_t>(G - 1) * dm.chunk_max);  // [N]
+  T* s_grp_time = s_cost + dm.n;                             // [groups]
+  int* s_sc = reinterpret_cast<int*>(s_grp_time + dm.groups);  // [N]
+  int* s_ins = s_sc + dm.n;                                    // [N]
+  int* s_hist = s_ins + dm.n;                        // [groups * n_srv]
+  int* s_present = s_hist + dm.groups * n_srv;       // [groups * n_srv]
+  int* s_sym = s_present + dm.groups * n_srv;        // [groups]
   unsigned short* s_idx =
-      reinterpret_cast<unsigned short*>(s_sym + dm.groups);       // [m_pad]
+      reinterpret_cast<unsigned short*>(s_sym + dm.groups);    // [p_max]
   unsigned char* s_valid =
-      reinterpret_cast<unsigned char*>(s_idx + dm.m_pad);         // [N]
+      reinterpret_cast<unsigned char*>(s_idx + dm.p_max);      // [N]
   __shared__ int s_finite;
 
-  const int lane = blockIdx.x;
+  const int lane = blockIdx.x / G;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int c = cfg[lane];
@@ -196,12 +257,20 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
   const bool* dep_valid = tb.dep_valid + cm_;
   const int* dep_src = tb.dep_src + cm_;
   const int* dep_dst = tb.dep_dst + cm_;
+  const int* dep_rank = tb.dep_sorted_rank + cm_;
   ots += static_cast<size_t>(lane) * n;
   times += static_cast<size_t>(lane) * m;
   is_flow += static_cast<size_t>(lane) * m;
   chan += static_cast<size_t>(lane) * m;
   dep_score += static_cast<size_t>(lane) * m;
   op_score += static_cast<size_t>(lane) * n;
+  // the valid prefixes, and this CTA's chunk [lo, lo + len) of the deps
+  const int m_c = min(max(tb.n_deps[c], 0), m);
+  const int n_c = min(max(tb.n_ops[c], 0), n);
+  const int chunk = (m_c + G - 1) / G;
+  const int lo = min(rank * chunk, m_c);
+  const int len = min(chunk, m_c - lo);
+  const T md = static_cast<T>(tb.n_deps[c]);
 
   for (int i = tid; i < n; i += nt) {
     s_sc[i] = ots[i];
@@ -216,8 +285,10 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
   if (tid == 0) s_finite = 1;
   __syncthreads();
 
-  // 1. the flow mask, channels; raw times start at zero
-  for (int j = tid; j < m; j += nt) {
+  // 1. the chunk's flow mask and channels, raw times zero; this CTA's
+  // share of the padded tail written as it ends
+  for (int jj = tid; jj < len; jj += nt) {
+    const int j = lo + jj;
     const int src = max(s_sc[max(dep_src[j], 0)], 0);
     const int dst = max(s_sc[max(dep_dst[j], 0)], 0);
     const bool flow = dep_valid[j] && dep_size[j] > static_cast<T>(0) &&
@@ -226,22 +297,35 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
     chan[j] = flow ? tb.pair_channel[src * n_srv + dst] : -1;
     times[j] = static_cast<T>(0);
   }
-  // 2a. group histograms and present servers
+  for (int j = m_c + rank * nt + tid; j < m; j += G * nt) {
+    is_flow[j] = false;
+    chan[j] = -1;
+    times[j] = static_cast<T>(0);
+    dep_score[j] = Fp<T>::fma(static_cast<T>(0), md + static_cast<T>(1),
+                              md - static_cast<T>(dep_rank[j]));
+  }
+  cluster.sync();
+
+  // 2a. the owned groups' histograms and present servers
   const size_t cg = static_cast<size_t>(c) * dm.groups;
   const size_t cge = cg * dm.group_edges;
-  for (int i = tid; i < dm.groups * dm.group_edges; i += nt) {
-    if (!tb.grp_edge_valid[cge + i]) continue;
-    const int g = i / dm.group_edges;
-    const int u = max(s_sc[max(tb.grp_u[cge + i], 0)], 0);
-    const int v = max(s_sc[max(tb.grp_v[cge + i], 0)], 0);
+  const int owned = rank < dm.groups ? (dm.groups - rank + G - 1) / G : 0;
+  for (int i = tid; i < owned * dm.group_edges; i += nt) {
+    const int g = rank + G * (i / dm.group_edges);
+    const size_t k = cge + static_cast<size_t>(g) * dm.group_edges +
+                     i % dm.group_edges;
+    if (!tb.grp_edge_valid[k]) continue;
+    const int u = max(s_sc[max(tb.grp_u[k], 0)], 0);
+    const int v = max(s_sc[max(tb.grp_v[k], 0)], 0);
     atomicAdd(&s_hist[g * n_srv + u], 1);
     atomicSub(&s_hist[g * n_srv + v], 1);
     s_present[g * n_srv + min(u, n_srv - 1)] = 1;
     s_present[g * n_srv + min(v, n_srv - 1)] = 1;
   }
   __syncthreads();
-  // 2b. per group: symmetric, span counts, all-reduce time
-  for (int g = tid; g < dm.groups; g += nt) {
+  // 2b. per owned group: symmetric, span counts, all-reduce time
+  for (int gi = tid; gi < owned; gi += nt) {
+    const int g = rank + G * gi;
     bool sym = tb.grp_valid[cg + g];
     int n_in = 0;
     unsigned long long hit_s = 0, hit_r = 0, hit_c = 0;
@@ -266,20 +350,24 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
     s_sym[g] = sym;
   }
   __syncthreads();
-  // 2c. the groups' edges
-  for (int i = tid; i < dm.groups * dm.group_edges; i += nt) {
-    if (!tb.grp_edge_valid[cge + i]) continue;
-    const int g = i / dm.group_edges;
-    const int e = tb.grp_edges[cge + i];
-    const int u = max(s_sc[max(tb.grp_u[cge + i], 0)], 0);
-    const int v = max(s_sc[max(tb.grp_v[cge + i], 0)], 0);
+  // 2c. the owned groups' edges (an edge past the prefix is never a flow:
+  // its mounted time is 0 whatever is priced)
+  for (int i = tid; i < owned * dm.group_edges; i += nt) {
+    const int g = rank + G * (i / dm.group_edges);
+    const size_t k = cge + static_cast<size_t>(g) * dm.group_edges +
+                     i % dm.group_edges;
+    if (!tb.grp_edge_valid[k]) continue;
+    const int e = tb.grp_edges[k];
+    if (e < 0 || e >= m_c) continue;
+    const int u = max(s_sc[max(tb.grp_u[k], 0)], 0);
+    const int v = max(s_sc[max(tb.grp_v[k], 0)], 0);
     times[e] = s_sym[g] ? s_grp_time[g]
-                        : one_to_one_time<T>(u == v, dep_size[max(e, 0)], cm);
+                        : one_to_one_time<T>(u == v, dep_size[e], cm);
   }
-  __syncthreads();
+  cluster.sync();
   // 2d. sync pairs
   const size_t cs_ = static_cast<size_t>(c) * dm.n_sync;
-  for (int i = tid; i < dm.n_sync; i += nt) {
+  for (int i = rank + G * tid; i < dm.n_sync; i += G * nt) {
     if (!tb.sync_valid[cs_ + i]) continue;
     const int u = max(s_sc[max(tb.sync_u[cs_ + i], 0)], 0);
     const int v = max(s_sc[max(tb.sync_v[cs_ + i], 0)], 0);
@@ -294,35 +382,42 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
     }
     for (int k = 0; k < 2; ++k) {
       const int e = tb.sync_edges[(cs_ + i) * 2 + k];
-      if (e >= 0) times[e] = t;
+      if (e >= 0 && e < m_c) times[e] = t;
     }
   }
-  __syncthreads();
+  cluster.sync();
   // 2e. static one-to-one edges
   const size_t co = static_cast<size_t>(c) * dm.n_o2o;
-  for (int i = tid; i < dm.n_o2o; i += nt) {
+  for (int i = rank + G * tid; i < dm.n_o2o; i += G * nt) {
     if (!tb.o2o_valid[co + i]) continue;
     const int e = tb.o2o_edges[co + i];
-    const int ec = max(e, 0);
-    const int src = max(s_sc[max(dep_src[ec], 0)], 0);
-    const int dst = max(s_sc[max(dep_dst[ec], 0)], 0);
-    times[e] = one_to_one_time<T>(src == dst, dep_size[ec], cm);
+    if (e < 0 || e >= m_c) continue;
+    const int src = max(s_sc[max(dep_src[e], 0)], 0);
+    const int dst = max(s_sc[max(dep_dst[e], 0)], 0);
+    times[e] = one_to_one_time<T>(src == dst, dep_size[e], cm);
   }
-  __syncthreads();
+  cluster.sync();
 
-  // 3. the stable descending sort of the priced times
-  for (int j = tid; j < dm.m_pad; j += nt) {
-    s_key[j] = j < m ? (dep_valid[j] ? Fp<T>::key(-times[j])
-                                     : Fp<T>::key(static_cast<T>(INFINITY)))
-                     : 0xffffffffffffffffULL;
-    s_idx[j] = static_cast<unsigned short>(j);
+  // 3. the chunk's stable ascending sort of (key, index): key(-time), or
+  // +inf's for an invalid slot
+  int P = 1;
+  while (P < len) P <<= 1;
+  for (int p = tid; p < P; p += nt) {
+    unsigned long long key = kPadKey;
+    if (p < len) {
+      const int j = lo + p;
+      key = dep_valid[j] ? Fp<T>::key(-__ldcg(times + j))
+                         : Fp<T>::key(static_cast<T>(INFINITY));
+    }
+    s_key[p] = key;
+    s_idx[p] = static_cast<unsigned short>(p);
   }
   __syncthreads();
-  for (int k = 2; k <= dm.m_pad; k <<= 1) {
+  for (int k = 2; k <= P; k <<= 1) {
     for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int i = tid; i < dm.m_pad; i += nt) {
-        const int l = i ^ jj;
-        if (l <= i) continue;
+      for (int q = tid; q < P / 2; q += nt) {
+        const int i = 2 * q - (q & (jj - 1));  // bit jj of i clear
+        const int l = i + jj;
         const unsigned long long ki = s_key[i], kl = s_key[l];
         const unsigned short ii = s_idx[i], il = s_idx[l];
         const bool greater = ki > kl || (ki == kl && ii > il);
@@ -336,34 +431,55 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
       __syncthreads();
     }
   }
-  // 4. SRPT dep priorities (rank), flows only; then the scores
-  for (int r = tid; r < m; r += nt) {
-    dep_score[s_idx[r]] = static_cast<T>(r);
+  cluster.sync();
+  // the other chunks' sorted keys, through distributed shared memory
+  for (int t = tid; t < (G - 1) * chunk; t += nt) {
+    const int qq = t / chunk;
+    const int off = t - qq * chunk;
+    const int q = qq < rank ? qq : qq + 1;
+    if (off < min(chunk, m_c - min(q * chunk, m_c))) {
+      s_rkey[t] = cluster.map_shared_rank(s_key, q)[off];
+    }
   }
   __syncthreads();
-  const T md = static_cast<T>(tb.n_deps[c]);
-  const int* dep_rank = tb.dep_sorted_rank + cm_;
+  // 4. each dep's rank among all M slots, staged in dep_score
+  for (int p = tid; p < len; p += nt) {
+    const unsigned long long key = s_key[p];
+    int r = p;
+    for (int qq = 0; qq < G - 1; ++qq) {
+      const int q = qq < rank ? qq : qq + 1;
+      r += count_below(s_rkey + qq * chunk,
+                       min(chunk, m_c - min(q * chunk, m_c)), key, q < rank);
+    }
+    if (key == kNanKey) r += m - m_c;
+    dep_score[lo + s_idx[p]] = static_cast<T>(r);
+  }
+  __syncthreads();
+  // SRPT dep priorities (rank), flows only; then the scores
   bool finite = true;
-  for (int j = tid; j < m; j += nt) {
+  for (int jj = tid; jj < len; jj += nt) {
+    const int j = lo + jj;
     const bool flow = is_flow[j];
     const T pri = flow ? dep_score[j] : static_cast<T>(0);
     dep_score[j] = Fp<T>::fma(pri, md + static_cast<T>(1),
                               md - static_cast<T>(dep_rank[j]));
-    const T mounted = flow ? times[j] : static_cast<T>(0);
+    const T mounted = flow ? __ldcg(times + j) : static_cast<T>(0);
     times[j] = mounted;
     finite = finite && isfinite(mounted);
   }
-  if (!finite) s_finite = 0;
-  // 5. SRPT op priorities within each server
+  if (!finite) atomicAnd(cluster.map_shared_rank(&s_finite, 0), 0);
+  // 5. SRPT op priorities within each server, over the valid ops
   const T nd = static_cast<T>(tb.n_ops[c]);
   const int* op_rank = tb.op_sorted_rank + cn;
-  for (int i = tid; i < n; i += nt) {
+  const int op_chunk = (n + G - 1) / G;
+  const int op_hi = min(n, (rank + 1) * op_chunk);
+  for (int i = rank * op_chunk + tid; i < op_hi; i += nt) {
     const int sc = s_sc[i];
     int pri = 0;
     if (sc >= 0) {
       const T cost = s_cost[i];
       const int ins = s_ins[i];
-      for (int k = 0; k < n; ++k) {
+      for (int k = 0; k < n_c; ++k) {
         if (s_sc[k] != sc || !s_valid[k]) continue;
         if (s_cost[k] > cost || (s_cost[k] == cost && s_ins[k] < ins)) ++pri;
       }
@@ -371,8 +487,26 @@ __global__ void __launch_bounds__(kThreads) price_and_score_kernel(
     op_score[i] = Fp<T>::fma(static_cast<T>(pri), nd + static_cast<T>(1),
                              nd - static_cast<T>(op_rank[i]));
   }
-  __syncthreads();
-  if (tid == 0) finite_ok[lane] = s_finite;
+  cluster.sync();
+  if (rank == 0 && tid == 0) finite_ok[lane] = s_finite;
+}
+
+// the cluster's sizes for padded sizes n, m and cluster size G
+Dims dims_for(int n, int m, int groups, int group_edges, int n_sync,
+              int n_o2o, int C, int R, int S, int G) {
+  const int chunk_max = (m + G - 1) / G;
+  int p_max = 1;
+  while (p_max < chunk_max) p_max <<= 1;
+  return Dims{n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G,
+              chunk_max, p_max};
+}
+
+bool dims_ok(int n, int m, int groups, int group_edges, int n_sync,
+             int n_o2o, int C, int R, int S, int G) {
+  return n >= 1 && m >= 1 && m <= 65535 && groups >= 1 &&
+         group_edges >= 1 && n_sync >= 1 && n_o2o >= 1 && C >= 1 &&
+         R >= 1 && S >= 1 && C <= 64 && R <= 64 && S <= 64 && G >= 1 &&
+         G <= ddls::kMaxCluster;
 }
 
 template <typename T>
@@ -380,21 +514,33 @@ int launch(const int* ots, const int* cfg, const Tables& tb, void* times,
            void* is_flow, void* chan, void* op_score, void* dep_score,
            void* finite_ok, int lanes, const Dims& dm, const Comm& cm,
            cudaStream_t stream) {
-  const int n_srv = dm.C * dm.R * dm.S;
-  const size_t smem = static_cast<size_t>(dm.m_pad) * 8 +
-                      static_cast<size_t>(dm.n) * (sizeof(T) + 8) +
-                      static_cast<size_t>(dm.groups) * n_srv * 8 +
-                      static_cast<size_t>(dm.groups) * (sizeof(T) + 4) +
-                      static_cast<size_t>(dm.m_pad) * 2 + dm.n + 16;
-  const cudaError_t err = cudaFuncSetAttribute(
-      price_and_score_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem = smem_bytes<T>(dm);
+  cudaError_t err =
+      ddls::prepare_cluster(price_and_score_kernel<T>, dm.G, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  price_and_score_kernel<T><<<lanes, kThreads, smem, stream>>>(
-      ots, cfg, tb, static_cast<T*>(times), static_cast<bool*>(is_flow),
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  ddls::cluster_config(&config, &attr, lanes, dm.G, kThreads, smem, stream);
+  err = cudaLaunchKernelEx(
+      &config, price_and_score_kernel<T>, ots, cfg, tb,
+      static_cast<T*>(times), static_cast<bool*>(is_flow),
       static_cast<int*>(chan), static_cast<T*>(op_score),
       static_cast<T*>(dep_score), static_cast<bool*>(finite_ok), dm, cm);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int max_clusters(const Dims& dm, int* out) {
+  const size_t smem = smem_bytes<T>(dm);
+  cudaError_t err =
+      ddls::prepare_cluster(price_and_score_kernel<T>, dm.G, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr;
+  ddls::cluster_config(&config, &attr, 1, dm.G, kThreads, smem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      out, price_and_score_kernel<T>, &config));
 }
 
 }  // namespace
@@ -402,9 +548,10 @@ int launch(const int* ots, const int* cfg, const Tables& tb, void* times,
 // ots [B, N] int32, cfg [B] int32; the config tables in
 // device_env.PRICING_TABLES order, then pair_channel [n_srv, n_srv]; the
 // outputs times [B, M] (mounted), is_flow [B, M] bools, chan [B, M] int32,
-// op_score [B, N], dep_score [B, M], finite_ok [B] bools; the sizes; the
-// constants x, rate, prop + 2 io and rate / x (doubles, cast to the float
-// type in the kernel, as the reference's weak-typed Python floats are).
+// op_score [B, N], dep_score [B, M], finite_ok [B] bools; the sizes and
+// the cluster size G (1-16 CTAs a lane); the constants x, rate, prop + 2
+// io and rate / x (doubles, cast to the float type in the kernel, as the
+// reference's weak-typed Python floats are).
 DDLS_EXPORT int ddls_price_and_score(
     const void* ots, const void* cfg, const void* n_ops, const void* n_deps,
     const void* op_valid, const void* op_compute, const void* op_sorted_rank,
@@ -417,15 +564,13 @@ DDLS_EXPORT int ddls_price_and_score(
     const void* o2o_edges, const void* pair_channel, void* times,
     void* is_flow, void* chan, void* op_score, void* dep_score,
     void* finite_ok, int lanes, int n, int m, int groups, int group_edges,
-    int n_sync, int n_o2o, int C, int R, int S, double x, double rate,
-    double prop_io, double data_per_tx, int is_f64, void* stream) {
-  if (lanes <= 0 || n < 1 || m < 1 || m > 65535 || groups < 1 ||
-      group_edges < 1 || n_sync < 1 || n_o2o < 1 || C < 1 || R < 1 ||
-      S < 1 || C > 64 || R > 64 || S > 64) {
+    int n_sync, int n_o2o, int C, int R, int S, int G, double x,
+    double rate, double prop_io, double data_per_tx, int is_f64,
+    void* stream) {
+  if (lanes <= 0 ||
+      !dims_ok(n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int m_pad = 2;
-  while (m_pad < m) m_pad <<= 1;
   const Tables tb{
       static_cast<const int*>(n_ops), static_cast<const int*>(n_deps),
       static_cast<const bool*>(op_valid), op_compute,
@@ -442,7 +587,8 @@ DDLS_EXPORT int ddls_price_and_score(
       static_cast<const int*>(sync_v), sync_msg,
       static_cast<const bool*>(o2o_valid), static_cast<const int*>(o2o_edges),
       static_cast<const int*>(pair_channel)};
-  const Dims dm{n, m, m_pad, groups, group_edges, n_sync, n_o2o, C, R, S};
+  const Dims dm =
+      dims_for(n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G);
   const double inv_rate_f64 = 1.0 / rate;
   const float inv_rate_f32 = 1.0f / static_cast<float>(rate);
   const Comm cm{x, std::floor(x), data_per_tx, prop_io,
@@ -457,4 +603,21 @@ DDLS_EXPORT int ddls_price_and_score(
   return launch<float>(static_cast<const int*>(ots),
                        static_cast<const int*>(cfg), tb, times, is_flow, chan,
                        op_score, dep_score, finite_ok, lanes, dm, cm, s);
+}
+
+// How many clusters of G CTAs of K24 at these sizes the device runs at
+// once (cudaOccupancyMaxActiveClusters), into *out; the wrapper's choice
+// of G reads it. Launches nothing.
+DDLS_EXPORT int ddls_price_and_score_clusters(int n, int m, int groups,
+                                              int group_edges, int n_sync,
+                                              int n_o2o, int C, int R, int S,
+                                              int G, int is_f64, void* out) {
+  if (!dims_ok(n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Dims dm =
+      dims_for(n, m, groups, group_edges, n_sync, n_o2o, C, R, S, G);
+  int* clusters = static_cast<int*>(out);
+  return is_f64 ? max_clusters<double>(dm, clusters)
+                : max_clusters<float>(dm, clusters);
 }

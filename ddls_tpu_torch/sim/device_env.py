@@ -911,7 +911,9 @@ def _span_counts(present: torch.Tensor, st: ShapeTables, dtype):
 def _fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
            ) -> torch.Tensor:
     """``a * b + c`` in float64 with (all but never) one rounding: the
-    product's error from Dekker's split, the sum's from TwoSum."""
+    product's error from Dekker's split, the sum's from TwoSum. Where the
+    product or ``c`` is not finite the fused result is the plain one (an
+    infinity or NaN; the error terms would be NaN)."""
     p = a * b
     split = 134217729.0  # 2**27 + 1
 
@@ -926,7 +928,8 @@ def _fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     s = p + c
     bb = s - p
     s_err = (p - (s - bb)) + (c - bb)
-    return s + (s_err + p_err)
+    return torch.where(torch.isfinite(p) & torch.isfinite(c),
+                       s + (s_err + p_err), s)
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -942,6 +945,35 @@ def _score(pri: torch.Tensor, n: torch.Tensor, rank: torch.Tensor):
     if pri.dtype == torch.float32:
         return lookahead_mod.fma32(pri, n + 1, n - rank)
     return pri * (n + 1) + (n - rank)
+
+
+def srpt_dep_ranks(times: torch.Tensor, dep_valid: torch.Tensor
+                   ) -> torch.Tensor:
+    """Each dep's place in one stable ascending sort of the key -time
+    (+inf where not valid) over all M slots of its lane: the reference's
+    SRPT order, descending cost, edge order breaking ties, -0.0 equal to
+    0.0 and NaN last. ``times`` [B, M] (raw, before the mount), float
+    ranks of its type."""
+    lanes, m = times.shape
+    key = torch.where(dep_valid, -times, torch.full_like(times, np.inf))
+    order = torch.sort(key, dim=1, stable=True).indices
+    return torch.zeros_like(times).scatter_(
+        1, order, torch.arange(m, dtype=times.dtype,
+                               device=times.device).expand(
+            lanes, m).contiguous())
+
+
+def dep_scores(times: torch.Tensor, dep_valid: torch.Tensor,
+               is_flow: torch.Tensor, n_deps: torch.Tensor,
+               sorted_rank: torch.Tensor) -> torch.Tensor:
+    """The deps' SRPT lookahead scores ``pri * (m + 1) + (m - rank)``:
+    ``pri`` the ``srpt_dep_ranks`` place of a flow (0 elsewhere), ``m``
+    the lane's ``n_deps`` [B], ``rank`` the config's ``dep_sorted_rank``
+    [B, M]."""
+    zero = torch.zeros((), dtype=times.dtype, device=times.device)
+    pri = torch.where(is_flow, srpt_dep_ranks(times, dep_valid), zero)
+    m = n_deps.to(times.dtype)[:, None]
+    return _score(pri, m, sorted_rank.to(times.dtype))
 
 
 def price_and_score_plain(ots: torch.Tensor, cfg: torch.Tensor,
@@ -1039,16 +1071,8 @@ def price_and_score_plain(ots: torch.Tensor, cfg: torch.Tensor,
     # raw priced times (the schedulers run before the mount)
     mounted = torch.where(is_flow, times, zero)
 
-    # SRPT dep priorities: one stable sort, descending cost, edge order
-    # breaking ties (-0.0 equal to 0.0)
-    key = torch.where(dep_valid, -times, torch.full_like(times, np.inf))
-    order = torch.sort(key, dim=1, stable=True).indices
-    dep_pri = torch.zeros_like(times).scatter_(
-        1, order, torch.arange(M, dtype=dt, device=device).expand(
-            lanes, M).contiguous())
-    dep_pri = torch.where(is_flow, dep_pri, zero)
-    m = T["n_deps"][c].to(dt)[:, None]
-    dep_score = _score(dep_pri, m, T["dep_sorted_rank"][c].to(dt))
+    dep_score = dep_scores(times, dep_valid, is_flow, T["n_deps"][c],
+                           T["dep_sorted_rank"][c])
 
     # SRPT op priorities: per worker, compute cost descending, insertion
     # order breaking ties
@@ -1069,13 +1093,33 @@ def price_and_score_plain(ots: torch.Tensor, cfg: torch.Tensor,
             finite_ok)
 
 
+def price_cluster(lanes: int, dev: DeviceTables) -> int:
+    """The cluster size K24 takes for ``lanes`` lanes of ``dev``'s tables
+    on the current card (``kernels.choose_cluster`` over its SMs and the
+    clusters of each size it runs at once)."""
+    pads = dev.pads
+    C, R, S = dev.st.ramp_shape
+    f64 = int(dev.dtype == torch.float64)
+    return kernels.choose_cluster(
+        lanes, kernels.sm_count(),
+        lambda g: kernels.cached_query(
+            "pricing", "ddls_price_and_score_clusters", pads.n_ops,
+            pads.n_deps, pads.n_groups, pads.group_edges, pads.n_sync,
+            pads.n_o2o, C, R, S, g, f64))
+
+
 def price_and_score(ots: torch.Tensor, cfg: torch.Tensor,
-                    dev: DeviceTables):
+                    dev: DeviceTables, cluster: Optional[int] = None):
     """K24: price every dep of each lane's placed job and build the SRPT
     lookahead scores. ``ots`` [B, N] int32 server codes (-1 unplaced),
     ``cfg`` [B] int32. Returns ``(times [B, M] (zero where not a flow),
     is_flow [B, M] bool, chan [B, M] int32 (-1 where not a flow),
-    op_score [B, N], dep_score [B, M], finite_ok [B] bool)``."""
+    op_score [B, N], dep_score [B, M], finite_ok [B] bool)``. On the card
+    each lane runs on a cluster of ``price_cluster`` CTAs, or of
+    ``cluster`` (1-16) where given; the answer is the same at every
+    size. The kernel prices and ranks each lane's valid prefixes
+    ([0, n_deps), [0, n_ops) of its config: ``stack_config_tables``'s
+    layout)."""
     if kernels.on_cpu(ots, cfg):
         return price_and_score_plain(ots, cfg, dev)
     pads = dev.pads
@@ -1093,6 +1137,10 @@ def price_and_score(ots: torch.Tensor, cfg: torch.Tensor,
     T, cm = dev.t, dev.comm
     C, R, S = dev.st.ramp_shape
     if lanes:
+        g = cluster if cluster is not None else price_cluster(lanes, dev)
+        if not 1 <= g <= kernels.MAX_CLUSTER:
+            raise ValueError(f"cluster must be 1-{kernels.MAX_CLUSTER}, "
+                             f"got {g}")
         kernels.launch(
             "price_and_score", ots.data_ptr(), cfg.data_ptr(),
             *(T[k].data_ptr() for k in PRICING_TABLES),
@@ -1100,7 +1148,7 @@ def price_and_score(ots: torch.Tensor, cfg: torch.Tensor,
             is_flow.data_ptr(), chan.data_ptr(), op_score.data_ptr(),
             dep_score.data_ptr(), finite_ok.data_ptr(), lanes, N, M,
             pads.n_groups, pads.group_edges, pads.n_sync, pads.n_o2o, C, R,
-            S, ctypes.c_double(cm["x"]), ctypes.c_double(cm["rate"]),
+            S, g, ctypes.c_double(cm["x"]), ctypes.c_double(cm["rate"]),
             ctypes.c_double(cm["prop_io"]),
             ctypes.c_double(cm["data_per_tx"]),
             int(dt == torch.float64))
@@ -1274,18 +1322,12 @@ class EpisodeKernels:
             state["mem"], state["srv_job"] < 0, cfg, dev)
         times, is_flow, chan, op_score, dep_score, finite_ok = \
             price_and_score(ots, cfg, dev)
-        T = dev.t
-        c = cfg.long()
-        op_valid = T["op_valid"][c]
         ticks = torch.empty(cfg.shape[0], dtype=torch.int32,
                             device=cfg.device)
 
         def compute(skip):
-            return lookahead_mod.lookahead(
-                T["op_compute"][c], op_valid, torch.where(op_valid, ots, -1),
-                op_score, T["num_parents"][c], times, T["dep_valid"][c],
-                T["dep_src"][c], T["dep_dst"][c], T["dep_mutual"][c],
-                is_flow, dep_score, chan[:, :, None],
+            return lookahead_mod.lookahead_indexed(
+                cfg, ots, op_score, times, is_flow, dep_score, chan, dev.t,
                 num_workers=dev.et.n_srv, num_channels=dev.et.n_chan,
                 ticks=ticks, skip=skip)
 
@@ -1293,7 +1335,7 @@ class EpisodeKernels:
             t_step, _, _, _, ok_la = compute(~state["active"])
         else:
             t_step, _, _, _, ok_la = device_memo.memo_lookahead(
-                memo, cfg, state["active"], ots, T["op_valid"], times,
+                memo, cfg, state["active"], ots, dev.t["op_valid"], times,
                 dev.et.n_srv, compute, memo_trace, d)
         return {"ots": ots, "new_mem": new_mem, "ok_place": ok_place,
                 "times": times, "is_flow": is_flow, "chan": chan,
@@ -1327,15 +1369,9 @@ class EpisodeKernels:
         times, is_flow, chan, op_score, dep_score, finite_ok = \
             price_and_score(ots, cfg, dev)
         has_job = (state["queue_row"] >= 0) & ~state["done"]
-        T = dev.t
-        c = cfg.long()
-        op_valid = T["op_valid"][c]
-        t_step, _, _, _, ok_la = lookahead_mod.lookahead(
-            T["op_compute"][c], op_valid, torch.where(op_valid, ots, -1),
-            op_score, T["num_parents"][c], times, T["dep_valid"][c],
-            T["dep_src"][c], T["dep_dst"][c], T["dep_mutual"][c], is_flow,
-            dep_score, chan[:, :, None], num_workers=dev.et.n_srv,
-            num_channels=dev.et.n_chan,
+        t_step, _, _, _, ok_la = lookahead_mod.lookahead_indexed(
+            cfg, ots, op_score, times, is_flow, dep_score, chan, dev.t,
+            num_workers=dev.et.n_srv, num_channels=dev.et.n_chan,
             skip=~has_job.repeat_interleave(n_deg))
         return {"cfg": cfg, "state_lane": state_lane, "free": free,
                 "alloc": (ots, new_mem, ok_place),

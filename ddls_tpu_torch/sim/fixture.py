@@ -293,14 +293,10 @@ def episode_kernel_diffs(ek, bank: dict, actions, decisions: int,
              device_env.price_and_score_plain(want[0], state["cfg"], dev))
         raw = ek.evaluate(state)
         if d in lookahead_at:
-            c = state["cfg"].long()
-            valid = tb["op_valid"][c]
             plain = lookahead_mod.lookahead_plain(
-                tb["op_compute"][c], valid,
-                torch.where(valid, raw["ots"], -1), raw["op_score"],
-                tb["num_parents"][c], raw["times"], tb["dep_valid"][c],
-                tb["dep_src"][c], tb["dep_dst"][c], tb["dep_mutual"][c],
-                raw["is_flow"], raw["dep_score"], raw["chan"][:, :, None],
+                *lookahead_mod.gather_indexed(
+                    state["cfg"], raw["ots"], raw["op_score"], raw["times"],
+                    raw["is_flow"], raw["dep_score"], raw["chan"], tb),
                 num_workers=dev.et.n_srv, num_channels=dev.et.n_chan,
                 skip=~state["active"])
             hold("lookahead", (raw["t_step"], raw["ok_la"], raw["ticks"]),
@@ -932,8 +928,6 @@ def segment_kernel_diffs(et, ot, model, bank: dict, uniforms, steps: int,
                 state["mem"], state["srv_job"] < 0, cfg, dev)
             times, is_flow, chan, op_score, dep_score, finite_ok = \
                 de.price_and_score(ots, cfg, dev)
-            c = cfg.long()
-            valid = tb["op_valid"][c]
             skip = ~active
             if memo is not None:
                 probe = device_memo.memo_probe(memo, cfg, active, ots,
@@ -945,12 +939,10 @@ def segment_kernel_diffs(et, ot, model, bank: dict, uniforms, steps: int,
                      [want[k] for k in sorted(want)])
                 skip = probe["skip"]
             ticks = torch.empty(lanes, dtype=torch.int32, **kw)
-            t_step, _, _, _, ok_la = lookahead_mod.lookahead(
-                tb["op_compute"][c], valid, torch.where(valid, ots, -1),
-                op_score, tb["num_parents"][c], times, tb["dep_valid"][c],
-                tb["dep_src"][c], tb["dep_dst"][c], tb["dep_mutual"][c],
-                is_flow, dep_score, chan[:, :, None], num_workers=et.n_srv,
-                num_channels=et.n_chan, ticks=ticks, skip=skip)
+            t_step, _, _, _, ok_la = lookahead_mod.lookahead_indexed(
+                cfg, ots, op_score, times, is_flow, dep_score, chan, tb,
+                num_workers=et.n_srv, num_channels=et.n_chan, ticks=ticks,
+                skip=skip)
             if memo is not None:
                 memo2, t2, ok2 = clone(memo), t_step.clone(), ok_la.clone()
                 device_memo.memo_insert(memo, probe, cfg, active, times,

@@ -6,8 +6,11 @@ Port of the engine half of ``ddls_tpu/sim/jax_lookahead.py``
 every array with a leading lane axis and returns ``(t, comm_oh, comp_oh,
 busy, ok)`` per lane. On CUDA tensors it launches K21
 (``kernels/csrc/lookahead.cu``), one launch for all lanes with the whole
-tick loop inside the kernel; on CPU tensors it runs ``lookahead_plain``,
-the same tick loop as tensor ops over all lanes.
+tick loop inside the kernel, each lane over a thread-block cluster of up
+to 16 CTAs (``CLUSTER`` by default); on CPU tensors it runs
+``lookahead_plain``, the same tick loop as tensor ops over all lanes.
+``lookahead_indexed`` is the device env's entry: it reads the config
+tables' rows through ``cfg`` in the kernel instead of gathering them.
 
 Semantics (the host engine's, ``sim/cluster.py:_run_lookahead``): per
 worker the highest-scoring ready op is selected (every op whose score
@@ -111,11 +114,66 @@ def run_lanes(batch: Sequence[LookaheadArrays], device
     return [tuple(v) if good else None for v, good in zip(vals, ok.tolist())]
 
 
+def lane_extents(valid: torch.Tensor) -> torch.Tensor:
+    """Each lane's extent as K21's setup pass finds it: one past the last
+    valid slot of ``valid`` [B, X] (0 for a lane with none), int64 [B]."""
+    x = valid.shape[1]
+    pos = torch.arange(1, x + 1, device=valid.device)
+    return torch.where(valid, pos, 0).amax(1) if x else torch.zeros(
+        valid.shape[0], dtype=torch.int64, device=valid.device)
+
+
+def cluster_chunks(extent: int, g: int) -> List[Tuple[int, int]]:
+    """``(lo, len)`` of the slots [0, extent) that CTA r of a cluster of
+    ``g`` owns, for r = 0 .. g - 1, as K21 and K24 cut them: chunks of
+    ceil(extent / g), the last ones short or empty."""
+    chunk = -(-extent // g)
+    out = []
+    for r in range(g):
+        lo = min(r * chunk, extent)
+        out.append((lo, min(chunk, extent - lo)))
+    return out
+
+
+# K21's cluster sizes: the most a launch may be given, and the size the
+# wrapper takes (measured on the H100 over the replay's 8 lanes, the
+# oracle step's 72 pricing rows and the pricing decision's 6 lanes: 4 CTAs
+# within 12% of the best of 1-16 on each; more CTAs add cluster barriers,
+# two a tick, that cost more than their share of the work saves)
+MAX_CLUSTER = kernels.MAX_CLUSTER
+CLUSTER = 4
+
+# the config tables the indexed entry reads through ``cfg``, in the
+# thirteen inputs' order (op_compute is op_remaining), with their dtypes
+# (None: the float type)
+INDEXED_TABLES = (("op_compute", None), ("op_valid", torch.bool),
+                  ("num_parents", torch.int32), ("dep_valid", torch.bool),
+                  ("dep_src", torch.int32), ("dep_dst", torch.int32),
+                  ("dep_mutual", torch.bool))
+
+
+def gather_indexed(cfg, ots, op_score, dep_remaining, dep_is_flow,
+                   dep_score, chan, tables: dict) -> List[torch.Tensor]:
+    """The thirteen per-lane inputs that the indexed entry reads: each
+    lane's config rows of ``tables`` at ``cfg``, op_worker the placement
+    ``ots`` where the op is valid (else -1), ``chan`` [B, E] as the one
+    channel column."""
+    c = cfg.long()
+    op_valid = tables["op_valid"][c]
+    return [tables["op_compute"][c], op_valid,
+            torch.where(op_valid, ots, -1), op_score,
+            tables["num_parents"][c], dep_remaining, tables["dep_valid"][c],
+            tables["dep_src"][c], tables["dep_dst"][c],
+            tables["dep_mutual"][c], dep_is_flow, dep_score,
+            chan[:, :, None]]
+
+
 def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
               dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
               dep_is_flow, dep_score, dep_channel, *, num_workers: int,
               num_channels: int, ticks: Optional[torch.Tensor] = None,
-              skip: Optional[torch.Tensor] = None) -> LookaheadOut:
+              skip: Optional[torch.Tensor] = None,
+              cluster: Optional[int] = None) -> LookaheadOut:
     """K21: ``(t, comm_oh, comp_oh, busy, ok)``, each [B], for B lanes of
     padded arrays: [B, N] ops, [B, E] deps, [B, E, L] ``dep_channel``
     (dtypes as ``_ARG_DTYPES``; float32 or float64). ``num_workers`` and
@@ -124,7 +182,8 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
     lane's tick count is written into it. A lane whose ``skip`` (bool
     [B]) is True runs no tick and returns its initial accumulators (the
     reference's ``skip``, ``jax_lookahead.py:316,355``); without ``skip``
-    every lane runs."""
+    every lane runs. ``cluster`` forces the CTAs a lane (1-16; default
+    ``CLUSTER``); the answer is the same at every size."""
     args = (op_remaining, op_valid, op_worker, op_score, num_parents,
             dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
             dep_is_flow, dep_score, dep_channel)
@@ -135,23 +194,82 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
             ticks.copy_(out[5])
         return out[:5]
     dtype = op_remaining.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"op_remaining must be float32 or float64, got "
-                        f"{dtype}")
     if op_remaining.dim() != 2 or dep_remaining.dim() != 2 or \
             dep_channel.dim() != 3:
         raise ValueError("lookahead takes [B, N] ops, [B, E] deps and "
                          "[B, E, L] dep_channel")
     lanes, n = op_remaining.shape
     e, links = dep_channel.shape[1], dep_channel.shape[2]
-    if num_workers < 1 or num_channels < 1 or links < 1:
-        raise ValueError("num_workers, num_channels and L must be >= 1")
+    _check_dtype(dtype)
     for name, t, want in zip(ARG_NAMES, args, _ARG_DTYPES):
         shape = ((lanes, n) if name.startswith("op_") or
                  name == "num_parents" else
                  (lanes, e, links) if name == "dep_channel" else (lanes, e))
         kernels.check_cuda(name, t, want or dtype, shape)
-    device = op_remaining.device
+    return _launch(args, None, None, skip, ticks, lanes, n, e, links,
+                   num_workers, num_channels, cluster)
+
+
+def lookahead_indexed(cfg, ots, op_score, dep_remaining, dep_is_flow,
+                      dep_score, chan, tables: dict, *, num_workers: int,
+                      num_channels: int,
+                      ticks: Optional[torch.Tensor] = None,
+                      skip: Optional[torch.Tensor] = None,
+                      cluster: Optional[int] = None) -> LookaheadOut:
+    """K21's indexed entry (the device env's): ``lookahead`` on
+    ``gather_indexed``'s inputs without gathering them. ``tables`` holds
+    the config tables ``INDEXED_TABLES`` ([K, N] and [K, E]; the kernel
+    reads row ``cfg`` [B] int32 of each), ``ots`` [B, N] int32 the
+    placement, ``op_score`` [B, N], ``dep_remaining``, ``dep_is_flow``,
+    ``dep_score`` and ``chan`` [B, E] (one channel column)."""
+    if kernels.on_cpu(cfg, ots, op_score, dep_remaining, dep_is_flow,
+                      dep_score, chan, ticks, skip):
+        return lookahead(*gather_indexed(cfg, ots, op_score, dep_remaining,
+                                         dep_is_flow, dep_score, chan,
+                                         tables),
+                         num_workers=num_workers, num_channels=num_channels,
+                         ticks=ticks, skip=skip)
+    dtype = op_score.dtype
+    _check_dtype(dtype)
+    if ots.dim() != 2 or chan.dim() != 2:
+        raise ValueError("lookahead_indexed takes [B, N] ops and [B, E] "
+                         "deps")
+    lanes, n = ots.shape
+    e = chan.shape[1]
+    k = tables["op_valid"].shape[0]
+    kernels.check_cuda("cfg", cfg, torch.int32, (lanes,))
+    kernels.check_cuda("ots", ots, torch.int32, (lanes, n))
+    kernels.check_cuda("op_score", op_score, dtype, (lanes, n))
+    for name, t, want in (("dep_remaining", dep_remaining, dtype),
+                          ("dep_is_flow", dep_is_flow, torch.bool),
+                          ("dep_score", dep_score, dtype),
+                          ("chan", chan, torch.int32)):
+        kernels.check_cuda(name, t, want, (lanes, e))
+    for name, want in INDEXED_TABLES:
+        size = n if name.startswith("op_") or name == "num_parents" else e
+        kernels.check_cuda(name, tables[name], want or dtype, (k, size))
+    T = tables
+    args = (T["op_compute"], T["op_valid"], None, op_score,
+            T["num_parents"], dep_remaining, T["dep_valid"], T["dep_src"],
+            T["dep_dst"], T["dep_mutual"], dep_is_flow, dep_score, chan)
+    return _launch(args, cfg, ots, skip, ticks, lanes, n, e, 1, num_workers,
+                   num_channels, cluster)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"op_remaining must be float32 or float64, got "
+                        f"{dtype}")
+
+
+def _launch(args, cfg, ots, skip, ticks, lanes, n, e, links, num_workers,
+            num_channels, cluster) -> LookaheadOut:
+    """One K21 launch: the outputs, the workspace the launch's plan keeps
+    out of shared memory, the cluster size."""
+    if num_workers < 1 or num_channels < 1 or links < 1:
+        raise ValueError("num_workers, num_channels and L must be >= 1")
+    dtype = args[3].dtype
+    device = args[3].device
     vals = torch.empty((lanes, 4), dtype=dtype, device=device)
     ok = torch.empty(lanes, dtype=torch.bool, device=device)
     if ticks is None:
@@ -159,21 +277,21 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
     kernels.check_cuda("ticks", ticks, torch.int32, (lanes,))
     if skip is not None:
         kernels.check_cuda("skip", skip, torch.bool, (lanes,))
-    # per-lane working state: remaining times, done and per-tick flags,
-    # completed-parent counts (the kernel initialises all of it)
-    rem_op = torch.empty((lanes, n), dtype=dtype, device=device)
-    rem_dep = torch.empty((lanes, e), dtype=dtype, device=device)
-    flags_op = torch.empty((lanes, 2, n), dtype=torch.uint8, device=device)
-    flags_dep = torch.empty((lanes, 2, e), dtype=torch.uint8, device=device)
-    parents = torch.empty((lanes, n), dtype=torch.int32, device=device)
     if lanes:
-        kernels.launch("lookahead", *(t.data_ptr() for t in args),
-                       rem_op.data_ptr(), rem_dep.data_ptr(),
-                       flags_op.data_ptr(), flags_dep.data_ptr(),
-                       parents.data_ptr(), vals.data_ptr(), ok.data_ptr(),
-                       ticks.data_ptr(), kernels.ptr(skip), lanes, n, e,
-                       links, num_workers,
-                       num_channels, int(dtype == torch.float64))
+        f64 = int(dtype == torch.float64)
+        g = cluster if cluster is not None else CLUSTER
+        if not 1 <= g <= MAX_CLUSTER:
+            raise ValueError(f"cluster must be 1-{MAX_CLUSTER}, got {g}")
+        ws_lane = kernels.cached_query(
+            "lookahead", "ddls_lookahead_workspace", n, e, links,
+            num_workers, num_channels, g, f64)
+        ws = torch.empty(max(lanes * ws_lane, 1), dtype=torch.uint8,
+                         device=device)
+        kernels.launch("lookahead", *(kernels.ptr(t) for t in args),
+                       kernels.ptr(cfg), kernels.ptr(ots), kernels.ptr(skip),
+                       ws.data_ptr(), vals.data_ptr(), ok.data_ptr(),
+                       ticks.data_ptr(), ws_lane, lanes, n, e, links,
+                       num_workers, num_channels, g, f64)
     return vals[:, 0], vals[:, 1], vals[:, 2], vals[:, 3], ok
 
 

@@ -38,7 +38,12 @@ banks, whose float32 trace is the recorded JAX one. K25's scenario mode
 full-width scenario replay (whose float32 trace is the recorded JAX one)
 and of episodes under fuzzed scenarios that take each of the walk's
 branches; C1's bank holds; a nominal episode launches the nominal K25 and
-no scenario mode.
+no scenario mode. K24 and both K21 entries (per lane and indexed) run
+each lane over a thread-block cluster: they equal their plain versions
+bit for bit at every cluster size 1-16 and at the wrappers' own choice,
+at 1, 2, 8 and 72 lanes, on all 45 configs of the shipped surface at full
+width, with skipped lanes, on lanes priced NaN or infinite, and on every
+recorded group of K21 lanes, in float32 and float64.
 """
 import dataclasses
 
@@ -1658,3 +1663,185 @@ def test_null_scenario_launches_the_nominal_kernel(cuda):
         np.testing.assert_array_equal(got.cpu().numpy(),
                                       fx["f32"]["trace"][name][:2, :n_dec],
                                       err_msg=name)
+
+
+# ------------------------------ K21 and K24 over thread-block clusters
+CLUSTER_SIZES = tuple(range(1, kernels.MAX_CLUSTER + 1))
+
+
+def _shipped_tables():
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    return device_env.build_episode_tables(env)
+
+
+def _fuzzed_calls(et, dev, cfg, seed):
+    """K24's inputs for the configs ``cfg`` (each valid op on a random
+    server, the rest -1) and K21's from K24's plain outputs, with a third
+    of the lanes skipped."""
+    rng = np.random.RandomState(seed)
+    valid = et.tables["op_valid"][cfg]
+    ots = np.where(valid, rng.randint(0, et.n_srv, valid.shape), -1)
+    cfg_t = torch.from_numpy(np.asarray(cfg, np.int32)).to(dev.device)
+    ots_t = torch.from_numpy(ots.astype(np.int32)).to(dev.device)
+    skip = torch.from_numpy(rng.rand(len(cfg)) < 1 / 3).to(dev.device)
+    return cfg_t, ots_t, skip
+
+
+def _equal_all_sizes(run, want, what):
+    for g in (None,) + CLUSTER_SIZES:
+        got = run(g)
+        torch.cuda.synchronize()
+        for i, (o, w) in enumerate(zip(got, want)):
+            same = (o == w) | (torch.isnan(o) & torch.isnan(w)) \
+                if o.is_floating_point() else o == w
+            assert bool(same.all()), f"{what}: output {i} at cluster {g}"
+
+
+def _hold_k24_and_k21(dev, cfg, ots, skip, what):
+    """K24 and the indexed K21 at every cluster size (and the wrappers'
+    own choice) against their plain versions, bit for bit; the per-lane
+    K21 on the same inputs gathered at every size too."""
+    _equal_all_sizes(lambda g: device_env.price_and_score(ots, cfg, dev, g),
+                     device_env.price_and_score_plain(ots, cfg, dev),
+                     f"K24 {what}")
+    times, is_flow, chan, op_score, dep_score, _ = \
+        device_env.price_and_score_plain(ots, cfg, dev)
+    kw = dict(num_workers=dev.et.n_srv, num_channels=dev.et.n_chan)
+    args = lookahead_mod.gather_indexed(cfg, ots, op_score, times, is_flow,
+                                        dep_score, chan, dev.t)
+    plain = lookahead_mod.lookahead_plain(*args, skip=skip, **kw)
+
+    def indexed(g):
+        ticks = torch.empty(cfg.shape[0], dtype=torch.int32,
+                            device=cfg.device)
+        return lookahead_mod.lookahead_indexed(
+            cfg, ots, op_score, times, is_flow, dep_score, chan, dev.t,
+            ticks=ticks, skip=skip, cluster=g, **kw) + (ticks,)
+
+    def per_lane(g):
+        ticks = torch.empty(cfg.shape[0], dtype=torch.int32,
+                            device=cfg.device)
+        return lookahead_mod.lookahead(*args, ticks=ticks, skip=skip,
+                                       cluster=g, **kw) + (ticks,)
+
+    _equal_all_sizes(indexed, plain, f"K21 indexed {what}")
+    _equal_all_sizes(per_lane, plain, f"K21 {what}")
+    assert not bool(plain[5][skip].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [1, 2, 8, 72])
+def test_cluster_kernels_equal_plain_at_every_size(cuda, dtype, lanes):
+    """K24 and both K21 entries at full width (the shipped surface: N 480,
+    M 13,072) at every forced cluster size 1-16 and the wrappers' choice,
+    on random placements of random configs with skipped lanes, bit for
+    bit against their plain versions (tick counts too)."""
+    et = _shipped_tables()
+    dev = device_env.device_tables(et, device=cuda, dtype=dtype)
+    rng = np.random.RandomState(lanes)
+    cfg = rng.randint(0, dev.n_cfg, lanes)
+    cfg[0] = dev.n_cfg - 1          # the largest config: M = 13,072
+    _hold_k24_and_k21(dev, *_fuzzed_calls(et, dev, cfg, lanes),
+                      f"{lanes} lanes {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_kernels_equal_plain_on_every_config(cuda, dtype):
+    """All 45 configs of the shipped surface, one a lane (m_c from 21 to
+    13,072), at every cluster size."""
+    et = _shipped_tables()
+    dev = device_env.device_tables(et, device=cuda, dtype=dtype)
+    cfg = np.arange(dev.n_cfg)
+    _hold_k24_and_k21(dev, *_fuzzed_calls(et, dev, cfg, 7),
+                      f"every config {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_k24_non_finite_lanes_equal_plain(cuda, dtype):
+    """K24 on lanes whose priced times are NaN, +inf or -inf (dep sizes
+    and collective messages poisoned in a copy of the tables) at every
+    cluster size: a NaN time's rank counts the invalid tail (the
+    reference sorts all M slots); finite_ok false. K21 is held on the
+    +-inf lanes (its plain version's minima propagate NaN where the
+    kernel's order-preserving minima skip it, as one CTA a lane did)."""
+    et = _shipped_tables()
+    dev = device_env.DeviceTables(et, cuda, dtype)
+    rng = np.random.RandomState(11)
+    size = dev.t["dep_size"].clone()
+    msg = {k: dev.t[k].clone() for k in ("grp_msg", "sync_msg")}
+    for k in range(dev.n_cfg):
+        m_c = int(et.tables["n_deps"][k])
+        hit = rng.choice(m_c, max(1, m_c // 50), replace=False)
+        size[k, hit] = torch.from_numpy(rng.choice(
+            [np.nan, np.inf, -np.inf], len(hit))).to(size)
+    # NaN collectives: priced NaN on flows (a NaN size is never a flow)
+    msg["grp_msg"][::3] = float("nan")
+    msg["sync_msg"][1::3] = float("nan")
+    clean = {k: dev.t[k] for k in msg}
+    cfg = np.arange(dev.n_cfg)
+    for poison in ("nan", "inf"):
+        dev.t["dep_size"] = size if poison == "nan" else torch.where(
+            torch.isnan(size), torch.full_like(size, float("inf")), size)
+        dev.t.update(msg if poison == "nan" else clean)
+        cfg_t, ots, skip = _fuzzed_calls(et, dev, cfg, 13)
+        want = device_env.price_and_score_plain(ots, cfg_t, dev)
+        assert not bool(want[5].all())
+        bad = torch.isnan(want[0]) if poison == "nan" else \
+            torch.isinf(want[0])
+        assert bool(bad.any())
+        if poison == "nan":
+            _equal_all_sizes(
+                lambda g: device_env.price_and_score(ots, cfg_t, dev, g),
+                want, f"K24 NaN lanes {dtype}")
+        else:
+            _hold_k24_and_k21(dev, cfg_t, ots, skip, f"inf lanes {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_lookahead_equals_plain_on_recorded_lanes(cuda, dtype):
+    """The per-lane K21 on every recorded group of lanes at every cluster
+    size, bit for bit against its plain version (tick counts too)."""
+    for name, group in load_lookahead_lanes().items():
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                for a in group["args"]]
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        kw = dict(num_workers=group["num_workers"],
+                  num_channels=group["num_channels"])
+
+        def run(g):
+            ticks = torch.empty(args[0].shape[0], dtype=torch.int32,
+                                device=cuda)
+            return lookahead_mod.lookahead(*args, ticks=ticks, cluster=g,
+                                           **kw) + (ticks,)
+
+        _equal_all_sizes(run, lookahead_mod.lookahead_plain(*args, **kw),
+                         name)
+
+
+def test_cluster_wrappers_reject_what_they_cannot_take(cuda):
+    et = _shipped_tables()
+    dev = device_env.device_tables(et, device=cuda)
+    cfg, ots, skip = _fuzzed_calls(et, dev, np.arange(4), 1)
+    for g in (0, kernels.MAX_CLUSTER + 1):
+        with pytest.raises(ValueError, match="cluster"):
+            device_env.price_and_score(ots, cfg, dev, g)
+    times, is_flow, chan, op_score, dep_score, _ = \
+        device_env.price_and_score(ots, cfg, dev)
+    kw = dict(num_workers=et.n_srv, num_channels=et.n_chan)
+    with pytest.raises(ValueError, match="cluster"):
+        lookahead_mod.lookahead_indexed(cfg, ots, op_score, times, is_flow,
+                                        dep_score, chan, dev.t, cluster=17,
+                                        **kw)
+    with pytest.raises(TypeError):
+        lookahead_mod.lookahead_indexed(cfg.long(), ots, op_score, times,
+                                        is_flow, dep_score, chan, dev.t,
+                                        **kw)
+    with pytest.raises(ValueError):
+        lookahead_mod.lookahead_indexed(cfg, ots, op_score, times, is_flow,
+                                        dep_score, chan[:, :-1], dev.t,
+                                        **kw)
