@@ -24,7 +24,8 @@ exits non-zero (nothing is caught):
    held against its plain version (abs 1e-5 of each output's own largest
    magnitude: float32 sums over up to 16,384 rows in another order; K5's
    plain version takes relu's kink decisions from K1's output on the same
-   inputs), bitwise across two runs, and timed as above.
+   inputs), bitwise across two runs, and timed as above; each K5 call is
+   one launch (its reduce over the CTAs inside it).
    Then K9, the rollout's sampling: its call in the rollout forward of
    recorded step 0 (8 envs) and of that batch with a fully masked row, a
    one-valid-action row, an exact tie and a near tie of ``m + g``; actions
@@ -48,6 +49,10 @@ exits non-zero (nothing is caught):
    in float32 and float64; then device ms a call (CUDA graph) at cluster
    sizes 1-16, the clusters of each size the card runs at once, and the
    size each wrapper chooses (the kernels line's ``cluster``).
+   Then placement — K23, both entries, on fuzzed states at 1, 8 and 72
+   rows, float32 and float64, on the shipped surface and on a 64-server
+   ramp whose occupancy masks take two words: every call bit-equal to its
+   plain version, and device ms a launch of each case.
 4. serve   — the main path: the shipped ppo_price_mixed export through
    ``build_fleet(device="cuda")`` at max_batch 8 on the default ladder,
    the 64 fixture requests, launch counters reset just before and read
@@ -347,7 +352,7 @@ def eager_ms(fn, iters: int = TIMED_ITERS) -> float:
 def device_ms(fn, iters: int = 100, replays: int = 5) -> float:
     """Per-call device time of ``fn``: ``iters`` calls captured in one
     CUDA graph, replayed ``replays`` times between CUDA events, so host
-    launch cost drops out."""
+    launch cost drops out. The warm-up calls run on the capture stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -355,7 +360,7 @@ def device_ms(fn, iters: int = 100, replays: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -720,8 +725,8 @@ def k5_parts(args, kwargs):
 
     # the function's bytes: its inputs, the per-row gradients this call
     # asks for (dx of the left half unless want_dx is False, db only when
-    # b is given) and the parameter gradients; K5's per-block partials are
-    # its own intermediate (the reduce's row counts them)
+    # b is given) and the parameter gradients; K5's per-CTA partial rows,
+    # summed inside its launch, are its own intermediate
     n_params = fo * k_in + fo + 2 * k_in
     nbytes = (_nbytes(a, idx, b, ln_w, ln_b, w, bias, dout)
               + (rows * fa * 4 if want_dx else 0)
@@ -737,15 +742,6 @@ def k5_parts(args, kwargs):
 def k5_compare(out, ref):
     """K5's wrapper skips the outputs autograd does not need."""
     return tuple(None if o is None else r for o, r in zip(out, ref))
-
-
-def k5r_parts(args, kwargs):
-    (partial,) = args
-    return (lambda: gnn_mod.ln_linear_act_bwd_reduce_plain(partial),
-            lambda: partial.sum(dim=0),
-            bound_ms(_nbytes(partial) + partial.shape[1] * 4,
-                     partial.numel()),
-            f"blocks={partial.shape[0]} params={partial.shape[1]}")
 
 
 def k6m_parts(args, kwargs):
@@ -848,8 +844,6 @@ def k8_compare(out, ref):
 # (module whose global the update calls, attribute, parts function)
 TRAIN_SITES = {
     "ln_linear_act_bwd": (gnn_mod, "ln_linear_act_bwd", k5_parts),
-    "ln_linear_act_bwd_reduce": (gnn_mod, "ln_linear_act_bwd_reduce",
-                                 k5r_parts),
     "csr_segment_mean_bwd": (segment_mod, "csr_segment_mean_bwd",
                              k6m_parts),
     "csr_segment_sum": (gnn_mod, "csr_segment_sum", k6s_parts),
@@ -959,7 +953,13 @@ def check_train_kernels(params, requests, fx):
                 with torch.enable_grad():  # K5's yardstick's graph
                     plain, library, (bound, bound_by), shape = parts(
                         args, kwargs)
+                before = kernels.launch_counts()
                 out = fn(*args, **kwargs)
+                if name == "ln_linear_act_bwd":  # the reduce inside
+                    after = kernels.launch_counts()
+                    require({k: v - before[k] for k, v in after.items()
+                             if v != before[k]} == {name: 1},
+                            "K5 is not one launch a call")
                 again = fn(*args, **kwargs)
                 ref = plain()
                 torch.cuda.synchronize()
@@ -1981,7 +1981,7 @@ def phase_ac_loop(card):
                     f"two {algo} runs from one seed saved different states")
             scan = "vtrace" if algo == "impala" else "reward_to_go"
             for name in (*KERNEL_SITES, "mask_sample_logp",
-                         "ln_linear_act_bwd", "ln_linear_act_bwd_reduce",
+                         "ln_linear_act_bwd",
                          "csr_segment_mean_bwd", "csr_segment_sum",
                          "masked_mean_pool_concat_bwd", scan, "ac_loss"):
                 require(launches[algo][name] > 0,
@@ -2474,7 +2474,7 @@ def phase_dqn_train(dqn_es_fx, train_fx, card):
                 and np.array_equal(p0, p1), "two DQN runs differ")
     for name in ("ln_linear_act", "csr_segment_mean",
                  "masked_mean_pool_concat", "ln_linear_act_bwd",
-                 "ln_linear_act_bwd_reduce", "csr_segment_mean_bwd",
+                 "csr_segment_mean_bwd",
                  "csr_segment_sum", "masked_mean_pool_concat_bwd",
                  "dqn_act", "dqn_td_loss"):
         require(launches[name] > 0, f"the DQN acting and updates did not "
@@ -2642,8 +2642,8 @@ def phase_dqn_es_loop(card):
                     and state0["step"] == state1["step"],
                     f"two {algo} runs from one seed saved different states")
             used = (("dqn_act", "dqn_td_loss", "ln_linear_act_bwd",
-                     "ln_linear_act_bwd_reduce", "csr_segment_mean_bwd",
-                     "csr_segment_sum", "masked_mean_pool_concat_bwd")
+                     "csr_segment_mean_bwd", "csr_segment_sum",
+                     "masked_mean_pool_concat_bwd")
                     if algo == "apex_dqn" else
                     ("es_act", "es_update", "mask_logits_argmax"))
             for name in ("ln_linear_act", "csr_segment_mean",
@@ -3583,6 +3583,59 @@ def check_cluster_kernels(card):
     return {"lookahead": sweep["lookahead (price32)"]["chosen"],
             "lookahead (skip)": sweep["lookahead skip (8 lanes)"]["chosen"],
             "price_and_score": sweep["price_and_score (8 lanes)"]["chosen"]}
+
+
+# K23's fuzzed holds: rows a launch (one lane; the replay's 8 lanes; the
+# oracle step's 72 pricing rows) and seeds of each (rows, entry, float
+# type, surface)
+PLACEMENT_ROWS = (1, 8, 72)
+PLACEMENT_SEEDS = 3
+
+
+def check_placement_kernel(card):
+    """K23 on fuzzed states (``sim/fixture.py`` ``fuzzed_placements``):
+    both entries (plain, and with the state-lane index over rows // 9
+    lanes), float32 and float64, at 1, 8 and 72 rows, on the shipped
+    32-server surface and on a 64-server ramp whose occupancy masks take
+    two words (``multi_word_tables``); every call bit-equal to its plain
+    version. Emits the calls held, the rows placed and each case's device
+    ms a launch (CUDA graph)."""
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    held = placed = rows_held = 0
+    ms = {}
+    for surface, tables in (("shipped", et), (
+            "multi_word", device_env_fixture.multi_word_tables(et))):
+        for dtype in (torch.float32, torch.float64):
+            dev = device_env.device_tables(tables, "cuda", dtype)
+            for rows in PLACEMENT_ROWS:
+                for indexed in (False, True):
+                    what = (f"{surface} servers={tables.n_srv} "
+                            f"{str(dtype)[6:]} rows={rows} "
+                            f"{'indexed' if indexed else 'plain'}")
+                    for seed in range(PLACEMENT_SEEDS):
+                        args = device_env_fixture.fuzzed_placements(
+                            tables, dev, rows, seed, indexed)
+                        got = device_env.allocate_job(*args[:3], dev,
+                                                      args[3])
+                        want = device_env.allocate_job_plain(
+                            *args[:3], dev, args[3])
+                        torch.cuda.synchronize()
+                        require(all(torch.equal(g, w)
+                                    for g, w in zip(got, want)),
+                                f"K23 differs from its plain version on "
+                                f"fuzzed states ({what}, seed {seed})")
+                        held += 1
+                        rows_held += rows
+                        placed += int(got[2].sum())
+                    ms[what] = device_ms(lambda: device_env.allocate_job(
+                        *args[:3], dev, args[3]))
+    require(0 < placed < rows_held, "the fuzzed states placed every row "
+                                    "or none")
+    emit("placement", card=card, held_calls=held, rows_held=rows_held,
+         rows_placed=placed, device_ms_per_launch=ms)
 
 
 def _price_tuples_close(got, want) -> float:
@@ -5969,6 +6022,7 @@ def main() -> int:
     lookahead_results = check_lookahead_kernel()
     emit("lookahead_kernel_checked", card=card, **lookahead_results)
     clusters = check_cluster_kernels(card)
+    check_placement_kernel(card)
 
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)

@@ -109,10 +109,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/rl/ppo.py:262"),
     # the PPO update's backward (K5, K6) and loss (K7, K8)
     KernelSpec("ln_linear_act_bwd", "ddls_ln_linear_act_bwd",
-               "pppppppppppiiiiiiip", "ddls_tpu/models/gnn.py:45"),
-    KernelSpec("ln_linear_act_bwd_reduce", "ddls_ln_linear_act_bwd_reduce",
-               "ppiip", "ddls_tpu/models/gnn.py:45",
-               file="ln_linear_act_bwd"),
+               "p" * 14 + "i" * 9 + "p", "ddls_tpu/models/gnn.py:45"),
     KernelSpec("csr_segment_mean_bwd", "ddls_csr_segment_mean_bwd",
                "ppppppiiip", "ddls_tpu/ops/segment.py:37",
                file="segment_bwd"),
@@ -170,7 +167,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # and the event clock (K25)
     KernelSpec("first_fit_block", "ddls_first_fit_block", "ppppiiiiiiiip",
                "ddls_tpu/sim/jax_block_search.py:62", file="placement"),
-    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 16 + "i" * 11 + "p",
+    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 17 + "i" * 11 + "p",
                "ddls_tpu/sim/jax_env.py:450", file="placement"),
     KernelSpec("price_and_score", "ddls_price_and_score",
                "p" * 33 + "i" * 11 + "dddd" + "i" + "p",
@@ -193,7 +190,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # their other mode), the verdicts and prices (K29) and the OracleJCT
     # episode's choice of degree (K30)
     KernelSpec("allocate_job_indexed", "ddls_allocate_job",
-               "p" * 16 + "i" * 11 + "p", "ddls_tpu/sim/jax_env.py:1085",
+               "p" * 17 + "i" * 11 + "p", "ddls_tpu/sim/jax_env.py:1085",
                file="placement"),
     KernelSpec("kernel_obs_prices", "ddls_kernel_obs",
                "p" * 14 + "i" * 7 + "p", "ddls_tpu/sim/jax_env.py:1492",

@@ -30,6 +30,34 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// cp.async (sm_80 and later): a copy from global to shared memory that
+// runs while the thread goes on, 4 bytes (through L1) or 16 (around it).
+// Copies issued since the last commit form a group; wait_group<N> waits
+// until at most N of this thread's groups are still in flight. A barrier
+// after the wait makes every thread's copies visible to the block.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 inline int grid_for(int items, int per_block) {
   return (items + per_block - 1) / per_block;
 }

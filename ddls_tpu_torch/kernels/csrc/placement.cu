@@ -27,19 +27,45 @@
 // candidate pricing (jax_env.py:1085 price_all) evaluates every degree of
 // a lane's queued job as its own row against the one live state.
 //
-// What bounds them on the H100: latency. K23 is a chain of 15 dependent
-// steps of a few hundred tests each (16 shapes x 32 anchors at most), with
-// three barriers a step; the bytes (the lane's config rows, ~3 KB, and
-// 480 + 32 outputs) and the operations (~10^4) would take the card well
-// under a microsecond. The design: one CTA per lane, everything a step
-// reads or writes in shared memory (free memory, occupancy, the placed
-// ops' servers), one thread per (shape-row position, anchor) pair, the
-// first fit as one shared-memory integer atomicMin (exact in any order);
-// no float atomics. The memory commit subtracts each op's share once per
-// server, as the reference's scatter-add of zeros and one share does; the
-// servers of one block are distinct, so no two threads write one server.
-// Built with -fmad=false (kernels/__init__.py EXTRA_FLAGS): nothing here
-// multiplies, and nothing may be fused.
+// What bounds K22 on the H100: latency (one CTA a grid, one thread a
+// (shape, anchor) pair, a block-wide integer atomicMin; no float atomics).
+//
+// What bounds K23: latency. A row is a chain of up to 15 dependent op steps
+// (the config's valid forward ops), each a few hundred (position, anchor)
+// tests; its bytes (~3 KB of config rows and state, 480 + 32 outputs) and
+// operations (~10^4) would take the card well under a microsecond. The first
+// design (one 256-thread CTA a row) lost its time to (a) each anchor test
+// walking up to 16 anchor_cells entries in global memory, every load waiting on
+// the one before; (b) thread 0 running the parent co-location and the commit
+// alone, from global memory; (c) three CTA barriers a step; (d) all F slots
+// scanned, the invalid tail too; (e) one CTA a row, 8 or 72 of 132 SMs busy.
+// This design: one warp a row, kAllocRows = 4 rows a CTA (one warp for each of
+// the SM's four schedulers, so the rows of a CTA never wait on each other for
+// issue, and the shape tables are staged once for four rows). Each CTA stages
+// the shape tables with cp.async: the row table, the occupancy bitmasks
+// anchor_bits (bit s of an anchor's words set for each server s of its block,
+// built on the host) and anchor_ok (in span, no cell off the ramp).
+// anchor_cells stays in global memory: the commit reads the chosen block's
+// servers from it, one independent load a lane. Each warp stages its row's
+// config rows, its state lane's memory and occupancy, and keeps its ots row,
+// the placed ops' servers and counts in shared memory; after one CTA barrier
+// only __syncwarp and warp votes follow. Per op: the free mask is W =
+// ceil(n_srv / 32) ballots of "no other job and enough memory" (word 0 kept in
+// a register); parent co-location takes each parent in order, lanes k < count
+// test their server's memory and __all_sync decides; the first fit has each
+// lane test its anchors as anchor_ok && (anchor_bits & ~free) == 0 at every
+// position of the split's shape row (the loads independent, so they overlap),
+// one warp OR of the per-lane position masks gives the first position where any
+// anchor fits and a ballot there the lowest anchor: the reference's (position,
+// anchor) order. The commit has lanes k < split subtract the op's share from
+// their own server once and write the sub-ops' servers (the servers of one
+// block, or one parent, are distinct, so no two lanes write one server). A
+// row's loop runs over its config's n_fwd valid ops only: stack_config_tables
+// puts them first, and an invalid op would commit nothing and never clear ok.
+// Shared memory on the shipped 32-server surface: 3.0 KB (10^3 bytes) of shape
+// tables and 5.3 KB a row in float32 (5.5 KB in float64), 24.2 KB a CTA (25.0
+// KB in float64). Built with -fmad=false (kernels/__init__.py EXTRA_FLAGS):
+// nothing here multiplies, and nothing may be fused.
 #include <climits>
 
 #include "common.cuh"
@@ -95,169 +121,344 @@ __global__ void __launch_bounds__(kThreads) first_fit_block_kernel(
   }
 }
 
+// K23: kAllocRows rows a CTA, one warp each
+constexpr int kAllocRows = 4;
+constexpr int kAllocThreads = kAllocRows * ddls::kWarpSize;
+
+inline size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Byte offsets into K23's dynamic shared memory, each a multiple of 16:
+// the CTA's shape tables, then kAllocRows copies of a row's part (offsets
+// from its own base).
+struct AllocLayout {
+  size_t row, bits, ok, cta;
+  size_t mem, other, freew, split, fmem, parents, sub_fwd, sub_bwd,
+      op_servers, op_count, ots, per_row;
+  size_t total;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads) allocate_job_kernel(
+AllocLayout alloc_layout(int n_srv, int n, int n_fwd, int n_par, int smax,
+                         int n_rows, int row_cols, int n_shapes) {
+  AllocLayout L{};
+  const size_t words = (n_srv + 31) / 32;
+  const size_t anchors = static_cast<size_t>(n_shapes) * n_srv;
+  size_t o = 0;
+  L.row = o;
+  o = align16(o + sizeof(int) * n_rows * row_cols);
+  L.bits = o;
+  o = align16(o + sizeof(unsigned) * anchors * words);
+  L.ok = o;
+  o = align16(o + anchors);
+  L.cta = o;
+  size_t w = 0;
+  L.mem = w;
+  w = align16(w + sizeof(T) * n_srv);
+  L.other = w;
+  w = align16(w + n_srv);
+  L.freew = w;
+  w = align16(w + sizeof(unsigned) * words);
+  L.split = w;
+  w = align16(w + sizeof(int) * n_fwd);
+  L.fmem = w;
+  w = align16(w + sizeof(T) * n_fwd);
+  L.parents = w;
+  w = align16(w + sizeof(int) * n_fwd * n_par);
+  L.sub_fwd = w;
+  w = align16(w + sizeof(int) * n_fwd * smax);
+  L.sub_bwd = w;
+  w = align16(w + sizeof(int) * n_fwd * smax);
+  L.op_servers = w;
+  w = align16(w + sizeof(int) * n_fwd * smax);
+  L.op_count = w;
+  w = align16(w + sizeof(int) * n_fwd);
+  L.ots = w;
+  w = align16(w + sizeof(int) * n);
+  L.per_row = w;
+  L.total = L.cta + kAllocRows * w;
+  return L;
+}
+
+// `bytes` bytes from global `src` into shared `dst` by threads `tid` of
+// `nthr`: 16-byte cp.async where both addresses allow it, else 4-byte,
+// and plain copies for what is left. The caller commits, waits and syncs.
+__device__ void stage(void* dst, const void* src, size_t bytes, int tid,
+                      int nthr) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  const uintptr_t both =
+      reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s);
+  size_t body = 0;
+  if (both % 16 == 0) {
+    body = bytes & ~static_cast<size_t>(15);
+    for (size_t i = 16 * static_cast<size_t>(tid); i < body;
+         i += 16 * static_cast<size_t>(nthr)) {
+      ddls::cp_async16(d + i, s + i);
+    }
+  } else if (both % 4 == 0) {
+    body = bytes & ~static_cast<size_t>(3);
+    for (size_t i = 4 * static_cast<size_t>(tid); i < body;
+         i += 4 * static_cast<size_t>(nthr)) {
+      ddls::cp_async4(d + i, s + i);
+    }
+  }
+  for (size_t i = body + tid; i < bytes; i += nthr) d[i] = s[i];
+}
+
+// Whether shape `sid`'s block at anchor `a` lies on free servers: the
+// anchor is ok and none of its servers' bits is missing from the free
+// mask (word 0 `free0`, the others `freew`). False for sid < 0 or an
+// anchor past the grid.
+__device__ __forceinline__ bool fits_free(int sid, int a, int n_srv,
+                                          int words,
+                                          const unsigned char* s_ok,
+                                          const unsigned* s_bits,
+                                          unsigned free0,
+                                          const unsigned* freew) {
+  if (sid < 0 || a >= n_srv) return false;
+  const int at = sid * n_srv + a;
+  bool fits = s_ok[at] != 0 && (s_bits[at * words] & ~free0) == 0u;
+  for (int w = 1; fits && w < words; ++w) {
+    fits = (s_bits[at * words + w] & ~freew[w]) == 0u;
+  }
+  return fits;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kAllocThreads) allocate_job_kernel(
     const T* __restrict__ mem_in, const bool* __restrict__ other_free,
     const int* __restrict__ cfg, const int* __restrict__ state_lane,
-    const bool* __restrict__ f_valid,
-    const int* __restrict__ f_split, const T* __restrict__ f_mem,
+    const int* __restrict__ f_count, const int* __restrict__ f_split, const T* __restrict__ f_mem,
     const int* __restrict__ f_parents, const int* __restrict__ f_sub_fwd,
     const int* __restrict__ f_sub_bwd, const int* __restrict__ row_table,
     const int* __restrict__ anchor_cells,
-    const bool* __restrict__ anchor_span, int* __restrict__ ots,
-    T* __restrict__ mem_out, bool* __restrict__ ok_out, int n_srv, int n,
-    int n_fwd, int n_par, int smax, int n_rows, int row_cols,
-    int max_cells) {
-  extern __shared__ long long smem_raw[];
-  T* s_mem = reinterpret_cast<T*>(smem_raw);                        // [n_srv]
-  int* s_op_servers = reinterpret_cast<int*>(s_mem + n_srv);        // [F*Smax]
-  int* s_op_count = s_op_servers + n_fwd * smax;                    // [F]
-  int* s_servers = s_op_count + n_fwd;                              // [Smax]
-  unsigned char* s_free =
-      reinterpret_cast<unsigned char*>(s_servers + smax);           // [n_srv]
-  unsigned char* s_other = s_free + n_srv;                          // [n_srv]
-  __shared__ int s_best, s_colo, s_ok;
-
-  const int lane = blockIdx.x;
+    const unsigned* __restrict__ anchor_bits,
+    const bool* __restrict__ anchor_ok, int* __restrict__ ots,
+    T* __restrict__ mem_out, bool* __restrict__ ok_out, AllocLayout L,
+    int lanes, int n_srv, int n, int n_fwd, int n_par, int smax,
+    int n_rows, int row_cols, int n_shapes, int max_cells) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int words = (n_srv + 31) / 32;
+  const size_t anchors = static_cast<size_t>(n_shapes) * n_srv;
   const int tid = threadIdx.x;
-  const int c = cfg[lane];
-  const size_t src =
-      static_cast<size_t>(state_lane != nullptr ? state_lane[lane] : lane) *
-      n_srv;
-  for (int s = tid; s < n_srv; s += blockDim.x) {
-    s_mem[s] = mem_in[src + s];
-    s_other[s] = other_free[src + s];
+  const int warp = tid / ddls::kWarpSize;
+  const int lane = tid % ddls::kWarpSize;
+
+  // the CTA's shape tables
+  const int* s_row = reinterpret_cast<const int*>(smem + L.row);
+  const unsigned* s_bits = reinterpret_cast<const unsigned*>(smem + L.bits);
+  const unsigned char* s_ok = smem + L.ok;
+  stage(smem + L.row, row_table, sizeof(int) * n_rows * row_cols, tid,
+        kAllocThreads);
+  stage(smem + L.bits, anchor_bits, sizeof(unsigned) * anchors * words, tid,
+        kAllocThreads);
+  stage(smem + L.ok, anchor_ok, anchors, tid, kAllocThreads);
+
+  // this warp's row, its state lane and its config rows over the valid
+  // prefix
+  const int b = blockIdx.x * kAllocRows + warp;
+  unsigned char* base = smem + L.cta + warp * L.per_row;
+  T* s_mem = reinterpret_cast<T*>(base + L.mem);
+  const unsigned char* s_other = base + L.other;
+  unsigned* s_freew = reinterpret_cast<unsigned*>(base + L.freew);
+  const int* s_split = reinterpret_cast<const int*>(base + L.split);
+  const T* s_fmem = reinterpret_cast<const T*>(base + L.fmem);
+  const int* s_parents = reinterpret_cast<const int*>(base + L.parents);
+  const int* s_sub_fwd = reinterpret_cast<const int*>(base + L.sub_fwd);
+  const int* s_sub_bwd = reinterpret_cast<const int*>(base + L.sub_bwd);
+  int* s_op_servers = reinterpret_cast<int*>(base + L.op_servers);
+  int* s_op_count = reinterpret_cast<int*>(base + L.op_count);
+  int* s_ots = reinterpret_cast<int*>(base + L.ots);
+  int nf = 0;
+  if (b < lanes) {
+    // all F slots are staged (the valid count's load is not waited for)
+    const int c = cfg[b];
+    const size_t src =
+        static_cast<size_t>(state_lane != nullptr ? state_lane[b] : b) *
+        n_srv;
+    const size_t crow = static_cast<size_t>(c) * n_fwd;
+    const int ws = ddls::kWarpSize;
+    stage(base + L.mem, mem_in + src, sizeof(T) * n_srv, lane, ws);
+    stage(base + L.other, other_free + src, n_srv, lane, ws);
+    stage(base + L.split, f_split + crow, sizeof(int) * n_fwd, lane, ws);
+    stage(base + L.fmem, f_mem + crow, sizeof(T) * n_fwd, lane, ws);
+    stage(base + L.parents, f_parents + crow * n_par,
+          sizeof(int) * n_fwd * n_par, lane, ws);
+    stage(base + L.sub_fwd, f_sub_fwd + crow * smax,
+          sizeof(int) * n_fwd * smax, lane, ws);
+    stage(base + L.sub_bwd, f_sub_bwd + crow * smax,
+          sizeof(int) * n_fwd * smax, lane, ws);
+    for (int i = lane; i < n; i += ws) s_ots[i] = -1;
+    for (int i = lane; i < n_fwd * smax; i += ws) s_op_servers[i] = -1;
+    for (int i = lane; i < n_fwd; i += ws) s_op_count[i] = 0;
+    nf = min(f_count[c], n_fwd);
   }
-  int* lane_ots = ots + static_cast<size_t>(lane) * n;
-  for (int i = tid; i < n; i += blockDim.x) lane_ots[i] = -1;
-  for (int i = tid; i < n_fwd * smax; i += blockDim.x) s_op_servers[i] = -1;
-  for (int i = tid; i < n_fwd; i += blockDim.x) s_op_count[i] = 0;
-  if (tid == 0) s_ok = 1;
+  ddls::cp_async_commit();
+  ddls::cp_async_wait_group<0>();
   __syncthreads();
+  if (b >= lanes) return;  // warp-uniform; no CTA barrier follows
 
-  const size_t crow = static_cast<size_t>(c) * n_fwd;
-  for (int f = 0; f < n_fwd; ++f) {
-    const bool valid = f_valid[crow + f];
-    const int split = f_split[crow + f];
-    const T per_mem = f_mem[crow + f];
-    // the free mask of this op, and parent co-location (thread 0)
-    for (int s = tid; s < n_srv; s += blockDim.x) {
-      s_free[s] = s_other[s] && s_mem[s] >= per_mem;
+  // the ops f < nf are the config's valid ones (a prefix of the slots)
+  bool ok = true;
+  for (int f = 0; f < nf; ++f) {
+    const int split = s_split[f];
+    const T per_mem = s_fmem[f];
+    // the free mask (no other job, enough memory): word 0 in a register,
+    // the others in shared memory
+    unsigned free0 = 0u;
+    for (int j = 0; j < words; ++j) {
+      const int s = j * ddls::kWarpSize + lane;
+      const unsigned m = __ballot_sync(
+          ddls::kFullMask, s < n_srv && s_other[s] && s_mem[s] >= per_mem);
+      if (j == 0) {
+        free0 = m;
+      } else if (lane == 0) {
+        s_freew[j] = m;
+      }
     }
-    if (tid == 0) {
-      s_best = INT_MAX;
-      int colo = 0;
-      for (int pi = 0; pi < n_par; ++pi) {
-        const int p = f_parents[(crow + f) * n_par + pi];
-        const int pc = p > 0 ? p : 0;
-        const int cnt = s_op_count[pc];
-        bool mem_ok = true;
-        for (int k = 0; k < smax; ++k) {
-          const int srv = s_op_servers[pc * smax + k];
-          if (k < cnt && !(s_mem[srv > 0 ? srv : 0] >= per_mem)) {
-            mem_ok = false;
+    if (words > 1) __syncwarp();
+    // parent co-location: the first parent whose server count equals the
+    // split and whose servers all have room
+    int colo = -1;
+    for (int pi = 0; pi < n_par; ++pi) {
+      const int p = s_parents[f * n_par + pi];
+      const int pc = p > 0 ? p : 0;
+      const int cnt = s_op_count[pc];
+      if (p < 0 || cnt <= 0 || cnt != split) continue;  // warp-uniform
+      bool room = true;
+      for (int k = lane; k < cnt; k += ddls::kWarpSize) {
+        room = room && s_mem[s_op_servers[pc * smax + k]] >= per_mem;
+      }
+      if (__all_sync(ddls::kFullMask, room)) {
+        colo = pc;
+        break;
+      }
+    }
+    // the first fit over the split's shape row: positions in order, then
+    // the lowest anchor. Each lane tests its anchors at every position of
+    // a chunk of 32 (the loads overlap), a warp OR finds the first
+    // position where any fits, and a ballot there the lowest anchor.
+    const int* row_ids = s_row + min(max(split, 0), n_rows - 1) * row_cols;
+    int pick_sid = -1, pick_a = -1;
+    for (int p0 = 0; colo < 0 && pick_a < 0 && p0 < row_cols;
+         p0 += ddls::kWarpSize) {
+      const int n_pos = min(ddls::kWarpSize, row_cols - p0);
+      unsigned any = 0u;
+      for (int j = 0; j < words; ++j) {
+        const int a = j * ddls::kWarpSize + lane;
+        unsigned mine = 0u;
+#pragma unroll 4
+        for (int q = 0; q < n_pos; ++q) {
+          if (fits_free(row_ids[p0 + q], a, n_srv, words, s_ok, s_bits,
+                        free0, s_freew)) {
+            mine |= 1u << q;
           }
         }
-        const bool okp = p >= 0 && cnt > 0 && cnt == split && mem_ok;
-        if (okp && !colo) {
-          for (int k = 0; k < smax; ++k) {
-            s_servers[k] = s_op_servers[pc * smax + k];
-          }
-        }
-        colo |= okp;
+        any |= __reduce_or_sync(ddls::kFullMask, mine);
       }
-      s_colo = colo;
-    }
-    __syncthreads();
-
-    // the first fit over the split's shape row
-    const int r = min(max(split, 0), n_rows - 1);
-    const int* row = row_table + static_cast<size_t>(r) * row_cols;
-    for (int idx = tid; idx < row_cols * n_srv; idx += blockDim.x) {
-      const int p = idx / n_srv;
-      const int a = idx - p * n_srv;
-      const int sid = row[p];
-      if (sid < 0) continue;
-      const size_t at = static_cast<size_t>(sid) * n_srv + a;
-      if (!anchor_span[at]) continue;
-      const int* cells = anchor_cells + at * max_cells;
-      bool ok = true;
-      for (int t = 0; ok && t < max_cells; ++t) {
-        const int cell = cells[t];
-        if (cell == -2) continue;  // past the shape's cell count
-        ok = cell >= 0 && s_free[cell];
-      }
-      if (ok) atomicMin(&s_best, idx);
-    }
-    __syncthreads();
-
-    // the commit (thread 0: at most Smax servers)
-    if (tid == 0) {
-      const bool colo = s_colo;
-      const bool block_found = s_best != INT_MAX;
-      if (!colo && block_found) {
-        const int p = s_best / n_srv;
-        const int a = s_best - p * n_srv;
-        const int* cells =
-            anchor_cells + (static_cast<size_t>(row[p]) * n_srv + a) *
-                               max_cells;
-        for (int k = 0; k < smax; ++k) {
-          s_servers[k] = k < max_cells ? cells[k] : 0;
+      if (any == 0u) continue;
+      const int sid = row_ids[p0 + __ffs(any) - 1];
+      for (int j = 0; j < words; ++j) {
+        const int a = j * ddls::kWarpSize + lane;
+        const unsigned hit = __ballot_sync(
+            ddls::kFullMask,
+            fits_free(sid, a, n_srv, words, s_ok, s_bits, free0, s_freew));
+        if (hit != 0u) {
+          pick_sid = sid;
+          pick_a = j * ddls::kWarpSize + __ffs(hit) - 1;
+          break;
         }
       }
-      const bool placed = colo || block_found;
-      for (int k = 0; k < smax; ++k) {
-        const int srv = s_servers[k];
-        if (!(k < split && placed && valid && srv >= 0)) continue;
-        s_mem[srv] = s_mem[srv] - per_mem;
-        const int fwd = f_sub_fwd[(crow + f) * smax + k];
-        const int bwd = f_sub_bwd[(crow + f) * smax + k];
-        if (fwd >= 0) lane_ots[fwd] = srv;
-        if (bwd >= 0) lane_ots[bwd] = srv;
-      }
-      if (valid && placed) {
-        for (int k = 0; k < smax; ++k) {
-          s_op_servers[f * smax + k] = s_servers[k];
-        }
-        s_op_count[f] = split;
-      }
-      if (!(placed || !valid)) s_ok = 0;
     }
-    __syncthreads();
+    // the commit: lane k takes the block's k-th server
+    const bool placed = colo >= 0 || pick_a >= 0;
+    if (placed) {
+      const int* cells =
+          colo >= 0 ? s_op_servers + colo * smax
+                    : anchor_cells + (static_cast<size_t>(pick_sid) * n_srv +
+                                      pick_a) * max_cells;
+      const int n_cells = colo >= 0 ? smax : max_cells;
+      for (int k = lane; k < smax; k += ddls::kWarpSize) {
+        const int srv = k < n_cells ? cells[k] : 0;
+        if (k < split && srv >= 0) {
+          s_mem[srv] = s_mem[srv] - per_mem;
+          const int fwd = s_sub_fwd[f * smax + k];
+          const int bwd = s_sub_bwd[f * smax + k];
+          if (fwd >= 0) s_ots[fwd] = srv;
+          if (bwd >= 0) s_ots[bwd] = srv;
+        }
+        s_op_servers[f * smax + k] = srv;
+      }
+      if (lane == 0) s_op_count[f] = split;
+    }
+    ok = ok && placed;
+    __syncwarp();
   }
-  for (int s = tid; s < n_srv; s += blockDim.x) {
-    mem_out[static_cast<size_t>(lane) * n_srv + s] = s_mem[s];
+  for (int s = lane; s < n_srv; s += ddls::kWarpSize) {
+    mem_out[static_cast<size_t>(b) * n_srv + s] = s_mem[s];
   }
-  if (tid == 0) ok_out[lane] = s_ok;
+  for (int i = lane; i < n; i += ddls::kWarpSize) {
+    ots[static_cast<size_t>(b) * n + i] = s_ots[i];
+  }
+  if (lane == 0) ok_out[b] = ok;
+}
+
+// The shared memory a CTA may take on this device (the opt-in maximum),
+// asked once.
+int smem_optin(int* bytes) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(
+          &cached, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  *bytes = cached;
+  return 0;
 }
 
 template <typename T>
 int launch_allocate(const void* const* p, int lanes, int n_srv, int n,
                     int n_fwd, int n_par, int smax, int n_rows, int row_cols,
                     int n_shapes, int max_cells, cudaStream_t stream) {
-  (void)n_shapes;
-  const size_t smem = static_cast<size_t>(n_srv) * sizeof(T) +
-                      static_cast<size_t>(n_fwd * smax + n_fwd + smax) *
-                          sizeof(int) +
-                      2 * static_cast<size_t>(n_srv);
-  if (smem > 48 * 1024) {
+  int optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  const AllocLayout L = alloc_layout<T>(n_srv, n, n_fwd, n_par, smax,
+                                        n_rows, row_cols, n_shapes);
+  if (L.total > static_cast<size_t>(optin)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // raise the dynamic shared-memory limit to the largest size yet (the
+  // first launch, before any CUDA-graph capture, sets it)
+  static size_t configured = 48 * 1024;
+  if (L.total > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
         allocate_job_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(L.total));
     if (err != cudaSuccess) return static_cast<int>(err);
+    configured = L.total;
   }
-  allocate_job_kernel<T><<<lanes, kThreads, smem, stream>>>(
-      static_cast<const T*>(p[0]), static_cast<const bool*>(p[1]),
-      static_cast<const int*>(p[2]), static_cast<const int*>(p[3]),
-      static_cast<const bool*>(p[4]), static_cast<const int*>(p[5]),
-      static_cast<const T*>(p[6]), static_cast<const int*>(p[7]),
-      static_cast<const int*>(p[8]), static_cast<const int*>(p[9]),
-      static_cast<const int*>(p[10]), static_cast<const int*>(p[11]),
-      static_cast<const bool*>(p[12]),
-      static_cast<int*>(const_cast<void*>(p[13])),
-      static_cast<T*>(const_cast<void*>(p[14])),
-      static_cast<bool*>(const_cast<void*>(p[15])), n_srv, n, n_fwd, n_par,
-      smax, n_rows, row_cols, max_cells);
+  allocate_job_kernel<T>
+      <<<ddls::grid_for(lanes, kAllocRows), kAllocThreads, L.total,
+         stream>>>(
+          static_cast<const T*>(p[0]), static_cast<const bool*>(p[1]),
+          static_cast<const int*>(p[2]), static_cast<const int*>(p[3]),
+          static_cast<const int*>(p[4]), static_cast<const int*>(p[5]),
+          static_cast<const T*>(p[6]), static_cast<const int*>(p[7]),
+          static_cast<const int*>(p[8]), static_cast<const int*>(p[9]),
+          static_cast<const int*>(p[10]), static_cast<const int*>(p[11]),
+          static_cast<const unsigned*>(p[12]),
+          static_cast<const bool*>(p[13]),
+          static_cast<int*>(const_cast<void*>(p[14])),
+          static_cast<T*>(const_cast<void*>(p[15])),
+          static_cast<bool*>(const_cast<void*>(p[16])), L, lanes, n_srv, n,
+          n_fwd, n_par, smax, n_rows, row_cols, n_shapes, max_cells);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,24 +483,29 @@ DDLS_EXPORT int ddls_first_fit_block(const void* free, const void* shapes,
 
 // K23: mem [S, n_srv] floats (is_f64 names the type), other_free [S, n_srv]
 // bools, cfg [B] int32, state_lane [B] int32 (each row's state lane, < S;
-// null: row b reads lane b, S = B); the config tables f_valid [K, F], f_split [K, F],
-// f_mem [K, F], f_parents [K, F, P], f_sub_fwd / f_sub_bwd [K, F, Smax];
-// the shape tables row [n_rows, row_cols], anchor_cells [n_shapes, n_srv,
-// max_cells], anchor_span [n_shapes, n_srv]; outputs ots [B, N] int32,
+// null: row b reads lane b, S = B); the config tables n_fwd [K] (the
+// valid forward ops: the first n_fwd of the F slots, as
+// stack_config_tables builds them), f_split [K, F], f_mem [K, F],
+// f_parents [K, F, P], f_sub_fwd / f_sub_bwd [K, F, Smax]; the shape
+// tables row [n_rows, row_cols], anchor_cells [n_shapes, n_srv,
+// max_cells], anchor_bits [n_shapes, n_srv, ceil(n_srv / 32)] 32-bit
+// words, anchor_ok [n_shapes, n_srv] bools; outputs ots [B, N] int32,
 // new_mem [B, n_srv], ok [B] bools.
 DDLS_EXPORT int ddls_allocate_job(
     const void* mem, const void* other_free, const void* cfg,
-    const void* state_lane, const void* f_valid, const void* f_split,
+    const void* state_lane, const void* n_fwd_of, const void* f_split,
     const void* f_mem, const void* f_parents, const void* f_sub_fwd,
     const void* f_sub_bwd, const void* row, const void* anchor_cells,
-    const void* anchor_span, void* ots, void* new_mem, void* ok, int lanes,
-    int n_srv, int n, int n_fwd, int n_par, int smax, int n_rows,
-    int row_cols, int n_shapes, int max_cells, int is_f64, void* stream) {
-  const void* p[16] = {mem, other_free, cfg, state_lane, f_valid, f_split,
+    const void* anchor_bits, const void* anchor_ok, void* ots,
+    void* new_mem, void* ok, int lanes, int n_srv, int n, int n_fwd,
+    int n_par, int smax, int n_rows, int row_cols, int n_shapes,
+    int max_cells, int is_f64, void* stream) {
+  const void* p[17] = {mem, other_free, cfg, state_lane, n_fwd_of, f_split,
                        f_mem, f_parents, f_sub_fwd, f_sub_bwd, row,
-                       anchor_cells, anchor_span, ots, new_mem, ok};
+                       anchor_cells, anchor_bits, anchor_ok, ots, new_mem,
+                       ok};
   if (lanes <= 0 || n_srv < 1 || n_fwd < 0 || n_par < 1 || smax < 1 ||
-      n_rows < 1 || row_cols < 1 || max_cells < 1) {
+      n_rows < 1 || row_cols < 1 || n_shapes < 1 || max_cells < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -310,3 +516,22 @@ DDLS_EXPORT int ddls_allocate_job(
   return launch_allocate<float>(p, lanes, n_srv, n, n_fwd, n_par, smax,
                                 n_rows, row_cols, n_shapes, max_cells, s);
 }
+
+// K23's shared memory a CTA, in bytes: the wrapper refuses a surface whose
+// tables need more than the card's opt-in maximum. Launches nothing.
+DDLS_EXPORT int ddls_allocate_job_smem(int n_srv, int n, int n_fwd,
+                                       int n_par, int smax, int n_rows,
+                                       int row_cols, int n_shapes,
+                                       int is_f64, int* out) {
+  const AllocLayout L =
+      is_f64 ? alloc_layout<double>(n_srv, n, n_fwd, n_par, smax, n_rows,
+                                    row_cols, n_shapes)
+             : alloc_layout<float>(n_srv, n, n_fwd, n_par, smax, n_rows,
+                                   row_cols, n_shapes);
+  *out = static_cast<int>(L.total);
+  return 0;
+}
+
+// The shared memory a CTA may take on the current device (the opt-in
+// maximum), in bytes. Launches nothing.
+DDLS_EXPORT int ddls_smem_optin(int* out) { return smem_optin(out); }

@@ -166,44 +166,63 @@ def ln_linear_act_bwd_plain(a, ln_w, ln_b, w, bias, activation, dout,
             (d_mul * rstd[:, None]).sum(dim=0), dy.sum(dim=0))
 
 
-# K5's grid: tiles of 32 rows, at most one block per SM of the H100, so
-# the partial sums (and the bits of the result) depend on the row count
-# alone
-_BWD_TILE = 32
-_BWD_MAX_BLOCKS = 132
+# K5's grid, a function of the row count alone (so are the partial sums
+# and the bits of the result): the smallest tile of 16, 32 or 64 rows that
+# needs at most 256 CTAs (about two an SM of the H100) at one tile a CTA,
+# else 64-row tiles over 256 CTAs; the in-kernel reduce sums groups of 16
+# CTAs' rows, then the (at most 16) groups (the kernel's kGroup)
+_BWD_TILES = (16, 32, 64)
+_BWD_GROUP = 16
+_BWD_MAX_BLOCKS = _BWD_GROUP * _BWD_GROUP
+# K5's reduce counters, one set a (device, stream), zero between launches:
+# launches on one stream run in order, so no two share a set at once
+_BWD_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def bwd_grid(rows: int) -> Tuple[int, int, int]:
+    """K5's (CTAs, tiles, rows a tile) for ``rows`` rows: CTA ``g`` takes
+    tiles ``g, g + CTAs, ...`` (at least one CTA, for the zero-row
+    call)."""
+    tile = next((t for t in _BWD_TILES
+                 if -(-rows // t) <= _BWD_MAX_BLOCKS), _BWD_TILES[-1])
+    tiles = -(-rows // tile)
+    return max(1, min(tiles, _BWD_MAX_BLOCKS)), tiles, tile
 
 
 def ln_linear_act_bwd_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
     """The sum of the rows of ``partial`` [G, P], added one row at a time
-    in order (the kernel's order)."""
+    in order."""
     acc = partial.new_zeros(partial.shape[1])
     for g in range(partial.shape[0]):
         acc = acc + partial[g]
     return acc
 
 
-def ln_linear_act_bwd_reduce(partial: torch.Tensor) -> torch.Tensor:
-    """K5's second entry: K5's per-block partial gradients [G, P] summed in
-    block order into [P]."""
-    if kernels.on_cpu(partial):
-        return ln_linear_act_bwd_reduce_plain(partial)
-    kernels.check_cuda("partial", partial, torch.float32)
-    if partial.dim() != 2 or not partial.shape[0]:
-        raise ValueError(f"partial must be [G >= 1, P], got "
-                         f"{tuple(partial.shape)}")
-    out = partial.new_empty(partial.shape[1])
-    if partial.shape[1]:
-        kernels.launch("ln_linear_act_bwd_reduce", partial.data_ptr(),
-                       out.data_ptr(), partial.shape[0], partial.shape[1])
-    return out
+def _bwd_counters(device: torch.device) -> torch.Tensor:
+    """K5's reduce counters on ``device`` for the current stream (the one
+    ``kernels.launch`` launches on), made (zeroed) at the stream's first
+    call. A set made inside a CUDA-graph capture would be zeroed only when
+    that graph replays, so the first call on a stream must come before any
+    capture on it."""
+    key = (device.index, torch.cuda.current_stream().cuda_stream)
+    counters = _BWD_COUNTERS.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "ln_linear_act_bwd: first call on this stream during a "
+                "CUDA-graph capture; call it once on the capture stream "
+                "before capturing")
+        counters = _BWD_COUNTERS[key] = torch.zeros(
+            1 + _BWD_GROUP, dtype=torch.int32, device=device)
+    return counters
 
 
 def ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout, idx=None,
                       b=None, b_width=0, want_dx=True, want_db=True):
-    """K5 ``ln_linear_act_bwd`` (+ its block-order reduce): the tuple of
-    ``ln_linear_act_bwd_plain`` from float32 tensors on the card, without
-    ``dx_rows`` when ``want_dx`` is False and without ``db`` when
-    ``want_db`` is False (or ``b`` is None)."""
+    """K5 ``ln_linear_act_bwd`` (its reduce over the CTAs inside the
+    launch): the tuple of ``ln_linear_act_bwd_plain`` from float32 tensors
+    on the card, without ``dx_rows`` when ``want_dx`` is False and without
+    ``db`` when ``want_db`` is False (or ``b`` is None)."""
     if kernels.on_cpu(a, ln_w, ln_b, w, bias, dout, idx, b):
         out = ln_linear_act_bwd_plain(a, ln_w, ln_b, w, bias, activation,
                                       dout, idx=idx, b=b, b_width=b_width)
@@ -216,20 +235,27 @@ def ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout, idx=None,
     n_params = fo * k_in + fo + 2 * k_in
     dx = a.new_empty((rows, fa)) if want_dx else None
     db = a.new_empty((rows, fb)) if (want_db and b is not None) else None
-    blocks = max(1, min(-(-rows // _BWD_TILE), _BWD_MAX_BLOCKS))
-    # no rows: zero partials, so the reduce gives zero gradients
-    partial = (a.new_empty if rows else a.new_zeros)((blocks, n_params))
+    blocks, _, tile = bwd_grid(rows)
+    n_groups = -(-blocks // _BWD_GROUP)
     if rows:
+        # the kernel's rows of partial sums are padded to float4s
+        width = -(-n_params // 4) * 4
+        grads = a.new_empty(width)
+        counters = _bwd_counters(a.device)
+        scratch = a.new_empty((blocks + n_groups, width))
         kernels.launch("ln_linear_act_bwd", a.data_ptr(), kernels.ptr(idx),
                        kernels.ptr(b), ln_w.data_ptr(), ln_b.data_ptr(),
                        w.data_ptr(), bias.data_ptr(), dout.data_ptr(),
-                       kernels.ptr(dx), kernels.ptr(db), partial.data_ptr(),
-                       rows, fa, fb, int(b is not None), fo,
-                       _ACTIVATION_CODES[activation], blocks)
-    grads = ln_linear_act_bwd_reduce(partial)
+                       kernels.ptr(dx), kernels.ptr(db), scratch.data_ptr(),
+                       scratch[blocks:].data_ptr(), grads.data_ptr(),
+                       counters.data_ptr(), rows, fa, fb, int(b is not None),
+                       fo, _ACTIVATION_CODES[activation], tile, blocks,
+                       _BWD_GROUP)
+    else:  # no rows: zero gradients
+        grads = a.new_zeros(n_params)
     n_w = fo * k_in
     return (dx, db, grads[:n_w].view(fo, k_in), grads[n_w:n_w + fo],
-            grads[n_w + fo:n_w + fo + k_in], grads[n_w + fo + k_in:])
+            grads[n_w + fo:n_w + fo + k_in], grads[n_w + fo + k_in:n_params])
 
 
 def ln_linear_act(a: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,

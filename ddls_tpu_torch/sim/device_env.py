@@ -102,6 +102,13 @@ class ShapeTables:
     span. Both are precomputed here from the reference's formula
     (``_anchor_masks`` :384-421), so the placer gathers where the
     reference computes.
+
+    Derived from them for K23's warp-wide first fit: ``anchor_bits[sh, a,
+    w]`` has bit ``s % 32`` of word ``w = s // 32`` set when server ``s``
+    is a cell of shape ``sh`` at anchor ``a`` (32-bit words held as int32),
+    and ``anchor_ok[sh, a]`` is ``anchor_span`` with no cell outside the
+    ramp: the anchor fits a free mask exactly when it is ok and none of
+    its bits is missing from the mask.
     """
     ramp_shape: Coord
     shapes: List[Coord]            # distinct shapes (S==-1 -> diagonal)
@@ -113,6 +120,8 @@ class ShapeTables:
     diagonal: np.ndarray           # [n_shapes] bool
     anchor_cells: np.ndarray       # [n_shapes, n_cells, MAX_CELLS] i32
     anchor_span: np.ndarray        # [n_shapes, n_cells] bool
+    anchor_bits: np.ndarray        # [n_shapes, n_cells, W] i32 bit words
+    anchor_ok: np.ndarray          # [n_shapes, n_cells] bool
 
 
 def _shape_span(shape: Coord, meta: Coord) -> Coord:
@@ -150,6 +159,22 @@ def _anchor_tables(ramp_shape: Coord, offsets, counts, bases, spans):
         span[si] = ((ii < int(spans[si, 0])) & (jj < int(spans[si, 1]))
                     & (kk < min(int(spans[si, 2]), S))).reshape(-1)
     return cells, span
+
+
+def _anchor_bits(cells: np.ndarray, span: np.ndarray, n_srv: int):
+    """(anchor_bits, anchor_ok) of ``anchor_cells`` and ``anchor_span``
+    (see ``ShapeTables``)."""
+    words = -(-n_srv // 32)
+    bits = np.zeros(cells.shape[:2] + (words,), np.uint32)
+    for t in range(cells.shape[2]):
+        cell = cells[:, :, t]
+        for w in range(words):
+            inside = (cell >= 32 * w) & (cell < 32 * (w + 1))
+            bit = np.left_shift(np.uint32(1),
+                                np.where(inside, cell - 32 * w, 0)
+                                .astype(np.uint32))
+            bits[:, :, w] |= np.where(inside, bit, np.uint32(0))
+    return bits.view(np.int32), span & ~(cells == -1).any(-1)
 
 
 def build_shape_tables(ramp_shape: Coord, max_split: int) -> ShapeTables:
@@ -198,10 +223,13 @@ def build_shape_tables(ramp_shape: Coord, max_split: int) -> ShapeTables:
         spans[i] = _shape_span(sh, meta)
     anchor_cells, anchor_span = _anchor_tables(meta, offsets, counts, bases,
                                                spans)
+    anchor_bits, anchor_ok = _anchor_bits(anchor_cells, anchor_span,
+                                          int(np.prod(meta)))
     return ShapeTables(ramp_shape=meta, shapes=distinct, row=row,
                        offsets=offsets, counts=counts, bases=bases,
                        spans=spans, diagonal=diagonal,
-                       anchor_cells=anchor_cells, anchor_span=anchor_span)
+                       anchor_cells=anchor_cells, anchor_span=anchor_span,
+                       anchor_bits=anchor_bits, anchor_ok=anchor_ok)
 
 
 # =========================================================================
@@ -621,6 +649,8 @@ class DeviceTables:
         self.row = put(et.st.row)
         self.anchor_cells = put(et.st.anchor_cells)
         self.anchor_span = put(et.st.anchor_span)
+        self.anchor_bits = put(et.st.anchor_bits)
+        self.anchor_ok = put(et.st.anchor_ok)
         self.pair_channel = put(et.pair_channel)
         # action value -> cfg column (-1 for odd/invalid actions), sized by
         # the env's action bound so no action clamps onto a valid column
@@ -812,6 +842,18 @@ def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
     else:
         kernels.check_cuda("state_lane", state_lane, torch.int32, (lanes,))
     pads = dev.pads
+    is_f64 = int(dev.dtype == torch.float64)
+    sizes = (n_srv, pads.n_ops, pads.n_fwd, pads.n_parents, pads.max_split,
+             dev.row.shape[0], dev.row.shape[1], dev.anchor_cells.shape[0],
+             dev.anchor_cells.shape[2])
+    need = kernels.cached_query("placement", "ddls_allocate_job_smem",
+                                *sizes[:-1], is_f64)
+    have = kernels.cached_query("placement", "ddls_smem_optin")
+    if need > have:
+        raise ValueError(f"allocate_job needs {need} bytes of shared memory "
+                         f"a CTA for this surface's tables ({n_srv} "
+                         f"servers, {pads.n_ops} ops, {pads.n_fwd} forward "
+                         f"ops) and the card gives {have}")
     ots = torch.empty((lanes, pads.n_ops), dtype=torch.int32,
                       device=mem.device)
     new_mem = torch.empty((lanes, n_srv), dtype=mem.dtype, device=mem.device)
@@ -821,15 +863,14 @@ def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
         kernels.launch(
             "allocate_job" if state_lane is None else "allocate_job_indexed",
             mem.data_ptr(), other_free.data_ptr(),
-            cfg.data_ptr(), kernels.ptr(state_lane), T["f_valid"].data_ptr(),
+            cfg.data_ptr(), kernels.ptr(state_lane), T["n_fwd"].data_ptr(),
             T["f_split"].data_ptr(), T["f_mem"].data_ptr(),
             T["f_parents"].data_ptr(), T["f_sub_fwd"].data_ptr(),
             T["f_sub_bwd"].data_ptr(), dev.row.data_ptr(),
-            dev.anchor_cells.data_ptr(), dev.anchor_span.data_ptr(),
-            ots.data_ptr(), new_mem.data_ptr(), ok.data_ptr(), lanes, n_srv,
-            pads.n_ops, pads.n_fwd, pads.n_parents, pads.max_split,
-            dev.row.shape[0], dev.row.shape[1], dev.anchor_cells.shape[0],
-            dev.anchor_cells.shape[2], int(dev.dtype == torch.float64))
+            dev.anchor_cells.data_ptr(), dev.anchor_bits.data_ptr(),
+            dev.anchor_ok.data_ptr(),
+            ots.data_ptr(), new_mem.data_ptr(), ok.data_ptr(), lanes,
+            *sizes, is_f64)
     return ots, new_mem, ok
 
 

@@ -312,6 +312,54 @@ def episode_kernel_diffs(ek, bank: dict, actions, decisions: int,
     return diffs, held, trace
 
 
+# a ramp of 64 servers: K23's occupancy masks take two 32-bit words
+MULTI_WORD_RAMP = (4, 4, 4)
+
+
+def multi_word_tables(et, ramp_shape=MULTI_WORD_RAMP):
+    """``et``'s config tables over the shape tables of ``ramp_shape`` (its
+    blocks at most ``et``'s largest split), for holding K23 where the
+    occupancy masks span several words. Only placement reads it: the
+    channels and the pair table stay ``et``'s."""
+    import dataclasses
+
+    from ddls_tpu_torch.sim import device_env
+
+    st = device_env.build_shape_tables(tuple(ramp_shape), et.pads.max_split)
+    if int(st.counts.max()) != et.pads.max_split:
+        raise ValueError(f"ramp {ramp_shape} has no block of "
+                         f"{et.pads.max_split} servers")
+    return dataclasses.replace(et, st=st, n_srv=int(np.prod(ramp_shape)),
+                               on_device={})
+
+
+def fuzzed_placements(et, dev, rows: int, seed: int, indexed: bool):
+    """K23's inputs for ``rows`` config rows on fuzzed states: free memory
+    at the capacity or a fraction of it, servers taken by other jobs, the
+    configs drawn at random; with ``indexed``, ``max(1, rows // 9)`` state
+    lanes and each row's lane drawn (candidate pricing's form). Returns
+    ``(mem, other_free, cfg, state_lane or None)`` on ``dev``'s device, the
+    memory in its float type."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    states = max(1, rows // 9) if indexed else rows
+    mem = np.full((states, et.n_srv), et.worker_mem)
+    used = rng.rand(states, et.n_srv) < rng.uniform(0, 0.8, (states, 1))
+    mem[used] *= rng.choice([0.5, 0.25, 0.1, 0.02, 0.001],
+                            size=int(used.sum()))
+    other = rng.rand(states, et.n_srv) >= rng.uniform(0, 0.6, (states, 1))
+    cfg = rng.randint(0, dev.n_cfg, rows).astype(np.int32)
+    lane = (rng.randint(0, states, rows).astype(np.int32) if indexed
+            else None)
+
+    def put(x, dtype=None):
+        return torch.from_numpy(x).to(dev.device, dtype)
+
+    return (put(mem, dev.dtype), put(other), put(cfg),
+            None if lane is None else put(lane))
+
+
 def small_surface_kwargs(path_to_files: str) -> dict:
     """The env of the reference's episode test
     (``tests/test_jax_episode.py:29-49``: 32 servers, the profiles of

@@ -17,7 +17,9 @@ their parameter gradients are float32 sums over up to 16,384 rows in
 another order than the plain versions' matrix products. K5's plain
 version takes relu's kink decisions from K1's output on the same inputs,
 as K5, which recomputes K1's pre-activations, does. K2, K4, K5–K8 and K10–K12
-are also held bitwise across two runs. The Ape-X DQN and ES kernels: K13
+are also held bitwise across two runs. K5 sums its parameter gradients
+over the CTAs inside its one launch: it is held at the main path's
+widths, at ragged row counts and across a CUDA graph's replays. The Ape-X DQN and ES kernels: K13
 (acting) and K16 (the population's noisy argmax) equal their plain
 versions exactly, as K15's centred ranks do; K14 (the TD loss and its
 gradient) and K15's gradient within 1e-5 of each output's largest
@@ -33,7 +35,9 @@ counts included, in float32 and float64, on every recorded group of lanes
 and with ``skip`` too. The device env's kernels K22-K25 equal their plain
 versions exactly (integers) and bit for bit (floats), in float32 and
 float64, on the calls of the first decisions of two recorded shipped
-banks, whose float32 trace is the recorded JAX one. K25's scenario mode
+banks, whose float32 trace is the recorded JAX one; K23 (both entries)
+also on fuzzed states at 1, 8 and 72 rows, on the shipped surface and on
+a 64-server ramp whose occupancy masks take two words. K25's scenario mode
 (the failure walk) equals its plain version on every call of the recorded
 full-width scenario replay (whose float32 trace is the recorded JAX one)
 and of episodes under fuzzed scenarios that take each of the walk's
@@ -303,10 +307,7 @@ def test_ln_linear_act_bwd_matches_plain(cuda, activation, form):
     before = kernels.launch_counts()
     out = gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout,
                                 **kwargs)
-    after = kernels.launch_counts()
-    assert after["ln_linear_act_bwd"] == before["ln_linear_act_bwd"] + 1
-    assert (after["ln_linear_act_bwd_reduce"]
-            == before["ln_linear_act_bwd_reduce"] + 1)
+    assert _launched_since(before) == {"ln_linear_act_bwd": 1}
     again = gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout,
                                   **kwargs)
     k1_out = gnn.ln_linear_act(a, ln_w, ln_b, w, bias, activation, **kwargs)
@@ -319,12 +320,120 @@ def test_ln_linear_act_bwd_matches_plain(cuda, activation, form):
     assert _equal_all(out, again)
 
 
-def test_ln_linear_act_bwd_reduce_sums_blocks_in_order(cuda):
-    partial = torch.randn(132, 4288, generator=torch.Generator(
-        device="cpu").manual_seed(2)).to(cuda)
-    out = gnn.ln_linear_act_bwd_reduce(partial)
+def _launched_since(before):
+    after = kernels.launch_counts()
+    return {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+# K5's calls in one minibatch step of the shipped policy: (rows, fa, fb
+# given or a zero half, gathered, fo, dx wanted); the calls on the data's
+# features (graph 51, edges 2, nodes 5) want no dx, as on the main path
+K5_MAIN_PATH = [(128, 51, 0, False, False, 8, False),
+                (4864, 16, 16, False, False, 16, True),
+                (16384, 16, 16, True, True, 16, True),
+                (16384, 2, 0, False, False, 16, False),
+                (4864, 64, 0, False, False, 16, True),
+                (4864, 16, 16, False, False, 64, True),
+                (16384, 16, 16, True, True, 64, True),
+                (4864, 5, 0, False, False, 16, False)]
+
+
+def _k5_inputs(cuda, rows, fa, fb, b_given, gathered, fo, seed):
+    """K5's inputs at one call's widths. Column j of ``a`` lies in [j, j +
+    0.5), so no row's variance is near 0: there float32's LayerNorm
+    backward keeps no digits in any two summation orders (K5's first
+    design and its plain version part the same way on such rows; the
+    variance tie itself is held by test_ln_linear_act_bwd_matches_plain)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    src = max(rows // 3, 1) if gathered else rows
+    a = (torch.rand(src, fa, generator=g) * 0.5
+         + torch.arange(fa, dtype=torch.float32)).to(cuda)
+    kwargs = {}
+    if gathered:
+        kwargs["idx"] = torch.randint(0, src, (rows,), generator=g,
+                                      dtype=torch.int32).to(cuda)
+    if b_given:
+        kwargs["b"] = torch.rand(rows, fb, generator=g).to(cuda)
+    elif fb:
+        kwargs["b_width"] = fb
+    k_in = fa + fb
+    params = [torch.randn(k_in, generator=g).to(cuda),
+              torch.randn(k_in, generator=g).to(cuda),
+              (torch.randn(fo, k_in, generator=g) / 4).to(cuda),
+              torch.randn(fo, generator=g).to(cuda)]
+    dout = torch.randn(rows, fo, generator=g).to(cuda)
+    return a, params, dout, kwargs
+
+
+@pytest.mark.parametrize("shape", K5_MAIN_PATH + [
+    (1, 16, 16, True, True, 64, True), (63, 64, 0, False, False, 64, True),
+    (65, 5, 0, False, False, 16, True), (16897, 16, 16, True, True, 64, True),
+    (40000, 32, 0, False, False, 17, True)])
+def test_ln_linear_act_bwd_main_path_shapes_one_launch_repeatable(cuda,
+                                                                  shape):
+    """K5 at the main path's shapes and at ragged row counts (a row, part
+    of a tile, more tiles than CTAs): within 1e-5 of each output's largest
+    against its plain version given K1's output, one launch a call (the
+    reduce inside it), bit-equal across two runs and across a CUDA
+    graph's replays (the reduce's counters go back to 0)."""
+    rows, fa, fb, b_given, gathered, fo, want_dx = shape
+    a, (ln_w, ln_b, w, bias), dout, kwargs = _k5_inputs(
+        cuda, rows, fa, fb, b_given, gathered, fo, rows + fo)
+
+    def run():
+        return gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, "relu", dout,
+                                     want_dx=want_dx, **kwargs)
+
+    before = kernels.launch_counts()
+    out = run()
+    assert _launched_since(before) == {"ln_linear_act_bwd": 1}
+    again = run()
+    k1_out = gnn.ln_linear_act(a, ln_w, ln_b, w, bias, "relu", **kwargs)
+    ref = gnn.ln_linear_act_bwd_plain(a, ln_w, ln_b, w, bias, "relu", dout,
+                                      out=k1_out, **kwargs)
+    assert (out[0] is None) == (not want_dx)
+    for o, r in zip(out, ref):
+        if o is not None:
+            _close_scaled(o, r)
+    assert _equal_all(out, again)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph, stream=side):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal_all(captured, out)
+
+
+def test_ln_linear_act_bwd_overlapping_streams_keep_their_reduces(cuda):
+    """K5 launched on two streams at once, each call's reduce on its own
+    stream's counters: every call gives the bits of a call made alone."""
+    a, (ln_w, ln_b, w, bias), dout, kwargs = _k5_inputs(
+        cuda, 16384, 16, 16, True, True, 64, 7)
+
+    def run():
+        return gnn.ln_linear_act_bwd(a, ln_w, ln_b, w, bias, "relu", dout,
+                                     **kwargs)
+
+    alone = run()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(run())
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
     torch.cuda.synchronize()
-    assert torch.equal(out, gnn.ln_linear_act_bwd_reduce_plain(partial))
+    for out in outs:
+        assert _equal_all(out, alone)
 
 
 @pytest.mark.parametrize("f", [64, 16])
@@ -1845,3 +1954,37 @@ def test_cluster_wrappers_reject_what_they_cannot_take(cuda):
         lookahead_mod.lookahead_indexed(cfg, ots, op_score, times, is_flow,
                                         dep_score, chan[:, :-1], dev.t,
                                         **kw)
+
+
+# ------------------------------------------- K23 on fuzzed states
+@pytest.mark.parametrize("surface", ["shipped", "multi_word"])
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [1, 8, 72])
+def test_allocate_job_equals_plain_on_fuzzed_states(cuda, rows, dtype,
+                                                    indexed, surface):
+    """K23 (plain entry and with the state-lane index) bit-equal to its
+    plain version, at 1, 8 and 72 rows, float32 and float64, on the
+    shipped 32-server surface and on a 64-server ramp (two mask words);
+    one launch of the entry a call."""
+    from ddls_tpu_torch.sim.fixture import (fuzzed_placements,
+                                            multi_word_tables)
+
+    et = _shipped_tables()
+    if surface == "multi_word":
+        et = multi_word_tables(et)
+    dev = device_env.device_tables(et, cuda, dtype)
+    placed = 0
+    for seed in range(4):
+        mem, free, cfg, lane = fuzzed_placements(et, dev, rows, seed,
+                                                 indexed)
+        before = kernels.launch_counts()
+        got = device_env.allocate_job(mem, free, cfg, dev, lane)
+        name = "allocate_job_indexed" if indexed else "allocate_job"
+        assert _launched_since(before) == {name: 1}
+        want = device_env.allocate_job_plain(mem, free, cfg, dev, lane)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        placed += int(got[2].sum())
+    assert placed > 0
