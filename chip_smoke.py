@@ -4138,7 +4138,9 @@ def _episode_bounds(et, prof, dtype):
     # action and bank row, slot table; a deciding lane's kernel outputs;
     # an accept's slot and memory; each completion's slot and memory
     scalars = 2 * (3 * fb + 30) + (3 * fb + 6) + 12 + 2 * fb + R * (1 + fb)
-    deciding = (M + 4 * m_valid + N + 4 * n_valid + S * fb + 2 * fb + 7
+    # (the flags and channels, ops and servers of the valid prefixes:
+    # K24 writes no flow past them)
+    deciding = (5 * m_valid + 5 * n_valid + S * fb + 2 * fb + 7
                 + 4 * np.minimum(m_valid, C))
     slot = S * fb + S + C
     k25_bytes = float(np.sum(scalars + active * deciding
@@ -4571,7 +4573,9 @@ def _segment_bounds(et, tr):
     k27_ops = float(np.sum(active * (2 * words + hits * words)))
     k28 = float(np.sum(active * 24 + miss * (words * 4 + (N + M) * 4)))
     scalars = 2 * (3 * fb + 30) + (3 * fb + 6) + 12 + 2 * fb + R * (1 + fb)
-    deciding = (M + 4 * m_valid + N + 4 * n_valid + S * fb + 2 * fb + 7
+    # (the flags and channels, ops and servers of the valid prefixes:
+    # K24 writes no flow past them)
+    deciding = (5 * m_valid + 5 * n_valid + S * fb + 2 * fb + 7
                 + 4 * np.minimum(m_valid, C))
     slot = S * fb + S + C
     fresh = S * (fb + 4) + C * 4 + R * (1 + fb) + R * S * (fb + 1) + R * C
@@ -5006,21 +5010,49 @@ def _hold_host(trace, out, decisions, stats, what):
     return n, rel, int(ended.sum())
 
 
-def _priced_bounds(et, types, has_job, dtype, policy_rows=0):
-    """Per call, the least bytes and operations of K23 (indexed), K29, K30
-    and K26 (prices) over an episode's steps: ``types`` [D, B] the queued
-    job's type and ``has_job`` [D, B] whether a lane priced at each step
-    (the rows of lanes without a job are not read). K23 counts as
-    ``_k23_work``'s indexed calls over the n_deg rows of each pricing
-    lane; K29 a pricing row's valid flow flags, its three verdicts, its
-    time and outputs, and each lane's queue state and steps (a flow's
-    channel and occupancy are left out, so its bound is low rather than
-    high), one operation a valid dep; K30 a deciding lane's verdicts and
-    prices, its server occupancy, its bank row and type's sum, the degrees
-    and their shapes and the action, an operation a server and three a
-    degree; K26 (``policy_rows`` graph features a row) a row's fields,
-    static row, the row, mask and price block written, the verdicts and
-    prices."""
+def _k29_work(args):
+    """The least bytes and operations of one K29 call, from the call's own
+    arguments (``price_reduce``'s): every lane's queue row and done flag
+    and every row's two outputs; a row of a lane with a job its three
+    verdicts and its time, the lane its steps; and only a row whose
+    verdicts pass (the kernel skips the others: ok is a conjunction) its
+    configuration and valid-prefix entry, its prefix's flow flags, a
+    channel a flow, and the lane's occupancy of each distinct channel its
+    passing rows' flows name; one operation a scanned dep."""
+    (is_flow, chan, ok_place, finite_ok, t_step, ok_la, state, bank, cfg,
+     n_deps) = args
+    fb = t_step.element_size()
+    rows, m = is_flow.shape
+    lanes = state["queue_row"].shape[0]
+    n_deg, n_chan = rows // lanes, state["chan_occ"].shape[1]
+    has_job = (state["queue_row"] >= 0) & ~state["done"]
+    active = has_job.repeat_interleave(n_deg)
+    scan = active & ok_place & ok_la & finite_ok
+    nd = n_deps[cfg.long()].clamp(0, m)
+    flows = is_flow & scan[:, None] & (
+        torch.arange(m, device=is_flow.device)[None] < nd[:, None])
+    lane = torch.arange(rows, device=is_flow.device) // n_deg
+    channels = torch.unique((lane[:, None] * n_chan + chan.long())[flows])
+    n_scan = int(scan.sum())
+    scanned = int(nd[scan].sum())
+    nbytes = (lanes * (4 + 1) + rows * (1 + fb) + int(has_job.sum()) * fb
+              + int(active.sum()) * (3 + fb) + n_scan * (4 + 4) + scanned
+              + 4 * int(flows.sum()) + 4 * int(channels.numel()))
+    return nbytes, scanned
+
+
+def _priced_bounds(et, types, has_job, dtype, policy_rows=0, k29=None):
+    """Per call, the least bytes and operations of K23 (indexed), K30, K26
+    (prices) and, given ``k29`` (the bytes and operations summed over the
+    episode's calls, ``_k29_work``), K29 over an episode's steps:
+    ``types`` [D, B] the queued job's type and ``has_job`` [D, B] whether
+    a lane priced at each step (the rows of lanes without a job are not
+    read). K23 counts as ``_k23_work``'s indexed calls over the n_deg rows
+    of each pricing lane; K30 a deciding lane's verdicts and prices, its
+    server occupancy, its bank row and type's sum, the degrees and their
+    shapes and the action, an operation a server and three a degree; K26
+    (``policy_rows`` graph features a row) a row's fields, static row, the
+    row, mask and price block written, the verdicts and prices."""
     tb = et.tables
     fb = 4 if dtype == torch.float32 else 8
     n_deg, S = len(et.degrees), et.n_srv
@@ -5029,9 +5061,6 @@ def _priced_bounds(et, types, has_job, dtype, policy_rows=0):
     cfg = (types[:, :, None] * n_deg + np.arange(n_deg)).reshape(D, -1)
     active = np.repeat(has_job, n_deg, axis=1).astype(np.float64)
     k23 = _k23_work(et, cfg, active, fb, n_deg)
-    m_valid = tb["n_deps"][cfg].astype(np.float64)
-    k29 = (float(np.sum(active * (m_valid + 3 + fb + 1 + fb)))
-           + D * B * (4 + 1 + fb), float(np.sum(active * m_valid)))
     lanes = has_job.astype(np.float64)
     k30 = (float(np.sum(lanes * (n_deg * (1 + fb + 4 + 1) + S * 4 + 4 + 1
                                  + 4 + 3 * fb + 4))),
@@ -5040,11 +5069,12 @@ def _priced_bounds(et, types, has_job, dtype, policy_rows=0):
                                  + (policy_rows + A) * 4 + A * 4
                                  + n_deg * (1 + fb)))),
            float(np.sum(lanes * (policy_rows + 3 * A))))
+    work = [("allocate_job_indexed", k23), ("oracle_select", k30),
+            ("kernel_obs_prices", k26)]
+    if k29 is not None:
+        work.append(("price_reduce", k29))
     out = {}
-    for name, (nbytes, ops) in (("allocate_job_indexed", k23),
-                                ("price_reduce", k29),
-                                ("oracle_select", k30),
-                                ("kernel_obs_prices", k26)):
+    for name, (nbytes, ops) in work:
         b, by = bound_ms(nbytes, ops)
         out[name] = (b / D, by, nbytes / D, ops / D)
     return out
@@ -5125,8 +5155,11 @@ def phase_oracle(card):
     # (b) every call held against its plain version, and the new kernels
     # timed on the calls of step PRICED_TIMED_STEP
     timed = {}
+    k29 = [0, 0]
 
     def time_call(d, name, kernel, plain):
+        if name == "price_reduce":
+            k29[:] = np.add(k29, _k29_work(kernel.args))
         if d == PRICED_TIMED_STEP:
             timed[name] = (eager_ms(kernel), eager_ms(plain, iters=3))
 
@@ -5182,7 +5215,8 @@ def phase_oracle(card):
                      if f"{name}_kernel<" in k)
         ms[name] = float(np.mean(times))
     types = np.where(trace8["has_job"], banks["type"][:, :J], 0).T
-    bounds = _priced_bounds(et, types, trace8["has_job"].T, torch.float32)
+    bounds = _priced_bounds(et, types, trace8["has_job"].T, torch.float32,
+                            k29=tuple(float(x) for x in k29))
     results = {}
     for name in ORACLE_KERNELS:
         results[name] = _new_result(

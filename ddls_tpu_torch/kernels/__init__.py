@@ -89,10 +89,10 @@ class KernelSpec:
 
 
 # K25's entry: the state, trace, bank, actions, the decision's outputs,
-# the tables, the segment's counters and fields (54 pointers), the sizes
+# the tables, the segment's counters and fields (56 pointers), the sizes
 # and flags, the constants, the float type, then the scenario's tables
 # (6 pointers, null for none) and its window count
-_EPISODE_STEP_SIG = "p" * 54 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" + "p"
+_EPISODE_STEP_SIG = "p" * 56 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" + "p"
 
 KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("ln_linear_act", "ddls_ln_linear_act", "ppppppppiiiiiip",
@@ -195,7 +195,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("kernel_obs_prices", "ddls_kernel_obs",
                "p" * 14 + "i" * 7 + "p", "ddls_tpu/sim/jax_env.py:1492",
                file="obs"),
-    KernelSpec("price_reduce", "ddls_price_reduce", "p" * 12 + "i" * 7 + "p",
+    KernelSpec("price_reduce", "ddls_price_reduce", "p" * 14 + "i" * 7 + "p",
                "ddls_tpu/sim/jax_env.py:1085", file="oracle"),
     KernelSpec("oracle_select", "ddls_oracle_select",
                "p" * 12 + "i" * 5 + "p", "ddls_tpu/sim/jax_env.py:1799",

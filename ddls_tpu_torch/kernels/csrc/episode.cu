@@ -30,7 +30,7 @@
 // * seq_compute) * steps, the commit time t + jct, each rounded on its own
 // (the file is built with -fmad=false, kernels/__init__.py EXTRA_FLAGS);
 // a completion frees its slot when done - t - eps <= 0, an arrival queues
-// when t + eps >= its time; the freed memory is the completing slots'
+// when t + eps >= its time; the freed memory is the completed slots'
 // rows summed in slot order, then added (the reference's completions @
 // slot_mem: a server belongs to at most one slot, so each column sums at
 // most one nonzero row and every order gives the same bits).
@@ -38,10 +38,10 @@
 // The scenario mode (the failure walk, ddls_tpu/scenarios/failures.py:137
 // inflate_duration_jax as sim/jax_env.py:1014 scenario_adjusted applies it
 // at :1138-1141): with the scenario's tables (per-server speeds, the
-// t0-sorted windows' t0, t1, rate, kind and resource), thread 0 inflates a
+// t0-sorted windows' t0, t1, rate, kind and resource), warp 0 inflates a
 // deciding lane's jct after the gate, before the trace and the commit:
 // r0, the slowest speed over the block's server mask (inf when it is
-// empty); t_done = t + jct / r0; then each window that touches the lane
+// empty; a warp reduction); t_done = t + jct / r0; then each window that touches the lane
 // (its server in the server mask for a preemption, its channel in the
 // channel mask for a straggler) and overlaps the remaining run from lo =
 // max(t0, t) either fits it at its rate (lo + remaining / r) or pushes it
@@ -53,18 +53,40 @@
 // tables the kernel is the nominal one, a template instance of its own.
 //
 // What bounds it on the H100: latency. A decision reads the lane's placement
-// and pricing outputs (~30 KB at M = 13,072 deps) and writes a few hundred
-// bytes of state, and a tick touches 32 slots x 1,024 servers and channels;
-// the card could do either in well under a microsecond. The work is a few
-// dependent steps, each a block-wide pass and a barrier: the design keeps
-// the scalars of the decision and of each tick on one thread in shared
-// memory and spreads only the per-server and per-channel passes over the
-// block. No float atomics.
+// and pricing outputs over its configuration's valid prefixes (21 to
+// 13,072 deps, up to ~65 KB) and writes a few hundred bytes of state; a
+// tick is a few comparisons over the R = n_srv slots. The card could do
+// either in well under a microsecond; the time is a chain of dependent
+// steps. The design, one CTA of kThreads a lane:
+//  * the channel check and the two masks read deps [0, n_deps[c]) and ops
+//    [0, n_ops[c]) of the lane's configuration c only (K24 writes every dep
+//    past the prefix as no flow, and op_valid is the prefix), flags 16 and
+//    channels 4 at a time (common.cuh for_each_flow), against the lane's
+//    chan_occ staged in shared memory: one shared load a flow;
+//  * the decision's scalars and the event clock run on warp 0 in
+//    registers: the lane of index i owns slots [i K, i K + K), K =
+//    ceil(R / 32), read once and written back once; the first free slot is
+//    a ballot and its lowest lane; each tick's least remaining time is a
+//    tree over the warp that returns a serial scan's bits (common.cuh
+//    warp_first_min); the completions are ballots; no block barrier a
+//    tick;
+//  * the ticks read neither mem, srv_job nor chan_occ, and nothing inside
+//    the loop commits, so a slot completes at most once a launch: the
+//    block frees the union of the launch's completed slots once, after the
+//    loop, reading only their rows. The per-tick sum equals this one
+//    because a server belongs to at most one running job, so a column of
+//    the completed slots' slot_mem rows has at most one nonzero term
+//    (tests/test_torch_episode_prefix.py holds the order on every recorded
+//    replay and on C1's bank);
+//  * the reset's clears are 16-byte stores (common.cuh block_fill).
+// No float atomics.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+// slots a lane of warp 0 owns at most: R = n_srv <= 32 * kSlotsPerLane
+constexpr int kSlotsPerLane = 4;
 
 struct State {
   void *t, *mem;
@@ -107,6 +129,14 @@ struct Raw {
   const int* la_ticks;
 };
 
+// the configuration tables the kernel reads: op_valid [K, N], seq_compute
+// [K], deg_col [n_col], n_deps and n_ops [K]
+struct Tables {
+  const bool* op_valid;
+  const void* seq_compute;
+  const int *deg_col, *n_deps, *n_ops;
+};
+
 // the segment's per-step episode counters [B, decisions] (null: none)
 struct Seg {
   bool* done;
@@ -139,20 +169,26 @@ struct Dims {
 constexpr int kAccepted = 0, kNotHandled = 1, kOpPlacement = 2,
               kDepPlacement = 3, kSla = 4, kEngine = 5;
 
-// the failure walk of one lane (thread 0): the jct of a job of nominal
-// duration jct starting at t on the servers srv and channels chan
+// The failure walk of one lane (every lane of warp 0, the same bits): the
+// jct of a job of nominal duration jct starting at t on the servers srv
+// and channels chan. r0, the slowest speed over the server mask (inf when
+// it is empty), is a warp reduction over each lane's servers [i KS, i KS
+// + KS), KS = ceil(n_srv / 32), with a serial scan's bits; the windows
+// run in order, each reading the last t_done.
 template <typename T>
 __device__ T failure_walk(const Scenario& sc, T t, T jct,
                           const unsigned char* srv, const unsigned char* chan,
-                          int n_srv) {
+                          int n_srv, int ln) {
   const T* speeds = static_cast<const T*>(sc.speeds);
   const T* t0 = static_cast<const T*>(sc.t0);
   const T* t1 = static_cast<const T*>(sc.t1);
   const T* rate = static_cast<const T*>(sc.rate);
+  const int ks = (n_srv + ddls::kWarpSize - 1) / ddls::kWarpSize;
   T r0 = static_cast<T>(INFINITY);
-  for (int s = 0; s < n_srv; ++s) {
+  for (int s = ln * ks; s < (ln + 1) * ks && s < n_srv; ++s) {
     if (srv[s]) r0 = speeds[s] < r0 ? speeds[s] : r0;
   }
+  r0 = ddls::warp_first_min(r0);
   T t_done = t + jct / r0;
   for (int i = 0; i < sc.n_win; ++i) {
     const T w0 = t0[i], w1 = t1[i], r = rate[i];
@@ -174,19 +210,21 @@ __device__ T failure_walk(const Scenario& sc, T t, T jct,
 template <typename T, bool kScenario>
 __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     State st, Trace tr, Bank bk, const int* __restrict__ actions, Raw raw,
-    const bool* __restrict__ op_valid, const T* __restrict__ seq_compute,
-    const int* __restrict__ deg_col, Seg sg, Fields fl, Dims dm,
-    Scenario sc) {
-  extern __shared__ unsigned char smem[];
-  unsigned char* s_srv = smem;                 // [n_srv] server mask
-  unsigned char* s_chan = s_srv + dm.n_srv;    // [n_chan] channel mask
-  unsigned char* s_comp = s_chan + dm.n_chan;  // [slots] completions
-  __shared__ int s_ok_chan, s_accept, s_slot, s_live, s_running, s_occupied;
+    Tables tb, Seg sg, Fields fl, Dims dm, Scenario sc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_srv = dm.n_srv, n_chan = dm.n_chan, R = dm.slots;
+  int* s_occ = reinterpret_cast<int*>(smem);            // [n_chan] chan_occ
+  int* s_freed = s_occ + n_chan;                        // [R] completed
+  unsigned char* s_srv = reinterpret_cast<unsigned char*>(s_freed + R);
+  unsigned char* s_chan = s_srv + n_srv;                // [n_chan] mask
+  __shared__ int s_accept, s_slot, s_ticked, s_n_freed, s_running,
+      s_occupied;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const int n_srv = dm.n_srv, n_chan = dm.n_chan, R = dm.slots;
+  const int ln = tid & (ddls::kWarpSize - 1);
+  const bool warp0 = tid < ddls::kWarpSize;
   T* t_p = static_cast<T*>(st.t) + b;
   T* mem = static_cast<T*>(st.mem) + static_cast<size_t>(b) * n_srv;
   int* srv_job = st.srv_job + static_cast<size_t>(b) * n_srv;
@@ -200,37 +238,58 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
   const int* ots = raw.ots + static_cast<size_t>(b) * dm.n;
   const T* new_mem =
       static_cast<const T*>(raw.new_mem) + static_cast<size_t>(b) * n_srv;
-  const bool* is_flow = raw.is_flow + static_cast<size_t>(b) * dm.m;
-  const int* chan = raw.chan + static_cast<size_t>(b) * dm.m;
   const int J = dm.jobs;
+  const T* arrival_t =
+      static_cast<const T*>(bk.arrival_t) + static_cast<size_t>(b) * (J + 1);
+  T* next_arrival = static_cast<T*>(st.next_arrival) + b;
 
   const int queue_row = st.queue_row[b];
   const bool has_job = queue_row >= 0 && !st.done[b];
   const bool active = st.active[b];
   const int c = st.cfg[b];
 
-  // ---- the decision: the channel check and the two masks
-  for (int s = tid; s < n_srv; s += nt) s_srv[s] = 0;
-  for (int ch = tid; ch < n_chan; ch += nt) s_chan[ch] = 0;
-  if (tid == 0) s_ok_chan = 1;
-  __syncthreads();
-  bool ok_chan = true;
-  for (int j = tid; j < dm.m; j += nt) {
-    if (!is_flow[j]) continue;
-    const int ch = chan[j] > 0 ? chan[j] : 0;
-    if (chan_occ[ch] >= 0) ok_chan = false;
-    s_chan[ch] = 1;
+  // warp 0's slots: lane ln owns [ln K, ln K + K)
+  const int K = (R + ddls::kWarpSize - 1) / ddls::kWarpSize;
+  bool valid[kSlotsPerLane];
+  T t_done[kSlotsPerLane];
+  if (warp0) {
+#pragma unroll
+    for (int k = 0; k < kSlotsPerLane; ++k) {
+      const int r = ln * K + k;
+      const bool mine = k < K && r < R;
+      valid[k] = mine && slot_valid[r];
+      t_done[k] = mine ? slot_t_done[r] : static_cast<T>(0);
+    }
   }
-  if (!ok_chan) s_ok_chan = 0;
-  const bool* valid_row = op_valid + static_cast<size_t>(c) * dm.n;
-  for (int i = tid; i < dm.n; i += nt) {
-    if (valid_row[i] && ots[i] >= 0) s_srv[ots[i]] = 1;
-  }
+
+  // ---- the lane's channel occupancy staged, the masks cleared
+  for (int ch = tid; ch < n_chan; ch += nt) s_occ[ch] = chan_occ[ch];
+  ddls::block_fill(s_srv, static_cast<size_t>(n_srv) + n_chan, 0);
   __syncthreads();
 
-  // ---- the gate, the cause, the trace and the counters (thread 0)
-  if (tid == 0) {
-    const T t = *t_p;
+  // ---- the decision: the channel check and the two masks over the
+  // configuration's valid deps and ops
+  bool ok_chan = true;
+  const int nd = min(max(tb.n_deps[c], 0), dm.m);
+  ddls::for_each_flow(raw.is_flow + static_cast<size_t>(b) * dm.m,
+                      raw.chan + static_cast<size_t>(b) * dm.m, nd,
+                      [&](int ch) {
+                        if (s_occ[ch] >= 0) ok_chan = false;
+                        s_chan[ch] = 1;
+                      });
+  const bool* valid_row = tb.op_valid + static_cast<size_t>(c) * dm.n;
+  const int no = min(max(tb.n_ops[c], 0), dm.n);
+  for (int i = tid; i < no; i += nt) {
+    if (valid_row[i] && ots[i] >= 0) s_srv[ots[i]] = 1;
+  }
+  const bool chan_free = __syncthreads_and(ok_chan) != 0;
+
+  // ---- the gate, the cause, the walk, the first free slot, the trace and
+  // the counters (warp 0, every lane the same scalars; lane 0 writes)
+  T t = static_cast<T>(0);
+  int q_row = queue_row;
+  if (warp0) {
+    t = *t_p;
     const int row = queue_row > 0 ? queue_row : 0;
     const size_t at = static_cast<size_t>(b) * J + row;
     const T steps = static_cast<const T*>(bk.steps)[at];
@@ -238,13 +297,14 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     const T t_step = static_cast<const T*>(
         raw.t_step)[static_cast<size_t>(b) * dm.t_step_stride];
     T jct = t_step * steps;
-    const T max_jct = sla * seq_compute[c] * steps;
+    const T max_jct =
+        sla * static_cast<const T*>(tb.seq_compute)[c] * steps;
     const bool sla_ok = !(jct > max_jct);
     const bool engine_ok = raw.ok_la[b] && raw.finite_ok[b];
     const bool ok_place = raw.ok_place[b];
-    bool accept = ok_place && s_ok_chan && sla_ok && engine_ok;
+    bool accept = ok_place && chan_free && sla_ok && engine_ok;
     int cause = !ok_place ? kOpPlacement
-                : !s_ok_chan ? kDepPlacement
+                : !chan_free ? kDepPlacement
                 : !engine_ok ? kEngine
                 : !sla_ok ? kSla : kAccepted;
     if (!active) {
@@ -253,42 +313,52 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       jct = static_cast<T>(0);
     }
     if constexpr (kScenario) {
-      if (active) jct = failure_walk(sc, t, jct, s_srv, s_chan, n_srv);
+      if (active) jct = failure_walk(sc, t, jct, s_srv, s_chan, n_srv, ln);
     }
-    int slot = 0;
-    bool all_valid = true;
-    for (int r = R - 1; r >= 0; --r) {
-      if (!slot_valid[r]) {
-        slot = r;
-        all_valid = false;
+    // the first free slot: each lane's first, then the lowest such lane
+    int first = -1;
+#pragma unroll
+    for (int k = kSlotsPerLane - 1; k >= 0; --k) {
+      const int r = ln * K + k;
+      if (k < K && r < R && !valid[k]) first = k;
+    }
+    const unsigned any_free = __ballot_sync(ddls::kFullMask, first >= 0);
+    const int owner = any_free ? __ffs(any_free) - 1 : 0;
+    const int slot = __shfl_sync(ddls::kFullMask, ln * K + first, owner);
+    accept = accept && any_free != 0 && has_job;
+    if (accept && ln == owner) {
+#pragma unroll
+      for (int k = 0; k < kSlotsPerLane; ++k) {
+        if (k == first) {
+          valid[k] = true;
+          t_done[k] = t + jct;
+        }
       }
     }
-    accept = accept && !all_valid && has_job;
-    const T reward = has_job ? static_cast<T>(accept ? dm.success : dm.fail)
-                             : static_cast<T>(0);
-    const size_t td = static_cast<size_t>(b) * dm.decisions + dm.d;
-    static_cast<T*>(tr.reward)[td] = reward;
-    tr.accept[td] = accept;
-    tr.cause[td] = has_job ? cause : -1;
-    static_cast<T*>(tr.jct)[td] = has_job ? jct : static_cast<T>(0);
-    static_cast<T*>(tr.t)[td] = t;
-    tr.has_job[td] = has_job;
-    st.accepted[b] += (has_job && accept) ? 1 : 0;
-    st.blocked[b] += (has_job && !accept) ? 1 : 0;
-    T* ret = static_cast<T*>(st.ret) + b;
-    *ret = *ret + reward;
-    if (has_job) st.queue_row[b] = -1;
-    if (active) st.ticks[b] += raw.la_ticks[b];
-    if (accept) {
-      slot_valid[slot] = true;
-      slot_t_done[slot] = t + jct;
+    if (has_job) q_row = -1;
+    if (ln == 0) {
+      const T reward = has_job
+                           ? static_cast<T>(accept ? dm.success : dm.fail)
+                           : static_cast<T>(0);
+      const size_t td = static_cast<size_t>(b) * dm.decisions + dm.d;
+      static_cast<T*>(tr.reward)[td] = reward;
+      tr.accept[td] = accept;
+      tr.cause[td] = has_job ? cause : -1;
+      static_cast<T*>(tr.jct)[td] = has_job ? jct : static_cast<T>(0);
+      static_cast<T*>(tr.t)[td] = t;
+      tr.has_job[td] = has_job;
+      st.accepted[b] += (has_job && accept) ? 1 : 0;
+      st.blocked[b] += (has_job && !accept) ? 1 : 0;
+      T* ret = static_cast<T*>(st.ret) + b;
+      *ret = *ret + reward;
+      if (active) st.ticks[b] += raw.la_ticks[b];
+      s_accept = accept;
+      s_slot = slot;
     }
-    s_accept = accept;
-    s_slot = slot;
   }
   __syncthreads();
 
-  // ---- the commit into the slot
+  // ---- the commit into the slot (the block)
   if (s_accept) {
     const int slot = s_slot;
     for (int s = tid; s < n_srv; s += nt) {
@@ -303,89 +373,128 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       if (s_chan[ch]) chan_occ[ch] = slot;
     }
   }
+
+  // ---- the event clock (warp 0): tick until a job queues or the episode
+  // ends; the slots in registers, the launch's completions collected
+  if (warp0) {
+    const T sim_end = static_cast<T>(dm.sim_end);
+    const T eps = static_cast<T>(dm.eps);
+    T next = *next_arrival;
+    int ptr = st.ptr[b];
+    bool done = st.done[b];
+    int completed = st.completed[b];
+    unsigned freed = 0;  // bit k: slot ln K + k completed this launch
+    bool ticked = false;
+    while (q_row < 0 && !done) {
+      ticked = true;
+      // the least remaining time, as the serial loop over r = 0..R-1
+      T rem = static_cast<T>(INFINITY);
+#pragma unroll
+      for (int k = 0; k < kSlotsPerLane; ++k) {
+        if (valid[k]) {
+          const T left = t_done[k] - t;
+          rem = left < rem ? left : rem;
+        }
+      }
+      rem = ddls::warp_first_min(rem);
+      const T to_arrival = next - t;
+      const T to_end = sim_end - t;
+      T tick = to_end < to_arrival ? to_end : to_arrival;
+      tick = rem < tick ? rem : tick;
+      tick = tick > static_cast<T>(0) ? tick : static_cast<T>(0);
+      const T t2 = t + tick;
+      int n_done = 0;
+      bool running = false;
+#pragma unroll
+      for (int k = 0; k < kSlotsPerLane; ++k) {
+        const bool comp =
+            valid[k] && (t_done[k] - t2 - eps <= static_cast<T>(0));
+        n_done += __popc(__ballot_sync(ddls::kFullMask, comp));
+        if (comp) {
+          valid[k] = false;
+          freed |= 1u << k;
+        }
+        running = running || valid[k];
+      }
+      const bool any_running = __any_sync(ddls::kFullMask, running);
+      completed += n_done;
+      const bool arrived = ptr < J && t2 + eps >= next;
+      const int q_row2 = arrived ? ptr : q_row;
+      const int ptr2 = ptr + (arrived ? 1 : 0);
+      if (arrived) next = arrival_t[ptr2 < 0 ? 0 : (ptr2 > J ? J : ptr2)];
+      q_row = q_row2;
+      ptr = ptr2;
+      done = t2 >= sim_end || (ptr2 >= J && !any_running && q_row2 < 0);
+      t = t2;
+    }
+    // write the slots and the scalars back; list the completed slots in
+    // slot order (lane-major: an exclusive scan of the lanes' counts)
+    int mine = 0, running = 0;
+#pragma unroll
+    for (int k = 0; k < kSlotsPerLane; ++k) {
+      const int r = ln * K + k;
+      if (k < K && r < R) {
+        slot_valid[r] = valid[k];
+        slot_t_done[r] = t_done[k];
+      }
+      mine += (freed >> k) & 1u;
+      running += valid[k] ? 1 : 0;
+    }
+    int before = mine;
+#pragma unroll
+    for (int d = 1; d < ddls::kWarpSize; d <<= 1) {
+      const int v = __shfl_up_sync(ddls::kFullMask, before, d);
+      if (ln >= d) before += v;
+    }
+    before -= mine;
+#pragma unroll
+    for (int k = 0; k < kSlotsPerLane; ++k) {
+      if ((freed >> k) & 1u) s_freed[before++] = ln * K + k;
+    }
+    running = __reduce_add_sync(ddls::kFullMask, running);
+    if (ln == ddls::kWarpSize - 1) s_n_freed = before;
+    if (ln == 0) {
+      *t_p = t;
+      st.queue_row[b] = q_row;
+      st.ptr[b] = ptr;
+      *next_arrival = next;
+      st.done[b] = done;
+      st.completed[b] = completed;
+      s_ticked = ticked;
+      s_running = running;
+    }
+  }
   __syncthreads();
 
-  // ---- the event clock: tick until a job queues or the episode ends
-  const T* arrival_t =
-      static_cast<const T*>(bk.arrival_t) + static_cast<size_t>(b) * (J + 1);
-  const T sim_end = static_cast<T>(dm.sim_end);
-  const T eps = static_cast<T>(dm.eps);
-  T* next_arrival = static_cast<T*>(st.next_arrival) + b;
-  while (true) {
-    if (tid == 0) {
-      s_live = st.queue_row[b] < 0 && !st.done[b];
-      if (s_live) {
-        const T t = *t_p;
-        T rem = static_cast<T>(INFINITY);
-        for (int r = 0; r < R; ++r) {
-          if (slot_valid[r]) {
-            const T left = slot_t_done[r] - t;
-            rem = left < rem ? left : rem;
-          }
-        }
-        const T to_arrival = *next_arrival - t;
-        const T to_end = sim_end - t;
-        T tick = to_end < to_arrival ? to_end : to_arrival;
-        tick = rem < tick ? rem : tick;
-        tick = tick > static_cast<T>(0) ? tick : static_cast<T>(0);
-        const T t2 = t + tick;
-        int n_done = 0;
-        bool any_running = false;
-        for (int r = 0; r < R; ++r) {
-          const bool comp =
-              slot_valid[r] && (slot_t_done[r] - t2 - eps <= static_cast<T>(0));
-          s_comp[r] = comp;
-          n_done += comp ? 1 : 0;
-          if (comp) slot_valid[r] = false;
-          any_running = any_running || slot_valid[r];
-        }
-        st.completed[b] += n_done;
-        const int ptr = st.ptr[b];
-        const bool arrived = ptr < J && t2 + eps >= *next_arrival;
-        const int queue_row2 = arrived ? ptr : st.queue_row[b];
-        const int ptr2 = ptr + (arrived ? 1 : 0);
-        if (arrived) {
-          *next_arrival = arrival_t[ptr2 < 0 ? 0 : (ptr2 > J ? J : ptr2)];
-        }
-        st.queue_row[b] = queue_row2;
-        st.ptr[b] = ptr2;
-        st.done[b] = t2 >= sim_end ||
-                     (ptr2 >= J && !any_running && queue_row2 < 0);
-        *t_p = t2;
-      }
-    }
-    __syncthreads();
-    if (!s_live) break;
-    // completions free memory (summed in slot order), servers, channels
+  // ---- the completions of the launch free memory (summed in slot order),
+  // servers and channels, once
+  if (s_ticked) {
+    const int nf = s_n_freed;
     for (int s = tid; s < n_srv; s += nt) {
-      T freed = static_cast<T>(0);
+      T add = static_cast<T>(0);
       bool srv_freed = false;
-      for (int r = 0; r < R; ++r) {
-        if (!s_comp[r]) continue;
-        freed = freed + slot_mem[static_cast<size_t>(r) * n_srv + s];
-        srv_freed = srv_freed || slot_servers[static_cast<size_t>(r) * n_srv + s];
+      for (int i = 0; i < nf; ++i) {
+        const size_t at = static_cast<size_t>(s_freed[i]) * n_srv + s;
+        add = add + slot_mem[at];
+        srv_freed = srv_freed || slot_servers[at];
       }
-      mem[s] = mem[s] + freed;
+      mem[s] = mem[s] + add;
       if (srv_freed) srv_job[s] = -1;
     }
-    for (int ch = tid; ch < n_chan; ch += nt) {
-      bool freed = false;
-      for (int r = 0; r < R; ++r) {
-        freed = freed ||
-                (s_comp[r] && slot_chan[static_cast<size_t>(r) * n_chan + ch]);
+    if (nf) {
+      for (int ch = tid; ch < n_chan; ch += nt) {
+        bool chan_freed = false;
+        for (int i = 0; i < nf; ++i) {
+          chan_freed = chan_freed ||
+                       slot_chan[static_cast<size_t>(s_freed[i]) * n_chan + ch];
+        }
+        if (chan_freed) chan_occ[ch] = -1;
       }
-      if (freed) chan_occ[ch] = -1;
     }
-    __syncthreads();
   }
 
   // ---- the segment's counters, the in-kernel reset, the next fields
   if (sg.done != nullptr || dm.reset || fl.jtype != nullptr) {
-    if (tid == 0) s_running = 0;
-    __syncthreads();
-    int running = 0;
-    for (int r = tid; r < R; r += nt) running += slot_valid[r] ? 1 : 0;
-    if (running) atomicAdd(&s_running, running);
     __syncthreads();
     const bool ended = st.done[b];
     if (tid == 0 && sg.done != nullptr) {
@@ -400,20 +509,14 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     __syncthreads();
     if (dm.reset && ended) {
       const T worker_mem = static_cast<T>(dm.worker_mem);
-      for (int s = tid; s < n_srv; s += nt) {
-        mem[s] = worker_mem;
-        srv_job[s] = -1;
-      }
-      for (int ch = tid; ch < n_chan; ch += nt) chan_occ[ch] = -1;
-      for (int r = tid; r < R; r += nt) {
-        slot_valid[r] = false;
-        slot_t_done[r] = static_cast<T>(0);
-      }
-      for (int i = tid; i < R * n_srv; i += nt) {
-        slot_mem[i] = static_cast<T>(0);
-        slot_servers[i] = false;
-      }
-      for (int i = tid; i < R * n_chan; i += nt) slot_chan[i] = false;
+      for (int s = tid; s < n_srv; s += nt) mem[s] = worker_mem;
+      ddls::block_fill(srv_job, sizeof(int) * n_srv, 0xff);
+      ddls::block_fill(chan_occ, sizeof(int) * n_chan, 0xff);
+      ddls::block_fill(slot_valid, R, 0);
+      ddls::block_fill(slot_t_done, sizeof(T) * R, 0);
+      ddls::block_fill(slot_mem, sizeof(T) * R * n_srv, 0);
+      ddls::block_fill(slot_servers, static_cast<size_t>(R) * n_srv, 0);
+      ddls::block_fill(slot_chan, static_cast<size_t>(R) * n_chan, 0);
       if (tid == 0) {
         *t_p = static_cast<T>(0);
         st.queue_row[b] = 0;
@@ -456,8 +559,9 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     const int qr = st.queue_row[b];
     const bool next_job = qr >= 0 && !st.done[b];
     const int row = qr > 0 ? qr : 0;
-    const int col = deg_col[action < 0 ? 0
-                            : (action >= dm.n_col ? dm.n_col - 1 : action)];
+    const int col = tb.deg_col[action < 0 ? 0
+                               : (action >= dm.n_col ? dm.n_col - 1
+                                                     : action)];
     int cfg = bk.type[static_cast<size_t>(b) * J + row] * dm.n_deg + col;
     cfg = cfg < 0 ? 0 : (cfg >= dm.n_cfg ? dm.n_cfg - 1 : cfg);
     st.cfg[b] = cfg;
@@ -492,7 +596,8 @@ __global__ void episode_prepare_kernel(
 // without prepare), the decision's kernel outputs (ots, new_mem, ok_place,
 // is_flow, chan, finite_ok, t_step (every t_step_stride-th element),
 // ok_la, the lookahead's ticks), the tables op_valid [K, N], seq_compute
-// [K] and deg_col [n_col], the segment's counters (SEGMENT_TRACE_FIELDS,
+// [K], deg_col [n_col], n_deps and n_ops [K] int32 (each configuration's
+// valid prefixes), the segment's counters (SEGMENT_TRACE_FIELDS,
 // [B, D], null for none) and the observation fields (OBS_FIELDS, [B, D +
 // 1], null for none); then the sizes, decision d, whether to prepare the
 // next decision from actions and whether to reset an ended episode; the
@@ -512,7 +617,8 @@ DDLS_EXPORT int ddls_episode_step(
     const void* new_mem, const void* ok_place, const void* is_flow,
     const void* chan, const void* finite_ok, const void* t_step,
     const void* ok_la, const void* la_ticks, const void* op_valid,
-    const void* seq_compute, const void* deg_col, void* seg_done,
+    const void* seq_compute, const void* deg_col, const void* n_deps,
+    const void* n_ops, void* seg_done,
     void* seg_accepted, void* seg_blocked, void* seg_ret,
     void* seg_completed, void* seg_arrived, void* f_jtype, void* f_frac,
     void* f_steps, void* f_occupied, void* f_running, int lanes, int n_srv,
@@ -525,7 +631,8 @@ DDLS_EXPORT int ddls_episode_step(
   const bool scenario = sc_speeds != nullptr;
   if (lanes <= 0 || n_srv < 1 || n_chan < 1 || slots < 1 || n < 1 || m < 1 ||
       jobs < 1 || d < 0 || d >= decisions || n_col < 1 || n_cfg < 1 ||
-      (prepare && actions == nullptr) || n_win < 0 ||
+      slots > ddls::kWarpSize * kSlotsPerLane || n_deps == nullptr ||
+      n_ops == nullptr || (prepare && actions == nullptr) || n_win < 0 ||
       (scenario && n_win > 0 &&
        (sc_t0 == nullptr || sc_t1 == nullptr || sc_rate == nullptr ||
         sc_kind == nullptr || sc_res == nullptr))) {
@@ -565,31 +672,28 @@ DDLS_EXPORT int ddls_episode_step(
   const Scenario sc{sc_speeds, sc_t0, sc_t1, sc_rate,
                     static_cast<const int*>(sc_kind),
                     static_cast<const int*>(sc_res), scenario ? n_win : 0};
-  const size_t smem = static_cast<size_t>(n_srv) + n_chan + slots;
+  const Tables tb{static_cast<const bool*>(op_valid), seq_compute,
+                  static_cast<const int*>(deg_col),
+                  static_cast<const int*>(n_deps),
+                  static_cast<const int*>(n_ops)};
+  // chan_occ staged and the completed slots' list (ints), the two masks
+  const size_t smem = sizeof(int) * (static_cast<size_t>(n_chan) + slots) +
+                      n_srv + n_chan;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* acts = static_cast<const int*>(actions);
-  const bool* valid = static_cast<const bool*>(op_valid);
-  const int* cols = static_cast<const int*>(deg_col);
+  const auto launch = [&](auto kernel) {
+    const cudaError_t err = ddls::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<lanes, kThreads, smem, s>>>(st, tr, bk, acts, raw, tb, sg, fl,
+                                         dm, sc);
+    return static_cast<int>(cudaGetLastError());
+  };
   if (is_f64) {
-    const double* seq = static_cast<const double*>(seq_compute);
-    if (scenario) {
-      episode_step_kernel<double, true><<<lanes, kThreads, smem, s>>>(
-          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
-    } else {
-      episode_step_kernel<double, false><<<lanes, kThreads, smem, s>>>(
-          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
-    }
-  } else {
-    const float* seq = static_cast<const float*>(seq_compute);
-    if (scenario) {
-      episode_step_kernel<float, true><<<lanes, kThreads, smem, s>>>(
-          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
-    } else {
-      episode_step_kernel<float, false><<<lanes, kThreads, smem, s>>>(
-          st, tr, bk, acts, raw, valid, seq, cols, sg, fl, dm, sc);
-    }
+    return scenario ? launch(episode_step_kernel<double, true>)
+                    : launch(episode_step_kernel<double, false>);
   }
-  return static_cast<int>(cudaGetLastError());
+  return scenario ? launch(episode_step_kernel<float, true>)
+                  : launch(episode_step_kernel<float, false>);
 }
 
 // queue_row [B], done [B], bank type [B, J], action [B] int32, deg_col

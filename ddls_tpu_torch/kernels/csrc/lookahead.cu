@@ -68,7 +68,10 @@
 //    (max and min are exact in any order, so an order-preserving float ->
 //    int encoding makes them deterministic; scores of -1 are negative, so
 //    not a plain bit cast; in float64 the 64-bit max and min are
-//    compare-and-swap loops, cluster.cuh cluster_max); the shortest
+//    compare-and-swap loops, cluster.cuh cluster_max). The minima over
+//    remaining times key every NaN below -inf, and the tick and the
+//    advance's clamp keep a NaN, so a NaN time propagates as the
+//    reference's jnp.min, jnp.minimum and jnp.maximum do; the shortest
 //    nominated dep, the flags and the completions are integer atomics into
 //    CTA 0's shared memory. Tables and counters are double-buffered by
 //    tick parity, so a tick takes two cluster barriers (the kernel's
@@ -112,6 +115,12 @@ struct Num<float> {
   __device__ static float dec(Ord i) {
     return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
   }
+  // a minimum's key: enc, every NaN (either sign) below -inf, so that a
+  // minimum over remaining times is NaN when any operand is, as jnp.min
+  // and torch.amin are; dec of the lowest key is a NaN
+  __device__ static Ord min_key(float f) {
+    return f != f ? static_cast<Ord>(0x80000000u) : enc(f);
+  }
   __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
   __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
   // busy + tick * count: fused, as XLA computes it
@@ -129,6 +138,9 @@ struct Num<double> {
   }
   __device__ static double dec(Ord i) {
     return __longlong_as_double(i >= 0 ? i : i ^ 0x7fffffffffffffffLL);
+  }
+  __device__ static Ord min_key(double f) {
+    return f != f ? static_cast<Ord>(0x8000000000000000ull) : enc(f);
   }
   __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
   __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
@@ -620,7 +632,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         if (sc >= best && sc > static_cast<T>(0)) nominated = true;
       }
       if (nominated) {
-        const Ord r = N_::enc(rem_dep[jj]);
+        const Ord r = N_::min_key(rem_dep[jj]);
         min_dep = r < min_dep ? r : min_dep;
       }
     }
@@ -648,7 +660,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (op_score[i] == best && best > static_cast<T>(0)) {
         op_flag[i] = kReady | kSelected;
         ++nsel_local;
-        const Ord r = N_::enc(rem_op[i]);
+        const Ord r = N_::min_key(rem_op[i]);
         min_op = r < min_op ? r : min_op;
       }
     }
@@ -674,7 +686,10 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int nsel = s_nsel[p];
     const T shortest_comm =
         nonflow ? static_cast<T>(0) : N_::dec(slot.min_dep);
-    const T tick = shortest_op < shortest_comm ? shortest_op : shortest_comm;
+    // the smaller, NaN if either is (torch.minimum, jnp.minimum)
+    const T tick = shortest_op < shortest_comm || shortest_op != shortest_op
+                       ? shortest_op
+                       : shortest_comm;
     stuck = tick >= static_cast<T>(kBig);
     if (head && !stuck) {
       comp = N_::add(comp, nsel > 0 ? tick : static_cast<T>(0));
@@ -696,7 +711,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int i = tid; i < n_last; i += nt) {
       if (!(op_flag[i] & kSelected)) continue;
       T r = N_::sub(rem_op[i], tick);
-      r = r > static_cast<T>(0) ? r : static_cast<T>(0);
+      // max(r, 0), a NaN kept (torch.maximum)
+      r = r > static_cast<T>(0) || r != r ? r : static_cast<T>(0);
       rem_op[i] = r;
       if (r <= static_cast<T>(0)) {
         op_done[i] = 1;
@@ -710,7 +726,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       bool done = dep_done[jj];
       if (dep_flag[jj] == advance) {
         T r = N_::sub(rem_dep[jj], tick);
-        r = r > static_cast<T>(0) ? r : static_cast<T>(0);
+        r = r > static_cast<T>(0) || r != r ? r : static_cast<T>(0);
         rem_dep[jj] = r;
         if (r <= static_cast<T>(0)) {
           dep_done[jj] = 1;

@@ -27,21 +27,27 @@
 // smallest degree the mask allows; else 0. Lanes with no queued job take
 // action 0, as the reference's skip branch.
 //
-// What bounds them on the H100: launch latency. K29 reads each row's M
-// flow flags and channels (13,072 deps a row at full width, ~65 KB a row)
-// and writes two values a row; K30 reads ~200 bytes a lane. The design:
-// K29 one CTA a row, the channel test a block-wide __syncthreads_and over
-// strided deps (an AND is exact in any order); K30 one thread a lane, the
-// degree scans sequential in degree order as the reference's. No float
-// atomics; built with -fmad=false (kernels/__init__.py EXTRA_FLAGS):
-// nothing here adds a product, and nothing may be fused.
+// What bounds them on the H100: launch latency. K29 reads each row's
+// valid prefix of flow flags and channels (21 to 13,072 deps a row on the
+// shipped surface, up to ~65 KB) and writes two values a row; K30 reads
+// ~200 bytes a lane. The design: K29 one CTA of 1,024 threads a row; a
+// row that cannot pass (no job, or ok_place, ok_la or finite_ok false:
+// ok is a conjunction) skips the scan; the others stage their lane's
+// channel occupancy in shared memory, scan only [0, n_deps) of the row's
+// configuration cfg[r] (K24 writes every dep past it as no flow), flags
+// 16 and channels 4 at a time (common.cuh for_each_flow), and AND the
+// channel test over the block with __syncthreads_and (an AND is exact in
+// any order). K30 one thread a lane, the degree scans sequential in
+// degree order as the reference's. No float atomics; built with
+// -fmad=false (kernels/__init__.py EXTRA_FLAGS): nothing here adds a
+// product, and nothing may be fused.
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kReduceThreads = 256;
+constexpr int kReduceThreads = 1024;
 constexpr int kSelectThreads = 64;
 
 template <typename T>
@@ -51,35 +57,43 @@ __global__ void __launch_bounds__(kReduceThreads) price_reduce_kernel(
     const T* __restrict__ t_step, const bool* __restrict__ ok_la,
     const int* __restrict__ chan_occ, const int* __restrict__ queue_row,
     const bool* __restrict__ done, const T* __restrict__ bank_steps,
+    const int* __restrict__ cfg, const int* __restrict__ n_deps,
     bool* __restrict__ ok_out, T* __restrict__ jct_out, int n_deg, int m,
     int n_chan, int n_jobs, int t_stride) {
+  extern __shared__ int s_occ[];  // [n_chan] the lane's channel occupancy
   const int r = blockIdx.x;
+  const int tid = threadIdx.x;
   const int lane = r / n_deg;
   const int row = queue_row[lane];
-  const bool has_job = row >= 0 && !done[lane];
-  const bool* flow = is_flow + static_cast<size_t>(r) * m;
-  const int* ch = chan + static_cast<size_t>(r) * m;
-  const int* occ = chan_occ + static_cast<size_t>(lane) * n_chan;
-  int free_chan = 1;
-  if (has_job) {
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      if (flow[i]) {
-        const int c = ch[i];
-        if (!(occ[c > 0 ? c : 0] < 0)) free_chan = 0;
-      }
-    }
-  }
-  const int all_free = __syncthreads_and(free_chan);
-  if (threadIdx.x == 0) {
-    if (has_job) {
-      const T steps = bank_steps[static_cast<size_t>(lane) * n_jobs + row];
-      const T t = t_step[static_cast<size_t>(r) * t_stride];
-      ok_out[r] = ok_place[r] && all_free && ok_la[r] && finite_ok[r];
-      jct_out[r] = t * steps;
-    } else {
+  if (!(row >= 0 && !done[lane])) {
+    if (tid == 0) {
       ok_out[r] = false;
       jct_out[r] = static_cast<T>(0);
     }
+    return;
+  }
+  const T steps = bank_steps[static_cast<size_t>(lane) * n_jobs + row];
+  const T jct = t_step[static_cast<size_t>(r) * t_stride] * steps;
+  if (!(ok_place[r] && ok_la[r] && finite_ok[r])) {
+    if (tid == 0) {
+      ok_out[r] = false;
+      jct_out[r] = jct;
+    }
+    return;
+  }
+  const int* occ = chan_occ + static_cast<size_t>(lane) * n_chan;
+  for (int i = tid; i < n_chan; i += blockDim.x) s_occ[i] = occ[i];
+  __syncthreads();
+  const int nd = min(max(n_deps[cfg[r]], 0), m);
+  int free_chan = 1;
+  ddls::for_each_flow(is_flow + static_cast<size_t>(r) * m,
+                      chan + static_cast<size_t>(r) * m, nd, [&](int c) {
+                        if (s_occ[c] >= 0) free_chan = 0;
+                      });
+  const int all_free = __syncthreads_and(free_chan);
+  if (tid == 0) {
+    ok_out[r] = all_free != 0;
+    jct_out[r] = jct;
   }
 }
 
@@ -138,43 +152,52 @@ __global__ void __launch_bounds__(kSelectThreads) oracle_select_kernel(
 // int32, ok_place / finite_ok / ok_la [R] bools, t_step [R] floats
 // `t_stride` apart (is_f64 names the type); per lane: chan_occ [B, n_chan]
 // int32, queue_row [B] int32, done [B] bools, bank steps [B, J] floats;
-// out ok [B, n_deg] bools, jct [B, n_deg] floats.
+// the row's configuration cfg [R] int32 and the table n_deps [K] int32
+// (its valid prefix); out ok [B, n_deg] bools, jct [B, n_deg] floats.
 DDLS_EXPORT int ddls_price_reduce(const void* is_flow, const void* chan,
                                   const void* ok_place, const void* finite_ok,
                                   const void* t_step, const void* ok_la,
                                   const void* chan_occ, const void* queue_row,
                                   const void* done, const void* bank_steps,
+                                  const void* cfg, const void* n_deps,
                                   void* ok, void* jct, int lanes, int n_deg,
                                   int m, int n_chan, int n_jobs, int t_stride,
                                   int is_f64, void* stream) {
   if (lanes <= 0 || n_deg < 1 || m < 1 || n_chan < 1 || n_jobs < 1 ||
-      t_stride < 1) {
+      t_stride < 1 || cfg == nullptr || n_deps == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = lanes * n_deg;
+  const size_t smem = static_cast<size_t>(n_chan) * sizeof(int);
+  const bool* flow = static_cast<const bool*>(is_flow);
+  const int* ch = static_cast<const int*>(chan);
+  const bool* place = static_cast<const bool*>(ok_place);
+  const bool* fin = static_cast<const bool*>(finite_ok);
+  const bool* la = static_cast<const bool*>(ok_la);
+  const int* occ = static_cast<const int*>(chan_occ);
+  const int* qr = static_cast<const int*>(queue_row);
+  const bool* dn = static_cast<const bool*>(done);
+  const int* c = static_cast<const int*>(cfg);
+  const int* nd = static_cast<const int*>(n_deps);
+  const auto launch = [&](auto kernel, const auto* t, const auto* steps,
+                          auto* jct_out) {
+    const cudaError_t err = ddls::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<rows, kReduceThreads, smem, s>>>(
+        flow, ch, place, fin, t, la, occ, qr, dn, steps, c, nd,
+        static_cast<bool*>(ok), jct_out, n_deg, m, n_chan, n_jobs, t_stride);
+    return static_cast<int>(cudaGetLastError());
+  };
   if (is_f64) {
-    price_reduce_kernel<double><<<rows, kReduceThreads, 0, s>>>(
-        static_cast<const bool*>(is_flow), static_cast<const int*>(chan),
-        static_cast<const bool*>(ok_place),
-        static_cast<const bool*>(finite_ok),
-        static_cast<const double*>(t_step), static_cast<const bool*>(ok_la),
-        static_cast<const int*>(chan_occ), static_cast<const int*>(queue_row),
-        static_cast<const bool*>(done),
-        static_cast<const double*>(bank_steps), static_cast<bool*>(ok),
-        static_cast<double*>(jct), n_deg, m, n_chan, n_jobs, t_stride);
-  } else {
-    price_reduce_kernel<float><<<rows, kReduceThreads, 0, s>>>(
-        static_cast<const bool*>(is_flow), static_cast<const int*>(chan),
-        static_cast<const bool*>(ok_place),
-        static_cast<const bool*>(finite_ok),
-        static_cast<const float*>(t_step), static_cast<const bool*>(ok_la),
-        static_cast<const int*>(chan_occ), static_cast<const int*>(queue_row),
-        static_cast<const bool*>(done),
-        static_cast<const float*>(bank_steps), static_cast<bool*>(ok),
-        static_cast<float*>(jct), n_deg, m, n_chan, n_jobs, t_stride);
+    return launch(price_reduce_kernel<double>,
+                  static_cast<const double*>(t_step),
+                  static_cast<const double*>(bank_steps),
+                  static_cast<double*>(jct));
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch(price_reduce_kernel<float>, static_cast<const float*>(t_step),
+                static_cast<const float*>(bank_steps),
+                static_cast<float*>(jct));
 }
 
 // K30: ok [B, n_deg] bools, jct [B, n_deg] floats (K29's), srv_job

@@ -1429,18 +1429,21 @@ class EpisodeKernels:
         job). ``hold(name, got, kernel, plain)``, where given, is called
         with K23's (``"allocate_job_indexed"``) and K29's outputs and
         callables of the kernel and of its plain version on the call's own
-        inputs."""
+        inputs (``functools.partial`` objects: ``kernel.args`` are the
+        call's arguments)."""
         rows = self.price_rows(state, bank)
         args = rows["reduce"] + (state, bank)
-        ok, jct = price_reduce(*args)
+        prefix = (rows["cfg"], self.dev.t["n_deps"])
+        ok, jct = price_reduce(*args, *prefix)
         if hold is not None:
             alloc = (state["mem"], rows["free"], rows["cfg"], self.dev,
                      rows["state_lane"])
             hold("allocate_job_indexed", rows["alloc"],
-                 lambda: allocate_job(*alloc),
-                 lambda: allocate_job_plain(*alloc))
-            hold("price_reduce", (ok, jct), lambda: price_reduce(*args),
-                 lambda: price_reduce_plain(*args))
+                 functools.partial(allocate_job, *alloc),
+                 functools.partial(allocate_job_plain, *alloc))
+            hold("price_reduce", (ok, jct),
+                 functools.partial(price_reduce, *args, *prefix),
+                 functools.partial(price_reduce_plain, *args))
         return ok, jct
 
     def eval_cfg(self, state: dict, bank: dict, raw: dict) -> dict:
@@ -1680,6 +1683,10 @@ def episode_step_plain(ek: EpisodeKernels, state: dict, bank: dict,
         ek.prepare(state, bank, actions[:, d + 1])
 
 
+# the slots K25 holds in its warp 0's registers at most (episode.cu
+# kSlotsPerLane a lane): a surface of more servers raises on the card (the
+# plain version and the reference take any number)
+EPISODE_MAX_SLOTS = 128
 # the scenario's tables K25's scenario mode reads, in its order
 SCENARIO_FIELDS = ("speeds", "t0", "t1", "rate", "kind", "res")
 # the outputs of EpisodeKernels.evaluate that K25 reads, in its order
@@ -1731,11 +1738,16 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
     (``DeviceTables.scenario``) the launch is K25's scenario mode, counted
     as ``episode_step_scenario``: the failure walk inflates each deciding
     lane's jct after the gate, before the trace and the commit
-    (``scenario_adjusted``)."""
+    (``scenario_adjusted``). The kernel reads each lane's deps ``[0,
+    n_deps[cfg])`` and ops ``[0, n_ops[cfg])`` only: K24 writes every dep
+    past the prefix as no flow, and ``op_valid`` is the prefix."""
     if kernels.on_cpu(state["mem"], raw["ots"]):
         return episode_step_plain(ek, state, bank, actions, raw, trace, d,
                                   seg_trace=seg_trace, fields=fields,
                                   reset=reset)
+    if ek.R > EPISODE_MAX_SLOTS:
+        raise ValueError(f"K25 takes at most {EPISODE_MAX_SLOTS} slots (one "
+                         f"a server), got {ek.R}")
     dev, et = ek.dev, ek.dev.et
     dt = dev.dtype
     lanes = state["t"].shape[0]
@@ -1781,7 +1793,8 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
         *(bank[name].data_ptr() for name, _ in BANK_FIELDS),
         kernels.ptr(actions), *(raw[name].data_ptr() for name in _RAW_FIELDS),
         dev.t["op_valid"].data_ptr(), dev.t["seq_compute"].data_ptr(),
-        dev.deg_col.data_ptr(),
+        dev.deg_col.data_ptr(), dev.t["n_deps"].data_ptr(),
+        dev.t["n_ops"].data_ptr(),
         *(kernels.ptr(seg_trace[name]) if seg_trace is not None else None
           for name, _ in SEGMENT_TRACE_FIELDS),
         *(kernels.ptr(fields[name]) if fields is not None else None
@@ -1850,7 +1863,8 @@ def price_reduce_plain(is_flow: torch.Tensor, chan: torch.Tensor,
 def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
                  ok_place: torch.Tensor, finite_ok: torch.Tensor,
                  t_step: torch.Tensor, ok_la: torch.Tensor, state: dict,
-                 bank: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+                 bank: dict, cfg: torch.Tensor, n_deps: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K29: candidate pricing's verdicts and prices (reference: the end of
     ``price_all`` :1085 over ``eval_cfg`` :1023) from K23's, K24's and
     K21's outputs on B * n_deg rows (row ``r`` prices lane ``r // n_deg``'s
@@ -1858,7 +1872,11 @@ def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
     & ok_la & finite_ok`` (``ok_chan``: no flow's channel is occupied in
     the lane's ``chan_occ``) and ``jct = t_step * steps``, each [B,
     n_deg]; ok False and jct 0 for lanes with no queued job. ``t_step``
-    may be strided (K21's output column)."""
+    may be strided (K21's output column). ``cfg`` [B * n_deg] int32 is
+    each row's configuration and ``n_deps`` [K] int32 the table of valid
+    dep prefixes: the kernel reads a row's deps ``[0, n_deps[cfg])``
+    only, as K24 writes every dep past them as no flow (the plain version
+    reads the whole row and takes neither)."""
     if kernels.on_cpu(is_flow, chan, t_step, state["chan_occ"]):
         return price_reduce_plain(is_flow, chan, ok_place, finite_ok,
                                   t_step, ok_la, state, bank)
@@ -1883,15 +1901,18 @@ def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
     kernels.check_cuda("queue_row", queue_row, torch.int32, (lanes,))
     kernels.check_cuda("done", state["done"], torch.bool, (lanes,))
     kernels.check_cuda("bank steps", bank["steps"], dt)
+    kernels.check_cuda("cfg", cfg, torch.int32, (rows,))
+    kernels.check_cuda("n_deps", n_deps, torch.int32)
     ok = torch.empty((lanes, n_deg), dtype=torch.bool, device=is_flow.device)
     jct = torch.empty((lanes, n_deg), dtype=dt, device=is_flow.device)
     kernels.launch(
         "price_reduce", is_flow.data_ptr(), chan.data_ptr(),
         ok_place.data_ptr(), finite_ok.data_ptr(), t_step.data_ptr(),
         ok_la.data_ptr(), chan_occ.data_ptr(), queue_row.data_ptr(),
-        state["done"].data_ptr(), bank["steps"].data_ptr(), ok.data_ptr(),
-        jct.data_ptr(), lanes, n_deg, m, chan_occ.shape[1],
-        bank["steps"].shape[1], t_step.stride(0), int(dt == torch.float64))
+        state["done"].data_ptr(), bank["steps"].data_ptr(), cfg.data_ptr(),
+        n_deps.data_ptr(), ok.data_ptr(), jct.data_ptr(), lanes, n_deg, m,
+        chan_occ.shape[1], bank["steps"].shape[1], t_step.stride(0),
+        int(dt == torch.float64))
     return ok, jct
 
 

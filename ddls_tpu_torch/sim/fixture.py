@@ -106,6 +106,37 @@ def load_lookahead_lanes(path: str = LANES_PATH
     return groups
 
 
+# the recorded group whose lanes ``nan_lanes`` poisons, and its lanes:
+# every flow dep's time, the first valid op's, every flow dep's as a NaN
+# of the negative sign
+NAN_GROUP = "mounted32"
+NAN_DEPS, NAN_OP, NAN_NEG_DEPS = 2, 3, 6
+
+
+def nan_lanes(group: str = NAN_GROUP) -> Dict[str, object]:
+    """A recorded group of K21 lanes (``load_lookahead_lanes``) with NaN
+    remaining times laid into three of its lanes (``NAN_DEPS``, ``NAN_OP``,
+    ``NAN_NEG_DEPS``), the other lanes as recorded: ``{"args", "lanes"
+    (the poisoned ones), "num_workers", "num_channels"}``. The reference's
+    minima (``jnp.min``, ``jnp.minimum``) propagate a NaN of either sign,
+    as the plain version's (``torch.amin``, ``torch.minimum``) and K21's
+    do."""
+    from ddls_tpu_torch.sim.lookahead import ARG_NAMES
+
+    rec = load_lookahead_lanes()[group]
+    args = [np.array(a) for a in rec["args"]]
+    at = {name: args[i] for i, name in enumerate(ARG_NAMES)}
+    flow, rem = at["dep_is_flow"], at["dep_remaining"]
+    rem[NAN_DEPS][flow[NAN_DEPS]] = np.nan
+    rem[NAN_NEG_DEPS][flow[NAN_NEG_DEPS]] = -np.nan
+    at["op_remaining"][NAN_OP, 0] = np.nan
+    assert rec["n"][NAN_OP] > 0
+    assert flow[NAN_DEPS].any() and flow[NAN_NEG_DEPS].any()
+    return {"args": tuple(args), "lanes": (NAN_DEPS, NAN_OP, NAN_NEG_DEPS),
+            "num_workers": rec["num_workers"],
+            "num_channels": rec["num_channels"]}
+
+
 # ---------------------------------------------------------------- replays
 # The device episode replay's recordings
 # (scripts/export_torch_device_env_fixture.py writes them): on the shipped
@@ -331,6 +362,30 @@ def multi_word_tables(et, ramp_shape=MULTI_WORD_RAMP):
                          f"{et.pads.max_split} servers")
     return dataclasses.replace(et, st=st, n_srv=int(np.prod(ramp_shape)),
                                on_device={})
+
+
+def wide_episode_tables(servers_per_rack: int, device="cpu"):
+    """The episode tables of the shipped surface's env (``ppo_price_mixed``:
+    its jobs, 45 configurations, reset from seed 0) on a ramp of 4 x 4 x
+    ``servers_per_rack`` servers of one worker each: 64 servers at 4, 128
+    at 8. Each server is a slot of the episode, so these hold K25 where a
+    lane of its warp owns several slots (``ceil(n_srv / 32)``)."""
+    import copy
+
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+    from ddls_tpu_torch.sim import device_env
+
+    cfg = copy.deepcopy(load_checkpoint_fixture("ppo_price_mixed")
+                        ["env_config"])
+    ramp = cfg["topology_config"]["kwargs"]
+    ramp["num_servers_per_rack"] = servers_per_rack
+    cfg["node_config"]["type_1"]["num_nodes"] = (
+        ramp["num_communication_groups"]
+        * ramp["num_racks_per_communication_group"] * servers_per_rack)
+    env = RampJobPartitioningEnvironment(**cfg, device=device)
+    env.reset(seed=0)
+    return device_env.build_episode_tables(env)
 
 
 def fuzzed_placements(et, dev, rows: int, seed: int, indexed: bool):

@@ -1484,22 +1484,29 @@ def test_price_kernels_on_their_edge_cases(cuda, dtype):
     want = device_env.oracle_select_plain(okt, jctt, s, b, dobs)
     assert torch.equal(got, want)
     assert got[4] == 0 and got[5] == 0 and got[6] == 0
-    # K29: lanes x n_deg rows over a short dep axis
+    # K29: lanes x n_deg rows over a short dep axis, each row's flows
+    # inside its configuration's valid prefix (K24 writes none past it)
     m, n_chan = 300, et.n_chan
     rows = lanes * n_deg
-    is_flow = torch.from_numpy(rng.rand(rows, m) < 0.1).to(cuda)
-    chan = torch.from_numpy(np.where(is_flow.cpu().numpy(), rng.randint(
-        0, n_chan, (rows, m)), -1).astype(np.int32)).to(cuda)
+    flow = rng.rand(rows, m) < 0.1
+    chan_np = rng.randint(0, n_chan, (rows, m))
     s["chan_occ"] = torch.from_numpy(np.where(
         rng.rand(lanes, n_chan) < 0.002, 0, -1).astype(np.int32)).to(cuda)
     flags = [torch.from_numpy(rng.rand(rows) < 0.8).to(cuda)
              for _ in range(3)]
     t4 = torch.from_numpy(rng.uniform(0, 50, (rows, 4))).to(cuda, dtype)
+    cfg29 = rng.randint(0, dev.n_cfg, rows)
+    flow &= np.arange(m)[None] < et.tables["n_deps"][cfg29][:, None]
+    is_flow = torch.from_numpy(flow).to(cuda)
+    chan = torch.from_numpy(np.where(flow, chan_np, -1).astype(
+        np.int32)).to(cuda)
+    prefix = (torch.from_numpy(cfg29.astype(np.int32)).to(cuda),
+              dev.t["n_deps"])
     args = (is_flow, chan, flags[0], flags[1], t4[:, 0], flags[2], s, b)
-    for g, w in zip(device_env.price_reduce(*args),
+    for g, w in zip(device_env.price_reduce(*args, *prefix),
                     device_env.price_reduce_plain(*args)):
         assert torch.equal(g, w)
-    ok29, _ = device_env.price_reduce(*args)
+    ok29, _ = device_env.price_reduce(*args, *prefix)
     assert not ok29[4].any() and not ok29[5].any() and ok29.any()
     # K23 with and without the state-lane index
     mem = torch.full((lanes, et.n_srv), et.worker_mem, dtype=dtype,
@@ -1841,6 +1848,7 @@ def _hold_k24_and_k21(dev, cfg, ots, skip, what):
     _equal_all_sizes(indexed, plain, f"K21 indexed {what}")
     _equal_all_sizes(per_lane, plain, f"K21 {what}")
     assert not bool(plain[5][skip].any())
+    return plain
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1875,9 +1883,11 @@ def test_cluster_k24_non_finite_lanes_equal_plain(cuda, dtype):
     """K24 on lanes whose priced times are NaN, +inf or -inf (dep sizes
     and collective messages poisoned in a copy of the tables) at every
     cluster size: a NaN time's rank counts the invalid tail (the
-    reference sorts all M slots); finite_ok false. K21 is held on the
-    +-inf lanes (its plain version's minima propagate NaN where the
-    kernel's order-preserving minima skip it, as one CTA a lane did)."""
+    reference sorts all M slots); finite_ok false. Both K21 entries on
+    the same lanes at every cluster size, ticks too: their minima over
+    remaining times propagate a NaN as the plain version's (and the
+    reference's) do, so a lane whose tick takes a NaN time ends with t
+    NaN, not ok, at the tick cap."""
     et = _shipped_tables()
     dev = device_env.DeviceTables(et, cuda, dtype)
     rng = np.random.RandomState(11)
@@ -1903,12 +1913,10 @@ def test_cluster_k24_non_finite_lanes_equal_plain(cuda, dtype):
         bad = torch.isnan(want[0]) if poison == "nan" else \
             torch.isinf(want[0])
         assert bool(bad.any())
+        plain = _hold_k24_and_k21(dev, cfg_t, ots, skip,
+                                  f"{poison} lanes {dtype}")
         if poison == "nan":
-            _equal_all_sizes(
-                lambda g: device_env.price_and_score(ots, cfg_t, dev, g),
-                want, f"K24 NaN lanes {dtype}")
-        else:
-            _hold_k24_and_k21(dev, cfg_t, ots, skip, f"inf lanes {dtype}")
+            assert bool(torch.isnan(plain[0]).any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1930,6 +1938,32 @@ def test_cluster_lookahead_equals_plain_on_recorded_lanes(cuda, dtype):
 
         _equal_all_sizes(run, lookahead_mod.lookahead_plain(*args, **kw),
                          name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_lookahead_equals_plain_on_nan_lanes(cuda, dtype):
+    """The per-lane K21 on recorded lanes with NaN remaining times of
+    either sign (``nan_lanes``; the CPU tests hold the JAX engine and the
+    plain version to the same answers on them) at every cluster size, bit
+    for bit against its plain version, NaN for NaN, ticks too."""
+    from ddls_tpu_torch.sim.fixture import nan_lanes
+
+    group = nan_lanes()
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in group["args"]]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    kw = dict(num_workers=group["num_workers"],
+              num_channels=group["num_channels"])
+
+    def run(g):
+        ticks = torch.empty(args[0].shape[0], dtype=torch.int32,
+                            device=cuda)
+        return lookahead_mod.lookahead(*args, ticks=ticks, cluster=g,
+                                       **kw) + (ticks,)
+
+    plain = lookahead_mod.lookahead_plain(*args, **kw)
+    assert bool(torch.isnan(plain[0][list(group["lanes"])]).all())
+    _equal_all_sizes(run, plain, f"NaN lanes {dtype}")
 
 
 def test_cluster_wrappers_reject_what_they_cannot_take(cuda):
@@ -1988,3 +2022,267 @@ def test_allocate_job_equals_plain_on_fuzzed_states(cuda, rows, dtype,
             assert g.dtype == w.dtype and torch.equal(g, w)
         placed += int(got[2].sum())
     assert placed > 0
+
+
+# ------------------------------------ K25 and K29 on fuzzed states
+EPISODE_MODES = ("nominal", "reset", "walk")
+# the fuzzed episodes: jobs a bank (each lane ends within the decisions,
+# and with the reset starts again), decisions
+FUZZ_JOBS, FUZZ_DECISIONS = 12, 24
+
+
+def _short_banks(et, lanes, dtype, cuda):
+    """The recorded shipped banks cut to ``FUZZ_JOBS`` jobs (no arrival
+    after the last), lane i on bank i % 8."""
+    banks = load_device_env_fixture()["banks"]
+    rows = [i % 8 for i in range(lanes)]
+    out = {k: np.ascontiguousarray(banks[k][rows, :FUZZ_JOBS])
+           for k in ("type", "steps", "sla_frac")}
+    out["arrival_t"] = np.concatenate(
+        [banks["arrival_t"][rows, :FUZZ_JOBS],
+         np.full((lanes, 1), np.inf)], 1)
+    return {name: torch.from_numpy(np.ascontiguousarray(out[name])).to(
+        cuda, want or dtype) for name, want in device_env.BANK_FIELDS}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lanes", [1, 8, 72])
+@pytest.mark.parametrize("mode", EPISODE_MODES)
+def test_episode_step_equals_plain_on_fuzzed_states(cuda, mode, lanes,
+                                                    dtype):
+    """K25 in each mode (the replay's, with the reset, counters and
+    fields, with the failure walk under a fuzzed scenario) bit-equal to
+    its plain version on every call of fuzzed episodes at full width:
+    random actions (0 too) per lane, banks of a few jobs so that lanes
+    end (and, with the reset, start again) and decide with no job, and
+    lanes forced onto the smallest configuration (21 deps) and the
+    largest (13,072); one launch of the mode's entry a call."""
+    _hold_fuzzed_episode(_shipped_tables(), cuda, mode, lanes, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", EPISODE_MODES)
+@pytest.mark.parametrize("servers_per_rack", [4, 8])
+def test_episode_step_equals_plain_with_several_slots_a_lane(
+        cuda, servers_per_rack, mode, dtype):
+    """The fuzzed episodes of ``test_episode_step_equals_plain_on_fuzzed_
+    states`` at 8 lanes on 64 and 128 servers (``wide_episode_tables``),
+    where each lane of K25's warp 0 owns K = 2 and 4 slots: bit-equal to
+    the plain version, with two running slots in one warp lane's block
+    (the in-lane minimum and first free slot) and a running slot past
+    lane 0's block; at 128 servers the staged channel occupancy takes
+    more than the default 48 KB of shared memory. K25's inputs come from
+    the plain placement, pricing and lookahead (``_plain_evaluate``): K21
+    plans no float64 launch on 128 servers."""
+    from ddls_tpu_torch.sim.fixture import wide_episode_tables
+
+    et = wide_episode_tables(servers_per_rack)
+    seen = _hold_fuzzed_episode(et, cuda, mode, 8, dtype,
+                                evaluate=_plain_evaluate)
+    K = et.n_srv // 32
+    assert seen["shared"] > 0 and seen["top"] >= K, seen
+
+
+def test_episode_step_refuses_more_slots_than_warp_0_holds(cuda):
+    """On 160 servers (ramp 4 x 4 x 10) K25's wrapper raises before it
+    launches: warp 0 holds at most ``EPISODE_MAX_SLOTS`` = 128 slots (the
+    plain version takes any number)."""
+    from ddls_tpu_torch.sim.fixture import wide_episode_tables
+
+    et = wide_episode_tables(10)
+    assert et.n_srv == 160 > device_env.EPISODE_MAX_SLOTS
+    ek = device_env.episode_kernels(et, device=cuda, dtype=torch.float32)
+    bank = _short_banks(et, 1, torch.float32, cuda)
+    acts = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    state = ek.init_state(bank, acts)
+    raw = {"ots": torch.zeros((1, 1), dtype=torch.int32, device=cuda)}
+    trace = {n: torch.zeros((1, 2), dtype=want or torch.float32,
+                            device=cuda)
+             for n, want in device_env.TRACE_FIELDS}
+    before = kernels.launch_counts()["episode_step"]
+    with pytest.raises(ValueError, match="at most 128 slots"):
+        device_env.episode_step(ek, state, bank, acts, raw, trace, 0)
+    assert kernels.launch_counts()["episode_step"] == before
+
+
+def _plain_evaluate(ek, state):
+    """``EpisodeKernels.evaluate`` (no memo) through the plain versions of
+    K23, K24 and K21, on the state's device."""
+    from ddls_tpu_torch.sim import lookahead as lookahead_mod
+
+    dev, cfg = ek.dev, state["cfg"]
+    ots, new_mem, ok_place = device_env.allocate_job_plain(
+        state["mem"], state["srv_job"] < 0, cfg, dev)
+    times, is_flow, chan, op_score, dep_score, finite_ok = \
+        device_env.price_and_score_plain(ots, cfg, dev)
+    t_step, _, _, _, ok_la, ticks = lookahead_mod.lookahead_plain(
+        *lookahead_mod.gather_indexed(cfg, ots, op_score, times, is_flow,
+                                      dep_score, chan, dev.t),
+        num_workers=dev.et.n_srv, num_channels=dev.et.n_chan,
+        skip=~state["active"])
+    return {"ots": ots, "new_mem": new_mem, "ok_place": ok_place,
+            "times": times, "is_flow": is_flow, "chan": chan,
+            "op_score": op_score, "dep_score": dep_score,
+            "finite_ok": finite_ok, "t_step": t_step, "ok_la": ok_la,
+            "ticks": ticks}
+
+
+def _hold_fuzzed_episode(et, cuda, mode, lanes, dtype, evaluate=None):
+    """The body of ``test_episode_step_equals_plain_on_fuzzed_states`` on
+    the surface ``et``, K25's inputs from ``evaluate(ek, state)`` (default
+    ``ek.evaluate``, the kernels). Returns what the episodes reached: the
+    counts of forced small and large deciding lanes, lanes without a job,
+    ended lanes, lane-decisions with two running slots in one block of
+    warp 0's lanes (``shared``) and the highest running slot (``top``)."""
+    from ddls_tpu_torch.sim.fixture import fuzzed_scenario, max_difference
+
+    if mode == "walk":
+        et = dataclasses.replace(et, on_device={},
+                                 scenario=fuzzed_scenario(et, 3000.0))
+    ek = device_env.episode_kernels(et, device=cuda, dtype=dtype)
+    dev = ek.dev
+    n_deps = et.tables["n_deps"]
+    small, large = int(np.argmin(n_deps)), int(np.argmax(n_deps))
+    rng = np.random.RandomState(lanes)
+    bank = _short_banks(et, lanes, dtype, cuda)
+    acts = torch.from_numpy(rng.choice([0, 1, 2, 4, 8, 16], (
+        lanes, FUZZ_DECISIONS)).astype(np.int32)).to(cuda)
+    reset = mode == "reset"
+    name = "episode_step_scenario" if mode == "walk" else "episode_step"
+    D = FUZZ_DECISIONS
+    kw = dict(device=cuda)
+    trace = {n: torch.zeros((lanes, D), dtype=want or dtype, **kw)
+             for n, want in device_env.TRACE_FIELDS}
+    seg = ({n: torch.zeros((lanes, D), dtype=want or dtype, **kw)
+            for n, want in device_env.SEGMENT_TRACE_FIELDS}
+           if reset else None)
+    fields = ({n: torch.zeros((lanes, D + 1), dtype=want or dtype, **kw)
+               for n, want in device_env.OBS_FIELDS} if reset else None)
+    state = ek.init_state(bank, None if reset else acts)
+    seen = dict(small=0, large=0, no_job=0, ended=0, shared=0, top=-1)
+    K = -(-ek.R // 32)
+    for d in range(D):
+        if reset:
+            ek.prepare(state, bank, acts[:, d])
+        forced = (small, large) if lanes > 1 else ((small,) if d % 2 == 0
+                                                   else (large,))
+        for lane, c in enumerate(forced):
+            state["cfg"][lane] = c
+        has_job = (state["queue_row"] >= 0) & ~state["done"]
+        seen["small"] += int(has_job[0]) if forced[0] == small else 0
+        seen["large"] += int(has_job[len(forced) - 1]) \
+            if forced[-1] == large else 0
+        seen["no_job"] += int((~has_job).sum())
+        running = state["slot_valid"].cpu().numpy()
+        for lane_slots in running:
+            idx = np.flatnonzero(lane_slots)
+            if len(idx):
+                seen["shared"] += int(np.bincount(idx // K).max() >= 2)
+                seen["top"] = max(seen["top"], int(idx.max()))
+        raw = ek.evaluate(state) if evaluate is None else evaluate(ek, state)
+
+        def clone(x):
+            return None if x is None else {k: v.clone() for k, v in
+                                           x.items()}
+
+        s2, t2, g2, f2 = clone(state), clone(trace), clone(seg), \
+            clone(fields)
+        before = kernels.launch_counts()[name]
+        device_env.episode_step(ek, state, bank, None if reset else acts,
+                                raw, trace, d, seg_trace=seg,
+                                fields=fields, reset=reset)
+        assert kernels.launch_counts()[name] == before + 1
+        device_env.episode_step_plain(ek, s2, bank, None if reset else acts,
+                                      raw, t2, d, seg_trace=g2, fields=f2,
+                                      reset=reset)
+        torch.cuda.synchronize()
+        pairs = [(state[k], s2[k]) for k in state] + \
+            [(trace[k], t2[k]) for k in trace]
+        if reset:
+            pairs += [(seg[k], g2[k]) for k in seg] + \
+                [(fields[k], f2[k]) for k in fields]
+            seen["ended"] += int(seg["done"][:, d].sum())
+        for i, (g, w) in enumerate(pairs):
+            assert max_difference(g, w) == 0, (mode, d, i)
+    assert seen["small"] and seen["large"], seen
+    # with the reset an ended lane decides its next episode's first job
+    assert seen["ended"] > 0 if reset else seen["no_job"] > 0, seen
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [1, 8, 72])
+def test_price_reduce_equals_plain_on_fuzzed_rows(cuda, rows, dtype):
+    """K29 bit-equal to its plain version at 1, 8 and 72 rows on K24's
+    outputs for random placements of random configurations (the smallest
+    and the largest among them), each row's prefix only read: lanes
+    without a job or whose episode ended, rows with ok_place, ok_la or
+    finite_ok false, occupied channels that fail a row, a strided time;
+    one launch a call."""
+    _hold_price_reduce(_shipped_tables(), cuda, rows, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_price_reduce_equals_plain_on_128_servers(cuda, dtype):
+    """``test_price_reduce_equals_plain_on_fuzzed_rows`` at 72 rows on 128
+    servers (``wide_episode_tables(8)``: 16,256 channels, whose staged
+    occupancy takes more than the default 48 KB of shared memory)."""
+    from ddls_tpu_torch.sim.fixture import wide_episode_tables
+
+    et = wide_episode_tables(8)
+    assert et.n_chan * 4 > 48 * 1024
+    _hold_price_reduce(et, cuda, 72, dtype)
+
+
+def _hold_price_reduce(et, cuda, rows, dtype):
+    """The body of ``test_price_reduce_equals_plain_on_fuzzed_rows`` on the
+    surface ``et``."""
+    dev = device_env.device_tables(et, cuda, dtype)
+    lanes = 8 if rows == 72 else 1
+    rng = np.random.RandomState(rows)
+    n_deps = et.tables["n_deps"]
+    cfg = rng.randint(0, dev.n_cfg, rows)
+    cfg[0] = int(np.argmax(n_deps))
+    cfg[-1] = int(np.argmin(n_deps))
+    cfg_t, ots, _ = _fuzzed_calls(et, dev, cfg, rows)
+    _, is_flow, chan, _, _, finite_ok = device_env.price_and_score(
+        ots, cfg_t, dev)
+    n_deg = rows // lanes
+    occ = np.full((lanes, et.n_chan), -1, np.int32)
+    occ[rng.rand(lanes, et.n_chan) < 0.01] = 3
+    flow_np, chan_np = is_flow.cpu().numpy(), chan.cpu().numpy()
+    for lane in range(0, lanes, 2):
+        # occupy one flow's channel of the lane's first row
+        r = lane * n_deg
+        if flow_np[r].any():
+            occ[lane, chan_np[r][flow_np[r]][0]] = 1
+    J = 4
+    state = {"chan_occ": torch.from_numpy(occ).to(cuda),
+             "queue_row": torch.from_numpy(rng.randint(0, J, lanes).astype(
+                 np.int32)).to(cuda),
+             "done": torch.zeros(lanes, dtype=torch.bool, device=cuda)}
+    if lanes > 1:
+        state["queue_row"][5] = -1
+        state["done"][6] = True
+    bank = {"steps": torch.from_numpy(rng.choice([10.0, 20.0, 37.0], (
+        lanes, J))).to(cuda, dtype)}
+    ok_place = torch.from_numpy(rng.rand(rows) < 0.8).to(cuda)
+    ok_la = torch.from_numpy(rng.rand(rows) < 0.9).to(cuda)
+    t4 = torch.from_numpy(rng.uniform(0, 50, (rows, 4))).to(cuda, dtype)
+    args = (is_flow, chan, ok_place, finite_ok, t4[:, 1], ok_la, state,
+            bank)
+    before = kernels.launch_counts()["price_reduce"]
+    got = device_env.price_reduce(*args, cfg_t, dev.t["n_deps"])
+    assert kernels.launch_counts()["price_reduce"] == before + 1
+    want = device_env.price_reduce_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if rows == 72:
+        ok = got[0].reshape(-1)
+        may = ok_place & ok_la & finite_ok
+        has_job = ((state["queue_row"] >= 0) & ~state["done"]
+                   ).repeat_interleave(n_deg)
+        assert bool(ok.any())
+        assert bool((may & has_job & ~ok).any())   # a channel failed it
+        assert bool((~may & has_job).any()) and bool((~has_job).any())
