@@ -16,6 +16,10 @@ exits non-zero (nothing is caught):
    masked action row; holds each kernel against its plain PyTorch version
    (abs and rel 1e-5; K2 and K4 also bitwise across two runs) and times
    the kernel, the plain version and a one-call PyTorch yardstick.
+   Then the same forward kernels where the PPO update runs them: every
+   call of the training fixture's first minibatch forward (K1's nine at
+   4,864 node and 16,384 edge rows), held and timed alike (the kernels
+   line's "ln_linear_act (update)" row and the other rows' ``update``).
    Then K5–K8, the PPO update's kernels: every backward-kernel call of one
    minibatch step of the training fixture (128 real graphs at the (38,
    128) bucket), of one forward + backward of the edge-case batch at (150,
@@ -590,53 +594,86 @@ def edge_case_batch(requests, n_pad, e_pad, device="cuda"):
     return policy_mod.batch_to_device(host, torch.device(device))
 
 
+def _forward_result():
+    return {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
+            "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "library_device_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+            "calls_per_forward": 0, "shapes": []}
+
+
+def hold_forward_calls(name, recorded, res, timed):
+    """Each recorded call of forward kernel ``name`` against its plain
+    version (K2 and K4 also bitwise across two runs), its errors into
+    ``res``; with ``timed``, each call's times and bound added into
+    ``res`` too."""
+    require(len(recorded) > 0, f"forward made no {name} call")
+    parts = KERNEL_SITES[name][2]
+    bound_total = {"bytes": 0.0, "operations": 0.0}
+    for fn, args, kwargs in recorded:
+        plain, library, (bound, bound_by), shape = parts(args, kwargs)
+        out = fn(*args, **kwargs)
+        ref = plain()
+        torch.cuda.synchronize()
+        err, rel = max_err(out, ref)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["max_rel_err"] = max(res["max_rel_err"], rel)
+        if name in ("csr_segment_mean", "mask_logits_argmax"):
+            again = fn(*args, **kwargs)
+            outs = out if isinstance(out, tuple) else (out,)
+            agains = again if isinstance(again, tuple) else (again,)
+            require(all(torch.equal(x, y) for x, y in zip(outs, agains)),
+                    f"{name} is not bitwise repeatable")
+        if not timed:
+            continue
+        res["calls_per_forward"] += 1
+        res["shapes"].append(shape)
+        res["ms"] += device_ms(lambda: fn(*args, **kwargs))
+        res["eager_ms"] += eager_ms(lambda: fn(*args, **kwargs))
+        res["plain_ms"] += eager_ms(plain, iters=20)
+        res["library_ms"] += eager_ms(library)
+        res["library_device_ms"] += device_ms(library)
+        res["bound_ms"] += bound
+        bound_total[bound_by] += bound
+    if timed:
+        res["bound_by"] = max(bound_total, key=bound_total.get)
+
+
 def check_kernels(model_gpu, requests):
     """Phase 3: per kernel, max error over both buckets and its times at
     the largest bucket (summed over the calls of one forward)."""
-    results = {name: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0,
-                      "eager_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                      "library_device_ms": 0.0, "bound_ms": 0.0,
-                      "bound_by": None, "calls_per_forward": 0,
-                      "shapes": []}
-               for name in KERNEL_SITES}
+    results = {name: _forward_result() for name in KERNEL_SITES}
     buckets = default_buckets(PAD_NODES, PAD_EDGES)
     for timed, (n_pad, e_pad) in ((True, buckets[-1]), (False, buckets[0])):
         batch = edge_case_batch(requests, n_pad, e_pad)
         calls = record_calls(model_gpu, batch)
         for name, recorded in calls.items():
-            require(len(recorded) > 0, f"forward made no {name} call")
-            res = results[name]
-            parts = KERNEL_SITES[name][2]
-            bound_total = {"bytes": 0.0, "operations": 0.0}
-            for fn, args, kwargs in recorded:
-                plain, library, (bound, bound_by), shape = parts(args,
-                                                                 kwargs)
-                out = fn(*args, **kwargs)
-                ref = plain()
-                torch.cuda.synchronize()
-                err, rel = max_err(out, ref)
-                res["max_abs_err"] = max(res["max_abs_err"], err)
-                res["max_rel_err"] = max(res["max_rel_err"], rel)
-                if name in ("csr_segment_mean", "mask_logits_argmax"):
-                    again = fn(*args, **kwargs)
-                    outs = out if isinstance(out, tuple) else (out,)
-                    agains = again if isinstance(again, tuple) else (again,)
-                    require(all(torch.equal(x, y)
-                                for x, y in zip(outs, agains)),
-                            f"{name} is not bitwise repeatable")
-                if not timed:
-                    continue
-                res["calls_per_forward"] += 1
-                res["shapes"].append(shape)
-                res["ms"] += device_ms(lambda: fn(*args, **kwargs))
-                res["eager_ms"] += eager_ms(lambda: fn(*args, **kwargs))
-                res["plain_ms"] += eager_ms(plain, iters=20)
-                res["library_ms"] += eager_ms(library)
-                res["library_device_ms"] += device_ms(library)
-                res["bound_ms"] += bound
-                bound_total[bound_by] += bound
-            if timed:
-                res["bound_by"] = max(bound_total, key=bound_total.get)
+            hold_forward_calls(name, recorded, results[name], timed)
+    return results
+
+
+def check_update_forward_kernels(params, fx):
+    """Phase 3, the forward kernels where the PPO update runs them: every
+    call of the training fixture's first minibatch forward (128 graphs at
+    the (38, 128) bucket: 4,864 node rows and 16,384 edge rows, the shipped
+    policy's widths; K1's nine calls) against its plain version, timed as
+    the serving calls are and summed over the forward's calls."""
+    model, _, _ = load_export(EXPORT_PATH)
+    cfg = fx["cfg"]
+    learner = ppo_mod.PPOLearner(model, cfg, device="cuda")
+    learner.init_state({k: v.cuda() for k, v in params.items()})
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+    batch = learner.minibatch(staged, idx)
+    calls = record_sites(KERNEL_SITES,
+                         lambda: learner.model.flat_batched(batch))
+    results = {}
+    for name, recorded in calls.items():
+        if recorded:
+            results[name] = _forward_result()
+            hold_forward_calls(name, recorded, results[name], True)
+    require("ln_linear_act" in results, "the update's forward made no K1 "
+                                        "call")
     return results
 
 
@@ -6030,6 +6067,10 @@ def main() -> int:
             for name, r in results.items()})
 
     fx = load_train_fixture()
+    update_forward = check_update_forward_kernels(params, fx)
+    emit("update_forward_kernels_checked", card=card,
+         **{name: {k: v for k, v in r.items() if k != "shapes"}
+            for name, r in update_forward.items()})
     train_results = check_train_kernels(params, requests, fx)
     emit("train_kernels_checked", card=card,
          **{name: {k: v for k, v in r.items() if k != "shapes"}
@@ -6166,6 +6207,29 @@ def main() -> int:
             "shapes": r["shapes"], "card": card})
         if engine:
             rows[-1]["cluster"] = clusters[name]
+        if forward and name in update_forward:
+            # the same kernel where the PPO update's forward runs it
+            u = update_forward[name]
+            rows[-1]["update"] = {
+                "launches": train_launches[name],
+                "calls": u["calls_per_forward"],
+                "calls_per": "minibatch step",
+                **{k: u[k] for k in ("max_abs_err", "ms", "eager_ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "library_device_ms",
+                                     "shapes")}}
+            if name == "ln_linear_act":
+                rows.append({
+                    **rows[-1], "name": "ln_linear_act (update)",
+                    "launches": train_launches[name],
+                    "main_path": "train_step",
+                    **{k: u[k] for k in (
+                        "max_abs_err", "max_rel_err", "ms", "eager_ms",
+                        "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "library_device_ms", "shapes")},
+                    "kernel_ms": u["ms"], "calls": u["calls_per_forward"],
+                    "calls_per": "minibatch step"})
+                del rows[-1]["update"]
     for name, r in episode_results.items():
         spec = kernels.KERNELS[name]
         block = name == "first_fit_block"

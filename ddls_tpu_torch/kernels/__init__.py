@@ -54,7 +54,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEADERS = ("common.cuh", "ln_row.cuh", "cluster.cuh")
+HEADERS = ("common.cuh", "ln_row.cuh", "ln_tile.cuh", "cluster.cuh")
 # per-source flags after NVCC_FLAGS: the device env's sources keep every
 # float sum and product apart unless the source fuses it itself, as the
 # reference's arithmetic does
@@ -95,7 +95,8 @@ class KernelSpec:
 _EPISODE_STEP_SIG = "p" * 56 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" + "p"
 
 KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
-    KernelSpec("ln_linear_act", "ddls_ln_linear_act", "ppppppppiiiiiip",
+    KernelSpec("ln_linear_act", "ddls_ln_linear_act",
+               "p" * 8 + "i" * 8 + "p",
                "ddls_tpu/models/gnn.py:45"),
     KernelSpec("csr_segment_mean", "ddls_csr_segment_mean", "ppppppiip",
                "ddls_tpu/ops/segment.py:37"),
@@ -120,7 +121,8 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/ops/segment.py:61", file="segment_bwd"),
     KernelSpec("gae_normalize", "ddls_gae_normalize", "ppppppiiffip",
                "ddls_tpu/rl/ppo.py:101"),
-    KernelSpec("ppo_loss", "ddls_ppo_loss", "pppppppppppppiiffffffp",
+    KernelSpec("ppo_loss", "ddls_ppo_loss",
+               "p" * 12 + "i" * 5 + "f" * 6 + "p",
                "ddls_tpu/rl/ppo.py:124"),
     # the IMPALA and PG updates' scans (K10, K11) and loss (K12)
     KernelSpec("vtrace", "ddls_vtrace", "ppppppppiifffp",

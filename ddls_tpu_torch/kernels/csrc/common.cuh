@@ -43,6 +43,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// warp_sum of T independent values a lane (T a power of two, at most 32)
+// with fewer shuffles: at each offset of the butterfly, while a lane holds
+// more than one tree, the lanes with that offset's bit clear keep the lower
+// half of the trees and those with it set the upper half, each sending its
+// partner the half the partner keeps, so one shuffle serves two trees.
+// Every addition pairs the very operands warp_sum pairs, so each tree's sum
+// has warp_sum's bits. Returns the sum of this lane's tree: tree t's lanes
+// are those whose bits 4, 3, ... (one a halving, log2 T of them) spell t
+// from its top bit down (the lower bits of the lane are free).
+template <int T>
+__device__ __forceinline__ float packed_warp_sums(float (&v)[T]) {
+  static_assert(T >= 1 && T <= kWarpSize && (T & (T - 1)) == 0,
+                "T must be a power of two, at most the warp");
+  const int lane = threadIdx.x % kWarpSize;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {  // offsets 16, 8, 4, 2, 1
+    const int offset = (kWarpSize / 2) >> j;
+    const bool upper = (lane & offset) != 0;
+#pragma unroll
+    for (int t = 0; t < T / 2; ++t) {
+      if (t < (T >> j) / 2) {  // trees still two a lane: one shuffle each
+        const int u = t + (T >> j) / 2;
+        const float got =
+            __shfl_xor_sync(kFullMask, upper ? v[t] : v[u], offset);
+        v[t] = (upper ? v[u] : v[t]) + got;
+      }
+    }
+    if ((T >> j) <= 1) v[0] += __shfl_xor_sync(kFullMask, v[0], offset);
+  }
+  return v[0];
+}
+
 // cp.async (sm_80 and later): a copy from global to shared memory that
 // runs while the thread goes on, 4 bytes (through L1) or 16 (around it).
 // Copies issued since the last commit form a group; wait_group<N> waits

@@ -58,7 +58,8 @@
 //     buffers while the current one computes;
 //   * the row statistics and the LayerNorm backward stay one warp a row,
 //     in K1's lane layout (two rows a warp at once, so their shuffles
-//     overlap), so dx and db keep their arithmetic;
+//     overlap; the statistics' four sums in one packed butterfly), so dx
+//     and db keep their arithmetic;
 //   * z = y W^T and dy = dz W are register-tiled (z_tile, dy_tile): each
 //     thread holds RM rows x 4 outputs (or features), RM a template
 //     argument so the loads pipeline, and runs the inner index serially in
@@ -78,6 +79,9 @@
 //     back to 0 by the CTA that read it last, so the launch replays inside
 //     a CUDA graph.
 //
+// The tiling, the copies, the statistics and z_tile are K1's own code
+// (ln_tile.cuh), so this kernel's pre-activations are K1's by construction.
+//
 // Nothing is a float atomic and every sum runs in a fixed order, so the
 // same inputs give the same bits on every run. Shared memory: W in both
 // layouts, the LayerNorm parameters, two input buffers and the tile's y
@@ -86,14 +90,15 @@
 // call), 141 KB at 64 -> 64; 128 registers, so two CTAs an SM.
 #include "common.cuh"
 #include "ln_row.cuh"
+#include "ln_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * ddls::kWarpSize;
-constexpr int kMaxTile = 64;   // rows a tile, at most (16, 32 or 64)
-constexpr int kMicro = 4;      // a micro-tile's rows (at most) and columns
-constexpr int kMaxGroups = 8;  // row groups of the parameter gradients
+using ddls::kMaxTile;
+using ddls::kMicro;
+using ddls::Tiling;
+constexpr int kWarps = ddls::kTileWarps;
+constexpr int kThreads = ddls::kTileThreads;
 constexpr int kRowBatch = 2;   // rows a warp carries at once (A and D)
 static_assert(16 / kWarps % kRowBatch == 0,
               "a warp's rows of the smallest tile come in whole batches");
@@ -104,114 +109,8 @@ __device__ __forceinline__ float clamp_grad(float raw) {
   return raw > 0.0f ? 1.0f : (raw == 0.0f ? 0.5f : 0.0f);
 }
 
-// A row stride of `width` floats: a multiple of 4 (float4 reads) whose
-// quarter is odd, so eight consecutive rows start in distinct 4-bank sets.
-__host__ __device__ inline int padded(int width) {
-  const int w4 = (width + 3) / 4 * 4;
-  return (w4 / 4) % 2 == 1 ? w4 : w4 + 4;
-}
-
-__host__ __device__ inline int pow2_at_least(int x) {
-  int p = 1;
-  while (p < x) p *= 2;
-  return p;
-}
-
-// The tiling of one call's widths, and its shared memory in floats.
-struct Tiling {
-  int tile;                    // rows a tile
-  int k_in, fo, ks, os;        // widths and padded row strides
-  int nkb, nob;                // 4-wide column blocks of k and o
-  int rm_z, rm_y;              // rows of a z / dy micro-tile
-  int n_mt, groups;            // parameter micro-tiles, row groups
-  int n_params;
-  // float offsets
-  int wt, w, bias, lnw, lnb, xbuf, dbuf, y, dy, stats, total;
-};
-
-__host__ __device__ inline Tiling tiling(int k_in, int fo, int tile) {
-  Tiling t{};
-  t.tile = tile;
-  t.k_in = k_in;
-  t.fo = fo;
-  t.ks = padded(k_in);
-  t.os = padded(fo);
-  t.nkb = (k_in + 3) / 4;
-  t.nob = (fo + 3) / 4;
-  t.rm_z = pow2_at_least((tile * t.nob + kThreads - 1) / kThreads);
-  t.rm_y = pow2_at_least((tile * t.nkb + kThreads - 1) / kThreads);
-  t.n_mt = t.nob * t.nkb;
-  t.groups = 1;
-  while (t.groups < kMaxGroups && 2 * t.groups * t.n_mt <= kThreads) {
-    t.groups *= 2;
-  }
-  t.n_params = fo * k_in + fo + 2 * k_in;
-  int o = 0;
-  t.wt = o;  // [k][os]: z's float4 of outputs
-  o += k_in * t.os;
-  t.w = o;  // [fo][ks]: dy's float4 of features
-  o += fo * t.ks;
-  t.bias = o;
-  o += t.os;
-  t.lnw = o;
-  o += t.ks;
-  t.lnb = o;
-  o += t.ks;
-  t.stats = o;  // [tile][4]: mean, raw, var, inv_std
-  o += 4 * tile;
-  t.xbuf = o;  // [2][tile][ks]: x, then d ln_w's term in place
-  o += 2 * tile * t.ks;
-  t.dbuf = o;  // [2][tile][os]: dout, then dz in place
-  o += 2 * tile * t.os;
-  t.y = o;  // [tile][ks]
-  o += tile * t.ks;
-  t.dy = o;  // [tile][ks]
-  o += tile * t.ks;
-  // the row groups' sums reuse the tile buffers at the end
-  const int scratch = t.xbuf + t.groups * t.n_params;
-  t.total = o > scratch ? o : scratch;
-  return t;
-}
-
-// `width` floats of each of the tile's rows into shared rows `stride`
-// apart, by the whole CTA: 16-byte cp.async where the width and the source
-// allow (a copy a 4-float chunk), else 4-byte (a copy a float); a copy
-// reads its own row's index when the rows are gathered (idx), so no warp
-// walks the rows in turn. Zeros past the row count.
-__device__ __forceinline__ void copy_rows(float* dst, int stride,
-                                          const float* __restrict__ src,
-                                          const int* __restrict__ idx,
-                                          int width, int row0, int tile_rows,
-                                          int rows, int tid) {
-  const bool vec =
-      width % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) %
-              16 ==
-          0;
-  const int cw = vec ? 4 : 1;
-  const int per_row = width / cw;
-  for (int e = tid; e < tile_rows * per_row; e += kThreads) {
-    const int r = e / per_row;
-    const int c = (e - r * per_row) * cw;
-    const int row = row0 + r;
-    float* d = dst + r * stride + c;
-    if (row >= rows) {
-      for (int q = 0; q < cw; ++q) d[q] = 0.0f;
-      continue;
-    }
-    const float* s =
-        src + static_cast<size_t>(idx != nullptr ? idx[row] : row) * width +
-        c;
-    if (vec) {
-      ddls::cp_async16(d, s);
-    } else {
-      ddls::cp_async4(d, s);
-    }
-  }
-}
-
-// Tile `tile`'s rows into buffer `buf`: a[idx[r]] (or a[r]) and b[r] (or
-// the zero half) into x, dout[r] into d, zeros in the padding.
+// Tile `tile`'s rows into buffer `buf`: the input rows into x (ln_tile.cuh
+// load_x), dout[r] into d, zeros in the padding.
 __device__ __forceinline__ void load_tile(
     const Tiling& t, float* smem, int buf, int tile, int rows, int tid,
     const float* __restrict__ a, const int* __restrict__ idx,
@@ -219,19 +118,9 @@ __device__ __forceinline__ void load_tile(
     int fb, int b_given) {
   float* xb = smem + t.xbuf + buf * t.tile * t.ks;
   float* db = smem + t.dbuf + buf * t.tile * t.os;
-  const int row0 = tile * t.tile;
-  copy_rows(xb, t.ks, a, idx, fa, row0, t.tile, rows, tid);
-  if (b_given) {
-    copy_rows(xb + fa, t.ks, b, nullptr, fb, row0, t.tile, rows, tid);
-  }
-  copy_rows(db, t.os, dout, nullptr, t.fo, row0, t.tile, rows, tid);
-  // the zero half (when b is not given) and the padding
-  const int x_from = b_given ? t.k_in : fa;
-  const int x_pad = t.ks - x_from;
-  for (int e = tid; e < t.tile * x_pad; e += kThreads) {
-    const int r = e / x_pad;
-    xb[r * t.ks + x_from + (e - r * x_pad)] = 0.0f;
-  }
+  ddls::load_x(t, xb, tile, rows, tid, a, idx, b, fa, fb, b_given);
+  ddls::copy_rows(db, t.os, dout, nullptr, t.fo, tile * t.tile, t.tile,
+                  rows, tid);
   const int d_pad = t.os - t.fo;
   for (int e = tid; e < t.tile * d_pad; e += kThreads) {
     const int r = e / d_pad;
@@ -264,53 +153,6 @@ __device__ __forceinline__ void sum_rows(const float* rows, int n,
       }
     }
     *reinterpret_cast<float4*>(out + c) = s;
-  }
-}
-
-// Phase B for RM rows x 4 outputs a thread: z = y W^T + bias, each z one
-// fmaf chain over the features in order from 0 (K1's dense_pre), then dz =
-// dY * act'(z) in place of dY (0 past the row count and the outputs).
-template <int RM>
-__device__ __forceinline__ void z_tile(const Tiling& t,
-                                       const float* wt_s, const float* y_t,
-                                       const float* bias_s, float* d_t,
-                                       int tid, int tile, int rows, int act) {
-  if (tid >= (t.tile / RM) * t.nob) return;
-  const int o0 = (tid % t.nob) * kMicro;
-  const int r0 = (tid / t.nob) * RM;
-  float acc[RM][kMicro];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-  }
-  const float* yr = y_t + r0 * t.ks;
-#pragma unroll 4
-  for (int k = 0; k < t.k_in; ++k) {
-    const float4 wv = *reinterpret_cast<const float4*>(wt_s + k * t.os + o0);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const float yv = yr[i * t.ks + k];
-      acc[i][0] = fmaf(yv, wv.x, acc[i][0]);
-      acc[i][1] = fmaf(yv, wv.y, acc[i][1]);
-      acc[i][2] = fmaf(yv, wv.z, acc[i][2]);
-      acc[i][3] = fmaf(yv, wv.w, acc[i][3]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = r0 + i;
-    const bool live = tile * t.tile + r < rows;
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int o = o0 + j;
-      float dz = 0.0f;
-      if (live && o < t.fo) {
-        const float z = __fadd_rn(acc[i][j], bias_s[o]);
-        dz = __fmul_rn(d_t[r * t.os + o], ddls::activate_grad(z, act));
-      }
-      d_t[r * t.os + o] = dz;
-    }
   }
 }
 
@@ -367,7 +209,7 @@ ln_linear_act_bwd_kernel(const float* __restrict__ a,
                          int rows, int fa, int fb, int b_given, int fo,
                          int act, int tile_rows) {
   extern __shared__ __align__(16) float smem[];
-  const Tiling t = tiling(fa + fb, fo, tile_rows);
+  const Tiling t = ddls::tiling(fa + fb, fo, tile_rows, true);
   const int k_in = t.k_in;
   const int tid = threadIdx.x;
   const int warp = tid / ddls::kWarpSize;
@@ -385,36 +227,7 @@ ln_linear_act_bwd_kernel(const float* __restrict__ a,
   int tile = blockIdx.x;
   // W in both layouts and the small parameters by cp.async, every copy
   // in flight at once with the first tile's rows; zeros in the padding
-  for (int i = tid; i < fo * k_in; i += kThreads) {
-    const int o = i / k_in;
-    const int k = i - o * k_in;
-    ddls::cp_async4(wt_s + k * t.os + o, w + i);
-    ddls::cp_async4(w_s + o * t.ks + k, w + i);
-  }
-  for (int i = tid; i < k_in * (t.os - fo); i += kThreads) {
-    const int k = i / (t.os - fo);
-    wt_s[k * t.os + fo + (i - k * (t.os - fo))] = 0.0f;
-  }
-  for (int i = tid; i < fo * (t.ks - k_in); i += kThreads) {
-    const int o = i / (t.ks - k_in);
-    w_s[o * t.ks + k_in + (i - o * (t.ks - k_in))] = 0.0f;
-  }
-  for (int i = tid; i < t.os; i += kThreads) {
-    if (i < fo) {
-      ddls::cp_async4(bias_s + i, bias + i);
-    } else {
-      bias_s[i] = 0.0f;
-    }
-  }
-  for (int i = tid; i < t.ks; i += kThreads) {
-    if (i < k_in) {
-      ddls::cp_async4(lnw_s + i, ln_w + i);
-      ddls::cp_async4(lnb_s + i, ln_b + i);
-    } else {
-      lnw_s[i] = 0.0f;
-      lnb_s[i] = 0.0f;
-    }
-  }
+  ddls::stage_params(t, smem, w, bias, ln_w, ln_b, true, tid);
   load_tile(t, smem, 0, tile, rows, tid, a, idx, b, dout, fa, fb, b_given);
   ddls::cp_async_commit();
 
@@ -449,56 +262,27 @@ ln_linear_act_bwd_kernel(const float* __restrict__ a,
     ddls::cp_async_wait_group<1>();
     __syncthreads();
 
-    // (A) row statistics and y, one warp a row (K1's layout), kRowBatch
-    // rows a warp at once so that their shuffles overlap
-    for (int i0 = 0; i0 < t.tile / kWarps; i0 += kRowBatch) {
-      float x[kRowBatch][2];
-#pragma unroll
-      for (int i = 0; i < kRowBatch; ++i) {
-        const int r = warp + (i0 + i) * kWarps;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = lane + h * ddls::kWarpSize;
-          x[i][h] = k < k_in ? x_t[r * t.ks + k] : 0.0f;
-        }
-      }
-      ddls::RowStats st[kRowBatch];
-#pragma unroll
-      for (int i = 0; i < kRowBatch; ++i) {
-        st[i] = ddls::row_stats(x[i][0], x[i][1], inv_k);
-      }
-#pragma unroll
-      for (int i = 0; i < kRowBatch; ++i) {
-        const int r = warp + (i0 + i) * kWarps;
-        const bool live = tile * t.tile + r < rows;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = lane + h * ddls::kWarpSize;
-          if (k < k_in) {
-            y_t[r * t.ks + k] = live ? ddls::ln_apply(x[i][h], st[i],
-                                                      lnw_s[k], lnb_s[k])
-                                     : 0.0f;
-          }
-        }
-        if (lane == 0) {
-          stats[4 * r] = st[i].mean;
-          stats[4 * r + 1] = st[i].raw;
-          stats[4 * r + 2] = st[i].var;
-          stats[4 * r + 3] = st[i].inv_std;
-        }
-      }
-    }
+    // (A) row statistics and y, one warp a row (K1's layout)
+    ddls::tile_stats<kRowBatch>(t, x_t, y_t, lnw_s, lnb_s, stats, tile,
+                                rows, tid);
     __syncthreads();
 
-    // (B) z = y W^T + bias as K1 computes it, then dz = dY * act'(z), in
-    // place of dY: rm_z rows x 4 outputs a thread
-    if (t.rm_z == 1) {
-      z_tile<1>(t, wt_s, y_t, bias_s, d_t, tid, tile, rows, act);
-    } else if (t.rm_z == 2) {
-      z_tile<2>(t, wt_s, y_t, bias_s, d_t, tid, tile, rows, act);
-    } else {
-      z_tile<4>(t, wt_s, y_t, bias_s, d_t, tid, tile, rows, act);
-    }
+    // (B) z = y W^T + bias as K1 computes it (ln_tile.cuh z_tiles), then
+    // dz = dY * act'(z) in place of dY (0 past the row count and the
+    // outputs): rm_z rows x 4 outputs a thread
+    ddls::z_tiles(t, wt_s, y_t, tid, [&](int r, int o0, const float* acc) {
+      const bool live = tile * t.tile + r < rows;
+#pragma unroll
+      for (int j = 0; j < kMicro; ++j) {
+        const int o = o0 + j;
+        float dz = 0.0f;
+        if (live && o < t.fo) {
+          const float z = __fadd_rn(acc[j], bias_s[o]);
+          dz = __fmul_rn(d_t[r * t.os + o], ddls::activate_grad(z, act));
+        }
+        d_t[r * t.os + o] = dz;
+      }
+    });
     __syncthreads();
 
     // (C) dy = dz W: rm_y rows x 4 features a thread, over the outputs in
@@ -710,7 +494,7 @@ ln_linear_act_bwd_kernel(const float* __restrict__ a,
 
 size_t smem_bytes(int k_in, int fo, int tile_rows) {
   return sizeof(float) *
-         static_cast<size_t>(tiling(k_in, fo, tile_rows).total);
+         static_cast<size_t>(ddls::tiling(k_in, fo, tile_rows, true).total);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 // The row arithmetic that K1 (ln_linear_act.cu) and its backward K5
 // (ln_linear_act_bwd.cu) share: flax's LayerNorm statistics, the normalised
-// value, the Dense pre-activation, the activations and their derivatives. K5 recomputes the forward
-// with these same functions, so its pre-activations are K1's bit for bit
-// and every activation-derivative decision (z > 0, z >= 0) matches the
-// forward's.
+// value, the activations and their derivatives (the Dense pre-activation
+// is ln_tile.cuh's z_tile). K5 recomputes the forward with these same
+// functions, so its pre-activations are K1's bit for bit and every
+// activation-derivative decision (z > 0, z >= 0) matches the forward's.
 #pragma once
 
 #include "common.cuh"
@@ -59,11 +59,12 @@ __device__ __forceinline__ float activate_grad(float x, int act) {
   }
 }
 
-// flax LayerNorm statistics of one row held two features per lane (zeros
-// past the row's width): mean = sum * (1/K) as XLA lowers jnp.mean, and the
-// fast variance raw = E[x^2] - E[x]^2 clamped at 0. Every lane of the warp
-// must call it. Separate roundings (no contraction), as the reference's ops
-// round.
+// flax LayerNorm statistics of one row from its sums s = sum x and s2 =
+// sum x^2 (each a warp_sum over the row held two features per lane, zeros
+// past its width, as ln_tile.cuh tile_stats takes them): mean = s * (1/K)
+// as XLA lowers jnp.mean, the fast variance raw = E[x^2] - E[x]^2 clamped
+// at 0, inv_std = 1 / sqrt(var + eps). Separate roundings (no
+// contraction), as the reference's ops round.
 struct RowStats {
   float mean;
   float raw;  // E[x^2] - E[x]^2 before the clamp (K5 needs its sign)
@@ -71,12 +72,9 @@ struct RowStats {
   float inv_std;
 };
 
-__device__ __forceinline__ RowStats row_stats(float x0, float x1,
+__device__ __forceinline__ RowStats row_stats(float s, float s2,
                                               float inv_k) {
   RowStats st;
-  const float s = warp_sum(__fadd_rn(x0, x1));
-  const float s2 =
-      warp_sum(__fadd_rn(__fmul_rn(x0, x0), __fmul_rn(x1, x1)));
   st.mean = __fmul_rn(s, inv_k);
   st.raw = __fsub_rn(__fmul_rn(s2, inv_k), __fmul_rn(st.mean, st.mean));
   st.var = fmaxf(st.raw, 0.0f);
@@ -90,16 +88,6 @@ __device__ __forceinline__ float ln_apply(float x, const RowStats& st,
   return __fadd_rn(__fmul_rn(__fsub_rn(x, st.mean),
                              __fmul_rn(st.inv_std, scale)),
                    bias);
-}
-
-// z = sum_k y[k] w_s[k * fo + o] + bias: the Dense pre-activation of
-// output o, one fused multiply-add per feature in feature order.
-__device__ __forceinline__ float dense_pre(const float* y, const float* w_s,
-                                           int k_in, int fo, int o,
-                                           float bias) {
-  float acc = 0.0f;
-  for (int k = 0; k < k_in; ++k) acc = fmaf(y[k], w_s[k * fo + o], acc);
-  return __fadd_rn(acc, bias);
 }
 
 }  // namespace ddls

@@ -166,12 +166,15 @@ def ln_linear_act_bwd_plain(a, ln_w, ln_b, w, bias, activation, dout,
             (d_mul * rstd[:, None]).sum(dim=0), dy.sum(dim=0))
 
 
-# K5's grid, a function of the row count alone (so are the partial sums
-# and the bits of the result): the smallest tile of 16, 32 or 64 rows that
-# needs at most 256 CTAs (about two an SM of the H100) at one tile a CTA,
-# else 64-row tiles over 256 CTAs; the in-kernel reduce sums groups of 16
-# CTAs' rows, then the (at most 16) groups (the kernel's kGroup)
-_BWD_TILES = (16, 32, 64)
+# K1's and K5's grids, functions of the row count alone (so are K5's
+# partial sums and the bits of its result): the smallest tile of 16, 32 or
+# 64 rows that needs at most 256 CTAs (about two an SM of the H100) at one
+# tile a CTA, else 64-row tiles over 256 CTAs, CTA g taking tiles g, g +
+# CTAs, ... (ln_tile.cuh). K1's cap is the fastest of 132-1,024 at the
+# update's calls (scripts/parent_kernel_check.py); K5's is its reduce's:
+# groups of 16 CTAs' rows, then the (at most 16) groups (kGroup)
+_TILES = (16, 32, 64)
+_FWD_MAX_BLOCKS = 256
 _BWD_GROUP = 16
 _BWD_MAX_BLOCKS = _BWD_GROUP * _BWD_GROUP
 # K5's reduce counters, one set a (device, stream), zero between launches:
@@ -179,14 +182,23 @@ _BWD_MAX_BLOCKS = _BWD_GROUP * _BWD_GROUP
 _BWD_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def bwd_grid(rows: int) -> Tuple[int, int, int]:
-    """K5's (CTAs, tiles, rows a tile) for ``rows`` rows: CTA ``g`` takes
+def _tile_grid(rows: int, most: int) -> Tuple[int, int, int]:
+    tile = next((t for t in _TILES if -(-rows // t) <= most), _TILES[-1])
+    tiles = -(-rows // tile)
+    return max(1, min(tiles, most)), tiles, tile
+
+
+def fwd_grid(rows: int) -> Tuple[int, int, int]:
+    """K1's (CTAs, tiles, rows a tile) for ``rows`` rows: CTA ``g`` takes
     tiles ``g, g + CTAs, ...`` (at least one CTA, for the zero-row
     call)."""
-    tile = next((t for t in _BWD_TILES
-                 if -(-rows // t) <= _BWD_MAX_BLOCKS), _BWD_TILES[-1])
-    tiles = -(-rows // tile)
-    return max(1, min(tiles, _BWD_MAX_BLOCKS)), tiles, tile
+    return _tile_grid(rows, _FWD_MAX_BLOCKS)
+
+
+def bwd_grid(rows: int) -> Tuple[int, int, int]:
+    """K5's (CTAs, tiles, rows a tile) for ``rows`` rows, as ``fwd_grid``
+    with at most ``_BWD_MAX_BLOCKS`` CTAs (its reduce's groups)."""
+    return _tile_grid(rows, _BWD_MAX_BLOCKS)
 
 
 def ln_linear_act_bwd_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
@@ -337,11 +349,12 @@ def _ln_linear_act_cuda(a, ln_w, ln_b, w, bias, activation, idx, b,
                                             activation, idx, b, b_width)
     out = a.new_empty((rows, fo))
     if rows:
+        blocks, _, tile = fwd_grid(rows)
         kernels.launch("ln_linear_act", a.data_ptr(), kernels.ptr(idx),
                        kernels.ptr(b), ln_w.data_ptr(), ln_b.data_ptr(),
                        w.data_ptr(), bias.data_ptr(), out.data_ptr(), rows,
                        fa, fb, int(b is not None), fo,
-                       _ACTIVATION_CODES[activation])
+                       _ACTIVATION_CODES[activation], tile, blocks)
     return out
 
 

@@ -222,6 +222,29 @@ def ppo_loss_grad_plain(logits, values, actions, old_logp, old_values, advs,
     return total.detach(), metrics.detach(), dlogits, dvalues
 
 
+# K8's launch: a row takes a group of lanes holding at most four actions
+# each, a CTA up to 1,024 threads (two passes of rows before a cluster is
+# worth its barriers), a cluster up to 8 CTAs (the portable size)
+PPO_LOSS_THREADS = 1024
+PPO_LOSS_MAX_CTAS = 8
+
+
+def ppo_loss_launch(m: int, a: int) -> Tuple[int, int, int]:
+    """K8's (lanes a row, threads a CTA, CTAs of the one cluster) for ``m``
+    rows of ``a`` actions: functions of (M, A) alone, so are the order of
+    its sums and the bits of its result."""
+    lanes = 1
+    while 4 * lanes < a:
+        lanes *= 2
+    per_pass = PPO_LOSS_THREADS // lanes
+    ctas = min(PPO_LOSS_MAX_CTAS, max(1, -(-m // (2 * per_pass))))
+    rows = -(-m // ctas)
+    threads = 32
+    while threads < min(rows * lanes, PPO_LOSS_THREADS):
+        threads *= 2
+    return lanes, threads, ctas
+
+
 def _ppo_loss_cuda(logits, values, actions, old_logp, old_values, advs,
                    targets, kl_coeff, cfg: PPOConfig):
     """K8: (total [], metrics [6], dlogits [M, A], dvalues [M])."""
@@ -236,7 +259,6 @@ def _ppo_loss_cuda(logits, values, actions, old_logp, old_values, advs,
         kernels.check_cuda(name, t, torch.float32, (m,))
     kernels.check_cuda("actions", actions, torch.int32, (m,))
     kernels.check_cuda("kl_coeff", kl_coeff, torch.float32, ())
-    rowterms = logits.new_empty((5, m))
     metrics = logits.new_empty(len(METRIC_KEYS))
     total = logits.new_empty(())
     dlogits = torch.empty_like(logits)
@@ -246,9 +268,9 @@ def _ppo_loss_cuda(logits, values, actions, old_logp, old_values, advs,
                        actions.data_ptr(), old_logp.data_ptr(),
                        old_values.data_ptr(), advs.data_ptr(),
                        targets.data_ptr(), kl_coeff.data_ptr(),
-                       rowterms.data_ptr(), metrics.data_ptr(),
-                       total.data_ptr(), dlogits.data_ptr(),
-                       dvalues.data_ptr(), m, a,
+                       metrics.data_ptr(), total.data_ptr(),
+                       dlogits.data_ptr(), dvalues.data_ptr(), m, a,
+                       *ppo_loss_launch(m, a),
                        float(1.0 - cfg.clip_param),
                        float(1.0 + cfg.clip_param), float(cfg.clip_param),
                        float(cfg.vf_clip_param), float(cfg.vf_loss_coeff),

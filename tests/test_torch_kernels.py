@@ -10,8 +10,12 @@ package, so the repo's JAX conftest is skipped):
 
 Tolerance: abs and rel 1e-5 for the forward kernels (float32; the
 plain versions repeat the kernels' roundings except in the activations'
-transcendental functions). The backward kernels K5–K8 and the IMPALA and
-PG update's kernels K10–K12 are held at abs 1e-5 of each output's own
+transcendental functions); K1 is also held within 1e-5 of each output's
+largest magnitude and bitwise across two runs at its tile edges, widths
+and activations, and K8 over row counts that take one pass, two and a
+cluster of CTAs and every group width. The backward kernels K5–K8 and
+the IMPALA and PG update's kernels K10–K12 are held at abs 1e-5 of each
+output's own
 largest magnitude (exactly where that is 0):
 their parameter gradients are float32 sums over up to 16,384 rows in
 another order than the plain versions' matrix products. K5's plain
@@ -142,6 +146,62 @@ def test_ln_linear_act_rejects_what_it_cannot_take(cuda):
                           torch.ones(65, device=cuda),
                           torch.ones(65, device=cuda),
                           torch.rand(6, 65, device=cuda), bias, "relu")
+
+
+# K1's row counts: 1 and the edges of its 16-, 32- and 64-row tiles
+# (ln_tile.cuh; one tile a CTA up to 16,384 rows, several past it),
+# serving's and the update's counts; its widths, where the float4 copies
+# and stores do (64) and do not (5, 17, 51) apply
+K1_ROWS = [1, 15, 16, 17, 63, 64, 65, 4864, 16384, 65536]
+K1_WIDTHS = [5, 17, 51, 64]
+
+
+def _k1_case(cuda, g, rows, form, k_in, fo):
+    """K1's inputs: ``a`` [rows, K] (plain), a gathered left half and a
+    given right half (gather_concat), or a left half and a zero right
+    half (zero_half)."""
+    fb = k_in // 2 if form != "plain" else 0
+    fa = k_in - fb
+    kwargs = {}
+    if form == "gather_concat":
+        src = max(rows // 3, 1)
+        a = torch.randn(src, fa, generator=g) * 2 + 1
+        kwargs = dict(idx=torch.randint(0, src, (rows,), generator=g,
+                                        dtype=torch.int32).to(cuda),
+                      b=torch.rand(rows, fb, generator=g).to(cuda))
+    else:
+        a = torch.randn(rows, fa, generator=g) * 2 + 1
+        if form == "zero_half":
+            kwargs = dict(b_width=fb)
+    params = [torch.randn(k_in, generator=g).to(cuda),
+              torch.randn(k_in, generator=g).to(cuda),
+              (torch.randn(fo, k_in, generator=g) / 4).to(cuda),
+              torch.randn(fo, generator=g).to(cuda)]
+    return a.to(cuda), params, kwargs
+
+
+@pytest.mark.parametrize("rows", K1_ROWS)
+@pytest.mark.parametrize("form", ["plain", "gather_concat", "zero_half"])
+def test_ln_linear_act_tiles_match_plain_and_repeat_bitwise(cuda, rows,
+                                                            form):
+    """K1 at every width pair of K1_WIDTHS and every activation: one
+    launch a call, within 1e-5 of each output's largest against its plain
+    version, bit-equal across two runs."""
+    g = torch.Generator(device="cpu").manual_seed(rows)
+    for k_in in K1_WIDTHS:
+        for fo in K1_WIDTHS:
+            a, (ln_w, ln_b, w, bias), kwargs = _k1_case(cuda, g, rows, form,
+                                                        k_in, fo)
+            for activation in sorted(gnn.ACTIVATIONS):
+                before = kernels.launch_counts()
+                out = gnn.ln_linear_act(a, ln_w, ln_b, w, bias, activation,
+                                        **kwargs)
+                assert _launched_since(before) == {"ln_linear_act": 1}
+                again = gnn.ln_linear_act(a, ln_w, ln_b, w, bias,
+                                          activation, **kwargs)
+                _close_scaled(out, gnn.ln_linear_act_plain(
+                    a, ln_w, ln_b, w, bias, activation, **kwargs))
+                assert torch.equal(out, again)
 
 
 def _csr_case(cuda, n_graphs=8, n=150, e=512, real_edges=37):
@@ -531,6 +591,44 @@ def test_ppo_loss_matches_plain_autograd_at_the_ties(cuda):
         total, _ = ppo.ppo_loss(lo, *args[1:])
         (grad,) = torch.autograd.grad(total * 2.0, lo)
     assert torch.equal(grad, out[2] * 2.0)
+
+
+@pytest.mark.parametrize("m", [1, 31, 128, 129, 1000, 4000])
+@pytest.mark.parametrize("a", [1, 2, 17, 32, 33, 64])
+def test_ppo_loss_matches_plain_at_every_width_and_repeats_bitwise(cuda, m,
+                                                                   a):
+    """K8 over row counts that take one pass, two, and a cluster of CTAs,
+    and action counts at and around its group widths (1-32 lanes a row),
+    with masked actions and (from two rows) a fully masked row: one
+    launch, every output within 1e-5 of its largest against autograd of
+    the plain loss, bit-equal across two runs."""
+    rng = np.random.default_rng(m * 100 + a)
+    logits = rng.normal(0, 2, (m, a)).astype(np.float32)
+    mask = rng.uniform(0, 1, (m, a)) < 0.6
+    mask[:, 0] = True
+    actions = np.array([rng.choice(np.flatnonzero(r)) for r in mask],
+                       np.int32)
+    if m > 1:
+        mask[m // 2] = False
+    masked = np.where(mask, logits, logits + np.finfo(np.float32).min)
+    t = lambda x: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(x, dtype=x.dtype)).to(cuda)
+    f32 = lambda x: t(np.asarray(x, np.float32))  # noqa: E731
+    cfg = ppo.PPOConfig(clip_param=0.25, vf_clip_param=0.5,
+                        vf_loss_coeff=0.5, entropy_coeff=0.01)
+    values = rng.normal(50, 2, m)
+    args = (f32(masked), f32(values), t(actions),
+            f32(rng.normal(-1.5, 0.5, m)),
+            f32(values + rng.normal(0, 0.6, m)), f32(rng.normal(0, 1, m)),
+            f32(rng.normal(50, 2, m)), torch.tensor(0.2, device=cuda), cfg)
+    before = kernels.launch_counts()
+    out = ppo._ppo_loss_cuda(*args)
+    assert _launched_since(before) == {"ppo_loss": 1}
+    again = ppo._ppo_loss_cuda(*args)
+    ref = ppo.ppo_loss_grad_plain(*args)
+    for o, r in zip(out, ref):
+        _close_scaled(o, r)
+    assert _equal_all(out, again)
 
 
 def test_policy_backward_on_the_card_matches_the_plain_autograd(cuda):

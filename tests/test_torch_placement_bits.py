@@ -218,11 +218,11 @@ def test_k5_grid_is_a_function_of_the_rows_alone():
                  16385, 64 * most, 64 * most + 1, 65536, 100_003]:
         blocks, tiles, tile = gnn.bwd_grid(rows)
         assert (blocks, tiles, tile) == gnn.bwd_grid(rows)
-        assert tile in gnn._BWD_TILES and tiles == -(-rows // tile)
+        assert tile in gnn._TILES and tiles == -(-rows // tile)
         # the smallest tile that keeps one tile a CTA, else the largest
-        smaller = [t for t in gnn._BWD_TILES if t < tile]
+        smaller = [t for t in gnn._TILES if t < tile]
         assert all(-(-rows // t) > most for t in smaller)
-        assert tiles <= most or tile == gnn._BWD_TILES[-1]
+        assert tiles <= most or tile == gnn._TILES[-1]
         assert 1 <= blocks <= min(tiles, most)
         # CTA g takes tiles g, g + blocks, ...: each tile exactly once
         taken = np.concatenate([np.arange(g, tiles, blocks)
