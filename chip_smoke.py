@@ -228,12 +228,15 @@ crosses both lanes' first reset (the device-collect recording's
 ``full/reset/``).
 
 Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
-K18 (the heads' backward and its reduce), K19 (the optimiser's three
-launches, the clip firing, not firing and at a tie) and K20 (the
-minibatch assembly, exactly) against their plain versions, and K21 (the
-array lookahead engine) on the recorded lanes in float32 and float64:
-bit-equal to its plain version and, in float32, to the recorded JAX
-answers; within 1e-9 of the C++ engine in float64.
+K18 (the heads' backward, its reduce inside its one launch), K19 (the
+optimiser in one launch, the clip firing, not firing and at a tie; timed
+at 1, 4, 8 and 16 CTAs besides its plan's) and K20 (the minibatch assembly,
+exactly) against their plain versions, and K21 (the array lookahead
+engine) on the recorded lanes in float32 and float64: bit-equal to its
+plain version and, in float32, to the recorded JAX answers; within 1e-9
+of the C++ engine in float64. Its ``[wide]`` line holds K21, K23 (where
+its tables fit), K25 and K29 on 128 and 256 servers against their plain
+versions.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -377,6 +380,13 @@ def device_ms(fn, iters: int = 100, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def forced_ms(name: str, value, fn) -> float:
+    """``device_ms`` of ``fn`` with ``value`` forced on kernel ``name``'s
+    form (``kernels._forcing``)."""
+    with kernels._forcing(name, value):
+        return device_ms(fn)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -1103,14 +1113,18 @@ def profile_steps(learner, staged, state, perm, n_steps: int = 8):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_name = {}
+    events = 0
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
+            events += 1
             by_name[event.name] = (by_name.get(event.name, 0.0)
                                    + event.device_time_total / 1e3)
     device_ms_total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"steps": n_steps, "wall_ms": wall_ms,
             "device_ms": device_ms_total,
+            "device_ms_per_step": device_ms_total / n_steps,
+            "device_events_per_step": events / n_steps,
             "device_busy_share": device_ms_total / wall_ms,
             "top_device_ms": {k[:80]: v for k, v in top}}
 
@@ -1238,6 +1252,13 @@ def phase_train(params, fx, card):
                     for k, v in snapshots[0].items()),
                 "two 50-iteration updates differ in their params")
         out["launches"] = launches
+        # a minibatch step's launches of the port's kernels (K18 and K19
+        # one each: their reduces run inside their launches)
+        out["kernel_launches_per_minibatch_step"] = {
+            k: v / state.step for k, v in launches.items() if v}
+        # (gae_normalize's one launch an update inside)
+        out["kernel_launches_a_minibatch_step"] = sum(
+            launches.values()) / state.step
         perm0 = torch.as_tensor(run50["perms"][0], device="cuda")
         out["step_breakdown_ms"] = step_breakdown(
             learner, staged, learner.init_state(gpu_params), perm0)
@@ -2734,44 +2755,17 @@ def _random_heads(hiddens, n_actions, seed):
     return out
 
 
-def _clip_adam_entries(state, grads, hp):
-    """K19's three launches one at a time, with the wrapper's arguments
-    (the leaf table built as the wrapper builds it)."""
-    opt = learner_mod._optimizer_table(state)
-    n = len(state.params)
-    grad_table = (ctypes.c_int64 * n)(*(g.data_ptr() for g in grads))
-    partial = state.params[0].new_zeros(n * opt.chunks)
-    norm = state.params[0].new_zeros(1)
-    f32 = np.float32
-
-    def norm_pass():
-        kernels.launch("clip_adam_norm", ctypes.addressof(grad_table),
-                       opt.table.data_ptr(), partial.data_ptr(), n,
-                       opt.chunks)
-
-    def reduce_pass():
-        kernels.launch("clip_adam_reduce", partial.data_ptr(),
-                       norm.data_ptr(), partial.numel())
-
-    def update_pass():
-        kernels.launch("clip_adam_update", ctypes.addressof(grad_table),
-                       opt.table.data_ptr(), norm.data_ptr(), n, opt.chunks,
-                       0, float(hp.grad_clip), hp.lr, hp.b1,
-                       float(f32(1.0 - hp.b1)), hp.b2,
-                       float(f32(1.0 - hp.b2)), hp.eps, hp.bc1, hp.bc2)
-
-    return norm_pass, reduce_pass, update_pass, partial
-
-
 def check_heads_optim_kernels(params, fx):
     """Phase 3, K18–K20 on the training fixture's first minibatch step (128
     rows at the (38, 128) bucket, the shipped heads 24 -> 17 -> {17, 1}):
-    K18 (the heads' backward and its block-order reduce) against autograd
-    of the plain heads, also on the Ape-X DQN's heads (24 -> 256 -> {17, 1}
-    at 512 rows), the default (256, 256) heads and one row; K19 (the global
-    norm, its reduce, the clipped adam update) against the plain optimiser
-    over five steps of the shipped policy's 36 leaves with the clip not
-    firing, firing, and at a norm within rounding of the clip; K20 (the
+    K18 (the heads' backward, its block-order reduce inside its one
+    launch) against autograd of the plain heads, also at 1,057 and 4,000
+    rows (its ticket), on the Ape-X DQN's heads (24 -> 256 -> {17, 1} at
+    512 rows), the default (256, 256) heads and one row; K19 (the global
+    norm, the clip and the adam update in one launch) against the plain
+    optimiser over five steps of the shipped policy's 36 leaves with the
+    clip not firing, firing, and at a norm within rounding of the clip,
+    and timed at 1, 4, 8 and 16 CTAs besides its plan's; K20 (the
     minibatch assembly) against its plain version and
     ``prepare_flat_batch``'s arrays on the minibatch, repeated samples, one
     sample and the full batch, exactly. Every float within 1e-5 of each
@@ -2858,7 +2852,8 @@ def check_heads_optim_kernels(params, fx):
                  *grads_in(x.shape[0], logit_layers[-1][0].shape[0]))
     cases = [main_case]
     for hiddens, rows_n, seed in (((256,), 512, 2), ((256, 256), 128, 3),
-                                  ((17,), 1, 4)):
+                                  ((17,), 1, 4), ((17,), 1057, 5),
+                                  ((17,), 4000, 6)):
         lh, vh = _random_heads(hiddens, 17, seed)
         cases.append((torch.randn(rows_n, 24, generator=g).cuda(), lh, vh,
                       "relu", *grads_in(rows_n, 17)))
@@ -2889,9 +2884,12 @@ def check_heads_optim_kernels(params, fx):
 
     bound, bound_by = _heads_work(x, logit_layers, value_layers,
                                   backward=True)
+    parts, _, cluster, clusters = policy_mod.heads_bwd_plan(x.shape[0])
     res.update(shape=f"rows={x.shape[0]} in={x.shape[1]} logit="
                      f"{[w.shape[0] for w, _ in logit_layers]} value="
-                     f"{[w.shape[0] for w, _ in value_layers]}",
+                     f"{[w.shape[0] for w, _ in value_layers]} "
+                     f"parts={parts} clusters={clusters}x{cluster}",
+               folds=["mlp_heads_bwd_reduce"],
                bound_ms=bound, bound_by=bound_by,
                ms=device_ms(lambda: policy_mod.mlp_heads_bwd(*main_case)),
                eager_ms=eager_ms(lambda: policy_mod.mlp_heads_bwd(
@@ -2901,35 +2899,6 @@ def check_heads_optim_kernels(params, fx):
                library_ms=eager_ms(library_bwd, iters=50),
                library_device_ms=profiled_device_ms(library_bwd))
     results["mlp_heads_bwd"] = res
-    # its block-order reduce alone, on the main case's partial sums
-    n_params = sum(w.numel() + b.numel()
-                   for w, b in logit_layers + value_layers)
-    blocks = max(1, min(-(-x.shape[0] // policy_mod._HEAD_BWD_TILE),
-                        policy_mod._HEAD_BWD_MAX_BLOCKS))
-    partial = torch.randn(blocks, n_params, generator=g).cuda()
-    reduced = partial.new_empty(n_params)
-
-    def reduce():
-        kernels.launch("mlp_heads_bwd_reduce", partial.data_ptr(),
-                       reduced.data_ptr(), blocks, n_params)
-        return reduced
-
-    out = reduce().clone()
-    ref = gnn_mod.ln_linear_act_bwd_reduce_plain(partial)
-    torch.cuda.synchronize()
-    require(torch.equal(out, reduce()), "mlp_heads_bwd_reduce is not "
-                                        "bitwise repeatable")
-    err, rel = max_err_scaled(out, ref)
-    bound, bound_by = bound_ms(_nbytes(partial) + n_params * 4,
-                               blocks * n_params)
-    results["mlp_heads_bwd_reduce"] = _new_result(
-        max_abs_err=err, max_rel_err=rel,
-        shape=f"blocks={blocks} params={n_params}", bound_ms=bound,
-        bound_by=bound_by, ms=device_ms(reduce), eager_ms=eager_ms(reduce),
-        plain_ms=eager_ms(lambda: gnn_mod.ln_linear_act_bwd_reduce_plain(
-            partial), iters=20),
-        library_ms=eager_ms(lambda: partial.sum(dim=0)),
-        library_device_ms=device_ms(lambda: partial.sum(dim=0)))
 
     # K19: the optimiser over the shipped policy's leaves
     def fresh_state():
@@ -2949,9 +2918,7 @@ def check_heads_optim_kernels(params, fx):
             learner._bias_correction(learner_mod.ADAM_B1, count),
             learner._bias_correction(learner_mod.ADAM_B2, count))
 
-    res = {name: _new_result() for name in ("clip_adam_norm",
-                                            "clip_adam_reduce",
-                                            "clip_adam_update")}
+    res = _new_result()
     opt_err = opt_rel = 0.0
     for scale, clip in ((0.01, cfg.grad_clip), (1.0, cfg.grad_clip),
                         (0.05, "tie")):
@@ -2985,8 +2952,6 @@ def check_heads_optim_kernels(params, fx):
             "clip_adam is not bitwise repeatable")
     st = fresh_state()
     hp = step_hp(1, cfg.grad_clip)
-    norm_pass, reduce_pass, update_pass, partial = _clip_adam_entries(
-        st, grads, hp)
     n_el = sum(p.numel() for p in st.params)
     n_leaves = len(st.params)
     lib_params = [torch.nn.Parameter(p.detach().clone())
@@ -2994,10 +2959,6 @@ def check_heads_optim_kernels(params, fx):
     for p, gr in zip(lib_params, grads):
         p.grad = gr.clone()
     adam = torch.optim.Adam(lib_params, lr=cfg.lr, fused=True)
-
-    def library_norm():
-        return torch.nn.utils.clip_grad_norm_(lib_params, cfg.grad_clip,
-                                              foreach=True)
 
     def library_step():
         torch.nn.utils.clip_grad_norm_(lib_params, cfg.grad_clip,
@@ -3009,38 +2970,27 @@ def check_heads_optim_kernels(params, fx):
     def plain_step():
         learner_mod.clip_adam_plain(plain_p, grads, plain_mu, plain_nu, hp)
 
-    def plain_norm():
-        return torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
-
-    shape = f"leaves={n_leaves} params={n_el}"
-    for name, fn, nbytes, ops in (
-            ("clip_adam_norm", norm_pass, 4 * n_el + partial.numel() * 4,
-             2 * n_el),
-            ("clip_adam_reduce", reduce_pass, partial.numel() * 4 + 4,
-             partial.numel()),
-            ("clip_adam_update", update_pass, 7 * 4 * n_el + 4,
-             16 * n_el)):
-        bound, bound_by = bound_ms(nbytes, ops)
-        res[name].update(shape=shape, bound_ms=bound, bound_by=bound_by,
-                         ms=device_ms(fn), eager_ms=eager_ms(fn),
-                         max_abs_err=opt_err, max_rel_err=opt_rel)
-    res["clip_adam_norm"].update(
-        plain_ms=eager_ms(plain_norm, iters=20),
-        library_ms=eager_ms(library_norm, iters=50),
-        library_device_ms=profiled_device_ms(library_norm))
-    res["clip_adam_reduce"].update(
-        plain_ms=eager_ms(lambda: torch.sqrt(partial.sum()), iters=20))
     step_state = fresh_state()
-    res["clip_adam_update"].update(
-        step_ms=device_ms(lambda: learner_mod.clip_adam(step_state, grads,
-                                                        hp)),
-        step_eager_ms=eager_ms(lambda: learner_mod.clip_adam(
-            step_state, grads, hp)),
-        plain_ms=eager_ms(plain_step, iters=20),
-        library_ms=eager_ms(library_step, iters=50),
-        library_device_ms=profiled_device_ms(library_step))
-    results.update(res)
+    plan = learner_mod._optimizer_table(step_state).plan
+    # g, p, mu, nu read once, p, mu, nu written once; the norm's 2 and the
+    # update's ~16 operations an element
+    bound, bound_by = bound_ms(7 * 4 * n_el + 4, 18 * n_el)
+    res.update(shape=f"leaves={n_leaves} params={n_el} ctas={plan.ctas}",
+               folds=["clip_adam_norm", "clip_adam_reduce",
+                      "clip_adam_update"],
+               bound_ms=bound, bound_by=bound_by,
+               ms=device_ms(lambda: learner_mod.clip_adam(step_state, grads,
+                                                          hp)),
+               eager_ms=eager_ms(lambda: learner_mod.clip_adam(
+                   step_state, grads, hp)),
+               # the cluster size measured, not assumed: the same bits
+               ms_by_ctas={c: forced_ms("clip_adam", c, lambda: learner_mod.
+                   clip_adam(step_state, grads, hp)) for c in (1, 4, 8, 16)},
+               max_abs_err=opt_err, max_rel_err=opt_rel,
+               plain_ms=eager_ms(plain_step, iters=20),
+               library_ms=eager_ms(library_step, iters=50),
+               library_device_ms=profiled_device_ms(library_step))
+    results["clip_adam"] = res
     return results
 
 
@@ -3278,7 +3228,7 @@ def phase_ring(card):
     leaked = segments.leaked()
     require(not leaked, f"the ring left /dev/shm segments: {leaked}")
     for name in ("vtrace", "ac_loss", "mlp_heads", "mlp_heads_bwd",
-                 "clip_adam_update", "minibatch_gather", "mask_sample_logp"):
+                 "clip_adam", "minibatch_gather", "mask_sample_logp"):
         require(launches[name] > 0, f"the depth-1 IMPALA loop did not "
                                     f"launch {name}")
     emit("ring", card=card, wall_s=wall,
@@ -3673,6 +3623,160 @@ def check_placement_kernel(card):
                                     "or none")
     emit("placement", card=card, held_calls=held, rows_held=rows_held,
          rows_placed=placed, device_ms_per_launch=ms)
+
+
+# the wide surfaces (ramps 4 x 4 x 8 | 16: 128 and 256 servers, 16,256 and
+# 65,280 channels) and the replay's decisions on them
+WIDE_RACKS, WIDE_LANES, WIDE_DECISIONS = (8, 16), 8, 12
+
+
+def check_wide_surfaces(card):
+    """Phase 3, surfaces wider than the configs' (128 and 256 servers, the
+    shipped jobs), where K25 once took at most 128 slots and K21 planned
+    no float64 launch (the limits ROADMAP Queue C listed): K21's indexed
+    entry on 8 lanes of random placements of random configurations (the
+    largest among them, a third of the lanes skipped) at the default
+    cluster and on one CTA, in float32 and float64 (its channel table in
+    the lane's workspace where a CTA cannot hold it); K25's replay of 12
+    decisions at 8 lanes on the recorded banks cut to 12 jobs, in float32,
+    its inputs from the plain placement and pricing and K21, and K29 on 72
+    rows of the episode's last state: every call bit-equal to its plain
+    version (ticks too); K23 where its tables fit shared memory (its
+    wrapper refuses the surface otherwise: the line gives both sizes).
+    Emits the calls held, the forms each surface takes and each kernel's
+    device ms a launch."""
+    fx = device_env_fixture.load_device_env_fixture()
+    held, ms, forms = 0, {}, {}
+    for racks in WIDE_RACKS:
+        et = device_env_fixture.wide_episode_tables(racks)
+        n_srv = et.n_srv
+        forms[n_srv] = {"channels": et.n_chan, "slots_a_lane":
+                        device_env.episode_slots_a_lane(n_srv)}
+        for dtype in (torch.float32, torch.float64):
+            dev = device_env.device_tables(et, "cuda", dtype)
+            rng = np.random.RandomState(racks)
+            cfg = rng.randint(0, dev.n_cfg, WIDE_LANES)
+            cfg[0] = int(np.argmax(et.tables["n_deps"]))
+            valid = et.tables["op_valid"][cfg]
+            ots = np.where(valid, rng.randint(0, n_srv, valid.shape), -1)
+            cfg_t = torch.from_numpy(cfg.astype(np.int32)).cuda()
+            ots_t = torch.from_numpy(ots.astype(np.int32)).cuda()
+            skip = torch.from_numpy(rng.rand(WIDE_LANES) < 1 / 3).cuda()
+            times, is_flow, chan, op_score, dep_score, _ = \
+                device_env.price_and_score_plain(ots_t, cfg_t, dev)
+            kw = dict(num_workers=n_srv, num_channels=et.n_chan)
+            plain = lookahead_mod.lookahead_plain(
+                *lookahead_mod.gather_indexed(cfg_t, ots_t, op_score, times,
+                                              is_flow, dep_score, chan,
+                                              dev.t), skip=skip, **kw)
+
+            def k21(g=None):
+                ticks = torch.empty(WIDE_LANES, dtype=torch.int32,
+                                    device="cuda")
+                return lookahead_mod.lookahead_indexed(
+                    cfg_t, ots_t, op_score, times, is_flow, dep_score, chan,
+                    dev.t, ticks=ticks, skip=skip, cluster=g, **kw) + (
+                        ticks,)
+
+            for g in (None, 1):
+                got = k21(g)
+                torch.cuda.synchronize()
+                require(all(device_env_fixture.max_difference(o, w) == 0
+                            for o, w in zip(got, plain)),
+                        f"K21 differs from its plain version on {n_srv} "
+                        f"servers ({dtype}, cluster {g})")
+                held += 1
+            # K23 where its shape tables fit a CTA's shared memory (its
+            # wrapper refuses the surface before a launch where not)
+            pads = dev.pads
+            need = kernels.cached_query(
+                "placement", "ddls_allocate_job_smem", n_srv, pads.n_ops,
+                pads.n_fwd, pads.n_parents, pads.max_split,
+                dev.row.shape[0], dev.row.shape[1],
+                dev.anchor_cells.shape[0], int(dtype == torch.float64))
+            have = kernels.cached_query("placement", "ddls_smem_optin")
+            k23 = f"k23 {str(dtype)[6:]}"
+            forms[n_srv][k23] = {"smem_need": need, "smem_have": have}
+            if need <= have:
+                args = device_env_fixture.fuzzed_placements(
+                    et, dev, WIDE_LANES, 0, False)[:3]
+                got = device_env.allocate_job(*args, dev)
+                want = device_env.allocate_job_plain(*args, dev)
+                torch.cuda.synchronize()
+                require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                        f"K23 differs from its plain version on {n_srv} "
+                        f"servers ({dtype})")
+                held += 1
+            ms[f"lookahead {n_srv} servers {str(dtype)[6:]}"] = \
+                device_ms(k21)
+        # K25's replay and K29, float32
+        ek = device_env.episode_kernels(et, device="cuda",
+                                        dtype=torch.float32)
+        lanes = [i % 8 for i in range(WIDE_LANES)]
+        J = WIDE_DECISIONS
+        cut = {k: np.ascontiguousarray(fx["banks"][k][lanes, :J])
+               for k in ("type", "steps", "sla_frac")}
+        cut["arrival_t"] = np.concatenate(
+            [fx["banks"]["arrival_t"][lanes, :J],
+             np.full((WIDE_LANES, 1), np.inf)], 1)
+        bank = {k: torch.from_numpy(np.ascontiguousarray(cut[k])).to(
+            "cuda", want or torch.float32)
+            for k, want in device_env.BANK_FIELDS}
+        acts = torch.from_numpy(np.random.RandomState(racks).choice(
+            [1, 2, 4, 8, 16], (WIDE_LANES, J)).astype(np.int32)).cuda()
+        state = ek.init_state(bank, acts)
+        trace = {k: torch.zeros((WIDE_LANES, J), dtype=want or torch.float32,
+                                device="cuda")
+                 for k, want in device_env.TRACE_FIELDS}
+        running = 0
+        for d in range(J):
+            raw = device_env_fixture.plain_placed_evaluate(ek, state)
+            s2 = {k: v.clone() for k, v in state.items()}
+            t2 = {k: v.clone() for k, v in trace.items()}
+            device_env.episode_step(ek, state, bank, acts, raw, trace, d)
+            device_env.episode_step_plain(ek, s2, bank, acts, raw, t2, d)
+            torch.cuda.synchronize()
+            require(all(device_env_fixture.max_difference(state[k], s2[k])
+                        == 0 for k in state)
+                    and all(device_env_fixture.max_difference(
+                        trace[k], t2[k]) == 0 for k in trace),
+                    f"K25 differs from its plain version on {n_srv} servers "
+                    f"at decision {d}")
+            held += 1
+            running = max(running, int(state["slot_valid"].sum(1).max()))
+        require(bool(trace["accept"].any()), f"no job placed on {n_srv} "
+                                             f"servers")
+        forms[n_srv]["most_running_slots"] = running
+        ms[f"episode_step {n_srv} servers float32"] = device_ms(
+            lambda: device_env.episode_step(
+                ek, {k: v.clone() for k, v in s2.items()}, bank, acts, raw,
+                {k: v.clone() for k, v in t2.items()}, J - 1))
+        rows = WIDE_LANES * 9
+        rng = np.random.RandomState(rows)
+        cfg = rng.randint(0, ek.dev.n_cfg, rows)
+        valid = et.tables["op_valid"][cfg]
+        ots = torch.from_numpy(np.where(valid, rng.randint(
+            0, n_srv, valid.shape), -1).astype(np.int32)).cuda()
+        cfg_t = torch.from_numpy(cfg.astype(np.int32)).cuda()
+        _, is_flow, chan, _, _, finite_ok = device_env.price_and_score_plain(
+            ots, cfg_t, ek.dev)
+        ok_place = torch.from_numpy(rng.rand(rows) < 0.8).cuda()
+        ok_la = torch.from_numpy(rng.rand(rows) < 0.9).cuda()
+        t_step = torch.from_numpy(rng.uniform(0, 50, rows)).to(
+            "cuda", torch.float32)
+        args = (is_flow, chan, ok_place, finite_ok, t_step, ok_la, state,
+                bank)
+        got = device_env.price_reduce(*args, cfg_t, ek.dev.t["n_deps"])
+        want = device_env.price_reduce_plain(*args)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"K29 differs from its plain version on {n_srv} servers")
+        held += 1
+        ms[f"price_reduce {n_srv} servers float32"] = device_ms(
+            lambda: device_env.price_reduce(*args, cfg_t,
+                                            ek.dev.t["n_deps"]))
+    emit("wide", card=card, held_calls=held, surfaces=forms,
+         device_ms_per_launch=ms)
 
 
 def _price_tuples_close(got, want) -> float:
@@ -5431,7 +5535,7 @@ def phase_device_train(card):
                 "non-finite learner metrics")
     for name in (*SEGMENT_KERNELS, "allocate_job", "price_and_score",
                  "lookahead", "minibatch_gather", "mask_sample_logp",
-                 "gae_normalize", "ppo_loss", "clip_adam_update"):
+                 "gae_normalize", "ppo_loss", "clip_adam"):
         require(launches[name] > 0, f"kernel {name} was not launched by the "
                                     "device-collection loop")
     split = [{"collect_s": x["timing"]["collect_s"],
@@ -6098,6 +6202,7 @@ def main() -> int:
     emit("lookahead_kernel_checked", card=card, **lookahead_results)
     clusters = check_cluster_kernels(card)
     check_placement_kernel(card)
+    check_wide_surfaces(card)
 
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
@@ -6192,6 +6297,8 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "composition_ms": r.get("composition_ms"),
             "composition_device_ms": r.get("composition_device_ms"),
+            # the earlier entries this kernel's one launch took in
+            "folds": r.get("folds"), "ms_by_ctas": r.get("ms_by_ctas"),
             "step_ms": r.get("step_ms"),
             "step_eager_ms": r.get("step_eager_ms"),
             "f64_ms": r.get("f64_ms"),

@@ -37,6 +37,7 @@ one count per entry point).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -44,7 +45,7 @@ import shutil
 import subprocess
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -91,8 +92,10 @@ class KernelSpec:
 # K25's entry: the state, trace, bank, actions, the decision's outputs,
 # the tables, the segment's counters and fields (56 pointers), the sizes
 # and flags, the constants, the float type, then the scenario's tables
-# (6 pointers, null for none) and its window count
-_EPISODE_STEP_SIG = "p" * 56 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" + "p"
+# (6 pointers, null for none), its window count, the forced forms and the
+# slots a lane of warp 0
+_EPISODE_STEP_SIG = ("p" * 56 + "i" * 15 + "d" * 5 + "i" + "p" * 6 + "i" * 3
+                     + "p")
 
 KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("ln_linear_act", "ddls_ln_linear_act",
@@ -147,22 +150,15 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # the minibatch assembly (K20) that every update runs
     KernelSpec("mlp_heads", "ddls_mlp_heads", "ppppiip",
                "ddls_tpu/models/policy.py:38"),
-    KernelSpec("mlp_heads_bwd", "ddls_mlp_heads_bwd", "ppppppiiip",
+    KernelSpec("mlp_heads_bwd", "ddls_mlp_heads_bwd", "p" * 8 + "i" * 6 + "p",
                "ddls_tpu/models/policy.py:38", file="mlp_heads"),
-    KernelSpec("mlp_heads_bwd_reduce", "ddls_mlp_heads_bwd_reduce", "ppiip",
-               "ddls_tpu/models/policy.py:38", file="mlp_heads"),
-    KernelSpec("clip_adam_norm", "ddls_clip_adam_norm", "pppiip",
-               "ddls_tpu/rl/ppo.py:206", file="clip_adam"),
-    KernelSpec("clip_adam_reduce", "ddls_clip_adam_reduce", "ppip",
-               "ddls_tpu/rl/ppo.py:206", file="clip_adam"),
-    KernelSpec("clip_adam_update", "ddls_clip_adam_update",
-               "pppiiifffffffffp", "ddls_tpu/rl/ppo.py:206",
-               file="clip_adam"),
+    KernelSpec("clip_adam", "ddls_clip_adam", "pp" + "i" * 5 + "f" * 9 + "p",
+               "ddls_tpu/rl/ppo.py:206"),
     KernelSpec("minibatch_gather", "ddls_minibatch_gather",
                "p" * 18 + "iiiiiiip", "ddls_tpu/rl/ppo.py:343"),
     # the simulator's array lookahead engine (K21): the env's
     # use_jax_lookahead and candidate_pricing="jax" options
-    KernelSpec("lookahead", "ddls_lookahead", "p" * 20 + "i" * 9 + "p",
+    KernelSpec("lookahead", "ddls_lookahead", "p" * 20 + "i" * 10 + "p",
                "ddls_tpu/sim/jax_lookahead.py:313"),
     # the device episode replay: the block-search primitive (K22), the
     # placement scan (K23), dep pricing and SRPT scores (K24), the commit
@@ -197,7 +193,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("kernel_obs_prices", "ddls_kernel_obs",
                "p" * 14 + "i" * 7 + "p", "ddls_tpu/sim/jax_env.py:1492",
                file="obs"),
-    KernelSpec("price_reduce", "ddls_price_reduce", "p" * 14 + "i" * 7 + "p",
+    KernelSpec("price_reduce", "ddls_price_reduce", "p" * 14 + "i" * 8 + "p",
                "ddls_tpu/sim/jax_env.py:1085", file="oracle"),
     KernelSpec("oracle_select", "ddls_oracle_select",
                "p" * 12 + "i" * 5 + "p", "ddls_tpu/sim/jax_env.py:1799",
@@ -354,6 +350,56 @@ def choose_cluster(lanes: int, sms: int, fits=None) -> int:
             best = g
         g *= 2
     return best
+
+
+# the in-launch reduces' ticket counters (K5, K18): one set a (owner,
+# device, stream), zero between launches; launches on one stream run in
+# order, so no two share a set at once
+_COUNTERS: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def stream_counters(owner: str, n: int, device: torch.device) -> torch.Tensor:
+    """``n`` int32 ticket counters of kernel ``owner`` on ``device`` for
+    the current stream (the one ``launch`` launches on), made (zeroed) at
+    the stream's first call; the kernel sets each back to 0. A set made
+    inside a CUDA-graph capture would be zeroed only when that graph
+    replays, so the first call on a stream must come before any capture on
+    it."""
+    key = (owner, device.index, torch.cuda.current_stream().cuda_stream)
+    counters = _COUNTERS.get(key)
+    if counters is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{owner}: first call on this stream during a CUDA-graph "
+                f"capture; call it once on the capture stream before "
+                f"capturing")
+        counters = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                                device=device)
+    return counters
+
+
+# what a test forces on a kernel whose form its sizes choose (the kernel's
+# name -> the value its wrapper reads): K19's CTAs ("clip_adam"), K21's
+# channel table in the workspace ("lookahead"), K25's forms
+# ("episode_step": names of sim/device_env.py EPISODE_FORMS), K29's
+# occupancy from global memory ("price_reduce"). Empty unless a test sets
+# it with ``_forcing``; every form gives the same bits.
+_FORCED: Dict[str, Any] = {}
+
+
+def forced(name: str, default: Any = None) -> Any:
+    """What a test forces on kernel ``name`` (``default``: nothing)."""
+    return _FORCED.get(name, default)
+
+
+@contextlib.contextmanager
+def _forcing(name: str, value: Any) -> Iterator[None]:
+    """Force ``value`` on kernel ``name``'s wrapper inside the block."""
+    _FORCED[name] = value
+    try:
+        yield
+    finally:
+        del _FORCED[name]
 
 
 def sm_count() -> int:

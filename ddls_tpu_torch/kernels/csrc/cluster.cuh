@@ -49,17 +49,6 @@ cudaError_t prepare_cluster(K kernel, int G, size_t smem) {
   return err;
 }
 
-// The shared memory a CTA may take on this device (the opt-in maximum).
-inline int smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  return static_cast<int>(err);
-}
-
 // Lane 0 of the warp reads `*p` (another CTA's shared memory, through
 // distributed shared memory) and shares it with the warp: one remote load
 // a warp instead of 32. The whole warp must call it.
@@ -101,6 +90,17 @@ __device__ __forceinline__ void cluster_min(long long* p, long long v) {
     if (was == seen) break;
     seen = was;
   }
+}
+
+// The two halves of a cluster barrier: arrive (releasing this thread's
+// writes) and wait (acquiring the others'); every thread of every CTA of
+// the cluster arrives once before it waits. Work between the two overlaps
+// the other CTAs' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 }  // namespace ddls

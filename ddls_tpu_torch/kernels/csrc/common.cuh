@@ -34,6 +34,17 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// The shared memory a CTA may take on this device (the opt-in maximum).
+inline int smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(err);
+}
+
 // Butterfly sum: every lane ends with the sum over the warp.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

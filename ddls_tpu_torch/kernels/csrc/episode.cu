@@ -65,11 +65,22 @@
 //    chan_occ staged in shared memory: one shared load a flow;
 //  * the decision's scalars and the event clock run on warp 0 in
 //    registers: the lane of index i owns slots [i K, i K + K), K =
-//    ceil(R / 32), read once and written back once; the first free slot is
-//    a ballot and its lowest lane; each tick's least remaining time is a
-//    tree over the warp that returns a serial scan's bits (common.cuh
-//    warp_first_min); the completions are ballots; no block barrier a
-//    tick;
+//    ceil(R / 32), read once and written back once (the kernel is a
+//    template on KS = 4, 8, 16 or 32 slots a lane, the least that holds
+//    K); the first free slot is a ballot and its lowest lane; each tick's
+//    least remaining time is a tree over the warp that returns a serial
+//    scan's bits (common.cuh warp_first_min); the completions are ballots;
+//    no block barrier a tick;
+//  * a surface the above does not fit takes a form of its own, with the
+//    same arithmetic in the same order (the same bits): past 1,024 slots
+//    warp 0's lanes keep their slot blocks in the lane's state in global
+//    memory (KS = 0); where the channel occupancy does not fit the opt-in
+//    shared memory the flows read it from global memory; where the
+//    channel mask does not fit either, the commit writes the slot's
+//    channel row by a second pass over the flows, and the walk finds each
+//    straggler window's channel among them. The C entry picks each form
+//    from the sizes; its `forms` argument forces them (the tests hold
+//    every form against the plain version);
 //  * the ticks read neither mem, srv_job nor chan_occ, and nothing inside
 //    the loop commits, so a slot completes at most once a launch: the
 //    block frees the union of the launch's completed slots once, after the
@@ -80,13 +91,96 @@
 //    replay and on C1's bank);
 //  * the reset's clears are 16-byte stores (common.cuh block_fill).
 // No float atomics.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 512;
-// slots a lane of warp 0 owns at most: R = n_srv <= 32 * kSlotsPerLane
-constexpr int kSlotsPerLane = 4;
+// the shared-memory forms (sim/device_env.py EPISODE_FORMS)
+constexpr int kOccGlobal = 1, kMaskFree = 2;
+
+// Warp 0's slots: lane ln owns slots [ln K, ln K + K) of the R (`lim` of
+// them: fewer at the end). With KS > 0 they live in registers (K <= KS;
+// every loop runs KS steps, unrolled, so each array index is a constant);
+// with KS = 0 in the lane's state in global memory (loops of K steps), the
+// launch's completions flagged in shared memory. Loops over k run the same
+// count on every lane (the ballots need the whole warp).
+template <typename T, int KS>
+struct Slots {
+  bool valid[KS];
+  T t_done[KS];
+  unsigned freed = 0;  // bit k: slot k completed this launch
+  int lim = 0;
+  __device__ void load(bool* sv, T* st, unsigned char*, int ln, int K,
+                       int R) {
+    lim = min(max(R - ln * K, 0), K);
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      const bool mine = k < lim;
+      valid[k] = mine && sv[ln * K + k];
+      t_done[k] = mine ? st[ln * K + k] : static_cast<T>(0);
+    }
+  }
+  __device__ static constexpr int bound(int) { return KS; }
+  __device__ bool owns(int k) const { return k < lim; }
+  __device__ bool is_valid(int k) const { return valid[k]; }
+  __device__ T done_at(int k) const { return t_done[k]; }
+  __device__ void take(int slot_k, T t) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (k == slot_k) {
+        valid[k] = true;
+        t_done[k] = t;
+      }
+    }
+  }
+  __device__ void complete(int k) {
+    valid[k] = false;
+    freed |= 1u << k;
+  }
+  __device__ bool was_freed(int k) const { return (freed >> k) & 1u; }
+  __device__ void store(bool* sv, T* st, int ln, int K) const {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (k < lim) {
+        sv[ln * K + k] = valid[k];
+        st[ln * K + k] = t_done[k];
+      }
+    }
+  }
+};
+
+template <typename T>
+struct Slots<T, 0> {
+  bool* sv;
+  T* st;
+  unsigned char* fr;  // shared: completed this launch
+  int lim = 0;
+  __device__ void load(bool* sv_, T* st_, unsigned char* fr_, int ln, int K,
+                       int R) {
+    lim = min(max(R - ln * K, 0), K);
+    sv = sv_ + ln * K;
+    st = st_ + ln * K;
+    fr = fr_ + ln * K;
+    for (int k = 0; k < lim; ++k) fr[k] = 0;
+  }
+  __device__ static int bound(int K) { return K; }
+  __device__ bool owns(int k) const { return k < lim; }
+  __device__ bool is_valid(int k) const { return k < lim && sv[k]; }
+  __device__ T done_at(int k) const { return st[k]; }
+  __device__ void take(int k, T t) {
+    sv[k] = true;
+    st[k] = t;
+  }
+  __device__ void complete(int k) {
+    sv[k] = false;
+    fr[k] = 1;
+  }
+  __device__ bool was_freed(int k) const { return k < lim && fr[k]; }
+  __device__ void store(bool*, T*, int, int) const {}
+};
 
 struct State {
   void *t, *mem;
@@ -161,7 +255,7 @@ struct Scenario {
 
 struct Dims {
   int n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg, n_col,
-      t_step_stride, prepare, reset;
+      t_step_stride, prepare, reset, forms;
   double sim_end, eps, success, fail, worker_mem;
 };
 
@@ -171,14 +265,15 @@ constexpr int kAccepted = 0, kNotHandled = 1, kOpPlacement = 2,
 
 // The failure walk of one lane (every lane of warp 0, the same bits): the
 // jct of a job of nominal duration jct starting at t on the servers srv
-// and channels chan. r0, the slowest speed over the server mask (inf when
-// it is empty), is a warp reduction over each lane's servers [i KS, i KS
-// + KS), KS = ceil(n_srv / 32), with a serial scan's bits; the windows
-// run in order, each reading the last t_done.
+// and channels chan (or, without the channel mask, win: whether window i's
+// channel is one of the job's). r0, the slowest speed over the server mask
+// (inf when it is empty), is a warp reduction over each lane's servers
+// [i KS, i KS + KS), KS = ceil(n_srv / 32), with a serial scan's bits; the
+// windows run in order, each reading the last t_done.
 template <typename T>
 __device__ T failure_walk(const Scenario& sc, T t, T jct,
                           const unsigned char* srv, const unsigned char* chan,
-                          int n_srv, int ln) {
+                          const unsigned char* win, int n_srv, int ln) {
   const T* speeds = static_cast<const T*>(sc.speeds);
   const T* t0 = static_cast<const T*>(sc.t0);
   const T* t1 = static_cast<const T*>(sc.t1);
@@ -193,7 +288,9 @@ __device__ T failure_walk(const Scenario& sc, T t, T jct,
   for (int i = 0; i < sc.n_win; ++i) {
     const T w0 = t0[i], w1 = t1[i], r = rate[i];
     const T lo = w0 > t ? w0 : t;
-    const bool affects = sc.kind[i] == 0 ? srv[sc.res[i]] : chan[sc.res[i]];
+    const bool affects = sc.kind[i] == 0   ? srv[sc.res[i]]
+                         : chan != nullptr ? chan[sc.res[i]]
+                                           : win[i];
     const bool overlap = affects && lo < w1 && t_done > lo;
     const T remaining = t_done - lo;
     const T span = w1 - lo;
@@ -207,16 +304,33 @@ __device__ T failure_walk(const Scenario& sc, T t, T jct,
   return t_done - t;
 }
 
-template <typename T, bool kScenario>
+// The dynamic shared memory of a launch (bytes, in this order): the
+// staged chan_occ [n_chan] ints (unless kOccGlobal), the completed slots'
+// list [R] ints, the memory form's completion flags [R] (KS = 0), the
+// server mask [n_srv], then the channel mask [n_chan] or, without it
+// (kMaskFree), each scenario window's channel flag [n_win].
+__host__ __device__ inline size_t episode_smem(int n_srv, int n_chan, int R,
+                                              int forms, int ks, int n_win) {
+  const size_t occ = forms & kOccGlobal ? 0 : static_cast<size_t>(n_chan);
+  return sizeof(int) * (occ + R) + (ks == 0 ? R : 0) + n_srv +
+         (forms & kMaskFree ? n_win : static_cast<size_t>(n_chan));
+}
+
+template <typename T, bool kScenario, int KS>
 __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     State st, Trace tr, Bank bk, const int* __restrict__ actions, Raw raw,
     Tables tb, Seg sg, Fields fl, Dims dm, Scenario sc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_srv = dm.n_srv, n_chan = dm.n_chan, R = dm.slots;
-  int* s_occ = reinterpret_cast<int*>(smem);            // [n_chan] chan_occ
-  int* s_freed = s_occ + n_chan;                        // [R] completed
-  unsigned char* s_srv = reinterpret_cast<unsigned char*>(s_freed + R);
-  unsigned char* s_chan = s_srv + n_srv;                // [n_chan] mask
+  const bool occ_global = dm.forms & kOccGlobal;
+  const bool mask_free = dm.forms & kMaskFree;
+  int* s_occ = reinterpret_cast<int*>(smem);      // [n_chan] chan_occ
+  int* s_freed = s_occ + (occ_global ? 0 : n_chan);  // [R] completed
+  unsigned char* s_fr = reinterpret_cast<unsigned char*>(s_freed + R);
+  unsigned char* s_srv = s_fr + (KS == 0 ? R : 0);   // [n_srv] mask
+  // [n_chan] mask, or the windows' channel flags [n_win]
+  unsigned char* s_chan = mask_free ? nullptr : s_srv + n_srv;
+  unsigned char* s_win = s_srv + n_srv;
   __shared__ int s_accept, s_slot, s_ticked, s_n_freed, s_running,
       s_occupied;
 
@@ -250,33 +364,36 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
 
   // warp 0's slots: lane ln owns [ln K, ln K + K)
   const int K = (R + ddls::kWarpSize - 1) / ddls::kWarpSize;
-  bool valid[kSlotsPerLane];
-  T t_done[kSlotsPerLane];
-  if (warp0) {
-#pragma unroll
-    for (int k = 0; k < kSlotsPerLane; ++k) {
-      const int r = ln * K + k;
-      const bool mine = k < K && r < R;
-      valid[k] = mine && slot_valid[r];
-      t_done[k] = mine ? slot_t_done[r] : static_cast<T>(0);
-    }
-  }
+  Slots<T, KS> sl;
+  if (warp0) sl.load(slot_valid, slot_t_done, s_fr, ln, K, R);
 
   // ---- the lane's channel occupancy staged, the masks cleared
-  for (int ch = tid; ch < n_chan; ch += nt) s_occ[ch] = chan_occ[ch];
-  ddls::block_fill(s_srv, static_cast<size_t>(n_srv) + n_chan, 0);
+  if (!occ_global) {
+    for (int ch = tid; ch < n_chan; ch += nt) s_occ[ch] = chan_occ[ch];
+  }
+  ddls::block_fill(s_srv, static_cast<size_t>(n_srv) +
+                              (mask_free ? (kScenario ? sc.n_win : 0)
+                                         : n_chan), 0);
   __syncthreads();
 
   // ---- the decision: the channel check and the two masks over the
   // configuration's valid deps and ops
   bool ok_chan = true;
   const int nd = min(max(tb.n_deps[c], 0), dm.m);
-  ddls::for_each_flow(raw.is_flow + static_cast<size_t>(b) * dm.m,
-                      raw.chan + static_cast<size_t>(b) * dm.m, nd,
-                      [&](int ch) {
-                        if (s_occ[ch] >= 0) ok_chan = false;
-                        s_chan[ch] = 1;
-                      });
+  const bool* flow_row = raw.is_flow + static_cast<size_t>(b) * dm.m;
+  const int* chan_row = raw.chan + static_cast<size_t>(b) * dm.m;
+  ddls::for_each_flow(flow_row, chan_row, nd, [&](int ch) {
+    if ((occ_global ? chan_occ[ch] : s_occ[ch]) >= 0) ok_chan = false;
+    if (!mask_free) s_chan[ch] = 1;
+  });
+  if (kScenario && mask_free) {
+    // each straggler window whose channel one of the flows takes
+    ddls::for_each_flow(flow_row, chan_row, nd, [&](int ch) {
+      for (int i = 0; i < sc.n_win; ++i) {
+        if (sc.kind[i] != 0 && sc.res[i] == ch) s_win[i] = 1;
+      }
+    });
+  }
   const bool* valid_row = tb.op_valid + static_cast<size_t>(c) * dm.n;
   const int no = min(max(tb.n_ops[c], 0), dm.n);
   for (int i = tid; i < no; i += nt) {
@@ -313,28 +430,21 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       jct = static_cast<T>(0);
     }
     if constexpr (kScenario) {
-      if (active) jct = failure_walk(sc, t, jct, s_srv, s_chan, n_srv, ln);
+      if (active) {
+        jct = failure_walk(sc, t, jct, s_srv, s_chan, s_win, n_srv, ln);
+      }
     }
     // the first free slot: each lane's first, then the lowest such lane
     int first = -1;
 #pragma unroll
-    for (int k = kSlotsPerLane - 1; k >= 0; --k) {
-      const int r = ln * K + k;
-      if (k < K && r < R && !valid[k]) first = k;
+    for (int k = sl.bound(K) - 1; k >= 0; --k) {
+      if (sl.owns(k) && !sl.is_valid(k)) first = k;
     }
     const unsigned any_free = __ballot_sync(ddls::kFullMask, first >= 0);
     const int owner = any_free ? __ffs(any_free) - 1 : 0;
     const int slot = __shfl_sync(ddls::kFullMask, ln * K + first, owner);
     accept = accept && any_free != 0 && has_job;
-    if (accept && ln == owner) {
-#pragma unroll
-      for (int k = 0; k < kSlotsPerLane; ++k) {
-        if (k == first) {
-          valid[k] = true;
-          t_done[k] = t + jct;
-        }
-      }
-    }
+    if (accept && ln == owner) sl.take(first, t + jct);
     if (has_job) q_row = -1;
     if (ln == 0) {
       const T reward = has_job
@@ -368,9 +478,20 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       if (s_srv[s]) srv_job[s] = slot;
       mem[s] = new_mem[s];
     }
-    for (int ch = tid; ch < n_chan; ch += nt) {
-      slot_chan[static_cast<size_t>(slot) * n_chan + ch] = s_chan[ch];
-      if (s_chan[ch]) chan_occ[ch] = slot;
+    bool* chan_row_out = slot_chan + static_cast<size_t>(slot) * n_chan;
+    if (!mask_free) {
+      for (int ch = tid; ch < n_chan; ch += nt) {
+        chan_row_out[ch] = s_chan[ch];
+        if (s_chan[ch]) chan_occ[ch] = slot;
+      }
+    } else {
+      // the slot's row cleared, then set again over the flows
+      ddls::block_fill(chan_row_out, n_chan, 0);
+      __syncthreads();
+      ddls::for_each_flow(flow_row, chan_row, nd, [&](int ch) {
+        chan_row_out[ch] = true;
+        chan_occ[ch] = slot;
+      });
     }
   }
 
@@ -383,16 +504,15 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     int ptr = st.ptr[b];
     bool done = st.done[b];
     int completed = st.completed[b];
-    unsigned freed = 0;  // bit k: slot ln K + k completed this launch
     bool ticked = false;
     while (q_row < 0 && !done) {
       ticked = true;
       // the least remaining time, as the serial loop over r = 0..R-1
       T rem = static_cast<T>(INFINITY);
 #pragma unroll
-      for (int k = 0; k < kSlotsPerLane; ++k) {
-        if (valid[k]) {
-          const T left = t_done[k] - t;
+      for (int k = 0; k < sl.bound(K); ++k) {
+        if (sl.is_valid(k)) {
+          const T left = sl.done_at(k) - t;
           rem = left < rem ? left : rem;
         }
       }
@@ -406,15 +526,12 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
       int n_done = 0;
       bool running = false;
 #pragma unroll
-      for (int k = 0; k < kSlotsPerLane; ++k) {
-        const bool comp =
-            valid[k] && (t_done[k] - t2 - eps <= static_cast<T>(0));
+      for (int k = 0; k < sl.bound(K); ++k) {
+        const bool comp = sl.is_valid(k) &&
+                          (sl.done_at(k) - t2 - eps <= static_cast<T>(0));
         n_done += __popc(__ballot_sync(ddls::kFullMask, comp));
-        if (comp) {
-          valid[k] = false;
-          freed |= 1u << k;
-        }
-        running = running || valid[k];
+        if (comp) sl.complete(k);
+        running = running || sl.is_valid(k);
       }
       const bool any_running = __any_sync(ddls::kFullMask, running);
       completed += n_done;
@@ -430,15 +547,11 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     // write the slots and the scalars back; list the completed slots in
     // slot order (lane-major: an exclusive scan of the lanes' counts)
     int mine = 0, running = 0;
+    sl.store(slot_valid, slot_t_done, ln, K);
 #pragma unroll
-    for (int k = 0; k < kSlotsPerLane; ++k) {
-      const int r = ln * K + k;
-      if (k < K && r < R) {
-        slot_valid[r] = valid[k];
-        slot_t_done[r] = t_done[k];
-      }
-      mine += (freed >> k) & 1u;
-      running += valid[k] ? 1 : 0;
+    for (int k = 0; k < sl.bound(K); ++k) {
+      mine += sl.was_freed(k) ? 1 : 0;
+      running += sl.is_valid(k) ? 1 : 0;
     }
     int before = mine;
 #pragma unroll
@@ -448,8 +561,8 @@ __global__ void __launch_bounds__(kThreads) episode_step_kernel(
     }
     before -= mine;
 #pragma unroll
-    for (int k = 0; k < kSlotsPerLane; ++k) {
-      if ((freed >> k) & 1u) s_freed[before++] = ln * K + k;
+    for (int k = 0; k < sl.bound(K); ++k) {
+      if (sl.was_freed(k)) s_freed[before++] = ln * K + k;
     }
     running = __reduce_add_sync(ddls::kFullMask, running);
     if (ln == ddls::kWarpSize - 1) s_n_freed = before;
@@ -604,7 +717,10 @@ __global__ void episode_prepare_kernel(
 // constants sim_end, eps, the success and fail rewards and the worker
 // memory; floats of the type is_f64 names; then the scenario's tables
 // (speeds [n_srv], t0, t1, rate [n_win] of that type, kind and res [n_win]
-// int32; speeds null for none) and n_win.
+// int32; speeds null for none) and n_win; last the forms to take even where
+// the surface's shared memory does not need them (kOccGlobal | kMaskFree)
+// and warp 0's slots a lane (4, 8, 16 or 32 with 32 of them at least the
+// slots; 0 for the memory form: sim/device_env.py episode_slots_a_lane).
 DDLS_EXPORT int ddls_episode_step(
     void* t, void* mem, void* srv_job, void* chan_occ, void* slot_valid,
     void* slot_t_done, void* slot_mem, void* slot_servers, void* slot_chan,
@@ -627,11 +743,14 @@ DDLS_EXPORT int ddls_episode_step(
     int reset, double sim_end, double eps, double success, double fail,
     double worker_mem, int is_f64, const void* sc_speeds, const void* sc_t0,
     const void* sc_t1, const void* sc_rate, const void* sc_kind,
-    const void* sc_res, int n_win, void* stream) {
+    const void* sc_res, int n_win, int forms, int ks, void* stream) {
   const bool scenario = sc_speeds != nullptr;
   if (lanes <= 0 || n_srv < 1 || n_chan < 1 || slots < 1 || n < 1 || m < 1 ||
       jobs < 1 || d < 0 || d >= decisions || n_col < 1 || n_cfg < 1 ||
-      slots > ddls::kWarpSize * kSlotsPerLane || n_deps == nullptr ||
+      forms < 0 || forms > (kOccGlobal | kMaskFree) ||
+      !(ks == 0 || ((ks == 4 || ks == 8 || ks == 16 || ks == 32) &&
+                    ks * ddls::kWarpSize >= slots)) ||
+      n_deps == nullptr ||
       n_ops == nullptr || (prepare && actions == nullptr) || n_win < 0 ||
       (scenario && n_win > 0 &&
        (sc_t0 == nullptr || sc_t1 == nullptr || sc_rate == nullptr ||
@@ -666,9 +785,22 @@ DDLS_EXPORT int ddls_episode_step(
   const Fields fl{static_cast<int*>(f_jtype), f_frac, f_steps,
                   static_cast<int*>(f_occupied),
                   static_cast<int*>(f_running)};
+  // each form the shared memory needs, beyond those forced
+  int budget = 0;
+  const int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  const int wins = scenario ? n_win : 0;
+  const auto need = [&](int f) {
+    return episode_smem(n_srv, n_chan, slots, f, ks, wins);
+  };
+  // (less the kernel's few static bytes)
+  const size_t room = static_cast<size_t>(budget) - 256;
+  if (need(forms) > room) forms |= kOccGlobal;
+  if (need(forms) > room) forms |= kMaskFree;
+  const size_t smem = need(forms);
   const Dims dm{n_srv, n_chan, slots, n, m, jobs, decisions, d, n_deg, n_cfg,
-                n_col, t_step_stride, prepare, reset, sim_end, eps, success,
-                fail, worker_mem};
+                n_col, t_step_stride, prepare, reset, forms, sim_end, eps,
+                success, fail, worker_mem};
   const Scenario sc{sc_speeds, sc_t0, sc_t1, sc_rate,
                     static_cast<const int*>(sc_kind),
                     static_cast<const int*>(sc_res), scenario ? n_win : 0};
@@ -676,9 +808,6 @@ DDLS_EXPORT int ddls_episode_step(
                   static_cast<const int*>(deg_col),
                   static_cast<const int*>(n_deps),
                   static_cast<const int*>(n_ops)};
-  // chan_occ staged and the completed slots' list (ints), the two masks
-  const size_t smem = sizeof(int) * (static_cast<size_t>(n_chan) + slots) +
-                      n_srv + n_chan;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* acts = static_cast<const int*>(actions);
   const auto launch = [&](auto kernel) {
@@ -688,12 +817,32 @@ DDLS_EXPORT int ddls_episode_step(
                                          dm, sc);
     return static_cast<int>(cudaGetLastError());
   };
+  // the instance of the float type, the mode and the slots a lane
+  const auto by_slots = [&](auto of) {
+    switch (ks) {
+      case 4: return launch(of(std::integral_constant<int, 4>{}));
+      case 8: return launch(of(std::integral_constant<int, 8>{}));
+      case 16: return launch(of(std::integral_constant<int, 16>{}));
+      case 32: return launch(of(std::integral_constant<int, 32>{}));
+      default: return launch(of(std::integral_constant<int, 0>{}));
+    }
+  };
   if (is_f64) {
-    return scenario ? launch(episode_step_kernel<double, true>)
-                    : launch(episode_step_kernel<double, false>);
+    return scenario ? by_slots([](auto k) {
+      return episode_step_kernel<double, true, decltype(k)::value>;
+    })
+                    : by_slots([](auto k) {
+                        return episode_step_kernel<double, false,
+                                                   decltype(k)::value>;
+                      });
   }
-  return scenario ? launch(episode_step_kernel<float, true>)
-                  : launch(episode_step_kernel<float, false>);
+  return scenario ? by_slots([](auto k) {
+    return episode_step_kernel<float, true, decltype(k)::value>;
+  })
+                  : by_slots([](auto k) {
+                      return episode_step_kernel<float, false,
+                                                 decltype(k)::value>;
+                    });
 }
 
 // queue_row [B], done [B], bank type [B, J], action [B] int32, deg_col

@@ -64,7 +64,11 @@
 //    completed dep adds one to its child's parent count in every copy (G
 //    integer atomics over DSMEM);
 //  * the per-channel bests are one table spread over the cluster (channel
-//    c in CTA c % G), reduced with order-preserving integer max over DSMEM
+//    c in CTA c % G), in shared memory where the whole two-row table of a
+//    lane on one CTA (2 C entries) fits beside the rest, else in the
+//    lane's workspace (the same layout; read around L1, updated with the
+//    same atomics, so the same bits), reduced with order-preserving
+//    integer max over DSMEM
 //    (max and min are exact in any order, so an order-preserving float ->
 //    int encoding makes them deterministic; scores of -1 are negative, so
 //    not a plain bit cast; in float64 the 64-bit max and min are
@@ -189,19 +193,24 @@ struct Outputs {
 // shared memory: the ops (every op of the lane, one copy a CTA: state and
 // fields; else that copy in the lane's global workspace), the dep chunk's
 // state (else in the workspace) and the dep chunk's fields (else read from
-// the inputs). The best-score tables always live in shared memory. The
+// the inputs). The per-worker bests always live in shared memory, the
+// per-channel bests there where the launch's plan found room for a whole
+// lane's table on one CTA (`cbest_smem`), else in the workspace. The
 // launch passes the padded sizes with no group placed; each lane places
 // its groups for its own extents (`plan`) in the `smem` bytes launched.
 struct Shape {
   int n, e, links, W, C, G;
   int dep_chunk, cslice;  // ceil(E / G), ceil(C / G)
   int ops_smem, dep_state_smem, dep_fields_smem;
+  int cbest_smem;
   int smem;
 };
 
 // byte offsets of one CTA's arrays; each rounded up to 8 bytes. In shared
 // memory: the tables, the ops, the dep state, the dep fields (the groups
-// the shape puts there). In a lane's workspace: G copies of the ops group
+// the shape puts there). In a lane's workspace: the channel table when it
+// is not in shared memory (room for G CTAs' two rows of ceil(C / G) at any
+// G up to the launch's: 2 (C + G) entries), G copies of the ops group
 // (`ops_bytes` each) when they are not in shared memory, then the dep
 // state of all E deps when it is not.
 struct Layout {
@@ -239,9 +248,11 @@ __host__ __device__ Layout carve(const Shape& s, bool smem) {
   L.ops_bytes = g.at;
   const int ndep = smem ? s.dep_chunk : s.e;
   Carver c;
-  if (smem) {
-    L.wbest = c.take(s.W * fb);
+  if (smem) L.wbest = c.take(s.W * fb);
+  if (smem && s.cbest_smem) {
     L.cbest = c.take(2 * static_cast<size_t>(s.cslice) * fb);
+  } else if (!smem && !s.cbest_smem) {
+    L.cbest = c.take(2 * (static_cast<size_t>(s.C) + s.G) * fb);
   }
   if (smem == static_cast<bool>(s.ops_smem)) {
     L.ops = c.take(smem ? L.ops_bytes : L.ops_bytes * s.G);
@@ -278,7 +289,7 @@ __device__ __forceinline__ V warp_min(V v) {
 __host__ __device__ inline Shape shape_of(int n, int e, int links, int W,
                                          int C, int G, int smem) {
   return Shape{n, e, links, W, C, G, (e + G - 1) / G, (C + G - 1) / G,
-               0, 0, 0, smem};
+               0, 0, 0, 1, smem};
 }
 
 // Places the groups of `s` in its shared memory, in the order the ticks
@@ -441,6 +452,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // this lane's shape: its extents, its groups placed in the shared
   // memory launched (the workspace keeps the padded layout)
   Shape ls = shape_of(n_last, e_last, links, W, C, G, sh.smem);
+  ls.cbest_smem = sh.cbest_smem;
   plan<T>(&ls);
   const int dep_chunk = ls.dep_chunk;
   const int dep_lo = min(rank * dep_chunk, e_last);
@@ -528,17 +540,28 @@ __global__ void __launch_bounds__(kMaxThreads)
     dep_channel = in.dep_channel + (oe + dep_lo) * links;
   }
   // the per-worker bests (this CTA's own) and, by parity, the per-channel
-  // bests (channel c in CTA c % G at c / G)
+  // bests (channel c in CTA c % G at c / G: CTA q's two rows in its shared
+  // memory, or at q * 2 cslice in the lane's workspace)
   Ord* s_wbest = reinterpret_cast<Ord*>(smem + S.wbest);
-  Ord* s_cbest = reinterpret_cast<Ord*>(smem + S.cbest);
+  const bool cbest_smem = ls.cbest_smem;
   const int cslice = ls.cslice;
+  Ord* g_cbest = reinterpret_cast<Ord*>(lws + Wl.cbest);
+  Ord* s_cbest = cbest_smem ? reinterpret_cast<Ord*>(smem + S.cbest)
+                            : g_cbest + 2 * static_cast<size_t>(rank) * cslice;
   auto best_at = [&](int jj, int l, int p) -> Ord* {
     const int c = dep_channel[static_cast<size_t>(jj) * links + l];
     const int slot = packed ? c : channel_slot(c, C, G);
     if (slot < 0) return nullptr;
     const int q = slot >> 20;
-    Ord* table = q == rank ? s_cbest : cluster.map_shared_rank(s_cbest, q);
+    Ord* table = q == rank ? s_cbest
+                 : cbest_smem ? cluster.map_shared_rank(s_cbest, q)
+                              : g_cbest + 2 * static_cast<size_t>(q) * cslice;
     return table + p * cslice + (slot & 0xfffff);
+  };
+  // a best's value: in the workspace, read at L2 (another CTA's atomics
+  // land there; this SM's L1 may hold an older copy)
+  auto best_value = [&](const Ord* b) -> Ord {
+    return cbest_smem ? *b : __ldcg(b);
   };
 
   for (int i = tid; i < n_last; i += nt) {
@@ -628,7 +651,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int l = 0; l < links; ++l) {
         const Ord* b = best_at(jj, l, p);
         if (b == nullptr) continue;
-        const T best = N_::dec(*b);
+        const T best = N_::dec(best_value(b));
         if (sc >= best && sc > static_cast<T>(0)) nominated = true;
       }
       if (nominated) {
@@ -775,15 +798,21 @@ int threads_for(int n, int dep_chunk) {
 
 // The launch's shape: the padded sizes, no group placed, and the shared
 // memory a CTA takes: what the padded lane would place, up to `budget`.
-// Returns false when not even the best-score tables fit.
+// The channel table goes to the workspace where a lane on one CTA could
+// not hold it (or `cbest_global` asks so). Returns false when not even the
+// per-worker bests fit.
 template <typename T>
 bool plan_launch(Shape* s, int n, int e, int links, int W, int C, int G,
-                 int budget) {
+                 int budget, int cbest_global) {
   *s = shape_of(n, e, links, W, C, G, budget);
   // a lane of up to kClusterMinDeps deps runs on one CTA
   s->cslice = C;
   const int one_cta = e < kClusterMinDeps ? e : kClusterMinDeps;
   if (s->dep_chunk < one_cta) s->dep_chunk = one_cta;
+  s->cbest_smem = !cbest_global;
+  if (carve<T>(*s, true).total > static_cast<size_t>(budget)) {
+    s->cbest_smem = 0;
+  }
   if (carve<T>(*s, true).total > static_cast<size_t>(budget)) return false;
   Shape full = *s;
   plan<T>(&full);
@@ -800,12 +829,12 @@ bool sizes_ok(int n, int e, int links, int W, int C, int G) {
 template <typename T>
 int launch(const Inputs& in, const Outputs& out, void* ws, size_t ws_lane,
            int lanes, int n, int e, int links, int W, int C, int G,
-           cudaStream_t stream) {
+           int cbest_global, cudaStream_t stream) {
   int budget = 0;
   int rc = ddls::smem_optin(&budget);
   if (rc != 0) return rc;
   Shape sh;
-  if (!plan_launch<T>(&sh, n, e, links, W, C, G, budget)) {
+  if (!plan_launch<T>(&sh, n, e, links, W, C, G, budget, cbest_global)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (carve<T>(sh, false).total > ws_lane) {
@@ -833,7 +862,9 @@ int launch(const Inputs& in, const Outputs& out, void* ws, size_t ws_lane,
 // dep_src, dep_dst, dep_mutual, with op_worker null and `ots` [B, N] int32
 // in its place; then `skip` ([B] bools, or null); the workspace
 // (`ws_lane` bytes a lane, uninitialised; the kernel sets up what it
-// uses); the outputs; the sizes and the cluster size G (1-16 CTAs a lane).
+// uses); the outputs; the sizes, the cluster size G (1-16 CTAs a lane) and
+// `cbest_global` (1: the channel table in the workspace even where shared
+// memory would hold it; the tests hold both forms).
 DDLS_EXPORT int ddls_lookahead(
     const void* op_remaining, const void* op_valid, const void* op_worker,
     const void* op_score, const void* num_parents, const void* dep_remaining,
@@ -842,7 +873,8 @@ DDLS_EXPORT int ddls_lookahead(
     const void* dep_channel, const void* cfg, const void* ots,
     const void* skip, void* ws, void* out_vals, void* out_ok,
     void* out_ticks, int ws_lane, int lanes, int n, int e, int links,
-    int num_workers, int num_channels, int G, int is_f64, void* stream) {
+    int num_workers, int num_channels, int G, int is_f64, int cbest_global,
+    void* stream) {
   if (lanes <= 0 || ws_lane < 0 ||
       !sizes_ok(n, e, links, num_workers, num_channels, G) ||
       (cfg == nullptr) != (ots == nullptr) ||
@@ -871,17 +903,18 @@ DDLS_EXPORT int ddls_lookahead(
   const size_t wl = static_cast<size_t>(ws_lane);
   if (is_f64) {
     return launch<double>(in, out, ws, wl, lanes, n, e, links, num_workers,
-                          num_channels, G, s);
+                          num_channels, G, cbest_global, s);
   }
   return launch<float>(in, out, ws, wl, lanes, n, e, links, num_workers,
-                       num_channels, G, s);
+                       num_channels, G, cbest_global, s);
 }
 
 // The workspace a lane of K21 needs at these sizes (bytes, into *out):
 // what the launch's plan keeps out of shared memory.
 DDLS_EXPORT int ddls_lookahead_workspace(int n, int e, int links,
                                          int num_workers, int num_channels,
-                                         int G, int is_f64, void* out) {
+                                         int G, int is_f64, int cbest_global,
+                                         void* out) {
   if (!sizes_ok(n, e, links, num_workers, num_channels, G)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -891,9 +924,9 @@ DDLS_EXPORT int ddls_lookahead_workspace(int n, int e, int links,
   Shape sh;
   const bool ok =
       is_f64 ? plan_launch<double>(&sh, n, e, links, num_workers,
-                                   num_channels, G, budget)
+                                   num_channels, G, budget, cbest_global)
              : plan_launch<float>(&sh, n, e, links, num_workers,
-                                  num_channels, G, budget);
+                                  num_channels, G, budget, cbest_global);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   *static_cast<int*>(out) = static_cast<int>(
       is_f64 ? carve<double>(sh, false).total : carve<float>(sh, false).total);

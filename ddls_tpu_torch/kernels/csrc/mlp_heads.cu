@@ -1,7 +1,7 @@
 // K17 mlp_heads: the policy's logit and value heads (Dense -> act -> ... ->
 // Dense, each head its own stack) from the pooled embedding, both heads and
-// every layer in one launch; K18 mlp_heads_bwd and mlp_heads_bwd_reduce:
-// their backward.
+// every layer in one launch; K18 mlp_heads_bwd: their backward, the sum of
+// the parameter gradients over the rows included.
 //
 // Replaces ddls_tpu/models/policy.py:38 MLPHead.__call__, used at :145-146
 // (the logit head and the value head over final_emb), and the backward that
@@ -23,23 +23,48 @@
 // its activation-derivative decisions are the forward's bit for bit (relu's
 // derivative at 0 is 0, JAX's rule).
 //
-// What bounds it on the H100: latency. The shipped heads move ~100 bytes a
-// row and ~3 KB of weights; the 256-wide ones ~70 KB of weights. A block
-// takes a tile of rows; each layer's weight is staged through shared memory
-// in chunks of output rows (a 256 x 256 layer does not fit, so it streams),
-// transposed on the way in for the forward ([k][o]: a warp's lanes take
-// neighbouring outputs of one row and read neighbouring words) and kept as
-// is for the backward ([o][k]: lanes take neighbouring inputs). The tile's
-// activations stay in shared memory between layers. The backward writes one
-// row of per-block partial parameter gradients, each entry owned by one
-// thread and summed in row order, and the reduce entry adds the rows in
-// block order: no atomics, the same bits on every run for a given row count.
+// What bounds them on the H100: latency. The shipped heads move ~100 bytes
+// a row and ~4.6 KB of weights; the 256-wide ones ~70 KB of weights. K17
+// takes a tile of rows a block; each layer's weight is staged through
+// shared memory in chunks of output rows (a 256 x 256 layer does not fit,
+// so it streams), transposed on the way in ([k][o]: a warp's lanes take
+// neighbouring outputs of one row and read neighbouring words). The
+// tile's activations stay in shared memory between layers.
+//
+// K18 keeps the order of sums of its first design (8-row tiles, rows in
+// order within a tile; CTA g's tiles g, g + G, ... in order; the CTAs'
+// rows in block order), so its bits are that design's at every row count.
+// That design lost its time to a chain of dependent global round trips:
+// every layer pass, the recompute's and the backward's, restaged its
+// weight chunk with scalar loads between two barriers (eight round trips a
+// tile at the shipped widths), and a second launch added the per-CTA rows.
+// This design:
+//  * stages every weight (as stored, for d h, and transposed, for the
+//    recompute) and bias of both heads at the start, with the tile's x and
+//    output gradients, all in flight together with cp.async (16 bytes a
+//    copy where aligned): one round trip; heads too wide to fit stream
+//    their layers through two chunk buffers, the next chunk's copies issued
+//    before the current one is used;
+//  * runs both heads' layers together, a step (one barrier) per layer
+//    depth: the recompute, then each backward step's parameter entries and
+//    d h (the activation derivative applied as d h is stored) in one pass;
+//  * folds the reduce into the launch: up to 16 CTAs (128 rows, the
+//    update's minibatch) launch as one thread-block cluster whose CTAs add
+//    the rows in block order over distributed shared memory; more launch
+//    as clusters of 8 that take a ticket, and the CTAs of the last
+//    cluster to finish add the rows from global memory, each a slice of
+//    the columns, 16 loads of a column in flight (the counter is the
+//    wrapper's, one a (device, stream), set back to 0 by that cluster,
+//    so the launch replays inside a CUDA graph; one cluster takes none).
+// No float atomics: the same inputs give the same bits on every run.
+#include "cluster.cuh"
 #include "common.cuh"
 #include "ln_row.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // K17's threads
+constexpr int kMaxBwdThreads = 512;  // K18's, at most (its plan's)
 constexpr int kMaxLayers = 3;
 constexpr int kMaxIn = 64;
 constexpr int kMaxHidden = 256;
@@ -63,13 +88,33 @@ struct Heads {
   int chunk;         // floats of the weight chunk buffer
 };
 
+// acc = fmaf(a[i as], b[i bs], acc) for i = 0, 1, ..., n - 1 in order;
+// eight pairs loaded ahead of their eight fmafs, so the shared loads'
+// latency is paid once a group, not once a term
+__device__ __forceinline__ float fma_chain(const float* a, int as,
+                                           const float* b, int bs, int n,
+                                           float acc) {
+  constexpr int kAhead = 8;
+  int i = 0;
+  for (; i + kAhead <= n; i += kAhead) {
+    float x[kAhead], y[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      x[j] = a[(i + j) * as];
+      y[j] = b[(i + j) * bs];
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) acc = fmaf(x[j], y[j], acc);
+  }
+  for (; i < n; ++i) acc = fmaf(a[i * as], b[i * bs], acc);
+  return acc;
+}
+
 // z = sum_k h[k] w[k * ws] + b, in input order: the one Dense arithmetic
 // that the forward and the backward's recompute share
 __device__ __forceinline__ float dense_dot(const float* h, const float* w,
                                            int ws, int n, float b) {
-  float acc = 0.0f;
-  for (int k = 0; k < n; ++k) acc = fmaf(h[k], w[k * ws], acc);
-  return __fadd_rn(acc, b);
+  return __fadd_rn(fma_chain(h, 1, w, ws, n, 0.0f), b);
 }
 
 // stage output rows [o0, o0 + oc) of layer L: transposed ([k][o - o0]) for
@@ -95,7 +140,7 @@ __device__ __forceinline__ void stage_chunk(const Layer& L, int o0, int oc,
 __device__ void layer_forward(const Layer& L, const float* in_s,
                               int in_stride, float* out_s, int out_stride,
                               float* w_s, int chunk, int tile_rows, int act,
-                              bool last, float* z_s) {
+                              bool last) {
   const int oc_max = max(1, min(L.out, chunk / L.in));
   for (int o0 = 0; o0 < L.out; o0 += oc_max) {
     const int oc = min(oc_max, L.out - o0);
@@ -106,7 +151,6 @@ __device__ void layer_forward(const Layer& L, const float* in_s,
       const int o = p - r * oc;
       const float z = dense_dot(in_s + r * in_stride, w_s + o, oc, L.in,
                                 L.b[o0 + o]);
-      if (z_s != nullptr) z_s[r * out_stride + o0 + o] = z;
       out_s[r * out_stride + o0 + o] = last ? z : ddls::activate(z, act);
     }
     __syncthreads();
@@ -142,7 +186,7 @@ mlp_heads_kernel(const float* __restrict__ x,  // [rows, k]
       const bool last = l == n - 1;
       float* dst = last ? out_s : (l % 2 == 0 ? buf0 : buf1);
       layer_forward(heads.layer[h][l], in_s, st, dst, st, w_s, heads.chunk,
-                    tile_rows, act, last, nullptr);
+                    tile_rows, act, last);
       in_s = dst;
     }
     const int a = heads.layer[h][n - 1].out;
@@ -161,168 +205,454 @@ mlp_heads_kernel(const float* __restrict__ x,  // [rows, k]
 }
 
 // ------------------------------------------------------------- backward
-// Per tile and head: recompute the hidden pre-activations z_l and outputs
-// h_l, then walk the layers backwards with d = d out:
-//   dW_l[o][k] += sum_r d[r][o] h_{l-1}[r][k], db_l[o] += sum_r d[r][o],
-//   d h_{l-1}[r][k] = sum_o d[r][o] W_l[o][k] (chunks of o in order),
+// Per 8-row tile and head: recompute the hidden pre-activations z_l and
+// outputs h_l, then walk the layers backwards with d = d out:
+//   dW_l[o][k] += sum_r d[r][o] h_{l-1}[r][k], db_l[o] += sum_r d[r][o]
+//     (rows in order, one fmaf a row; rows past the end hold zeros),
+//   d h_{l-1}[r][k] = sum_o d[r][o] W_l[o][k] (outputs in order),
 //   d = d h_{l-1} * act'(z_{l-1}),
-// and d x = d h_0 of head 0 + d h_0 of head 1.
-__global__ void __launch_bounds__(kThreads)
-mlp_heads_bwd_kernel(const float* __restrict__ x,       // [rows, k]
-                     Heads heads,
-                     const float* __restrict__ dlogits,  // [rows, a]
-                     const float* __restrict__ dvalue,   // [rows]
-                     float* __restrict__ dx,              // [rows, k]
-                     float* __restrict__ partial,  // [grid, n_params]
-                     int rows, int act) {
-  extern __shared__ float smem[];
-  const int st = heads.stride;
-  const int k_in = heads.layer[0][0].in;
-  const int tile = kRowsBwd * st;
-  float* x_s = smem;
-  float* z_s[2] = {x_s + tile, x_s + 2 * tile};   // hidden pre-activations
-  float* h_s[2] = {x_s + 3 * tile, x_s + 4 * tile};  // hidden outputs
-  float* d_a = x_s + 5 * tile;
-  float* d_b = x_s + 6 * tile;
-  float* dx_s = x_s + 7 * tile;
-  float* w_s = x_s + 8 * tile;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * heads.n_params;
-  const int n_tiles = (rows + kRowsBwd - 1) / kRowsBwd;
-  bool first = true;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int row0 = t * kRowsBwd;
-    const int tile_rows = min(kRowsBwd, rows - row0);
-    // rows past the end hold zeros: they add +0 to every gradient entry
-    for (int i = threadIdx.x; i < kRowsBwd * k_in; i += kThreads) {
-      const int r = i / k_in;
-      const int k = i - r * k_in;
-      x_s[r * st + k] = r < tile_rows
-          ? x[static_cast<size_t>(row0 + r) * k_in + k] : 0.0f;
-      dx_s[r * st + k] = 0.0f;
+// and d x = (0 + d h_0 of head 0) + d h_0 of head 1. CTA g of the G =
+// min(tiles, 132) that take tiles sums tiles g, g + G, ... in order into
+// its partial row P_g; the gradient is ((0 + P_0) + P_1) + ... + P_{G-1}.
+// These are the sums, in the same order, of the earlier two-launch design
+// (per-CTA rows in global memory, then a reduce kernel), so the results
+// keep its bits at every row count.
+//
+// The shared-memory layout (floats, each array 16-byte aligned), computed
+// on the host: the tile's x, the hidden z and h of each head, two output-
+// gradient buffers a head, every bias; then either every weight as stored
+// ([out][in], for d h) and, for the hidden layers, transposed ([in][out],
+// for the recompute) -- `resident` -- or two chunk buffers the layers
+// stream through; then, where they fit, every part's row (a launch of one
+// cluster: the CTAs write their rows into rank 0's, which adds them) or
+// else the CTA's own partial row.
+struct Bwd {
+  int x;
+  int z[2][kMaxLayers - 1], h[2][kMaxLayers - 1];
+  int d[2][2];
+  int b[2][kMaxLayers];
+  int w[2][kMaxLayers], wt[2][kMaxLayers];  // resident
+  int buf[2];                               // streaming
+  int rows;          // [parts][n_params] in rank 0, or -1
+  int acc;           // the CTA's partial row, or -1 (global memory)
+  int p_off[2][kMaxLayers];  // a layer's W, then b, in the gradient
+  int resident;
+  int floats;        // the dynamic shared memory
+};
+
+// n floats from global src into shared dst (16-byte aligned), the block's
+// threads: 16-byte copies where src is aligned too
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int n) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n / 4;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      ddls::cp_async16(dst + 4 * i, src + 4 * i);
+    }
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) {
+      ddls::cp_async4(dst + i, src + i);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      ddls::cp_async4(dst + i, src + i);
+    }
+  }
+}
+
+// output rows [o0, o0 + oc) of W [out][in] transposed into dst [in][oc]
+__device__ __forceinline__ void copy_async_t(float* dst, const float* w,
+                                             int in, int o0, int oc) {
+  const float* src = w + static_cast<size_t>(o0) * in;
+  for (int i = threadIdx.x; i < oc * in; i += blockDim.x) {
+    const int o = i / in;
+    ddls::cp_async4(dst + (i - o * in) * oc + o, src + i);
+  }
+}
+
+// Streams output rows of L through the two buffers, oc_max = chunk / in at
+// a time, transposed ([k][o - o0]) or as stored ([o - o0][k]); calls
+// use(w, o0, oc) on each chunk once it has landed, with the next chunk's
+// copies in flight. Every thread of the block calls it.
+template <typename Use>
+__device__ void stream_layer(const Layer& L, float* buf0, float* buf1,
+                             int chunk, bool transpose, Use use) {
+  const int oc_max = max(1, min(L.out, chunk / L.in));
+  const int n_chunks = (L.out + oc_max - 1) / oc_max;
+  auto issue = [&](int c) {
+    const int o0 = c * oc_max;
+    const int oc = min(oc_max, L.out - o0);
+    float* dst = (c & 1) ? buf1 : buf0;
+    if (transpose) {
+      copy_async_t(dst, L.w, L.in, o0, oc);
+    } else {
+      copy_async(dst, L.w + static_cast<size_t>(o0) * L.in, oc * L.in);
+    }
+    ddls::cp_async_commit();
+  };
+  issue(0);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      issue(c + 1);
+      ddls::cp_async_wait_group<1>();
+    } else {
+      ddls::cp_async_wait_group<0>();
     }
     __syncthreads();
-    int p_base = 0;
-    for (int h = 0; h < 2; ++h) {
-      const int n = heads.n_layers[h];
-      // the forward, hidden layers only
-      const float* in_s = x_s;
-      for (int l = 0; l + 1 < n; ++l) {
-        layer_forward(heads.layer[h][l], in_s, st, h_s[l], st, w_s,
-                      heads.chunk, kRowsBwd, act, false, z_s[l]);
-        in_s = h_s[l];
-      }
-      // d out, zero past the tile's rows
-      const int a = heads.layer[h][n - 1].out;
-      float* d = d_a;
-      float* d_next = d_b;
-      for (int i = threadIdx.x; i < kRowsBwd * a; i += kThreads) {
-        const int r = i / a;
-        const int o = i - r * a;
-        float v = 0.0f;
-        if (r < tile_rows) {
-          v = h == 0 ? dlogits[static_cast<size_t>(row0 + r) * a + o]
-                     : dvalue[row0 + r];
-        }
-        d[r * st + o] = v;
-      }
-      __syncthreads();
-      // parameter offsets of this head's layers
-      int off[kMaxLayers];
-      int acc_off = p_base;
-      for (int l = 0; l < n; ++l) {
-        off[l] = acc_off;
-        acc_off += heads.layer[h][l].out * heads.layer[h][l].in +
-                   heads.layer[h][l].out;
-      }
-      p_base = acc_off;
-      for (int l = n - 1; l >= 0; --l) {
-        const Layer& L = heads.layer[h][l];
-        const float* hin = l == 0 ? x_s : h_s[l - 1];
-        // dW and db: entry e owned by one thread, rows in order
-        const int n_w = L.out * L.in;
-        for (int e = threadIdx.x; e < n_w + L.out; e += kThreads) {
-          float s = 0.0f;
-          if (e < n_w) {
-            const int o = e / L.in;
-            const int k = e - o * L.in;
-            for (int r = 0; r < kRowsBwd; ++r) {
-              s = fmaf(d[r * st + o], hin[r * st + k], s);
-            }
-          } else {
-            const int o = e - n_w;
-            for (int r = 0; r < kRowsBwd; ++r) s = __fadd_rn(s, d[r * st + o]);
-          }
-          float* slot = part + off[l] + e;
-          *slot = first ? s : __fadd_rn(*slot, s);
-        }
-        // d h_{l-1} (for l == 0 this head's part of d x) into d_next,
-        // chunks of outputs in order
-        const int oc_max = max(1, min(L.out, heads.chunk / L.in));
-        float* acc_s = d_next;
-        for (int i = threadIdx.x; i < kRowsBwd * L.in; i += kThreads) {
-          const int r = i / L.in;
-          const int k = i - r * L.in;
-          acc_s[r * st + k] = 0.0f;
-        }
-        for (int o0 = 0; o0 < L.out; o0 += oc_max) {
-          const int oc = min(oc_max, L.out - o0);
-          __syncthreads();  // previous chunk's readers are done with w_s
-          stage_chunk(L, o0, oc, w_s, false);
-          __syncthreads();
-          for (int i = threadIdx.x; i < kRowsBwd * L.in; i += kThreads) {
-            const int r = i / L.in;
-            const int k = i - r * L.in;
-            float s = acc_s[r * st + k];
-            for (int o = 0; o < oc; ++o) {
-              s = fmaf(d[r * st + o0 + o], w_s[o * L.in + k], s);
-            }
-            acc_s[r * st + k] = s;
-          }
-        }
-        __syncthreads();
-        if (l == 0) {
-          for (int i = threadIdx.x; i < kRowsBwd * k_in; i += kThreads) {
-            const int r = i / k_in;
-            const int k = i - r * k_in;
-            dx_s[r * st + k] = __fadd_rn(dx_s[r * st + k], acc_s[r * st + k]);
-          }
-        } else {
-          const float* z = z_s[l - 1];
-          for (int i = threadIdx.x; i < kRowsBwd * L.in; i += kThreads) {
-            const int r = i / L.in;
-            const int k = i - r * L.in;
-            acc_s[r * st + k] = __fmul_rn(
-                acc_s[r * st + k], ddls::activate_grad(z[r * st + k], act));
-          }
-          float* tmp = d;
-          d = d_next;
-          d_next = tmp;
-        }
-        __syncthreads();
-      }
-    }
-    for (int i = threadIdx.x; i < tile_rows * k_in; i += kThreads) {
-      const int r = i / k_in;
-      const int k = i - r * k_in;
-      dx[static_cast<size_t>(row0 + r) * k_in + k] = dx_s[r * st + k];
-    }
-    first = false;
+    const int o0 = c * oc_max;
+    use((c & 1) ? buf1 : buf0, o0, min(oc_max, L.out - o0));
     __syncthreads();
   }
 }
 
-// out[e] = sum over blocks g = 0, 1, ... of partial[g][e], in that order
-__global__ void __launch_bounds__(kThreads)
-mlp_heads_bwd_reduce_kernel(const float* __restrict__ partial,
-                            float* __restrict__ out, int blocks,
-                            int n_params) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n_params) return;
-  float s = 0.0f;
-  for (int g = 0; g < blocks; ++g) {
-    s = __fadd_rn(s, partial[static_cast<size_t>(g) * n_params + e]);
+// e / n for 0 <= e, e * n < 2^32: the high word of e * ceil(2^32 / n)
+// (exact there, since the ceiling's excess over 2^32 / n is below one)
+struct FastDiv {
+  unsigned m;
+  int n;
+  __device__ explicit FastDiv(int n_)
+      : m(n_ == 1 ? 0u
+                  : static_cast<unsigned>((0x100000000ull + n_ - 1) / n_)),
+        n(n_) {}
+  __device__ int operator()(int e) const {
+    return n == 1 ? e : static_cast<int>(__umulhi(static_cast<unsigned>(e),
+                                                  m));
   }
-  out[e] = s;
+};
+
+// a[1] where `second`, else a[0]: constant indices, so a small array of
+// per-head values stays in registers
+template <typename V>
+__device__ __forceinline__ V pick(bool second, const V (&a)[2]) {
+  return second ? a[1] : a[0];
+}
+
+// one parameter-gradient entry e of layer L over the tile (e < out * in:
+// W[o][k]; else b[e - out * in]), rows in order, added into the CTA's row;
+// by_in divides by L.in
+__device__ __forceinline__ void param_entry(const Layer& L, const float* d,
+                                            const float* hin, int st, int e,
+                                            const FastDiv& by_in,
+                                            float* slot, bool first) {
+  const int n_w = L.out * L.in;
+  float s = 0.0f;
+  if (e < n_w) {
+    const int o = by_in(e);
+    const int k = e - o * L.in;
+#pragma unroll
+    for (int r = 0; r < kRowsBwd; ++r) {
+      s = fmaf(d[r * st + o], hin[r * st + k], s);
+    }
+  } else {
+    const int o = e - n_w;
+#pragma unroll
+    for (int r = 0; r < kRowsBwd; ++r) s = __fadd_rn(s, d[r * st + o]);
+  }
+  *slot = first ? s : __fadd_rn(*slot, s);
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kMaxBwdThreads)
+mlp_heads_bwd_kernel(const float* __restrict__ x,       // [rows, k]
+                     Heads heads, Bwd lay,
+                     const float* __restrict__ dlogits,  // [rows, a]
+                     const float* __restrict__ dvalue,   // [rows]
+                     float* __restrict__ dx,              // [rows, k]
+                     float* __restrict__ grads,           // [n_params]
+                     float* __restrict__ partial,  // [parts, n_params]
+                     int* __restrict__ counter,    // the clusters' ticket
+                     int rows, int act, int parts) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int s_last;
+  const int st = heads.stride;
+  const int k_in = heads.layer[0][0].in;
+  const int n_params = heads.n_params;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int b = blockIdx.x;
+  const int n_tiles = (rows + kRowsBwd - 1) / kRowsBwd;
+  float* x_s = sm + lay.x;
+
+  // every bias, and (resident) every weight in both layouts, in flight
+  for (int h = 0; h < 2; ++h) {
+    const int n = heads.n_layers[h];
+    for (int l = 0; l < n; ++l) {
+      const Layer& L = heads.layer[h][l];
+      copy_async(sm + lay.b[h][l], L.b, L.out);
+      if (kResident) {
+        copy_async(sm + lay.w[h][l], L.w, L.out * L.in);
+        if (l + 1 < n) copy_async_t(sm + lay.wt[h][l], L.w, L.in, 0, L.out);
+      }
+    }
+  }
+  ddls::cp_async_commit();
+  // the CTA's partial row: in rank 0's rows (one tile a CTA there), its own
+  // shared memory, or the scratch
+  ddls::cg::cluster_group cluster = ddls::cg::this_cluster();
+  float* acc =
+      lay.rows >= 0
+          ? cluster.map_shared_rank(sm + lay.rows, 0) +
+                static_cast<size_t>(b) * n_params
+      : lay.acc >= 0 ? sm + lay.acc
+                     : partial + static_cast<size_t>(b) * n_params;
+  bool first = true;
+  for (int t = b; b < parts && t < n_tiles; t += parts) {
+    const int row0 = t * kRowsBwd;
+    const int tile_rows = min(kRowsBwd, rows - row0);
+    // the tile's x and output gradients; zeros past its rows
+    for (int i = tid; i < kRowsBwd * k_in; i += nt) {
+      const int r = i / k_in;
+      const int k = i - r * k_in;
+      if (r < tile_rows) {
+        ddls::cp_async4(x_s + r * st + k,
+                        x + static_cast<size_t>(row0 + r) * k_in + k);
+      } else {
+        x_s[r * st + k] = 0.0f;
+      }
+    }
+    for (int h = 0; h < 2; ++h) {
+      const int a = heads.layer[h][heads.n_layers[h] - 1].out;
+      float* d = sm + lay.d[h][0];
+      for (int i = tid; i < kRowsBwd * a; i += nt) {
+        const int r = i / a;
+        const int o = i - r * a;
+        if (r < tile_rows) {
+          ddls::cp_async4(d + r * st + o,
+                          h == 0 ? dlogits + static_cast<size_t>(row0 + r) * a
+                                       + o
+                                 : dvalue + row0 + r);
+        } else {
+          d[r * st + o] = 0.0f;
+        }
+      }
+    }
+    ddls::cp_async_commit();
+    ddls::cp_async_wait_group<0>();
+    __syncthreads();
+    int cur[2] = {0, 0};  // which d buffer holds a head's current d
+    if (kResident) {
+      // the recompute, both heads a step a layer depth (layer s of each
+      // head that has it as a hidden layer), their items in one range;
+      // the row is an item's low three bits, so items need no division
+      const int steps = max(heads.n_layers[0], heads.n_layers[1]) - 1;
+      for (int s = 0; s < steps; ++s) {
+        int n[2];
+        const float *in_s[2], *wt[2], *bias[2];
+        float *z_s[2], *h_s[2];
+        int width[2], depth[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool on = s + 1 < heads.n_layers[h];
+          const Layer& L = heads.layer[h][on ? s : 0];
+          n[h] = on ? kRowsBwd * L.out : 0;
+          width[h] = L.out;
+          depth[h] = L.in;
+          in_s[h] = s == 0 ? x_s : sm + lay.h[h][on ? s - 1 : 0];
+          wt[h] = sm + lay.wt[h][on ? s : 0];
+          bias[h] = sm + lay.b[h][on ? s : 0];
+          z_s[h] = sm + lay.z[h][on ? s : 0];
+          h_s[h] = sm + lay.h[h][on ? s : 0];
+        }
+        for (int p = tid; p < n[0] + n[1]; p += nt) {
+          // (the heads' values picked, not indexed: a register array
+          // indexed at run time would live in local memory)
+          const bool h1 = p >= n[0];
+          const int q = p - (h1 ? n[0] : 0);
+          const int r = q % kRowsBwd;
+          const int o = q / kRowsBwd;
+          const float z = dense_dot(pick(h1, in_s) + r * st,
+                                    pick(h1, wt) + o, pick(h1, width),
+                                    pick(h1, depth), pick(h1, bias)[o]);
+          pick(h1, z_s)[r * st + o] = z;
+          pick(h1, h_s)[r * st + o] = ddls::activate(z, act);
+        }
+        __syncthreads();
+      }
+      // the backward, both heads a step a layer depth (head h's layer
+      // n_h - 1 - s): each head's parameter entries, then its d h, in one
+      // range
+      const int bsteps = max(heads.n_layers[0], heads.n_layers[1]);
+      for (int s = 0; s < bsteps; ++s) {
+        Layer L[2];
+        int entries[2], n[2];
+        const float *d[2], *hin[2], *w[2], *z[2];
+        float *dn[2], *slot[2];
+        bool deeper[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool on = s < heads.n_layers[h];
+          const int l = on ? heads.n_layers[h] - 1 - s : 0;
+          L[h] = heads.layer[h][l];
+          entries[h] = L[h].out * L[h].in + L[h].out;
+          n[h] = on ? entries[h] + kRowsBwd * L[h].in : 0;
+          d[h] = sm + lay.d[h][cur[h]];
+          dn[h] = sm + lay.d[h][cur[h] ^ 1];
+          hin[h] = l == 0 ? x_s : sm + lay.h[h][l - 1];
+          w[h] = sm + lay.w[h][l];
+          z[h] = sm + lay.z[h][l > 0 ? l - 1 : 0];
+          slot[h] = acc + lay.p_off[h][l];
+          deeper[h] = l > 0;
+        }
+        const FastDiv by_in[2] = {FastDiv(L[0].in), FastDiv(L[1].in)};
+        for (int p = tid; p < n[0] + n[1]; p += nt) {
+          const bool h1 = p >= n[0];
+          const int q = p - (h1 ? n[0] : 0);
+          const Layer Lh = pick(h1, L);
+          const int e = pick(h1, entries);
+          if (q < e) {
+            param_entry(Lh, pick(h1, d), pick(h1, hin), st, q,
+                        pick(h1, by_in), pick(h1, slot) + q, first);
+            continue;
+          }
+          const int r = (q - e) % kRowsBwd;
+          const int k = (q - e) / kRowsBwd;
+          float v = fma_chain(pick(h1, d) + r * st, 1, pick(h1, w) + k,
+                              Lh.in, Lh.out, 0.0f);
+          if (pick(h1, deeper)) {
+            v = __fmul_rn(v, ddls::activate_grad(pick(h1, z)[r * st + k],
+                                                 act));
+          }
+          pick(h1, dn)[r * st + k] = v;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (s < heads.n_layers[h]) cur[h] ^= 1;
+        }
+      }
+    } else {
+      // streaming: each head and layer in turn, the weights in chunks
+      float* buf0 = sm + lay.buf[0];
+      float* buf1 = sm + lay.buf[1];
+      const int chunk = heads.chunk;
+      for (int h = 0; h < 2; ++h) {
+        const int n = heads.n_layers[h];
+        for (int l = 0; l + 1 < n; ++l) {
+          const Layer& L = heads.layer[h][l];
+          const float* in_s = l == 0 ? x_s : sm + lay.h[h][l - 1];
+          float* z_s = sm + lay.z[h][l];
+          float* h_s = sm + lay.h[h][l];
+          const float* b_s = sm + lay.b[h][l];
+          stream_layer(L, buf0, buf1, chunk, true,
+                       [&](const float* w, int o0, int oc) {
+            for (int p = tid; p < kRowsBwd * oc; p += nt) {
+              const int r = p / oc;
+              const int o = p - r * oc;
+              const float z = dense_dot(in_s + r * st, w + o, oc, L.in,
+                                        b_s[o0 + o]);
+              z_s[r * st + o0 + o] = z;
+              h_s[r * st + o0 + o] = ddls::activate(z, act);
+            }
+          });
+        }
+        for (int l = n - 1; l >= 0; --l) {
+          const Layer& L = heads.layer[h][l];
+          const float* d = sm + lay.d[h][cur[h]];
+          float* dn = sm + lay.d[h][cur[h] ^ 1];
+          const float* hin = l == 0 ? x_s : sm + lay.h[h][l - 1];
+          const FastDiv by_in(L.in);
+          for (int e = tid; e < L.out * L.in + L.out; e += nt) {
+            param_entry(L, d, hin, st, e, by_in, acc + lay.p_off[h][l] + e,
+                        first);
+          }
+          stream_layer(L, buf0, buf1, chunk, false,
+                       [&](const float* w, int o0, int oc) {
+            for (int i = tid; i < kRowsBwd * L.in; i += nt) {
+              const int r = i / L.in;
+              const int k = i - r * L.in;
+              dn[r * st + k] = fma_chain(d + r * st + o0, 1, w + k, L.in, oc,
+                                         o0 == 0 ? 0.0f : dn[r * st + k]);
+            }
+          });
+          if (l > 0) {
+            const float* z = sm + lay.z[h][l - 1];
+            for (int i = tid; i < kRowsBwd * L.in; i += nt) {
+              const int r = i / L.in;
+              const int k = i - r * L.in;
+              dn[r * st + k] = __fmul_rn(
+                  dn[r * st + k], ddls::activate_grad(z[r * st + k], act));
+            }
+            __syncthreads();
+          }
+          cur[h] ^= 1;
+        }
+      }
+    }
+    // d x = (0 + head 0's d h_0) + head 1's
+    const float* d0 = sm + lay.d[0][cur[0]];
+    const float* d1 = sm + lay.d[1][cur[1]];
+    for (int i = tid; i < tile_rows * k_in; i += nt) {
+      const int r = i / k_in;
+      const int k = i - r * k_in;
+      dx[static_cast<size_t>(row0 + r) * k_in + k] = __fadd_rn(
+          __fadd_rn(0.0f, d0[r * st + k]), d1[r * st + k]);
+    }
+    first = false;
+    __syncthreads();
+  }
+  ddls::cp_async_wait_group<0>();  // a CTA without a tile
+
+  // the gradient: ((0 + P_0) + P_1) + ... over the parts in order: rank 0
+  // adds the rows in its shared memory, or the CTAs of the last cluster to
+  // finish (the only one where the grid is one cluster) add them from the
+  // scratch, each a slice of the columns
+  const int crank = static_cast<int>(cluster.block_rank());
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int clusters = static_cast<int>(gridDim.x) / csize;
+  if (lay.rows < 0 && lay.acc >= 0 && b < parts) {
+    float* row = partial + static_cast<size_t>(b) * n_params;
+    for (int e = tid; e < n_params; e += nt) row[e] = acc[e];
+  }
+  if (clusters > 1) __threadfence();
+  cluster.sync();
+  constexpr int kInFlight = 16;  // a column's loads in flight
+  if (lay.rows >= 0) {
+    if (crank != 0) return;  // no CTA reads another's shared memory now
+    const float* rows_s = sm + lay.rows;
+    for (int e = tid; e < n_params; e += nt) {
+      float s = 0.0f;
+      for (int g = 0; g < parts; ++g) {
+        s = __fadd_rn(s, rows_s[static_cast<size_t>(g) * n_params + e]);
+      }
+      grads[e] = s;
+    }
+    return;
+  }
+  if (clusters > 1) {
+    // the ticket: rank 0 of each cluster takes one; the last one reduces
+    if (crank == 0 && tid == 0) {
+      s_last = atomicAdd(counter, 1) == clusters - 1;
+    }
+    cluster.sync();
+    const bool last = *cluster.map_shared_rank(&s_last, 0) != 0;
+    ddls::cluster_arrive();  // rank 0's flag read
+    if (!last) {
+      ddls::cluster_wait();
+      return;
+    }
+    __threadfence();
+  }
+  for (int e = crank * nt + tid; e < n_params; e += csize * nt) {
+    float s = 0.0f;
+    for (int g0 = 0; g0 < parts; g0 += kInFlight) {
+      float v[kInFlight];
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i) {
+        v[i] = g0 + i < parts
+                   ? __ldcg(partial +
+                            static_cast<size_t>(g0 + i) * n_params + e)
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kInFlight; ++i) {
+        if (g0 + i < parts) s = __fadd_rn(s, v[i]);
+      }
+    }
+    grads[e] = s;
+  }
+  if (clusters > 1) {
+    if (crank == 0 && tid == 0) *counter = 0;  // ready for the next launch
+    ddls::cluster_wait();
+  }
 }
 
 // The layer table from the host: per head h and layer l, the four int64
@@ -374,19 +704,68 @@ size_t fwd_bytes(const Heads& h) {
                           h.chunk);
 }
 
-size_t bwd_bytes(const Heads& h) {
-  return sizeof(float) * (8 * static_cast<size_t>(kRowsBwd) * h.stride +
-                          h.chunk);
-}
-
 size_t fwd_max_bytes() {
   return sizeof(float) *
          (4 * static_cast<size_t>(kRowsFwd) * (kMaxHidden + 1) + kWChunk);
 }
 
-size_t bwd_max_bytes() {
-  return sizeof(float) *
-         (8 * static_cast<size_t>(kRowsBwd) * (kMaxHidden + 1) + kWChunk);
+// The backward's layout for `heads` in `budget` bytes of shared memory:
+// resident where every weight (both layouts of the hidden ones) fits;
+// then, for a launch of one cluster whose CTAs take one tile each, the
+// `parts` rows where they fit, else the CTA's partial row where it fits.
+// False when not even the streaming layout fits.
+bool bwd_layout(const Heads& heads, size_t budget, int parts,
+                bool one_cluster, Bwd* lay) {
+  *lay = Bwd{};
+  int at = 0;
+  auto take = [&](int floats) {
+    const int here = at;
+    at += (floats + 3) / 4 * 4;
+    return here;
+  };
+  const int tile = kRowsBwd * heads.stride;
+  lay->x = take(tile);
+  int p = 0;
+  for (int h = 0; h < 2; ++h) {
+    const int n = heads.n_layers[h];
+    for (int l = 0; l + 1 < n; ++l) {
+      lay->z[h][l] = take(tile);
+      lay->h[h][l] = take(tile);
+    }
+    lay->d[h][0] = take(tile);
+    lay->d[h][1] = take(tile);
+    for (int l = 0; l < n; ++l) {
+      const Layer& L = heads.layer[h][l];
+      lay->b[h][l] = take(L.out);
+      lay->p_off[h][l] = p;
+      p += L.out * L.in + L.out;
+    }
+  }
+  const int before = at;
+  for (int h = 0; h < 2; ++h) {
+    const int n = heads.n_layers[h];
+    for (int l = 0; l < n; ++l) {
+      const Layer& L = heads.layer[h][l];
+      lay->w[h][l] = take(L.out * L.in);
+      if (l + 1 < n) lay->wt[h][l] = take(L.out * L.in);
+    }
+  }
+  const auto fits = [&](int floats) {
+    return sizeof(float) * static_cast<size_t>(floats) <= budget;
+  };
+  lay->resident = fits(at);
+  if (!lay->resident) {
+    at = before;
+    lay->buf[0] = take(heads.chunk);
+    lay->buf[1] = take(heads.chunk);
+    if (!fits(at)) return false;
+  }
+  const int rows = parts * heads.n_params;
+  lay->rows = one_cluster && fits(at + rows) ? take(rows) : -1;
+  lay->acc = lay->rows < 0 && fits(at + heads.n_params)
+                 ? take(heads.n_params) : -1;
+  lay->floats = at;
+  return true;
 }
 
 }  // namespace
@@ -418,42 +797,60 @@ DDLS_EXPORT int ddls_mlp_heads(const void* x, const void* table,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward: x [rows, k], the layer table (as ddls_mlp_heads), dlogits
+// [rows, a], dvalue [rows]; out dx [rows, k] and grads [n_params] (every
+// weight and bias, head 0's layers first, W then b); `partial` [parts,
+// n_params] scratch, `counter` one int32, 0 between launches (the ticket:
+// the wrapper's, one a (device, stream); null where the grid is one
+// cluster, which takes no ticket). The grid is `clusters` clusters
+// of `cluster_size` CTAs (1-16), at least `parts`, of `threads` threads (a
+// multiple of 32 up to 1,024); the first `parts` CTAs take the tiles (one
+// each where the grid is one cluster).
 DDLS_EXPORT int ddls_mlp_heads_bwd(const void* x, const void* table,
                                    const void* dlogits, const void* dvalue,
-                                   void* dx, void* partial, int rows, int act,
-                                   int blocks, void* stream) {
+                                   void* dx, void* grads, void* partial,
+                                   void* counter, int rows, int act,
+                                   int parts, int cluster_size, int clusters,
+                                   int threads, void* stream) {
   Heads heads;
   int k_in = 0;
   int a = 0;
-  if (rows <= 0 || blocks <= 0 ||
+  if (rows <= 0 || parts <= 0 || cluster_size < 1 ||
+      cluster_size > ddls::kMaxCluster || clusters < 1 ||
+      cluster_size * clusters < parts ||
+      (clusters > 1 && counter == nullptr) ||
+      threads < 32 || threads > kMaxBwdThreads || threads % 32 != 0 ||
+      (clusters == 1 && (rows + kRowsBwd - 1) / kRowsBwd > parts) ||
       !read_heads(static_cast<const long long*>(table), &heads, &k_in, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        mlp_heads_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bwd_max_bytes()));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    configured = true;
-  }
-  mlp_heads_bwd_kernel<<<blocks, kThreads, bwd_bytes(heads),
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), heads,
-      static_cast<const float*>(dlogits), static_cast<const float*>(dvalue),
-      static_cast<float*>(dx), static_cast<float*>(partial), rows, act);
-  return static_cast<int>(cudaGetLastError());
-}
-
-DDLS_EXPORT int ddls_mlp_heads_bwd_reduce(const void* partial, void* out,
-                                          int blocks, int n_params,
-                                          void* stream) {
-  if (blocks <= 0 || n_params <= 0) {
+  int budget = 0;
+  int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  Bwd lay;
+  // leave room for the kernel's static shared memory
+  if (!bwd_layout(heads, static_cast<size_t>(budget) - 1024, parts,
+                  clusters == 1, &lay)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  mlp_heads_bwd_reduce_kernel<<<ddls::grid_for(n_params, kThreads), kThreads,
-                                0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), blocks,
-      n_params);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float) * static_cast<size_t>(lay.floats);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto launch = [&](auto kernel) {
+    cudaError_t err = ddls::prepare_cluster(kernel, cluster_size, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t config;
+    cudaLaunchAttribute attr;
+    ddls::cluster_config(&config, &attr, clusters, cluster_size, threads,
+                         smem, s);
+    err = cudaLaunchKernelEx(
+        &config, kernel, static_cast<const float*>(x), heads, lay,
+        static_cast<const float*>(dlogits), static_cast<const float*>(dvalue),
+        static_cast<float*>(dx), static_cast<float*>(grads),
+        static_cast<float*>(partial), static_cast<int*>(counter), rows, act,
+        parts);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return lay.resident ? launch(mlp_heads_bwd_kernel<true>)
+                      : launch(mlp_heads_bwd_kernel<false>);
 }

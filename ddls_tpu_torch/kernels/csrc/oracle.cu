@@ -33,7 +33,10 @@
 // ~200 bytes a lane. The design: K29 one CTA of 1,024 threads a row; a
 // row that cannot pass (no job, or ok_place, ok_la or finite_ok false:
 // ok is a conjunction) skips the scan; the others stage their lane's
-// channel occupancy in shared memory, scan only [0, n_deps) of the row's
+// channel occupancy in shared memory (where a surface's channels do not
+// fit the opt-in shared memory, they read it from global memory where the
+// scan meets a flow instead: the same test, the same bits), scan only
+// [0, n_deps) of the row's
 // configuration cfg[r] (K24 writes every dep past it as no flow), flags
 // 16 and channels 4 at a time (common.cuh for_each_flow), and AND the
 // channel test over the block with __syncthreads_and (an AND is exact in
@@ -50,7 +53,7 @@ namespace {
 constexpr int kReduceThreads = 1024;
 constexpr int kSelectThreads = 64;
 
-template <typename T>
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kReduceThreads) price_reduce_kernel(
     const bool* __restrict__ is_flow, const int* __restrict__ chan,
     const bool* __restrict__ ok_place, const bool* __restrict__ finite_ok,
@@ -82,13 +85,15 @@ __global__ void __launch_bounds__(kReduceThreads) price_reduce_kernel(
     return;
   }
   const int* occ = chan_occ + static_cast<size_t>(lane) * n_chan;
-  for (int i = tid; i < n_chan; i += blockDim.x) s_occ[i] = occ[i];
-  __syncthreads();
+  if (kStaged) {
+    for (int i = tid; i < n_chan; i += blockDim.x) s_occ[i] = occ[i];
+    __syncthreads();
+  }
   const int nd = min(max(n_deps[cfg[r]], 0), m);
   int free_chan = 1;
   ddls::for_each_flow(is_flow + static_cast<size_t>(r) * m,
                       chan + static_cast<size_t>(r) * m, nd, [&](int c) {
-                        if (s_occ[c] >= 0) free_chan = 0;
+                        if ((kStaged ? s_occ : occ)[c] >= 0) free_chan = 0;
                       });
   const int all_free = __syncthreads_and(free_chan);
   if (tid == 0) {
@@ -153,7 +158,9 @@ __global__ void __launch_bounds__(kSelectThreads) oracle_select_kernel(
 // `t_stride` apart (is_f64 names the type); per lane: chan_occ [B, n_chan]
 // int32, queue_row [B] int32, done [B] bools, bank steps [B, J] floats;
 // the row's configuration cfg [R] int32 and the table n_deps [K] int32
-// (its valid prefix); out ok [B, n_deg] bools, jct [B, n_deg] floats.
+// (its valid prefix); out ok [B, n_deg] bools, jct [B, n_deg] floats; then
+// the sizes and `occ_global` (1: read the occupancy from global memory even
+// where it fits shared memory; the tests hold both forms).
 DDLS_EXPORT int ddls_price_reduce(const void* is_flow, const void* chan,
                                   const void* ok_place, const void* finite_ok,
                                   const void* t_step, const void* ok_la,
@@ -162,14 +169,20 @@ DDLS_EXPORT int ddls_price_reduce(const void* is_flow, const void* chan,
                                   const void* cfg, const void* n_deps,
                                   void* ok, void* jct, int lanes, int n_deg,
                                   int m, int n_chan, int n_jobs, int t_stride,
-                                  int is_f64, void* stream) {
+                                  int is_f64, int occ_global, void* stream) {
   if (lanes <= 0 || n_deg < 1 || m < 1 || n_chan < 1 || n_jobs < 1 ||
       t_stride < 1 || cfg == nullptr || n_deps == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows = lanes * n_deg;
-  const size_t smem = static_cast<size_t>(n_chan) * sizeof(int);
+  int budget = 0;
+  const int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  // the occupancy staged where it fits the opt-in shared memory
+  const size_t occ_bytes = static_cast<size_t>(n_chan) * sizeof(int);
+  const int staged = !occ_global && occ_bytes <= static_cast<size_t>(budget);
+  const size_t smem = staged ? occ_bytes : 0;
   const bool* flow = static_cast<const bool*>(is_flow);
   const int* ch = static_cast<const int*>(chan);
   const bool* place = static_cast<const bool*>(ok_place);
@@ -190,14 +203,17 @@ DDLS_EXPORT int ddls_price_reduce(const void* is_flow, const void* chan,
     return static_cast<int>(cudaGetLastError());
   };
   if (is_f64) {
-    return launch(price_reduce_kernel<double>,
-                  static_cast<const double*>(t_step),
-                  static_cast<const double*>(bank_steps),
-                  static_cast<double*>(jct));
+    const double* t = static_cast<const double*>(t_step);
+    const double* steps = static_cast<const double*>(bank_steps);
+    double* out = static_cast<double*>(jct);
+    return staged ? launch(price_reduce_kernel<double, true>, t, steps, out)
+                  : launch(price_reduce_kernel<double, false>, t, steps, out);
   }
-  return launch(price_reduce_kernel<float>, static_cast<const float*>(t_step),
-                static_cast<const float*>(bank_steps),
-                static_cast<float*>(jct));
+  const float* t = static_cast<const float*>(t_step);
+  const float* steps = static_cast<const float*>(bank_steps);
+  float* out = static_cast<float*>(jct);
+  return staged ? launch(price_reduce_kernel<float, true>, t, steps, out)
+                : launch(price_reduce_kernel<float, false>, t, steps, out);
 }
 
 // K30: ok [B, n_deg] bools, jct [B, n_deg] floats (K29's), srv_job

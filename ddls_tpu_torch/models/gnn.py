@@ -177,9 +177,6 @@ _TILES = (16, 32, 64)
 _FWD_MAX_BLOCKS = 256
 _BWD_GROUP = 16
 _BWD_MAX_BLOCKS = _BWD_GROUP * _BWD_GROUP
-# K5's reduce counters, one set a (device, stream), zero between launches:
-# launches on one stream run in order, so no two share a set at once
-_BWD_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _tile_grid(rows: int, most: int) -> Tuple[int, int, int]:
@@ -211,22 +208,10 @@ def ln_linear_act_bwd_reduce_plain(partial: torch.Tensor) -> torch.Tensor:
 
 
 def _bwd_counters(device: torch.device) -> torch.Tensor:
-    """K5's reduce counters on ``device`` for the current stream (the one
-    ``kernels.launch`` launches on), made (zeroed) at the stream's first
-    call. A set made inside a CUDA-graph capture would be zeroed only when
-    that graph replays, so the first call on a stream must come before any
-    capture on it."""
-    key = (device.index, torch.cuda.current_stream().cuda_stream)
-    counters = _BWD_COUNTERS.get(key)
-    if counters is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "ln_linear_act_bwd: first call on this stream during a "
-                "CUDA-graph capture; call it once on the capture stream "
-                "before capturing")
-        counters = _BWD_COUNTERS[key] = torch.zeros(
-            1 + _BWD_GROUP, dtype=torch.int32, device=device)
-    return counters
+    """K5's reduce counters on ``device`` for the current stream
+    (``kernels.stream_counters``)."""
+    return kernels.stream_counters("ln_linear_act_bwd", 1 + _BWD_GROUP,
+                                   device)
 
 
 def ln_linear_act_bwd(a, ln_w, ln_b, w, bias, activation, dout, idx=None,

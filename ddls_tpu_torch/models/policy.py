@@ -157,9 +157,33 @@ Layers = List[Tuple[torch.Tensor, torch.Tensor]]
 # what K17 and K18 take: up to three layers a head, hidden widths up to
 # 256, an input up to 64 wide, up to 64 actions (kernels/csrc/mlp_heads.cu)
 _HEAD_MAX_LAYERS, _HEAD_MAX_HIDDEN, _HEAD_MAX_IN, _HEAD_MAX_OUT = 3, 256, 64, 64
-# K18's grid: tiles of 8 rows, at most one block per SM of the H100, so the
-# partial sums (and the bits of the result) depend on the row count alone
+# K18's grid: tiles of 8 rows over at most one CTA per SM of the H100, so
+# the partial sums (and the bits of the result) depend on the row count
+# alone; up to 16 CTAs launch as one thread-block cluster, more as
+# clusters of 8 that take a ticket
 _HEAD_BWD_TILE, _HEAD_BWD_MAX_BLOCKS = 8, 132
+_HEAD_BWD_MAX_CLUSTER, _HEAD_BWD_TICKET_CLUSTER = 16, 8
+# K18's threads a CTA (its tile's work items spread over more warps)
+_HEAD_BWD_THREADS = 512
+
+
+def heads_bwd_plan(rows: int) -> Tuple[int, int, int, int]:
+    """K18's (parts, tiles, cluster, clusters) for ``rows`` rows: ``tiles``
+    tiles of ``_HEAD_BWD_TILE`` rows over ``parts`` CTAs (CTA ``g`` takes
+    tiles ``g, g + parts, ...``: its partial row; at least one), launched
+    as ``clusters`` thread-block clusters of ``cluster`` CTAs (CTAs past
+    ``parts`` take no tile): one cluster of the smallest power of two >=
+    ``parts`` up to 16 (its CTAs add the rows), else clusters of 8 (the
+    last to finish adds them)."""
+    tiles = -(-rows // _HEAD_BWD_TILE)
+    parts = max(1, min(tiles, _HEAD_BWD_MAX_BLOCKS))
+    cluster = 1
+    while cluster < parts:
+        cluster *= 2
+    if cluster <= _HEAD_BWD_MAX_CLUSTER:
+        return parts, tiles, cluster, 1
+    c = _HEAD_BWD_TICKET_CLUSTER
+    return parts, tiles, c, -(-parts // c)
 
 
 def _mlp_stack(x: torch.Tensor, layers: Layers, activation: str
@@ -284,9 +308,10 @@ def mlp_heads_bwd(x: torch.Tensor, logit_layers: Layers,
                   value_layers: Layers, activation: str,
                   dlogits: torch.Tensor, dvalue: torch.Tensor
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K18 and its block-order reduce: ``mlp_heads_bwd_plain``'s result
-    from float32 tensors on the card. It recomputes K17's pre-activations,
-    so its activation-derivative decisions are K17's."""
+    """K18: ``mlp_heads_bwd_plain``'s result from float32 tensors on the
+    card, the parameter gradients summed over the rows inside its one
+    launch (``heads_bwd_plan``). It recomputes K17's pre-activations, so
+    its activation-derivative decisions are K17's."""
     flat = [x] + [t for layer in logit_layers + value_layers for t in layer]
     if kernels.on_cpu(*flat, dlogits, dvalue):
         return mlp_heads_bwd_plain(x, logit_layers, value_layers,
@@ -298,17 +323,24 @@ def mlp_heads_bwd(x: torch.Tensor, logit_layers: Layers,
                        (rows, logit_layers[-1][0].shape[0]))
     kernels.check_cuda("dvalue", dvalue, torch.float32, (rows,))
     dx = x.new_empty(x.shape)
-    blocks = max(1, min(-(-rows // _HEAD_BWD_TILE), _HEAD_BWD_MAX_BLOCKS))
-    # no rows: zero partials, so the reduce gives zero gradients
-    partial = (x.new_empty if rows else x.new_zeros)((blocks, n_params))
     if rows:
+        grads = x.new_empty(n_params)
+        parts, _, cluster, clusters = heads_bwd_plan(rows)
+        # the rows' scratch: used where a row does not fit a CTA's shared
+        # memory or the clusters take a ticket
+        partial = x.new_empty((parts, n_params))
+        # the ticket of the clusters past one (one cluster takes none, so
+        # a first call on a stream may come inside a CUDA-graph capture)
+        counter = (kernels.stream_counters("mlp_heads_bwd", 1, x.device)
+                   if clusters > 1 else None)
         kernels.launch("mlp_heads_bwd", x.data_ptr(),
                        ctypes.addressof(table), dlogits.data_ptr(),
-                       dvalue.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-                       rows, _ACTIVATION_CODES[activation], blocks)
-    grads = x.new_empty(n_params)
-    kernels.launch("mlp_heads_bwd_reduce", partial.data_ptr(),
-                   grads.data_ptr(), blocks, n_params)
+                       dvalue.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+                       partial.data_ptr(), kernels.ptr(counter), rows,
+                       _ACTIVATION_CODES[activation], parts, cluster,
+                       clusters, _HEAD_BWD_THREADS)
+    else:
+        grads = x.new_zeros(n_params)
     out, at = [], 0
     for w, b in logit_layers + value_layers:
         out.append(grads[at:at + w.numel()].view(w.shape))

@@ -17,7 +17,7 @@ the reference repeats in each of ``ddls_tpu/rl/{ppo,impala,pg,dqn,es}.py``:
   (adam alone where ``grad_clip`` is None, as ES's) or, for
   IMPALA's ``opt_type: rmsprop``, ``chain(clip_by_global_norm,
   rmsprop(lr, decay, eps, momentum))``, in optax's arithmetic, as K19
-  (``clip_adam``: at most three launches over every leaf).
+  (``clip_adam``: one launch over every leaf).
 """
 from __future__ import annotations
 
@@ -73,8 +73,8 @@ class TrainState:
     kl_coeff: Optional[torch.Tensor] = None
     step: int = 0
     target_params: Optional[List[torch.Tensor]] = None
-    # K19's device table of the leaves (``clip_adam``), built at the first
-    # step on the card
+    # K19's host table of the leaves and its launch plan (``clip_adam``),
+    # built at the first step on the card
     opt_table: Optional[Any] = dataclasses.field(default=None, repr=False,
                                                  compare=False)
 
@@ -220,46 +220,103 @@ def clip_adam_plain(params: List[torch.Tensor], grads: List[torch.Tensor],
     torch._foreach_add_(params, updates)
 
 
-# K19's limits (kernels/csrc/clip_adam.cu): leaves, elements of a leaf per
-# block
-_OPT_MAX_LEAVES, _OPT_CHUNK = 96, 1024
+# K19's limits (kernels/csrc/clip_adam.cu): leaves, elements of a job (a
+# leaf's chunk: the norm's order of sums is cut at it), CTAs a cluster; the
+# elements one CTA takes before the plan adds another (the update's chains
+# of dependent divisions want the elements spread over SMs), and the shared
+# memory a CTA may take (of the H100's 232,448 bytes): its jobs' offsets
+# and every job's partial
+_OPT_MAX_LEAVES, _OPT_CHUNK, _OPT_MAX_CTAS = 96, 1024, 16
+_OPT_CTA_ELEMENTS, _OPT_SMEM = 768, 224 * 1024
 _OPT_RULES = {"adam": 0, "rmsprop": 1, "rmsprop_momentum": 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerPlan:
+    """K19's launch over leaves of ``sizes``: ``chunks`` jobs a leaf (the
+    largest leaf's count of ``_OPT_CHUNK``-element chunks; the norm's flat
+    job index is ``leaf * chunks + chunk``), one cluster of ``ctas`` CTAs,
+    CTA r taking the flat jobs ``[bounds[r], bounds[r + 1])``."""
+    chunks: int
+    ctas: int
+    bounds: Tuple[int, ...]
+
+
+def job_sizes(sizes: List[int], chunks: int) -> List[int]:
+    """The elements of each flat job (``leaf * chunks + chunk``)."""
+    return [max(0, min(_OPT_CHUNK, size - c * _OPT_CHUNK))
+            for size in sizes for c in range(chunks)]
+
+
+def clip_adam_plan(sizes: List[int],
+                   ctas: Optional[int] = None) -> OptimizerPlan:
+    """K19's plan for leaves of ``sizes`` elements: ``ctas`` CTAs
+    (default one per ``_OPT_CTA_ELEMENTS`` elements, at most
+    ``_OPT_MAX_CTAS``), the flat jobs cut into contiguous runs balanced by
+    elements (each CTA's run ends at the first job that brings it to its
+    share of the total); raises where a CTA's jobs' offsets and every
+    job's partial do not fit ``_OPT_SMEM``."""
+    if not 0 < len(sizes) <= _OPT_MAX_LEAVES:
+        raise ValueError(f"K19 takes 1 to {_OPT_MAX_LEAVES} leaves, got "
+                         f"{len(sizes)}")
+    chunks = max(1, -(-max(sizes) // _OPT_CHUNK))
+    jobs = job_sizes(sizes, chunks)
+    total = sum(jobs)
+    if ctas is None:
+        ctas = max(1, min(_OPT_MAX_CTAS, -(-total // _OPT_CTA_ELEMENTS)))
+    if not 1 <= ctas <= _OPT_MAX_CTAS:
+        raise ValueError(f"K19 takes 1 to {_OPT_MAX_CTAS} CTAs, got {ctas}")
+    bounds, acc = [0], 0
+    for j, n in enumerate(jobs):
+        acc += n
+        while len(bounds) < ctas and acc * ctas >= total * len(bounds):
+            bounds.append(j + 1)
+    bounds += [len(jobs)] * (ctas + 1 - len(bounds))
+    most = max(b - a for a, b in zip(bounds, bounds[1:]))
+    if 4 * (most + 1 + len(jobs)) > _OPT_SMEM:
+        raise ValueError(f"K19's {len(jobs)} jobs over {ctas} CTAs do not "
+                         f"fit a CTA's shared memory")
+    return OptimizerPlan(chunks, ctas, tuple(bounds))
 
 
 @dataclasses.dataclass
 class OptimizerTable:
-    """K19's device table of a train state's leaves: int64 [4 L], the
-    parameter, mu (0 without) and nu pointers and the sizes, keyed by the
-    pointers it was built from (``clip_adam`` rebuilds it when a leaf's
-    storage moves)."""
+    """K19's host table of a train state's leaves: int64 [4 L + ctas + 1],
+    the parameter, mu (0 without) and nu pointers, the sizes and the
+    plan's job bounds, keyed by the pointers it was built from
+    (``clip_adam`` rebuilds it when a leaf's storage moves)."""
     key: Tuple[int, ...]
-    table: torch.Tensor
-    chunks: int
+    table: Any  # a ctypes int64 array
+    plan: OptimizerPlan
 
 
-def _optimizer_table(state: "TrainState") -> OptimizerTable:
+def _optimizer_table(state: "TrainState",
+                     ctas: Optional[int] = None) -> OptimizerTable:
+    """The state's cached table of ``clip_adam_plan``'s own plan, or with
+    ``ctas`` a table of that many CTAs that is not cached."""
     mu = state.mu or [None] * len(state.params)
     key = tuple(t.data_ptr() if t is not None else 0
                 for t in (*state.params, *mu, *state.nu))
     cached = state.opt_table
-    if cached is not None and cached.key == key:
+    if ctas is None and cached is not None and cached.key == key:
         return cached
     sizes = [p.numel() for p in state.params]
-    host = torch.tensor(list(key) + sizes, dtype=torch.int64)
-    state.opt_table = OptimizerTable(
-        key, host.to(state.params[0].device),
-        max(1, -(-max(sizes) // _OPT_CHUNK)))
-    return state.opt_table
+    plan = clip_adam_plan(sizes, ctas)
+    host = list(key) + sizes + list(plan.bounds)
+    table = OptimizerTable(key, (ctypes.c_int64 * len(host))(*host), plan)
+    if ctas is None:
+        state.opt_table = table
+    return table
 
 
 def clip_adam(state: "TrainState", grads: List[torch.Tensor],
               hp: OptimizerStep) -> None:
     """K19: the optimiser step ``hp`` over every leaf of ``state`` with
-    ``grads`` (same shapes), in place, in at most three launches and no
-    host round trip: per-block sums of squares, their fixed-order sum and
-    square root (only with a clip), then the clip, the moments and the
-    update per element (``kernels/csrc/clip_adam.cu``). On the CPU,
-    ``clip_adam_plain``."""
+    ``grads`` (same shapes), in place, in one launch and no host round
+    trip: the global norm (only with a clip), the clip decision, the
+    moments and the update per element (``kernels/csrc/clip_adam.cu``;
+    the CTAs are ``clip_adam_plan``'s, or ``kernels.forced("clip_adam")``'s
+    in a test). On the CPU, ``clip_adam_plain``."""
     if kernels.on_cpu(*state.params, *grads):
         clip_adam_plain(state.params, grads, state.mu, state.nu, hp)
         return
@@ -272,7 +329,7 @@ def clip_adam(state: "TrainState", grads: List[torch.Tensor],
         raise ValueError(f"rule {hp.rule!r} and the state's moments "
                          f"disagree")
     rebuilt = state.opt_table
-    opt = _optimizer_table(state)
+    opt = _optimizer_table(state, kernels.forced("clip_adam"))
     parts = [("grads", grads)]
     if opt is not rebuilt:  # the state's leaves: checked when tabled
         parts += [("params", state.params), ("nu", state.nu)]
@@ -289,22 +346,14 @@ def clip_adam(state: "TrainState", grads: List[torch.Tensor],
                                    tuple(p.shape))
                 raise ValueError(f"{name}[{i}] must lie on {device}")
     grad_table = (ctypes.c_int64 * n)(*(g.data_ptr() for g in grads))
-    norm = None
-    if hp.grad_clip is not None:
-        partial = state.params[0].new_empty(n * opt.chunks)
-        norm = state.params[0].new_empty(1)
-        kernels.launch("clip_adam_norm", ctypes.addressof(grad_table),
-                       opt.table.data_ptr(), partial.data_ptr(), n,
-                       opt.chunks)
-        kernels.launch("clip_adam_reduce", partial.data_ptr(),
-                       norm.data_ptr(), partial.numel())
+    plan = opt.plan
     f32 = np.float32
     kernels.launch(
-        "clip_adam_update", ctypes.addressof(grad_table),
-        opt.table.data_ptr(), kernels.ptr(norm), n, opt.chunks,
-        _OPT_RULES[hp.rule], float(hp.grad_clip or 0.0), hp.lr, hp.b1,
-        float(f32(1.0 - hp.b1)), hp.b2, float(f32(1.0 - hp.b2)), hp.eps,
-        hp.bc1, hp.bc2)
+        "clip_adam", ctypes.addressof(grad_table), ctypes.addressof(
+            opt.table), n, plan.chunks, plan.ctas,
+        int(hp.grad_clip is not None), _OPT_RULES[hp.rule],
+        float(hp.grad_clip or 0.0), hp.lr, hp.b1, float(f32(1.0 - hp.b1)),
+        hp.b2, float(f32(1.0 - hp.b2)), hp.eps, hp.bc1, hp.bc2)
 
 
 # -------------------------------------------------------------- the learner

@@ -1683,10 +1683,26 @@ def episode_step_plain(ek: EpisodeKernels, state: dict, bank: dict,
         ek.prepare(state, bank, actions[:, d + 1])
 
 
-# the slots K25 holds in its warp 0's registers at most (episode.cu
-# kSlotsPerLane a lane): a surface of more servers raises on the card (the
-# plain version and the reference take any number)
-EPISODE_MAX_SLOTS = 128
+# K25's forms (episode.cu): the lane's channel occupancy read from global
+# memory instead of staged, and the commit without the shared channel mask
+# (the kernel takes each where the surface's shared memory needs it);
+# warp 0's slots in memory instead of registers (past 1,024 slots:
+# ``episode_slots_a_lane``). A test forces them through
+# ``kernels._forcing("episode_step", names)`` (the same bits)
+EPISODE_FORMS = {"occ_global": 1, "mask_free": 2, "slot_memory": 0}
+# the register blocks of warp 0's slots a lane
+EPISODE_SLOT_BLOCKS = (4, 8, 16, 32)
+
+
+def episode_slots_a_lane(slots: int, memory: bool = False) -> int:
+    """K25's warp-0 slots a lane for ``slots`` slots (one a server): lane
+    ``i`` owns ``[i K, i K + K)``, K = ceil(slots / 32), held in registers
+    in a block of the least of ``EPISODE_SLOT_BLOCKS`` >= K; 0 (the slots
+    kept in the lane's state in memory) past 32 x 32 = 1,024 slots or with
+    ``memory``."""
+    k = -(-slots // 32)
+    return 0 if memory else next((b for b in EPISODE_SLOT_BLOCKS if b >= k),
+                                 0)
 # the scenario's tables K25's scenario mode reads, in its order
 SCENARIO_FIELDS = ("speeds", "t0", "t1", "rate", "kind", "res")
 # the outputs of EpisodeKernels.evaluate that K25 reads, in its order
@@ -1722,7 +1738,8 @@ def obs_fields(state: dict, bank: dict) -> Dict[str, torch.Tensor]:
 def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
                  actions: Optional[torch.Tensor], raw: dict, trace: dict,
                  d: int, *, seg_trace: Optional[dict] = None,
-                 fields: Optional[dict] = None, reset: bool = False) -> None:
+                 fields: Optional[dict] = None, reset: bool = False
+                 ) -> None:
     """K25: decision ``d``'s SLA gate, cause code and commit, the event
     clock to the next decision, for every lane, updating ``state`` in
     place and writing decision ``d`` of ``trace`` (tensors as
@@ -1740,17 +1757,17 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
     lane's jct after the gate, before the trace and the commit
     (``scenario_adjusted``). The kernel reads each lane's deps ``[0,
     n_deps[cfg])`` and ops ``[0, n_ops[cfg])`` only: K24 writes every dep
-    past the prefix as no flow, and ``op_valid`` is the prefix."""
+    past the prefix as no flow, and ``op_valid`` is the prefix. It takes
+    any number of slots and channels, in the forms (``EPISODE_FORMS``)
+    the surface needs."""
     if kernels.on_cpu(state["mem"], raw["ots"]):
         return episode_step_plain(ek, state, bank, actions, raw, trace, d,
                                   seg_trace=seg_trace, fields=fields,
                                   reset=reset)
-    if ek.R > EPISODE_MAX_SLOTS:
-        raise ValueError(f"K25 takes at most {EPISODE_MAX_SLOTS} slots (one "
-                         f"a server), got {ek.R}")
     dev, et = ek.dev, ek.dev.et
     dt = dev.dtype
     lanes = state["t"].shape[0]
+    forms = set(kernels.forced("episode_step", ()))
     J = bank["type"].shape[1]
     D = trace["reward"].shape[1]
     for name, want in STATE_FIELDS:
@@ -1808,7 +1825,9 @@ def episode_step(ek: EpisodeKernels, state: dict, bank: dict,
         int(dt == torch.float64),
         *(kernels.ptr(None if sc is None else sc[name])
           for name in SCENARIO_FIELDS),
-        0 if sc is None else len(sc["windows"]))
+        0 if sc is None else len(sc["windows"]),
+        sum(EPISODE_FORMS[f] for f in forms),
+        episode_slots_a_lane(ek.R, "slot_memory" in forms))
 
 
 def episode_prepare(ek: EpisodeKernels, state: dict, bank: dict,
@@ -1876,7 +1895,9 @@ def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
     each row's configuration and ``n_deps`` [K] int32 the table of valid
     dep prefixes: the kernel reads a row's deps ``[0, n_deps[cfg])``
     only, as K24 writes every dep past them as no flow (the plain version
-    reads the whole row and takes neither)."""
+    reads the whole row and takes neither). The kernel stages each lane's
+    channel occupancy in shared memory where it fits, else reads it from
+    global memory (the same answer)."""
     if kernels.on_cpu(is_flow, chan, t_step, state["chan_occ"]):
         return price_reduce_plain(is_flow, chan, ok_place, finite_ok,
                                   t_step, ok_la, state, bank)
@@ -1912,7 +1933,7 @@ def price_reduce(is_flow: torch.Tensor, chan: torch.Tensor,
         state["done"].data_ptr(), bank["steps"].data_ptr(), cfg.data_ptr(),
         n_deps.data_ptr(), ok.data_ptr(), jct.data_ptr(), lanes, n_deg, m,
         chan_occ.shape[1], bank["steps"].shape[1], t_step.stride(0),
-        int(dt == torch.float64))
+        int(dt == torch.float64), int(bool(kernels.forced("price_reduce"))))
     return ok, jct
 
 

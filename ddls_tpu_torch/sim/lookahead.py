@@ -183,7 +183,9 @@ def lookahead(op_remaining, op_valid, op_worker, op_score, num_parents,
     [B]) is True runs no tick and returns its initial accumulators (the
     reference's ``skip``, ``jax_lookahead.py:316,355``); without ``skip``
     every lane runs. ``cluster`` forces the CTAs a lane (1-16; default
-    ``CLUSTER``); the answer is the same at every size."""
+    ``CLUSTER``); the answer is the same at every size. The per-channel
+    best-score table lives in shared memory where a lane's whole table
+    fits one CTA's, else in the lane's workspace (the same answer)."""
     args = (op_remaining, op_valid, op_worker, op_score, num_parents,
             dep_remaining, dep_valid, dep_src, dep_dst, dep_mutual,
             dep_is_flow, dep_score, dep_channel)
@@ -279,19 +281,20 @@ def _launch(args, cfg, ots, skip, ticks, lanes, n, e, links, num_workers,
         kernels.check_cuda("skip", skip, torch.bool, (lanes,))
     if lanes:
         f64 = int(dtype == torch.float64)
+        workspace_table = int(bool(kernels.forced("lookahead")))
         g = cluster if cluster is not None else CLUSTER
         if not 1 <= g <= MAX_CLUSTER:
             raise ValueError(f"cluster must be 1-{MAX_CLUSTER}, got {g}")
         ws_lane = kernels.cached_query(
             "lookahead", "ddls_lookahead_workspace", n, e, links,
-            num_workers, num_channels, g, f64)
+            num_workers, num_channels, g, f64, workspace_table)
         ws = torch.empty(max(lanes * ws_lane, 1), dtype=torch.uint8,
                          device=device)
         kernels.launch("lookahead", *(kernels.ptr(t) for t in args),
                        kernels.ptr(cfg), kernels.ptr(ots), kernels.ptr(skip),
                        ws.data_ptr(), vals.data_ptr(), ok.data_ptr(),
                        ticks.data_ptr(), ws_lane, lanes, n, e, links,
-                       num_workers, num_channels, g, f64)
+                       num_workers, num_channels, g, f64, workspace_table)
     return vals[:, 0], vals[:, 1], vals[:, 2], vals[:, 3], ok
 
 

@@ -1,20 +1,43 @@
-"""Hold the port's K1, K5 and K8 against an earlier commit's build of the
-same kernels, on the card: K1's and K5's output bits, and every kernel's
-device time in turns with the earlier one's.
+"""Hold the port's kernels against an earlier commit's build of the same
+kernels, on the card: their output bits, and their device time in turns
+with the earlier ones'. Two sets (``--kernels``):
+
+* ``k1k5k8``: K1, K5 and K8 against a build whose K1 takes no grid
+  arguments, whose K8 takes a ``rowterms`` scratch and whose K5 has
+  today's entry;
+* ``k18k19``: K18 and K19 (one launch each) against a build of their
+  two- and three-launch entries (``mlp_heads_bwd`` with
+  ``mlp_heads_bwd_reduce``; ``clip_adam_norm``, ``clip_adam_reduce`` and
+  ``clip_adam_update`` over a device leaf table).
 
 The earlier sources come from git into a directory the repository
 ignores, and are built with the port's own nvcc flags, outside the
 package's build directory:
 
     mkdir -p .experiments/parent
-    for f in ln_linear_act.cu ln_linear_act_bwd.cu ppo_loss.cu common.cuh \\
-             ln_row.cuh; do
+    for f in mlp_heads.cu clip_adam.cu common.cuh ln_row.cuh; do
       git show <rev>:ddls_tpu_torch/kernels/csrc/$f > .experiments/parent/$f
     done
-    python3 scripts/parent_kernel_check.py --parent .experiments/parent
+    python3 scripts/parent_kernel_check.py --kernels k18k19 \\
+        --parent .experiments/parent
 
-(``<rev>`` is a commit whose K1 takes no grid arguments, whose K8 takes a
-``rowterms`` scratch, and whose K5 has today's entry.) Then:
+(for ``k1k5k8``: ``ln_linear_act.cu ln_linear_act_bwd.cu ppo_loss.cu
+common.cuh ln_row.cuh``). With ``k18k19``:
+
+* K18: every row count of the card tests (1 to 4,000) on the shipped
+  heads, the Ape-X DQN's 256-wide ones and the default (256, 256) ones,
+  and the training fixture's first minibatch backward: dx and every
+  gradient bit-equal to the earlier build's;
+* K19: four steps of adam, rmsprop and rmsprop with momentum from the
+  same states, at the clip tie and with the clip firing, on the shipped
+  policy's leaves and DQN-sized ones: params, mu and nu bit-equal;
+* device ms in turns (earlier, current, current, earlier): K18 at the
+  update's 128 rows, at 512 DQN rows and at 4,000 rows; K19 over the
+  shipped policy's leaves; a whole minibatch step of the fixture
+  (``chip_smoke.profile_steps``: device time and device operations a
+  step) with the earlier K18 and K19 swapped into the wrappers.
+
+With ``k1k5k8``:
 
 * K1: every call of ``chip_smoke.py``'s phase-3 serving forwards (both
   buckets of the edge-case batch), of the training fixture's first
@@ -47,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,19 +78,30 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 from ddls_tpu_torch import kernels  # noqa: E402
-from ddls_tpu_torch.models import gnn  # noqa: E402
+from ddls_tpu_torch.models import gnn, policy  # noqa: E402
+from ddls_tpu_torch.rl import learner as learner_mod  # noqa: E402
 from ddls_tpu_torch.rl import ppo  # noqa: E402
 from ddls_tpu_torch.rl.fixture import load_train_fixture  # noqa: E402
 from ddls_tpu_torch.serve import default_buckets, load_export  # noqa: E402
 from ddls_tpu_torch.serve.fixture import (EXPORT_PATH,  # noqa: E402
                                           load_requests)
 
-PARENT_STEMS = ("ln_linear_act", "ln_linear_act_bwd", "ppo_loss")
-# the earlier entries' signatures (kernels.KernelSpec's letters)
-PARENT_SIGNATURES = {
-    "ddls_ln_linear_act": "p" * 8 + "i" * 6 + "p",
-    "ddls_ln_linear_act_bwd": "p" * 14 + "i" * 9 + "p",
-    "ddls_ppo_loss": "p" * 13 + "i" * 2 + "f" * 6 + "p",
+# the earlier sources and entries of each set (kernels.KernelSpec's
+# signature letters)
+PARENTS = {
+    "k1k5k8": {
+        "ln_linear_act": {"ddls_ln_linear_act": "p" * 8 + "i" * 6 + "p"},
+        "ln_linear_act_bwd": {
+            "ddls_ln_linear_act_bwd": "p" * 14 + "i" * 9 + "p"},
+        "ppo_loss": {"ddls_ppo_loss": "p" * 13 + "i" * 2 + "f" * 6 + "p"},
+    },
+    "k18k19": {
+        "mlp_heads": {"ddls_mlp_heads_bwd": "ppppppiiip",
+                      "ddls_mlp_heads_bwd_reduce": "ppiip"},
+        "clip_adam": {"ddls_clip_adam_norm": "pppiip",
+                      "ddls_clip_adam_reduce": "ppip",
+                      "ddls_clip_adam_update": "pppiiifffffffffp"},
+    },
 }
 # K1's fuzzed calls: the edges of 16-, 32- and 64-row tiles and of the
 # grid's tile choice (4,096, 8,192 and 16,384 rows), serving's and the
@@ -80,11 +115,11 @@ GRID_CAPS = (132, 256, 264, 512, 1024)
 SMALL_ROWS = (8, 76, 300, 1200, 4096)
 
 
-def build_parent(src: str, out_dir: str):
+def build_parent(src: str, out_dir: str, parents):
     """Each earlier source into its own library, all nvcc runs at once;
     returns {C symbol: bound function}."""
     procs = {}
-    for stem in PARENT_STEMS:
+    for stem in parents:
         lib = os.path.join(out_dir, f"lib{stem}-parent.so")
         cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib,
                os.path.join(src, f"{stem}.cu")]
@@ -97,11 +132,11 @@ def build_parent(src: str, out_dir: str):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the earlier {stem}:\n"
                                f"{output}")
-        symbol = f"ddls_{stem}"
-        fn = getattr(ctypes.CDLL(lib), symbol)
-        fn.argtypes = [kernels._CTYPES[c] for c in PARENT_SIGNATURES[symbol]]
-        fn.restype = ctypes.c_int
-        fns[symbol] = fn
+        for symbol, signature in parents[stem].items():
+            fn = getattr(ctypes.CDLL(lib), symbol)
+            fn.argtypes = [kernels._CTYPES[c] for c in signature]
+            fn.restype = ctypes.c_int
+            fns[symbol] = fn
     return fns
 
 
@@ -222,33 +257,10 @@ def turns(new, old):
             "current_ms": [first_new, second_new]}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True,
-                    help="directory holding the earlier sources")
-    ap.add_argument("--build", default=None,
-                    help="where the earlier libraries go (default: a new "
-                         "temporary directory)")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("parent_kernel_check: CUDA is not available", file=sys.stderr)
-        return 1
-    torch.set_grad_enabled(False)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    reports = kernels.build(["ln_linear_act", "ln_linear_act_bwd",
-                             "ppo_loss"])
-    print(json.dumps({"part": "ptxas", **{
-        stem: [line.strip() for line in text.splitlines()
-               if "registers" in line or "spill" in line]
-        for stem, text in reports.items()}}), flush=True)
-    fns = build_parent(args.parent, args.build or tempfile.mkdtemp())
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+def check_k1_k5_k8(fns, card) -> int:
+    """K1's and K5's bits and K1's, K5's and K8's device ms against the
+    earlier build; returns the count of differing calls."""
     bad = 0
-
     # K1 on serving's recorded calls, both buckets
     model, params, _ = load_export(EXPORT_PATH)
     requests, _ = load_requests()
@@ -376,6 +388,278 @@ def main() -> int:
                                [bound(k1_parent, fns, *args, **call)])
     print(json.dumps({"part": "k1_small_calls", "card": card, **small}),
           flush=True)
+    return bad
+
+
+# ------------------------------------------------------------ K18, K19
+def k18_parent(fns, x, logit_layers, value_layers, activation, dlogits,
+               dvalue):
+    """The earlier K18: its kernel into per-CTA rows, then its reduce
+    launch (``policy.mlp_heads_bwd``'s result)."""
+    table, n_params = policy._heads_table(x, logit_layers, value_layers,
+                                          activation)
+    rows = x.shape[0]
+    dx = x.new_empty(x.shape)
+    blocks = max(1, min(-(-rows // 8), 132))
+    partial = x.new_empty((blocks, n_params))
+    _call(fns["ddls_mlp_heads_bwd"], x.data_ptr(), ctypes.addressof(table),
+          dlogits.data_ptr(), dvalue.data_ptr(), dx.data_ptr(),
+          partial.data_ptr(), rows, policy._ACTIVATION_CODES[activation],
+          blocks)
+    grads = x.new_empty(n_params)
+    _call(fns["ddls_mlp_heads_bwd_reduce"], partial.data_ptr(),
+          grads.data_ptr(), blocks, n_params)
+    out, at = [], 0
+    for w, b in logit_layers + value_layers:
+        out.append(grads[at:at + w.numel()].view(w.shape))
+        at += w.numel()
+        out.append(grads[at:at + b.numel()])
+        at += b.numel()
+    return dx, out
+
+
+class ParentK19:
+    """The earlier K19's three launches over a device leaf table built
+    once per train state (as its wrapper cached it)."""
+
+    def __init__(self, fns):
+        self.fns = fns
+        self.tables = {}
+
+    def __call__(self, state, grads, hp):
+        n = len(state.params)
+        mu = state.mu or [None] * n
+        key = tuple(t.data_ptr() if t is not None else 0
+                    for t in (*state.params, *mu, *state.nu))
+        if key not in self.tables:
+            sizes = [p.numel() for p in state.params]
+            self.tables[key] = (
+                torch.tensor(list(key) + sizes, dtype=torch.int64,
+                             device=state.params[0].device),
+                max(1, -(-max(sizes) // 1024)))
+        table, chunks = self.tables[key]
+        grad_table = (ctypes.c_int64 * n)(*(g.data_ptr() for g in grads))
+        norm = None
+        if hp.grad_clip is not None:
+            partial = state.params[0].new_empty(n * chunks)
+            norm = state.params[0].new_empty(1)
+            _call(self.fns["ddls_clip_adam_norm"],
+                  ctypes.addressof(grad_table), table.data_ptr(),
+                  partial.data_ptr(), n, chunks)
+            _call(self.fns["ddls_clip_adam_reduce"], partial.data_ptr(),
+                  norm.data_ptr(), partial.numel())
+        f32 = np.float32
+        _call(self.fns["ddls_clip_adam_update"], ctypes.addressof(grad_table),
+              table.data_ptr(), kernels.ptr(norm), n, chunks,
+              learner_mod._OPT_RULES[hp.rule], float(hp.grad_clip or 0.0),
+              hp.lr, hp.b1, float(f32(1.0 - hp.b1)), hp.b2,
+              float(f32(1.0 - hp.b2)), hp.eps, hp.bc1, hp.bc2)
+
+
+@contextlib.contextmanager
+def swapped(k18, k19):
+    """The wrappers' K18 and K19 replaced (the autograd function and the
+    learners call them through their modules)."""
+    saved = policy.mlp_heads_bwd, learner_mod.clip_adam
+    policy.mlp_heads_bwd, learner_mod.clip_adam = k18, k19
+    try:
+        yield
+    finally:
+        policy.mlp_heads_bwd, learner_mod.clip_adam = saved
+
+
+def _heads(hiddens, seed):
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for final in (17, 1):
+        widths = [24, *hiddens, final]
+        out.append([((torch.randn(widths[i + 1], widths[i], generator=g)
+                      / widths[i] ** 0.5).cuda(),
+                     (torch.randn(widths[i + 1], generator=g) * 0.1).cuda())
+                    for i in range(len(widths) - 1)])
+    return out
+
+
+def _k19_leaves(sizes, rule, seed):
+    g = torch.Generator().manual_seed(seed)
+    params = [torch.randn(s, generator=g).cuda() for s in sizes]
+    return learner_mod.TrainState(
+        names=[str(i) for i in range(len(sizes))], params=params,
+        mu=None if rule == "rmsprop" else [torch.zeros_like(p)
+                                           for p in params],
+        nu=[torch.zeros_like(p) for p in params]), g
+
+
+def check_k18_k19(fns, card) -> int:
+    """K18's and K19's bits against the earlier build, their device ms and
+    a minibatch step's in turns; returns the count of differing calls."""
+    import dataclasses
+
+    bad = 0
+    held = {}
+    g = torch.Generator().manual_seed(18)
+    for name, hiddens in (("shipped", (17,)), ("dqn", (256,)),
+                          ("default", (256, 256))):
+        lh, vh = _heads(hiddens, len(hiddens))
+        n = diff = 0
+        for rows in (1, 7, 8, 128, 500, 512, 1056, 1057, 4000):
+            args = (torch.randn(rows, 24, generator=g).cuda(), lh, vh,
+                    "relu", torch.randn(rows, 17, generator=g).cuda(),
+                    torch.randn(rows, generator=g).cuda())
+            got = policy.mlp_heads_bwd(*args)
+            want = k18_parent(fns, *args)
+            n += 1
+            diff += not all(same_bits(a, b) for a, b in
+                            zip([got[0], *got[1]], [want[0], *want[1]]))
+        held[name] = {"calls": n, "differing": diff}
+        bad += diff
+    # the fixture's first minibatch backward (the update's shapes)
+    fx = load_train_fixture()
+    cfg = fx["cfg"]
+    model, params, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, cfg, device="cuda")
+    gpu_params = {k: v.cuda() for k, v in params.items()}
+    state = learner.init_state(gpu_params)
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+    batch = learner.minibatch(staged, idx)
+    (_, heads_args, _), = cs.record_sites(
+        {"mlp_heads": (policy, "mlp_heads", cs.k17_parts)},
+        lambda: learner.model.flat_batched(batch))["mlp_heads"]
+    x = heads_args[0]
+    update_args = (*heads_args, torch.randn(x.shape[0], 17, generator=g
+                                            ).cuda(),
+                   torch.randn(x.shape[0], generator=g).cuda())
+    got, want = policy.mlp_heads_bwd(*update_args), k18_parent(
+        fns, *update_args)
+    diff = not all(same_bits(a, b) for a, b in
+                   zip([got[0], *got[1]], [want[0], *want[1]]))
+    held["update"] = {"calls": 1, "differing": int(diff)}
+    bad += diff
+
+    parent_k19 = ParentK19(fns)
+    shipped_sizes = [p.numel() for p in state.params]
+    dqn_sizes = [256 * 24, 256, 17 * 256, 17, 256 * 24, 256, 256, 1, 3000]
+    for rule in ("adam", "rmsprop", "rmsprop_momentum"):
+        for what, sizes in (("shipped", shipped_sizes), ("dqn", dqn_sizes)):
+            n = diff = 0
+            for seed in range(2):
+                runs = []
+                for fn in (learner_mod.clip_adam, parent_k19):
+                    st, gen = _k19_leaves(sizes, rule, seed)
+                    for step in range(1, 5):
+                        grads = [torch.randn(p.shape, generator=gen).cuda()
+                                 for p in st.params]
+                        norm = float(torch.sqrt(sum(
+                            (t.double() ** 2).sum() for t in grads)))
+                        clip = float(np.float32(norm)) if step % 2 else 0.5
+                        hp = (learner_mod.OptimizerStep(
+                            "adam", 1e-3, clip, 0.9, 0.999, 1e-8,
+                            1 - 0.9 ** step, 1 - 0.999 ** step)
+                              if rule == "adam" else
+                              learner_mod.OptimizerStep(rule, 1e-3, clip,
+                                                        0.5, 0.99, 0.1))
+                        fn(st, grads, hp)
+                    runs.append(st.params + (st.mu or []) + st.nu)
+                n += 1
+                diff += not all(same_bits(a, b) for a, b in zip(*runs))
+            held[f"k19_{rule}_{what}"] = {"calls": n, "differing": diff}
+            bad += diff
+    torch.cuda.synchronize()
+    print(json.dumps({"part": "k18_k19_bits", "card": card, **held}),
+          flush=True)
+
+    def bound(fn, *a, **kw):
+        return lambda: fn(*a, **kw)
+
+    times = {"k18_update": turns(
+        [bound(policy.mlp_heads_bwd, *update_args)],
+        [bound(k18_parent, fns, *update_args)])}
+    for name, hiddens, rows in (("k18_dqn_512", (256,), 512),
+                                ("k18_shipped_4000", (17,), 4000)):
+        lh, vh = _heads(hiddens, 7)
+        a = (torch.randn(rows, 24, generator=g).cuda(), lh, vh, "relu",
+             torch.randn(rows, 17, generator=g).cuda(),
+             torch.randn(rows, generator=g).cuda())
+        times[name] = turns([bound(policy.mlp_heads_bwd, *a)],
+                            [bound(k18_parent, fns, *a)])
+    hp = learner_mod.OptimizerStep(
+        "adam", cfg.lr, cfg.grad_clip, learner_mod.ADAM_B1,
+        learner_mod.ADAM_B2, learner_mod.ADAM_EPS,
+        learner._bias_correction(learner_mod.ADAM_B1, 1),
+        learner._bias_correction(learner_mod.ADAM_B2, 1))
+    k19_grads = [torch.randn(p.shape, generator=g).cuda()
+                 for p in state.params]
+    cur_state = learner.init_state(gpu_params)
+    old_state = learner.init_state(gpu_params)
+    times["k19_update"] = turns(
+        [bound(learner_mod.clip_adam, cur_state, k19_grads, hp)],
+        [bound(parent_k19, old_state, k19_grads, hp)])
+    dqn_state, _ = _k19_leaves(dqn_sizes, "adam", 0)
+    dqn_old, _ = _k19_leaves(dqn_sizes, "adam", 0)
+    dqn_grads = [torch.randn(p.shape, generator=g).cuda()
+                 for p in dqn_state.params]
+    times["k19_dqn"] = turns(
+        [bound(learner_mod.clip_adam, dqn_state, dqn_grads, hp)],
+        [bound(parent_k19, dqn_old, dqn_grads, hp)])
+    print(json.dumps({"part": "device_ms", "card": card, **times}),
+          flush=True)
+
+    # a whole minibatch step, the earlier K18 and K19 swapped in
+    perm0 = torch.as_tensor(fx["runs"][50]["perms"][0], device="cuda")
+
+    def step_profile(old):
+        st = learner.init_state(gpu_params)
+        with torch.enable_grad():
+            if old:
+                with swapped(lambda *a: k18_parent(fns, *a), parent_k19):
+                    return cs.profile_steps(learner, staged, st, perm0,
+                                            n_steps=16)
+            return cs.profile_steps(learner, staged, st, perm0, n_steps=16)
+
+    keys = ("device_ms_per_step", "device_events_per_step", "wall_ms",
+            "device_busy_share")
+    steps = {}
+    for label, old in (("parent", True), ("current", False),
+                       ("current_again", False), ("parent_again", True)):
+        prof = step_profile(old)
+        steps[label] = {k: prof[k] for k in keys}
+    print(json.dumps({"part": "minibatch_step", "card": card, **steps}),
+          flush=True)
+    return bad
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True,
+                    help="directory holding the earlier sources")
+    ap.add_argument("--kernels", choices=sorted(PARENTS), default="k18k19",
+                    help="which kernels to hold (default: k18k19)")
+    ap.add_argument("--build", default=None,
+                    help="where the earlier libraries go (default: a new "
+                         "temporary directory)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("parent_kernel_check: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.set_grad_enabled(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parents = PARENTS[args.kernels]
+    reports = kernels.build(list(parents))
+    print(json.dumps({"part": "ptxas", **{
+        stem: [line.strip() for line in text.splitlines()
+               if "registers" in line or "spill" in line]
+        for stem, text in reports.items()}}), flush=True)
+    fns = build_parent(args.parent, args.build or tempfile.mkdtemp(),
+                       parents)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    bad = (check_k1_k5_k8 if args.kernels == "k1k5k8"
+           else check_k18_k19)(fns, card)
     print(json.dumps({"ok": bad == 0, "differing": bad}), flush=True)
     return 0 if bad == 0 else 1
 

@@ -1115,9 +1115,9 @@ def test_mlp_heads_matches_plain_and_is_row_independent(cuda, hiddens,
 def test_mlp_heads_bwd_matches_plain_autograd(cuda, hiddens, activation):
     """K18 (through K17's autograd function) against autograd of the plain
     heads: dx and every weight and bias gradient within 1e-5 of its
-    largest magnitude, at 128 and 1,000 rows (past K18's 132-block cap);
-    bitwise across two runs; one K18 and one reduce launch a backward; a
-    head the loss does not reach gets zero gradients."""
+    largest magnitude, at 128 and 1,000 rows (past K18's 16-CTA cluster);
+    bitwise across two runs; one K18 launch a backward, its reduce inside;
+    a head the loss does not reach gets zero gradients."""
     logit_layers, value_layers = _head_layers(cuda, hiddens)
     g = torch.Generator().manual_seed(2)
     for rows in (128, 1000):
@@ -1137,9 +1137,9 @@ def test_mlp_heads_bwd_matches_plain_autograd(cuda, hiddens, activation):
             grads = torch.autograd.grad((logits, values), leaves,
                                         (dlogits, dvalue))
             after = kernels.launch_counts()
-            assert after["mlp_heads_bwd"] == before["mlp_heads_bwd"] + 1
-            assert (after["mlp_heads_bwd_reduce"]
-                    == before["mlp_heads_bwd_reduce"] + 1)
+            assert {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]} == {"mlp_heads": 1,
+                                                  "mlp_heads_bwd": 1}
             runs.append(grads)
         dx, ref = policy.mlp_heads_bwd_plain(x, logit_layers, value_layers,
                                              activation, dlogits, dvalue)
@@ -1153,6 +1153,75 @@ def test_mlp_heads_bwd_matches_plain_autograd(cuda, hiddens, activation):
                                     allow_unused=True,
                                     materialize_grads=True)
         assert all(not t.any() for t in grads[1 + 2 * n:])
+
+
+# K18's row counts: one tile, a ragged one, the update's minibatch (one
+# 16-CTA cluster), past the cluster (a ticket), the 132-CTA cap and past
+# it (CTAs taking several tiles), the canonical full batch
+K18_ROWS = (1, 7, 8, 128, 500, 512, 1056, 1057, 4000)
+
+
+@pytest.mark.parametrize("hiddens", [(17,), (256,), (256, 256)],
+                         ids=["shipped", "dqn", "default"])
+def test_mlp_heads_bwd_one_launch_at_every_row_count(cuda, hiddens):
+    """K18 called directly at every row count of ``K18_ROWS`` on the
+    shipped heads (24 -> 17 -> {17, 1}, staged whole), the Ape-X DQN's (24
+    -> 256 -> {17, 1}) and the default (256, 256) ones (streamed in
+    chunks): dx and every gradient within 1e-5 of its largest magnitude
+    of autograd of the plain heads, bitwise across two runs, one launch a
+    call (its reduce inside: one cluster up to 16 CTAs, else clusters of 8
+    and a ticket);
+    then the cluster and ticket paths again on a second stream, whose
+    ticket counter is its own."""
+    logit_layers, value_layers = _head_layers(cuda, hiddens, seed=5)
+    g = torch.Generator().manual_seed(6)
+    for rows in K18_ROWS:
+        x = torch.randn(rows, 24, generator=g).to(cuda)
+        dlogits = torch.randn(rows, 17, generator=g).to(cuda)
+        dvalue = torch.randn(rows, generator=g).to(cuda)
+        args = (x, logit_layers, value_layers, "relu", dlogits, dvalue)
+        runs = []
+        for _ in range(2):
+            before = kernels.launch_counts()["mlp_heads_bwd"]
+            dx, grads = policy.mlp_heads_bwd(*args)
+            assert kernels.launch_counts()["mlp_heads_bwd"] == before + 1
+            runs.append([dx, *grads])
+        ref_dx, ref = policy.mlp_heads_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), rows
+        for got, want in zip(runs[0], [ref_dx, *ref]):
+            _close_scaled(got, want)
+        if rows in (128, 4000):
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                again = policy.mlp_heads_bwd(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in
+                       zip(runs[0], [again[0], *again[1]])), rows
+
+
+def test_mlp_heads_bwd_captures_on_a_fresh_stream(cuda):
+    """K18 at the update's 128 rows (one cluster, no ticket) captured in a
+    CUDA graph as the first call on a fresh stream: the capture takes no
+    ticket counter, one launch is counted, and the replay gives the bits
+    of an eager call."""
+    logit_layers, value_layers = _head_layers(cuda, (17,), seed=7)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(128, 24, generator=g).to(cuda)
+    dlogits = torch.randn(128, 17, generator=g).to(cuda)
+    dvalue = torch.randn(128, generator=g).to(cuda)
+    args = (x, logit_layers, value_layers, "relu", dlogits, dvalue)
+    eager_dx, eager = policy.mlp_heads_bwd(*args)
+    assert policy.heads_bwd_plan(128)[3] == 1
+    graph, fresh = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    before = kernels.launch_counts()["mlp_heads_bwd"]
+    with torch.cuda.graph(graph, stream=fresh):
+        dx, grads = policy.mlp_heads_bwd(*args)
+    assert kernels.launch_counts()["mlp_heads_bwd"] == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(dx, eager_dx)
+    assert all(torch.equal(a, b) for a, b in zip(grads, eager))
 
 
 def _opt_state(cuda, rule, seed=0):
@@ -1174,8 +1243,7 @@ def _opt_state(cuda, rule, seed=0):
 def test_clip_adam_matches_plain_over_steps(cuda, rule, clip):
     """K19 against the plain optimiser over 5 steps (clip absent, never
     firing, always firing): params, mu and nu within 1e-6 of each leaf's
-    largest magnitude; three launches a step with the clip, one without;
-    the leaf table built once."""
+    largest magnitude; one launch a step; the leaf table built once."""
     from ddls_tpu_torch.rl.learner import (OptimizerStep, clip_adam,
                                            clip_adam_plain)
 
@@ -1191,14 +1259,11 @@ def test_clip_adam_matches_plain_over_steps(cuda, rule, clip):
               OptimizerStep(rule, 1e-3, clip, 0.5, 0.99, 0.1))
         grads = [torch.randn(p.shape, generator=g).to(cuda)
                  for p in state.params]
-        before = sum(kernels.launch_counts()[k] for k in
-                     ("clip_adam_norm", "clip_adam_reduce",
-                      "clip_adam_update"))
+        before = kernels.launch_counts()
         clip_adam(state, grads, hp)
-        after = sum(kernels.launch_counts()[k] for k in
-                    ("clip_adam_norm", "clip_adam_reduce",
-                     "clip_adam_update"))
-        assert after - before == (1 if clip is None else 3)
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {"clip_adam": 1}
         tables.add(id(state.opt_table))
         clip_adam_plain(ref_params, grads, ref_mu, ref_nu, hp)
     assert len(tables) == 1
@@ -1247,6 +1312,71 @@ def test_clip_adam_at_the_clip_tie(cuda):
             assert any(torch.allclose(a, c[i], rtol=0,
                                       atol=1e-6 * float(c[i].abs().max()))
                        for c in candidates)
+
+
+@pytest.mark.parametrize("rule", ["adam", "rmsprop", "rmsprop_momentum"])
+def test_clip_adam_one_launch_repeatable_at_every_cluster(cuda, rule):
+    """K19 over 4 steps at the clip tie (grad_clip the float32 of the
+    float64 norm) and with the clip firing, on the test leaves and on
+    Ape-X DQN-sized ones (24 -> 256 heads: more than one CTA by default),
+    at 1 to 4 CTAs (forced) and the plan's own count: params, mu and nu
+    bit-equal across the cluster sizes and across two runs (the norm's
+    order of sums does not depend on the CTAs), within 1e-6 of each leaf's
+    largest magnitude of the plain optimiser; one launch a step."""
+    from ddls_tpu_torch.rl.learner import (OptimizerStep, TrainState,
+                                           clip_adam, clip_adam_plain)
+
+    def leaves(big):
+        state, g = _opt_state(cuda, rule, seed=3)
+        if big:
+            shapes = [(256, 24), (256,), (17, 256), (17,), (256, 24),
+                      (256,), (1, 256), (1,), (3000,)]
+            params = [torch.randn(s, generator=g).to(cuda) for s in shapes]
+            state = TrainState(
+                names=[str(i) for i in range(len(shapes))], params=params,
+                mu=None if rule == "rmsprop" else
+                [torch.zeros_like(p) for p in params],
+                nu=[torch.zeros_like(p) for p in params])
+        return state, g
+
+    for big in (False, True):
+        results = {}
+        for ctas in (None, 1, 2, 3, 4):
+            for attempt in range(2):
+                state, g = leaves(big)
+                ref_p = [p.clone() for p in state.params]
+                ref_mu = (None if state.mu is None
+                          else [m.clone() for m in state.mu])
+                ref_nu = [v.clone() for v in state.nu]
+                for step in range(1, 5):
+                    grads = [torch.randn(p.shape, generator=g).to(cuda)
+                             for p in state.params]
+                    norm = float(np.sqrt(sum(float((x.double() ** 2).sum())
+                                             for x in grads)))
+                    clip = float(np.float32(norm)) if step % 2 else 0.5
+                    hp = (OptimizerStep("adam", 1e-3, clip, 0.9, 0.999,
+                                        1e-8, 1 - 0.9 ** step,
+                                        1 - 0.999 ** step)
+                          if rule == "adam" else
+                          OptimizerStep(rule, 1e-3, clip, 0.5, 0.99, 0.1))
+                    before = kernels.launch_counts()["clip_adam"]
+                    if ctas is None:
+                        clip_adam(state, grads, hp)
+                    else:
+                        with kernels._forcing("clip_adam", ctas):
+                            clip_adam(state, grads, hp)
+                    assert kernels.launch_counts()["clip_adam"] == before + 1
+                    clip_adam_plain(ref_p, grads, ref_mu, ref_nu, hp)
+                torch.cuda.synchronize()
+                got = [t.clone() for t in
+                       state.params + (state.mu or []) + state.nu]
+                for a, b in zip(got, ref_p + (ref_mu or []) + ref_nu):
+                    torch.testing.assert_close(
+                        a, b, rtol=0, atol=1e-6 * float(b.abs().max()))
+                results[(ctas, attempt)] = got
+        first = results[(None, 0)]
+        for key, got in results.items():
+            assert all(torch.equal(a, b) for a, b in zip(got, first)), key
 
 
 def test_minibatch_gather_equals_plain_and_the_host_batch(cuda):
@@ -1307,6 +1437,44 @@ def test_heads_optimiser_wrappers_reject_what_they_cannot_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         clip_adam(state, [p.double() for p in state.params],
                   OptimizerStep("adam", 1e-3, None, 0.9, 0.999, 1e-8))
+    hp = OptimizerStep("adam", 1e-3, 1.0, 0.9, 0.999, 1e-8)
+    grads = [torch.ones_like(p) for p in state.params]
+    for ctas in (0, 17):
+        with pytest.raises(ValueError, match="CTAs"), \
+                kernels._forcing("clip_adam", ctas):
+            clip_adam(state, grads, hp)
+    # the one C entry checks its plan and leaves itself (a refused launch
+    # raises and is not counted)
+    import ctypes
+
+    from ddls_tpu_torch.rl import learner as learner_mod
+
+    n = len(state.params)
+    opt = learner_mod._optimizer_table(state)
+    table = list(opt.table)
+    grad_table = (ctypes.c_int64 * n)(*(x.data_ptr() for x in grads))
+    for bad in ([*table[:4 * n], 0, n * opt.plan.chunks - 1],  # bounds
+                [*table[:3 * n], *[1 << 20] * n, *table[4 * n:]]):  # sizes
+        bad_table = (ctypes.c_int64 * len(bad))(*bad)
+        before = kernels.launch_counts()["clip_adam"]
+        with pytest.raises(RuntimeError, match="clip_adam"):
+            kernels.launch("clip_adam", ctypes.addressof(grad_table),
+                           ctypes.addressof(bad_table), n, opt.plan.chunks,
+                           1, 1, 0, 1.0, 1e-3, 0.9, 0.1, 0.999, 0.001,
+                           1e-8, 1.0, 1.0)
+        assert kernels.launch_counts()["clip_adam"] == before
+    # K18's entry: a grid smaller than its parts
+    table, _ = policy._heads_table(x, logit_layers, value_layers, "relu")
+    dx = torch.empty_like(x)
+    grads = torch.empty(1174, device=cuda)
+    partial = torch.empty(4, 1174, device=cuda)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="mlp_heads_bwd"):
+        kernels.launch("mlp_heads_bwd", x.data_ptr(), ctypes.addressof(table),
+                       torch.zeros(4, 17, device=cuda).data_ptr(),
+                       torch.zeros(4, device=cuda).data_ptr(), dx.data_ptr(),
+                       grads.data_ptr(), partial.data_ptr(),
+                       counter.data_ptr(), 4, 0, 2, 1, 1, 256)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -2129,16 +2297,15 @@ EPISODE_MODES = ("nominal", "reset", "walk")
 FUZZ_JOBS, FUZZ_DECISIONS = 12, 24
 
 
-def _short_banks(et, lanes, dtype, cuda):
-    """The recorded shipped banks cut to ``FUZZ_JOBS`` jobs (no arrival
-    after the last), lane i on bank i % 8."""
+def _short_banks(et, lanes, dtype, cuda, jobs=FUZZ_JOBS):
+    """The recorded shipped banks cut to ``jobs`` jobs (no arrival after
+    the last), lane i on bank i % 8."""
     banks = load_device_env_fixture()["banks"]
     rows = [i % 8 for i in range(lanes)]
-    out = {k: np.ascontiguousarray(banks[k][rows, :FUZZ_JOBS])
+    out = {k: np.ascontiguousarray(banks[k][rows, :jobs])
            for k in ("type", "steps", "sla_frac")}
     out["arrival_t"] = np.concatenate(
-        [banks["arrival_t"][rows, :FUZZ_JOBS],
-         np.full((lanes, 1), np.inf)], 1)
+        [banks["arrival_t"][rows, :jobs], np.full((lanes, 1), np.inf)], 1)
     return {name: torch.from_numpy(np.ascontiguousarray(out[name])).to(
         cuda, want or dtype) for name, want in device_env.BANK_FIELDS}
 
@@ -2170,8 +2337,7 @@ def test_episode_step_equals_plain_with_several_slots_a_lane(
     (the in-lane minimum and first free slot) and a running slot past
     lane 0's block; at 128 servers the staged channel occupancy takes
     more than the default 48 KB of shared memory. K25's inputs come from
-    the plain placement, pricing and lookahead (``_plain_evaluate``): K21
-    plans no float64 launch on 128 servers."""
+    the plain placement, pricing and lookahead (``_plain_evaluate``)."""
     from ddls_tpu_torch.sim.fixture import wide_episode_tables
 
     et = wide_episode_tables(servers_per_rack)
@@ -2181,26 +2347,184 @@ def test_episode_step_equals_plain_with_several_slots_a_lane(
     assert seen["shared"] > 0 and seen["top"] >= K, seen
 
 
-def test_episode_step_refuses_more_slots_than_warp_0_holds(cuda):
-    """On 160 servers (ramp 4 x 4 x 10) K25's wrapper raises before it
-    launches: warp 0 holds at most ``EPISODE_MAX_SLOTS`` = 128 slots (the
-    plain version takes any number)."""
+# the wide surfaces of the repairs: 128, 160 and 256 servers (ramps of 4 x
+# 4 x 8 | 10 | 16; 16,256, 25,440 and 65,280 channels), and the jobs a bank
+# their fuzzed episodes take: enough jobs running at once to pass lane
+# 0's block of K slots (K = 8 at 256 servers)
+WIDE_RACKS = (8, 10, 16)
+WIDE_JOBS = {128: FUZZ_JOBS, 160: FUZZ_JOBS, 256: 3 * FUZZ_JOBS}
+
+
+@pytest.fixture(scope="module", params=WIDE_RACKS,
+                ids=[f"{16 * r}srv" for r in WIDE_RACKS])
+def wide_et(request):
     from ddls_tpu_torch.sim.fixture import wide_episode_tables
 
-    et = wide_episode_tables(10)
-    assert et.n_srv == 160 > device_env.EPISODE_MAX_SLOTS
-    ek = device_env.episode_kernels(et, device=cuda, dtype=torch.float32)
-    bank = _short_banks(et, 1, torch.float32, cuda)
-    acts = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
-    state = ek.init_state(bank, acts)
-    raw = {"ots": torch.zeros((1, 1), dtype=torch.int32, device=cuda)}
-    trace = {n: torch.zeros((1, 2), dtype=want or torch.float32,
-                            device=cuda)
-             for n, want in device_env.TRACE_FIELDS}
-    before = kernels.launch_counts()["episode_step"]
-    with pytest.raises(ValueError, match="at most 128 slots"):
-        device_env.episode_step(ek, state, bank, acts, raw, trace, 0)
-    assert kernels.launch_counts()["episode_step"] == before
+    return wide_episode_tables(request.param)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", EPISODE_MODES)
+def test_episode_step_equals_plain_on_wide_surfaces(cuda, wide_et, mode,
+                                                    dtype):
+    """The fuzzed episodes of ``test_episode_step_equals_plain_on_fuzzed_
+    states`` at 8 lanes on 128, 160 and 256 servers, where each lane of
+    K25's warp 0 owns K = 4, 5 and 8 slots (register blocks of 4 and 8;
+    no raise above 128 slots) and, at 256, the channel occupancy (65,280
+    channels) no longer fits shared memory and is read from global memory:
+    bit-equal to the plain version in every mode, with two running slots
+    in one warp lane's block and a running slot past lane 0's. K25's
+    inputs come from the plain placement and pricing and from K21
+    (``sim/fixture.py`` ``plain_placed_evaluate``)."""
+    et = wide_et
+    from ddls_tpu_torch.sim.fixture import plain_placed_evaluate
+
+    seen = _hold_fuzzed_episode(et, cuda, mode, 8, dtype,
+                                evaluate=plain_placed_evaluate,
+                                jobs=WIDE_JOBS[et.n_srv])
+    K = -(-et.n_srv // 32)
+    assert seen["shared"] > 0 and seen["top"] >= K, seen
+
+
+@pytest.mark.parametrize("forms", [("occ_global",), ("mask_free",),
+                                   ("slot_memory",),
+                                   ("occ_global", "mask_free",
+                                    "slot_memory")],
+                         ids=["occ_global", "mask_free", "slot_memory",
+                              "all"])
+@pytest.mark.parametrize("mode", EPISODE_MODES)
+@pytest.mark.parametrize("servers_per_rack", [2, 4])
+def test_episode_step_forms_equal_plain(cuda, servers_per_rack, mode,
+                                        forms):
+    """K25's forms for the surfaces the shared memory or the registers do
+    not hold (the occupancy read from global memory, the commit without
+    the channel mask and the walk's per-window channel flags, warp 0's
+    slots in the lanes' state past 1,024 slots), forced on the shipped 32-
+    and a 64-server surface in float64: bit-equal to the plain version in
+    every mode, one launch of the mode's entry a call."""
+    from ddls_tpu_torch.sim.fixture import wide_episode_tables
+
+    et = (_shipped_tables() if servers_per_rack == 2
+          else wide_episode_tables(servers_per_rack))
+    with kernels._forcing("episode_step", forms):
+        _hold_fuzzed_episode(et, cuda, mode, 8, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lookahead_equals_plain_on_wide_surfaces(cuda, wide_et, dtype):
+    """Both K21 entries, with a third of the lanes skipped, at every
+    cluster size 1-16 on 8 lanes of random placements of random
+    configurations (the largest among them) on 128, 160 and 256 servers,
+    bit-equal to the plain version, ticks too: a lane on one CTA cannot
+    hold these surfaces' two-row channel table (float64 at 128 servers:
+    260 KB) in shared memory, so the table lives in the lane's workspace
+    (at 128 servers in float32 the plan keeps it in shared memory). The
+    inputs are K24's plain outputs."""
+    _hold_wide_k21(wide_et, cuda, dtype, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lookahead_workspace_table_equals_plain(cuda, dtype):
+    """K21 with its channel table forced into the workspace on the shipped
+    surface (72 lanes of random configurations, the largest among them)
+    and on the recorded lanes, at every cluster size, bit-equal to the
+    plain version, ticks too."""
+    with kernels._forcing("lookahead", True):
+        _hold_wide_k21(_shipped_tables(), cuda, dtype, 72)
+    for name, group in load_lookahead_lanes().items():
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                for a in group["args"]]
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        kw = dict(num_workers=group["num_workers"],
+                  num_channels=group["num_channels"])
+
+        def run(g):
+            ticks = torch.empty(args[0].shape[0], dtype=torch.int32,
+                                device=cuda)
+            with kernels._forcing("lookahead", True):
+                return lookahead_mod.lookahead(
+                    *args, ticks=ticks, cluster=g, **kw) + (ticks,)
+
+        _equal_all_sizes(run, lookahead_mod.lookahead_plain(*args, **kw),
+                         name)
+
+
+def _hold_wide_k21(et, cuda, dtype, lanes):
+    dev = device_env.device_tables(et, device=cuda, dtype=dtype)
+    rng = np.random.RandomState(et.n_srv + lanes)
+    cfg = rng.randint(0, dev.n_cfg, lanes)
+    cfg[0] = int(np.argmax(et.tables["n_deps"]))
+    cfg_t, ots, skip = _fuzzed_calls(et, dev, cfg, lanes)
+    times, is_flow, chan, op_score, dep_score, _ = \
+        device_env.price_and_score_plain(ots, cfg_t, dev)
+    kw = dict(num_workers=et.n_srv, num_channels=et.n_chan)
+    args = lookahead_mod.gather_indexed(cfg_t, ots, op_score, times,
+                                        is_flow, dep_score, chan, dev.t)
+    plain = lookahead_mod.lookahead_plain(
+        *args, skip=skip, num_workers=et.n_srv, num_channels=et.n_chan)
+    assert bool(plain[4][~skip].any())
+
+    def indexed(g):
+        ticks = torch.empty(lanes, dtype=torch.int32, device=cuda)
+        return lookahead_mod.lookahead_indexed(
+            cfg_t, ots, op_score, times, is_flow, dep_score, chan, dev.t,
+            ticks=ticks, skip=skip, cluster=g, **kw) + (ticks,)
+
+    def per_lane(g):
+        ticks = torch.empty(lanes, dtype=torch.int32, device=cuda)
+        return lookahead_mod.lookahead(*args, ticks=ticks, skip=skip,
+                                       cluster=g, **kw) + (ticks,)
+
+    _equal_all_sizes(indexed, plain, f"K21 indexed {et.n_srv} servers")
+    _equal_all_sizes(per_lane, plain, f"K21 {et.n_srv} servers")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_price_reduce_equals_plain_on_wide_surfaces(cuda, wide_et, dtype):
+    """``test_price_reduce_equals_plain_on_fuzzed_rows`` at 72 rows on 128,
+    160 and 256 servers (at 256 the 65,280 channels' occupancy does not
+    fit shared memory and is read from global memory), K24's outputs from
+    its plain version."""
+    _hold_price_reduce(wide_et, cuda, 72, dtype, plain_pricing=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows", [1, 72])
+def test_price_reduce_global_occupancy_equals_plain(cuda, rows, dtype):
+    """K29 with the occupancy read from global memory (forced) on the
+    shipped surface, bit-equal to its plain version."""
+    with kernels._forcing("price_reduce", True):
+        _hold_price_reduce(_shipped_tables(), cuda, rows, dtype)
+
+
+def test_wide_surfaces_place_and_price_or_say_why(cuda, wide_et):
+    """K23 and K24 on the wide surfaces at 8 lanes, each bit-equal to its
+    plain version where it runs; where K23's shared-memory tables do not
+    fit, its wrapper raises before a launch (ROADMAP Queue C names the
+    server count), and the repairs' tests above take the plain
+    placement."""
+    dev = device_env.device_tables(wide_et, cuda, torch.float32)
+    from ddls_tpu_torch.sim.fixture import fuzzed_placements
+
+    mem, free, cfg, _ = fuzzed_placements(wide_et, dev, 8, 0, False)
+    try:
+        got = device_env.allocate_job(mem, free, cfg, dev)
+    except ValueError as err:
+        assert "shared memory" in str(err)
+    else:
+        want = device_env.allocate_job_plain(mem, free, cfg, dev)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    rng = np.random.RandomState(3)
+    cfg_t, ots, _ = _fuzzed_calls(wide_et, dev, rng.randint(
+        0, dev.n_cfg, 8), 3)
+    got = device_env.price_and_score(ots, cfg_t, dev)
+    want = device_env.price_and_score_plain(ots, cfg_t, dev)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w)) \
+            if g.is_floating_point() else g == w
+        assert bool(same.all()), i
 
 
 def _plain_evaluate(ek, state):
@@ -2225,10 +2549,13 @@ def _plain_evaluate(ek, state):
             "ticks": ticks}
 
 
-def _hold_fuzzed_episode(et, cuda, mode, lanes, dtype, evaluate=None):
+def _hold_fuzzed_episode(et, cuda, mode, lanes, dtype, evaluate=None,
+                         jobs=FUZZ_JOBS):
     """The body of ``test_episode_step_equals_plain_on_fuzzed_states`` on
     the surface ``et``, K25's inputs from ``evaluate(ek, state)`` (default
-    ``ek.evaluate``, the kernels). Returns what the episodes reached: the
+    ``ek.evaluate``, the kernels), banks of ``jobs`` jobs over twice as
+    many decisions. Returns what the episodes
+    reached: the
     counts of forced small and large deciding lanes, lanes without a job,
     ended lanes, lane-decisions with two running slots in one block of
     warp 0's lanes (``shared``) and the highest running slot (``top``)."""
@@ -2242,12 +2569,12 @@ def _hold_fuzzed_episode(et, cuda, mode, lanes, dtype, evaluate=None):
     n_deps = et.tables["n_deps"]
     small, large = int(np.argmin(n_deps)), int(np.argmax(n_deps))
     rng = np.random.RandomState(lanes)
-    bank = _short_banks(et, lanes, dtype, cuda)
+    bank = _short_banks(et, lanes, dtype, cuda, jobs)
+    D = FUZZ_DECISIONS * jobs // FUZZ_JOBS
     acts = torch.from_numpy(rng.choice([0, 1, 2, 4, 8, 16], (
-        lanes, FUZZ_DECISIONS)).astype(np.int32)).to(cuda)
+        lanes, D)).astype(np.int32)).to(cuda)
     reset = mode == "reset"
     name = "episode_step_scenario" if mode == "walk" else "episode_step"
-    D = FUZZ_DECISIONS
     kw = dict(device=cuda)
     trace = {n: torch.zeros((lanes, D), dtype=want or dtype, **kw)
              for n, want in device_env.TRACE_FIELDS}
@@ -2332,9 +2659,10 @@ def test_price_reduce_equals_plain_on_128_servers(cuda, dtype):
     _hold_price_reduce(et, cuda, 72, dtype)
 
 
-def _hold_price_reduce(et, cuda, rows, dtype):
+def _hold_price_reduce(et, cuda, rows, dtype, plain_pricing=False):
     """The body of ``test_price_reduce_equals_plain_on_fuzzed_rows`` on the
-    surface ``et``."""
+    surface ``et``, K24's outputs from its plain version with
+    ``plain_pricing``."""
     dev = device_env.device_tables(et, cuda, dtype)
     lanes = 8 if rows == 72 else 1
     rng = np.random.RandomState(rows)
@@ -2343,8 +2671,9 @@ def _hold_price_reduce(et, cuda, rows, dtype):
     cfg[0] = int(np.argmax(n_deps))
     cfg[-1] = int(np.argmin(n_deps))
     cfg_t, ots, _ = _fuzzed_calls(et, dev, cfg, rows)
-    _, is_flow, chan, _, _, finite_ok = device_env.price_and_score(
-        ots, cfg_t, dev)
+    _, is_flow, chan, _, _, finite_ok = (
+        device_env.price_and_score_plain if plain_pricing
+        else device_env.price_and_score)(ots, cfg_t, dev)
     n_deg = rows // lanes
     occ = np.full((lanes, et.n_chan), -1, np.int32)
     occ[rng.rand(lanes, et.n_chan) < 0.01] = 3
