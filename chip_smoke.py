@@ -234,9 +234,13 @@ at 1, 4, 8 and 16 CTAs besides its plan's) and K20 (the minibatch assembly,
 exactly) against their plain versions, and K21 (the array lookahead
 engine) on the recorded lanes in float32 and float64: bit-equal to its
 plain version and, in float32, to the recorded JAX answers; within 1e-9
-of the C++ engine in float64. Its ``[wide]`` line holds K21, K23 (where
-its tables fit), K25 and K29 on 128 and 256 servers against their plain
-versions.
+of the C++ engine in float64. Its ``[wide]`` line holds K21, K25 and
+K29 on 128 and 256 servers and K23 (both entries, float32 and float64; its
+tables from global memory at 256) on 128, 160 and 256 against their plain
+versions; K25's replay there takes its inputs from K23, K24 and K21. K6's
+entries are timed at the update's minibatch step; K23's row carries its
+three forms' device ms on the replay's call, and a row of its own holds
+the global form at 256 servers.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3626,8 +3630,11 @@ def check_placement_kernel(card):
 
 
 # the wide surfaces (ramps 4 x 4 x 8 | 16: 128 and 256 servers, 16,256 and
-# 65,280 channels) and the replay's decisions on them
+# 65,280 channels) and the replay's decisions on them; K23 also at 160
+# servers (4 x 4 x 10), and its fuzzed rows (8, and 72 for the indexed
+# entry)
 WIDE_RACKS, WIDE_LANES, WIDE_DECISIONS = (8, 16), 8, 12
+WIDE_K23_RACKS = (8, 10, 16)
 
 
 def check_wide_surfaces(card):
@@ -3639,19 +3646,82 @@ def check_wide_surfaces(card):
     cluster and on one CTA, in float32 and float64 (its channel table in
     the lane's workspace where a CTA cannot hold it); K25's replay of 12
     decisions at 8 lanes on the recorded banks cut to 12 jobs, in float32,
-    its inputs from the plain placement and pricing and K21, and K29 on 72
-    rows of the episode's last state: every call bit-equal to its plain
-    version (ticks too); K23 where its tables fit shared memory (its
-    wrapper refuses the surface otherwise: the line gives both sizes).
-    Emits the calls held, the forms each surface takes and each kernel's
-    device ms a launch."""
+    its inputs from the device env's own evaluation (K23, K24, K21), and
+    K29 on 72 rows of the episode's last state; K23, both entries, float32
+    and float64, on fuzzed states at 128, 160 and 256 servers (its shape
+    tables from global memory where they do not fit shared memory, the
+    C entry's plan held against the Python mirror's): every call bit-equal
+    to its plain version (ticks too). Emits the calls held, the forms each
+    surface takes and each kernel's device ms a launch."""
     fx = device_env_fixture.load_device_env_fixture()
     held, ms, forms = 0, {}, {}
+    optin = kernels.cached_query("placement", "ddls_smem_optin")
+    k23_row = None
+    for racks in WIDE_K23_RACKS:
+        et = device_env_fixture.wide_episode_tables(racks)
+        n_srv = et.n_srv
+        forms[n_srv] = {}
+        for dtype in (torch.float32, torch.float64):
+            dev = device_env.device_tables(et, "cuda", dtype)
+            sizes = device_env.allocate_job_sizes(dev)
+            is_f64 = dtype == torch.float64
+            plan = device_env.allocate_job_plan(sizes, is_f64, optin)
+            packed = kernels.query("placement", "ddls_allocate_job_smem",
+                                   *sizes, int(is_f64), 0)
+            require(plan is not None and packed == plan.packed(),
+                    f"K23's plan on {n_srv} servers ({dtype}) is not the "
+                    f"Python mirror's")
+            k23 = f"k23 {str(dtype)[6:]}"
+            forms[n_srv][k23] = {"form": device_env.ALLOC_FORMS[plan.form],
+                                 "rows_a_cta": plan.rows,
+                                 "smem": plan.smem, "smem_optin": optin}
+            for indexed in (False, True):
+                rows = 72 if indexed else WIDE_LANES
+                # the kernels line's global-form row counts the launches
+                # of 256 servers' float32 plain-entry calls, from 0
+                counted = n_srv == 256 and not indexed and not is_f64
+                if counted:
+                    kernels.reset_launch_counts()
+                for seed in range(2):
+                    args = device_env_fixture.fuzzed_placements(
+                        et, dev, rows, seed, indexed)
+                    got = device_env.allocate_job(*args[:3], dev, args[3])
+                    want = device_env.allocate_job_plain(*args[:3], dev,
+                                                         args[3])
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(x, y)
+                                for x, y in zip(got, want)),
+                            f"K23 differs from its plain version on {n_srv} "
+                            f"servers ({dtype}, indexed {indexed})")
+                    held += 1
+                what = "allocate_job_indexed" if indexed else "allocate_job"
+                if counted:
+                    launched = kernels.launch_counts()[what]
+
+                def call():
+                    return device_env.allocate_job(*args[:3], dev, args[3])
+
+                key = f"{what} {n_srv} servers {str(dtype)[6:]} rows={rows}"
+                ms[key] = device_ms(call)
+                if counted:
+                    cfg_np = args[2].cpu().numpy()[None]
+                    k23_row = {
+                        "launches": launched, "ms": ms[key],
+                        "eager_ms": eager_ms(call),
+                        "plain_ms": eager_ms(lambda: device_env.
+                                             allocate_job_plain(
+                                                 *args[:3], dev, args[3]),
+                                             iters=3),
+                        "bound": bound_ms(*_k23_work(
+                            et, cfg_np, np.ones(cfg_np.shape), 4)),
+                        "form": device_env.ALLOC_FORMS[plan.form],
+                        "shape": f"rows={rows} servers={n_srv} float32 "
+                                 f"fuzzed states"}
     for racks in WIDE_RACKS:
         et = device_env_fixture.wide_episode_tables(racks)
         n_srv = et.n_srv
-        forms[n_srv] = {"channels": et.n_chan, "slots_a_lane":
-                        device_env.episode_slots_a_lane(n_srv)}
+        forms[n_srv].update({"channels": et.n_chan, "slots_a_lane":
+                             device_env.episode_slots_a_lane(n_srv)})
         for dtype in (torch.float32, torch.float64):
             dev = device_env.device_tables(et, "cuda", dtype)
             rng = np.random.RandomState(racks)
@@ -3686,27 +3756,6 @@ def check_wide_surfaces(card):
                         f"K21 differs from its plain version on {n_srv} "
                         f"servers ({dtype}, cluster {g})")
                 held += 1
-            # K23 where its shape tables fit a CTA's shared memory (its
-            # wrapper refuses the surface before a launch where not)
-            pads = dev.pads
-            need = kernels.cached_query(
-                "placement", "ddls_allocate_job_smem", n_srv, pads.n_ops,
-                pads.n_fwd, pads.n_parents, pads.max_split,
-                dev.row.shape[0], dev.row.shape[1],
-                dev.anchor_cells.shape[0], int(dtype == torch.float64))
-            have = kernels.cached_query("placement", "ddls_smem_optin")
-            k23 = f"k23 {str(dtype)[6:]}"
-            forms[n_srv][k23] = {"smem_need": need, "smem_have": have}
-            if need <= have:
-                args = device_env_fixture.fuzzed_placements(
-                    et, dev, WIDE_LANES, 0, False)[:3]
-                got = device_env.allocate_job(*args, dev)
-                want = device_env.allocate_job_plain(*args, dev)
-                torch.cuda.synchronize()
-                require(all(torch.equal(x, y) for x, y in zip(got, want)),
-                        f"K23 differs from its plain version on {n_srv} "
-                        f"servers ({dtype})")
-                held += 1
             ms[f"lookahead {n_srv} servers {str(dtype)[6:]}"] = \
                 device_ms(k21)
         # K25's replay and K29, float32
@@ -3730,7 +3779,7 @@ def check_wide_surfaces(card):
                  for k, want in device_env.TRACE_FIELDS}
         running = 0
         for d in range(J):
-            raw = device_env_fixture.plain_placed_evaluate(ek, state)
+            raw = ek.evaluate(state)
             s2 = {k: v.clone() for k, v in state.items()}
             t2 = {k: v.clone() for k, v in trace.items()}
             device_env.episode_step(ek, state, bank, acts, raw, trace, d)
@@ -3777,6 +3826,9 @@ def check_wide_surfaces(card):
                                             ek.dev.t["n_deps"]))
     emit("wide", card=card, held_calls=held, surfaces=forms,
          device_ms_per_launch=ms)
+    require(k23_row is not None and k23_row["form"] == "global_tables",
+            "K23 took no global form on 256 servers")
+    return k23_row
 
 
 def _price_tuples_close(got, want) -> float:
@@ -4598,6 +4650,14 @@ def phase_episode(card):
     end.record()
     end.synchronize()
     eager["episode_step"] = start.elapsed_time(end) / len(clones)
+    # K23's forms on the same call: the shared form (the surface's own)
+    # against the tables read from global memory
+    k23_call = (lambda: device_env.allocate_job(state["mem"], free0,
+                                                state["cfg"], dev))
+    results["allocate_job"]["forms_device_ms"] = {
+        "shared": device_ms(k23_call),
+        "global_tables": forced_ms("allocate_job", 1, k23_call),
+        "shared_again": device_ms(k23_call)}
     for name in EPISODE_KERNELS:
         r = results[name]
         r.update(ms=prof["kernel_device_ms_per_step"][name],
@@ -6202,7 +6262,7 @@ def main() -> int:
     emit("lookahead_kernel_checked", card=card, **lookahead_results)
     clusters = check_cluster_kernels(card)
     check_placement_kernel(card)
-    check_wide_surfaces(card)
+    k23_wide = check_wide_surfaces(card)
 
     launches = phase_serve(model, params, requests, recorded, card)
     phase_cli(requests, recorded)
@@ -6360,6 +6420,27 @@ def main() -> int:
             "shapes": [r["shape"]], "card": card})
         if rows[-1]["name"] in clusters:
             rows[-1]["cluster"] = clusters[rows[-1]["name"]]
+        if name == "allocate_job":
+            rows[-1]["forms_device_ms"] = r["forms_device_ms"]
+            # K23 where its tables come from global memory: [wide]'s 256
+            # servers
+            rows.append({
+                **{k: v for k, v in rows[-1].items()
+                   if k != "forms_device_ms"},
+                "name": "allocate_job (global tables)",
+                "launches": k23_wide["launches"],
+                "launches_of": "[wide]'s own check, counted from 0 (256 "
+                               "servers, fuzzed states); no main path "
+                               "takes this form",
+                "main_path": None,
+                "max_abs_err": 0.0, "max_rel_err": 0.0,
+                "held_calls": None, "ms": k23_wide["ms"],
+                "kernel_ms": k23_wide["ms"],
+                "eager_ms": k23_wide["eager_ms"],
+                "plain_ms": k23_wide["plain_ms"],
+                "bound_ms": k23_wide["bound"][0],
+                "bound_by": k23_wide["bound"][1], "calls": 1,
+                "calls_per": "launch", "shapes": [k23_wide["shape"]]})
     for name, r in collect_results.items():
         spec = kernels.KERNELS[name]
         rows.append({

@@ -115,12 +115,12 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     KernelSpec("ln_linear_act_bwd", "ddls_ln_linear_act_bwd",
                "p" * 14 + "i" * 9 + "p", "ddls_tpu/models/gnn.py:45"),
     KernelSpec("csr_segment_mean_bwd", "ddls_csr_segment_mean_bwd",
-               "ppppppiiip", "ddls_tpu/ops/segment.py:37",
+               "ppppppiiiip", "ddls_tpu/ops/segment.py:37",
                file="segment_bwd"),
     KernelSpec("csr_segment_sum", "ddls_csr_segment_sum", "ppppiip",
                "ddls_tpu/models/gnn.py:89", file="segment_bwd"),
     KernelSpec("masked_mean_pool_concat_bwd",
-               "ddls_masked_mean_pool_concat_bwd", "ppppiiiip",
+               "ddls_masked_mean_pool_concat_bwd", "ppppiiiiip",
                "ddls_tpu/ops/segment.py:61", file="segment_bwd"),
     KernelSpec("gae_normalize", "ddls_gae_normalize", "ppppppiiffip",
                "ddls_tpu/rl/ppo.py:101"),
@@ -148,7 +148,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
                "ddls_tpu/rl/es.py:133", file="es"),
     # the heads forward and backward (K17, K18), the optimiser (K19) and
     # the minibatch assembly (K20) that every update runs
-    KernelSpec("mlp_heads", "ddls_mlp_heads", "ppppiip",
+    KernelSpec("mlp_heads", "ddls_mlp_heads", "ppppiiip",
                "ddls_tpu/models/policy.py:38"),
     KernelSpec("mlp_heads_bwd", "ddls_mlp_heads_bwd", "p" * 8 + "i" * 6 + "p",
                "ddls_tpu/models/policy.py:38", file="mlp_heads"),
@@ -165,7 +165,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # and the event clock (K25)
     KernelSpec("first_fit_block", "ddls_first_fit_block", "ppppiiiiiiiip",
                "ddls_tpu/sim/jax_block_search.py:62", file="placement"),
-    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 17 + "i" * 11 + "p",
+    KernelSpec("allocate_job", "ddls_allocate_job", "p" * 17 + "i" * 12 + "p",
                "ddls_tpu/sim/jax_env.py:450", file="placement"),
     KernelSpec("price_and_score", "ddls_price_and_score",
                "p" * 33 + "i" * 11 + "dddd" + "i" + "p",
@@ -188,7 +188,7 @@ KERNELS: Dict[str, KernelSpec] = {k.name: k for k in (
     # their other mode), the verdicts and prices (K29) and the OracleJCT
     # episode's choice of degree (K30)
     KernelSpec("allocate_job_indexed", "ddls_allocate_job",
-               "p" * 17 + "i" * 11 + "p", "ddls_tpu/sim/jax_env.py:1085",
+               "p" * 17 + "i" * 12 + "p", "ddls_tpu/sim/jax_env.py:1085",
                file="placement"),
     KernelSpec("kernel_obs_prices", "ddls_kernel_obs",
                "p" * 14 + "i" * 7 + "p", "ddls_tpu/sim/jax_env.py:1492",
@@ -379,7 +379,9 @@ def stream_counters(owner: str, n: int, device: torch.device) -> torch.Tensor:
 
 
 # what a test forces on a kernel whose form its sizes choose (the kernel's
-# name -> the value its wrapper reads): K19's CTAs ("clip_adam"), K21's
+# name -> the value its wrapper reads): K6's scalar form
+# ("csr_segment_mean_bwd", "masked_mean_pool_concat_bwd": "scalar"), K17's tile ("mlp_heads"), K23's form ("allocate_job": an
+# index of sim/device_env.py ALLOC_FORMS), K19's CTAs ("clip_adam"), K21's
 # channel table in the workspace ("lookahead"), K25's forms
 # ("episode_step": names of sim/device_env.py EPISODE_FORMS), K29's
 # occupancy from global memory ("price_reduce"). Empty unless a test sets

@@ -24,12 +24,32 @@
 // derivative at 0 is 0, JAX's rule).
 //
 // What bounds them on the H100: latency. The shipped heads move ~100 bytes
-// a row and ~4.6 KB of weights; the 256-wide ones ~70 KB of weights. K17
-// takes a tile of rows a block; each layer's weight is staged through
-// shared memory in chunks of output rows (a 256 x 256 layer does not fit,
-// so it streams), transposed on the way in ([k][o]: a warp's lanes take
-// neighbouring outputs of one row and read neighbouring words). The
-// tile's activations stay in shared memory between layers.
+// a row and ~4.6 KB of weights; the 256-wide ones ~70 KB of weights.
+//
+// K17's first design took 16-row tiles of 256 threads (the update's 128
+// rows on 8 CTAs), ran the heads one after the other and restaged every
+// layer's weight chunk, transposed, with scalar loads between two barriers:
+// four dependent global round trips and about ten barriers a tile at the
+// shipped widths. This design (K18's techniques on the forward):
+//  * stages the tile's x and every weight and bias of both heads at the
+//    start, all in flight together with cp.async: one round trip. A
+//    weight keeps its layout with each row padded by one float, so the
+//    copies coalesce and write distinct banks, and a warp's lanes (on
+//    neighbouring outputs) read one column in distinct banks; a transposed
+//    copy would send a warp's writes to one bank (at the Ape-X DQN's 256
+//    wide layer: 14 us a launch at one row on the H100). Heads too
+//    wide to fit (the default 256 x 256 hidden layers) stream each layer
+//    through two chunk buffers (K18's, transposed), the next chunk's
+//    copies issued before the current one is used;
+//  * runs both heads' layer l in one pass over the block's threads, one
+//    barrier a layer depth; the last layer's outputs go straight to global
+//    memory, the hidden ones stay in shared memory;
+//  * takes the host's tile (models/policy.py heads_fwd_plan: serving's rows
+//    in one CTA, the update's 128 rows 4 a CTA over 32 SMs; wider heads
+//    fewer rows a CTA) and as many
+//    threads as a depth has items (at most 512).
+// Every output is dense_dot whatever the tile or form, so its bits are the
+// first design's.
 //
 // K18 keeps the order of sums of its first design (8-row tiles, rows in
 // order within a tile; CTA g's tiles g, g + G, ... in order; the CTAs'
@@ -63,14 +83,14 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // K17's threads
+constexpr int kMaxFwdThreads = 512;  // K17's, at most
 constexpr int kMaxBwdThreads = 512;  // K18's, at most (its plan's)
 constexpr int kMaxLayers = 3;
 constexpr int kMaxIn = 64;
 constexpr int kMaxHidden = 256;
 constexpr int kMaxOut = 64;
 constexpr int kWChunk = 8192;   // floats of one weight chunk (32 KB)
-constexpr int kRowsFwd = 16;    // rows per forward tile
+constexpr int kMaxTile = 16;    // rows per forward tile, at most
 constexpr int kRowsBwd = 8;     // rows per backward tile
 
 struct Layer {
@@ -116,129 +136,6 @@ __device__ __forceinline__ float dense_dot(const float* h, const float* w,
                                            int ws, int n, float b) {
   return __fadd_rn(fma_chain(h, 1, w, ws, n, 0.0f), b);
 }
-
-// stage output rows [o0, o0 + oc) of layer L: transposed ([k][o - o0]) for
-// the forward, as stored ([o - o0][k]) for the backward
-__device__ __forceinline__ void stage_chunk(const Layer& L, int o0, int oc,
-                                            float* w_s, bool transpose) {
-  const int n = oc * L.in;
-  const float* src = L.w + static_cast<size_t>(o0) * L.in;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const float v = src[i];
-    if (transpose) {
-      const int o = i / L.in;
-      const int k = i - o * L.in;
-      w_s[k * oc + o] = v;
-    } else {
-      w_s[i] = v;
-    }
-  }
-}
-
-// out[r][o] = act(z) (or z on the last layer) for the tile's rows, from
-// in_s [rows][in_stride]
-__device__ void layer_forward(const Layer& L, const float* in_s,
-                              int in_stride, float* out_s, int out_stride,
-                              float* w_s, int chunk, int tile_rows, int act,
-                              bool last) {
-  const int oc_max = max(1, min(L.out, chunk / L.in));
-  for (int o0 = 0; o0 < L.out; o0 += oc_max) {
-    const int oc = min(oc_max, L.out - o0);
-    stage_chunk(L, o0, oc, w_s, true);
-    __syncthreads();
-    for (int p = threadIdx.x; p < tile_rows * oc; p += kThreads) {
-      const int r = p / oc;
-      const int o = p - r * oc;
-      const float z = dense_dot(in_s + r * in_stride, w_s + o, oc, L.in,
-                                L.b[o0 + o]);
-      out_s[r * out_stride + o0 + o] = last ? z : ddls::activate(z, act);
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-mlp_heads_kernel(const float* __restrict__ x,  // [rows, k]
-                 Heads heads,
-                 float* __restrict__ logits,   // [rows, a]
-                 float* __restrict__ value,    // [rows]
-                 int rows, int act) {
-  extern __shared__ float smem[];
-  const int st = heads.stride;
-  const int k_in = heads.layer[0][0].in;
-  float* x_s = smem;                      // [kRowsFwd][st]
-  float* buf0 = x_s + kRowsFwd * st;      // [kRowsFwd][st]
-  float* buf1 = buf0 + kRowsFwd * st;     // [kRowsFwd][st]
-  float* out_s = buf1 + kRowsFwd * st;    // [kRowsFwd][st]
-  float* w_s = out_s + kRowsFwd * st;     // [chunk]
-  const int row0 = blockIdx.x * kRowsFwd;
-  const int tile_rows = min(kRowsFwd, rows - row0);
-  for (int i = threadIdx.x; i < tile_rows * k_in; i += kThreads) {
-    const int r = i / k_in;
-    const int k = i - r * k_in;
-    x_s[r * st + k] = x[static_cast<size_t>(row0 + r) * k_in + k];
-  }
-  __syncthreads();
-  for (int h = 0; h < 2; ++h) {
-    const int n = heads.n_layers[h];
-    const float* in_s = x_s;
-    for (int l = 0; l < n; ++l) {
-      const bool last = l == n - 1;
-      float* dst = last ? out_s : (l % 2 == 0 ? buf0 : buf1);
-      layer_forward(heads.layer[h][l], in_s, st, dst, st, w_s, heads.chunk,
-                    tile_rows, act, last);
-      in_s = dst;
-    }
-    const int a = heads.layer[h][n - 1].out;
-    for (int i = threadIdx.x; i < tile_rows * a; i += kThreads) {
-      const int r = i / a;
-      const int o = i - r * a;
-      const float v = out_s[r * st + o];
-      if (h == 0) {
-        logits[static_cast<size_t>(row0 + r) * a + o] = v;
-      } else {
-        value[row0 + r] = v;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------------------------- backward
-// Per 8-row tile and head: recompute the hidden pre-activations z_l and
-// outputs h_l, then walk the layers backwards with d = d out:
-//   dW_l[o][k] += sum_r d[r][o] h_{l-1}[r][k], db_l[o] += sum_r d[r][o]
-//     (rows in order, one fmaf a row; rows past the end hold zeros),
-//   d h_{l-1}[r][k] = sum_o d[r][o] W_l[o][k] (outputs in order),
-//   d = d h_{l-1} * act'(z_{l-1}),
-// and d x = (0 + d h_0 of head 0) + d h_0 of head 1. CTA g of the G =
-// min(tiles, 132) that take tiles sums tiles g, g + G, ... in order into
-// its partial row P_g; the gradient is ((0 + P_0) + P_1) + ... + P_{G-1}.
-// These are the sums, in the same order, of the earlier two-launch design
-// (per-CTA rows in global memory, then a reduce kernel), so the results
-// keep its bits at every row count.
-//
-// The shared-memory layout (floats, each array 16-byte aligned), computed
-// on the host: the tile's x, the hidden z and h of each head, two output-
-// gradient buffers a head, every bias; then either every weight as stored
-// ([out][in], for d h) and, for the hidden layers, transposed ([in][out],
-// for the recompute) -- `resident` -- or two chunk buffers the layers
-// stream through; then, where they fit, every part's row (a launch of one
-// cluster: the CTAs write their rows into rank 0's, which adds them) or
-// else the CTA's own partial row.
-struct Bwd {
-  int x;
-  int z[2][kMaxLayers - 1], h[2][kMaxLayers - 1];
-  int d[2][2];
-  int b[2][kMaxLayers];
-  int w[2][kMaxLayers], wt[2][kMaxLayers];  // resident
-  int buf[2];                               // streaming
-  int rows;          // [parts][n_params] in rank 0, or -1
-  int acc;           // the CTA's partial row, or -1 (global memory)
-  int p_off[2][kMaxLayers];  // a layer's W, then b, in the gradient
-  int resident;
-  int floats;        // the dynamic shared memory
-};
 
 // n floats from global src into shared dst (16-byte aligned), the block's
 // threads: 16-byte copies where src is aligned too
@@ -305,11 +202,14 @@ __device__ void stream_layer(const Layer& L, float* buf0, float* buf1,
 }
 
 // e / n for 0 <= e, e * n < 2^32: the high word of e * ceil(2^32 / n)
-// (exact there, since the ceiling's excess over 2^32 / n is below one)
+// (exact there, since the ceiling's excess over 2^32 / n is below one);
+// made on the host where a kernel's divisors are known at launch (the
+// 64-bit division costs a thread a few hundred cycles)
 struct FastDiv {
   unsigned m;
   int n;
-  __device__ explicit FastDiv(int n_)
+  FastDiv() = default;
+  __host__ __device__ explicit FastDiv(int n_)
       : m(n_ == 1 ? 0u
                   : static_cast<unsigned>((0x100000000ull + n_ - 1) / n_)),
         n(n_) {}
@@ -325,6 +225,200 @@ template <typename V>
 __device__ __forceinline__ V pick(bool second, const V (&a)[2]) {
   return second ? a[1] : a[0];
 }
+
+// ------------------------------------------------------------- forward
+// The forward's shared-memory layout (floats, each array 16-byte aligned),
+// computed on the host: the tile's x, a head's hidden outputs (two buffers
+// where it has two hidden layers), every bias; then every weight as stored
+// with each row padded by one float ([out][in + 1]: a warp's lanes, on
+// neighbouring outputs, read one column in distinct banks) -- `resident`
+// -- or two chunk buffers the layers stream through (transposed).
+struct Fwd {
+  int x;
+  int h[2][2];
+  int b[2][kMaxLayers];
+  int w[2][kMaxLayers];   // resident
+  int buf[2];             // streaming
+  int resident;
+  int floats;             // the dynamic shared memory
+  FastDiv by_k;                       // the input width
+  FastDiv by_in[2][kMaxLayers];       // each layer's inputs
+  FastDiv by_out[2][kMaxLayers];      // each layer's outputs
+};
+
+// W [out][in] into dst [out][in + 1] (rows padded by one float), the
+// block's threads, 4 bytes a copy: neighbouring threads copy neighbouring
+// words, so the reads coalesce and the writes take distinct banks
+__device__ __forceinline__ void copy_async_padded(float* dst, const float* w,
+                                                  int n, const FastDiv& by_in) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    ddls::cp_async4(dst + i + by_in(i), w + i);  // o * (in + 1) + k
+  }
+}
+
+// out = z on a head's last layer (into logits or value), else act(z) into
+// the head's hidden buffer
+__device__ __forceinline__ void put_output(float z, bool last, bool value_head,
+                                           int r, int o, int row0, int a,
+                                           float* __restrict__ logits,
+                                           float* __restrict__ value,
+                                           float* h_s, int st, int act) {
+  if (!last) {
+    h_s[r * st + o] = ddls::activate(z, act);
+  } else if (value_head) {
+    value[row0 + r] = z;
+  } else {
+    logits[static_cast<size_t>(row0 + r) * a + o] = z;
+  }
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kMaxFwdThreads)
+mlp_heads_kernel(const float* __restrict__ x,  // [rows, k]
+                 Heads heads, Fwd lay,
+                 float* __restrict__ logits,   // [rows, a]
+                 float* __restrict__ value,    // [rows]
+                 int rows, int act, int tile) {
+  extern __shared__ __align__(16) float sm[];
+  const int st = heads.stride;
+  const int k_in = heads.layer[0][0].in;
+  const int a = heads.layer[0][heads.n_layers[0] - 1].out;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int row0 = blockIdx.x * tile;
+  const int tr = min(tile, rows - row0);
+  float* x_s = sm + lay.x;
+
+  // the tile's x, every bias and (resident) every weight, in flight
+  // together
+  const float* xt = x + static_cast<size_t>(row0) * k_in;
+  for (int i = tid; i < tr * k_in; i += nt) {
+    const int r = lay.by_k(i);
+    ddls::cp_async4(x_s + r * st + (i - r * k_in), xt + i);
+  }
+  for (int h = 0; h < 2; ++h) {
+    for (int l = 0; l < heads.n_layers[h]; ++l) {
+      const Layer& L = heads.layer[h][l];
+      copy_async(sm + lay.b[h][l], L.b, L.out);
+      if (kResident) {
+        copy_async_padded(sm + lay.w[h][l], L.w, L.out * L.in,
+                          lay.by_in[h][l]);
+      }
+    }
+  }
+  ddls::cp_async_commit();
+  ddls::cp_async_wait_group<0>();
+  __syncthreads();
+
+  if (kResident) {
+    // both heads a step a layer depth (layer s of each head that has it),
+    // their items (row r, output o; o fastest) in one range; the depth
+    // loop unrolled, so every table index is a constant (a kernel
+    // parameter indexed at run time would be copied to local memory)
+    const int steps = max(heads.n_layers[0], heads.n_layers[1]);
+#pragma unroll
+    for (int s = 0; s < kMaxLayers; ++s) {
+      if (s >= steps) break;
+      int n[2], width[2], depth[2];
+      bool last[2];
+      const float *in_s[2], *w[2], *bias[2];
+      float* h_s[2];
+      FastDiv by_out[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool on = s < heads.n_layers[h];
+        const Layer& L = heads.layer[h][s];
+        n[h] = on ? tr * L.out : 0;
+        width[h] = L.out;
+        depth[h] = L.in;
+        last[h] = s == heads.n_layers[h] - 1;
+        in_s[h] = s == 0 ? x_s : sm + lay.h[h][(s - 1) & 1];
+        h_s[h] = sm + lay.h[h][s & 1];
+        w[h] = sm + lay.w[h][s];
+        bias[h] = sm + lay.b[h][s];
+        by_out[h] = lay.by_out[h][s];
+      }
+      for (int p = tid; p < n[0] + n[1]; p += nt) {
+        // (the heads' values picked, not indexed: a register array
+        // indexed at run time would live in local memory)
+        const bool h1 = p >= n[0];
+        const int q = p - (h1 ? n[0] : 0);
+        const int r = pick(h1, by_out)(q);
+        const int o = q - r * pick(h1, width);
+        const int k = pick(h1, depth);
+        const float z = dense_dot(pick(h1, in_s) + r * st,
+                                  pick(h1, w) + o * (k + 1), 1, k,
+                                  pick(h1, bias)[o]);
+        put_output(z, pick(h1, last), h1, r, o, row0, a, logits, value,
+                   pick(h1, h_s), st, act);
+      }
+      if (s + 1 < steps) __syncthreads();
+    }
+  } else {
+    // streaming: each head and layer in turn, the weights in chunks
+    float* buf0 = sm + lay.buf[0];
+    float* buf1 = sm + lay.buf[1];
+    for (int h = 0; h < 2; ++h) {
+      const int n = heads.n_layers[h];
+      for (int l = 0; l < n; ++l) {
+        const Layer& L = heads.layer[h][l];
+        const float* in_s = l == 0 ? x_s : sm + lay.h[h][(l - 1) & 1];
+        float* h_s = sm + lay.h[h][l & 1];
+        const float* b_s = sm + lay.b[h][l];
+        const bool last = l == n - 1;
+        stream_layer(L, buf0, buf1, heads.chunk, true,
+                     [&](const float* w, int o0, int oc) {
+          const FastDiv by_oc(oc);
+          for (int p = tid; p < tr * oc; p += nt) {
+            const int r = by_oc(p);
+            const int o = p - r * oc;
+            const float z = dense_dot(in_s + r * st, w + o, oc, L.in,
+                                      b_s[o0 + o]);
+            put_output(z, last, h == 1, r, o0 + o, row0, a, logits, value,
+                       h_s, st, act);
+          }
+        });
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- backward
+// Per 8-row tile and head: recompute the hidden pre-activations z_l and
+// outputs h_l, then walk the layers backwards with d = d out:
+//   dW_l[o][k] += sum_r d[r][o] h_{l-1}[r][k], db_l[o] += sum_r d[r][o]
+//     (rows in order, one fmaf a row; rows past the end hold zeros),
+//   d h_{l-1}[r][k] = sum_o d[r][o] W_l[o][k] (outputs in order),
+//   d = d h_{l-1} * act'(z_{l-1}),
+// and d x = (0 + d h_0 of head 0) + d h_0 of head 1. CTA g of the G =
+// min(tiles, 132) that take tiles sums tiles g, g + G, ... in order into
+// its partial row P_g; the gradient is ((0 + P_0) + P_1) + ... + P_{G-1}.
+// These are the sums, in the same order, of the earlier two-launch design
+// (per-CTA rows in global memory, then a reduce kernel), so the results
+// keep its bits at every row count.
+//
+// The shared-memory layout (floats, each array 16-byte aligned), computed
+// on the host: the tile's x, the hidden z and h of each head, two output-
+// gradient buffers a head, every bias; then either every weight as stored
+// ([out][in], for d h) and, for the hidden layers, transposed ([in][out],
+// for the recompute) -- `resident` -- or two chunk buffers the layers
+// stream through; then, where they fit, every part's row (a launch of one
+// cluster: the CTAs write their rows into rank 0's, which adds them) or
+// else the CTA's own partial row.
+struct Bwd {
+  int x;
+  int z[2][kMaxLayers - 1], h[2][kMaxLayers - 1];
+  int d[2][2];
+  int b[2][kMaxLayers];
+  int w[2][kMaxLayers], wt[2][kMaxLayers];  // resident
+  int buf[2];                               // streaming
+  int rows;          // [parts][n_params] in rank 0, or -1
+  int acc;           // the CTA's partial row, or -1 (global memory)
+  int p_off[2][kMaxLayers];  // a layer's W, then b, in the gradient
+  int resident;
+  int floats;        // the dynamic shared memory
+};
+
 
 // one parameter-gradient entry e of layer L over the tile (e < out * in:
 // W[o][k]; else b[e - out * in]), rows in order, added into the CTA's row;
@@ -699,14 +793,74 @@ bool read_heads(const long long* table, Heads* heads, int* k_in, int* a) {
   return true;
 }
 
-size_t fwd_bytes(const Heads& h) {
-  return sizeof(float) * (4 * static_cast<size_t>(kRowsFwd) * h.stride +
-                          h.chunk);
+// The forward's layout for `heads` at `tile` rows in `budget` bytes of
+// shared memory: resident where every weight fits, else streaming. False
+// when not even the streaming layout fits.
+bool fwd_layout(const Heads& heads, int tile, size_t budget, Fwd* lay) {
+  *lay = Fwd{};
+  int at = 0;
+  auto take = [&](int floats) {
+    const int here = at;
+    at += (floats + 3) / 4 * 4;
+    return here;
+  };
+  const int t = tile * heads.stride;
+  lay->x = take(t);
+  lay->by_k = FastDiv(heads.layer[0][0].in);
+  for (int h = 0; h < 2; ++h) {
+    const int n = heads.n_layers[h];
+    for (int l = 0; l + 1 < n; ++l) lay->h[h][l] = take(t);
+    for (int l = 0; l < n; ++l) {
+      lay->b[h][l] = take(heads.layer[h][l].out);
+      lay->by_out[h][l] = FastDiv(heads.layer[h][l].out);
+    }
+  }
+  const int before = at;
+  for (int h = 0; h < 2; ++h) {
+    for (int l = 0; l < heads.n_layers[h]; ++l) {
+      const Layer& L = heads.layer[h][l];
+      lay->w[h][l] = take((L.in + 1) * L.out);
+      lay->by_in[h][l] = FastDiv(L.in);
+    }
+  }
+  const auto fits = [&](int floats) {
+    return sizeof(float) * static_cast<size_t>(floats) <= budget;
+  };
+  lay->resident = fits(at);
+  if (!lay->resident) {
+    at = before;
+    lay->buf[0] = take(heads.chunk);
+    lay->buf[1] = take(heads.chunk);
+    if (!fits(at)) return false;
+  }
+  lay->floats = at;
+  return true;
 }
 
-size_t fwd_max_bytes() {
-  return sizeof(float) *
-         (4 * static_cast<size_t>(kRowsFwd) * (kMaxHidden + 1) + kWChunk);
+// K17's threads: the most items of a layer depth at `tile` rows (resident;
+// a chunk's at most `chunk` outputs streaming) or a sixteenth of the
+// weights to stage (resident), in whole warps, at most kMaxFwdThreads
+int fwd_threads(const Heads& heads, const Fwd& lay, int tile) {
+  // at most 16 staging copies a thread
+  int weights = 0;
+  for (int h = 0; h < 2; ++h) {
+    for (int l = 0; l < heads.n_layers[h]; ++l) {
+      weights += heads.layer[h][l].in * heads.layer[h][l].out;
+    }
+  }
+  int most = lay.resident ? (weights + 15) / 16 : 0;
+  for (int s = 0; s < kMaxLayers; ++s) {
+    int items = 0;
+    for (int h = 0; h < 2; ++h) {
+      if (s >= heads.n_layers[h]) continue;
+      const Layer& L = heads.layer[h][s];
+      const int oc = max(1, min(L.out, heads.chunk / L.in));
+      items = lay.resident ? items + tile * L.out : max(items, tile * oc);
+    }
+    most = max(most, items);
+  }
+  const int warps = (most + ddls::kWarpSize - 1) / ddls::kWarpSize;
+  return min(kMaxFwdThreads, max(1, warps) * ddls::kWarpSize);
 }
 
 // The backward's layout for `heads` in `budget` bytes of shared memory:
@@ -770,31 +924,53 @@ bool bwd_layout(const Heads& heads, size_t budget, int parts,
 
 }  // namespace
 
+// The forward: x [rows, k] float32, the layer table (per head h and layer
+// l, the four int64 entries weight pointer, bias pointer, in, out at (h *
+// 3 + l) * 4, then the two layer counts), out logits [rows, a] and value
+// [rows]; `tile` rows a CTA (1-16, models/policy.py heads_fwd_plan).
 DDLS_EXPORT int ddls_mlp_heads(const void* x, const void* table,
                                void* logits, void* value, int rows, int act,
-                               void* stream) {
+                               int tile, void* stream) {
   Heads heads;
   int k_in = 0;
   int a = 0;
-  if (rows <= 0 || !read_heads(static_cast<const long long*>(table), &heads,
-                               &k_in, &a)) {
+  if (rows <= 0 || tile < 1 || tile > kMaxTile ||
+      !read_heads(static_cast<const long long*>(table), &heads, &k_in, &a)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // raise the dynamic shared-memory limit once, to the kernel's largest
-  // size (the first launch, before any CUDA-graph capture, sets it)
+  int budget = 0;
+  int rc = ddls::smem_optin(&budget);
+  if (rc != 0) return rc;
+  Fwd lay;
+  if (!fwd_layout(heads, tile, static_cast<size_t>(budget), &lay)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // raise the dynamic shared-memory limit once, to the card's opt-in (the
+  // first launch, before any CUDA-graph capture, sets it)
   static bool configured = false;
   if (!configured) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        mlp_heads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(fwd_max_bytes()));
+    cudaError_t attr = cudaFuncSetAttribute(
+        mlp_heads_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        budget);
+    if (attr == cudaSuccess) {
+      attr = cudaFuncSetAttribute(
+          mlp_heads_kernel<false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, budget);
+    }
     if (attr != cudaSuccess) return static_cast<int>(attr);
     configured = true;
   }
-  mlp_heads_kernel<<<ddls::grid_for(rows, kRowsFwd), kThreads,
-                     fwd_bytes(heads), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), heads, static_cast<float*>(logits),
-      static_cast<float*>(value), rows, act);
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float) * static_cast<size_t>(lay.floats);
+  const int threads = fwd_threads(heads, lay, tile);
+  const auto launch = [&](auto kernel) {
+    kernel<<<ddls::grid_for(rows, tile), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), heads, lay, static_cast<float*>(logits),
+        static_cast<float*>(value), rows, act, tile);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return lay.resident ? launch(mlp_heads_kernel<true>)
+                      : launch(mlp_heads_kernel<false>);
 }
 
 // The backward: x [rows, k], the layer table (as ddls_mlp_heads), dlogits

@@ -64,9 +64,19 @@
 // puts them first, and an invalid op would commit nothing and never clear ok.
 // Shared memory on the shipped 32-server surface: 3.0 KB (10^3 bytes) of shape
 // tables and 5.3 KB a row in float32 (5.5 KB in float64), 24.2 KB a CTA (25.0
-// KB in float64). Built with -fmad=false (kernels/__init__.py EXTRA_FLAGS):
-// nothing here multiplies, and nothing may be fused.
+// KB in float64). The bitmasks grow with the square of the server count
+// (355,888 bytes a CTA at 256 servers in float32, past the H100's 232,448),
+// so the C entry chooses one of two forms from the sizes (alloc_plan):
+// "shared" (everything staged, kAllocRows rows a CTA) where it fits; else
+// "global_tables": anchor_bits and anchor_ok read from global memory
+// (read-only loads that stay in L2: ~0.35 MB at 256 servers), the row table
+// and the rows' parts still staged, as many rows a CTA (4 down to 1) as
+// their parts fit. The tests and the first fit's order are the same in
+// both forms, so are the bits. Built with -fmad=false
+// (kernels/__init__.py EXTRA_FLAGS): nothing here multiplies, and nothing
+// may be fused.
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -121,37 +131,47 @@ __global__ void __launch_bounds__(kThreads) first_fit_block_kernel(
   }
 }
 
-// K23: kAllocRows rows a CTA, one warp each
+// K23: up to kAllocRows rows a CTA, one warp each
 constexpr int kAllocRows = 4;
 constexpr int kAllocThreads = kAllocRows * ddls::kWarpSize;
+
+// K23's forms: where the shape tables live (device_env.ALLOC_FORMS)
+constexpr int kTablesShared = 0;  // row table, anchor_bits, anchor_ok staged
+constexpr int kTablesGlobal = 1;  // anchor_bits, anchor_ok from global
 
 inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
 // Byte offsets into K23's dynamic shared memory, each a multiple of 16:
-// the CTA's shape tables, then kAllocRows copies of a row's part (offsets
-// from its own base).
+// the CTA's staged shape tables, then `rows` copies of a row's part
+// (offsets from its own base); the form and rows a CTA.
 struct AllocLayout {
   size_t row, bits, ok, cta;
   size_t mem, other, freew, split, fmem, parents, sub_fwd, sub_bwd,
       op_servers, op_count, ots, per_row;
   size_t total;
+  int form, rows;
 };
 
 template <typename T>
 AllocLayout alloc_layout(int n_srv, int n, int n_fwd, int n_par, int smax,
-                         int n_rows, int row_cols, int n_shapes) {
+                         int n_rows, int row_cols, int n_shapes, int form,
+                         int rows) {
   AllocLayout L{};
+  L.form = form;
+  L.rows = rows;
   const size_t words = (n_srv + 31) / 32;
   const size_t anchors = static_cast<size_t>(n_shapes) * n_srv;
   size_t o = 0;
   L.row = o;
   o = align16(o + sizeof(int) * n_rows * row_cols);
   L.bits = o;
-  o = align16(o + sizeof(unsigned) * anchors * words);
+  if (form == kTablesShared) {
+    o = align16(o + sizeof(unsigned) * anchors * words);
+  }
   L.ok = o;
-  o = align16(o + anchors);
+  if (form == kTablesShared) o = align16(o + anchors);
   L.cta = o;
   size_t w = 0;
   L.mem = w;
@@ -177,8 +197,28 @@ AllocLayout alloc_layout(int n_srv, int n, int n_fwd, int n_par, int smax,
   L.ots = w;
   w = align16(w + sizeof(int) * n);
   L.per_row = w;
-  L.total = L.cta + kAllocRows * w;
+  L.total = L.cta + static_cast<size_t>(rows) * w;
   return L;
+}
+
+// The form of a launch within `optin` bytes a CTA: shared at kAllocRows
+// rows where it fits (and `force` is 0), else the tables from global
+// memory at the most rows a CTA that fit. rows == 0: no form fits.
+template <typename T>
+AllocLayout alloc_plan(int n_srv, int n, int n_fwd, int n_par, int smax,
+                       int n_rows, int row_cols, int n_shapes, size_t optin,
+                       int force) {
+  for (int form = force; form <= kTablesGlobal; ++form) {
+    const int most = form == kTablesShared ? kAllocRows : 1;
+    for (int rows = kAllocRows; rows >= most; --rows) {
+      const AllocLayout L = alloc_layout<T>(n_srv, n, n_fwd, n_par, smax,
+                                            n_rows, row_cols, n_shapes,
+                                            form, rows);
+      if (L.total <= optin) return L;
+    }
+  }
+  AllocLayout none{};
+  return none;
 }
 
 // `bytes` bytes from global `src` into shared `dst` by threads `tid` of
@@ -207,10 +247,21 @@ __device__ void stage(void* dst, const void* src, size_t bytes, int tid,
   for (size_t i = body + tid; i < bytes; i += nthr) d[i] = s[i];
 }
 
+// *p, through the read-only path where p is in global memory
+template <bool kGlobal, typename U>
+__device__ __forceinline__ U ld(const U* p) {
+  if constexpr (kGlobal) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
 // Whether shape `sid`'s block at anchor `a` lies on free servers: the
 // anchor is ok and none of its servers' bits is missing from the free
 // mask (word 0 `free0`, the others `freew`). False for sid < 0 or an
-// anchor past the grid.
+// anchor past the grid. kGlobal: the tables are global memory's.
+template <bool kGlobal>
 __device__ __forceinline__ bool fits_free(int sid, int a, int n_srv,
                                           int words,
                                           const unsigned char* s_ok,
@@ -219,14 +270,15 @@ __device__ __forceinline__ bool fits_free(int sid, int a, int n_srv,
                                           const unsigned* freew) {
   if (sid < 0 || a >= n_srv) return false;
   const int at = sid * n_srv + a;
-  bool fits = s_ok[at] != 0 && (s_bits[at * words] & ~free0) == 0u;
+  bool fits = ld<kGlobal>(s_ok + at) != 0 &&
+              (ld<kGlobal>(s_bits + at * words) & ~free0) == 0u;
   for (int w = 1; fits && w < words; ++w) {
-    fits = (s_bits[at * words + w] & ~freew[w]) == 0u;
+    fits = (ld<kGlobal>(s_bits + at * words + w) & ~freew[w]) == 0u;
   }
   return fits;
 }
 
-template <typename T>
+template <typename T, int kForm>
 __global__ void __launch_bounds__(kAllocThreads) allocate_job_kernel(
     const T* __restrict__ mem_in, const bool* __restrict__ other_free,
     const int* __restrict__ cfg, const int* __restrict__ state_lane,
@@ -239,26 +291,34 @@ __global__ void __launch_bounds__(kAllocThreads) allocate_job_kernel(
     T* __restrict__ mem_out, bool* __restrict__ ok_out, AllocLayout L,
     int lanes, int n_srv, int n, int n_fwd, int n_par, int smax,
     int n_rows, int row_cols, int n_shapes, int max_cells) {
+  constexpr bool kGlobalTables = kForm == kTablesGlobal;
   extern __shared__ __align__(16) unsigned char smem[];
   const int words = (n_srv + 31) / 32;
   const size_t anchors = static_cast<size_t>(n_shapes) * n_srv;
   const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
   const int warp = tid / ddls::kWarpSize;
   const int lane = tid % ddls::kWarpSize;
 
-  // the CTA's shape tables
+  // the CTA's shape tables: staged, or global memory's (the form's)
   const int* s_row = reinterpret_cast<const int*>(smem + L.row);
-  const unsigned* s_bits = reinterpret_cast<const unsigned*>(smem + L.bits);
-  const unsigned char* s_ok = smem + L.ok;
+  const unsigned* s_bits =
+      kGlobalTables ? anchor_bits
+                    : reinterpret_cast<const unsigned*>(smem + L.bits);
+  const unsigned char* s_ok =
+      kGlobalTables ? reinterpret_cast<const unsigned char*>(anchor_ok)
+                    : smem + L.ok;
   stage(smem + L.row, row_table, sizeof(int) * n_rows * row_cols, tid,
-        kAllocThreads);
-  stage(smem + L.bits, anchor_bits, sizeof(unsigned) * anchors * words, tid,
-        kAllocThreads);
-  stage(smem + L.ok, anchor_ok, anchors, tid, kAllocThreads);
+        nthr);
+  if (!kGlobalTables) {
+    stage(smem + L.bits, anchor_bits, sizeof(unsigned) * anchors * words,
+          tid, nthr);
+    stage(smem + L.ok, anchor_ok, anchors, tid, nthr);
+  }
 
   // this warp's row, its state lane and its config rows over the valid
   // prefix
-  const int b = blockIdx.x * kAllocRows + warp;
+  const int b = blockIdx.x * L.rows + warp;
   unsigned char* base = smem + L.cta + warp * L.per_row;
   T* s_mem = reinterpret_cast<T*>(base + L.mem);
   const unsigned char* s_other = base + L.other;
@@ -351,8 +411,8 @@ __global__ void __launch_bounds__(kAllocThreads) allocate_job_kernel(
         unsigned mine = 0u;
 #pragma unroll 4
         for (int q = 0; q < n_pos; ++q) {
-          if (fits_free(row_ids[p0 + q], a, n_srv, words, s_ok, s_bits,
-                        free0, s_freew)) {
+          if (fits_free<kGlobalTables>(row_ids[p0 + q], a, n_srv, words,
+                                       s_ok, s_bits, free0, s_freew)) {
             mine |= 1u << q;
           }
         }
@@ -364,7 +424,8 @@ __global__ void __launch_bounds__(kAllocThreads) allocate_job_kernel(
         const int a = j * ddls::kWarpSize + lane;
         const unsigned hit = __ballot_sync(
             ddls::kFullMask,
-            fits_free(sid, a, n_srv, words, s_ok, s_bits, free0, s_freew));
+            fits_free<kGlobalTables>(sid, a, n_srv, words, s_ok, s_bits,
+                                     free0, s_freew));
         if (hit != 0u) {
           pick_sid = sid;
           pick_a = j * ddls::kWarpSize + __ffs(hit) - 1;
@@ -422,30 +483,24 @@ int smem_optin(int* bytes) {
   return 0;
 }
 
-template <typename T>
-int launch_allocate(const void* const* p, int lanes, int n_srv, int n,
-                    int n_fwd, int n_par, int smax, int n_rows, int row_cols,
-                    int n_shapes, int max_cells, cudaStream_t stream) {
-  int optin = 0;
-  const int rc = smem_optin(&optin);
-  if (rc != 0) return rc;
-  const AllocLayout L = alloc_layout<T>(n_srv, n, n_fwd, n_par, smax,
-                                        n_rows, row_cols, n_shapes);
-  if (L.total > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T, int kForm>
+int launch_form(const void* const* p, const AllocLayout& L, int lanes,
+                int n_srv, int n, int n_fwd, int n_par, int smax, int n_rows,
+                int row_cols, int n_shapes, int max_cells,
+                cudaStream_t stream) {
   // raise the dynamic shared-memory limit to the largest size yet (the
   // first launch, before any CUDA-graph capture, sets it)
   static size_t configured = 48 * 1024;
   if (L.total > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        allocate_job_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        allocate_job_kernel<T, kForm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(L.total));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = L.total;
   }
-  allocate_job_kernel<T>
-      <<<ddls::grid_for(lanes, kAllocRows), kAllocThreads, L.total,
+  allocate_job_kernel<T, kForm>
+      <<<ddls::grid_for(lanes, L.rows), L.rows * ddls::kWarpSize, L.total,
          stream>>>(
           static_cast<const T*>(p[0]), static_cast<const bool*>(p[1]),
           static_cast<const int*>(p[2]), static_cast<const int*>(p[3]),
@@ -460,6 +515,28 @@ int launch_allocate(const void* const* p, int lanes, int n_srv, int n,
           static_cast<bool*>(const_cast<void*>(p[16])), L, lanes, n_srv, n,
           n_fwd, n_par, smax, n_rows, row_cols, n_shapes, max_cells);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_allocate(const void* const* p, int lanes, int n_srv, int n,
+                    int n_fwd, int n_par, int smax, int n_rows, int row_cols,
+                    int n_shapes, int max_cells, int force,
+                    cudaStream_t stream) {
+  int optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  const AllocLayout L = alloc_plan<T>(n_srv, n, n_fwd, n_par, smax, n_rows,
+                                      row_cols, n_shapes,
+                                      static_cast<size_t>(optin), force);
+  if (L.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto go = [&](auto kernel_form) {
+    return launch_form<T, decltype(kernel_form)::value>(
+        p, L, lanes, n_srv, n, n_fwd, n_par, smax, n_rows, row_cols,
+        n_shapes, max_cells, stream);
+  };
+  return L.form == kTablesShared
+             ? go(std::integral_constant<int, kTablesShared>{})
+             : go(std::integral_constant<int, kTablesGlobal>{});
 }
 
 }  // namespace
@@ -499,36 +576,46 @@ DDLS_EXPORT int ddls_allocate_job(
     const void* anchor_bits, const void* anchor_ok, void* ots,
     void* new_mem, void* ok, int lanes, int n_srv, int n, int n_fwd,
     int n_par, int smax, int n_rows, int row_cols, int n_shapes,
-    int max_cells, int is_f64, void* stream) {
+    int max_cells, int is_f64, int force, void* stream) {
   const void* p[17] = {mem, other_free, cfg, state_lane, n_fwd_of, f_split,
                        f_mem, f_parents, f_sub_fwd, f_sub_bwd, row,
                        anchor_cells, anchor_bits, anchor_ok, ots, new_mem,
                        ok};
   if (lanes <= 0 || n_srv < 1 || n_fwd < 0 || n_par < 1 || smax < 1 ||
-      n_rows < 1 || row_cols < 1 || n_shapes < 1 || max_cells < 1) {
+      n_rows < 1 || row_cols < 1 || n_shapes < 1 || max_cells < 1 ||
+      force < kTablesShared || force > kTablesGlobal) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_f64) {
     return launch_allocate<double>(p, lanes, n_srv, n, n_fwd, n_par, smax,
-                                   n_rows, row_cols, n_shapes, max_cells, s);
+                                   n_rows, row_cols, n_shapes, max_cells,
+                                   force, s);
   }
   return launch_allocate<float>(p, lanes, n_srv, n, n_fwd, n_par, smax,
-                                n_rows, row_cols, n_shapes, max_cells, s);
+                                n_rows, row_cols, n_shapes, max_cells, force,
+                                s);
 }
 
-// K23's shared memory a CTA, in bytes: the wrapper refuses a surface whose
-// tables need more than the card's opt-in maximum. Launches nothing.
+// K23's plan for these sizes on the current device (alloc_plan; `force`
+// as ddls_allocate_job's), packed into one int: (shared bytes a CTA << 5)
+// | (rows a CTA << 2) | form; cudaErrorInvalidValue where no form fits.
+// Launches nothing.
 DDLS_EXPORT int ddls_allocate_job_smem(int n_srv, int n, int n_fwd,
                                        int n_par, int smax, int n_rows,
                                        int row_cols, int n_shapes,
-                                       int is_f64, int* out) {
+                                       int is_f64, int force, int* out) {
+  int optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  const size_t budget = static_cast<size_t>(optin);
   const AllocLayout L =
-      is_f64 ? alloc_layout<double>(n_srv, n, n_fwd, n_par, smax, n_rows,
-                                    row_cols, n_shapes)
-             : alloc_layout<float>(n_srv, n, n_fwd, n_par, smax, n_rows,
-                                   row_cols, n_shapes);
-  *out = static_cast<int>(L.total);
+      is_f64 ? alloc_plan<double>(n_srv, n, n_fwd, n_par, smax, n_rows,
+                                  row_cols, n_shapes, budget, force)
+             : alloc_plan<float>(n_srv, n, n_fwd, n_par, smax, n_rows,
+                                 row_cols, n_shapes, budget, force);
+  if (L.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  *out = static_cast<int>(L.total << 5) | (L.rows << 2) | L.form;
   return 0;
 }
 

@@ -165,6 +165,37 @@ _HEAD_BWD_TILE, _HEAD_BWD_MAX_BLOCKS = 8, 132
 _HEAD_BWD_MAX_CLUSTER, _HEAD_BWD_TICKET_CLUSTER = 16, 8
 # K18's threads a CTA (its tile's work items spread over more warps)
 _HEAD_BWD_THREADS = 512
+# K17's tiles. Small heads (the shipped ones: each CTA stages ~1,200
+# parameters): a serving batch (up to 8 rows) in one CTA, more rows 4 to 8 a
+# CTA; wider heads (the Ape-X DQN's 256-wide layer, ~17,000 weights): 1 to
+# 8 rows a CTA, their depth-1 chains being long. Either as few rows a CTA
+# as keep at most one CTA a SM of the H100, within those bounds.
+_HEAD_FWD_ONE_CTA, _HEAD_FWD_MIN_TILE, _HEAD_FWD_MAX_TILE = 8, 4, 8
+_HEAD_FWD_SMALL = 4096  # parameters of heads that tile as the shipped
+_HEAD_FWD_SMS = 132
+
+
+def heads_fwd_plan(rows: int, n_params: int) -> Tuple[int, int]:
+    """K17's (tile, ctas) for ``rows`` rows of heads with ``n_params``
+    weights and biases: CTA ``c`` takes rows ``[c * tile, min((c + 1) *
+    tile, rows))``. Heads of up to 4,096 parameters: up to 8 rows (a serving
+    batch) one CTA, else the smallest tile of 4 to 8 rows that keeps the
+    CTAs within the H100's 132 SMs (the update's 128 rows: 32 CTAs of 4);
+    wider heads: the smallest tile of 1 to 8 rows that does. A test may
+    force the tile (``kernels._forcing("mlp_heads", tile)``)."""
+    if rows <= 0:
+        return 1, 0
+    forced = kernels.forced("mlp_heads")
+    per_sm = -(-rows // _HEAD_FWD_SMS)
+    if forced is not None:
+        tile = int(forced)
+    elif n_params > _HEAD_FWD_SMALL:
+        tile = min(_HEAD_FWD_MAX_TILE, per_sm)
+    elif rows <= _HEAD_FWD_ONE_CTA:
+        tile = rows
+    else:
+        tile = min(_HEAD_FWD_MAX_TILE, max(_HEAD_FWD_MIN_TILE, per_sm))
+    return tile, -(-rows // tile)
 
 
 def heads_bwd_plan(rows: int) -> Tuple[int, int, int, int]:
@@ -251,8 +282,9 @@ def mlp_heads(x: torch.Tensor, logit_layers: Layers, value_layers: Layers,
         return mlp_heads_plain(x, logit_layers, value_layers, activation)
     if kernels.needs_grad(*flat):
         return _MLPHeads.apply(activation, len(logit_layers), *flat)
-    table, _ = _heads_table(x, logit_layers, value_layers, activation)
-    return _mlp_heads_cuda(x, table, logit_layers, activation)
+    table, n_params = _heads_table(x, logit_layers, value_layers,
+                                   activation)
+    return _mlp_heads_cuda(x, table, logit_layers, activation, n_params)
 
 
 def _heads_table(x, logit_layers, value_layers, activation):
@@ -293,14 +325,15 @@ def _heads_table(x, logit_layers, value_layers, activation):
     return (ctypes.c_int64 * len(table))(*table), n_params
 
 
-def _mlp_heads_cuda(x, table, logit_layers, activation):
+def _mlp_heads_cuda(x, table, logit_layers, activation, n_params):
     rows = x.shape[0]
     logits = x.new_empty((rows, logit_layers[-1][0].shape[0]))
     values = x.new_empty(rows)
     if rows:
+        tile, _ = heads_fwd_plan(rows, n_params)
         kernels.launch("mlp_heads", x.data_ptr(), ctypes.addressof(table),
                        logits.data_ptr(), values.data_ptr(), rows,
-                       _ACTIVATION_CODES[activation])
+                       _ACTIVATION_CODES[activation], tile)
     return logits, values
 
 
@@ -357,11 +390,12 @@ class _MLPHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, activation, n_logit, x, *flat):
         pairs = list(zip(flat[0::2], flat[1::2]))
-        table, _ = _heads_table(x, pairs[:n_logit], pairs[n_logit:],
-                                activation)
+        table, n_params = _heads_table(x, pairs[:n_logit], pairs[n_logit:],
+                                       activation)
         ctx.save_for_backward(x, *flat)
         ctx.activation, ctx.n_logit = activation, n_logit
-        return _mlp_heads_cuda(x, table, pairs[:n_logit], activation)
+        return _mlp_heads_cuda(x, table, pairs[:n_logit], activation,
+                               n_params)
 
     @staticmethod
     def backward(ctx, dlogits, dvalue):

@@ -26,7 +26,7 @@ autograd differentiates the plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -182,13 +182,74 @@ class _CsrSegmentMean(torch.autograd.Function):
         return d_msg, d_self, None, None, None, None
 
 
+# ------------------------------------------------- K6's launch plans
+# (kernels/csrc/segment_bwd.cu make_plan, which each C entry runs on its
+# sizes and pointers; the card tests hold this mirror against the C
+# entry's ``ddls_segment_bwd_plan``): CTAs of ``SEGMENT_THREADS`` threads;
+# a lane of the mean or pooling backward moves 4 floats at once (16-byte
+# loads and stores) where the width is a multiple of 4 and every pointer
+# the entry moves in vectors is 16-byte aligned, else 1 (the same bits; a
+# test forces 1 with ``kernels._forcing(<entry>, "scalar")``); the CSR
+# sum takes a warp a node, by the float
+SEGMENT_ENTRIES = ("csr_segment_mean_bwd", "csr_segment_sum",
+                   "masked_mean_pool_concat_bwd")
+SEGMENT_THREADS = 256
+_WARP = 32
+# rows a lane of the pooling backward writes, about; its warps a graph
+_POOL_LANE_ROWS, _POOL_MAX_WARPS = 4, 8
+
+
+class SegmentPlan(NamedTuple):
+    """One K6 launch: ``vec`` floats a lane at once (1 or 4), ``group``
+    lanes a row (the mean backward, the CSR sum: a power of two up to 32)
+    or warps a graph (the pooling backward), ``blocks`` CTAs."""
+    vec: int
+    group: int
+    blocks: int
+
+    def packed(self) -> int:
+        """As ``ddls_segment_bwd_plan`` reports it."""
+        return (self.blocks << 9) | (self.group << 3) | self.vec
+
+
+def segment_bwd_plan(name: str, f: int, rows: int, n_nodes: int = 0,
+                     aligned: bool = True) -> SegmentPlan:
+    """The plan of K6's entry ``name`` at width ``f`` over ``rows`` rows
+    (E + V for ``csr_segment_mean_bwd``, V for ``csr_segment_sum``, B
+    graphs of ``n_nodes`` nodes for ``masked_mean_pool_concat_bwd``),
+    its vector pointers ``aligned`` or not: the CSR sum takes a warp a
+    node, a float a lane; the mean backward a group of lanes a row, the
+    least power of two at least the row's ``f / vec`` units (at most 32;
+    a lane then takes every 32nd unit); the pooling backward takes warps a graph (each counts the
+    graph's mask itself), enough that a lane writes about 4 rows (a pass of
+    a warp covers ``32 // units`` rows, one where a row has more than 32
+    units), at most 8."""
+    if name == "csr_segment_sum":
+        return SegmentPlan(1, _WARP, -(-rows // (SEGMENT_THREADS // _WARP)))
+    vec = 4 if aligned and f % 4 == 0 else 1
+    units = f // vec
+    if name == "masked_mean_pool_concat_bwd":
+        per = _WARP // units if units <= _WARP else 1
+        group = min(_POOL_MAX_WARPS,
+                    max(1, -(-n_nodes // (_POOL_LANE_ROWS * per))))
+        return SegmentPlan(vec, group,
+                           -(-rows * group // (SEGMENT_THREADS // _WARP)))
+    group = min(_WARP, 1 << max(units - 1, 0).bit_length())
+    return SegmentPlan(vec, group, -(-rows // (SEGMENT_THREADS // group)))
+
+
+def _scalar(name: str) -> int:
+    """The C entries' ``force``: 1 where a test forces the scalar form."""
+    return int(kernels.forced(name) == "scalar")
+
+
 def csr_segment_mean_bwd_plain(dout: torch.Tensor, row_ptr: torch.Tensor,
                                edge_dst: torch.Tensor,
                                node_mask: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward of ``csr_segment_mean``: with ``d_tot[v] = (dout[v] *
     node_mask[v]) / (deg(v) + 1)`` (the reference's order: the mask is
-    applied after the division), returns ``(d_msg [E, F], d_self [V, F])``
+    applied before the division), returns ``(d_msg [E, F], d_self [V, F])``
     with ``d_msg[e] = d_tot[edge_dst[e]]`` for a real edge and 0 where
     ``edge_dst[e] < 0``, and ``d_self = d_tot``."""
     deg = (row_ptr[1:] - row_ptr[:-1]).to(dout.dtype)
@@ -225,7 +286,8 @@ def csr_segment_mean_bwd(dout: torch.Tensor, row_ptr: torch.Tensor,
         kernels.launch("csr_segment_mean_bwd", dout.data_ptr(),
                        row_ptr.data_ptr(), edge_dst.data_ptr(),
                        node_mask.data_ptr(), d_msg.data_ptr(),
-                       d_self.data_ptr(), n_nodes, n_edges, f)
+                       d_self.data_ptr(), n_nodes, n_edges, f,
+                       _scalar("csr_segment_mean_bwd"))
     return d_msg, d_self
 
 
@@ -349,7 +411,10 @@ def masked_mean_pool_concat_bwd_plain(dout: torch.Tensor,
 def masked_mean_pool_concat_bwd(dout: torch.Tensor, node_mask: torch.Tensor,
                                 f: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 ``masked_mean_pool_concat_bwd``: ``(d_emb [B, N, f], d_graph
-    [B, G])`` from ``dout`` [B, f + G] and ``node_mask`` [B, N], float32."""
+    [B, G])`` from ``dout`` [B, f + G] and ``node_mask`` [B, N], float32.
+    ``node_mask`` must hold only 0 and 1 (as every caller's, made from the
+    batch's boolean node masks): the kernel counts it in an order of its
+    own, which gives the plain version's count only then."""
     if kernels.on_cpu(dout, node_mask):
         return masked_mean_pool_concat_bwd_plain(dout, node_mask, f)
     kernels.check_cuda("dout", dout, torch.float32)
@@ -367,5 +432,6 @@ def masked_mean_pool_concat_bwd(dout: torch.Tensor, node_mask: torch.Tensor,
     if batch and n_nodes:
         kernels.launch("masked_mean_pool_concat_bwd", dout.data_ptr(),
                        node_mask.data_ptr(), d_emb.data_ptr(),
-                       d_graph.data_ptr(), batch, n_nodes, f, g)
+                       d_graph.data_ptr(), batch, n_nodes, f, g,
+                       _scalar("masked_mean_pool_concat_bwd"))
     return d_emb, d_graph

@@ -64,7 +64,7 @@ import ctypes
 import dataclasses
 import functools
 import random as _random
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -818,6 +818,73 @@ def allocate_job_plain(mem: torch.Tensor, other_free: torch.Tensor,
     return ots[:, :N].contiguous(), mem, ok
 
 
+# K23's forms (kernels/csrc/placement.cu): where its shape tables live
+ALLOC_FORMS = ("shared", "global_tables")
+_ALLOC_ROWS = 4  # rows a CTA, at most (a warp each)
+
+
+class AllocPlan(NamedTuple):
+    """K23's launch on a surface: its form (an index of ``ALLOC_FORMS``),
+    rows a CTA and dynamic shared memory a CTA in bytes."""
+    form: int
+    rows: int
+    smem: int
+
+    def packed(self) -> int:
+        """As ``ddls_allocate_job_smem`` reports it."""
+        return (self.smem << 5) | (self.rows << 2) | self.form
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def alloc_layout_bytes(sizes: Sequence[int], is_f64: bool, form: int,
+                       rows: int) -> int:
+    """``placement.cu`` ``alloc_layout``'s total: the staged shape tables
+    of ``form`` and ``rows`` copies of a row's part. ``sizes`` are the C
+    entry's (n_srv, n_ops, n_fwd, n_parents, max_split, n_rows, row_cols,
+    n_shapes)."""
+    n_srv, n, n_fwd, n_par, smax, n_rows, row_cols, n_shapes = sizes
+    t = 8 if is_f64 else 4
+    words = (n_srv + 31) // 32
+    anchors = n_shapes * n_srv
+    cta = _align16(4 * n_rows * row_cols)
+    if form == 0:
+        cta = _align16(cta + 4 * anchors * words)
+        cta = _align16(cta + anchors)
+    per_row = 0
+    for nbytes in (t * n_srv, n_srv, 4 * words, 4 * n_fwd, t * n_fwd,
+                   4 * n_fwd * n_par, 4 * n_fwd * smax, 4 * n_fwd * smax,
+                   4 * n_fwd * smax, 4 * n_fwd, 4 * n):
+        per_row = _align16(per_row + nbytes)
+    return cta + rows * per_row
+
+
+def allocate_job_plan(sizes: Sequence[int], is_f64: bool, optin: int,
+                      force: int = 0) -> Optional[AllocPlan]:
+    """A mirror of ``placement.cu`` ``alloc_plan``: the shared form at 4
+    rows a CTA where it fits in ``optin`` bytes (and ``force`` is 0), else
+    the tables from global memory at the most rows a CTA (4 to 1) that
+    fit; None where none fits (the C entry then fails)."""
+    for form in range(force, len(ALLOC_FORMS)):
+        for rows in range(_ALLOC_ROWS, _ALLOC_ROWS - 1 if form == 0 else 0,
+                          -1):
+            smem = alloc_layout_bytes(sizes, is_f64, form, rows)
+            if smem <= optin:
+                return AllocPlan(form, rows, smem)
+    return None
+
+
+def allocate_job_sizes(dev: DeviceTables) -> Tuple[int, ...]:
+    """K23's C sizes of ``dev``'s surface (``allocate_job_plan``'s
+    ``sizes``)."""
+    pads = dev.pads
+    return (dev.et.n_srv, pads.n_ops, pads.n_fwd, pads.n_parents,
+            pads.max_split, dev.row.shape[0], dev.row.shape[1],
+            dev.anchor_cells.shape[0])
+
+
 def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
                  cfg: torch.Tensor, dev: DeviceTables,
                  state_lane: Optional[torch.Tensor] = None):
@@ -827,7 +894,10 @@ def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
     ``state_lane[b]`` (int32 [B], each < S; candidate pricing's rows share
     their lane's state) or, without it, lane ``b`` (S = B). Returns ``(ots
     [B, N] int32 (-1 unplaced), new_mem [B, n_srv], ok [B] bool)``; where
-    ok is False the outputs are partial, as the reference's."""
+    ok is False the outputs are partial, as the reference's. The C entry
+    chooses K23's form from the surface's sizes (``allocate_job_plan``);
+    a test forces the global one with ``kernels._forcing("allocate_job",
+    1)``."""
     if kernels.on_cpu(mem, other_free, cfg, state_lane):
         return allocate_job_plain(mem, other_free, cfg, dev, state_lane)
     states, n_srv = mem.shape
@@ -843,17 +913,7 @@ def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
         kernels.check_cuda("state_lane", state_lane, torch.int32, (lanes,))
     pads = dev.pads
     is_f64 = int(dev.dtype == torch.float64)
-    sizes = (n_srv, pads.n_ops, pads.n_fwd, pads.n_parents, pads.max_split,
-             dev.row.shape[0], dev.row.shape[1], dev.anchor_cells.shape[0],
-             dev.anchor_cells.shape[2])
-    need = kernels.cached_query("placement", "ddls_allocate_job_smem",
-                                *sizes[:-1], is_f64)
-    have = kernels.cached_query("placement", "ddls_smem_optin")
-    if need > have:
-        raise ValueError(f"allocate_job needs {need} bytes of shared memory "
-                         f"a CTA for this surface's tables ({n_srv} "
-                         f"servers, {pads.n_ops} ops, {pads.n_fwd} forward "
-                         f"ops) and the card gives {have}")
+    sizes = (*allocate_job_sizes(dev), dev.anchor_cells.shape[2])
     ots = torch.empty((lanes, pads.n_ops), dtype=torch.int32,
                       device=mem.device)
     new_mem = torch.empty((lanes, n_srv), dtype=mem.dtype, device=mem.device)
@@ -870,7 +930,7 @@ def allocate_job(mem: torch.Tensor, other_free: torch.Tensor,
             dev.anchor_cells.data_ptr(), dev.anchor_bits.data_ptr(),
             dev.anchor_ok.data_ptr(),
             ots.data_ptr(), new_mem.data_ptr(), ok.data_ptr(), lanes,
-            *sizes, is_f64)
+            *sizes, is_f64, int(kernels.forced("allocate_job", 0)))
     return ots, new_mem, ok
 
 

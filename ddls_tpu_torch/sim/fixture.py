@@ -388,33 +388,6 @@ def wide_episode_tables(servers_per_rack: int, device="cpu"):
     return device_env.build_episode_tables(env)
 
 
-def plain_placed_evaluate(ek, state: dict) -> dict:
-    """``EpisodeKernels.evaluate`` (no memo) through the plain versions of
-    K23 and K24 and through K21's indexed entry (a lane not ``active`` is
-    skipped), on the state's device: K25's inputs on surfaces where K23 or
-    K24 would refuse the tables' shared memory."""
-    import torch
-
-    from ddls_tpu_torch.sim import device_env
-    from ddls_tpu_torch.sim import lookahead as lookahead_mod
-
-    dev, cfg = ek.dev, state["cfg"]
-    ots, new_mem, ok_place = device_env.allocate_job_plain(
-        state["mem"], state["srv_job"] < 0, cfg, dev)
-    times, is_flow, chan, op_score, dep_score, finite_ok = \
-        device_env.price_and_score_plain(ots, cfg, dev)
-    ticks = torch.empty(cfg.shape[0], dtype=torch.int32, device=cfg.device)
-    t_step, _, _, _, ok_la = lookahead_mod.lookahead_indexed(
-        cfg, ots, op_score, times, is_flow, dep_score, chan, dev.t,
-        num_workers=dev.et.n_srv, num_channels=dev.et.n_chan, ticks=ticks,
-        skip=~state["active"])
-    return {"ots": ots, "new_mem": new_mem, "ok_place": ok_place,
-            "times": times, "is_flow": is_flow, "chan": chan,
-            "op_score": op_score, "dep_score": dep_score,
-            "finite_ok": finite_ok, "t_step": t_step, "ok_la": ok_la,
-            "ticks": ticks}
-
-
 def fuzzed_placements(et, dev, rows: int, seed: int, indexed: bool):
     """K23's inputs for ``rows`` config rows on fuzzed states: free memory
     at the capacity or a fraction of it, servers taken by other jobs, the

@@ -1,6 +1,6 @@
 """Hold the port's kernels against an earlier commit's build of the same
 kernels, on the card: their output bits, and their device time in turns
-with the earlier ones'. Two sets (``--kernels``):
+with the earlier ones'. Three sets (``--kernels``):
 
 * ``k1k5k8``: K1, K5 and K8 against a build whose K1 takes no grid
   arguments, whose K8 takes a ``rowterms`` scratch and whose K5 has
@@ -8,7 +8,12 @@ with the earlier ones'. Two sets (``--kernels``):
 * ``k18k19``: K18 and K19 (one launch each) against a build of their
   two- and three-launch entries (``mlp_heads_bwd`` with
   ``mlp_heads_bwd_reduce``; ``clip_adam_norm``, ``clip_adam_reduce`` and
-  ``clip_adam_update`` over a device leaf table).
+  ``clip_adam_update`` over a device leaf table);
+* ``k6k17k23``: K6's three entries, K17 and K23 against a build whose
+  K6 mean and pooling backwards take no ``force`` argument (a thread per
+  element, a block per graph; its CSR sum, a warp per node, is today's),
+  whose K17 takes no tile (16-row tiles) and whose K23
+  takes no forced form (its tables always in shared memory).
 
 The earlier sources come from git into a directory the repository
 ignores, and are built with the port's own nvcc flags, outside the
@@ -22,7 +27,28 @@ package's build directory:
         --parent .experiments/parent
 
 (for ``k1k5k8``: ``ln_linear_act.cu ln_linear_act_bwd.cu ppo_loss.cu
-common.cuh ln_row.cuh``). With ``k18k19``:
+common.cuh ln_row.cuh``; for ``k6k17k23``: ``segment_bwd.cu mlp_heads.cu
+placement.cu common.cuh ln_row.cuh cluster.cuh``). With ``k6k17k23``:
+
+* K6: every call of the training fixture's first minibatch backward and
+  fuzzed CSR batches at the update's (128 graphs of 38 nodes and 128
+  edges) and serving's (8 of 150 and 512) shapes at widths 1, 3, 4, 16,
+  17 and 64, on misaligned inputs too: every output bit-equal;
+* K17: 1 to 4,000 rows on the shipped heads, the Ape-X DQN's and the
+  default (256, 256) ones, and the fixture's minibatch forward: bit-equal;
+* K23, both entries, float32 and float64, at 1, 8 and 72 rows of fuzzed
+  states on the 32-, 64- and 128-server surfaces, in the shared form and
+  with the tables' global form forced: bit-equal to the earlier shared
+  form;
+* device ms in turns: K6's entries and K17 over the fixture's minibatch
+  step, K17 at a serving batch, at the Ape-X DQN's 32 and 512 rows, the
+  default heads' 128 and the shipped heads' 4,000, K23 on the replay's
+  first decision (8
+  lanes) and on 72 indexed rows, and a whole minibatch step with the
+  earlier K6 and K17 swapped into the wrappers (device time and device
+  operations a step).
+
+With ``k18k19``:
 
 * K18: every row count of the card tests (1 to 4,000) on the shipped
   heads, the Ape-X DQN's 256-wide ones and the default (256, 256) ones,
@@ -95,6 +121,13 @@ PARENTS = {
             "ddls_ln_linear_act_bwd": "p" * 14 + "i" * 9 + "p"},
         "ppo_loss": {"ddls_ppo_loss": "p" * 13 + "i" * 2 + "f" * 6 + "p"},
     },
+    "k6k17k23": {
+        "segment_bwd": {"ddls_csr_segment_mean_bwd": "ppppppiiip",
+                        "ddls_csr_segment_sum": "ppppiip",
+                        "ddls_masked_mean_pool_concat_bwd": "ppppiiiip"},
+        "mlp_heads": {"ddls_mlp_heads": "ppppiip"},
+        "placement": {"ddls_allocate_job": "p" * 17 + "i" * 11 + "p"},
+    },
     "k18k19": {
         "mlp_heads": {"ddls_mlp_heads_bwd": "ppppppiiip",
                       "ddls_mlp_heads_bwd_reduce": "ppiip"},
@@ -121,7 +154,8 @@ def build_parent(src: str, out_dir: str, parents):
     procs = {}
     for stem in parents:
         lib = os.path.join(out_dir, f"lib{stem}-parent.so")
-        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS, "-o", lib,
+        cmd = [kernels.nvcc_path(), *kernels.NVCC_FLAGS,
+               *kernels.EXTRA_FLAGS.get(stem, ()), "-o", lib,
                os.path.join(src, f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -630,6 +664,302 @@ def check_k18_k19(fns, card) -> int:
     return bad
 
 
+# ------------------------------------------------------- K6, K17, K23
+# each current entry's arguments past the earlier entry's, just before the
+# stream: K6's plan (vec, group), K17's tile, K23's forced form
+EXTRA_ARGS = {"ddls_csr_segment_mean_bwd": 1, "ddls_csr_segment_sum": 0,
+              "ddls_masked_mean_pool_concat_bwd": 1, "ddls_mlp_heads": 1,
+              "ddls_allocate_job": 1}
+K6_WIDTHS = (1, 3, 4, 16, 17, 64)
+K17_ROWS = (1, 7, 8, 16, 17, 128, 500, 4000)
+
+
+@contextlib.contextmanager
+def parent_entries(fns, symbols):
+    """The wrappers' launches of ``symbols`` go to the earlier build: each
+    current entry is replaced by a shim that drops the arguments the
+    earlier entry does not take."""
+    saved = {}
+    for symbol in symbols:
+        name = next(k for k, spec in kernels.KERNELS.items()
+                    if spec.symbol == symbol)
+        kernels._symbol(name)  # the current one is loaded
+        saved[symbol] = kernels._LOADED[symbol]
+        drop, parent = EXTRA_ARGS[symbol], fns[symbol]
+        kernels._LOADED[symbol] = (
+            lambda *a, _p=parent, _d=drop: _p(*a[:-1 - _d], a[-1]))
+    try:
+        yield
+    finally:
+        kernels._LOADED.update(saved)
+
+
+def _both(fns, symbols, call):
+    """``call()`` through the current build, then the earlier one."""
+    current = call()
+    with parent_entries(fns, symbols):
+        earlier = call()
+    return current, earlier
+
+
+def _flat_out(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    flat = []
+    for o in out:
+        flat.extend(_flat_out(o) if not isinstance(o, torch.Tensor) else [o])
+    return flat
+
+
+def _same_outputs(a, b) -> bool:
+    return all(same_bits(x, y) for x, y in zip(_flat_out(a), _flat_out(b)))
+
+
+def _misaligned(t):
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def fuzz_k6_calls(device):
+    """(entry name, args) of K6's fuzzed calls: random CSR batches at the
+    update's and serving's shapes, every width of ``K6_WIDTHS``, the
+    first input also misaligned."""
+    from ddls_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(17)
+    for graphs, n, e in ((128, 38, 128), (8, 150, 512)):
+        n_real = rng.integers(0, n + 1, graphs)
+        n_real[-1] = 0
+        dst = np.zeros(graphs * e, np.int64)
+        mask = np.zeros(graphs * e, bool)
+        for b in range(graphs):
+            m = int(rng.integers(0, e + 1)) if n_real[b] else 0
+            dst[b * e:b * e + m] = b * n + rng.integers(0, n_real[b] or 1, m)
+            mask[b * e:b * e + m] = True
+        node_mask = (np.arange(n)[None] < n_real[:, None]).reshape(-1)
+        row_ptr, col = segment.build_csr(dst, mask, graphs * n)
+        edge_dst = np.where(mask, dst, -1).astype(np.int32)
+
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+        rp, cl, nm, ed = (t(row_ptr), t(col), t(node_mask.astype(np.float32)),
+                          t(edge_dst))
+        for f in K6_WIDTHS:
+            dout = torch.from_numpy(rng.normal(size=(graphs * n, f)).astype(
+                np.float32)).to(device)
+            g = torch.from_numpy(rng.normal(size=(graphs * e, f)).astype(
+                np.float32)).to(device)
+            pool = torch.from_numpy(rng.normal(size=(graphs, f + 8)).astype(
+                np.float32)).to(device)
+            for first in (lambda x: x, _misaligned):
+                yield "csr_segment_mean_bwd", (first(dout), rp, ed, nm)
+                yield "csr_segment_sum", (first(g), rp, cl)
+                yield "masked_mean_pool_concat_bwd", (
+                    first(pool), nm.view(graphs, n), f)
+
+
+def _k23_cases(device):
+    """(what, tables, dev, args) of K23's fuzzed calls on the 32-, 64- and
+    128-server surfaces."""
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+    from ddls_tpu_torch.sim import device_env
+    from ddls_tpu_torch.sim import fixture as dfx
+
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    for tables in (et, dfx.multi_word_tables(et), dfx.wide_episode_tables(8)):
+        for dtype in (torch.float32, torch.float64):
+            dev = device_env.device_tables(tables, device, dtype)
+            for rows in (1, 8, 72):
+                for indexed in (False, True):
+                    for seed in range(2):
+                        yield (f"servers={tables.n_srv} {str(dtype)[6:]}",
+                               dev, dfx.fuzzed_placements(
+                                   tables, dev, rows, seed, indexed))
+
+
+def check_k6_k17_k23(fns, card) -> int:
+    """K6's, K17's and K23's bits against the earlier build, their device
+    ms and a minibatch step's in turns; returns the count of differing
+    calls."""
+    from ddls_tpu_torch.ops import segment
+    from ddls_tpu_torch.sim import device_env
+
+    k6 = ("ddls_csr_segment_mean_bwd", "ddls_csr_segment_sum",
+          "ddls_masked_mean_pool_concat_bwd")
+    k17 = ("ddls_mlp_heads",)
+    k23 = ("ddls_allocate_job",)
+    bad = 0
+    held = {}
+    # K6 on the fixture's first minibatch step and fuzzed batches
+    fx = load_train_fixture()
+    cfg = fx["cfg"]
+    model, params, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, cfg, device="cuda")
+    gpu_params = {k: v.cuda() for k, v in params.items()}
+    state = learner.init_state(gpu_params)
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+
+    def fixture_step():
+        advs, targets = learner.flat_advantages(staged)
+        learner.loss_and_grads(state, staged, idx, advs, targets)
+
+    with torch.enable_grad():
+        step = cs.record_sites(cs.TRAIN_SITES, fixture_step)
+    sites = ("csr_segment_mean_bwd", "csr_segment_sum",
+             "masked_mean_pool_concat_bwd")
+    step_calls = [(name, fn, a) for name in sites
+                  for fn, a, _ in step[name]]
+    for what, calls in (
+            ("k6_step", [(n, lambda fn=fn, a=a: fn(*a))
+                         for n, fn, a in step_calls]),
+            ("k6_fuzzed", [(n, lambda n=n, a=a: getattr(segment, n)(*a))
+                           for n, a in fuzz_k6_calls("cuda")])):
+        counts = {}
+        for name, call in calls:
+            cur, old = _both(fns, k6, call)
+            c = counts.setdefault(name, {"calls": 0, "differing": 0})
+            c["calls"] += 1
+            c["differing"] += not _same_outputs(cur, old)
+        held[what] = counts
+        bad += sum(c["differing"] for c in counts.values())
+    # K17: row counts on three head widths, and the update's forward
+    g = torch.Generator().manual_seed(17)
+    for name, hiddens in (("shipped", (17,)), ("dqn", (256,)),
+                          ("default", (256, 256))):
+        lh, vh = _heads(hiddens, len(hiddens) + 3)
+        n = diff = 0
+        for rows in K17_ROWS:
+            x = torch.randn(rows, 24, generator=g).cuda()
+            cur, old = _both(fns, k17, lambda: policy.mlp_heads(
+                x, lh, vh, "relu"))
+            n += 1
+            diff += not _same_outputs(cur, old)
+        held[f"k17_{name}"] = {"calls": n, "differing": diff}
+        bad += diff
+    batch = learner.minibatch(staged, idx)
+    (_, heads_args, _), = cs.record_sites(
+        {"mlp_heads": (policy, "mlp_heads", cs.k17_parts)},
+        lambda: learner.model.flat_batched(batch))["mlp_heads"]
+    cur, old = _both(fns, k17, lambda: policy.mlp_heads(*heads_args))
+    held["k17_update"] = {"calls": 1,
+                          "differing": int(not _same_outputs(cur, old))}
+    bad += held["k17_update"]["differing"]
+    # K23: the shared form and the global form against the earlier build
+    k23_held = {}
+    for what, dev, args in _k23_cases("cuda"):
+        with parent_entries(fns, k23):
+            old = device_env.allocate_job(*args[:3], dev, args[3])
+        for form in (0, 1):
+            with kernels._forcing("allocate_job", form):
+                cur = device_env.allocate_job(*args[:3], dev, args[3])
+            key = f"{what} {device_env.ALLOC_FORMS[form]}"
+            c = k23_held.setdefault(key, {"calls": 0, "differing": 0})
+            c["calls"] += 1
+            c["differing"] += not all(torch.equal(a, b)
+                                      for a, b in zip(cur, old))
+    held["k23"] = k23_held
+    bad += sum(c["differing"] for c in k23_held.values())
+    torch.cuda.synchronize()
+    print(json.dumps({"part": "k6_k17_k23_bits", "card": card, **held}),
+          flush=True)
+
+    # device ms in turns
+    def through(symbols, call, old):
+        if not old:
+            return call
+
+        def run():
+            with parent_entries(fns, symbols):
+                return call()
+        return run
+
+    times = {}
+    for name in sites:
+        calls = [lambda fn=fn, a=a: fn(*a) for n, fn, a in step_calls
+                 if n == name]
+        times[f"{name}_update"] = turns(
+            calls, [through(k6, c, True) for c in calls])
+    update_heads = lambda: policy.mlp_heads(*heads_args)  # noqa: E731
+    times["k17_update"] = turns([update_heads],
+                                [through(k17, update_heads, True)])
+    lh, vh = _heads((17,), 4)
+    x8 = torch.randn(8, 24, generator=g).cuda()
+    serve_heads = lambda: policy.mlp_heads(x8, lh, vh, "relu")  # noqa: E731
+    times["k17_serve_8_rows"] = turns([serve_heads],
+                                      [through(k17, serve_heads, True)])
+    for name, hiddens, rows in (("dqn_32", (256,), 32),
+                                ("dqn_512", (256,), 512),
+                                ("default_128", (256, 256), 128),
+                                ("shipped_4000", (17,), 4000)):
+        lh2, vh2 = _heads(hiddens, 5)
+        xr = torch.randn(rows, 24, generator=g).cuda()
+        call = (lambda x_=xr, l_=lh2, v_=vh2:
+                policy.mlp_heads(x_, l_, v_, "relu"))
+        times[f"k17_{name}"] = turns([call], [through(k17, call, True)])
+    from ddls_tpu_torch.envs import RampJobPartitioningEnvironment
+    from ddls_tpu_torch.serve.fixture import load_checkpoint_fixture
+    from ddls_tpu_torch.sim import fixture as dfx
+
+    env = RampJobPartitioningEnvironment(
+        **load_checkpoint_fixture("ppo_price_mixed")["env_config"])
+    env.reset(seed=0)
+    et = device_env.build_episode_tables(env)
+    dfx_fx = dfx.load_device_env_fixture()
+    ek = device_env.episode_kernels(et, device="cuda", dtype=torch.float32)
+    lanes = list(range(8))
+    bank = {k: torch.from_numpy(np.ascontiguousarray(
+        dfx_fx["banks"][k][lanes])).to("cuda", want or torch.float32)
+        for k, want in device_env.BANK_FIELDS}
+    acts = torch.from_numpy(np.stack([dfx_fx["actions"]] * 8)).to(
+        "cuda", torch.int32)
+    st = ek.init_state(bank, acts)
+    free0 = st["srv_job"] < 0
+    replay = lambda: device_env.allocate_job(  # noqa: E731
+        st["mem"], free0, st["cfg"], ek.dev)
+    times["k23_replay_8_lanes"] = turns([replay],
+                                        [through(k23, replay, True)])
+    mem, free, cfg_rows, lane = dfx.fuzzed_placements(et, ek.dev, 72, 0,
+                                                      True)
+    indexed = lambda: device_env.allocate_job(  # noqa: E731
+        mem, free, cfg_rows, ek.dev, lane)
+    times["k23_indexed_72_rows"] = turns([indexed],
+                                         [through(k23, indexed, True)])
+    print(json.dumps({"part": "device_ms", "card": card, **times}),
+          flush=True)
+
+    # a whole minibatch step, the earlier K6 and K17 swapped in
+    perm0 = torch.as_tensor(fx["runs"][50]["perms"][0], device="cuda")
+
+    def step_profile(old):
+        st = learner.init_state(gpu_params)
+        with torch.enable_grad():
+            if old:
+                with parent_entries(fns, k6 + k17):
+                    return cs.profile_steps(learner, staged, st, perm0,
+                                            n_steps=16)
+            return cs.profile_steps(learner, staged, st, perm0, n_steps=16)
+
+    keys = ("device_ms_per_step", "device_events_per_step", "wall_ms",
+            "device_busy_share")
+    steps = {}
+    for label, old in (("parent", True), ("current", False),
+                       ("current_again", False), ("parent_again", True)):
+        prof = step_profile(old)
+        steps[label] = {k: prof[k] for k in keys}
+    print(json.dumps({"part": "minibatch_step", "card": card, **steps}),
+          flush=True)
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
@@ -658,8 +988,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    bad = (check_k1_k5_k8 if args.kernels == "k1k5k8"
-           else check_k18_k19)(fns, card)
+    check = {"k1k5k8": check_k1_k5_k8, "k18k19": check_k18_k19,
+             "k6k17k23": check_k6_k17_k23}[args.kernels]
+    bad = check(fns, card)
     print(json.dumps({"ok": bad == 0, "differing": bad}), flush=True)
     return 0 if bad == 0 else 1
 

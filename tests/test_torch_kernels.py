@@ -51,7 +51,12 @@ each lane over a thread-block cluster: they equal their plain versions
 bit for bit at every cluster size 1-16 and at the wrappers' own choice,
 at 1, 2, 8 and 72 lanes, on all 45 configs of the shipped surface at full
 width, with skipped lanes, on lanes priced NaN or infinite, and on every
-recorded group of K21 lanes, in float32 and float64.
+recorded group of K21 lanes, in float32 and float64. K6's three entries
+equal their plain versions bit for bit at widths 1-64, in the vector and
+scalar forms; K17 equals its arithmetic done exactly in PyTorch
+(``_heads_fma_chain``) at every tile; K23 equals its plain version on
+128, 160 and 256 servers and in its global form forced on the shipped
+and a 64-server surface.
 """
 import dataclasses
 
@@ -528,6 +533,119 @@ def test_segment_backwards_match_plain_and_repeat_bitwise(cuda, f):
     _close_scaled(d_emb, r_emb)
     assert torch.equal(d_graph, r_graph)
     assert torch.equal(d_emb[-1], torch.zeros_like(d_emb[-1]))
+
+
+# K6's fuzzed widths: the scalar form (1, 3, 17), the vector form at one
+# unit a row (4), the message and node widths of the update (16, 64)
+K6_WIDTHS = (1, 3, 4, 16, 17, 64)
+K6_ENTRIES = ("csr_segment_mean_bwd", "csr_segment_sum",
+              "masked_mean_pool_concat_bwd")
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+def _k6_calls(cuda, f, seed):
+    """K6's three entries' inputs at width ``f`` on the batch shapes of
+    ``_csr_case`` (nodes without in-edges, padded edges, a graph with no
+    real node), the CSR sum over the source CSR of the same edges, and a
+    CSR whose slices are empty for all but its last node."""
+    row_ptr, col, node_mask, v, e = _csr_case(cuda)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    deg = (row_ptr[1:] - row_ptr[:-1]).long()
+    edge_dst = torch.full((e,), -1, dtype=torch.int32, device=cuda)
+    edge_dst[col[:int(row_ptr[-1])].long()] = torch.repeat_interleave(
+        torch.arange(v, device=cuda), deg).to(torch.int32)
+    dout = torch.randn(v, f, generator=g).to(cuda)
+    msg = torch.randn(e, f, generator=g).to(cuda)
+    tail_ptr = torch.zeros(v + 1, dtype=torch.int32, device=cuda)
+    tail_ptr[-1] = 9
+    pool_dout = torch.randn(8, f + 8, generator=g).to(cuda)
+    mask = node_mask.view(8, -1)
+    return {"csr_segment_mean_bwd": [(dout, row_ptr, edge_dst, node_mask)],
+            "csr_segment_sum": [(msg, row_ptr, col), (msg, tail_ptr, col)],
+            "masked_mean_pool_concat_bwd": [(pool_dout, mask, f)]}
+
+
+@pytest.mark.parametrize("f", K6_WIDTHS)
+def test_segment_backwards_bit_equal_on_fuzzed_widths(cuda, f):
+    """K6's three entries bit-equal to their plain versions at widths 1,
+    3, 4, 16, 17 and 64 (the vector and scalar forms), on contiguous and
+    misaligned first inputs (the mean backward then takes the scalar
+    form; the pooling backward reads dout by the float, so it keeps its
+    form), with the scalar form forced too (the CSR sum has one form), on
+    nodes with no in-edges, padded edges, empty CSR slices and a graph
+    with no real node; bitwise across two runs; one launch a call."""
+    plain = {"csr_segment_mean_bwd": segment.csr_segment_mean_bwd_plain,
+             "csr_segment_sum": segment.csr_segment_sum_plain,
+             "masked_mean_pool_concat_bwd":
+                 segment.masked_mean_pool_concat_bwd_plain}
+    for name, calls in _k6_calls(cuda, f, f).items():
+        fn = getattr(segment, name)
+        for args in calls:
+            want = plain[name](*args)
+            want = want if isinstance(want, tuple) else (want,)
+            first = args[0]
+            forms = ("plain", "misaligned") + (
+                () if name == "csr_segment_sum" else ("scalar",))
+            for form in forms:
+                a = ((_misaligned(first),) + args[1:] if form == "misaligned"
+                     else args)
+                runs = []
+                for _ in range(2):
+                    before = kernels.launch_counts()
+                    if form == "scalar":
+                        with kernels._forcing(name, "scalar"):
+                            got = fn(*a)
+                    else:
+                        got = fn(*a)
+                    assert _launched_since(before) == {name: 1}
+                    runs.append(got if isinstance(got, tuple) else (got,))
+                torch.cuda.synchronize()
+                for g, w in zip(runs[0], want):
+                    assert g.dtype == w.dtype and g.shape == w.shape
+                    assert torch.equal(g.view(torch.int32),
+                                       w.contiguous().view(torch.int32)), \
+                        (name, form, f)
+                assert _equal_all(runs[0], runs[1]), (name, form, f)
+
+
+def test_segment_backward_plans_take_the_vector_form_on_the_update(cuda):
+    """Each K6 C entry's plan (``ddls_segment_bwd_plan``, the plan the
+    entry launches) is ``segment.segment_bwd_plan``'s for widths 1-64,
+    row counts up to the update's, aligned or not and forced scalar or
+    not; at the update's widths (16 and 64) fresh tensors are aligned, a
+    misaligned view is not."""
+    for entry, name in enumerate(segment.SEGMENT_ENTRIES):
+        pool = name == "masked_mean_pool_concat_bwd"
+        for f in range(1, 65):
+            for rows in ((1, 8, 128, 1000) if pool else
+                         (0, 1, 7, 255, 4864, 21248)):
+                for n_nodes in ((1, 5, 38, 150) if pool else (0,)):
+                    for aligned in (0, 1):
+                        want = segment.segment_bwd_plan(name, f, rows,
+                                                        n_nodes, aligned)
+                        for force in (0, 1):
+                            got = kernels.query(
+                                "segment_bwd", "ddls_segment_bwd_plan",
+                                entry, f, rows, n_nodes, aligned, force)
+                            w = want if not force else \
+                                segment.segment_bwd_plan(name, f, rows,
+                                                         n_nodes, False)
+                            assert got == w.packed(), (name, f, rows,
+                                                       n_nodes, aligned,
+                                                       force)
+    for f in (16, 64):
+        x = torch.empty(8, f, device=cuda)
+        assert x.data_ptr() % 16 == 0
+        assert _misaligned(x).data_ptr() % 16 != 0
 
 
 @pytest.mark.parametrize("t_len", [64, 500])
@@ -1109,6 +1227,65 @@ def test_mlp_heads_matches_plain_and_is_row_independent(cuda, hiddens,
                                activation)
         assert torch.equal(one[0][0], full[0][r])
         assert torch.equal(one[1][0], full[1][r])
+
+
+# K17's row counts: serving's (one CTA up to 8), a 16-row tile and past it,
+# the update's minibatch, past the grid's 132 CTAs, the canonical batch
+K17_ROWS = (1, 7, 8, 16, 17, 128, 500, 4000)
+
+
+def _heads_fma_chain(x, layers):
+    """One relu head as K17 computes it, exactly: each output an fmaf chain
+    over the inputs in order from 0 (``lookahead.fma32``: one rounding),
+    then the bias added; relu as ``fmaxf(z, 0)``."""
+    h = x
+    for i, (w, b) in enumerate(layers):
+        acc = torch.zeros((h.shape[0], w.shape[0]), device=h.device)
+        for k in range(w.shape[1]):
+            acc = lookahead_mod.fma32(h[:, k, None].expand_as(acc),
+                                      w[None, :, k].expand_as(acc), acc)
+        h = acc + b
+        if i < len(layers) - 1:
+            h = torch.maximum(h, torch.zeros_like(h))
+    return h
+
+
+@pytest.mark.parametrize("hiddens", [(17,), (256,), (256, 256)],
+                         ids=["shipped", "dqn", "default"])
+def test_mlp_heads_bit_equal_at_every_tile(cuda, hiddens):
+    """K17 on the shipped heads (staged whole), the Ape-X DQN's 256-wide
+    ones and the default (256, 256) ones (streamed) at every row count of
+    ``K17_ROWS``: bit-equal to its arithmetic done exactly in PyTorch
+    (``_heads_fma_chain``), within 1e-5 of ``mlp_heads_plain`` (F.linear
+    adds in cuBLAS's order), the same bits at the plan's tile and at tiles
+    of 1, 4 and 16 rows forced, bitwise across two runs, one launch a
+    call."""
+    logit_layers, value_layers = _head_layers(cuda, hiddens, seed=11)
+    g = torch.Generator().manual_seed(12)
+    for rows in K17_ROWS:
+        x = torch.randn(rows, 24, generator=g).to(cuda)
+        want = (_heads_fma_chain(x, logit_layers),
+                _heads_fma_chain(x, value_layers)[:, 0])
+        ref = policy.mlp_heads_plain(x, logit_layers, value_layers, "relu")
+        runs = []
+        for tile in (None, None, 1, 4, 16):
+            before = kernels.launch_counts()
+            if tile is None:
+                got = policy.mlp_heads(x, logit_layers, value_layers, "relu")
+            else:
+                with kernels._forcing("mlp_heads", tile):
+                    got = policy.mlp_heads(x, logit_layers, value_layers,
+                                           "relu")
+            assert _launched_since(before) == {"mlp_heads": 1}
+            runs.append(got)
+        torch.cuda.synchronize()
+        for got in runs:
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.int32),
+                                   b.contiguous().view(torch.int32)), \
+                    (hiddens, rows)
+        _close_scaled(runs[0][0], ref[0])
+        _close_scaled(runs[0][1], ref[1])
 
 
 @pytest.mark.parametrize("hiddens,activation", HEAD_CASES)
@@ -2290,6 +2467,75 @@ def test_allocate_job_equals_plain_on_fuzzed_states(cuda, rows, dtype,
     assert placed > 0
 
 
+def _hold_allocate(et, cuda, dtype, indexed, rows=8, seeds=3):
+    """K23 (the entry ``indexed`` names) against its plain version on
+    fuzzed states of ``et``: every output bit-equal, one launch a call;
+    returns the rows placed."""
+    from ddls_tpu_torch.sim.fixture import fuzzed_placements
+
+    dev = device_env.device_tables(et, cuda, dtype)
+    placed = 0
+    for seed in range(seeds):
+        mem, free, cfg, lane = fuzzed_placements(et, dev, rows, seed,
+                                                 indexed)
+        before = kernels.launch_counts()
+        got = device_env.allocate_job(mem, free, cfg, dev, lane)
+        name = "allocate_job_indexed" if indexed else "allocate_job"
+        assert _launched_since(before) == {name: 1}
+        want = device_env.allocate_job_plain(mem, free, cfg, dev, lane)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        placed += int(got[2].sum())
+    return placed
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_allocate_job_equals_plain_on_wide_surfaces(cuda, wide_et, dtype,
+                                                    indexed):
+    """K23, both entries, float32 and float64, bit-equal to its plain
+    version on 128, 160 and 256 servers at 8 and 72 rows; the C entry's
+    plan (``ddls_allocate_job_smem``) is the Python mirror's
+    (``device_env.allocate_job_plan``): the shared form up to 160 servers,
+    the tables from global memory at 256 (their 355,888 bytes a CTA in
+    float32 pass the card's opt-in)."""
+    dev = device_env.device_tables(wide_et, cuda, dtype)
+    sizes = device_env.allocate_job_sizes(dev)
+    is_f64 = dtype == torch.float64
+    optin = kernels.cached_query("placement", "ddls_smem_optin")
+    plan = device_env.allocate_job_plan(sizes, is_f64, optin)
+    assert kernels.query("placement", "ddls_allocate_job_smem", *sizes,
+                         int(is_f64), 0) == plan.packed()
+    assert device_env.ALLOC_FORMS[plan.form] == (
+        "global_tables" if wide_et.n_srv == 256 else "shared")
+    placed = sum(_hold_allocate(wide_et, cuda, dtype, indexed, rows)
+                 for rows in (8, 72))
+    assert placed > 0
+
+
+@pytest.mark.parametrize("indexed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_allocate_job_global_forms_equal_plain(cuda, dtype, indexed):
+    """K23's global form forced on the shipped 32-server surface and a
+    64-server ramp (two mask words), at 1, 8 and 72 rows: bit-equal to the
+    plain version; the C entry reports the forced form."""
+    form = 1
+    from ddls_tpu_torch.sim.fixture import multi_word_tables
+
+    et = _shipped_tables()
+    for tables in (et, multi_word_tables(et)):
+        dev = device_env.device_tables(tables, cuda, dtype)
+        sizes = device_env.allocate_job_sizes(dev)
+        packed = kernels.query("placement", "ddls_allocate_job_smem",
+                               *sizes, int(dtype == torch.float64), form)
+        assert packed & 3 == form
+        with kernels._forcing("allocate_job", form):
+            placed = sum(_hold_allocate(tables, cuda, dtype, indexed, rows)
+                         for rows in (1, 8, 72))
+        assert placed > 0
+
+
 # ------------------------------------ K25 and K29 on fuzzed states
 EPISODE_MODES = ("nominal", "reset", "walk")
 # the fuzzed episodes: jobs a bank (each lane ends within the decisions,
@@ -2374,13 +2620,10 @@ def test_episode_step_equals_plain_on_wide_surfaces(cuda, wide_et, mode,
     channels) no longer fits shared memory and is read from global memory:
     bit-equal to the plain version in every mode, with two running slots
     in one warp lane's block and a running slot past lane 0's. K25's
-    inputs come from the plain placement and pricing and from K21
-    (``sim/fixture.py`` ``plain_placed_evaluate``)."""
+    inputs come from the device env's own evaluation: K23 (its tables from
+    global memory at 256 servers), K24 and K21."""
     et = wide_et
-    from ddls_tpu_torch.sim.fixture import plain_placed_evaluate
-
     seen = _hold_fuzzed_episode(et, cuda, mode, 8, dtype,
-                                evaluate=plain_placed_evaluate,
                                 jobs=WIDE_JOBS[et.n_srv])
     K = -(-et.n_srv // 32)
     assert seen["shared"] > 0 and seen["top"] >= K, seen
@@ -2499,22 +2742,18 @@ def test_price_reduce_global_occupancy_equals_plain(cuda, rows, dtype):
 
 def test_wide_surfaces_place_and_price_or_say_why(cuda, wide_et):
     """K23 and K24 on the wide surfaces at 8 lanes, each bit-equal to its
-    plain version where it runs; where K23's shared-memory tables do not
-    fit, its wrapper raises before a launch (ROADMAP Queue C names the
-    server count), and the repairs' tests above take the plain
-    placement."""
+    plain version: K23 places on every one of them (its tables from global
+    memory where they do not fit shared memory; no wrapper refuses a
+    surface any more)."""
     dev = device_env.device_tables(wide_et, cuda, torch.float32)
     from ddls_tpu_torch.sim.fixture import fuzzed_placements
 
     mem, free, cfg, _ = fuzzed_placements(wide_et, dev, 8, 0, False)
-    try:
-        got = device_env.allocate_job(mem, free, cfg, dev)
-    except ValueError as err:
-        assert "shared memory" in str(err)
-    else:
-        want = device_env.allocate_job_plain(mem, free, cfg, dev)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+    got = device_env.allocate_job(mem, free, cfg, dev)
+    want = device_env.allocate_job_plain(mem, free, cfg, dev)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     rng = np.random.RandomState(3)
     cfg_t, ots, _ = _fuzzed_calls(wide_et, dev, rng.randint(
         0, dev.n_cfg, 8), 3)
