@@ -14,7 +14,9 @@ exits non-zero (nothing is caught):
    at the smallest, on inputs that include nodes with no in-edges, padded
    edges pointing at node 0, a graph with zero real nodes and a fully
    masked action row; holds each kernel against its plain PyTorch version
-   (abs and rel 1e-5; K2 and K4 also bitwise across two runs) and times
+   (abs and rel 1e-5; K2 and K4 also bitwise across two runs, K2 bit-equal
+   to its plain version, also on a misaligned view of its messages, its
+   plan query the Python mirror's) and times
    the kernel, the plain version and a one-call PyTorch yardstick.
    Then the same forward kernels where the PPO update runs them: every
    call of the training fixture's first minibatch forward (K1's nine at
@@ -231,7 +233,7 @@ Phase 3 also holds K17 (both heads; recorded in the forward like K1–K4),
 K18 (the heads' backward, its reduce inside its one launch), K19 (the
 optimiser in one launch, the clip firing, not firing and at a tie; timed
 at 1, 4, 8 and 16 CTAs besides its plan's) and K20 (the minibatch assembly,
-exactly) against their plain versions, and K21 (the array lookahead
+exactly; its plan query, also at the Ape-X DQN's 512 rows) against their plain versions, and K21 (the array lookahead
 engine) on the recorded lanes in float32 and float64: bit-equal to its
 plain version and, in float32, to the recorded JAX answers; within 1e-9
 of the C++ engine in float64. Its ``[wide]`` line holds K21, K25 and
@@ -637,6 +639,8 @@ def hold_forward_calls(name, recorded, res, timed):
             agains = again if isinstance(again, tuple) else (again,)
             require(all(torch.equal(x, y) for x, y in zip(outs, agains)),
                     f"{name} is not bitwise repeatable")
+        if name == "csr_segment_mean":
+            check_k2_plan(fn, args, out, ref, res, timed)
         if not timed:
             continue
         res["calls_per_forward"] += 1
@@ -650,6 +654,38 @@ def hold_forward_calls(name, recorded, res, timed):
         bound_total[bound_by] += bound
     if timed:
         res["bound_by"] = max(bound_total, key=bound_total.get)
+
+
+def _same_bits(x, y) -> bool:
+    return x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.int32), y.contiguous().view(torch.int32))
+
+
+def check_k2_plan(fn, args, out, ref, res, timed):
+    """K2's call ``args`` beyond its tolerance: its output, and its output
+    on a view of the messages offset by one float, bit-equal to the plain
+    version's ``ref``; the C entry's plan (``ddls_csr_segment_mean_plan``)
+    equal to ``ops/segment.py``'s mirror; with ``timed``, the plan added
+    into ``res["plans"]``."""
+    msg, self_msg = args[:2]
+    n_nodes, f = self_msg.shape
+    shifted = torch.empty(msg.numel() + 1, device=msg.device)[1:].view(
+        msg.shape)
+    shifted.copy_(msg)
+    moved = fn(shifted, *args[1:])
+    torch.cuda.synchronize()
+    require(_same_bits(out, ref) and _same_bits(moved, ref),
+            "K2 (as given or on misaligned messages) is not bit-equal to "
+            "its plain version")
+    got = kernels.query("csr_segment_mean", "ddls_csr_segment_mean_plan", f,
+                        n_nodes)
+    want = segment_mod.csr_segment_mean_plan(f, n_nodes)
+    require(got == want.packed(), f"K2's plan {got} is not the mirror's "
+                                  f"{want} (f={f})")
+    if timed:
+        res.setdefault("plans", []).append(
+            f"f={f}: {want.group} lanes a node, {want.chunks} floats a "
+            f"lane, {want.blocks} CTAs")
 
 
 def check_kernels(model_gpu, requests):
@@ -2771,10 +2807,12 @@ def check_heads_optim_kernels(params, fx):
     clip not firing, firing, and at a norm within rounding of the clip,
     and timed at 1, 4, 8 and 16 CTAs besides its plan's; K20 (the
     minibatch assembly) against its plain version and
-    ``prepare_flat_batch``'s arrays on the minibatch, repeated samples, one
-    sample and the full batch, exactly. Every float within 1e-5 of each
+    ``prepare_flat_batch``'s arrays on the minibatch, repeated samples, the
+    Ape-X DQN's 512 rows, one sample and the full batch, exactly, its C
+    entry's plan the Python mirror's. Every float within 1e-5 of each
     output's largest magnitude, every kernel bitwise across two runs, and
-    timed at the minibatch step's shapes."""
+    timed at the minibatch step's shapes (K20 also at the DQN's 512
+    rows)."""
     model, _, _ = load_export(EXPORT_PATH)
     cfg = fx["cfg"]
     learner = ppo_mod.PPOLearner(model, cfg, device="cuda")
@@ -2791,9 +2829,11 @@ def check_heads_optim_kernels(params, fx):
     obs = fx["traj"]["obs"]
     rows = {k: np.swapaxes(np.asarray(v), 0, 1).reshape(
         (n,) + np.shape(v)[2:]) for k, v in obs.items()}
+    # the Ape-X DQN's minibatch: 512 rows drawn with repeats
+    dqn_idx = torch.as_tensor(rng.integers(0, n, 512), device="cuda")
     for case in (idx, torch.as_tensor(rng.integers(0, n, 128),
                                       device="cuda"),
-                 idx[:1].clone(), learner._positions(n)):
+                 dqn_idx, idx[:1].clone(), learner._positions(n)):
         out = policy_mod.minibatch_gather(staged.tensors, case,
                                            staged.n_nodes, staged.n_edges)
         again = policy_mod.minibatch_gather(staged.tensors, case,
@@ -2814,30 +2854,51 @@ def check_heads_optim_kernels(params, fx):
                     and np.array_equal(out[key].cpu().numpy(), host[key]),
                     f"K20's {key} differs from its plain version or "
                     f"prepare_flat_batch")
-    m = idx.shape[0]
+    sizes = (staged.n_nodes, staged.n_edges,
+             staged["node_features"].shape[2],
+             staged["edge_features"].shape[2],
+             staged["graph_features"].shape[1],
+             staged["action_mask"].shape[1])
+    for m in (idx.shape[0], dqn_idx.shape[0], 1, n):
+        # the C entry plans as models/policy.py's mirror does
+        got = kernels.query("minibatch_gather", "ddls_minibatch_gather_plan",
+                            m, *sizes)
+        want = policy_mod.minibatch_gather_plan(m, *sizes)
+        require(got == want.packed(), f"K20's plan {got} is not the "
+                                      f"mirror's {want}")
     per_sample = sum(t[0].numel() * t.element_size() for t in (
         staged["node_features"], staged["edge_features"],
         staged["graph_features"], staged["action_mask"],
         staged["node_mask"], staged["structure"]))
-    out = policy_mod.minibatch_gather(staged.tensors, idx, staged.n_nodes,
-                                       staged.n_edges)
-    written = sum(t.numel() * t.element_size() for t in out.values())
-    bound, bound_by = bound_ms(m * per_sample + _nbytes(idx) + written,
-                               0.0)
 
-    def gather():
-        return policy_mod.minibatch_gather(staged.tensors, idx,
-                                            staged.n_nodes, staged.n_edges)
+    def timed_gather(rows):
+        """K20's times and bound at the samples ``rows``."""
+        m = rows.shape[0]
+        out = policy_mod.minibatch_gather(staged.tensors, rows,
+                                           staged.n_nodes, staged.n_edges)
+        written = sum(t.numel() * t.element_size() for t in out.values())
+        bound, bound_by = bound_ms(m * per_sample + _nbytes(rows) + written,
+                                   0.0)
 
-    def gather_plain():
-        return policy_mod.minibatch_gather_plain(
-            staged.tensors, idx, staged.n_nodes, staged.n_edges)
+        def gather():
+            return policy_mod.minibatch_gather(staged.tensors, rows,
+                                                staged.n_nodes,
+                                                staged.n_edges)
 
-    res.update(shape=f"samples={m} of {n} nodes={staged.n_nodes} "
-                     f"edges={staged.n_edges}",
-               bound_ms=bound, bound_by=bound_by, ms=device_ms(gather),
-               eager_ms=eager_ms(gather),
-               plain_ms=eager_ms(gather_plain, iters=20))
+        def gather_plain():
+            return policy_mod.minibatch_gather_plain(
+                staged.tensors, rows, staged.n_nodes, staged.n_edges)
+
+        plan = policy_mod.minibatch_gather_plan(m, *sizes)
+        return dict(shape=f"samples={m} of {n} nodes={staged.n_nodes} "
+                          f"edges={staged.n_edges}",
+                    bound_ms=bound, bound_by=bound_by, ms=device_ms(gather),
+                    eager_ms=eager_ms(gather),
+                    plain_ms=eager_ms(gather_plain, iters=20),
+                    plan=plan._asdict())
+
+    res.update(timed_gather(idx))
+    res["rows_512"] = timed_gather(dqn_idx)
     results["minibatch_gather"] = res
 
     # K18: the heads' backward, from the minibatch forward's pooled rows
@@ -6362,6 +6423,9 @@ def main() -> int:
             "step_ms": r.get("step_ms"),
             "step_eager_ms": r.get("step_eager_ms"),
             "f64_ms": r.get("f64_ms"),
+            # K2's plans, K20's plan and Ape-X DQN minibatch
+            "plans": r.get("plans"), "plan": r.get("plan"),
+            "rows_512": r.get("rows_512"),
             "cpp_engine_host_ms": r.get("cpp_engine_host_ms"),
             "hook_launches": r.get("hook_launches"),
             "calls": r.get("calls_per_forward", r.get("calls_per_step")),
@@ -6384,7 +6448,8 @@ def main() -> int:
                 **{k: u[k] for k in ("max_abs_err", "ms", "eager_ms",
                                      "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "library_device_ms",
-                                     "shapes")}}
+                                     "shapes")},
+                "plans": u.get("plans")}
             if name == "ln_linear_act":
                 rows.append({
                     **rows[-1], "name": "ln_linear_act (update)",

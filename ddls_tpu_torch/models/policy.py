@@ -23,7 +23,7 @@ device in one launch, equal to ``prepare_flat_batch`` of the samples.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -582,10 +582,43 @@ def minibatch_gather_plain(staged: Mapping[str, torch.Tensor],
     }
 
 
+# K20's launch plan (kernels/csrc/minibatch_gather.cu gather_plan, which
+# the C entry runs on its sizes; the card tests hold this mirror against
+# the C entry's ``ddls_minibatch_gather_plan``)
+class GatherPlan(NamedTuple):
+    """One K20 launch, a CTA a sample: ``sum_warps`` warps add every
+    sample's counts, ``ahead`` samples a lane in flight, while the rest of
+    the CTA's ``threads`` copy."""
+    ahead: int
+    sum_warps: int
+    threads: int
+
+    def packed(self) -> int:
+        """As ``ddls_minibatch_gather_plan`` reports it."""
+        return (self.threads << 10) | (self.ahead << 5) | self.sum_warps
+
+
+def minibatch_gather_plan(m: int, n: int, e: int, fn: int, fe: int, g: int,
+                          a: int) -> GatherPlan:
+    """K20's plan for ``m`` samples of ``n`` nodes (``fn`` features), ``e``
+    edges (``fe``), ``g`` graph features and ``a`` actions: the summing
+    lanes 4 samples in flight up to 256 samples and 8 past (the faster
+    depths on the H100), a summing warp for each 32 lanes' worth, at most
+    16; beside those, a copying warp for each 256 words a sample copies
+    (``n fn + e fe + g + a + n + 2 e``: about 4 two-word units a thread),
+    at least 1, at most the 32 warps' rest."""
+    ahead = 8 if m > 256 else 4
+    sum_warps = min(-(-m // (32 * ahead)), 16)
+    words = n * fn + e * fe + g + a + n + 2 * e
+    copy = min(max(-(-words // (2 * 4 * 32)), 1), 32 - sum_warps)
+    return GatherPlan(ahead, sum_warps, 32 * (sum_warps + copy))
+
+
 def minibatch_gather(staged: Mapping[str, torch.Tensor], idx: torch.Tensor,
                      n_nodes: int, n_edges: int) -> Dict[str, torch.Tensor]:
     """K20: the flattened-graph batch of the staged rows ``idx`` [M]
-    (int64) in one launch, one block per sample: equal, array for array,
+    (int64) in one launch, one block per sample (``minibatch_gather_plan``
+    lays out its threads): equal, array for array,
     to ``minibatch_gather_plain`` and to ``prepare_flat_batch`` of the
     same samples. ``staged`` holds ``node_features`` [S, N, Fn],
     ``edge_features`` [S, E, Fe], ``graph_features`` [S, G] and

@@ -165,6 +165,39 @@ def _csr_segment_mean_cuda(msg, self_msg, row_ptr, col, node_mask):
     return out
 
 
+# K2's launch plan (kernels/csrc/csr_segment_mean.cu make_plan, which the
+# C entry runs on its sizes; the card tests hold this mirror against the C
+# entry's ``ddls_csr_segment_mean_plan``): CTAs of ``MEAN_THREADS``
+# threads, a group of lanes a node
+MEAN_THREADS = 128
+_MEAN_MAX_CHUNKS = 8
+
+
+class MeanPlan(NamedTuple):
+    """One K2 launch: ``group`` lanes a node (a power of two up to 32),
+    ``chunks`` floats a lane holds in registers during one walk of the
+    node's CSR, ``blocks`` CTAs."""
+    group: int
+    chunks: int
+    blocks: int
+
+    def packed(self) -> int:
+        """As ``ddls_csr_segment_mean_plan`` reports it."""
+        return (self.blocks << 10) | (self.chunks << 6) | self.group
+
+
+def csr_segment_mean_plan(f: int, n_nodes: int) -> MeanPlan:
+    """K2's plan at width ``f`` over ``n_nodes`` nodes: a group of the
+    least power of two lanes at least ``f``, at most 32; the least power
+    of two chunks, at most 8, that covers the row with the group (past 8
+    chunks of 32 lanes, a lane walks the CSR once for each 8)."""
+    group = min(_WARP, 1 << max(f - 1, 0).bit_length())
+    chunks = 1
+    while chunks < _MEAN_MAX_CHUNKS and group * chunks < f:
+        chunks *= 2
+    return MeanPlan(group, chunks, -(-n_nodes // (MEAN_THREADS // group)))
+
+
 class _CsrSegmentMean(torch.autograd.Function):
     """K2 forward, K6 ``csr_segment_mean_bwd`` backward."""
 

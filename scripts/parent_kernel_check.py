@@ -1,6 +1,6 @@
 """Hold the port's kernels against an earlier commit's build of the same
 kernels, on the card: their output bits, and their device time in turns
-with the earlier ones'. Three sets (``--kernels``):
+with the earlier ones'. Four sets (``--kernels``):
 
 * ``k1k5k8``: K1, K5 and K8 against a build whose K1 takes no grid
   arguments, whose K8 takes a ``rowterms`` scratch and whose K5 has
@@ -13,7 +13,11 @@ with the earlier ones'. Three sets (``--kernels``):
   K6 mean and pooling backwards take no ``force`` argument (a thread per
   element, a block per graph; its CSR sum, a warp per node, is today's),
   whose K17 takes no tile (16-row tiles) and whose K23
-  takes no forced form (its tables always in shared memory).
+  takes no forced form (its tables always in shared memory);
+* ``k2k20``: K2 and K20 against a build whose K2 runs a warp a node with
+  the edge loop inside the feature loop and whose K20 has every CTA of
+  256 threads sum the nnz of all samples before it copies, 4 bytes at a
+  time (the same entries as today's).
 
 The earlier sources come from git into a directory the repository
 ignores, and are built with the port's own nvcc flags, outside the
@@ -28,7 +32,28 @@ package's build directory:
 
 (for ``k1k5k8``: ``ln_linear_act.cu ln_linear_act_bwd.cu ppo_loss.cu
 common.cuh ln_row.cuh``; for ``k6k17k23``: ``segment_bwd.cu mlp_heads.cu
-placement.cu common.cuh ln_row.cuh cluster.cuh``). With ``k6k17k23``:
+placement.cu common.cuh ln_row.cuh cluster.cuh``; for ``k2k20``:
+``csr_segment_mean.cu minibatch_gather.cu common.cuh``). With ``k2k20``:
+
+* K2: both calls of the training fixture's first minibatch forward (4,864
+  nodes at widths 64 and 16), every call of a serving forward of the
+  edge-case batch at both buckets, and fuzzed CSR batches at the
+  update's (128 graphs of 38 nodes and 128 edges) and serving's (8 of 150
+  and 512) shapes at widths 1, 3, 4, 5, 16, 17, 64 and 128, with the
+  messages also misaligned: every output bit-equal;
+* K20: the training fixture's samples staged at the (38, 128) bucket and
+  at (150, 512): 1 sample, 128 with repeats, 512 with repeats (the Ape-X
+  DQN's minibatch), 2 (a device-collection step's lanes), the full batch
+  in row order and 1,024, 2,048 and 4,000 with repeats: every array
+  equal;
+* device ms in turns: K2's two calls at the update, each alone, and a
+  serving forward's calls; K20 at 1, 128, 512, 1,024, 2,048 and 4,000
+  rows at (38, 128) and at a device-collection step's 2 lanes at
+  (150, 512); a whole
+  minibatch step with the earlier K2 and K20 swapped into the wrappers
+  (device time and device operations a step).
+
+With ``k6k17k23``:
 
 * K6: every call of the training fixture's first minibatch backward and
   fuzzed CSR batches at the update's (128 graphs of 38 nodes and 128
@@ -127,6 +152,11 @@ PARENTS = {
                         "ddls_masked_mean_pool_concat_bwd": "ppppiiiip"},
         "mlp_heads": {"ddls_mlp_heads": "ppppiip"},
         "placement": {"ddls_allocate_job": "p" * 17 + "i" * 11 + "p"},
+    },
+    "k2k20": {
+        "csr_segment_mean": {"ddls_csr_segment_mean": "ppppppiip"},
+        "minibatch_gather": {"ddls_minibatch_gather": "p" * 18 + "i" * 7
+                             + "p"},
     },
     "k18k19": {
         "mlp_heads": {"ddls_mlp_heads_bwd": "ppppppiiip",
@@ -669,7 +699,8 @@ def check_k18_k19(fns, card) -> int:
 # stream: K6's plan (vec, group), K17's tile, K23's forced form
 EXTRA_ARGS = {"ddls_csr_segment_mean_bwd": 1, "ddls_csr_segment_sum": 0,
               "ddls_masked_mean_pool_concat_bwd": 1, "ddls_mlp_heads": 1,
-              "ddls_allocate_job": 1}
+              "ddls_allocate_job": 1, "ddls_csr_segment_mean": 0,
+              "ddls_minibatch_gather": 0}
 K6_WIDTHS = (1, 3, 4, 16, 17, 64)
 K17_ROWS = (1, 7, 8, 16, 17, 128, 500, 4000)
 
@@ -960,6 +991,179 @@ def check_k6_k17_k23(fns, card) -> int:
     return bad
 
 
+K2_WIDTHS = (1, 3, 4, 5, 16, 17, 64, 128)
+
+
+def fuzz_k2_calls(device):
+    """K2's fuzzed calls: random CSR batches at the update's and serving's
+    shapes, every width of ``K2_WIDTHS``, the messages also misaligned."""
+    from ddls_tpu_torch.ops import segment
+
+    rng = np.random.default_rng(2)
+    for graphs, n, e in ((128, 38, 128), (8, 150, 512)):
+        n_real = rng.integers(0, n + 1, graphs)
+        n_real[-1] = 0
+        dst = np.zeros(graphs * e, np.int64)
+        mask = np.zeros(graphs * e, bool)
+        for b in range(graphs):
+            m = int(rng.integers(0, e + 1)) if n_real[b] else 0
+            dst[b * e:b * e + m] = b * n + rng.integers(0, n_real[b] or 1, m)
+            mask[b * e:b * e + m] = True
+        node_mask = (np.arange(n)[None] < n_real[:, None]).reshape(-1)
+        row_ptr, col = segment.build_csr(dst, mask, graphs * n)
+
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+        rp, cl, nm = t(row_ptr), t(col), t(node_mask.astype(np.float32))
+        for f in K2_WIDTHS:
+            msg = t(rng.normal(size=(graphs * e, f)).astype(np.float32))
+            own = t(rng.normal(size=(graphs * n, f)).astype(np.float32))
+            yield (msg, own, rp, cl, nm)
+            yield (_misaligned(msg), own, rp, cl, nm)
+
+
+def _k20_cases(device):
+    """(what, staged, idx, n, e) of K20's calls: the training fixture's
+    samples staged at the (38, 128) and (150, 512) buckets."""
+    from ddls_tpu_torch.rl.learner import TRAJ_OBS_KEYS, pack_to_device
+
+    obs = load_train_fixture()["traj"]["obs"]
+    s_rows = int(np.prod(np.shape(obs["node_split"])[:2]))
+    rows = {k: np.swapaxes(np.asarray(obs[k]), 0, 1).reshape(
+        (s_rows,) + np.shape(obs[k])[2:]) for k in TRAJ_OBS_KEYS}
+    rng = np.random.default_rng(20)
+    for n, e in ((38, 128), (150, 512)):
+        cut = dict(rows)
+        cut["node_features"] = rows["node_features"][:, :n]
+        for key in ("edge_features", "edges_src", "edges_dst"):
+            cut[key] = rows[key][:, :e]
+        structure, node_mask = policy.sample_structure(cut)
+        staged = pack_to_device({
+            "node_features": cut["node_features"].astype(np.float32),
+            "edge_features": cut["edge_features"].astype(np.float32),
+            "graph_features": cut["graph_features"].astype(np.float32),
+            "action_mask": cut["action_mask"].astype(np.int32),
+            "structure": structure,
+            "node_mask": node_mask.astype(np.float32)}, device)
+        for what, idx in (("1", np.array([s_rows - 1])),
+                          ("128", rng.integers(0, s_rows, 128)),
+                          ("512", rng.integers(0, s_rows, 512)),
+                          ("2", rng.integers(0, s_rows, 2)),
+                          ("full", np.arange(s_rows)),
+                          ("1024", rng.integers(0, s_rows, 1024)),
+                          ("2048", rng.integers(0, s_rows, 2048)),
+                          ("4000", rng.integers(0, s_rows, 4000))):
+            yield (f"({n}, {e}) {what}", staged,
+                   torch.from_numpy(idx.astype(np.int64)).to(device), n, e)
+
+
+def check_k2_k20(fns, card) -> int:
+    """K2's and K20's bits against the earlier build, their device ms and a
+    minibatch step's in turns; returns the count of differing calls."""
+    from ddls_tpu_torch.ops import segment
+
+    k2 = ("ddls_csr_segment_mean",)
+    k20 = ("ddls_minibatch_gather",)
+    bad = 0
+    held = {}
+    fx = load_train_fixture()
+    cfg = fx["cfg"]
+    model, params, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, cfg, device="cuda")
+    gpu_params = {k: v.cuda() for k, v in params.items()}
+    learner.init_state(gpu_params)
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    idx = torch.as_tensor(fx["runs"][1]["perms"][0][:cfg.sgd_minibatch_size],
+                          device="cuda")
+    sites = {"csr_segment_mean": cs.KERNEL_SITES["csr_segment_mean"]}
+    batch = learner.minibatch(staged, idx)
+    update = [a for _, a, _ in cs.record_sites(
+        sites, lambda: learner.model.flat_batched(batch))[
+            "csr_segment_mean"]]
+    requests, _ = load_requests()
+    model_gpu = load_export(EXPORT_PATH)[0].to("cuda").eval()
+    serve = {}
+    for n_pad, e_pad in (default_buckets(cs.PAD_NODES, cs.PAD_EDGES)[-1],
+                         default_buckets(cs.PAD_NODES, cs.PAD_EDGES)[0]):
+        b = cs.edge_case_batch(requests, n_pad, e_pad)
+        serve[(n_pad, e_pad)] = [a for _, a, _ in cs.record_sites(
+            sites, lambda: model_gpu.flat_batched(b))["csr_segment_mean"]]
+    serve_calls = [a for calls in serve.values() for a in calls]
+    for what, calls in (("k2_update", update), ("k2_serve", serve_calls),
+                        ("k2_fuzzed", list(fuzz_k2_calls("cuda")))):
+        c = {"calls": 0, "differing": 0}
+        for args in calls:
+            cur, old = _both(fns, k2,
+                             lambda a=args: segment.csr_segment_mean(*a))
+            c["calls"] += 1
+            c["differing"] += not same_bits(cur, old)
+        held[what] = c
+        bad += c["differing"]
+    k20_held = {}
+    k20_cases = list(_k20_cases(torch.device("cuda")))
+    for what, st, ix, n, e in k20_cases:
+        with parent_entries(fns, k20):
+            old = policy.minibatch_gather(st, ix, n, e)
+        cur = policy.minibatch_gather(st, ix, n, e)
+        c = k20_held[what] = {"calls": 1, "differing": int(not (
+            set(cur) == set(old)
+            and all(torch.equal(cur[k], old[k]) for k in cur)))}
+        bad += c["differing"]
+    held["k20"] = k20_held
+    torch.cuda.synchronize()
+    print(json.dumps({"part": "k2_k20_bits", "card": card, **held}),
+          flush=True)
+
+    def through(symbols, call):
+        def run():
+            with parent_entries(fns, symbols):
+                return call()
+        return run
+
+    times = {}
+    for k, f in enumerate((64, 16)):
+        call = (lambda a=update[k]: segment.csr_segment_mean(*a))
+        times[f"k2_update_f{f}"] = turns([call], [through(k2, call)])
+    big = serve[default_buckets(cs.PAD_NODES, cs.PAD_EDGES)[-1]]
+    calls = [lambda a=a: segment.csr_segment_mean(*a) for a in big]
+    times["k2_serve_150_512"] = turns(calls,
+                                      [through(k2, c) for c in calls])
+    for what, st, ix, n, e in k20_cases:
+        if what in ("(38, 128) 1", "(38, 128) 128", "(38, 128) 512",
+                    "(38, 128) 1024", "(38, 128) 2048", "(38, 128) 4000",
+                    "(150, 512) 2"):
+            call = (lambda st=st, ix=ix, n=n, e=e:
+                    policy.minibatch_gather(st, ix, n, e))
+            times[f"k20 {what}"] = turns([call], [through(k20, call)])
+    call = (lambda: learner.minibatch(staged, idx))
+    times["k20_update_minibatch"] = turns([call], [through(k20, call)])
+    print(json.dumps({"part": "device_ms", "card": card, **times}),
+          flush=True)
+
+    perm0 = torch.as_tensor(fx["runs"][50]["perms"][0], device="cuda")
+
+    def step_profile(old):
+        st = learner.init_state(gpu_params)
+        with torch.enable_grad():
+            if old:
+                with parent_entries(fns, k2 + k20):
+                    return cs.profile_steps(learner, staged, st, perm0,
+                                            n_steps=16)
+            return cs.profile_steps(learner, staged, st, perm0, n_steps=16)
+
+    keys = ("device_ms_per_step", "device_events_per_step", "wall_ms",
+            "device_busy_share")
+    steps = {}
+    for label, old in (("parent", True), ("current", False),
+                       ("current_again", False), ("parent_again", True)):
+        prof = step_profile(old)
+        steps[label] = {k: prof[k] for k in keys}
+    print(json.dumps({"part": "minibatch_step", "card": card, **steps}),
+          flush=True)
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
@@ -989,7 +1193,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     check = {"k1k5k8": check_k1_k5_k8, "k18k19": check_k18_k19,
-             "k6k17k23": check_k6_k17_k23}[args.kernels]
+             "k6k17k23": check_k6_k17_k23,
+             "k2k20": check_k2_k20}[args.kernels]
     bad = check(fns, card)
     print(json.dumps({"ok": bad == 0, "differing": bad}), flush=True)
     return 0 if bad == 0 else 1

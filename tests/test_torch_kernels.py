@@ -51,7 +51,13 @@ each lane over a thread-block cluster: they equal their plain versions
 bit for bit at every cluster size 1-16 and at the wrappers' own choice,
 at 1, 2, 8 and 72 lanes, on all 45 configs of the shipped surface at full
 width, with skipped lanes, on lanes priced NaN or infinite, and on every
-recorded group of K21 lanes, in float32 and float64. K6's three entries
+recorded group of K21 lanes, in float32 and float64. K2 equals its plain
+version bit for bit at widths 1-1,100, on misaligned inputs, a 100-edge
+node and the update's forward; its C entry's plan is
+``segment.csr_segment_mean_plan``'s. K20 equals its plain version and
+``prepare_flat_batch`` array for array at 1 to 1,500 samples at both
+buckets, and its C entry's plan is ``policy.minibatch_gather_plan``'s.
+K6's three entries
 equal their plain versions bit for bit at widths 1-64, in the vector and
 scalar forms; K17 equals its arithmetic done exactly in PyTorch
 (``_heads_fma_chain``) at every tile; K23 equals its plain version on
@@ -237,6 +243,122 @@ def test_csr_segment_mean_matches_plain_and_repeats_bitwise(cuda, f):
     _close(out, segment.csr_segment_mean_plain(msg, self_msg, row_ptr, col,
                                                node_mask))
     assert torch.equal(out, again)
+
+
+# K2's widths: the scalar form (1, 3, 5, 17), the vector form at one unit
+# a lane (4), the update's message widths (16, 64), a whole warp (128),
+# chunks held in registers (260: 65 units, 4 a lane) and two walks of the
+# CSR (1100: 275 units, 8 a lane a walk)
+K2_WIDTHS = (1, 3, 4, 5, 16, 17, 64, 128, 260, 1100)
+
+
+def _hub_case(cuda, f, seed):
+    """K2's inputs on 40 nodes of 0-9 in-edges each but node 3's 100 (past
+    any batch of edges a lane has in flight) and node 7's 0, the edges in
+    random order, about a fifth of the nodes masked."""
+    rng = np.random.default_rng(seed)
+    nodes = 40
+    deg = rng.integers(0, 10, nodes)
+    deg[3], deg[7] = 100, 0
+    dst = rng.permutation(np.repeat(np.arange(nodes), deg))
+    row_ptr, col = segment.build_csr(dst, np.ones(dst.size, bool), nodes)
+    node_mask = (rng.random(nodes) > 0.2).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    msg = torch.from_numpy(rng.normal(size=(dst.size, f)).astype(
+        np.float32)).to(cuda)
+    self_msg = torch.from_numpy(rng.normal(size=(nodes, f)).astype(
+        np.float32)).to(cuda)
+    return msg, self_msg, t(row_ptr), t(col), t(node_mask)
+
+
+def _k2_bits(args, what):
+    """K2 on ``args`` as given, with msg and with self_msg misaligned (a
+    view offset by one float): each bit-equal to the plain version,
+    bitwise across two runs, one launch a call."""
+    want = segment.csr_segment_mean_plain(*args)
+    msg, self_msg = args[:2]
+    for form in ("as given", "misaligned_msg", "misaligned_self"):
+        a = args
+        if form == "misaligned_msg":
+            a = (_misaligned(msg),) + args[1:]
+        elif form == "misaligned_self":
+            a = (msg, _misaligned(self_msg)) + args[2:]
+        runs = []
+        for _ in range(2):
+            before = kernels.launch_counts()
+            runs.append(segment.csr_segment_mean(*a))
+            assert _launched_since(before) == {"csr_segment_mean": 1}
+        torch.cuda.synchronize()
+        assert runs[0].shape == want.shape and runs[0].dtype == want.dtype
+        assert torch.equal(runs[0].view(torch.int32),
+                           want.view(torch.int32)), (what, form)
+        assert torch.equal(runs[0].view(torch.int32),
+                           runs[1].view(torch.int32)), (what, form)
+
+
+@pytest.mark.parametrize("f", K2_WIDTHS)
+def test_csr_segment_mean_bit_equal_at_every_width(cuda, f):
+    """K2 bit-equal to its plain version at widths 1-1100, on misaligned
+    messages and self messages, on nodes with no in-edges, masked nodes, a
+    graph with no real node and a node with 100 in-edges."""
+    row_ptr, col, node_mask, v, e = _csr_case(cuda)
+    g = torch.Generator(device="cpu").manual_seed(f)
+    msg = torch.randn(e, f, generator=g).to(cuda)
+    self_msg = torch.randn(v, f, generator=g).to(cuda)
+    _k2_bits((msg, self_msg, row_ptr, col, node_mask), f"batch f={f}")
+    _k2_bits(_hub_case(cuda, f, f), f"hub f={f}")
+
+
+def _fixture_minibatch(cuda):
+    """The training fixture's learner, staged trajectory and first
+    minibatch (128 samples at the (38, 128) bucket), on the card."""
+    from ddls_tpu_torch.rl.fixture import load_train_fixture
+    from ddls_tpu_torch.serve import load_export
+    from ddls_tpu_torch.serve.fixture import EXPORT_PATH
+
+    fx = load_train_fixture()
+    model, params, _ = load_export(EXPORT_PATH)
+    learner = ppo.PPOLearner(model, fx["cfg"])
+    learner.init_state({k: v.to(cuda) for k, v in params.items()})
+    staged = learner.stage_traj(fx["traj"], fx["last_values"])
+    idx = torch.as_tensor(
+        fx["runs"][1]["perms"][0][:fx["cfg"].sgd_minibatch_size],
+        device=cuda)
+    return fx, learner, staged, idx
+
+
+def test_csr_segment_mean_bit_equal_on_the_update_forward(cuda, monkeypatch):
+    """Both K2 calls of the training fixture's first minibatch forward
+    (4,864 nodes at widths 64 and 16), as given and misaligned, bit-equal
+    to the plain version."""
+    _, learner, staged, idx = _fixture_minibatch(cuda)
+    batch = learner.minibatch(staged, idx)
+    calls = []
+    real = gnn.csr_segment_mean
+
+    def record(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(gnn, "csr_segment_mean", record)
+    with torch.no_grad():
+        learner.model.flat_batched(batch)
+    monkeypatch.undo()
+    assert [a[1].shape for a in calls] == [(4864, 64), (4864, 16)]
+    for k, args in enumerate(calls):
+        _k2_bits(args, f"update call {k}")
+
+
+def test_csr_segment_mean_plan_is_the_mirror(cuda):
+    """K2's C entry plans (``ddls_csr_segment_mean_plan``, the plan it
+    launches) as ``segment.csr_segment_mean_plan`` does at widths 1-300 and
+    a few past, node counts up to the update's and beyond."""
+    for f in (*range(1, 301), 512, 1023, 1024, 1100, 4096):
+        for n_nodes in (0, 1, 7, 255, 1200, 4864, 21248):
+            want = segment.csr_segment_mean_plan(f, n_nodes)
+            got = kernels.query("csr_segment_mean",
+                                "ddls_csr_segment_mean_plan", f, n_nodes)
+            assert got == want.packed(), (f, n_nodes)
 
 
 @pytest.mark.parametrize("n", [150, 38])
@@ -1595,6 +1717,85 @@ def test_minibatch_gather_equals_plain_and_the_host_batch(cuda):
         for key in got:
             assert torch.equal(got[key], plain[key]), key
             assert np.array_equal(got[key].cpu().numpy(), host[key]), key
+
+
+def _staged_rows(rows, n, e, device):
+    """Host rows (the obs keys, [S, ...] at the env's pad) staged at the
+    bucket (n, e) as ``Learner.row_arrays`` stages them, without its trim
+    to the smallest bucket."""
+    from ddls_tpu_torch.rl.learner import pack_to_device
+
+    rows = dict(rows)
+    rows["node_features"] = rows["node_features"][:, :n]
+    for key in ("edge_features", "edges_src", "edges_dst"):
+        rows[key] = rows[key][:, :e]
+    structure, node_mask = policy.sample_structure(rows)
+    return pack_to_device({
+        "node_features": rows["node_features"].astype(np.float32),
+        "edge_features": rows["edge_features"].astype(np.float32),
+        "graph_features": rows["graph_features"].astype(np.float32),
+        "action_mask": rows["action_mask"].astype(np.int32),
+        "structure": structure,
+        "node_mask": node_mask.astype(np.float32)}, device), rows
+
+
+@pytest.mark.parametrize("bucket", [(38, 128), (150, 512)])
+def test_minibatch_gather_at_every_size_and_both_buckets(cuda, bucket):
+    """K20 on the training fixture's 512 samples staged at the update's
+    (38, 128) bucket and at the env's (150, 512) pad: one sample, 128 with
+    repeats, 512 drawn with repeats (the Ape-X DQN's minibatch), 2 (a
+    device-collection step's lanes), the full batch in row order and
+    1,500 with repeats: each equal array for array to the plain version
+    and to ``prepare_flat_batch`` of the same samples, bitwise across two
+    runs, one launch a call."""
+    from ddls_tpu_torch.models.policy import minibatch_gather_plain
+    from ddls_tpu_torch.rl.fixture import load_train_fixture
+    from ddls_tpu_torch.rl.learner import TRAJ_OBS_KEYS
+
+    n, e = bucket
+    fx = load_train_fixture()
+    obs = fx["traj"]["obs"]
+    s_rows = int(np.prod(np.shape(obs["node_split"])[:2]))
+    rows = {k: np.swapaxes(np.asarray(obs[k]), 0, 1).reshape(
+        (s_rows,) + np.shape(obs[k])[2:]) for k in TRAJ_OBS_KEYS}
+    staged, trimmed = _staged_rows(rows, n, e, torch.device(cuda))
+    rng = np.random.default_rng(n)
+    for idx in (np.array([s_rows - 1]), rng.integers(0, s_rows, 128),
+                rng.integers(0, s_rows, 512), rng.integers(0, s_rows, 2),
+                np.arange(s_rows), rng.integers(0, s_rows, 1500)):
+        idx_t = torch.from_numpy(idx.astype(np.int64)).to(cuda)
+        plain = minibatch_gather_plain(staged, idx_t, n, e)
+        host = policy.prepare_flat_batch({k: v[idx]
+                                          for k, v in trimmed.items()})
+        runs = []
+        for _ in range(2):
+            before = kernels.launch_counts()
+            runs.append(policy.minibatch_gather(staged, idx_t, n, e))
+            assert _launched_since(before) == {"minibatch_gather": 1}
+        torch.cuda.synchronize()
+        assert set(runs[0]) == set(plain) == set(host)
+        for key in runs[0]:
+            what = (bucket, idx.size, key)
+            assert torch.equal(runs[0][key], runs[1][key]), what
+            assert torch.equal(runs[0][key], plain[key]), what
+            assert np.array_equal(runs[0][key].cpu().numpy(), host[key]), \
+                what
+
+
+def test_minibatch_gather_plan_is_the_mirror(cuda):
+    """K20's C entry plans (``ddls_minibatch_gather_plan``, the plan it
+    launches) as ``policy.minibatch_gather_plan`` does, for 1 to 8,192
+    samples at both buckets and other sizes."""
+    for m in (1, 2, 127, 128, 256, 257, 512, 1023, 1024, 1025, 4000, 8192):
+        for n, e, fn, fe, g, a in ((38, 128, 5, 2, 51, 17),
+                                   (150, 512, 5, 2, 51, 17),
+                                   (1, 1, 1, 1, 0, 1), (7, 3, 3, 5, 2, 9),
+                                   (600, 2048, 16, 8, 64, 64)):
+            want = policy.minibatch_gather_plan(m, n, e, fn, fe, g, a)
+            got = kernels.query("minibatch_gather",
+                                "ddls_minibatch_gather_plan", m, n, e, fn,
+                                fe, g, a)
+            assert got == want.packed(), (m, n, e)
 
 
 def test_heads_optimiser_wrappers_reject_what_they_cannot_take(cuda):
